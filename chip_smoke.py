@@ -6,7 +6,7 @@ Phases (any failure exits non-zero and prints no result line):
   1. card     name and power limit (nvidia-smi), torch and CUDA versions
   2. build    nvcc build of protoquant_tpu_torch/csrc/*.cu (timed)
   3. kernels  each kernel against its plain PyTorch version at the
-              Llama-2-7B shapes of the main path, timed with CUDA events
+              Llama-2-7B shapes of the main paths, timed with CUDA events
               beside its plain version, a library call and its bound
   4. slice    LlamaModel(llama2_7b, "dynamic") at full width and depth,
               random int8 weights from --seed, serving 6 greedy requests
@@ -19,22 +19,41 @@ Phases (any failure exits non-zero and prints no result line):
               same weights and prompt: prefill and decode logits must agree;
               then through the plain versions with each planted fault, which
               must fail the same limits
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+  6. paged    LlamaModel(llama2_7b, "weight_only") at full width and depth
+              served by Engine(kv_layout="paged") with page_size=128 and
+              prefix_cache=True: 8 greedy requests sharing a 512-token
+              system prompt; every request after the first must adopt its 4
+              pages, each decode step must launch exactly 225 / 32 / 32 of
+              the weight-only, paged-scatter and paged-attention kernels and
+              none of the dense ones, and every page must be free or cached
+              after the drain
+  7. paged agreement  phase 5 for a 2-layer full-width weight_only model
+              over a paged pool of 16-token pages, with a planted fault for
+              each new kernel; its kernels act on the 8 decode positions
+              (the two attention faults move only those), so its runs must
+              also pass the limit on the decode positions alone
+The line before the last is {"kernels": [...]}: each kernel's "launches"
+is its count summed over the two engine runs (phases 4 and 6), each driven
+with the counts at 0 and read just after ("launches_by_path"). The last
+line is {"ok": true, "device": {...}}.
 
 Tolerances. rowquant codes and scales, qmatmul outputs (f32 and bf16) and
-the decode scatter must equal their plain versions exactly. Attention (bf16
-q and output, f32 arithmetic inside) is held to ATTN_TOL times the largest
-output: both round their f32 result to bf16 once, after summing in
-different orders. The model agreement runs the same model twice, through
-the kernels and through the plain versions, so only the attention's
-summation order differs; but each dynamic linear turns any difference in
-its input into int8 codes that move by one step where a value sits on a
-rounding boundary, and at random weights those steps compound over the 2
-layers into logit differences of about one percent. The limits (AGREE_REL
-on the relative L2 error, AGREE_ARGMAX on the share of equal argmaxes over
-all positions) sit above that; planted_faults() stand in for a wrong kernel,
-and the run fails if one of them passes the limits.
+both decode scatters must equal their plain versions exactly. Attention,
+dense and paged (bf16 q and output, f32 arithmetic inside), is held to
+ATTN_TOL times the largest output: both round their f32 result to bf16
+once, after summing in different orders. The weight-only product is held
+to ``ops.weight_only_tolerance``: its products bf16 x int8 are exact, so
+two correct versions differ only by the order of the f32 sum (at most
+K * 2**-24 * sum_k |x * w| * s_w), then one ulp of the output type. The
+model agreement runs the same model twice, through the kernels and through
+the plain versions, so only the summation orders differ; but each dynamic
+linear turns any difference in its input into int8 codes that move by one
+step where a value sits on a rounding boundary, and at random weights those
+steps compound over the 2 layers into logit differences of about one
+percent. The limits (AGREE_REL on the relative L2 error, AGREE_ARGMAX on
+the share of equal argmaxes over all positions) sit above that;
+planted_faults() stand in for a wrong kernel, and the run fails if one of
+them passes the limits.
 """
 
 from __future__ import annotations
@@ -243,7 +262,189 @@ def check_attention(ops, gen, dev):
     return cases
 
 
-# -- phases 4 and 5: the slice and the agreement ------------------------------
+LINEAR_SHAPES = ((HIDDEN, HIDDEN), (HIDDEN, INTER), (INTER, HIDDEN), (HIDDEN, VOCAB))  # (K, N)
+
+
+def check_weight_only(ops, gen, dev):
+    bf = torch.bfloat16
+    cases = []
+    for m in (4, 256):
+        for k, n in LINEAR_SHAPES:
+            x = torch.randn(m, k, generator=gen, device=dev).to(bf)
+            ws = [torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(copies_for(n * k))]
+            sw = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+            err = 0.0
+            for out in (torch.float32, bf):
+                y = ops.weight_only_matmul(x, ws[0], sw, out_dtype=out)
+                ref = ops.weight_only_matmul_ref(x, ws[0], sw, out_dtype=out)
+                torch.cuda.synchronize()
+                diff = (y.float() - ref.float()).abs()
+                tol = ops.weight_only_tolerance(x, ws[0], sw, ref)
+                if not bool((diff <= tol).all()):
+                    raise AssertionError(f"weight_only_matmul M={m} K={k} N={n} {out}: "
+                                         f"max excess {(diff - tol).max().item()}")
+                err = max(err, diff.max().item())
+            b, kind = bound_ms(m * k * 2 + n * k + 4 * n + 2 * m * n, 2 * m * n * k,
+                               BF16_FLOPS_PER_S)
+            # library yardstick: a bf16 GEMM over a bf16 copy of W made
+            # beforehand (cuBLAS); the port never calls it
+            wb = [w.to(bf) for w in ws[:copies_for(2 * n * k)]]
+            cases.append({
+                "shape": f"M={m} K={k} N={n} bf16 out", "max_abs_err": err,
+                "ms": bench([lambda w=w: ops.weight_only_matmul(x, w, sw, out_dtype=bf)
+                             for w in ws]),
+                "plain_ms": bench([lambda w=w: ops.weight_only_matmul_ref(x, w, sw, out_dtype=bf)
+                                   for w in ws], iters=5),
+                "bound_ms": b, "bound_by": kind,
+                "library_ms": bench([lambda w=w: torch.matmul(x, w.t()) for w in wb])})
+            del ws, wb
+    return cases
+
+
+PAGE = 128
+
+
+def _pools(gen, dev, P, KV, ps, Dh):
+    kq = torch.randint(-127, 128, (P, KV, ps, Dh), generator=gen, device=dev,
+                       dtype=torch.int8)
+    vq = torch.randint_like(kq, -127, 128)
+    ks = (torch.rand(P, KV, 1, ps, generator=gen, device=dev) + 0.5) * 0.02
+    vs = (torch.rand(P, KV, 1, ps, generator=gen, device=dev) + 0.5) * 0.02
+    return kq, ks, vq, vs
+
+
+def _shuffled_table(gen, B, max_pages, num_pages, dev):
+    """[B, max_pages] int32 of distinct, shuffled page ids below the trash
+    page num_pages - 1."""
+    perm = torch.randperm(num_pages - 1, generator=gen, device=dev)
+    return perm[:B * max_pages].reshape(B, max_pages).to(torch.int32)
+
+
+def check_paged_scatter(ops, gen, dev):
+    B, KV, Dh, max_pages = 4, HEADS, HEAD_DIM, 1024 // PAGE
+    P = B * max_pages + 1
+    pt = _shuffled_table(gen, B, max_pages, P, dev)
+    pt[1] = -1  # unmapped
+    # row 1 unmapped and row 2 past the window: both to the trash page, at
+    # offsets 44 and 3
+    lengths = torch.tensor([5, 300, max_pages * PAGE + 3, 700], dtype=torch.int32, device=dev)
+    k8 = torch.randint(-127, 128, (B, KV, 1, Dh), generator=gen, device=dev,
+                       dtype=torch.int8)
+    v8 = torch.randint_like(k8, -127, 128)
+    ksn = torch.rand(B, KV, 1, generator=gen, device=dev)
+    vsn = torch.rand(B, KV, 1, generator=gen, device=dev)
+    base = _pools(gen, dev, P, KV, PAGE, Dh)
+    a = [t.clone() for t in base]
+    b = [t.clone() for t in base]
+    ops.paged_kv_scatter_decode(*a, pt, lengths, k8, ksn, v8, vsn)
+    ops.paged_kv_scatter_decode_ref(*b, pt, lengths, k8, ksn, v8, vsn)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("paged_kv_scatter_decode differs from its plain version")
+    if not (torch.equal(a[0][P - 1, :, 44], k8[1, :, 0])
+            and torch.equal(a[0][P - 1, :, 3], k8[2, :, 0])):
+        raise AssertionError("paged_kv_scatter_decode: unmapped / past-window rows "
+                             "missed the trash page")
+    moved = B * KV * (2 * Dh + 8)
+    bnd, kind = bound_ms(2 * moved + 4 * B + 4 * B * max_pages, 0, INT8_OPS_PER_S)
+    return [{
+        "shape": f"B={B} KV={KV} ps={PAGE} Dh={Dh} P={P} lengths={lengths.tolist()}",
+        "max_abs_err": 0.0,
+        "ms": bench([lambda: ops.paged_kv_scatter_decode(*a, pt, lengths, k8, ksn, v8, vsn)]),
+        "plain_ms": bench([lambda: ops.paged_kv_scatter_decode_ref(
+            *b, pt, lengths, k8, ksn, v8, vsn)]),
+        "bound_ms": bnd, "bound_by": kind, "library_ms": None}]
+
+
+def check_paged_attention(ops, gen, dev):
+    import torch.nn.functional as F
+
+    from protoquant_tpu_torch.ops.paged_attention import gather_window
+
+    B, Dh, max_pages = 4, HEAD_DIM, 1024 // PAGE
+    P = B * max_pages + 1
+    lens = [63, 700, 1023, 255]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    cases = []
+    for group in (1, 4):
+        KV = HEADS // group
+        H = KV * group
+        pt = _shuffled_table(gen, B, max_pages, P, dev)
+        pools = [_pools(gen, dev, P, KV, PAGE, Dh)
+                 for _ in range(copies_for(P * KV * PAGE * (2 * Dh + 8)))]
+        q = torch.randn(B, 1, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
+        out = ops.paged_int8_attention(q, *pools[0], pt, lengths)
+        ref = ops.paged_int8_attention_ref(q, *pools[0], pt, lengths)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = ATTN_TOL * ref.float().abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"paged attention G={group}: max abs err {err} > {tol}")
+        keys = (lengths.long() + 1).sum().item()  # keys each (b, kv head) reads
+        nbytes = KV * keys * (2 * Dh + 8) + 2 * q.numel() * 2 + 4 * B * (1 + max_pages)
+        bnd, kind = bound_ms(nbytes, 4 * Dh * H * keys, BF16_FLOPS_PER_S)
+        # library yardstick: SDPA over each row's gathered, dequantized bf16
+        # window
+        pos = torch.arange(max_pages * PAGE, device=dev)
+        mask = (pos[None, :] <= lengths.long()[:, None])[:, None, None, :]
+        deq = []
+        for kq, ks, vq, vs in pools[:copies_for(B * KV * max_pages * PAGE * Dh * 4)]:
+            gk, gks, gv, gvs = gather_window(kq, ks, vq, vs, pt)
+            deq.append(((gk.float() * gks[..., None]).to(torch.bfloat16),
+                        (gv.float() * gvs[..., None]).to(torch.bfloat16)))
+        qh = q.transpose(1, 2)
+        cases.append({
+            "shape": f"decode B={B} H={H} KV={KV} G={group} ps={PAGE} lengths={lens}",
+            "max_abs_err": err,
+            "ms": bench([lambda c=c: ops.paged_int8_attention(q, *c, pt, lengths)
+                         for c in pools]),
+            "plain_ms": bench([lambda c=c: ops.paged_int8_attention_ref(q, *c, pt, lengths)
+                               for c in pools], iters=5),
+            "bound_ms": bnd, "bound_by": kind,
+            "library_ms": bench([lambda k=k, v=v: F.scaled_dot_product_attention(
+                qh, k, v, attn_mask=mask, enable_gqa=group > 1) for k, v in deq])})
+        del pools, deq
+    return cases
+
+
+# -- phases 4 to 7: the slices and the agreements ----------------------------
+
+
+def serve(engine, prompts, ops, per_step, first_alone: bool = False):
+    """Serve ``prompts`` to the end, each step timed on the host clock.
+    ``first_alone``: request 0 alone until its prefill ends (its prompt is
+    then published), then the others. Returns the outputs in request order,
+    the step times with and without a prefill chunk, and the decode steps
+    whose launches differ from ``per_step``."""
+    rids = [engine.add_request(p) for p in (prompts[:1] if first_alone else prompts)]
+    prefill_ms, decode_ms, bad_steps = [], [], []
+
+    def step():
+        with_prefill = bool(engine.prefilling) or (
+            bool(engine.waiting) and any(r is None for r in engine.slot_req))
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        dt = 1e3 * (time.perf_counter() - t)
+        after = ops.launch_counts()
+        if with_prefill:
+            prefill_ms.append(dt)
+        else:
+            decode_ms.append(dt)
+            delta = {k: after[k] - before[k] for k in after}
+            if delta != per_step:
+                bad_steps.append(delta)
+
+    if first_alone:
+        while engine.prefilling or engine.waiting:
+            step()
+        rids += [engine.add_request(p) for p in prompts[1:]]
+    while engine.has_work():
+        step()
+    outs = {r.rid: r.out for r in engine.finished}
+    return [outs.get(r) for r in rids], prefill_ms, decode_ms, bad_steps
 
 
 def run_slice(ops, seed: int, dev):
@@ -263,40 +464,23 @@ def run_slice(ops, seed: int, dev):
     prompt_lens = [64, 700, 130, 411, 256, 517]
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in prompt_lens]
-    rids = [engine.add_request(p) for p in prompts]
 
-    per_step = {"rowquant": 4 * cfg.num_hidden_layers + 1,
-                "qmatmul": 7 * cfg.num_hidden_layers + 1,
-                "kv_scatter_decode": cfg.num_hidden_layers,
-                "int8_kv_attention": cfg.num_hidden_layers}
+    per_step = dict.fromkeys(ops.KERNELS, 0)
+    per_step.update({"rowquant": 4 * cfg.num_hidden_layers + 1,
+                     "qmatmul": 7 * cfg.num_hidden_layers + 1,
+                     "kv_scatter_decode": cfg.num_hidden_layers,
+                     "int8_kv_attention": cfg.num_hidden_layers})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    prefill_ms, decode_ms, bad_steps = [], [], []
     ops.reset_launch_counts()
     t_run = time.perf_counter()
-    while engine.has_work():
-        free_slot = any(r is None for r in engine.slot_req)
-        with_prefill = bool(engine.prefilling) or (bool(engine.waiting) and free_slot)
-        before = ops.launch_counts()
-        t = time.perf_counter()
-        engine.step()
-        torch.cuda.synchronize()
-        dt = 1e3 * (time.perf_counter() - t)
-        after = ops.launch_counts()
-        if with_prefill:
-            prefill_ms.append(dt)
-        else:
-            decode_ms.append(dt)
-            delta = {k: after[k] - before[k] for k in after}
-            if delta != per_step:
-                bad_steps.append(delta)
+    outs, prefill_ms, decode_ms, bad_steps = serve(engine, prompts, ops, per_step)
     wall = time.perf_counter() - t_run
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    outs = {r.rid: r.out for r in engine.finished}
 
-    generated = sum(len(outs[r]) for r in rids)
-    log(f"slice: {len(rids)} requests, prompts {prompt_lens}, {generated} tokens "
+    generated = sum(len(o or []) for o in outs)
+    log(f"slice: {len(prompts)} requests, prompts {prompt_lens}, {generated} tokens "
         f"in {wall:.3f} s = {generated / wall:.1f} tok/s; "
         f"{len(prefill_ms)} steps with a prefill chunk (mean "
         f"{sum(prefill_ms) / max(1, len(prefill_ms)):.3f} ms), {len(decode_ms)} "
@@ -304,14 +488,13 @@ def run_slice(ops, seed: int, dev):
         f"min {min(decode_ms, default=0):.3f} ms); peak memory "
         f"{peak / 2**30:.2f} GiB")
     log(f"slice launches: {json.dumps(launches)}; per decode step {json.dumps(per_step)}")
-    if any(v <= 0 for v in launches.values()):
+    if any(launches[k] <= 0 for k in DENSE_KERNELS):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if bad_steps or not decode_ms:
         raise AssertionError(f"decode-step launches {bad_steps[:3]} != {per_step}")
-    for r, p in zip(rids, prompts):
-        out = outs.get(r)
+    for p, out in zip(prompts, outs):
         if out is None or len(out) != 32 or not all(0 <= t < cfg.vocab_size for t in out):
-            raise AssertionError(f"request {r} (prompt {len(p)}): bad output {out}")
+            raise AssertionError(f"request (prompt {len(p)}): bad output {out}")
     stats = {"tokens_per_s": generated / wall, "wall_s": wall,
              "prefill_step_ms": prefill_ms, "decode_step_ms": decode_ms,
              "peak_gib": peak / 2**30}
@@ -321,16 +504,16 @@ def run_slice(ops, seed: int, dev):
     return launches, stats
 
 
-def profile_decode(model, prompts, steps: int = 5):
+def profile_decode(model, prompts, steps: int = 5, **engine_kw):
     """Device busy share and time by kernel over ``steps`` decode steps of
     4 slots, from torch.profiler (after the timed run, so it slows nothing
-    that is reported above)."""
+    that is reported above). ``engine_kw`` go to the Engine."""
     from torch.profiler import ProfilerActivity, profile
 
     from protoquant_tpu_torch import Engine, EngineConfig
 
     engine = Engine(model, EngineConfig(max_batch_size=4, max_seq_len=1024,
-                                        prefill_chunk=256, max_new_tokens=24))
+                                        prefill_chunk=256, max_new_tokens=24), **engine_kw)
     for p in prompts[:4]:
         engine.add_request(p[:200])
     while engine.prefilling or engine.waiting:
@@ -351,7 +534,8 @@ def profile_decode(model, prompts, steps: int = 5):
         log(f"profile: not measured ({exc})")
         return
     busy = sum(e.self_device_time_total for e in rows)
-    log(f"profile ({steps} decode steps, 4 slots, ~200-token contexts): wall "
+    log(f"profile {engine.kv_layout} ({steps} decode steps, 4 slots, ~200-token "
+        f"contexts): wall "
         f"{wall_us / steps:.1f} us/step, device busy {busy / steps:.1f} us/step, "
         f"idle share {1 - busy / wall_us:.3f}")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
@@ -359,21 +543,106 @@ def profile_decode(model, prompts, steps: int = 5):
             f"us/step over {e.count // steps} launches/step")
 
 
+SYSTEM_TOKENS = 512
+SUFFIXES = (40, 300, 7, 130, 220, 65, 410, 90)
+
+
+def run_paged_slice(ops, seed: int, dev):
+    """Phase 6: Llama-2-7B weight_only over the paged pool with prefix
+    caching, 8 requests sharing one system prompt."""
+    from protoquant_tpu_torch import Engine, EngineConfig, LlamaModel, ModelConfig
+
+    cfg = ModelConfig.llama2_7b()
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model = LlamaModel(cfg, mode="weight_only", dtype=torch.bfloat16, device=dev)
+    model.init_random_(seed)
+    torch.cuda.synchronize()
+    log(f"model: Llama-2-7B weight_only int8, {L} layers, built in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    gen = torch.Generator().manual_seed(seed + 2)
+    system = torch.randint(1, cfg.vocab_size, (SYSTEM_TOKENS,), generator=gen).tolist()
+    prompts = [system + torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in SUFFIXES]
+
+    def engine(prefix_cache):
+        return Engine(model, EngineConfig(
+            max_batch_size=4, max_seq_len=1024, page_size=PAGE, prefill_chunk=256,
+            max_new_tokens=32, prefix_cache=prefix_cache), kv_layout="paged")
+
+    per_step = dict.fromkeys(ops.KERNELS, 0)
+    per_step.update({"weight_only_matmul": 7 * L + 1, "paged_kv_scatter_decode": L,
+                     "paged_int8_attention": L})
+    eng = engine(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t_run = time.perf_counter()
+    outs, prefill_ms, decode_ms, bad_steps = serve(eng, prompts, ops, per_step,
+                                                   first_alone=True)
+    wall = time.perf_counter() - t_run
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    m = eng.metrics()
+
+    generated = sum(len(o or []) for o in outs)
+    log(f"paged slice: {len(prompts)} requests, prompts {SYSTEM_TOKENS} + {list(SUFFIXES)}, "
+        f"{generated} tokens in {wall:.3f} s = {generated / wall:.1f} tok/s; "
+        f"{len(prefill_ms)} steps with a prefill chunk (mean "
+        f"{sum(prefill_ms) / max(1, len(prefill_ms)):.3f} ms), {len(decode_ms)} decode "
+        f"steps (median {sorted(decode_ms)[len(decode_ms) // 2] if decode_ms else 0:.3f} "
+        f"ms, min {min(decode_ms, default=0):.3f} ms); peak memory {peak / 2**30:.2f} GiB")
+    log(f"paged slice metrics: {json.dumps(m)}")
+    log(f"paged slice launches: {json.dumps(launches)}; per decode step "
+        f"{json.dumps(per_step)}")
+    want_hits = (len(prompts) - 1) * SYSTEM_TOKENS
+    if m["prefix_hit_tokens"] != want_hits:
+        raise AssertionError(f"prefix_hit_tokens {m['prefix_hit_tokens']} != {want_hits}")
+    if any(launches[k] <= 0 for k in PAGED_KERNELS):
+        raise AssertionError(f"a kernel of the paged path never launched: {launches}")
+    if bad_steps or not decode_ms:
+        raise AssertionError(f"paged decode-step launches {bad_steps[:3]} != {per_step}")
+    for p, out in zip(prompts, outs):
+        if out is None or len(out) != 32 or not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"paged request (prompt {len(p)}): bad output {out}")
+    if eng.prefix.refs or m["kv_pages_free"] + m["prefix_reusable_pages"] != m["kv_pages_total"]:
+        raise AssertionError(f"pages leaked after the drain: {m}")
+
+    # a reading, not a gate: the same traffic recomputing every prefill
+    ref_outs = serve(engine(False), prompts, ops, per_step, first_alone=True)[0]
+    same = sum(a == b for o, r in zip(outs, ref_outs) for a, b in zip(o, r))
+    log(f"paged slice: {same} of {generated} tokens equal with prefix_cache=False "
+        f"({same / generated:.4f})")
+    stats = {"tokens_per_s": generated / wall, "wall_s": wall,
+             "prefill_step_ms": prefill_ms, "decode_step_ms": decode_ms,
+             "peak_gib": peak / 2**30, "equal_share_without_prefix": same / generated}
+    profile_decode(model, prompts, kv_layout="paged")
+    del eng, model
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
 @contextlib.contextmanager
 def plain_versions(**faulty):
     """Within the block the model calls the plain PyTorch version wherever
     it would launch a kernel, or the function given for that kernel's name
-    in ``faulty``. A harness for the agreement phase only: the package
+    in ``faulty``. A harness for the agreement phases only: the package
     itself has no such switch, it dispatches by device."""
     from protoquant_tpu_torch import ops
+    from protoquant_tpu_torch.engine import paged_kv
     from protoquant_tpu_torch.models import kv_cache
 
-    swaps = {"rowquant": (ops, ops.rowquant_ref), "qmatmul": (ops, ops.qmatmul_ref),
-             "kv_scatter_decode": (kv_cache, ops.kv_scatter_decode_ref),
-             "int8_kv_attention": (kv_cache, ops.int8_kv_attention_ref)}
-    saved = [(mod, name, getattr(mod, name)) for name, (mod, _) in swaps.items()]
+    swaps = [("rowquant", ops, ops.rowquant_ref), ("qmatmul", ops, ops.qmatmul_ref),
+             ("weight_only_matmul", ops, ops.weight_only_matmul_ref),
+             ("kv_scatter_decode", kv_cache, ops.kv_scatter_decode_ref),
+             ("int8_kv_attention", kv_cache, ops.int8_kv_attention_ref),
+             ("int8_kv_attention", paged_kv, ops.int8_kv_attention_ref),
+             ("paged_kv_scatter_decode", paged_kv, ops.paged_kv_scatter_decode_ref),
+             ("paged_int8_attention", paged_kv, ops.paged_int8_attention_ref)]
+    saved = [(mod, name, getattr(mod, name)) for name, mod, _ in swaps]
     try:
-        for name, (mod, plain) in swaps.items():
+        for name, mod, plain in swaps:
             setattr(mod, name, faulty.get(name, plain))
         yield
     finally:
@@ -394,22 +663,61 @@ def planted_faults(ops):
     }
 
 
-def run_agreement(ops, seed: int, dev, dtype):
+def paged_planted_faults(ops):
+    """The paged path's planted faults, one for each of its new kernels."""
+    return {
+        "weight_only_matmul epilogue reads s_w[n-1]": {
+            "weight_only_matmul": lambda x, w, sw, *a, **k: ops.weight_only_matmul_ref(
+                x, w, sw.roll(1), *a, **k)},
+        "paged attention one key short": {
+            "paged_int8_attention": lambda q, kq, ks, vq, vs, pt, lengths:
+                ops.paged_int8_attention_ref(q, kq, ks, vq, vs, pt, lengths - 1)},
+        "paged scatter writes every row to the trash page": {
+            "paged_kv_scatter_decode": lambda kq, ks, vq, vs, pt, *a:
+                ops.paged_kv_scatter_decode_ref(kq, ks, vq, vs, torch.full_like(pt, -1), *a)},
+    }
+
+
+DENSE_KERNELS = ("rowquant", "qmatmul", "kv_scatter_decode", "int8_kv_attention")
+PAGED_KERNELS = ("weight_only_matmul", "paged_kv_scatter_decode", "paged_int8_attention",
+                 "int8_kv_attention")
+
+
+def run_agreement(ops, seed: int, dev, dtype, paged: bool = False):
     """2 layers at full width on the card, run on the same prompt through
     the kernels, through their plain versions, and through the plain
     versions with each planted fault. A prefill of 48 tokens into 2 slots,
-    then 4 greedy decode steps (the scatter kernel, T = 1 attention); every
-    run decodes the kernel run's tokens, so all see the same inputs."""
+    then 4 greedy decode steps (the decode scatter, T = 1 attention); every
+    run decodes the kernel run's tokens, so all see the same inputs.
+
+    ``paged``: a weight_only model over a paged pool instead of a dynamic
+    model over the dense cache. Its pages hold 16 tokens, so each slot's 52
+    tokens span 4 pages, mapped in a shuffled order."""
     from protoquant_tpu_torch import LlamaModel, ModelConfig
+    from protoquant_tpu_torch.engine import PagedInt8KVCache
     from protoquant_tpu_torch.models import init_cache
 
     cfg = ModelConfig(num_hidden_layers=2)
-    model = LlamaModel(cfg, mode="dynamic", dtype=dtype, device=dev).init_random_(seed + 1)
+    mode = "weight_only" if paged else "dynamic"
+    model = LlamaModel(cfg, mode=mode, dtype=dtype, device=dev).init_random_(seed + 1)
     gen = torch.Generator().manual_seed(seed + 1)
     prompt = torch.randint(1, cfg.vocab_size, (2, 48), generator=gen).to(dev)
+    ps, max_pages = 16, 128 // 16
+    order = torch.randperm(2 * max_pages, generator=gen).tolist()
+
+    def new_caches():
+        if not paged:
+            return init_cache(cfg, 2, 128, dev)
+        caches = [PagedInt8KVCache.init(2, 2 * max_pages + 1, max_pages, ps,
+                                        cfg.num_key_value_heads, cfg.head_dim, dev)
+                  for _ in range(cfg.num_hidden_layers)]
+        for c in caches:
+            for slot in range(2):
+                c.map_slot(slot, order[slot * max_pages:(slot + 1) * max_pages])
+        return caches
 
     def run(tokens_in=None):
-        caches = init_cache(cfg, 2, 128, dev)
+        caches = new_caches()
         out, toks = [model(prompt, None, caches)], []
         for i in range(4):
             tok = out[-1][:, -1].argmax(-1) if tokens_in is None else tokens_in[i]
@@ -418,14 +726,22 @@ def run_agreement(ops, seed: int, dev, dtype):
         return out, toks
 
     def compare(out, ref):
+        """Readings over all positions, and the relative L2 error over the
+        decode positions alone (8 of the 104), where the decode scatter and
+        T = 1 attention act. The paged path's two new attention kernels act
+        there only, so its runs must pass the limit there too."""
         a = torch.cat([x.reshape(-1, cfg.vocab_size) for x in out]).float()
         b = torch.cat([x.reshape(-1, cfg.vocab_size) for x in ref]).float()
+        da = torch.cat([x.reshape(-1, cfg.vocab_size) for x in out[1:]]).float()
+        db = torch.cat([x.reshape(-1, cfg.vocab_size) for x in ref[1:]]).float()
         got = {"rel_l2": ((a - b).norm() / b.norm()).item(),
+               "decode_rel_l2": ((da - db).norm() / db.norm()).item(),
                "argmax_agree": (a.argmax(-1) == b.argmax(-1)).float().mean().item(),
                "max_abs": (a - b).abs().max().item(), "positions": a.shape[0],
                "finite": bool(torch.isfinite(a).all())}
         got["pass"] = (got["finite"] and got["rel_l2"] <= AGREE_REL
-                       and got["argmax_agree"] >= AGREE_ARGMAX)
+                       and got["argmax_agree"] >= AGREE_ARGMAX
+                       and (not paged or got["decode_rel_l2"] <= AGREE_REL))
         return got
 
     ops.reset_launch_counts()
@@ -435,21 +751,25 @@ def run_agreement(ops, seed: int, dev, dtype):
     with plain_versions():
         plain, _ = run(toks)
     readings = {"kernels": compare(kern, plain)}
-    for fault, swaps in planted_faults(ops).items():
+    faults = paged_planted_faults(ops) if paged else planted_faults(ops)
+    for fault, swaps in faults.items():
         with plain_versions(**swaps):
             readings[fault] = compare(run(toks)[0], plain)
-    if any(ops.launch_counts().values()) or not all(launched.values()):
+    path = PAGED_KERNELS if paged else DENSE_KERNELS
+    if any(ops.launch_counts().values()) or not all(launched[k] for k in path) or any(
+            launched[k] for k in launched if k not in path):
         raise AssertionError(f"agreement: kernel run launched {launched}, plain runs "
                              f"{ops.launch_counts()}")
+    label = "paged agreement" if paged else "agreement"
     for name, got in readings.items():
-        log(f"agreement {str(dtype).replace('torch.', '')} (2 layers, full width, "
+        log(f"{label} {str(dtype).replace('torch.', '')} (2 layers, full width, {mode}, "
             f"{name} vs plain on the card): {json.dumps(got)}; limits rel_l2 <= "
             f"{AGREE_REL}, argmax_agree >= {AGREE_ARGMAX}")
     if not readings.pop("kernels")["pass"]:
-        raise AssertionError("kernel and plain logits disagree")
+        raise AssertionError(f"{label}: kernel and plain logits disagree")
     missed = [name for name, got in readings.items() if got["pass"]]
     if missed:
-        raise AssertionError(f"the agreement limits pass planted fault(s) {missed}")
+        raise AssertionError(f"{label}: the limits pass planted fault(s) {missed}")
 
 
 # -- main ----------------------------------------------------------------------
@@ -494,7 +814,10 @@ def main() -> int:
         results = {}
         for name, fn in (("rowquant", check_rowquant), ("qmatmul", check_qmatmul),
                          ("kv_scatter_decode", check_scatter),
-                         ("int8_kv_attention", check_attention)):
+                         ("int8_kv_attention", check_attention),
+                         ("weight_only_matmul", check_weight_only),
+                         ("paged_kv_scatter_decode", check_paged_scatter),
+                         ("paged_int8_attention", check_paged_attention)):
             results[name] = fn(ops, gen, dev)
             for c in results[name]:
                 log(f"kernel {name} {c['shape']}: {c['ms']:.4f} ms, plain "
@@ -502,9 +825,14 @@ def main() -> int:
                     f"{c['bound_ms']:.4f} ms ({c['bound_by']}), err {c['max_abs_err']}")
             torch.cuda.empty_cache()
 
-        launches, stats = run_slice(ops, args.seed, dev)
+        # each main path is driven with the counts at 0 and read just after
+        by_path = {}
+        by_path["dense"], stats = run_slice(ops, args.seed, dev)
         run_agreement(ops, args.seed, dev, torch.float32)
         run_agreement(ops, args.seed, dev, torch.bfloat16)
+        by_path["paged"], paged_stats = run_paged_slice(ops, args.seed, dev)
+        run_agreement(ops, args.seed, dev, torch.float32, paged=True)
+        run_agreement(ops, args.seed, dev, torch.bfloat16, paged=True)
 
         meta = {
             "rowquant": ("protoquant_tpu_torch/csrc/rowquant.cu",
@@ -515,6 +843,14 @@ def main() -> int:
                                   "protoquant_tpu/ops/kv_scatter.py:37", None),
             "int8_kv_attention": ("protoquant_tpu_torch/csrc/attention.cu",
                                   "protoquant_tpu/ops/attention.py:68", "decode"),
+            "weight_only_matmul": ("protoquant_tpu_torch/csrc/wo_matmul.cu",
+                                   "protoquant_tpu/ops/wo_matmul.py:24",
+                                   "M=4 K=4096 N=11008 bf16 out"),
+            "paged_kv_scatter_decode": ("protoquant_tpu_torch/csrc/kv_scatter.cu",
+                                        "protoquant_tpu/ops/kv_scatter.py:118", None),
+            "paged_int8_attention": ("protoquant_tpu_torch/csrc/paged_attention.cu",
+                                     "protoquant_tpu/ops/paged_attention.py:28",
+                                     "decode B=4 H=32 KV=32 G=1"),
         }
         kernels = []
         for name, cases in results.items():
@@ -523,7 +859,8 @@ def main() -> int:
                          or c["shape"].startswith(main_shape)), cases[0])
             kernels.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[name],
+                "launches": sum(counts[name] for counts in by_path.values()),
+                "launches_by_path": {p: counts[name] for p, counts in by_path.items()},
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": head["ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -533,17 +870,25 @@ def main() -> int:
         # kernel time of one decode step at the measured decode shapes
         by = {(n, c["shape"]): c["ms"] for n, cs in results.items() for c in cs}
         L = LAYERS
+
+        def linears(name):
+            return (by[(name, "M=4 K=4096 N=4096 bf16 out")] * 4 * L
+                    + by[(name, "M=4 K=4096 N=11008 bf16 out")] * 2 * L
+                    + by[(name, "M=4 K=11008 N=4096 bf16 out")] * L
+                    + by[(name, "M=4 K=4096 N=32000 bf16 out")])
+
         est = (by[("rowquant", "M=4 K=4096 bf16")] * (3 * L + 1)
-               + by[("rowquant", "M=4 K=11008 bf16")] * L
-               + by[("qmatmul", "M=4 K=4096 N=4096 bf16 out")] * 4 * L
-               + by[("qmatmul", "M=4 K=4096 N=11008 bf16 out")] * 2 * L
-               + by[("qmatmul", "M=4 K=11008 N=4096 bf16 out")] * L
-               + by[("qmatmul", "M=4 K=4096 N=32000 bf16 out")]
+               + by[("rowquant", "M=4 K=11008 bf16")] * L + linears("qmatmul")
                + results["kv_scatter_decode"][0]["ms"] * L
                + results["int8_kv_attention"][0]["ms"] * L)
-        log(f"decode step: kernels at the measured shapes sum to {est:.3f} ms; "
-            f"engine decode step median "
-            f"{sorted(stats['decode_step_ms'])[len(stats['decode_step_ms']) // 2]:.3f} ms")
+        paged_est = (linears("weight_only_matmul")
+                     + results["paged_kv_scatter_decode"][0]["ms"] * L
+                     + results["paged_int8_attention"][0]["ms"] * L)
+        for label, e, st in (("dense dynamic", est, stats), ("paged weight_only", paged_est,
+                                                              paged_stats)):
+            steps = sorted(st["decode_step_ms"])
+            log(f"decode step, {label}: kernels at the measured shapes sum to {e:.3f} ms; "
+                f"engine decode step median {steps[len(steps) // 2]:.3f} ms")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {

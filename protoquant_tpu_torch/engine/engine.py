@@ -1,13 +1,22 @@
-"""Continuous-batching serving engine over a ``LlamaModel`` with a dense
-int8 KV cache (the non-speculative core of the JAX package's engine).
+"""Continuous-batching serving engine over a ``LlamaModel`` with an int8 KV
+cache, dense or paged (the non-speculative core of the JAX package's
+engine, single replica).
 
 The host owns request bookkeeping (queue, slots, stop conditions); the
 device runs one forward per prefill chunk and one batched decode forward per
-tick. The KV cache is allocated once at [max_batch, max_seq]; requests are
-admitted into free slots, prefilled chunk by chunk (one chunk per tick, so
-decoding slots emit a token between chunks), decoded in lock-step and
-retired, and their slots reused. Inactive slots run the same decode forward
-with advance 0, so their lengths stay put and their rows stay masked.
+tick. Requests are admitted into free slots, prefilled chunk by chunk (one
+chunk per tick, so decoding slots emit a token between chunks), decoded in
+lock-step and retired, and their slots reused. Inactive slots run the same
+decode forward with advance 0, so their lengths stay put and their rows
+stay masked.
+
+``kv_layout="dense"`` allocates the cache once at [max_batch, max_seq].
+``kv_layout="paged"`` allocates one pool of B * max_seq / page_size pages
+(+1 trash page) per layer; a request reserves only the pages it can touch,
+from the native page allocator, when it is admitted, and waits while the
+pool is short. With ``EngineConfig.prefix_cache`` a request adopts the
+longest chain of resident pages that hold its prompt's prefix and prefills
+only the tail (``engine/prefix_cache.py``).
 """
 
 from __future__ import annotations
@@ -20,7 +29,10 @@ from typing import Optional
 import torch
 
 from ..models.llama import LlamaModel, init_cache
+from ..native import PageAllocator
 from ..utils.config import EngineConfig
+from .paged_kv import PagedInt8KVCache
+from .prefix_cache import PrefixCache
 from .sampling import sample_batched, token_logprob
 
 
@@ -45,6 +57,11 @@ class Request:
     want_logprobs: bool = False
     t_admit: float = 0.0  # perf_counter at slot assignment
     t_enqueue: float = 0.0  # perf_counter at add_request
+    # paged layout: private pages, adopted prefix pages, and the pages this
+    # request holds references on once its prompt is published
+    pages: list = dataclasses.field(default_factory=list)
+    shared_pages: list = dataclasses.field(default_factory=list)
+    held_pages: list = dataclasses.field(default_factory=list)
 
 
 def _bucket(n: int, chunk: int, lo: int = 16) -> int:
@@ -59,12 +76,38 @@ def _bucket(n: int, chunk: int, lo: int = 16) -> int:
 class Engine:
     """Continuous-batching inference engine; runs on the model's device."""
 
-    def __init__(self, model: LlamaModel, config: EngineConfig | None = None):
+    def __init__(self, model: LlamaModel, config: EngineConfig | None = None,
+                 kv_layout: str = "dense"):
         self.model = model
         self.cfg = config or EngineConfig()
         self.device = model.device
+        self.kv_layout = kv_layout
         B = self.cfg.max_batch_size
-        self.caches = init_cache(model.cfg, B, self.cfg.max_seq_len, self.device)
+        self.allocator: Optional[PageAllocator] = None
+        self.prefix: Optional[PrefixCache] = None
+        if self.cfg.prefix_cache and kv_layout != "paged":
+            raise ValueError("prefix_cache requires kv_layout='paged'")
+        if kv_layout == "dense":
+            self.caches = init_cache(model.cfg, B, self.cfg.max_seq_len, self.device)
+        elif kv_layout == "paged":
+            ps = self.cfg.page_size
+            if self.cfg.max_seq_len % ps:
+                raise ValueError("max_seq_len must be a multiple of page_size")
+            # the pool's last page is the trash page (writes through
+            # unmapped table entries land there); the allocator hands out
+            # the others
+            num_pages = B * self.cfg.max_seq_len // ps + 1
+            mcfg = model.cfg
+            self.caches = [
+                PagedInt8KVCache.init(B, num_pages, self.cfg.max_seq_len // ps, ps,
+                                      mcfg.num_key_value_heads, mcfg.head_dim,
+                                      self.device)
+                for _ in range(mcfg.num_hidden_layers)]
+            self.allocator = PageAllocator(num_pages - 1)
+            if self.cfg.prefix_cache:
+                self.prefix = PrefixCache(self.allocator)
+        else:
+            raise ValueError(f"kv_layout {kv_layout!r}: the port has 'dense' and 'paged'")
         c, dev = self.cfg, self.device
         self._samp_host = {
             "temps": [c.temperature] * B, "top_ks": [c.top_k] * B,
@@ -131,14 +174,45 @@ class Engine:
 
     # -- engine loop -------------------------------------------------------
 
+    def _reserve_pages(self, req: Request, slot: int) -> bool:
+        """Paged layout: reserve the pages ``req`` can touch, adopting the
+        longest resident prefix chain, and map them to ``slot``. False (and
+        nothing reserved) when the pool is short."""
+        ps = self.cfg.page_size
+        budget = min(len(req.prompt) + req.max_new_tokens, self.cfg.max_seq_len)
+        need = -(-budget // ps)
+        matched_tokens = 0
+        if self.prefix is not None:
+            req.shared_pages, matched_tokens = self.prefix.match(req.prompt, ps)
+            pages = self.prefix.alloc(need - len(req.shared_pages))
+        else:
+            pages = self.allocator.alloc(need)
+        if pages is None:
+            if req.shared_pages:
+                self.prefix.unref(req.shared_pages)
+                req.shared_pages = []
+            return False
+        req.pages = pages
+        req.prefill_off = matched_tokens
+        if self.prefix is not None:
+            self.prefix.hit_tokens += matched_tokens
+        for c in self.caches:
+            c.map_slot(slot, req.shared_pages + pages, start_len=matched_tokens)
+        return True
+
     def _assign_slots(self):
         """Move waiting requests (first come, first served) into free slots.
-        A slot is held from assignment to retirement, prefill included."""
+        A slot is held from assignment to retirement, prefill included. In
+        the paged layout a request whose pages the pool cannot supply stays
+        waiting (and so do the ones behind it) until something retires."""
         changed = False
         for slot in range(self.cfg.max_batch_size):
             if self.slot_req[slot] is not None or not self.waiting:
                 continue
-            req = self.waiting.popleft()
+            req = self.waiting[0]
+            if self.allocator is not None and not self._reserve_pages(req, slot):
+                break
+            self.waiting.popleft()
             req.slot = slot
             req.t_admit = time.perf_counter()
             self.stats["queue_waits"].append(req.t_admit - req.t_enqueue)
@@ -196,6 +270,11 @@ class Engine:
             return  # more chunks next tick; decoding slots proceed meanwhile
 
         self.prefilling.popleft()
+        if self.prefix is not None:
+            # publish this prompt's full pages for later prefix hits
+            req.held_pages = self.prefix.publish(
+                req.prompt, req.shared_pages + req.pages, self.cfg.page_size,
+                len(req.shared_pages))
         if req.max_new_tokens > 0:
             last = req.last_logits[None, :]
             first = self._sample(last, [slot], [slot])
@@ -235,10 +314,27 @@ class Engine:
             self.prefilling.remove(req)
         for c in self.caches:
             c.reset_slot(slot)
+        if self.prefix is not None:
+            # drop references on shared and published pages (zero-ref pages
+            # stay cached for later hits); free the private ones (decode
+            # tail, partial prompt page, pages whose key was already there)
+            held = req.held_pages or list(req.shared_pages)
+            held_set = set(held)
+            self.prefix.unref(held)
+            self.allocator.free([p for p in req.pages if p not in held_set])
+        elif self.allocator is not None:
+            self.allocator.free(req.pages)
+        req.pages, req.shared_pages, req.held_pages = [], [], []
 
     def _decode_step(self):
         """One batched decode forward over every slot; returns (next tokens
-        [B], logits of the last position [B, V])."""
+        [B], logits of the last position [B, V]).
+
+        The paged layout passes the full-width page table: the JAX engine
+        slices it to a power-of-two bucket of pages covering the longest
+        active context, which bounds what its gathered window reads, but the
+        port's paged attention kernel already stops at each row's own last
+        page. That changes speed only, not results."""
         max_pos = self.model.cfg.max_position_embeddings - 1
         positions = self.caches[0].lengths.clamp_max(max_pos).long()[:, None]
         advance = torch.tensor(self.active, dtype=torch.int32, device=self.device)
@@ -303,4 +399,12 @@ class Engine:
             wp = lambda p: waits[int(p * (len(waits) - 1))]
             out["queue_wait_p50_ms"] = 1e3 * wp(0.5)
             out["queue_wait_p99_ms"] = 1e3 * wp(0.99)
+        if self.allocator is not None:
+            out["kv_pages_free"] = self.allocator.num_free
+            out["kv_pages_total"] = self.allocator.num_pages
+        if self.prefix is not None:
+            out["prefix_hit_tokens"] = self.prefix.hit_tokens
+            out["prefix_cached_pages"] = self.prefix.cached_pages
+            out["prefix_reusable_pages"] = self.prefix.reusable_pages
+            out["prefix_evictions"] = self.prefix.evictions
         return out

@@ -178,9 +178,10 @@ class LlamaModel(nn.Module):
     @torch.no_grad()
     def init_random_(self, seed: int = 0) -> "LlamaModel":
         """Random weights from ``seed``, made on the model's device one
-        projection at a time: in mode ``dynamic`` each fp weight is
-        quantized as soon as it is drawn, so no fp copy of the model exists
-        whole. Linear weights are N(0, 1/K), embeddings N(0, 1), norms 1."""
+        projection at a time: in the int8 modes (``dynamic``,
+        ``weight_only``) each fp weight is quantized as soon as it is drawn,
+        so no fp copy of the model exists whole. Linear weights are
+        N(0, 1/K), embeddings N(0, 1), norms 1."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.embed_tokens.weight.copy_(torch.randn(
             self.embed_tokens.weight.shape, generator=gen, device=self.device))

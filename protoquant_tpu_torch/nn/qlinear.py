@@ -1,9 +1,13 @@
-"""QLinear: linear layer in mode ``fp`` or ``dynamic``.
+"""QLinear: linear layer in mode ``fp``, ``dynamic`` or ``weight_only``.
 
-* ``fp``:      y = x @ W^T + b in the activation dtype (the unquantized
-               baseline, and the layer before conversion).
-* ``dynamic``: rowquant(x) -> int8 x int8 GEMM -> fused f32 epilogue, with
-               per-output-channel int8 weights.
+* ``fp``:          y = x @ W^T + b in the activation dtype (the unquantized
+                   baseline, and the layer before conversion).
+* ``dynamic``:     rowquant(x) -> int8 x int8 GEMM -> fused f32 epilogue,
+                   with per-output-channel int8 weights.
+* ``weight_only``: bf16(x) x int8 W with an f32 sum, the per-output-channel
+                   scale and bias in the f32 epilogue. x is rounded to bf16
+                   whatever the model's dtype, as the JAX model's
+                   ``weight_only_matmul_xla`` does on every backend.
 
 The weight is stored [N, K] = [out_features, in_features] (the ``nn.Linear``
 layout, K contiguous); the JAX package stores [K, N]
@@ -18,7 +22,7 @@ from torch import nn
 from .. import ops
 from ..core import numerics
 
-MODES = ("fp", "dynamic")
+MODES = ("fp", "dynamic", "weight_only")
 
 
 class QLinear(nn.Module):
@@ -48,7 +52,7 @@ class QLinear(nn.Module):
     @torch.no_grad()
     def set_weight(self, w: torch.Tensor) -> None:
         """Load an fp weight [N, K]: copied (fp) or quantized per output
-        channel (dynamic)."""
+        channel (the int8 modes)."""
         if tuple(w.shape) != (self.out_features, self.in_features):
             raise ValueError(f"weight shape {tuple(w.shape)}, want "
                              f"{(self.out_features, self.in_features)}")
@@ -60,26 +64,35 @@ class QLinear(nn.Module):
             self.qscale.copy_(s)
 
     @torch.no_grad()
-    def to_dynamic(self) -> None:
-        """Convert an fp layer in place to mode ``dynamic``."""
-        if self.mode == "dynamic":
+    def quantize_(self, mode: str = "dynamic") -> None:
+        """Convert an fp layer in place to an int8 mode (``dynamic`` or
+        ``weight_only``: the same per-output-channel int8 weight)."""
+        if mode not in MODES or mode == "fp":
+            raise ValueError(f"cannot quantize to mode {mode!r}")
+        if self.mode == mode:
             return
+        if self.mode != "fp":
+            raise ValueError(f"layer is already in mode {self.mode!r}")
         w = self.weight
         del self.weight
         q, s = numerics.quantize_channelwise(w, dim=1)
         self.register_buffer("qweight", q.contiguous())
         self.register_buffer("qscale", s.contiguous())
-        self.mode = "dynamic"
+        self.mode = mode
 
     def forward(self, x: torch.Tensor, prequantized=None) -> torch.Tensor:
-        """``prequantized``: optional (xq int8, s_x) from a rowquant pass
-        shared with sibling projections that read the same activation."""
+        """``prequantized`` (mode ``dynamic``): optional (xq int8, s_x) from
+        a rowquant pass shared with sibling projections that read the same
+        activation."""
         x = x.to(self.dtype)
         if self.mode == "fp":
             y = x @ self.weight.to(self.dtype).t()
             if self.bias is not None:
                 y = y + self.bias.to(self.dtype)
             return y
+        if self.mode == "weight_only":
+            return ops.weight_only_matmul(x.to(torch.bfloat16), self.qweight, self.qscale,
+                                          self.bias, out_dtype=self.dtype)
         if prequantized is None:
             prequantized = ops.rowquant(x)
         xq, s_x = prequantized

@@ -47,6 +47,16 @@ SIGNATURES = {
     # q, q_dtype, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, Dh, sm, stream
     "pq_int8_kv_attention": [_P, _I, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _F, _P],
+    # x, wq, sw, bias, out, out_dtype, M, N, K, stream
+    "pq_weight_only_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # kq, ks, vq, vs, page_table, lengths, k8, ks_new, v8, vs_new,
+    # B, maxP, P, KV, ps, Dh, stream
+    "pq_paged_kv_scatter_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _P],
+    # q, q_dtype, kq, ks, vq, vs, page_table, lengths, out,
+    # B, H, KV, maxP, ps, Dh, sm, stream
+    "pq_paged_int8_attention": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 # dtype codes shared with csrc/common.cuh

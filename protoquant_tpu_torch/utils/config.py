@@ -51,10 +51,11 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Continuous-batching engine config (dense int8 KV cache)."""
+    """Continuous-batching engine config (int8 KV cache, dense or paged)."""
 
     max_batch_size: int = 8
     max_seq_len: int = 2048
+    page_size: int = 128  # tokens per KV page (kv_layout="paged")
     prefill_chunk: int = 512
     max_new_tokens: int = 256
     temperature: float = 0.0  # 0 => greedy
@@ -63,3 +64,7 @@ class EngineConfig:
     min_p: float = 0.0  # 0.0 => no min-p truncation
     return_logprobs: bool = False
     seed: int = 0
+    # Block-level prefix caching (paged layout only): requests sharing a
+    # prompt prefix adopt its resident KV pages and skip their prefill
+    # (engine/prefix_cache.py).
+    prefix_cache: bool = False

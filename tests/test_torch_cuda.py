@@ -3,8 +3,10 @@ the card. Every test here skips without one.
 
 This file imports nothing of JAX, so it also runs where JAX is not
 installed: ``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
-Exact: rowquant, qmatmul, the decode scatter. Attention: ATOL (f32 q and
-output; the two sum in different orders).
+Exact: rowquant, qmatmul, the dense and paged decode scatters. Attention,
+dense and paged: ATOL (f32 q and output; the two sum in different orders).
+The weight-only product: ``ops.weight_only_tolerance`` (exact products, an
+f32 sum in another order, then one ulp of the output type).
 """
 
 import pytest
@@ -105,3 +107,141 @@ def test_counters_count_kernel_launches_only(cuda):
     ops.rowquant_ref(x)
     ops.rowquant(x.cpu())
     assert ops.launch_counts()["rowquant"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1, 16, 8), (4, 4096, 4096), (5, 80, 130),
+                                   (17, 11008, 72), (256, 4096, 200)])
+def test_weight_only_matmul_vs_plain(cuda, m, k, n, out_dtype):
+    g = torch.Generator(device=cuda).manual_seed(m * 7 + n)
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8)
+    sw = torch.rand(n, generator=g, device=cuda) * 1e-2
+    bias = torch.randn(n, generator=g, device=cuda)
+    for b in (None, bias):
+        y = ops.weight_only_matmul(x, wq, sw, b, out_dtype=out_dtype)
+        ref = ops.weight_only_matmul_ref(x, wq, sw, b, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert y.dtype == out_dtype and y.shape == (m, n)
+        tol = ops.weight_only_tolerance(x, wq, sw, ref)
+        assert ((y.float() - ref.float()).abs() <= tol).all()
+
+
+def _pools(g, dev, P, KV, ps, Dh):
+    kq = torch.randint(-127, 128, (P, KV, ps, Dh), generator=g, device=dev, dtype=torch.int8)
+    vq = torch.randint_like(kq, -127, 128)
+    ks = torch.rand(P, KV, 1, ps, generator=g, device=dev) * 1e-2 + 1e-3
+    vs = torch.rand(P, KV, 1, ps, generator=g, device=dev) * 1e-2 + 1e-3
+    return kq, ks, vq, vs
+
+
+def _table(g, B, maxP, P):
+    """Shuffled page chains (row 1 unmapped) over pages 0 .. P - 2."""
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(0))
+    pt = perm[:B * maxP].reshape(B, maxP).to(torch.int32)
+    pt[1] = -1
+    return pt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps,head_dim", [(16, 128), (128, 128), (8, 64)])
+def test_paged_scatter_vs_plain(cuda, ps, head_dim):
+    g = torch.Generator(device=cuda).manual_seed(ps)
+    B, KV, maxP = 4, 3, 4
+    P = B * maxP + 2
+    pools = _pools(g, cuda, P, KV, ps, head_dim)
+    pt = _table(g, B, maxP, P).to(cuda)
+    # row 1 unmapped; row 2 past the window (lands on the trash page at
+    # another offset than row 1); rows 0 and 3 on a page boundary and inside
+    lengths = torch.tensor([ps, 3, maxP * ps + 5, 2 * ps + 1], dtype=torch.int32, device=cuda)
+    k8 = torch.randint(-127, 128, (B, KV, 1, head_dim), generator=g, device=cuda,
+                       dtype=torch.int8)
+    v8 = torch.randint_like(k8, -127, 128)
+    ksn = torch.rand(B, KV, 1, generator=g, device=cuda)
+    vsn = torch.rand(B, KV, 1, generator=g, device=cuda)
+    a = [t.clone() for t in pools]
+    b = [t.clone() for t in pools]
+    ops.paged_kv_scatter_decode(*a, pt, lengths, k8, ksn, v8, vsn)
+    ops.paged_kv_scatter_decode_ref(*b, pt, lengths, k8, ksn, v8, vsn)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(a[0][P - 1, :, 3], k8[1, :, 0])  # unmapped -> trash page
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,ps,head_dim,dtype", [
+    (1, 128, 128, torch.float32), (4, 16, 128, torch.float32),
+    (2, 8, 64, torch.float32), (8, 32, 256, torch.float32),
+    (1, 128, 128, torch.bfloat16)])
+def test_paged_attention_vs_plain(cuda, group, ps, head_dim, dtype):
+    g = torch.Generator(device=cuda).manual_seed(group * 31 + ps)
+    B, KV, maxP = 4, 2, 6
+    P = B * maxP + 2
+    pools = _pools(g, cuda, P, KV, ps, head_dim)
+    pt = _table(g, B, maxP, P).to(cuda)
+    # page boundaries: the last key of a page, the first of the next, a
+    # full table
+    lengths = torch.tensor([ps - 1, 0, ps, maxP * ps - 1], dtype=torch.int32, device=cuda)
+    q = torch.randn(B, 1, KV * group, head_dim, generator=g, device=cuda).to(dtype)
+    out = ops.paged_int8_attention(q, *pools, pt, lengths)
+    ref = ops.paged_int8_attention_ref(q, *pools, pt, lengths)
+    torch.cuda.synchronize()
+    atol = ATOL if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    wq = torch.zeros(8, 32, dtype=torch.int8, device=cuda)
+    sw = torch.ones(8, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.weight_only_matmul(torch.zeros(2, 32, device=cuda), wq, sw)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops.weight_only_matmul(torch.zeros(2, 24, dtype=torch.bfloat16, device=cuda),
+                               torch.zeros(8, 24, dtype=torch.int8, device=cuda), sw)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.weight_only_matmul(torch.zeros(2, 32, dtype=torch.bfloat16, device=cuda),
+                               torch.zeros(32, 8, dtype=torch.int8, device=cuda).t(), sw)
+    kq, ks, vq, vs = (t.to(cuda) for t in (
+        torch.zeros(3, 2, 8, 64, dtype=torch.int8), torch.ones(3, 2, 1, 8),
+        torch.zeros(3, 2, 8, 64, dtype=torch.int8), torch.ones(3, 2, 1, 8)))
+    pt = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    lengths = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="decode only"):
+        ops.paged_int8_attention(torch.zeros(1, 2, 2, 64, device=cuda), kq, ks, vq, vs,
+                                 pt, lengths)
+    with pytest.raises(TypeError, match="int32"):
+        ops.paged_int8_attention(torch.zeros(1, 1, 2, 64, device=cuda), kq, ks, vq, vs,
+                                 pt.long(), lengths)
+    k8 = torch.zeros(1, 2, 1, 64, dtype=torch.int8, device=cuda)
+    s1 = torch.ones(1, 2, 1, device=cuda)
+    with pytest.raises(ValueError, match="tensors on"):
+        ops.paged_kv_scatter_decode(kq, ks, vq, vs, pt, lengths.cpu(), k8, s1, k8, s1)
+
+
+@pytest.mark.cuda
+def test_new_counters_count_kernel_launches_only(cuda):
+    ops.reset_launch_counts()
+    x = torch.randn(2, 64, device=cuda).to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (8, 64), dtype=torch.int8, device=cuda)
+    sw = torch.rand(8, device=cuda)
+    ops.weight_only_matmul(x, wq, sw)
+    ops.weight_only_matmul_ref(x, wq, sw)
+    ops.weight_only_matmul(x.cpu(), wq.cpu(), sw.cpu())
+    pools = [t.to(cuda) for t in (torch.zeros(3, 2, 8, 64, dtype=torch.int8),
+                                  torch.ones(3, 2, 1, 8),
+                                  torch.zeros(3, 2, 8, 64, dtype=torch.int8),
+                                  torch.ones(3, 2, 1, 8))]
+    pt = torch.tensor([[0, 1]], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([3], dtype=torch.int32, device=cuda)
+    q = torch.randn(1, 1, 2, 64, device=cuda)
+    ops.paged_int8_attention(q, *pools, pt, lengths)
+    ops.paged_int8_attention_ref(q, *pools, pt, lengths)
+    k8 = torch.zeros(1, 2, 1, 64, dtype=torch.int8, device=cuda)
+    s1 = torch.ones(1, 2, 1, device=cuda)
+    ops.paged_kv_scatter_decode(*pools, pt, lengths, k8, s1, k8, s1)
+    ops.paged_kv_scatter_decode_ref(*pools, pt, lengths, k8, s1, k8, s1)
+    counts = ops.launch_counts()
+    assert (counts["weight_only_matmul"], counts["paged_int8_attention"],
+            counts["paged_kv_scatter_decode"]) == (1, 1, 1)
