@@ -32,19 +32,36 @@ Phases (any failure exits non-zero and prints no result line):
               each new kernel; its kernels act on the 8 decode positions
               (the two attention faults move only those), so its runs must
               also pass the limit on the decode positions alone
-The line before the last is {"kernels": [...]}: each kernel's "launches"
-is its count summed over the two engine runs (phases 4 and 6), each driven
-with the counts at 0 and read just after ("launches_by_path"). The last
-line is {"ok": true, "device": {...}}.
+  8. int4     phase 4 for LlamaModel(llama2_7b, "dynamic_int4") (W4A8, the
+              two_level formulation, group 128): 129 rowquant, 225 w4a8,
+              32 / 32 dense scatter and attention per decode step, no
+              qmatmul; then phase 6 for "weight_only_int4" (the split
+              formulation): 225 wo4, 32 / 32 paged scatter and attention,
+              no rowquant, 3,584 prefix-hit tokens, no leaked page; then
+              phase 4 again for "dynamic_int4" with W4A8_FORMULATION=group
+              (225 w4a8_group per decode step)
+  9. int4 agreement  phases 5 and 7 for 2-layer full-width dynamic_int4
+              (dense; also once with the group formulation) and
+              weight_only_int4 (paged) models, each with a planted fault for
+              its int4 kernel
+Each phase prints its seconds, and the run its total.
+The line before the last is {"kernels": [...]}, one entry per kernel body:
+"launches" is its count summed over the five engine runs (phases 4, 6,
+8.1, 8.2, 8.3), each driven with the counts at 0 and read just after
+("launches_by_path"); wo4_legacy is on no engine path (a caller reaches it
+through the formulation argument of weight_only_int4_matmul only), so its
+count there is 0. The last line is {"ok": true, "device": {...}}.
 
-Tolerances. rowquant codes and scales, qmatmul outputs (f32 and bf16) and
-both decode scatters must equal their plain versions exactly. Attention,
-dense and paged (bf16 q and output, f32 arithmetic inside), is held to
-ATTN_TOL times the largest output: both round their f32 result to bf16
-once, after summing in different orders. The weight-only product is held
-to ``ops.weight_only_tolerance``: its products bf16 x int8 are exact, so
-two correct versions differ only by the order of the f32 sum (at most
-K * 2**-24 * sum_k |x * w| * s_w), then one ulp of the output type. The
+Tolerances. rowquant codes and scales, qmatmul outputs (f32 and bf16), both
+decode scatters and both W4A8 bodies (two_level, group) must equal their
+plain versions exactly. Attention, dense and paged (bf16 q and output, f32
+arithmetic inside), is held to ATTN_TOL times the largest output: both
+round their f32 result to bf16 once, after summing in different orders.
+The weight-only products, int8 and int4 (split, legacy), are held to
+``ops.weight_only_tolerance`` / ``ops.weight_only_int4_tolerance``: every
+product is the same in the two versions, which differ only by the order of
+their f32 sums (each within K * 2**-24 * sum_k |x * w| of the exact sum),
+then one ulp of the output type. The
 model agreement runs the same model twice, through the kernels and through
 the plain versions, so only the summation orders differ; but each dynamic
 linear turns any difference in its input into int8 codes that move by one
@@ -302,6 +319,114 @@ def check_weight_only(ops, gen, dev):
     return cases
 
 
+GROUP4 = 128  # int4 group of every Llama-2-7B projection (pick_int4_group)
+F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
+
+
+def _int4_weights(gen, dev, n, k, copies):
+    """``copies`` random packed int4 weights [N, K/2] (every code in [-8, 7])
+    with group scales [N, K/128]."""
+    return [(torch.randint(-128, 128, (n, k // 2), generator=gen, device=dev, dtype=torch.int8),
+             torch.rand(n, k // GROUP4, generator=gen, device=dev) * 2e-3 + 1e-4)
+            for _ in range(copies)]
+
+
+def check_wo4(ops, gen, dev, formulation):
+    """The wo4 body against its plain version, within
+    ``ops.weight_only_int4_tolerance``. Library yardstick: ``torch.matmul``
+    over a dequantized copy of W made beforehand (bf16 for split, whose x is
+    bf16; f32 for legacy, the same function)."""
+    from protoquant_tpu_torch.core import numerics
+
+    bf = torch.bfloat16
+    split = formulation == "split"
+    lib_dtype = bf if split else torch.float32
+    cases = []
+    for m in (4, 256):
+        for k, n in LINEAR_SHAPES:
+            wbytes = n * k // 2 + 4 * n * (k // GROUP4)
+            ws = _int4_weights(gen, dev, n, k, copies_for(wbytes))
+            x = torch.randn(m, k, generator=gen, device=dev)
+            x = x.to(bf) if split else x
+            err = 0.0
+            for out in (torch.float32, bf):
+                y = ops.weight_only_int4_matmul(x, *ws[0], GROUP4, None, out, formulation)
+                ref = ops.weight_only_int4_matmul_ref(x, *ws[0], GROUP4, None, out, formulation)
+                torch.cuda.synchronize()
+                diff = (y.float() - ref.float()).abs()
+                tol = ops.weight_only_int4_tolerance(x, *ws[0], GROUP4, ref, formulation)
+                if not bool((diff <= tol).all()):
+                    raise AssertionError(f"wo4 {formulation} M={m} K={k} N={n} {out}: "
+                                         f"max excess {(diff - tol).max().item()}")
+                err = max(err, diff.max().item())
+            b, kind = bound_ms(x.numel() * x.element_size() + wbytes + 2 * m * n,
+                               2 * m * n * k, BF16_FLOPS_PER_S if split else F32_FLOPS_PER_S)
+            wd = [numerics.dequantize_int4(p, sc, GROUP4).to(lib_dtype)
+                  for p, sc in ws[:copies_for(n * k * (2 if split else 4))]]
+            cases.append({
+                "shape": f"M={m} K={k} N={n} bf16 out", "max_abs_err": err,
+                "ms": bench([lambda w=w: ops.weight_only_int4_matmul(
+                    x, *w, GROUP4, None, bf, formulation) for w in ws]),
+                "plain_ms": bench([lambda w=w: ops.weight_only_int4_matmul_ref(
+                    x, *w, GROUP4, None, bf, formulation) for w in ws], iters=5),
+                "bound_ms": b, "bound_by": kind,
+                "library_ms": bench([lambda w=w: torch.matmul(x, w.t()) for w in wd])})
+            del ws, wd
+    return cases
+
+
+def check_w4a8(ops, gen, dev, formulation):
+    """The w4a8 body against its plain version, exactly. Library yardstick
+    for two_level: ``torch._int_mm`` (M padded to 32 rows) over the int8
+    requantized copy of W made beforehand, with the same epilogue, the same
+    function; group has none (no one PyTorch call scales per group)."""
+    from protoquant_tpu_torch.core import numerics
+
+    bf = torch.bfloat16
+    two_level = formulation == "two_level"
+    cases = []
+    for m in (4, 256):
+        for k, n in LINEAR_SHAPES:
+            wbytes = n * k // 2 + 4 * n * (k // GROUP4) + (4 * n if two_level else 0)
+            ws = _int4_weights(gen, dev, n, k, copies_for(wbytes))
+            tls = [ops.two_level_scales(sc) if two_level else None for _, sc in ws]
+            xq, sx = ops.rowquant_ref(torch.randn(m, k, generator=gen, device=dev))
+            for out in (torch.float32, bf):
+                y = ops.w4a8_matmul(xq, sx, *ws[0], GROUP4, None, out, formulation, tls[0])
+                ref = ops.w4a8_matmul_ref(xq, sx, *ws[0], GROUP4, None, out, formulation, tls[0])
+                torch.cuda.synchronize()
+                if not torch.equal(y, ref):
+                    err = (y.float() - ref.float()).abs().max().item()
+                    raise AssertionError(f"w4a8 {formulation} M={m} K={k} N={n} {out}: "
+                                         f"max abs err {err}")
+            b, kind = bound_ms(m * k + 4 * m + wbytes + 2 * m * n, 2 * m * n * k,
+                               INT8_OPS_PER_S)
+            library = None
+            if two_level:
+                xpad = torch.zeros(max(m, 32), k, dtype=torch.int8, device=dev)
+                xpad[:m] = xq
+                sx16 = (sx * 0.0625)[:, None]
+                w8s = []
+                for (p, _), (r16, scol) in list(zip(ws, tls))[:copies_for(n * k)]:
+                    q = numerics.unpack_int4(p, GROUP4).float().reshape(n, -1, GROUP4)
+                    w8s.append((torch.round(q * r16[:, :, None]).reshape(n, k).to(torch.int8),
+                                scol))
+                library = bench([lambda w8=w8, scol=scol: ((torch._int_mm(xpad, w8.t())[:m].float()
+                                                            * sx16) * scol).to(bf)
+                                 for w8, scol in w8s])
+                del w8s
+            cases.append({
+                "shape": f"M={m} K={k} N={n} bf16 out", "max_abs_err": 0.0,
+                "ms": bench([lambda w=w, tl=tl: ops.w4a8_matmul(
+                    xq, sx, *w, GROUP4, None, bf, formulation, tl) for w, tl in zip(ws, tls)]),
+                "plain_ms": bench([lambda w=w, tl=tl: ops.w4a8_matmul_ref(
+                    xq, sx, *w, GROUP4, None, bf, formulation, tl) for w, tl in zip(ws, tls)],
+                    iters=5),
+                "bound_ms": b, "bound_by": kind, "library_ms": library})
+            del ws, tls
+    return cases
+
+
 PAGE = 128
 
 
@@ -408,7 +533,33 @@ def check_paged_attention(ops, gen, dev):
     return cases
 
 
-# -- phases 4 to 7: the slices and the agreements ----------------------------
+# -- phases 4 to 9: the slices and the agreements ----------------------------
+
+
+def path_kernels(ops, mode: str) -> tuple:
+    """The kernel bodies a decode step of ``mode`` launches: the dense
+    cache for the dynamic modes, the paged pool for the weight-only ones
+    (whose prefill chunks also run the dense flash kernel)."""
+    gemm = {"dynamic": "qmatmul", "weight_only": "weight_only_matmul",
+            "weight_only_int4": "wo4_split",
+            "dynamic_int4": "w4a8_" + ops.resolve_w4a8_formulation()}[mode]
+    if mode in ("dynamic", "dynamic_int4"):
+        return ("rowquant", gemm, "kv_scatter_decode", "int8_kv_attention")
+    return (gemm, "paged_kv_scatter_decode", "paged_int8_attention", "int8_kv_attention")
+
+
+def decode_step_launches(ops, mode: str, layers: int) -> dict:
+    """Exact launches of one decode step: every kernel body of ops.KERNELS,
+    0 for those off the path."""
+    per_step = dict.fromkeys(ops.KERNELS, 0)
+    kernels = path_kernels(ops, mode)
+    if mode in ("dynamic", "dynamic_int4"):
+        per_step.update({"rowquant": 4 * layers + 1, kernels[1]: 7 * layers + 1,
+                         "kv_scatter_decode": layers, "int8_kv_attention": layers})
+    else:
+        per_step.update({kernels[0]: 7 * layers + 1, "paged_kv_scatter_decode": layers,
+                         "paged_int8_attention": layers})
+    return per_step
 
 
 def serve(engine, prompts, ops, per_step, first_alone: bool = False):
@@ -447,17 +598,32 @@ def serve(engine, prompts, ops, per_step, first_alone: bool = False):
     return [outs.get(r) for r in rids], prefill_ms, decode_ms, bad_steps
 
 
-def run_slice(ops, seed: int, dev):
-    from protoquant_tpu_torch import Engine, EngineConfig, LlamaModel, ModelConfig
+def _build_7b(mode: str, seed: int, dev):
+    from protoquant_tpu_torch import LlamaModel, ModelConfig
 
     cfg = ModelConfig.llama2_7b()
     t0 = time.perf_counter()
-    model = LlamaModel(cfg, mode="dynamic", dtype=torch.bfloat16, device=dev)
+    model = LlamaModel(cfg, mode=mode, dtype=torch.bfloat16, device=dev)
     model.init_random_(seed)
     torch.cuda.synchronize()
-    log(f"model: Llama-2-7B dynamic int8, {cfg.num_hidden_layers} layers, "
-        f"built in {time.perf_counter() - t0:.1f} s, "
+    log(f"model: Llama-2-7B {mode}, {cfg.num_hidden_layers} layers, built in "
+        f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return cfg, model
+
+
+def run_slice(ops, seed: int, dev, mode: str = "dynamic", formulation: str | None = None):
+    """Phases 4, 8.1 and 8.3: Llama-2-7B in a dynamic mode (int8 or int4
+    weights) on the dense cache, 6 requests. ``formulation``: the W4A8
+    formulation of a dynamic_int4 run (default: as resolved)."""
+    with w4a8_formulation(ops, formulation):
+        return _run_slice(ops, seed, dev, mode)
+
+
+def _run_slice(ops, seed: int, dev, mode: str):
+    from protoquant_tpu_torch import Engine, EngineConfig
+
+    cfg, model = _build_7b(mode, seed, dev)
     engine = Engine(model, EngineConfig(max_batch_size=4, max_seq_len=1024,
                                         prefill_chunk=256, max_new_tokens=32))
     gen = torch.Generator().manual_seed(seed)
@@ -465,11 +631,7 @@ def run_slice(ops, seed: int, dev):
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in prompt_lens]
 
-    per_step = dict.fromkeys(ops.KERNELS, 0)
-    per_step.update({"rowquant": 4 * cfg.num_hidden_layers + 1,
-                     "qmatmul": 7 * cfg.num_hidden_layers + 1,
-                     "kv_scatter_decode": cfg.num_hidden_layers,
-                     "int8_kv_attention": cfg.num_hidden_layers})
+    per_step = decode_step_launches(ops, mode, cfg.num_hidden_layers)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -480,16 +642,19 @@ def run_slice(ops, seed: int, dev):
     peak = torch.cuda.max_memory_allocated()
 
     generated = sum(len(o or []) for o in outs)
-    log(f"slice: {len(prompts)} requests, prompts {prompt_lens}, {generated} tokens "
+    path = path_kernels(ops, mode)
+    label = f"{mode} ({path[1]})"
+    log(f"slice {label}: {len(prompts)} requests, prompts {prompt_lens}, {generated} tokens "
         f"in {wall:.3f} s = {generated / wall:.1f} tok/s; "
         f"{len(prefill_ms)} steps with a prefill chunk (mean "
         f"{sum(prefill_ms) / max(1, len(prefill_ms)):.3f} ms), {len(decode_ms)} "
-        f"decode steps (mean {sum(decode_ms) / max(1, len(decode_ms)):.3f} ms, "
-        f"min {min(decode_ms, default=0):.3f} ms); peak memory "
-        f"{peak / 2**30:.2f} GiB")
-    log(f"slice launches: {json.dumps(launches)}; per decode step {json.dumps(per_step)}")
-    if any(launches[k] <= 0 for k in DENSE_KERNELS):
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+        f"decode steps (median "
+        f"{sorted(decode_ms)[len(decode_ms) // 2] if decode_ms else 0:.3f} ms, "
+        f"min {min(decode_ms, default=0):.3f} ms); peak memory {peak / 2**30:.2f} GiB")
+    log(f"slice {label} launches: {json.dumps(launches)}; per decode step "
+        f"{json.dumps(per_step)}")
+    if any(launches[k] <= 0 for k in path):
+        raise AssertionError(f"a kernel of the {label} path never launched: {launches}")
     if bad_steps or not decode_ms:
         raise AssertionError(f"decode-step launches {bad_steps[:3]} != {per_step}")
     for p, out in zip(prompts, outs):
@@ -547,20 +712,13 @@ SYSTEM_TOKENS = 512
 SUFFIXES = (40, 300, 7, 130, 220, 65, 410, 90)
 
 
-def run_paged_slice(ops, seed: int, dev):
-    """Phase 6: Llama-2-7B weight_only over the paged pool with prefix
-    caching, 8 requests sharing one system prompt."""
-    from protoquant_tpu_torch import Engine, EngineConfig, LlamaModel, ModelConfig
+def run_paged_slice(ops, seed: int, dev, mode: str = "weight_only"):
+    """Phases 6 and 8.2: Llama-2-7B in a weight-only mode (int8 or int4
+    weights) over the paged pool with prefix caching, 8 requests sharing
+    one system prompt."""
+    from protoquant_tpu_torch import Engine, EngineConfig
 
-    cfg = ModelConfig.llama2_7b()
-    L = cfg.num_hidden_layers
-    t0 = time.perf_counter()
-    model = LlamaModel(cfg, mode="weight_only", dtype=torch.bfloat16, device=dev)
-    model.init_random_(seed)
-    torch.cuda.synchronize()
-    log(f"model: Llama-2-7B weight_only int8, {L} layers, built in "
-        f"{time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    cfg, model = _build_7b(mode, seed, dev)
     gen = torch.Generator().manual_seed(seed + 2)
     system = torch.randint(1, cfg.vocab_size, (SYSTEM_TOKENS,), generator=gen).tolist()
     prompts = [system + torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
@@ -571,9 +729,7 @@ def run_paged_slice(ops, seed: int, dev):
             max_batch_size=4, max_seq_len=1024, page_size=PAGE, prefill_chunk=256,
             max_new_tokens=32, prefix_cache=prefix_cache), kv_layout="paged")
 
-    per_step = dict.fromkeys(ops.KERNELS, 0)
-    per_step.update({"weight_only_matmul": 7 * L + 1, "paged_kv_scatter_decode": L,
-                     "paged_int8_attention": L})
+    per_step = decode_step_launches(ops, mode, cfg.num_hidden_layers)
     eng = engine(True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -587,20 +743,20 @@ def run_paged_slice(ops, seed: int, dev):
     m = eng.metrics()
 
     generated = sum(len(o or []) for o in outs)
-    log(f"paged slice: {len(prompts)} requests, prompts {SYSTEM_TOKENS} + {list(SUFFIXES)}, "
-        f"{generated} tokens in {wall:.3f} s = {generated / wall:.1f} tok/s; "
-        f"{len(prefill_ms)} steps with a prefill chunk (mean "
+    log(f"paged slice {mode}: {len(prompts)} requests, prompts {SYSTEM_TOKENS} + "
+        f"{list(SUFFIXES)}, {generated} tokens in {wall:.3f} s = {generated / wall:.1f} "
+        f"tok/s; {len(prefill_ms)} steps with a prefill chunk (mean "
         f"{sum(prefill_ms) / max(1, len(prefill_ms)):.3f} ms), {len(decode_ms)} decode "
         f"steps (median {sorted(decode_ms)[len(decode_ms) // 2] if decode_ms else 0:.3f} "
         f"ms, min {min(decode_ms, default=0):.3f} ms); peak memory {peak / 2**30:.2f} GiB")
-    log(f"paged slice metrics: {json.dumps(m)}")
-    log(f"paged slice launches: {json.dumps(launches)}; per decode step "
+    log(f"paged slice {mode} metrics: {json.dumps(m)}")
+    log(f"paged slice {mode} launches: {json.dumps(launches)}; per decode step "
         f"{json.dumps(per_step)}")
     want_hits = (len(prompts) - 1) * SYSTEM_TOKENS
     if m["prefix_hit_tokens"] != want_hits:
         raise AssertionError(f"prefix_hit_tokens {m['prefix_hit_tokens']} != {want_hits}")
-    if any(launches[k] <= 0 for k in PAGED_KERNELS):
-        raise AssertionError(f"a kernel of the paged path never launched: {launches}")
+    if any(launches[k] <= 0 for k in path_kernels(ops, mode)):
+        raise AssertionError(f"a kernel of the {mode} paged path never launched: {launches}")
     if bad_steps or not decode_ms:
         raise AssertionError(f"paged decode-step launches {bad_steps[:3]} != {per_step}")
     for p, out in zip(prompts, outs):
@@ -612,7 +768,7 @@ def run_paged_slice(ops, seed: int, dev):
     # a reading, not a gate: the same traffic recomputing every prefill
     ref_outs = serve(engine(False), prompts, ops, per_step, first_alone=True)[0]
     same = sum(a == b for o, r in zip(outs, ref_outs) for a, b in zip(o, r))
-    log(f"paged slice: {same} of {generated} tokens equal with prefix_cache=False "
+    log(f"paged slice {mode}: {same} of {generated} tokens equal with prefix_cache=False "
         f"({same / generated:.4f})")
     stats = {"tokens_per_s": generated / wall, "wall_s": wall,
              "prefill_step_ms": prefill_ms, "decode_step_ms": decode_ms,
@@ -621,6 +777,19 @@ def run_paged_slice(ops, seed: int, dev):
     del eng, model
     torch.cuda.empty_cache()
     return launches, stats
+
+
+@contextlib.contextmanager
+def w4a8_formulation(ops, formulation: str | None):
+    """Within the block, the W4A8_FORMULATION knob reads ``formulation``
+    (None: as resolved at import)."""
+    saved = ops.W4A8_FORMULATION
+    try:
+        if formulation is not None:
+            ops.W4A8_FORMULATION = formulation
+        yield
+    finally:
+        ops.W4A8_FORMULATION = saved
 
 
 @contextlib.contextmanager
@@ -635,6 +804,8 @@ def plain_versions(**faulty):
 
     swaps = [("rowquant", ops, ops.rowquant_ref), ("qmatmul", ops, ops.qmatmul_ref),
              ("weight_only_matmul", ops, ops.weight_only_matmul_ref),
+             ("weight_only_int4_matmul", ops, ops.weight_only_int4_matmul_ref),
+             ("w4a8_matmul", ops, ops.w4a8_matmul_ref),
              ("kv_scatter_decode", kv_cache, ops.kv_scatter_decode_ref),
              ("int8_kv_attention", kv_cache, ops.int8_kv_attention_ref),
              ("int8_kv_attention", paged_kv, ops.int8_kv_attention_ref),
@@ -650,55 +821,70 @@ def plain_versions(**faulty):
             setattr(mod, name, orig)
 
 
-def planted_faults(ops):
+def _swap_nibbles(packed):
+    """Each byte's two nibbles exchanged: the low and high halves of every
+    group trade places."""
+    u = packed.to(torch.int32) & 0xFF
+    return (((u & 0x0F) << 4) | (u >> 4)).to(torch.uint8).view(torch.int8)
+
+
+def planted_faults(ops, mode: str = "dynamic"):
     """Plain versions with one small fault each, standing in for a wrong
-    kernel: the agreement limits must reject every one."""
+    kernel: the agreement limits must reject every one. One fault for each
+    kernel that a mode's agreement brought in."""
+    if mode == "dynamic":
+        return {
+            "qmatmul epilogue reads s_w[n-1]": {
+                "qmatmul": lambda xq, w, sx, sw, *a, **k: ops.qmatmul_ref(
+                    xq, w, sx, sw.roll(1), *a, **k)},
+            "attention mask one key short": {
+                "int8_kv_attention": lambda q, kq, ks, vq, vs, lengths:
+                    ops.int8_kv_attention_ref(q, kq, ks, vq, vs, lengths - 1)},
+        }
+    if mode == "weight_only":
+        return {
+            "weight_only_matmul epilogue reads s_w[n-1]": {
+                "weight_only_matmul": lambda x, w, sw, *a, **k: ops.weight_only_matmul_ref(
+                    x, w, sw.roll(1), *a, **k)},
+            "paged attention one key short": {
+                "paged_int8_attention": lambda q, kq, ks, vq, vs, pt, lengths:
+                    ops.paged_int8_attention_ref(q, kq, ks, vq, vs, pt, lengths - 1)},
+            "paged scatter writes every row to the trash page": {
+                "paged_kv_scatter_decode": lambda kq, ks, vq, vs, pt, *a:
+                    ops.paged_kv_scatter_decode_ref(kq, ks, vq, vs, torch.full_like(pt, -1),
+                                                    *a)},
+        }
+    if mode == "dynamic_int4":
+        return {
+            "w4a8 reads scale column n-1": {
+                "w4a8_matmul": lambda xq, sx, p, sc, g, *a, **k: ops.w4a8_matmul_ref(
+                    xq, sx, p, sc.roll(1, 0), g, *a, **dict(k, two_level=None))},
+        }
     return {
-        "qmatmul epilogue reads s_w[n-1]": {
-            "qmatmul": lambda xq, w, sx, sw, *a, **k: ops.qmatmul_ref(
-                xq, w, sx, sw.roll(1), *a, **k)},
-        "attention mask one key short": {
-            "int8_kv_attention": lambda q, kq, ks, vq, vs, lengths: ops.int8_kv_attention_ref(
-                q, kq, ks, vq, vs, lengths - 1)},
+        "wo4 swaps the low and high nibble halves": {
+            "weight_only_int4_matmul": lambda x, p, *a, **k: ops.weight_only_int4_matmul_ref(
+                x, _swap_nibbles(p), *a, **k)},
     }
 
 
-def paged_planted_faults(ops):
-    """The paged path's planted faults, one for each of its new kernels."""
-    return {
-        "weight_only_matmul epilogue reads s_w[n-1]": {
-            "weight_only_matmul": lambda x, w, sw, *a, **k: ops.weight_only_matmul_ref(
-                x, w, sw.roll(1), *a, **k)},
-        "paged attention one key short": {
-            "paged_int8_attention": lambda q, kq, ks, vq, vs, pt, lengths:
-                ops.paged_int8_attention_ref(q, kq, ks, vq, vs, pt, lengths - 1)},
-        "paged scatter writes every row to the trash page": {
-            "paged_kv_scatter_decode": lambda kq, ks, vq, vs, pt, *a:
-                ops.paged_kv_scatter_decode_ref(kq, ks, vq, vs, torch.full_like(pt, -1), *a)},
-    }
-
-
-DENSE_KERNELS = ("rowquant", "qmatmul", "kv_scatter_decode", "int8_kv_attention")
-PAGED_KERNELS = ("weight_only_matmul", "paged_kv_scatter_decode", "paged_int8_attention",
-                 "int8_kv_attention")
-
-
-def run_agreement(ops, seed: int, dev, dtype, paged: bool = False):
+def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
+                  formulation: str | None = None):
     """2 layers at full width on the card, run on the same prompt through
     the kernels, through their plain versions, and through the plain
     versions with each planted fault. A prefill of 48 tokens into 2 slots,
     then 4 greedy decode steps (the decode scatter, T = 1 attention); every
     run decodes the kernel run's tokens, so all see the same inputs.
 
-    ``paged``: a weight_only model over a paged pool instead of a dynamic
-    model over the dense cache. Its pages hold 16 tokens, so each slot's 52
-    tokens span 4 pages, mapped in a shuffled order."""
+    The dynamic modes run over the dense cache, the weight-only modes over a
+    paged pool of 16-token pages, so each slot's 52 tokens span 4 pages,
+    mapped in a shuffled order. ``formulation``: the W4A8 formulation of a
+    dynamic_int4 run (default: ops.resolve_w4a8_formulation())."""
     from protoquant_tpu_torch import LlamaModel, ModelConfig
     from protoquant_tpu_torch.engine import PagedInt8KVCache
     from protoquant_tpu_torch.models import init_cache
 
+    paged = mode.startswith("weight_only")
     cfg = ModelConfig(num_hidden_layers=2)
-    mode = "weight_only" if paged else "dynamic"
     model = LlamaModel(cfg, mode=mode, dtype=dtype, device=dev).init_random_(seed + 1)
     gen = torch.Generator().manual_seed(seed + 1)
     prompt = torch.randint(1, cfg.vocab_size, (2, 48), generator=gen).to(dev)
@@ -728,7 +914,7 @@ def run_agreement(ops, seed: int, dev, dtype, paged: bool = False):
     def compare(out, ref):
         """Readings over all positions, and the relative L2 error over the
         decode positions alone (8 of the 104), where the decode scatter and
-        T = 1 attention act. The paged path's two new attention kernels act
+        T = 1 attention act. The paged path's two attention kernels act
         there only, so its runs must pass the limit there too."""
         a = torch.cat([x.reshape(-1, cfg.vocab_size) for x in out]).float()
         b = torch.cat([x.reshape(-1, cfg.vocab_size) for x in ref]).float()
@@ -744,35 +930,93 @@ def run_agreement(ops, seed: int, dev, dtype, paged: bool = False):
                        and (not paged or got["decode_rel_l2"] <= AGREE_REL))
         return got
 
-    ops.reset_launch_counts()
-    kern, toks = run()
-    launched = ops.launch_counts()
-    ops.reset_launch_counts()
-    with plain_versions():
-        plain, _ = run(toks)
-    readings = {"kernels": compare(kern, plain)}
-    faults = paged_planted_faults(ops) if paged else planted_faults(ops)
-    for fault, swaps in faults.items():
-        with plain_versions(**swaps):
-            readings[fault] = compare(run(toks)[0], plain)
-    path = PAGED_KERNELS if paged else DENSE_KERNELS
+    with w4a8_formulation(ops, formulation):
+        ops.reset_launch_counts()
+        kern, toks = run()
+        launched = ops.launch_counts()
+        ops.reset_launch_counts()
+        with plain_versions():
+            plain, _ = run(toks)
+        readings = {"kernels": compare(kern, plain)}
+        for fault, swaps in planted_faults(ops, mode).items():
+            with plain_versions(**swaps):
+                readings[fault] = compare(run(toks)[0], plain)
+        path = path_kernels(ops, mode)
     if any(ops.launch_counts().values()) or not all(launched[k] for k in path) or any(
             launched[k] for k in launched if k not in path):
         raise AssertionError(f"agreement: kernel run launched {launched}, plain runs "
                              f"{ops.launch_counts()}")
     label = "paged agreement" if paged else "agreement"
+    gemm = path[1] if path[0] == "rowquant" else path[0]
     for name, got in readings.items():
-        log(f"{label} {str(dtype).replace('torch.', '')} (2 layers, full width, {mode}, "
+        log(f"{label} {str(dtype).replace('torch.', '')} (2 layers, full width, {mode}, {gemm}, "
             f"{name} vs plain on the card): {json.dumps(got)}; limits rel_l2 <= "
             f"{AGREE_REL}, argmax_agree >= {AGREE_ARGMAX}")
     if not readings.pop("kernels")["pass"]:
-        raise AssertionError(f"{label}: kernel and plain logits disagree")
+        raise AssertionError(f"{label} {mode}: kernel and plain logits disagree")
     missed = [name for name, got in readings.items() if got["pass"]]
     if missed:
-        raise AssertionError(f"{label}: the limits pass planted fault(s) {missed}")
+        raise AssertionError(f"{label} {mode}: the limits pass planted fault(s) {missed}")
 
 
 # -- main ----------------------------------------------------------------------
+
+KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
+    "rowquant": ("protoquant_tpu_torch/csrc/rowquant.cu",
+                 "protoquant_tpu/ops/rowquant.py:23", "M=4 K=4096 bf16"),
+    "qmatmul": ("protoquant_tpu_torch/csrc/qmatmul.cu",
+                "protoquant_tpu/ops/qmatmul.py:38", "M=4 K=4096 N=11008 bf16 out"),
+    "kv_scatter_decode": ("protoquant_tpu_torch/csrc/kv_scatter.cu",
+                          "protoquant_tpu/ops/kv_scatter.py:37", None),
+    "int8_kv_attention": ("protoquant_tpu_torch/csrc/attention.cu",
+                          "protoquant_tpu/ops/attention.py:68", "decode"),
+    "weight_only_matmul": ("protoquant_tpu_torch/csrc/wo_matmul.cu",
+                           "protoquant_tpu/ops/wo_matmul.py:24", "M=4 K=4096 N=11008 bf16 out"),
+    "paged_kv_scatter_decode": ("protoquant_tpu_torch/csrc/kv_scatter.cu",
+                                "protoquant_tpu/ops/kv_scatter.py:118", None),
+    "paged_int8_attention": ("protoquant_tpu_torch/csrc/paged_attention.cu",
+                             "protoquant_tpu/ops/paged_attention.py:28",
+                             "decode B=4 H=32 KV=32 G=1"),
+    "wo4_split": ("protoquant_tpu_torch/csrc/wo4_matmul.cu",
+                  "protoquant_tpu/ops/wo4_matmul.py:64", "M=4 K=4096 N=11008 bf16 out"),
+    "wo4_legacy": ("protoquant_tpu_torch/csrc/wo4_matmul.cu",
+                   "protoquant_tpu/ops/wo4_matmul.py:41", "M=4 K=4096 N=11008 bf16 out"),
+    "w4a8_two_level": ("protoquant_tpu_torch/csrc/w4a8_matmul.cu",
+                       "protoquant_tpu/ops/w4a8_matmul.py:70", "M=4 K=4096 N=11008 bf16 out"),
+    "w4a8_group": ("protoquant_tpu_torch/csrc/w4a8_matmul.cu",
+                   "protoquant_tpu/ops/w4a8_matmul.py:38", "M=4 K=4096 N=11008 bf16 out"),
+}
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def check_kernels(ops, gen, dev) -> dict:
+    """Phase 3: every kernel body against its plain version, timed."""
+    results = {}
+    checks = (("rowquant", check_rowquant), ("qmatmul", check_qmatmul),
+              ("kv_scatter_decode", check_scatter),
+              ("int8_kv_attention", check_attention),
+              ("weight_only_matmul", check_weight_only),
+              ("paged_kv_scatter_decode", check_paged_scatter),
+              ("paged_int8_attention", check_paged_attention),
+              ("wo4_split", lambda *a: check_wo4(*a, "split")),
+              ("wo4_legacy", lambda *a: check_wo4(*a, "legacy")),
+              ("w4a8_two_level", lambda *a: check_w4a8(*a, "two_level")),
+              ("w4a8_group", lambda *a: check_w4a8(*a, "group")))
+    for name, fn in checks:
+        results[name] = fn(ops, gen, dev)
+        for c in results[name]:
+            log(f"kernel {name} {c['shape']}: {c['ms']:.4f} ms, plain "
+                f"{c['plain_ms']:.4f} ms, library {c['library_ms']}, bound "
+                f"{c['bound_ms']:.4f} ms ({c['bound_by']}), err {c['max_abs_err']}")
+        torch.cuda.empty_cache()
+    return results
 
 
 def main() -> int:
@@ -807,54 +1051,40 @@ def main() -> int:
 
         t0 = time.perf_counter()
         _build.lib(verbose=True)
-        log(f"build: {time.perf_counter() - t0:.1f} s "
+        log(f"phase 2 build: {time.perf_counter() - t0:.1f} s "
             f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0:.1f} s)")
 
         gen = torch.Generator(device=dev).manual_seed(args.seed)
-        results = {}
-        for name, fn in (("rowquant", check_rowquant), ("qmatmul", check_qmatmul),
-                         ("kv_scatter_decode", check_scatter),
-                         ("int8_kv_attention", check_attention),
-                         ("weight_only_matmul", check_weight_only),
-                         ("paged_kv_scatter_decode", check_paged_scatter),
-                         ("paged_int8_attention", check_paged_attention)):
-            results[name] = fn(ops, gen, dev)
-            for c in results[name]:
-                log(f"kernel {name} {c['shape']}: {c['ms']:.4f} ms, plain "
-                    f"{c['plain_ms']:.4f} ms, library {c['library_ms']}, bound "
-                    f"{c['bound_ms']:.4f} ms ({c['bound_by']}), err {c['max_abs_err']}")
-            torch.cuda.empty_cache()
+        results = timed("3 kernels", check_kernels, ops, gen, dev)
 
         # each main path is driven with the counts at 0 and read just after
-        by_path = {}
-        by_path["dense"], stats = run_slice(ops, args.seed, dev)
-        run_agreement(ops, args.seed, dev, torch.float32)
-        run_agreement(ops, args.seed, dev, torch.bfloat16)
-        by_path["paged"], paged_stats = run_paged_slice(ops, args.seed, dev)
-        run_agreement(ops, args.seed, dev, torch.float32, paged=True)
-        run_agreement(ops, args.seed, dev, torch.bfloat16, paged=True)
+        by_path, stats = {}, {}
+        by_path["dense"], stats["dense dynamic"] = timed(
+            "4 slice", run_slice, ops, args.seed, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            timed(f"5 agreement {dtype}", run_agreement, ops, args.seed, dev, dtype)
+        by_path["paged"], stats["paged weight_only"] = timed(
+            "6 paged slice", run_paged_slice, ops, args.seed, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            timed(f"7 paged agreement {dtype}", run_agreement, ops, args.seed, dev, dtype,
+                  "weight_only")
+        by_path["dense_int4"], stats["dense dynamic_int4"] = timed(
+            "8.1 int4 slice", run_slice, ops, args.seed, dev, "dynamic_int4")
+        by_path["paged_int4"], stats["paged weight_only_int4"] = timed(
+            "8.2 int4 paged slice", run_paged_slice, ops, args.seed, dev, "weight_only_int4")
+        by_path["dense_int4_group"], stats["dense dynamic_int4 group"] = timed(
+            "8.3 int4 slice, group", run_slice, ops, args.seed, dev, "dynamic_int4", "group")
+        for mode, dtype, form in (("dynamic_int4", torch.float32, None),
+                                  ("dynamic_int4", torch.bfloat16, None),
+                                  ("dynamic_int4", torch.bfloat16, "group"),
+                                  ("weight_only_int4", torch.float32, None),
+                                  ("weight_only_int4", torch.bfloat16, None)):
+            timed(f"9 int4 agreement {mode} {dtype} {form or ''}", run_agreement, ops,
+                  args.seed, dev, dtype, mode, form)
 
-        meta = {
-            "rowquant": ("protoquant_tpu_torch/csrc/rowquant.cu",
-                         "protoquant_tpu/ops/rowquant.py:23", "M=4 K=4096 bf16"),
-            "qmatmul": ("protoquant_tpu_torch/csrc/qmatmul.cu",
-                        "protoquant_tpu/ops/qmatmul.py:38", "M=4 K=4096 N=11008 bf16 out"),
-            "kv_scatter_decode": ("protoquant_tpu_torch/csrc/kv_scatter.cu",
-                                  "protoquant_tpu/ops/kv_scatter.py:37", None),
-            "int8_kv_attention": ("protoquant_tpu_torch/csrc/attention.cu",
-                                  "protoquant_tpu/ops/attention.py:68", "decode"),
-            "weight_only_matmul": ("protoquant_tpu_torch/csrc/wo_matmul.cu",
-                                   "protoquant_tpu/ops/wo_matmul.py:24",
-                                   "M=4 K=4096 N=11008 bf16 out"),
-            "paged_kv_scatter_decode": ("protoquant_tpu_torch/csrc/kv_scatter.cu",
-                                        "protoquant_tpu/ops/kv_scatter.py:118", None),
-            "paged_int8_attention": ("protoquant_tpu_torch/csrc/paged_attention.cu",
-                                     "protoquant_tpu/ops/paged_attention.py:28",
-                                     "decode B=4 H=32 KV=32 G=1"),
-        }
         kernels = []
         for name, cases in results.items():
-            source, replaces, main_shape = meta[name]
+            source, replaces, main_shape = KERNEL_META[name]
             head = next((c for c in cases if main_shape is None
                          or c["shape"].startswith(main_shape)), cases[0])
             kernels.append({
@@ -877,17 +1107,21 @@ def main() -> int:
                     + by[(name, "M=4 K=11008 N=4096 bf16 out")] * L
                     + by[(name, "M=4 K=4096 N=32000 bf16 out")])
 
-        est = (by[("rowquant", "M=4 K=4096 bf16")] * (3 * L + 1)
-               + by[("rowquant", "M=4 K=11008 bf16")] * L + linears("qmatmul")
-               + results["kv_scatter_decode"][0]["ms"] * L
-               + results["int8_kv_attention"][0]["ms"] * L)
-        paged_est = (linears("weight_only_matmul")
-                     + results["paged_kv_scatter_decode"][0]["ms"] * L
-                     + results["paged_int8_attention"][0]["ms"] * L)
-        for label, e, st in (("dense dynamic", est, stats), ("paged weight_only", paged_est,
-                                                              paged_stats)):
-            steps = sorted(st["decode_step_ms"])
-            log(f"decode step, {label}: kernels at the measured shapes sum to {e:.3f} ms; "
+        rowquant = (by[("rowquant", "M=4 K=4096 bf16")] * (3 * L + 1)
+                    + by[("rowquant", "M=4 K=11008 bf16")] * L)
+        dense = (results["kv_scatter_decode"][0]["ms"] * L
+                 + results["int8_kv_attention"][0]["ms"] * L)
+        paged = (results["paged_kv_scatter_decode"][0]["ms"] * L
+                 + results["paged_int8_attention"][0]["ms"] * L)
+        for label, est in (("dense dynamic", rowquant + linears("qmatmul") + dense),
+                           ("paged weight_only", linears("weight_only_matmul") + paged),
+                           ("dense dynamic_int4",
+                            rowquant + linears("w4a8_" + ops.resolve_w4a8_formulation()) + dense),
+                           ("paged weight_only_int4", linears("wo4_split") + paged),
+                           ("dense dynamic_int4 group",
+                            rowquant + linears("w4a8_group") + dense)):
+            steps = sorted(stats[label]["decode_step_ms"])
+            log(f"decode step, {label}: kernels at the measured shapes sum to {est:.3f} ms; "
                 f"engine decode step median {steps[len(steps) // 2]:.3f} ms")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": kernels}), flush=True)

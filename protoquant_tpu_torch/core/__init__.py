@@ -1,6 +1,6 @@
-"""The numerics contract and the quantized-tensor container."""
+"""The numerics contract and the quantized-tensor containers."""
 
 from . import numerics
-from .qtensor import QTensor
+from .qtensor import QTensor, QTensor4
 
-__all__ = ["numerics", "QTensor"]
+__all__ = ["numerics", "QTensor", "QTensor4"]

@@ -12,6 +12,8 @@ bit on the integer path (codes, scales, int32 sums) and in the f32 epilogue.
   * GEMM and epilogue:
       acc[m,n] = sum_k xq[m,k] * Wq[k,n]          (exact integer sum)
       y[m,n]   = (acc[m,n] * s_x[m]) * s_w[n] + b[n]   (f32, in that order)
+  * int4 weights (below): codes in [-7, 7] with one scale per (output
+    channel, K-group), packed two per byte.
 
 Quantization divides (``x / s``, IEEE round-to-nearest), never multiplies by
 a reciprocal; rounding is half-to-even (``torch.round``).
@@ -96,3 +98,117 @@ def dynamic_qlinear_ref(x: torch.Tensor, wq_nk: torch.Tensor, s_w: torch.Tensor,
     """rowquant(x) -> integer GEMM -> epilogue, all plain PyTorch."""
     xq, s_x = quantize_rowwise(x)
     return qmatmul_ref(xq, wq_nk, s_x, s_w, bias, out_dtype or x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# int4, group-wise: symmetric 4-bit weights with one f32 scale per (output
+# channel, K-group). The port keeps a weight [N, K] (K contiguous), so every
+# function here works along the last axis: codes [N, K], scales [N, K/g],
+# packed bytes [N, K/2]. They are the JAX package's [K, N] functions,
+# transposed, and give the same codes and scales bit for bit.
+# ---------------------------------------------------------------------------
+
+QMAX4 = 7
+# The "mse" clip's candidate ratios r of the group amax (r / 7 is the step).
+INT4_CLIP_RATIOS = tuple(0.5 + 0.025 * i for i in range(21))
+
+
+def quantize_groupwise_int4(w: torch.Tensor, group: int = 128, clip: str = "mse"):
+    """[N, K] -> (q int8 [N, K] in [-7, 7], scales f32 [N, K/group]).
+
+    ``clip="amax"``: the step is the group's amax / 7 (nothing clips).
+    ``clip="mse"``: 21 candidate steps amax * (r / 7), r = 0.5 + 0.025 i,
+    each floored at SCALE_EPS; a candidate replaces the best so far only if
+    its squared reconstruction error, summed over the group, is strictly
+    smaller, so ties keep the smaller r.
+    """
+    n, k = w.shape
+    if k % group:
+        raise ValueError(f"K={k} not divisible by group={group}")
+    wg = w.float().reshape(n, k // group, group)
+    amax = wg.abs().amax(dim=2)  # [N, G]
+    if clip == "mse":
+        best_err = best_scale = None
+        for r in INT4_CLIP_RATIOS:
+            # r / 7 is a Python double rounded once to f32, as JAX's weak
+            # typing rounds it, then one f32 multiply
+            s = torch.clamp_min(amax * amax.new_full((), r / QMAX4), SCALE_EPS)
+            qc = torch.round(wg / s[:, :, None]).clamp(-QMAX4, QMAX4)
+            err = ((qc * s[:, :, None] - wg) ** 2).sum(dim=2)
+            if best_err is None:
+                best_err, best_scale = err, s
+            else:
+                take = err < best_err
+                best_err = torch.where(take, err, best_err)
+                best_scale = torch.where(take, s, best_scale)
+        scale = best_scale
+    elif clip == "amax":
+        scale = torch.clamp_min(amax / amax.new_full((), float(QMAX4)), SCALE_EPS)
+    else:
+        raise ValueError(f"unknown int4 clip mode {clip!r}")
+    q = torch.round(wg / scale[:, :, None]).clamp(-QMAX4, QMAX4)
+    return q.reshape(n, k).to(torch.int8), scale
+
+
+def pack_int4(q: torch.Tensor, group: int | None = None) -> torch.Tensor:
+    """Two int4 codes per byte along the last axis: [N, K] -> int8 [N, K/2].
+
+    Packing is group-local: within each K-group of ``group`` codes (default
+    all of K), byte j holds k = j in its low nibble and k = j + group/2 in
+    its high nibble.
+    """
+    n, k = q.shape
+    g = group or k
+    if k % g or g % 2:
+        raise ValueError(f"K={k} must divide into even groups of {g}")
+    qg = q.reshape(n, k // g, g).to(torch.int32)
+    low = qg[:, :, : g // 2] & 0xF
+    high = (qg[:, :, g // 2:] & 0xF) << 4
+    return (low | high).to(torch.uint8).view(torch.int8).reshape(n, k // 2)
+
+
+def unpack_int4(packed: torch.Tensor, group: int | None = None) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: int8 [N, K/2] -> int8 [N, K] in [-8, 7]."""
+    n, k2 = packed.shape
+    g = group or 2 * k2
+    u = packed.to(torch.int32).reshape(n, 2 * k2 // g, g // 2)
+    low = (u << 28) >> 28  # sign-extend the low nibble
+    high = (u << 24) >> 28
+    return torch.cat([low, high], dim=2).reshape(n, 2 * k2).to(torch.int8)
+
+
+def dequantize_int4(packed: torch.Tensor, scales: torch.Tensor, group: int) -> torch.Tensor:
+    """Codes times their group's scale, f32 [N, K]."""
+    q = unpack_int4(packed, group)
+    n, k = q.shape
+    return (q.float().reshape(n, k // group, group) * scales[:, :, None]).reshape(n, k)
+
+
+def weight_only_int4_linear_ref(x, packed, scales, group, bias=None, out_dtype=None):
+    """Dequantize the int4 weight to f32, then one f32 product:
+    y = x @ (q * s)^T + bias. ``packed`` [N, K/2], ``scales`` [N, K/g]."""
+    out_dtype = out_dtype or x.dtype
+    w = dequantize_int4(packed, scales, group)
+    y = x.float() @ w.t()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype)
+
+
+def dynamic_int4_linear_ref(x, packed, scales, group, bias=None, out_dtype=None):
+    """W4A8: per-row int8 activations times int4 weights, an exact integer
+    dot per group, f32 scale after the dot:
+    y[m, n] = s_x[m] * sum_g s_w[n, g] * (xq[m, g] . q[n, g]) + bias."""
+    out_dtype = out_dtype or x.dtype
+    xq, s_x = quantize_rowwise(x)
+    q = unpack_int4(packed, group)
+    n, k = q.shape
+    m = xq.numel() // k
+    acc = torch.einsum("mgk,ngk->mgn",
+                       xq.reshape(m, k // group, group).to(torch.float64),
+                       q.reshape(n, k // group, group).to(torch.float64))
+    y = (acc.float() * scales.t()[None]).sum(dim=1)
+    y = y * s_x.reshape(-1, 1).float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.reshape(*x.shape[:-1], n).to(out_dtype)

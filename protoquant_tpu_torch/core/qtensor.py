@@ -1,4 +1,5 @@
-"""QTensor: an int8 payload with per-channel f32 scales."""
+"""QTensor: an int8 payload with per-channel f32 scales; QTensor4: packed
+int4 codes with per-(channel, group) f32 scales."""
 
 from __future__ import annotations
 
@@ -40,3 +41,45 @@ class QTensor:
     def nbytes(self) -> int:
         return (self.data.numel() * self.data.element_size()
                 + self.scale.numel() * self.scale.element_size())
+
+
+@dataclasses.dataclass
+class QTensor4:
+    """Group-wise int4 weight: ``data`` int8 [N, K/2], two codes per byte
+    packed along K (``numerics.pack_int4``: within each group, byte j holds
+    k = j low and k = j + group/2 high), ``scale`` f32 [N, K/group].
+
+    The port stores the byte-packed layout only. The JAX package's
+    ``storage="native"`` is XLA's s4 dtype, which only its XLA formulation
+    reads; here it raises ``ValueError``.
+    """
+
+    data: torch.Tensor
+    scale: torch.Tensor
+    group: int
+    orig_k: int
+    orig_dtype: torch.dtype = torch.float32
+
+    @classmethod
+    def quantize(cls, w: torch.Tensor, group: int = 128, storage: str = "packed",
+                 clip: str = "mse") -> "QTensor4":
+        """Quantize a 2-D [N, K] weight (K the contraction axis)."""
+        if storage != "packed":
+            raise ValueError(f"int4 storage {storage!r} is not ported; the port "
+                             "stores the byte-packed layout only")
+        if w.ndim != 2:
+            raise ValueError(f"QTensor4 takes a 2-D [N, K] weight, got {tuple(w.shape)}")
+        q, s = numerics.quantize_groupwise_int4(w, group=group, clip=clip)
+        return cls(data=numerics.pack_int4(q, group), scale=s, group=group,
+                   orig_k=w.shape[1], orig_dtype=w.dtype)
+
+    @property
+    def shape(self):
+        return (self.data.shape[0], self.orig_k)
+
+    def dequantize(self) -> torch.Tensor:
+        return numerics.dequantize_int4(self.data, self.scale, self.group).to(
+            self.orig_dtype)
+
+    def nbytes(self) -> int:
+        return self.data.numel() + self.scale.numel() * self.scale.element_size()

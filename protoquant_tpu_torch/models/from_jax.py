@@ -1,10 +1,13 @@
 """Carry weights of the JAX package's Llama model across to the port.
 
 ``params_from_numpy`` takes the flax params tree as nested dicts of numpy
-arrays (a ``QTensor`` given as ``{"data", "scale"}``) and returns a
-``state_dict`` for ``LlamaModel``. JAX stores a linear weight [K, N]; the
-port stores it [N, K] (the ``nn.Linear`` layout, K contiguous, which the
-qmatmul kernel reads), so every kernel is transposed here.
+arrays (a ``QTensor`` or a packed ``QTensor4`` given as ``{"data",
+"scale"}``) and returns a ``state_dict`` for ``LlamaModel``. JAX stores a
+linear weight [K, N]; the port stores it [N, K] (the ``nn.Linear`` layout,
+K contiguous, which the kernels read), so every kernel is transposed here.
+A ``QTensor4`` (scale [K/g, N]) has data [K/2, N] packed along K within
+each group; its transpose [N, K/2] is the port's packing of the same codes,
+byte for byte, and its scale becomes [N, K/g].
 """
 
 from __future__ import annotations
@@ -42,7 +45,10 @@ def params_from_numpy(tree: Mapping) -> dict:
         elif mod and mod[-1] == "qkernel" and name == "data":
             out[".".join(mod[:-1] + ["qweight"])] = _tensor(np.asarray(leaf).T)
         elif mod and mod[-1] == "qkernel" and name == "scale":
-            out[".".join(mod[:-1] + ["qscale"])] = _tensor(leaf).float()
+            # a QTensor's scale is [N]; a QTensor4's is [K/g, N], as its
+            # packed data [K/2, N]: both become [N, ...]
+            leaf = np.asarray(leaf)
+            out[".".join(mod[:-1] + ["qscale"])] = _tensor(leaf.T if leaf.ndim == 2 else leaf).float()
         elif name in ("weight", "bias"):
             out[".".join(mod + [name])] = _tensor(leaf).float()
         else:

@@ -78,13 +78,19 @@ class RMSNorm(nn.Module):
         return (xf * torch.rsqrt(var + self.eps) * self.weight).to(self.dtype)
 
 
+# Modes whose projections read int8 activations: a block quantizes its
+# input once for all the projections that read it.
+ROWQUANT_MODES = ("dynamic", "dynamic_int4")
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None):
+    def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         D, H, KV, Dh = (cfg.hidden_size, cfg.num_attention_heads,
                         cfg.num_key_value_heads, cfg.head_dim)
-        lin = lambda k, n: QLinear(k, n, mode, bias=False, dtype=dtype, device=device)
+        lin = lambda k, n: QLinear(k, n, mode, bias=False, dtype=dtype, device=device,
+                                   int4_group=int4_group)
         self.q_proj = lin(D, H * Dh)
         self.k_proj = lin(D, KV * Dh)
         self.v_proj = lin(D, KV * Dh)
@@ -96,7 +102,7 @@ class Attention(nn.Module):
         H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         x = x.to(self.dtype)
         # q/k/v read the same activation: quantize it once for all three.
-        preq = ops.shared_rowquant(x) if self.q_proj.mode == "dynamic" else None
+        preq = ops.shared_rowquant(x) if self.q_proj.mode in ROWQUANT_MODES else None
         q = self.q_proj(x, preq).reshape(B, T, H, Dh)
         k = self.k_proj(x, preq).reshape(B, T, KV, Dh)
         v = self.v_proj(x, preq).reshape(B, T, KV, Dh)
@@ -110,18 +116,19 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None):
+    def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128):
         super().__init__()
         self.dtype = dtype
         D, I = cfg.hidden_size, cfg.intermediate_size
-        lin = lambda k, n: QLinear(k, n, mode, bias=False, dtype=dtype, device=device)
+        lin = lambda k, n: QLinear(k, n, mode, bias=False, dtype=dtype, device=device,
+                                   int4_group=int4_group)
         self.gate_proj = lin(D, I)
         self.up_proj = lin(D, I)
         self.down_proj = lin(I, D)
 
     def forward(self, x):
         x = x.to(self.dtype)
-        preq = ops.shared_rowquant(x) if self.gate_proj.mode == "dynamic" else None
+        preq = ops.shared_rowquant(x) if self.gate_proj.mode in ROWQUANT_MODES else None
         gate = self.gate_proj(x, preq)
         up = self.up_proj(x, preq)
         h = F.silu(gate.float()).to(self.dtype) * up
@@ -129,13 +136,13 @@ class MLP(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None):
+    def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128):
         super().__init__()
         eps = cfg.rms_norm_eps
         self.input_layernorm = RMSNorm(cfg.hidden_size, eps, dtype, device)
-        self.self_attn = Attention(cfg, mode, dtype, device)
+        self.self_attn = Attention(cfg, mode, dtype, device, int4_group)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, eps, dtype, device)
-        self.mlp = MLP(cfg, mode, dtype, device)
+        self.mlp = MLP(cfg, mode, dtype, device, int4_group)
 
     def forward(self, x, positions, cos, sin, cache=None, advance=None):
         x = x + self.self_attn(self.input_layernorm(x), positions, cos, sin,
@@ -150,10 +157,12 @@ class LlamaModel(nn.Module):
     caches, advance)`` runs incrementally and updates ``caches`` in place.
     Both return f32 logits [B, T, V]. The model lives on ``device``: CUDA
     unless the caller names another (a CUDA request without a card raises).
+    ``int4_group``: the group of the int4 modes' weights, every projection
+    and ``lm_head`` (``pick_int4_group(K, int4_group)`` per projection).
     """
 
     def __init__(self, cfg: ModelConfig, mode: str = "dynamic",
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None, int4_group: int = 128):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         self.device = resolve_device(device)
@@ -162,10 +171,10 @@ class LlamaModel(nn.Module):
                                          dtype=dtype, device=dev)
         self.embed_tokens.weight.requires_grad_(False)
         for i in range(cfg.num_hidden_layers):
-            self.add_module(f"layers_{i}", DecoderLayer(cfg, mode, dtype, dev))
+            self.add_module(f"layers_{i}", DecoderLayer(cfg, mode, dtype, dev, int4_group))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, dev)
         self.lm_head = QLinear(cfg.hidden_size, cfg.vocab_size, mode, bias=False,
-                               dtype=dtype, device=dev)
+                               dtype=dtype, device=dev, int4_group=int4_group)
         cos, sin = rope_tables(cfg.head_dim, cfg.max_position_embeddings,
                                cfg.rope_theta, dev)
         self.register_buffer("rope_cos", cos, persistent=False)
@@ -178,9 +187,9 @@ class LlamaModel(nn.Module):
     @torch.no_grad()
     def init_random_(self, seed: int = 0) -> "LlamaModel":
         """Random weights from ``seed``, made on the model's device one
-        projection at a time: in the int8 modes (``dynamic``,
-        ``weight_only``) each fp weight is quantized as soon as it is drawn,
-        so no fp copy of the model exists whole. Linear weights are
+        projection at a time: in the quantized modes (int8 or int4) each fp
+        weight is quantized as soon as it is drawn, so no fp copy of the
+        model exists whole. Linear weights are
         N(0, 1/K), embeddings N(0, 1), norms 1."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.embed_tokens.weight.copy_(torch.randn(

@@ -3,8 +3,11 @@
 Every wrapper dispatches by the device of its tensors: a CPU tensor takes
 the plain version, a CUDA tensor launches the hand-written kernel from
 ``csrc/`` (built on first use by ``_build``) or raises. There is no
-fallback and no switch. Each wrapper counts its launches in ``.launches``.
+fallback and no switch beyond the formulation arguments the JAX package
+itself has. Each kernel body counts its launches in ``.launches``.
 """
+
+import os as _os
 
 from .attention import int8_kv_attention, int8_kv_attention_ref
 from .kv_scatter import (kv_scatter_decode, kv_scatter_decode_ref,
@@ -12,9 +15,14 @@ from .kv_scatter import (kv_scatter_decode, kv_scatter_decode_ref,
 from .paged_attention import paged_int8_attention, paged_int8_attention_ref
 from .qmatmul import dynamic_qlinear, qmatmul, qmatmul_ref
 from .rowquant import rowquant, rowquant_ref
+from .w4a8_matmul import (two_level_scales, w4a8_group, w4a8_matmul, w4a8_matmul_ref,
+                          w4a8_two_level)
+from .wo4_matmul import (weight_only_int4_matmul, weight_only_int4_matmul_ref,
+                         weight_only_int4_tolerance, wo4_legacy, wo4_split)
 from .wo_matmul import weight_only_matmul, weight_only_matmul_ref, weight_only_tolerance
 
-# The wrappers whose launches a run can read and reset.
+# The kernel bodies whose launches a run can read and reset (an op with two
+# formulations has one entry per body).
 KERNELS = {
     "rowquant": rowquant,
     "qmatmul": qmatmul,
@@ -23,7 +31,20 @@ KERNELS = {
     "weight_only_matmul": weight_only_matmul,
     "paged_kv_scatter_decode": paged_kv_scatter_decode,
     "paged_int8_attention": paged_int8_attention,
+    "wo4_split": wo4_split,
+    "wo4_legacy": wo4_legacy,
+    "w4a8_two_level": w4a8_two_level,
+    "w4a8_group": w4a8_group,
 }
+
+# W4A8 (dynamic_int4) formulation, as the JAX package resolves it
+# (protoquant_tpu/ops/__init__.py): "two_level" (default) or "group", from
+# the W4A8_FORMULATION environment variable at import.
+W4A8_FORMULATION = _os.environ.get("W4A8_FORMULATION", "two_level")
+
+
+def resolve_w4a8_formulation() -> str:
+    return W4A8_FORMULATION
 
 
 def shared_rowquant(x):
@@ -42,10 +63,13 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "KERNELS", "dynamic_qlinear", "int8_kv_attention", "int8_kv_attention_ref",
-    "kv_scatter_decode", "kv_scatter_decode_ref", "launch_counts",
-    "paged_int8_attention", "paged_int8_attention_ref", "paged_kv_scatter_decode",
-    "paged_kv_scatter_decode_ref", "qmatmul", "qmatmul_ref", "reset_launch_counts",
-    "rowquant", "rowquant_ref", "shared_rowquant", "weight_only_matmul",
-    "weight_only_matmul_ref", "weight_only_tolerance",
+    "KERNELS", "W4A8_FORMULATION", "dynamic_qlinear", "int8_kv_attention",
+    "int8_kv_attention_ref", "kv_scatter_decode", "kv_scatter_decode_ref",
+    "launch_counts", "paged_int8_attention", "paged_int8_attention_ref",
+    "paged_kv_scatter_decode", "paged_kv_scatter_decode_ref", "qmatmul", "qmatmul_ref",
+    "reset_launch_counts", "resolve_w4a8_formulation", "rowquant", "rowquant_ref",
+    "shared_rowquant", "two_level_scales", "w4a8_group", "w4a8_matmul",
+    "w4a8_matmul_ref", "w4a8_two_level", "weight_only_int4_matmul",
+    "weight_only_int4_matmul_ref", "weight_only_int4_tolerance", "weight_only_matmul",
+    "weight_only_matmul_ref", "weight_only_tolerance", "wo4_legacy", "wo4_split",
 ]

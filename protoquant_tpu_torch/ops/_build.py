@@ -57,6 +57,13 @@ SIGNATURES = {
     # B, H, KV, maxP, ps, Dh, sm, stream
     "pq_paged_int8_attention": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _F, _P],
+    # x, packed, scales, bias, out, out_dtype, M, N, K, group, stream
+    "pq_wo4_split": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "pq_wo4_legacy": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # xq, sx, packed, r16, scol, bias, out, out_dtype, M, N, K, group, stream
+    "pq_w4a8_two_level": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # xq, sx, packed, scales, bias, out, out_dtype, M, N, K, group, stream
+    "pq_w4a8_group": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 # dtype codes shared with csrc/common.cuh

@@ -6,7 +6,10 @@ installed: ``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
 Exact: rowquant, qmatmul, the dense and paged decode scatters. Attention,
 dense and paged: ATOL (f32 q and output; the two sum in different orders).
 The weight-only product: ``ops.weight_only_tolerance`` (exact products, an
-f32 sum in another order, then one ulp of the output type).
+f32 sum in another order, then one ulp of the output type). The int4
+products, split and legacy: ``ops.weight_only_int4_tolerance`` (the same
+products, f32 sums in another order). W4A8, two_level and group: exact,
+and the two-level (r16, scol) made on the card equal the CPU's.
 """
 
 import pytest
@@ -245,3 +248,105 @@ def test_new_counters_count_kernel_launches_only(cuda):
     counts = ops.launch_counts()
     assert (counts["weight_only_matmul"], counts["paged_int8_attention"],
             counts["paged_kv_scatter_decode"]) == (1, 1, 1)
+
+
+def _int4_weight(g, dev, n, k, group):
+    """Random packed bytes (every code in [-8, 7]) and scales [N, K/group]."""
+    packed = torch.randint(-128, 128, (n, k // 2), generator=g, device=dev, dtype=torch.int8)
+    scales = torch.rand(n, k // group, generator=g, device=dev) * 1e-2 + 1e-4
+    return packed, scales
+
+
+INT4_SHAPES = [(1, 64, 8, 32), (4, 4096, 4096, 128), (5, 96, 130, 32), (3, 11008, 72, 128),
+               (33, 320, 130, 64), (256, 4096, 200, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("formulation", ["split", "legacy"])
+@pytest.mark.parametrize("m,k,n,group", INT4_SHAPES)
+def test_wo4_vs_plain(cuda, m, k, n, group, formulation):
+    g = torch.Generator(device=cuda).manual_seed(m * 13 + n)
+    x = torch.randn(m, k, generator=g, device=cuda)
+    x = x.to(torch.bfloat16) if formulation == "split" else x
+    packed, scales = _int4_weight(g, cuda, n, k, group)
+    bias = torch.randn(n, generator=g, device=cuda)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for b in (None, bias):
+            y = ops.weight_only_int4_matmul(x, packed, scales, group, b, out_dtype, formulation)
+            ref = ops.weight_only_int4_matmul_ref(x, packed, scales, group, b, out_dtype,
+                                                  formulation)
+            torch.cuda.synchronize()
+            assert y.dtype == out_dtype and y.shape == (m, n)
+            tol = ops.weight_only_int4_tolerance(x, packed, scales, group, ref, formulation)
+            assert ((y.float() - ref.float()).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("formulation", ["two_level", "group"])
+@pytest.mark.parametrize("m,k,n,group", INT4_SHAPES)
+def test_w4a8_exact(cuda, m, k, n, group, formulation):
+    g = torch.Generator(device=cuda).manual_seed(m * 17 + n)
+    xq, sx = ops.rowquant(torch.randn(m, k, generator=g, device=cuda))
+    packed, scales = _int4_weight(g, cuda, n, k, group)
+    bias = torch.randn(n, generator=g, device=cuda)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for b in (None, bias):
+            y = ops.w4a8_matmul(xq, sx, packed, scales, group, b, out_dtype, formulation)
+            ref = ops.w4a8_matmul_ref(xq, sx, packed, scales, group, b, out_dtype, formulation)
+            torch.cuda.synchronize()
+            assert y.dtype == out_dtype and y.shape == (m, n)
+            assert torch.equal(y, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(4096, 4096), (4096, 11008), (32000, 4096)])
+def test_two_level_scales_on_card_bitwise(cuda, n, k):
+    """r16 and scol made on the card equal the plain version's on the CPU
+    (true division on both)."""
+    g = torch.Generator(device=cuda).manual_seed(n + k)
+    scales = torch.rand(n, k // 128, generator=g, device=cuda) * 3e-2 + 1e-6
+    r16, scol = ops.two_level_scales(scales)
+    r16_cpu, scol_cpu = ops.two_level_scales(scales.cpu())
+    assert torch.equal(r16.cpu(), r16_cpu) and torch.equal(scol.cpu(), scol_cpu)
+
+
+@pytest.mark.cuda
+def test_int4_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    packed = torch.zeros(8, 32, dtype=torch.int8, device=cuda)
+    scales = torch.ones(8, 2, device=cuda)
+    x = torch.zeros(2, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.weight_only_int4_matmul(x.float(), packed, scales, 32)
+    with pytest.raises(ValueError, match="must be one of"):
+        ops.weight_only_int4_matmul(x, packed, torch.ones(8, 4, device=cuda), 16)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.weight_only_int4_matmul(x, packed, torch.ones(8, 3, device=cuda), 32)
+    xq = torch.zeros(2, 64, dtype=torch.int8, device=cuda)
+    sx = torch.ones(2, device=cuda)
+    with pytest.raises(TypeError, match="int8"):
+        ops.w4a8_matmul(xq.float(), sx, packed, scales, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.w4a8_matmul(xq, sx, torch.zeros(32, 8, dtype=torch.int8, device=cuda).t(),
+                        scales, 32)
+    with pytest.raises(ValueError, match="tensors on"):
+        ops.w4a8_matmul(xq, sx, packed, scales.cpu(), 32, formulation="group")
+
+
+@pytest.mark.cuda
+def test_int4_counters_count_each_body(cuda):
+    ops.reset_launch_counts()
+    x = torch.randn(2, 64, device=cuda).to(torch.bfloat16)
+    packed = torch.randint(-128, 128, (8, 32), dtype=torch.int8, device=cuda)
+    scales = torch.rand(8, 2, device=cuda)
+    ops.weight_only_int4_matmul(x, packed, scales, 32)
+    ops.weight_only_int4_matmul(x, packed, scales, 32, formulation="legacy")
+    ops.weight_only_int4_matmul(x, packed, scales, 32, formulation="legacy")
+    ops.weight_only_int4_matmul_ref(x, packed, scales, 32)
+    xq, sx = ops.rowquant_ref(x)
+    ops.w4a8_matmul(xq, sx, packed, scales, 32, formulation="two_level")
+    ops.w4a8_matmul(xq, sx, packed, scales, 32, formulation="group")
+    ops.w4a8_matmul_ref(xq, sx, packed, scales, 32, formulation="group")
+    ops.w4a8_matmul(xq.cpu(), sx.cpu(), packed.cpu(), scales.cpu(), 32)
+    counts = ops.launch_counts()
+    assert (counts["wo4_split"], counts["wo4_legacy"], counts["w4a8_two_level"],
+            counts["w4a8_group"]) == (1, 2, 1, 1)
