@@ -44,17 +44,35 @@ Phases (any failure exits non-zero and prints no result line):
               (dense; also once with the group formulation) and
               weight_only_int4 (paged) models, each with a planted fault for
               its int4 kernel
+ 10. fused    phase 4 again with FUSED_QUANT=on (same seed, weights,
+              prompts and EngineConfig): both norms of every layer through
+              rms_norm_quant, the gate through swiglu_quant; each decode
+              step must launch exactly 33 rowquant (o_proj, lm_head), 64
+              rms_norm_quant, 32 swiglu_quant, 225 qmatmul and 32 / 32
+              scatter and attention. Prints its step median and kernel sum
+              beside phase 4's, and the share of its tokens equal to phase
+              4's (a reading: codes may move by one step)
+ 11. fused agreement  phase 5 with FUSED_QUANT=on, norm weights drawn from
+              [0.5, 1.5], and a planted fault for each producer
 Each phase prints its seconds, and the run its total.
-The line before the last is {"kernels": [...]}, one entry per kernel body:
-"launches" is its count summed over the five engine runs (phases 4, 6,
-8.1, 8.2, 8.3), each driven with the counts at 0 and read just after
-("launches_by_path"); wo4_legacy is on no engine path (a caller reaches it
-through the formulation argument of weight_only_int4_matmul only), so its
-count there is 0. The last line is {"ok": true, "device": {...}}.
+The line before the last is {"kernels": [...]}, one entry per kernel body
+(14): "launches" is its count summed over the six engine runs (phases 4,
+6, 8.1, 8.2, 8.3, 10), each driven with the counts at 0 and read just
+after ("launches_by_path"). wo4_legacy and dequant are on no engine path
+(a caller reaches wo4_legacy through the formulation argument of
+weight_only_int4_matmul, and dequant as ops.dequant; QTensor.dequantize
+stays on core.numerics, as in the JAX package), so their counts there are
+0. The last line is {"ok": true, "device": {...}}.
 
 Tolerances. rowquant codes and scales, qmatmul outputs (f32 and bf16), both
 decode scatters and both W4A8 bodies (two_level, group) must equal their
-plain versions exactly. Attention, dense and paged (bf16 q and output, f32
+plain versions exactly, and so must dequant. The fused producers are held
+to what the JAX package demands of its Pallas kernels against the module
+composition: codes equal or one step apart (they sum and compute the
+activation in other orders, and a code moves where a value sits on a
+rounding boundary) in under FLIP_SHARE of the elements, scales within
+SCALE_RTOL; their "max_abs_err" is in code steps. Attention, dense and
+paged (bf16 q and output, f32
 arithmetic inside), is held to ATTN_TOL times the largest output: both
 round their f32 result to bf16 once, after summing in different orders.
 The weight-only products, int8 and int4 (split, legacy), are held to
@@ -427,6 +445,111 @@ def check_w4a8(ops, gen, dev, formulation):
     return cases
 
 
+NORM_EPS = 1e-5  # Llama-2-7B's rms_norm_eps
+# Fused producers against their plain versions: codes equal or one step
+# apart in under this share of the elements, scales within this rtol (what
+# the JAX package demands of its Pallas kernels).
+FLIP_SHARE = {"rms_norm_quant": 1e-3, "swiglu_quant": 0.05}
+SCALE_RTOL = {"rms_norm_quant": 1e-6, "swiglu_quant": 1e-2}
+
+
+def _fused_readings(name: str, label: str, got, ref) -> dict:
+    """Codes and scales of a fused producer against its plain version:
+    raises past the limits, else returns the readings (max_abs_err in code
+    steps)."""
+    (q, s), (rq, rs) = got, ref
+    torch.cuda.synchronize()
+    dq = (q.int() - rq.int()).abs()
+    flips = (dq != 0).float().mean().item()
+    rel = ((s - rs).abs() / rs.abs()).max().item()
+    if dq.max().item() > 1 or flips >= FLIP_SHARE[name] or rel > SCALE_RTOL[name]:
+        raise AssertionError(f"{name} {label}: codes differ by up to {dq.max().item()} "
+                             f"in a share {flips} (limit {FLIP_SHARE[name]}), scales by "
+                             f"rtol {rel} (limit {SCALE_RTOL[name]})")
+    return {"max_abs_err": float(dq.max().item()), "flip_share": flips,
+            "scale_max_rel_err": rel}
+
+
+def check_rms_norm_quant(ops, gen, dev):
+    """The fused norm at the decode and prefill shapes of Llama-2-7B (bf16
+    in, bf16 cast), and once in f32. The weight is drawn from [0.5, 1.5]: a
+    kernel reading the wrong weight would pass unseen with weights of 1.
+    Library: none (no one PyTorch call norms and quantizes)."""
+    cases = []
+    for m, dtype in ((4, torch.bfloat16), (256, torch.bfloat16), (4, torch.float32)):
+        k = HIDDEN
+        size = torch.finfo(dtype).bits // 8
+        xs = [(torch.randn(m, k, generator=gen, device=dev) * 2).to(dtype)
+              for _ in range(copies_for(m * k * size))]
+        w = torch.rand(k, generator=gen, device=dev) + 0.5
+        kw = {"eps": NORM_EPS, "cast_dtype": dtype}
+        label = f"M={m} K={k} {str(dtype).replace('torch.', '')}"
+        read = _fused_readings("rms_norm_quant", label, ops.rms_norm_quant(xs[0], w, **kw),
+                               ops.rms_norm_quant_ref(xs[0], w, **kw))
+        b, kind = bound_ms(m * k * size + 4 * k + m * k + 4 * m, 0, INT8_OPS_PER_S)
+        cases.append({
+            "shape": label.replace("bfloat16", "bf16").replace("float32", "f32"), **read,
+            "ms": bench([lambda x=x: ops.rms_norm_quant(x, w, **kw) for x in xs]),
+            "plain_ms": bench([lambda x=x: ops.rms_norm_quant_ref(x, w, **kw) for x in xs]),
+            "bound_ms": b, "bound_by": kind, "library_ms": None})
+    return cases
+
+
+def check_swiglu_quant(ops, gen, dev):
+    """The fused gate at the decode and prefill shapes of Llama-2-7B's MLP
+    (bf16 gate and up, bf16 cast), SiLU and the tanh GELU. Library: none."""
+    bf = torch.bfloat16
+    cases = []
+    for act in ("silu", "gelu"):
+        for m in (4, 256):
+            k = INTER
+            pairs = [tuple((torch.randn(m, k, generator=gen, device=dev) * 2).to(bf)
+                           for _ in range(2)) for _ in range(copies_for(4 * m * k))]
+            label = f"M={m} I={k} {act}"
+            read = _fused_readings("swiglu_quant", label,
+                                   ops.swiglu_quant(*pairs[0], act=act),
+                                   ops.swiglu_quant_ref(*pairs[0], act=act))
+            b, kind = bound_ms(4 * m * k + m * k + 4 * m, 0, INT8_OPS_PER_S)
+            cases.append({
+                "shape": label, **read,
+                "ms": bench([lambda p=p: ops.swiglu_quant(*p, act=act) for p in pairs]),
+                "plain_ms": bench([lambda p=p: ops.swiglu_quant_ref(*p, act=act)
+                                   for p in pairs]),
+                "bound_ms": b, "bound_by": kind, "library_ms": None})
+    return cases
+
+
+def check_dequant(ops, gen, dev):
+    """dequant of a [4096, 11008] int8 matrix, scale per column (axis 0) or
+    per row (axis 1), to f32 and bf16: exact. Library, f32 out only: ``q *
+    s`` with type promotion, the same function."""
+    m, n = HIDDEN, INTER
+    q = torch.randint(-127, 128, (m, n), generator=gen, device=dev, dtype=torch.int8)
+    cases = []
+    for axis in (0, 1):
+        s = torch.rand(n if axis == 0 else m, generator=gen, device=dev) * 0.05 + 1e-3
+        sb = s[None, :] if axis == 0 else s[:, None]
+        for out in (torch.float32, torch.bfloat16):
+            y = ops.dequant(q, s, axis, out)
+            ref = ops.dequant_ref(q, s, axis, out)
+            torch.cuda.synchronize()
+            if not torch.equal(y, ref):
+                err = (y.float() - ref.float()).abs().max().item()
+                raise AssertionError(f"dequant axis={axis} {out}: max abs err {err}")
+            del y, ref
+            size = torch.finfo(out).bits // 8
+            b, kind = bound_ms(m * n * (1 + size) + 4 * s.numel(), 0, INT8_OPS_PER_S)
+            cases.append({
+                "shape": f"axis={axis} {'f32' if size == 4 else 'bf16'} out M={m} N={n}",
+                "max_abs_err": 0.0,
+                "ms": bench([lambda: ops.dequant(q, s, axis, out)], iters=10),
+                "plain_ms": bench([lambda: ops.dequant_ref(q, s, axis, out)], iters=5),
+                "bound_ms": b, "bound_by": kind,
+                "library_ms": bench([lambda: q * sb], iters=10)
+                if out == torch.float32 else None})
+    return cases
+
+
 PAGE = 128
 
 
@@ -536,24 +659,39 @@ def check_paged_attention(ops, gen, dev):
 # -- phases 4 to 9: the slices and the agreements ----------------------------
 
 
+def fused(mode: str) -> bool:
+    """Whether ``mode`` takes the producer-fused path as the knobs stand
+    (the model's own decision)."""
+    from protoquant_tpu_torch.models.llama import producer_fused
+
+    return producer_fused(mode)
+
+
 def path_kernels(ops, mode: str) -> tuple:
     """The kernel bodies a decode step of ``mode`` launches: the dense
     cache for the dynamic modes, the paged pool for the weight-only ones
-    (whose prefill chunks also run the dense flash kernel)."""
+    (whose prefill chunks also run the dense flash kernel); under
+    FUSED_QUANT=on, "dynamic" adds the two fused producers."""
     gemm = {"dynamic": "qmatmul", "weight_only": "weight_only_matmul",
             "weight_only_int4": "wo4_split",
             "dynamic_int4": "w4a8_" + ops.resolve_w4a8_formulation()}[mode]
     if mode in ("dynamic", "dynamic_int4"):
-        return ("rowquant", gemm, "kv_scatter_decode", "int8_kv_attention")
+        return (("rowquant", gemm, "kv_scatter_decode", "int8_kv_attention")
+                + (("rms_norm_quant", "swiglu_quant") if fused(mode) else ()))
     return (gemm, "paged_kv_scatter_decode", "paged_int8_attention", "int8_kv_attention")
 
 
 def decode_step_launches(ops, mode: str, layers: int) -> dict:
     """Exact launches of one decode step: every kernel body of ops.KERNELS,
-    0 for those off the path."""
+    0 for those off the path. The fused path quantizes only o_proj's and
+    lm_head's inputs by rowquant: the norms and the gate emit the rest."""
     per_step = dict.fromkeys(ops.KERNELS, 0)
     kernels = path_kernels(ops, mode)
-    if mode in ("dynamic", "dynamic_int4"):
+    if fused(mode):
+        per_step.update({"rowquant": layers + 1, "rms_norm_quant": 2 * layers,
+                         "swiglu_quant": layers, kernels[1]: 7 * layers + 1,
+                         "kv_scatter_decode": layers, "int8_kv_attention": layers})
+    elif mode in ("dynamic", "dynamic_int4"):
         per_step.update({"rowquant": 4 * layers + 1, kernels[1]: 7 * layers + 1,
                          "kv_scatter_decode": layers, "int8_kv_attention": layers})
     else:
@@ -612,11 +750,13 @@ def _build_7b(mode: str, seed: int, dev):
     return cfg, model
 
 
-def run_slice(ops, seed: int, dev, mode: str = "dynamic", formulation: str | None = None):
-    """Phases 4, 8.1 and 8.3: Llama-2-7B in a dynamic mode (int8 or int4
+def run_slice(ops, seed: int, dev, mode: str = "dynamic", formulation: str | None = None,
+              fused_quant: str | None = None):
+    """Phases 4, 8.1, 8.3 and 10: Llama-2-7B in a dynamic mode (int8 or int4
     weights) on the dense cache, 6 requests. ``formulation``: the W4A8
-    formulation of a dynamic_int4 run (default: as resolved)."""
-    with w4a8_formulation(ops, formulation):
+    formulation of a dynamic_int4 run; ``fused_quant``: the FUSED_QUANT
+    knob (default: each as resolved)."""
+    with knob(ops, "W4A8_FORMULATION", formulation), knob(ops, "FUSED_QUANT", fused_quant):
         return _run_slice(ops, seed, dev, mode)
 
 
@@ -643,7 +783,7 @@ def _run_slice(ops, seed: int, dev, mode: str):
 
     generated = sum(len(o or []) for o in outs)
     path = path_kernels(ops, mode)
-    label = f"{mode} ({path[1]})"
+    label = f"{mode} ({path[1]}{', fused' if fused(mode) else ''})"
     log(f"slice {label}: {len(prompts)} requests, prompts {prompt_lens}, {generated} tokens "
         f"in {wall:.3f} s = {generated / wall:.1f} tok/s; "
         f"{len(prefill_ms)} steps with a prefill chunk (mean "
@@ -662,7 +802,7 @@ def _run_slice(ops, seed: int, dev, mode: str):
             raise AssertionError(f"request (prompt {len(p)}): bad output {out}")
     stats = {"tokens_per_s": generated / wall, "wall_s": wall,
              "prefill_step_ms": prefill_ms, "decode_step_ms": decode_ms,
-             "peak_gib": peak / 2**30}
+             "peak_gib": peak / 2**30, "outputs": outs}
     profile_decode(model, prompts)
     del engine, model
     torch.cuda.empty_cache()
@@ -780,16 +920,16 @@ def run_paged_slice(ops, seed: int, dev, mode: str = "weight_only"):
 
 
 @contextlib.contextmanager
-def w4a8_formulation(ops, formulation: str | None):
-    """Within the block, the W4A8_FORMULATION knob reads ``formulation``
-    (None: as resolved at import)."""
-    saved = ops.W4A8_FORMULATION
+def knob(ops, name: str, value: str | None):
+    """Within the block, the module knob ``ops.<name>`` (W4A8_FORMULATION,
+    FUSED_QUANT) reads ``value`` (None: as resolved at import)."""
+    saved = getattr(ops, name)
     try:
-        if formulation is not None:
-            ops.W4A8_FORMULATION = formulation
+        if value is not None:
+            setattr(ops, name, value)
         yield
     finally:
-        ops.W4A8_FORMULATION = saved
+        setattr(ops, name, saved)
 
 
 @contextlib.contextmanager
@@ -803,6 +943,8 @@ def plain_versions(**faulty):
     from protoquant_tpu_torch.models import kv_cache
 
     swaps = [("rowquant", ops, ops.rowquant_ref), ("qmatmul", ops, ops.qmatmul_ref),
+             ("rms_norm_quant", ops, ops.rms_norm_quant_ref),
+             ("swiglu_quant", ops, ops.swiglu_quant_ref),
              ("weight_only_matmul", ops, ops.weight_only_matmul_ref),
              ("weight_only_int4_matmul", ops, ops.weight_only_int4_matmul_ref),
              ("w4a8_matmul", ops, ops.w4a8_matmul_ref),
@@ -831,7 +973,15 @@ def _swap_nibbles(packed):
 def planted_faults(ops, mode: str = "dynamic"):
     """Plain versions with one small fault each, standing in for a wrong
     kernel: the agreement limits must reject every one. One fault for each
-    kernel that a mode's agreement brought in."""
+    kernel that a mode's agreement brought in (the fused path: its two
+    producers)."""
+    if fused(mode):
+        return {
+            "rms_norm_quant reads the neighbouring channel's weight": {
+                "rms_norm_quant": lambda x, w, **k: ops.rms_norm_quant_ref(x, w.roll(1), **k)},
+            "swiglu_quant applies the activation to up": {
+                "swiglu_quant": lambda gate, up, **k: ops.swiglu_quant_ref(up, gate, **k)},
+        }
     if mode == "dynamic":
         return {
             "qmatmul epilogue reads s_w[n-1]": {
@@ -868,7 +1018,7 @@ def planted_faults(ops, mode: str = "dynamic"):
 
 
 def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
-                  formulation: str | None = None):
+                  formulation: str | None = None, fused_quant: str | None = None):
     """2 layers at full width on the card, run on the same prompt through
     the kernels, through their plain versions, and through the plain
     versions with each planted fault. A prefill of 48 tokens into 2 slots,
@@ -878,10 +1028,14 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
     The dynamic modes run over the dense cache, the weight-only modes over a
     paged pool of 16-token pages, so each slot's 52 tokens span 4 pages,
     mapped in a shuffled order. ``formulation``: the W4A8 formulation of a
-    dynamic_int4 run (default: ops.resolve_w4a8_formulation())."""
+    dynamic_int4 run; ``fused_quant``: the FUSED_QUANT knob (default: each
+    as resolved). On the fused path the norm weights are drawn from
+    [0.5, 1.5] (init_random_ sets them to 1, under which a kernel reading
+    the wrong weight would pass unseen)."""
     from protoquant_tpu_torch import LlamaModel, ModelConfig
     from protoquant_tpu_torch.engine import PagedInt8KVCache
     from protoquant_tpu_torch.models import init_cache
+    from protoquant_tpu_torch.models.llama import RMSNorm
 
     paged = mode.startswith("weight_only")
     cfg = ModelConfig(num_hidden_layers=2)
@@ -930,7 +1084,11 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
                        and (not paged or got["decode_rel_l2"] <= AGREE_REL))
         return got
 
-    with w4a8_formulation(ops, formulation):
+    with knob(ops, "W4A8_FORMULATION", formulation), knob(ops, "FUSED_QUANT", fused_quant):
+        if fused(mode):
+            with torch.no_grad():
+                for norm in (m for m in model.modules() if isinstance(m, RMSNorm)):
+                    norm.weight.copy_(torch.rand(norm.weight.shape, generator=gen) + 0.5)
         ops.reset_launch_counts()
         kern, toks = run()
         launched = ops.launch_counts()
@@ -942,11 +1100,12 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
             with plain_versions(**swaps):
                 readings[fault] = compare(run(toks)[0], plain)
         path = path_kernels(ops, mode)
+        label = ("paged agreement" if paged else "agreement") + (
+            " fused" if fused(mode) else "")
     if any(ops.launch_counts().values()) or not all(launched[k] for k in path) or any(
             launched[k] for k in launched if k not in path):
         raise AssertionError(f"agreement: kernel run launched {launched}, plain runs "
                              f"{ops.launch_counts()}")
-    label = "paged agreement" if paged else "agreement"
     gemm = path[1] if path[0] == "rowquant" else path[0]
     for name, got in readings.items():
         log(f"{label} {str(dtype).replace('torch.', '')} (2 layers, full width, {mode}, {gemm}, "
@@ -985,6 +1144,12 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
                        "protoquant_tpu/ops/w4a8_matmul.py:70", "M=4 K=4096 N=11008 bf16 out"),
     "w4a8_group": ("protoquant_tpu_torch/csrc/w4a8_matmul.cu",
                    "protoquant_tpu/ops/w4a8_matmul.py:38", "M=4 K=4096 N=11008 bf16 out"),
+    "rms_norm_quant": ("protoquant_tpu_torch/csrc/fused_quant.cu",
+                       "protoquant_tpu/ops/fused_quant.py:44", "M=4 K=4096 bf16"),
+    "swiglu_quant": ("protoquant_tpu_torch/csrc/fused_quant.cu",
+                     "protoquant_tpu/ops/fused_quant.py:56", "M=4 I=11008 silu"),
+    "dequant": ("protoquant_tpu_torch/csrc/dequant.cu",
+                "protoquant_tpu/ops/dequant.py:20", "axis=0 f32 out"),
 }
 
 
@@ -1008,15 +1173,109 @@ def check_kernels(ops, gen, dev) -> dict:
               ("wo4_split", lambda *a: check_wo4(*a, "split")),
               ("wo4_legacy", lambda *a: check_wo4(*a, "legacy")),
               ("w4a8_two_level", lambda *a: check_w4a8(*a, "two_level")),
-              ("w4a8_group", lambda *a: check_w4a8(*a, "group")))
+              ("w4a8_group", lambda *a: check_w4a8(*a, "group")),
+              ("rms_norm_quant", check_rms_norm_quant),
+              ("swiglu_quant", check_swiglu_quant),
+              ("dequant", check_dequant))
     for name, fn in checks:
         results[name] = fn(ops, gen, dev)
         for c in results[name]:
+            flips = (f", flip share {c['flip_share']}, scales max rel err "
+                     f"{c['scale_max_rel_err']}" if "flip_share" in c else "")
             log(f"kernel {name} {c['shape']}: {c['ms']:.4f} ms, plain "
                 f"{c['plain_ms']:.4f} ms, library {c['library_ms']}, bound "
-                f"{c['bound_ms']:.4f} ms ({c['bound_by']}), err {c['max_abs_err']}")
+                f"{c['bound_ms']:.4f} ms ({c['bound_by']}), err {c['max_abs_err']}{flips}")
         torch.cuda.empty_cache()
     return results
+
+
+def run_all(ops, seed: int, dev) -> list:
+    """Phases 3 to 11 on ``dev``; returns the kernels line's entries."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    results = timed("3 kernels", check_kernels, ops, gen, dev)
+
+    # each main path is driven with the counts at 0 and read just after
+    by_path, stats = {}, {}
+    by_path["dense"], stats["dense dynamic"] = timed(
+        "4 slice", run_slice, ops, seed, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        timed(f"5 agreement {dtype}", run_agreement, ops, seed, dev, dtype)
+    by_path["paged"], stats["paged weight_only"] = timed(
+        "6 paged slice", run_paged_slice, ops, seed, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        timed(f"7 paged agreement {dtype}", run_agreement, ops, seed, dev, dtype,
+              "weight_only")
+    by_path["dense_int4"], stats["dense dynamic_int4"] = timed(
+        "8.1 int4 slice", run_slice, ops, seed, dev, "dynamic_int4")
+    by_path["paged_int4"], stats["paged weight_only_int4"] = timed(
+        "8.2 int4 paged slice", run_paged_slice, ops, seed, dev, "weight_only_int4")
+    by_path["dense_int4_group"], stats["dense dynamic_int4 group"] = timed(
+        "8.3 int4 slice, group", run_slice, ops, seed, dev, "dynamic_int4", "group")
+    for mode, dtype, form in (("dynamic_int4", torch.float32, None),
+                              ("dynamic_int4", torch.bfloat16, None),
+                              ("dynamic_int4", torch.bfloat16, "group"),
+                              ("weight_only_int4", torch.float32, None),
+                              ("weight_only_int4", torch.bfloat16, None)):
+        timed(f"9 int4 agreement {mode} {dtype} {form or ''}", run_agreement, ops,
+              seed, dev, dtype, mode, form)
+    by_path["dense_fused"], stats["dense dynamic fused"] = timed(
+        "10 fused slice", run_slice, ops, seed, dev, "dynamic", None, "on")
+    for dtype in (torch.float32, torch.bfloat16):
+        timed(f"11 fused agreement {dtype}", run_agreement, ops, seed, dev, dtype,
+              "dynamic", None, "on")
+    kernels = []
+    for name, cases in results.items():
+        source, replaces, main_shape = KERNEL_META[name]
+        head = next((c for c in cases if main_shape is None
+                     or c["shape"].startswith(main_shape)), cases[0])
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(counts[name] for counts in by_path.values()),
+            "launches_by_path": {p: counts[name] for p, counts in by_path.items()},
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": head["shape"],
+            "cases": cases})
+
+    # kernel time of one decode step at the measured decode shapes
+    by = {(n, c["shape"]): c["ms"] for n, cs in results.items() for c in cs}
+    L = LAYERS
+
+    def linears(name):
+        return (by[(name, f"M=4 K={HIDDEN} N={HIDDEN} bf16 out")] * 4 * L
+                + by[(name, f"M=4 K={HIDDEN} N={INTER} bf16 out")] * 2 * L
+                + by[(name, f"M=4 K={INTER} N={HIDDEN} bf16 out")] * L
+                + by[(name, f"M=4 K={HIDDEN} N={VOCAB} bf16 out")])
+
+    rq_hidden = by[("rowquant", f"M=4 K={HIDDEN} bf16")]
+    rowquant = rq_hidden * (3 * L + 1) + by[("rowquant", f"M=4 K={INTER} bf16")] * L
+    # fused: rowquant for o_proj and lm_head, the producers for the rest
+    producers = (rq_hidden * (L + 1) + by[("rms_norm_quant", f"M=4 K={HIDDEN} bf16")] * 2 * L
+                 + by[("swiglu_quant", f"M=4 I={INTER} silu")] * L)
+    dense = (results["kv_scatter_decode"][0]["ms"] * L
+             + results["int8_kv_attention"][0]["ms"] * L)
+    paged = (results["paged_kv_scatter_decode"][0]["ms"] * L
+             + results["paged_int8_attention"][0]["ms"] * L)
+    for label, est in (("dense dynamic", rowquant + linears("qmatmul") + dense),
+                       ("paged weight_only", linears("weight_only_matmul") + paged),
+                       ("dense dynamic_int4",
+                        rowquant + linears("w4a8_" + ops.resolve_w4a8_formulation()) + dense),
+                       ("paged weight_only_int4", linears("wo4_split") + paged),
+                       ("dense dynamic_int4 group",
+                        rowquant + linears("w4a8_group") + dense),
+                       ("dense dynamic fused", producers + linears("qmatmul") + dense)):
+        steps = sorted(stats[label]["decode_step_ms"])
+        log(f"decode step, {label}: kernels at the measured shapes sum to {est:.3f} ms; "
+            f"engine decode step median {steps[len(steps) // 2]:.3f} ms")
+    # a reading, not a gate: codes of the fused producers may move by one
+    # step against the unfused path's, and greedy tokens with them
+    pairs = [(a, b) for o, r in zip(stats["dense dynamic fused"]["outputs"],
+                                    stats["dense dynamic"]["outputs"])
+             for a, b in zip(o, r)]
+    log(f"fused slice: {sum(a == b for a, b in pairs)} of {len(pairs)} generated tokens "
+        f"equal to phase 4's ({sum(a == b for a, b in pairs) / len(pairs):.4f})")
+    return kernels
 
 
 def main() -> int:
@@ -1054,75 +1313,7 @@ def main() -> int:
         log(f"phase 2 build: {time.perf_counter() - t0:.1f} s "
             f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0:.1f} s)")
 
-        gen = torch.Generator(device=dev).manual_seed(args.seed)
-        results = timed("3 kernels", check_kernels, ops, gen, dev)
-
-        # each main path is driven with the counts at 0 and read just after
-        by_path, stats = {}, {}
-        by_path["dense"], stats["dense dynamic"] = timed(
-            "4 slice", run_slice, ops, args.seed, dev)
-        for dtype in (torch.float32, torch.bfloat16):
-            timed(f"5 agreement {dtype}", run_agreement, ops, args.seed, dev, dtype)
-        by_path["paged"], stats["paged weight_only"] = timed(
-            "6 paged slice", run_paged_slice, ops, args.seed, dev)
-        for dtype in (torch.float32, torch.bfloat16):
-            timed(f"7 paged agreement {dtype}", run_agreement, ops, args.seed, dev, dtype,
-                  "weight_only")
-        by_path["dense_int4"], stats["dense dynamic_int4"] = timed(
-            "8.1 int4 slice", run_slice, ops, args.seed, dev, "dynamic_int4")
-        by_path["paged_int4"], stats["paged weight_only_int4"] = timed(
-            "8.2 int4 paged slice", run_paged_slice, ops, args.seed, dev, "weight_only_int4")
-        by_path["dense_int4_group"], stats["dense dynamic_int4 group"] = timed(
-            "8.3 int4 slice, group", run_slice, ops, args.seed, dev, "dynamic_int4", "group")
-        for mode, dtype, form in (("dynamic_int4", torch.float32, None),
-                                  ("dynamic_int4", torch.bfloat16, None),
-                                  ("dynamic_int4", torch.bfloat16, "group"),
-                                  ("weight_only_int4", torch.float32, None),
-                                  ("weight_only_int4", torch.bfloat16, None)):
-            timed(f"9 int4 agreement {mode} {dtype} {form or ''}", run_agreement, ops,
-                  args.seed, dev, dtype, mode, form)
-
-        kernels = []
-        for name, cases in results.items():
-            source, replaces, main_shape = KERNEL_META[name]
-            head = next((c for c in cases if main_shape is None
-                         or c["shape"].startswith(main_shape)), cases[0])
-            kernels.append({
-                "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": sum(counts[name] for counts in by_path.values()),
-                "launches_by_path": {p: counts[name] for p, counts in by_path.items()},
-                "max_abs_err": max(c["max_abs_err"] for c in cases),
-                "ms": head["ms"], "plain_ms": head["plain_ms"],
-                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-                "library_ms": head["library_ms"], "shape": head["shape"],
-                "cases": cases})
-
-        # kernel time of one decode step at the measured decode shapes
-        by = {(n, c["shape"]): c["ms"] for n, cs in results.items() for c in cs}
-        L = LAYERS
-
-        def linears(name):
-            return (by[(name, "M=4 K=4096 N=4096 bf16 out")] * 4 * L
-                    + by[(name, "M=4 K=4096 N=11008 bf16 out")] * 2 * L
-                    + by[(name, "M=4 K=11008 N=4096 bf16 out")] * L
-                    + by[(name, "M=4 K=4096 N=32000 bf16 out")])
-
-        rowquant = (by[("rowquant", "M=4 K=4096 bf16")] * (3 * L + 1)
-                    + by[("rowquant", "M=4 K=11008 bf16")] * L)
-        dense = (results["kv_scatter_decode"][0]["ms"] * L
-                 + results["int8_kv_attention"][0]["ms"] * L)
-        paged = (results["paged_kv_scatter_decode"][0]["ms"] * L
-                 + results["paged_int8_attention"][0]["ms"] * L)
-        for label, est in (("dense dynamic", rowquant + linears("qmatmul") + dense),
-                           ("paged weight_only", linears("weight_only_matmul") + paged),
-                           ("dense dynamic_int4",
-                            rowquant + linears("w4a8_" + ops.resolve_w4a8_formulation()) + dense),
-                           ("paged weight_only_int4", linears("wo4_split") + paged),
-                           ("dense dynamic_int4 group",
-                            rowquant + linears("w4a8_group") + dense)):
-            steps = sorted(stats[label]["decode_step_ms"])
-            log(f"decode step, {label}: kernels at the measured shapes sum to {est:.3f} ms; "
-                f"engine decode step median {steps[len(steps) // 2]:.3f} ms")
+        kernels = run_all(ops, args.seed, dev)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {

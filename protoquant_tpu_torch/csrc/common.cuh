@@ -38,4 +38,77 @@ __device__ __forceinline__ float pq_warp_sum(float v) {
   return v;
 }
 
+// v rounded to the dtype ``code`` (PqDtype) and back to f32, to nearest even.
+__device__ __forceinline__ float pq_round_to(float v, int code) {
+  if (code == PQ_BF16) return __bfloat162float(__float2bfloat16_rn(v));
+  if (code == PQ_F16) return __half2float(__float2half_rn(v));
+  return v;
+}
+
+// Block-wide maximum and sum of one value per thread over a block of
+// THREADS threads; every thread gets the result. ``scratch`` holds
+// THREADS / 32 floats in shared memory. Give each reduction of a kernel its
+// own scratch: the result is read from scratch[0] after the barrier, and a
+// second reduction into the same array could overwrite it first.
+template <int THREADS>
+__device__ __forceinline__ float pq_block_max(float v, float* scratch) {
+  v = pq_warp_max(v);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float m = threadIdx.x < THREADS / 32 ? scratch[threadIdx.x] : 0.0f;
+    m = pq_warp_max(m);
+    if (threadIdx.x == 0) scratch[0] = m;
+  }
+  __syncthreads();
+  return scratch[0];
+}
+
+template <int THREADS>
+__device__ __forceinline__ float pq_block_sum(float v, float* scratch) {
+  v = pq_warp_sum(v);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float m = threadIdx.x < THREADS / 32 ? scratch[threadIdx.x] : 0.0f;
+    m = pq_warp_sum(m);
+    if (threadIdx.x == 0) scratch[0] = m;
+  }
+  __syncthreads();
+  return scratch[0];
+}
+
+// The rowquant contract on one f32 row of K values in shared memory, whose
+// absolute maximum over this thread's elements is ``amax``:
+// s = max(amax / 127, 1e-12) by IEEE division, q = rint(v / s) (half to
+// even) clamped to +-127. Division is spelled __fdiv_rn so no compiler flag
+// can turn it into a reciprocal multiply. Writes K codes to ``q`` and s to
+// ``*s_out``. Every thread of the block calls it (it holds a barrier), after
+// writing its elements of ``row``.
+template <int THREADS>
+__device__ __forceinline__ void pq_quantize_row(const float* row, int K, float amax,
+                                                float* scratch, int8_t* __restrict__ q,
+                                                float* __restrict__ s_out) {
+  const float s = fmaxf(__fdiv_rn(pq_block_max<THREADS>(amax, scratch), PQ_QMAX),
+                        PQ_SCALE_EPS);
+  for (int i = threadIdx.x; i < K; i += THREADS) {
+    float v = rintf(__fdiv_rn(row[i], s));
+    v = fminf(fmaxf(v, -PQ_QMAX), PQ_QMAX);
+    q[i] = (int8_t)(int)v;
+  }
+  if (threadIdx.x == 0) *s_out = s;
+}
+
+// Let ``kernel`` take up to ``bytes`` of dynamic shared memory. Called once
+// per kernel at its first launch (not per launch, so launches can be
+// captured in a CUDA graph); ``done`` is that kernel's own flag.
+template <typename Kernel>
+static cudaError_t pq_allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done = true;
+  return err;
+}
+
 #define PQ_EXPORT extern "C" __attribute__((visibility("default")))

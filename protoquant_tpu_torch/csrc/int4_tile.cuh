@@ -196,12 +196,8 @@ __device__ __forceinline__ void w4_mainloop(const unsigned char* a, const int8_t
 template <typename Tile, typename Kernel, typename... Args>
 static cudaError_t w4_launch(Kernel kernel, bool& smem_set, int M, int N, cudaStream_t stream,
                              Args... args) {
-  if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Tile::SMEM);
-    if (e != cudaSuccess) return e;
-    smem_set = true;
-  }
+  cudaError_t e = pq_allow_smem(kernel, Tile::SMEM, smem_set);
+  if (e != cudaSuccess) return e;
   dim3 grid((N + Tile::BN - 1) / Tile::BN, (M + Tile::BM - 1) / Tile::BM);
   kernel<<<grid, W4_THREADS, Tile::SMEM, stream>>>(args...);
   return cudaGetLastError();

@@ -5,11 +5,9 @@
 // int8 codes and M f32 scales, about no arithmetic per byte.
 // Design: one block per row. The row is converted to f32 into shared
 // memory while the block reduces its absolute maximum, so device memory is
-// read once; the second pass (divide, round, clamp) runs out of shared
-// memory. The arithmetic is the contract's: s = max(amax / 127, 1e-12) by
-// IEEE division, q = rint(x / s) (round half to even) clamped to +-127.
-// Division is spelled __fdiv_rn so no compiler flag can turn it into a
-// reciprocal multiply.
+// read once; the second pass (divide, round, clamp: pq_quantize_row in
+// common.cuh, shared with the producer-fused kernels) runs out of shared
+// memory.
 
 #include "common.cuh"
 
@@ -31,38 +29,15 @@ rowquant_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
     row[i] = v;
     amax = fmaxf(amax, fabsf(v));
   }
-  amax = pq_warp_max(amax);
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = amax;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    float m = threadIdx.x < RQ_THREADS / 32 ? warp_max[threadIdx.x] : 0.0f;
-    m = pq_warp_max(m);
-    if (threadIdx.x == 0) warp_max[0] = m;
-  }
-  __syncthreads();
-  const float s = fmaxf(__fdiv_rn(warp_max[0], PQ_QMAX), PQ_SCALE_EPS);
-
-  int8_t* qr = xq + base;
-  for (int i = threadIdx.x; i < K; i += RQ_THREADS) {
-    float q = rintf(__fdiv_rn(row[i], s));
-    q = fminf(fmaxf(q, -PQ_QMAX), PQ_QMAX);
-    qr[i] = (int8_t)(int)q;
-  }
-  if (threadIdx.x == 0) sx[blockIdx.x] = s;
+  pq_quantize_row<RQ_THREADS>(row, K, amax, warp_max, xq + base, sx + blockIdx.x);
 }
 
 template <typename T>
 static cudaError_t launch(const void* x, void* xq, void* sx, int M, int K,
                           cudaStream_t stream) {
-  // Allow the full 227 KB once, at the first launch (not per launch, so
-  // launches can be captured in a CUDA graph).
   static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        rowquant_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, RQ_MAX_SMEM);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  cudaError_t err = pq_allow_smem(rowquant_kernel<T>, RQ_MAX_SMEM, configured);
+  if (err != cudaSuccess) return err;
   const size_t smem = (size_t)K * sizeof(float);
   if (smem > (size_t)RQ_MAX_SMEM) return cudaErrorInvalidValue;
   rowquant_kernel<T><<<M, RQ_THREADS, smem, stream>>>(

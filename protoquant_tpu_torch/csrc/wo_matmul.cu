@@ -171,13 +171,9 @@ template <int MT, int NT, typename OutT>
 static cudaError_t launch_t(const void* x, const void* wq, const void* sw, const void* bias,
                             void* out, int M, int N, int K, cudaStream_t stream) {
   using T = WoTile<MT, NT>;
-  static bool smem_set = false;  // raise the dynamic shared memory cap once
-  if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(wo_matmul_kernel<MT, NT, OutT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-    if (e != cudaSuccess) return e;
-    smem_set = true;
-  }
+  static bool smem_set = false;
+  cudaError_t e = pq_allow_smem(wo_matmul_kernel<MT, NT, OutT>, T::SMEM, smem_set);
+  if (e != cudaSuccess) return e;
   dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
   wo_matmul_kernel<MT, NT, OutT><<<grid, WO_THREADS, T::SMEM, stream>>>(
       (const __nv_bfloat16*)x, (const int8_t*)wq, (const float*)sw, (const float*)bias,

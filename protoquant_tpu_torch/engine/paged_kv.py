@@ -37,6 +37,7 @@ from ..models.kv_cache import quantize_kv
 from ..ops.attention import int8_kv_attention
 from ..ops.kv_scatter import page_slots, paged_kv_scatter_decode
 from ..ops.paged_attention import gather_window, paged_int8_attention
+from ..utils.device import resolve_device
 
 _POOLS = ("kq", "ks", "vq", "vs")
 
@@ -61,7 +62,9 @@ class PagedInt8KVCache:
              device=None):
         """``num_pages`` INCLUDES one reserved trash page (the last index):
         writes through unmapped table entries land there, so an idle slot
-        with a cleared table can never write into a live page."""
+        with a cleared table can never write into a live page. The pools
+        live on ``device`` (default cuda)."""
+        device = resolve_device(device)
         payload = (num_pages, kv_heads, page_size, head_dim)
         scales = (num_pages, kv_heads, 1, page_size)
         return cls(

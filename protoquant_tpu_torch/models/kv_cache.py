@@ -21,6 +21,7 @@ import torch
 from ..core.numerics import SCALE_EPS, quantize_rowwise
 from ..ops.attention import int8_kv_attention
 from ..ops.kv_scatter import kv_scatter_decode
+from ..utils.device import resolve_device
 
 _FIELDS = ("kq", "ks", "vq", "vs", "lengths")
 
@@ -43,6 +44,8 @@ class Int8KVCache:
 
     @classmethod
     def init(cls, batch, max_seq, kv_heads, head_dim, device=None):
+        """An empty cache on ``device`` (default cuda)."""
+        device = resolve_device(device)
         payload = (batch, kv_heads, max_seq, head_dim)
         scales = (batch, kv_heads, max_seq)
         return cls(

@@ -6,7 +6,11 @@ Module and parameter names follow the flax tree of the JAX package
 ``layers_{i}.mlp.{gate,up,down}_proj``, ``norm``, ``lm_head``), so
 ``models.from_jax.params_from_numpy`` carries weights across by name.
 RMSNorm, RoPE and SiLU compute in f32 and cast back to the activation
-dtype, as the JAX model does.
+dtype, as the JAX model does. Under ``ops.FUSED_QUANT == "on"`` a
+``dynamic`` layer takes the JAX model's producer-fused path: both norms and
+the SwiGLU gate emit the int8 activations of the projections that read
+them (``ops.rms_norm_quant``, ``ops.swiglu_quant``); the final norm before
+``lm_head`` stays unfused.
 """
 
 from __future__ import annotations
@@ -14,18 +18,19 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
 from ..nn.qlinear import QLinear
+from ..ops.fused_quant import rms_norm, swiglu
 from ..utils.config import ModelConfig
 from ..utils.device import resolve_device
 from .kv_cache import Int8KVCache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> list:
-    """One dense int8 KV cache per layer."""
+    """One dense int8 KV cache per layer, on ``device`` (default cuda)."""
+    device = resolve_device(device)
     return [Int8KVCache.init(batch, max_seq, cfg.num_key_value_heads,
                              cfg.head_dim, device)
             for _ in range(cfg.num_hidden_layers)]
@@ -69,13 +74,17 @@ class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-5, dtype=torch.bfloat16, device=None):
         super().__init__()
         self.eps, self.dtype = eps, dtype
-        self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device),
-                                   requires_grad=False)
+        self.weight = nn.Parameter(
+            torch.ones(dim, dtype=torch.float32, device=resolve_device(device)),
+            requires_grad=False)
 
     def forward(self, x):
-        xf = x.float()
-        var = (xf * xf).mean(dim=-1, keepdim=True)
-        return (xf * torch.rsqrt(var + self.eps) * self.weight).to(self.dtype)
+        return rms_norm(x, self.weight, self.eps, self.dtype)
+
+    def quantized(self, x):
+        """The norm fused with per-token int8 quantization: (xq, s_x), what
+        ``ops.shared_rowquant(self(x))`` gives, in one pass."""
+        return ops.rms_norm_quant(x, self.weight, eps=self.eps, cast_dtype=self.dtype)
 
 
 # Modes whose projections read int8 activations: a block quantizes its
@@ -83,10 +92,19 @@ class RMSNorm(nn.Module):
 ROWQUANT_MODES = ("dynamic", "dynamic_int4")
 
 
+def producer_fused(mode: str) -> bool:
+    """Whether a layer of ``mode`` makes its int8 activations in the
+    producer: both norms through ``ops.rms_norm_quant`` and the gate through
+    ``ops.swiglu_quant``. As in the JAX model, "dynamic" only (under
+    ``FUSED_QUANT=on``); dynamic_int4 keeps its shared rowquant."""
+    return mode == "dynamic" and ops.resolve_fused_quant()
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
+        device = resolve_device(device)
         D, H, KV, Dh = (cfg.hidden_size, cfg.num_attention_heads,
                         cfg.num_key_value_heads, cfg.head_dim)
         lin = lambda k, n: QLinear(k, n, mode, bias=False, dtype=dtype, device=device,
@@ -96,13 +114,18 @@ class Attention(nn.Module):
         self.v_proj = lin(D, KV * Dh)
         self.o_proj = lin(H * Dh, D)
 
-    def forward(self, x, positions, cos, sin, cache=None, advance=None):
+    def forward(self, x, positions, cos, sin, cache=None, advance=None, preq=None):
+        """``preq``: the (xq, s_x) of the normed input from the producer
+        (``RMSNorm.quantized``); q/k/v then read it and ``x`` may be None."""
         cfg = self.cfg
-        B, T, _ = x.shape
         H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        x = x.to(self.dtype)
-        # q/k/v read the same activation: quantize it once for all three.
-        preq = ops.shared_rowquant(x) if self.q_proj.mode in ROWQUANT_MODES else None
+        if preq is None:
+            B, T, _ = x.shape
+            x = x.to(self.dtype)
+            # q/k/v read the same activation: quantize it once for all three.
+            preq = ops.shared_rowquant(x) if self.q_proj.mode in ROWQUANT_MODES else None
+        else:
+            B, T = preq[0].shape[:2]
         q = self.q_proj(x, preq).reshape(B, T, H, Dh)
         k = self.k_proj(x, preq).reshape(B, T, KV, Dh)
         v = self.v_proj(x, preq).reshape(B, T, KV, Dh)
@@ -119,6 +142,7 @@ class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128):
         super().__init__()
         self.dtype = dtype
+        device = resolve_device(device)
         D, I = cfg.hidden_size, cfg.intermediate_size
         lin = lambda k, n: QLinear(k, n, mode, bias=False, dtype=dtype, device=device,
                                    int4_group=int4_group)
@@ -126,18 +150,27 @@ class MLP(nn.Module):
         self.up_proj = lin(D, I)
         self.down_proj = lin(I, D)
 
-    def forward(self, x):
-        x = x.to(self.dtype)
-        preq = ops.shared_rowquant(x) if self.gate_proj.mode in ROWQUANT_MODES else None
+    def forward(self, x, preq=None):
+        """``preq``: as in ``Attention.forward``, for gate/up. Under
+        ``producer_fused``, the gate and its quantization are one kernel
+        (``ops.swiglu_quant``) and ``down_proj`` reads its (hq, s_h)."""
+        if preq is None:
+            x = x.to(self.dtype)
+            preq = ops.shared_rowquant(x) if self.gate_proj.mode in ROWQUANT_MODES else None
         gate = self.gate_proj(x, preq)
         up = self.up_proj(x, preq)
-        h = F.silu(gate.float()).to(self.dtype) * up
-        return self.down_proj(h)
+        # the linears' mode, not the constructor's: quantize_model converts
+        # them in place
+        if producer_fused(self.gate_proj.mode):
+            return self.down_proj(None, ops.swiglu_quant(gate, up, act="silu",
+                                                         cast_dtype=self.dtype))
+        return self.down_proj(swiglu(gate, up, "silu", self.dtype))
 
 
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128):
         super().__init__()
+        device = resolve_device(device)
         eps = cfg.rms_norm_eps
         self.input_layernorm = RMSNorm(cfg.hidden_size, eps, dtype, device)
         self.self_attn = Attention(cfg, mode, dtype, device, int4_group)
@@ -145,6 +178,12 @@ class DecoderLayer(nn.Module):
         self.mlp = MLP(cfg, mode, dtype, device, int4_group)
 
     def forward(self, x, positions, cos, sin, cache=None, advance=None):
+        if producer_fused(self.mlp.gate_proj.mode):
+            # the norms emit the projections' int8 input directly; the
+            # normed activation itself is never made
+            x = x + self.self_attn(None, positions, cos, sin, cache, advance,
+                                   preq=self.input_layernorm.quantized(x))
+            return x + self.mlp(None, preq=self.post_attention_layernorm.quantized(x))
         x = x + self.self_attn(self.input_layernorm(x), positions, cos, sin,
                                cache, advance)
         return x + self.mlp(self.post_attention_layernorm(x))

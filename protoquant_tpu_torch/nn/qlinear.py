@@ -38,6 +38,7 @@ from torch import nn
 
 from .. import ops
 from ..core import numerics
+from ..utils.device import resolve_device
 
 MODES = ("fp", "dynamic", "weight_only", "weight_only_int4", "dynamic_int4")
 INT4_MODES = ("weight_only_int4", "dynamic_int4")
@@ -65,6 +66,7 @@ class QLinear(nn.Module):
         self.dtype = dtype
         self.int4_group = int4_group
         self.group = None
+        device = resolve_device(device)
         if mode == "fp":
             self.weight = nn.Parameter(torch.empty(
                 out_features, in_features, dtype=torch.float32, device=device),
@@ -150,8 +152,10 @@ class QLinear(nn.Module):
     def forward(self, x: torch.Tensor, prequantized=None) -> torch.Tensor:
         """``prequantized`` (modes ``dynamic``, ``dynamic_int4``): optional
         (xq int8, s_x) from a rowquant pass shared with sibling projections
-        that read the same activation."""
-        x = x.to(self.dtype)
+        that read the same activation, or from a producer-fused kernel;
+        ``x`` is then not read and may be None."""
+        if x is not None:
+            x = x.to(self.dtype)
         if self.mode == "fp":
             y = x @ self.weight.to(self.dtype).t()
             if self.bias is not None:

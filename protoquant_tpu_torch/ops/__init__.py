@@ -3,13 +3,16 @@
 Every wrapper dispatches by the device of its tensors: a CPU tensor takes
 the plain version, a CUDA tensor launches the hand-written kernel from
 ``csrc/`` (built on first use by ``_build``) or raises. There is no
-fallback and no switch beyond the formulation arguments the JAX package
-itself has. Each kernel body counts its launches in ``.launches``.
+fallback and no switch beyond the formulation arguments and knobs the JAX
+package itself has. Each kernel body counts its launches in ``.launches``.
 """
 
 import os as _os
 
 from .attention import int8_kv_attention, int8_kv_attention_ref
+from .dequant import dequant, dequant_ref
+from .fused_quant import (rms_norm_quant, rms_norm_quant_ref, swiglu_quant,
+                          swiglu_quant_ref)
 from .kv_scatter import (kv_scatter_decode, kv_scatter_decode_ref,
                          paged_kv_scatter_decode, paged_kv_scatter_decode_ref)
 from .paged_attention import paged_int8_attention, paged_int8_attention_ref
@@ -35,6 +38,9 @@ KERNELS = {
     "wo4_legacy": wo4_legacy,
     "w4a8_two_level": w4a8_two_level,
     "w4a8_group": w4a8_group,
+    "rms_norm_quant": rms_norm_quant,
+    "swiglu_quant": swiglu_quant,
+    "dequant": dequant,
 }
 
 # W4A8 (dynamic_int4) formulation, as the JAX package resolves it
@@ -45,6 +51,19 @@ W4A8_FORMULATION = _os.environ.get("W4A8_FORMULATION", "two_level")
 
 def resolve_w4a8_formulation() -> str:
     return W4A8_FORMULATION
+
+
+# Producer-fused quantization (ops/fused_quant.py), as the JAX package
+# resolves it (protoquant_tpu/ops/__init__.py): with "on", a mode="dynamic"
+# decoder makes its int8 activations straight from both RMSNorms of each
+# layer and from the SwiGLU gate. "auto", the default, resolves off, as in
+# the JAX package; which default suits the H100 is an open question
+# (PERF.md). Read at call time, so the module knob flips it too.
+FUSED_QUANT = _os.environ.get("FUSED_QUANT", "auto")
+
+
+def resolve_fused_quant() -> bool:
+    return FUSED_QUANT == "on"
 
 
 def shared_rowquant(x):
@@ -63,13 +82,15 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "KERNELS", "W4A8_FORMULATION", "dynamic_qlinear", "int8_kv_attention",
-    "int8_kv_attention_ref", "kv_scatter_decode", "kv_scatter_decode_ref",
-    "launch_counts", "paged_int8_attention", "paged_int8_attention_ref",
-    "paged_kv_scatter_decode", "paged_kv_scatter_decode_ref", "qmatmul", "qmatmul_ref",
-    "reset_launch_counts", "resolve_w4a8_formulation", "rowquant", "rowquant_ref",
-    "shared_rowquant", "two_level_scales", "w4a8_group", "w4a8_matmul",
-    "w4a8_matmul_ref", "w4a8_two_level", "weight_only_int4_matmul",
-    "weight_only_int4_matmul_ref", "weight_only_int4_tolerance", "weight_only_matmul",
-    "weight_only_matmul_ref", "weight_only_tolerance", "wo4_legacy", "wo4_split",
+    "FUSED_QUANT", "KERNELS", "W4A8_FORMULATION", "dequant", "dequant_ref",
+    "dynamic_qlinear", "int8_kv_attention", "int8_kv_attention_ref", "kv_scatter_decode",
+    "kv_scatter_decode_ref", "launch_counts", "paged_int8_attention",
+    "paged_int8_attention_ref", "paged_kv_scatter_decode", "paged_kv_scatter_decode_ref",
+    "qmatmul", "qmatmul_ref", "reset_launch_counts", "resolve_fused_quant",
+    "resolve_w4a8_formulation", "rms_norm_quant", "rms_norm_quant_ref", "rowquant",
+    "rowquant_ref", "shared_rowquant", "swiglu_quant", "swiglu_quant_ref",
+    "two_level_scales", "w4a8_group", "w4a8_matmul", "w4a8_matmul_ref", "w4a8_two_level",
+    "weight_only_int4_matmul", "weight_only_int4_matmul_ref", "weight_only_int4_tolerance",
+    "weight_only_matmul", "weight_only_matmul_ref", "weight_only_tolerance", "wo4_legacy",
+    "wo4_split",
 ]

@@ -64,6 +64,12 @@ SIGNATURES = {
     "pq_w4a8_two_level": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # xq, sx, packed, scales, bias, out, out_dtype, M, N, K, group, stream
     "pq_w4a8_group": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, x_dtype, w, xq, sx, M, K, eps, cast_dtype, stream
+    "pq_rms_norm_quant": [_P, _I, _P, _P, _P, _I, _I, _F, _I, _P],
+    # gate, up, dtype, hq, sh, M, K, act, cast_dtype, stream
+    "pq_swiglu_quant": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    # q, scale, out, out_dtype, M, N, scale_on_last, stream
+    "pq_dequant": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 # dtype codes shared with csrc/common.cuh

@@ -9,7 +9,11 @@ The weight-only product: ``ops.weight_only_tolerance`` (exact products, an
 f32 sum in another order, then one ulp of the output type). The int4
 products, split and legacy: ``ops.weight_only_int4_tolerance`` (the same
 products, f32 sums in another order). W4A8, two_level and group: exact,
-and the two-level (r16, scol) made on the card equal the CPU's.
+and the two-level (r16, scol) made on the card equal the CPU's. The fused
+producers, ``rms_norm_quant`` and ``swiglu_quant``: codes equal or +-1 (the
+norm's in under 1e-3 of the elements, scales within rtol 1e-6; the gate's in
+under 5 %, scales within rtol 1e-2), what the JAX package demands of its
+kernels. ``dequant``: exact.
 """
 
 import pytest
@@ -350,3 +354,88 @@ def test_int4_counters_count_each_body(cuda):
     counts = ops.launch_counts()
     assert (counts["wo4_split"], counts["wo4_legacy"], counts["w4a8_two_level"],
             counts["w4a8_group"]) == (1, 2, 1, 1)
+
+
+def _codes_close(q, ref, share):
+    dq = (q.int() - ref.int()).abs()
+    assert dq.max().item() <= 1
+    assert (dq != 0).float().mean().item() < share
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,cast", [(torch.bfloat16, torch.bfloat16),
+                                        (torch.float32, torch.float32),
+                                        (torch.float16, torch.bfloat16),
+                                        (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("m,k", [(1, 64), (4, 4096), (37, 4100), (256, 4096)])
+def test_rms_norm_quant_vs_plain(cuda, m, k, dtype, cast):
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    x = (torch.randn(m, k, generator=g, device=cuda) * 2).to(dtype)
+    w = torch.rand(k, generator=g, device=cuda) + 0.5
+    q, s = ops.rms_norm_quant(x, w, eps=1e-5, cast_dtype=cast)
+    rq, rs = ops.rms_norm_quant_ref(x, w, eps=1e-5, cast_dtype=cast)
+    torch.cuda.synchronize()
+    assert q.shape == x.shape and s.shape == (m,)
+    torch.testing.assert_close(s, rs, rtol=1e-6, atol=0)
+    _codes_close(q, rq, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("dtype,cast", [(torch.bfloat16, torch.bfloat16),
+                                        (torch.float32, torch.float32),
+                                        (torch.float16, torch.float16)])
+@pytest.mark.parametrize("m,k", [(1, 24), (4, 11008), (9, 1000), (256, 11008)])
+def test_swiglu_quant_vs_plain(cuda, m, k, dtype, cast, act):
+    g = torch.Generator(device=cuda).manual_seed(m * 3 + k)
+    gate = (torch.randn(m, k, generator=g, device=cuda) * 2).to(dtype)
+    up = (torch.randn(m, k, generator=g, device=cuda) * 2).to(dtype)
+    q, s = ops.swiglu_quant(gate, up, act=act, cast_dtype=cast)
+    rq, rs = ops.swiglu_quant_ref(gate, up, act=act, cast_dtype=cast)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, rs, rtol=1e-2, atol=0)
+    _codes_close(q, rq, 0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("m,n", [(1, 7), (3, 5), (40, 200), (4096, 11008)])
+def test_dequant_exact(cuda, m, n, axis, out_dtype):
+    g = torch.Generator(device=cuda).manual_seed(m + n + axis)
+    q = torch.randint(-127, 128, (m, n), generator=g, device=cuda, dtype=torch.int8)
+    s = torch.rand(n if axis == 0 else m, generator=g, device=cuda) * 0.05 + 1e-3
+    out = ops.dequant(q, s, axis, out_dtype)
+    torch.cuda.synchronize()
+    assert out.dtype == out_dtype and out.shape == (m, n)
+    assert torch.equal(out, ops.dequant_ref(q, s, axis, out_dtype))
+    # an unaligned view: 16-byte loads need the copy the wrapper makes
+    tail = q.reshape(-1)[3:3 + (m * n - 3) // n * n].reshape(-1, n)
+    if tail.shape[0]:
+        st = s if axis == 0 else s[1:tail.shape[0] + 1]  # an unaligned scale view too
+        assert torch.equal(ops.dequant(tail, st, axis, out_dtype),
+                           ops.dequant_ref(tail, st, axis, out_dtype))
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_reject_and_count(cuda):
+    ops.reset_launch_counts()
+    x = torch.randn(2, 64, device=cuda).to(torch.bfloat16)
+    w = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError, match="w shape"):
+        ops.rms_norm_quant(x, torch.ones(63, device=cuda), eps=1e-5)
+    with pytest.raises(TypeError, match="cast_dtype"):
+        ops.rms_norm_quant(x, w, eps=1e-5, cast_dtype=torch.int8)
+    with pytest.raises(TypeError, match="must be one of"):
+        ops.swiglu_quant(x, x.float())
+    with pytest.raises(ValueError, match="tensors on"):
+        ops.rms_norm_quant(x, w.cpu(), eps=1e-5)
+    ops.rms_norm_quant(x, w, eps=1e-5)
+    ops.rms_norm_quant_ref(x, w, eps=1e-5)
+    ops.swiglu_quant(x, x)
+    ops.swiglu_quant(x.cpu(), x.cpu())
+    q = torch.zeros(2, 64, dtype=torch.int8, device=cuda)
+    ops.dequant(q, torch.ones(64, device=cuda), 0)
+    ops.dequant_ref(q, torch.ones(64, device=cuda), 0)
+    counts = ops.launch_counts()
+    assert (counts["rms_norm_quant"], counts["swiglu_quant"], counts["dequant"]) == (1, 1, 1)

@@ -11,7 +11,11 @@ import pytest
 import torch
 
 import protoquant_tpu_torch
-from protoquant_tpu_torch import Engine, LlamaModel, ModelConfig
+from protoquant_tpu_torch import Engine, LlamaModel, ModelConfig, QLinear
+from protoquant_tpu_torch.engine import PagedInt8KVCache
+from protoquant_tpu_torch.models import init_cache
+from protoquant_tpu_torch.models.kv_cache import Int8KVCache
+from protoquant_tpu_torch.models.llama import MLP, Attention, DecoderLayer, RMSNorm
 from protoquant_tpu_torch.utils import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -60,6 +64,36 @@ def test_importing_the_port_loads_no_jax():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
+CFG = ModelConfig(vocab_size=32, hidden_size=32, intermediate_size=64,
+                  num_hidden_layers=1, num_attention_heads=2,
+                  num_key_value_heads=1, max_position_embeddings=32)
+
+# Every public constructor that makes tensors, called with ``device`` (the
+# keyword each takes) and nothing else of where to put them.
+CONSTRUCTORS = {
+    "LlamaModel": lambda **d: LlamaModel(CFG, **d),
+    "QLinear": lambda **d: QLinear(32, 16, "dynamic", **d),
+    "QLinear_int4": lambda **d: QLinear(32, 16, "dynamic_int4", int4_group=16, **d),
+    "init_cache": lambda **d: init_cache(CFG, 2, 16, **d),
+    "Int8KVCache.init": lambda **d: Int8KVCache.init(2, 16, 1, 16, **d),
+    "PagedInt8KVCache.init": lambda **d: PagedInt8KVCache.init(2, 5, 2, 8, 1, 16, **d),
+    "RMSNorm": lambda **d: RMSNorm(32, **d),
+    "Attention": lambda **d: Attention(CFG, "dynamic", torch.float32, **d),
+    "MLP": lambda **d: MLP(CFG, "dynamic", torch.float32, **d),
+    "DecoderLayer": lambda **d: DecoderLayer(CFG, "dynamic", torch.float32, **d),
+}
+
+
+def _tensors(obj):
+    """Every tensor an object holds: a module's parameters and buffers, a
+    cache's fields, or those of a list of caches."""
+    if isinstance(obj, torch.nn.Module):
+        return list(obj.parameters()) + list(obj.buffers())
+    if isinstance(obj, list):
+        return [t for o in obj for t in _tensors(o)]
+    return [v for v in vars(obj).values() if isinstance(v, torch.Tensor)]
+
+
 def test_cuda_request_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -68,16 +102,21 @@ def test_cuda_request_without_card_raises(monkeypatch):
         LlamaModel(ModelConfig.tiny())  # default device is cuda
     with pytest.raises(RuntimeError, match="CUDA"):
         LlamaModel(ModelConfig.tiny(), device="cuda:0")
+    for name, make in CONSTRUCTORS.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()  # no device given: cuda, which is missing
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make(device="cuda")
     assert resolve_device("cpu").type == "cpu"
 
 
 def test_cpu_entry_points_run_on_cpu():
-    cfg = ModelConfig(vocab_size=32, hidden_size=32, intermediate_size=64,
-                      num_hidden_layers=1, num_attention_heads=2,
-                      num_key_value_heads=1, max_position_embeddings=32)
-    m = LlamaModel(cfg, device="cpu", dtype=torch.float32).init_random_(0)
+    m = LlamaModel(CFG, device="cpu", dtype=torch.float32).init_random_(0)
     e = Engine(m, protoquant_tpu_torch.EngineConfig(max_batch_size=2, max_seq_len=32,
                                                      prefill_chunk=8, max_new_tokens=3))
     rid = e.add_request([1, 2, 3])
     assert len(e.run()[rid]) == 3
     assert e.caches[0].kq.device.type == "cpu"
+    for name, make in CONSTRUCTORS.items():
+        tensors = _tensors(make(device="cpu"))
+        assert tensors and all(t.device.type == "cpu" for t in tensors), name
