@@ -54,11 +54,23 @@ Phases (any failure exits non-zero and prints no result line):
               4's (a reading: codes may move by one step)
  11. fused agreement  phase 5 with FUSED_QUANT=on, norm weights drawn from
               [0.5, 1.5], and a planted fault for each producer
+ 12. k4v8     phase 4 again over Engine(kv_dtype="k4v8") (same seed, weights,
+              prompts and EngineConfig; KIVI group 64): per decode step 129
+              rowquant, 225 qmatmul, 32 k4v8_decode_update and 32
+              k4v8_attention, none of the int8 cache kernels; at least one
+              decode write must cross a chunk boundary (a flush); prints and
+              asserts the cache's bytes (948 MiB against int8's 1056)
+ 13. int4 KV  phase 12 with kv_dtype="int4" (kivi4_decode_update,
+              int4_kv_attention; 692 MiB)
+ 14. KIVI agreement  phase 5 over each KIVI cache, f32 and bf16, with a
+              62-token prompt so that a decode write flushes chunk 0 and
+              the later steps read it packed; a planted fault for each
+              writer and attention; judged also on the decode positions
 Each phase prints its seconds, and the run its total.
 The line before the last is {"kernels": [...]}, one entry per kernel body
-(14): "launches" is its count summed over the six engine runs (phases 4,
-6, 8.1, 8.2, 8.3, 10), each driven with the counts at 0 and read just
-after ("launches_by_path"). wo4_legacy and dequant are on no engine path
+(18): "launches" is its count summed over the eight engine runs (phases 4,
+6, 8.1, 8.2, 8.3, 10, 12, 13), each driven with the counts at 0 and read
+just after ("launches_by_path"). wo4_legacy and dequant are on no engine path
 (a caller reaches wo4_legacy through the formulation argument of
 weight_only_int4_matmul, and dequant as ops.dequant; QTensor.dequantize
 stays on core.numerics, as in the JAX package), so their counts there are
@@ -66,13 +78,14 @@ stays on core.numerics, as in the JAX package), so their counts there are
 
 Tolerances. rowquant codes and scales, qmatmul outputs (f32 and bf16), both
 decode scatters and both W4A8 bodies (two_level, group) must equal their
-plain versions exactly, and so must dequant. The fused producers are held
+plain versions exactly, and so must dequant and both KIVI decode writers
+(all eight cache tensors). The fused producers are held
 to what the JAX package demands of its Pallas kernels against the module
 composition: codes equal or one step apart (they sum and compute the
 activation in other orders, and a code moves where a value sits on a
 rounding boundary) in under FLIP_SHARE of the elements, scales within
-SCALE_RTOL; their "max_abs_err" is in code steps. Attention, dense and
-paged (bf16 q and output, f32
+SCALE_RTOL; their "max_abs_err" is in code steps. Attention, dense, paged
+and KIVI (bf16 q and output, f32
 arithmetic inside), is held to ATTN_TOL times the largest output: both
 round their f32 result to bf16 once, after summing in different orders.
 The weight-only products, int8 and int4 (split, legacy), are held to
@@ -656,7 +669,171 @@ def check_paged_attention(ops, gen, dev):
     return cases
 
 
-# -- phases 4 to 9: the slices and the agreements ----------------------------
+KIVI_G = 64  # the KIVI chunk (INT4_KV_GROUP) at the 7B slice
+# kv_dtype -> (decode writer, attention) kernel bodies of the tier
+KIVI_KERNELS = {"k4v8": ("k4v8_decode_update", "k4v8_attention"),
+                "int4": ("kivi4_decode_update", "int4_kv_attention")}
+
+
+def _kivi_cache(gen, dev, tier, B, KV, S, Dh, G=KIVI_G):
+    """Random KIVI cache tensors (kq, kchs, vq, vs, ktail, kts, vtail, vts):
+    every packed byte and tail code drawn, scales positive."""
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    def sc(*shape):
+        return (torch.rand(*shape, generator=gen, device=dev) + 0.5) * 0.02
+
+    v = (i8(B, KV, S // 2, Dh), sc(B, KV, 2, S // 2)) if tier == "int4" else (
+        i8(B, KV, S, Dh).clamp_(-127, 127), sc(B, KV, S))
+    return [i8(B, KV, S // 2, Dh), sc(B, KV, S // G, Dh), *v,
+            i8(B, KV, 2 * G, Dh).clamp_(-127, 127), sc(B, KV, 2 * G),
+            i8(B, KV, 2 * G, Dh).clamp_(-127, 127), sc(B, KV, 2 * G)]
+
+
+def _mirror_v(cache, new_lengths, G=KIVI_G):
+    """K4V8: the V tail rows of positions [F, F + 2G) below S (F the
+    frontier of ``new_lengths``) copied from vq/vs, as the cache's writes
+    keep its mirror; the kernel reads V there, the plain version from vq."""
+    vq, vs, vt, vts = cache[2], cache[3], cache[6], cache[7]
+    B, S = vq.shape[0], vq.shape[2]
+    F = (new_lengths.long().clamp(0, S) // G) * G
+    pos = F[:, None] + torch.arange(2 * G, device=vq.device)
+    keep, p = pos < S, pos.clamp_max(S - 1)
+    b, rows = torch.arange(B, device=vq.device)[:, None], pos % (2 * G)
+    vt[b, :, rows] = torch.where(keep[..., None, None], vq[b, :, p], vt[b, :, rows])
+    vts[b, :, rows] = torch.where(keep[..., None], vs[b, :, p], vts[b, :, rows])
+    return cache
+
+
+def check_kivi_update(ops, gen, dev, tier):
+    """The tier's decode writer against its plain version, all eight
+    tensors exact: rows at 62 and 64 (no flush), 63 and 1023 (flushes of
+    chunks 0 and 15), 1024 (at capacity: nothing written) and 127 with
+    adv = 0 (inserts, never flushes). Library: none."""
+    writer = getattr(ops, KIVI_KERNELS[tier][0])
+    plain = getattr(ops, KIVI_KERNELS[tier][0] + "_ref")
+    B, KV, S, Dh, G = 6, HEADS, 1024, HEAD_DIM, KIVI_G
+    lens = [62, 63, 64, 1023, 1024, 127]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    adv = torch.tensor([1, 1, 1, 1, 1, 0], dtype=torch.int32, device=dev)
+    k8 = torch.randint(-127, 128, (B, KV, 1, Dh), generator=gen, device=dev, dtype=torch.int8)
+    v8 = torch.randint_like(k8, -127, 128)
+    ksn = torch.rand(B, KV, 1, generator=gen, device=dev) * 0.02 + 1e-3
+    vsn = torch.rand(B, KV, 1, generator=gen, device=dev) * 0.02 + 1e-3
+    base = _kivi_cache(gen, dev, tier, B, KV, S, Dh)
+    a = [t.clone() for t in base]
+    b = [t.clone() for t in base]
+    new = (lengths, k8, ksn, v8, vsn)
+    writer(*a, *new, group=G, adv=adv)
+    plain(*b, *new, group=G, adv=adv)
+    torch.cuda.synchronize()
+    names = ("kq", "kchs", "vq", "vs", "ktail", "kts", "vtail", "vts")
+    bad = [n for n, x, y in zip(names, a, b) if not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(f"{KIVI_KERNELS[tier][0]} differs from its plain version in {bad}")
+    flushed = [bool((a[0][r] != base[0][r]).any() or (a[1][r] != base[1][r]).any())
+               for r in range(B)]
+    if flushed != [False, True, False, True, False, False]:
+        raise AssertionError(f"{KIVI_KERNELS[tier][0]}: rows flushed {flushed}, "
+                             "want rows 1 and 3 only")
+    if not all(torch.equal(x[4], y[4]) for x, y in zip(a, base)):
+        raise AssertionError(f"{KIVI_KERNELS[tier][0]} wrote into a slot at capacity")
+    # bytes: the new rows in; per row below S the tail rows written (K4V8 also
+    # the V row); per flushing row G tail rows read (K, and V for int4) and
+    # the packed rows and scales written
+    row = Dh + 4
+    nbytes = 8 * B + B * KV * 2 * row
+    for ln, ad in zip(lens, adv.tolist()):
+        if ln < S:
+            nbytes += KV * row * (2 if tier == "int4" else 3)
+        c = ln // G
+        if ad and (c + 1) * G <= min(ln + ad, S):
+            sides = 2 if tier == "int4" else 1
+            nbytes += KV * sides * (G * row + G // 2 * Dh) + KV * (4 * Dh + (4 * G if sides == 2 else 0))
+    bnd, kind = bound_ms(nbytes, 0, INT8_OPS_PER_S)
+    return [{
+        "shape": f"B={B} KV={KV} S={S} Dh={Dh} G={G} lengths={lens} adv={adv.tolist()}",
+        "max_abs_err": 0.0,
+        "ms": bench([lambda: writer(*a, *new, group=G, adv=adv)]),
+        "plain_ms": bench([lambda: plain(*b, *new, group=G, adv=adv)]),
+        "bound_ms": bnd, "bound_by": kind, "library_ms": None}]
+
+
+def kivi_attention_bytes(tier, lengths, new_lengths, B, KV, T, H, Dh, G=KIVI_G, S=1024):
+    """Least bytes of one KIVI attention call: per (b, kv head) the packed
+    keys below the frontier that the step reads (K nibbles and chunk scales,
+    V int8 or nibbles with their scales), the live tail rows (positions
+    from the frontier to the last query's), q and out in bf16."""
+    total = 2 * 2 * B * T * H * Dh + 8 * B
+    v_row = Dh + 4 if tier == "k4v8" else Dh // 2 + 4
+    for ln, nl in zip(lengths, new_lengths):
+        front = (min(nl, S) // G) * G
+        packed = min(front, ln + T)
+        live = max(0, min(S, ln + T) - front)
+        total += KV * (packed * (Dh // 2 + v_row) + -(-packed // G) * 4 * Dh
+                       + live * 2 * (Dh + 4))
+    return total
+
+
+def check_kivi_attention(ops, gen, dev, tier):
+    """The tier's attention against its plain version within ATTN_TOL:
+    decode at lengths 63 / 700 / 1023 / 255 (63's step completes chunk 0),
+    and a prefill chunk of 256 from 300 (crossing chunk boundaries 320 to
+    512). Library: SDPA over the cache dequantized to bf16 (the plain
+    version's f32 dequant, rounded)."""
+    import torch.nn.functional as F
+
+    from protoquant_tpu_torch.ops.attention import kivi_dequant_k, kivi_dequant_v4
+
+    name = KIVI_KERNELS[tier][1]
+    attn, plain = getattr(ops, name), getattr(ops, name + "_ref")
+    S, KV, H, Dh, G = 1024, HEADS, HEADS, HEAD_DIM, KIVI_G
+    cases = []
+    for label, B, T, lens in (("decode", 4, 1, [63, 700, 1023, 255]),
+                              ("prefill", 1, 256, [300])):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        new_lengths = lengths + T
+        per_copy = B * KV * S * (2 * Dh if tier == "k4v8" else Dh) // 2
+        caches = [_kivi_cache(gen, dev, tier, B, KV, S, Dh) for _ in range(copies_for(per_copy))]
+        if tier == "k4v8":
+            caches = [_mirror_v(c, new_lengths) for c in caches]
+        q = torch.randn(B, T, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
+        kw = {"group": G}
+        out = attn(q, *caches[0], lengths, new_lengths, **kw)
+        ref = plain(q, *caches[0], lengths, new_lengths, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = ATTN_TOL * ref.float().abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
+        t_idx = torch.arange(T, device=dev)
+        valid = (lengths.long()[:, None] + t_idx[None, :] + 1).clamp_max(S)
+        nbytes = kivi_attention_bytes(tier, lens, new_lengths.tolist(), B, KV, T, H, Dh)
+        bnd, kind = bound_ms(nbytes, 4 * Dh * H * valid.sum().item(), BF16_FLOPS_PER_S)
+        pos = torch.arange(S, device=dev)
+        mask = (pos[None, None, :] <= (lengths.long()[:, None] + t_idx)[:, :, None])[:, None]
+        deq = []
+        for kq, kchs, vq, vs, kt, kts, vt, vts in caches[:copies_for(B * KV * S * Dh * 4)]:
+            k = kivi_dequant_k(kq, kchs, kt, kts, new_lengths, G)
+            v = (vq.float() * vs[..., None] if tier == "k4v8"
+                 else kivi_dequant_v4(vq, vs, vt, vts, new_lengths, G))
+            deq.append((k.to(torch.bfloat16), v.to(torch.bfloat16)))
+        qh = q.transpose(1, 2)
+        cases.append({
+            "shape": f"{label} B={B} T={T} H={H} S={S} G={G} lengths={lens}",
+            "max_abs_err": err,
+            "ms": bench([lambda c=c: attn(q, *c, lengths, new_lengths, **kw) for c in caches]),
+            "plain_ms": bench([lambda c=c: plain(q, *c, lengths, new_lengths, **kw)
+                               for c in caches], iters=5),
+            "bound_ms": bnd, "bound_by": kind,
+            "library_ms": bench([lambda k=k, v=v: F.scaled_dot_product_attention(
+                qh, k, v, attn_mask=mask) for k, v in deq])})
+        del caches, deq
+    return cases
+
+
+# -- phases 4 to 14: the slices and the agreements ---------------------------
 
 
 def fused(mode: str) -> bool:
@@ -667,33 +844,35 @@ def fused(mode: str) -> bool:
     return producer_fused(mode)
 
 
-def path_kernels(ops, mode: str) -> tuple:
+def path_kernels(ops, mode: str, kv_dtype: str = "int8") -> tuple:
     """The kernel bodies a decode step of ``mode`` launches: the dense
-    cache for the dynamic modes, the paged pool for the weight-only ones
-    (whose prefill chunks also run the dense flash kernel); under
-    FUSED_QUANT=on, "dynamic" adds the two fused producers."""
+    cache of ``kv_dtype`` (its writer and attention) for the dynamic modes,
+    the paged pool for the weight-only ones (whose prefill chunks also run
+    the dense flash kernel); under FUSED_QUANT=on, "dynamic" adds the two
+    fused producers."""
     gemm = {"dynamic": "qmatmul", "weight_only": "weight_only_matmul",
             "weight_only_int4": "wo4_split",
             "dynamic_int4": "w4a8_" + ops.resolve_w4a8_formulation()}[mode]
     if mode in ("dynamic", "dynamic_int4"):
-        return (("rowquant", gemm, "kv_scatter_decode", "int8_kv_attention")
+        cache = KIVI_KERNELS.get(kv_dtype, ("kv_scatter_decode", "int8_kv_attention"))
+        return (("rowquant", gemm, *cache)
                 + (("rms_norm_quant", "swiglu_quant") if fused(mode) else ()))
     return (gemm, "paged_kv_scatter_decode", "paged_int8_attention", "int8_kv_attention")
 
 
-def decode_step_launches(ops, mode: str, layers: int) -> dict:
+def decode_step_launches(ops, mode: str, layers: int, kv_dtype: str = "int8") -> dict:
     """Exact launches of one decode step: every kernel body of ops.KERNELS,
     0 for those off the path. The fused path quantizes only o_proj's and
     lm_head's inputs by rowquant: the norms and the gate emit the rest."""
     per_step = dict.fromkeys(ops.KERNELS, 0)
-    kernels = path_kernels(ops, mode)
+    kernels = path_kernels(ops, mode, kv_dtype)
     if fused(mode):
         per_step.update({"rowquant": layers + 1, "rms_norm_quant": 2 * layers,
                          "swiglu_quant": layers, kernels[1]: 7 * layers + 1,
-                         "kv_scatter_decode": layers, "int8_kv_attention": layers})
+                         kernels[2]: layers, kernels[3]: layers})
     elif mode in ("dynamic", "dynamic_int4"):
         per_step.update({"rowquant": 4 * layers + 1, kernels[1]: 7 * layers + 1,
-                         "kv_scatter_decode": layers, "int8_kv_attention": layers})
+                         kernels[2]: layers, kernels[3]: layers})
     else:
         per_step.update({kernels[0]: 7 * layers + 1, "paged_kv_scatter_decode": layers,
                          "paged_int8_attention": layers})
@@ -705,19 +884,29 @@ def serve(engine, prompts, ops, per_step, first_alone: bool = False):
     ``first_alone``: request 0 alone until its prefill ends (its prompt is
     then published), then the others. Returns the outputs in request order,
     the step times with and without a prefill chunk, and the decode steps
-    whose launches differ from ``per_step``."""
+    whose launches differ from ``per_step``, and the chunk boundaries that
+    decode writes crossed (a KIVI cache flushes one chunk per crossing; 0
+    for the other caches)."""
     rids = [engine.add_request(p) for p in (prompts[:1] if first_alone else prompts)]
     prefill_ms, decode_ms, bad_steps = [], [], []
+    group = getattr(engine.caches[0], "group", None)
+    crossed = [0]
 
     def step():
         with_prefill = bool(engine.prefilling) or (
             bool(engine.waiting) and any(r is None for r in engine.slot_req))
         before = ops.launch_counts()
+        lengths = engine.caches[0].lengths.clone()
+        decoding = torch.tensor(engine.active, device=lengths.device)
         t = time.perf_counter()
         engine.step()
         torch.cuda.synchronize()
         dt = 1e3 * (time.perf_counter() - t)
         after = ops.launch_counts()
+        if group:  # slots that decoded this step moved by one position
+            now = engine.caches[0].lengths
+            crossed[0] += int((decoding & (now == lengths + 1)
+                               & (now // group > lengths // group)).sum())
         if with_prefill:
             prefill_ms.append(dt)
         else:
@@ -733,7 +922,7 @@ def serve(engine, prompts, ops, per_step, first_alone: bool = False):
     while engine.has_work():
         step()
     outs = {r.rid: r.out for r in engine.finished}
-    return [outs.get(r) for r in rids], prefill_ms, decode_ms, bad_steps
+    return [outs.get(r) for r in rids], prefill_ms, decode_ms, bad_steps, crossed[0]
 
 
 def _build_7b(mode: str, seed: int, dev):
@@ -751,39 +940,64 @@ def _build_7b(mode: str, seed: int, dev):
 
 
 def run_slice(ops, seed: int, dev, mode: str = "dynamic", formulation: str | None = None,
-              fused_quant: str | None = None):
-    """Phases 4, 8.1, 8.3 and 10: Llama-2-7B in a dynamic mode (int8 or int4
-    weights) on the dense cache, 6 requests. ``formulation``: the W4A8
-    formulation of a dynamic_int4 run; ``fused_quant``: the FUSED_QUANT
-    knob (default: each as resolved)."""
+              fused_quant: str | None = None, kv_dtype: str = "int8"):
+    """Phases 4, 8.1, 8.3, 10, 12 and 13: Llama-2-7B in a dynamic mode (int8
+    or int4 weights) on the dense cache of ``kv_dtype``, 6 requests.
+    ``formulation``: the W4A8 formulation of a dynamic_int4 run;
+    ``fused_quant``: the FUSED_QUANT knob (default: each as resolved)."""
     with knob(ops, "W4A8_FORMULATION", formulation), knob(ops, "FUSED_QUANT", fused_quant):
-        return _run_slice(ops, seed, dev, mode)
+        return _run_slice(ops, seed, dev, mode, kv_dtype)
 
 
-def _run_slice(ops, seed: int, dev, mode: str):
+def kv_cache_bytes(caches) -> int:
+    """Bytes of every tensor of the caches."""
+    return sum(t.numel() * t.element_size() for c in caches for t in vars(c).values()
+               if isinstance(t, torch.Tensor))
+
+
+def expected_cache_bytes(kv_dtype: str, layers: int, B: int, KV: int, S: int, Dh: int,
+                         G: int = KIVI_G) -> int:
+    """The layout's bytes from its shapes: int8 K/V + per-token scales; the
+    KIVI tiers' packed K with chunk-channel scales, their V (int8 per token,
+    or packed with parity-split scales) and two 2G-row int8 tails."""
+    if kv_dtype == "int8":
+        per = 2 * S * Dh + 2 * 4 * S
+    else:
+        v = S * Dh + 4 * S if kv_dtype == "k4v8" else S // 2 * Dh + 4 * S
+        per = S // 2 * Dh + 4 * (S // G) * Dh + v + 2 * (2 * G * Dh + 4 * 2 * G)
+    return layers * (B * KV * per + 4 * B)
+
+
+def _run_slice(ops, seed: int, dev, mode: str, kv_dtype: str):
     from protoquant_tpu_torch import Engine, EngineConfig
 
     cfg, model = _build_7b(mode, seed, dev)
     engine = Engine(model, EngineConfig(max_batch_size=4, max_seq_len=1024,
-                                        prefill_chunk=256, max_new_tokens=32))
+                                        prefill_chunk=256, max_new_tokens=32),
+                    kv_dtype=kv_dtype)
+    cache_bytes = kv_cache_bytes(engine.caches)
+    want_bytes = expected_cache_bytes(kv_dtype, cfg.num_hidden_layers, 4,
+                                      cfg.num_key_value_heads, 1024, cfg.head_dim)
+    if cache_bytes != want_bytes:
+        raise AssertionError(f"{kv_dtype} cache: {cache_bytes} bytes, want {want_bytes}")
     gen = torch.Generator().manual_seed(seed)
     prompt_lens = [64, 700, 130, 411, 256, 517]
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in prompt_lens]
 
-    per_step = decode_step_launches(ops, mode, cfg.num_hidden_layers)
+    per_step = decode_step_launches(ops, mode, cfg.num_hidden_layers, kv_dtype)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t_run = time.perf_counter()
-    outs, prefill_ms, decode_ms, bad_steps = serve(engine, prompts, ops, per_step)
+    outs, prefill_ms, decode_ms, bad_steps, crossed = serve(engine, prompts, ops, per_step)
     wall = time.perf_counter() - t_run
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     generated = sum(len(o or []) for o in outs)
-    path = path_kernels(ops, mode)
-    label = f"{mode} ({path[1]}{', fused' if fused(mode) else ''})"
+    path = path_kernels(ops, mode, kv_dtype)
+    label = f"{mode} ({path[1]}{', fused' if fused(mode) else ''}, {kv_dtype} KV)"
     log(f"slice {label}: {len(prompts)} requests, prompts {prompt_lens}, {generated} tokens "
         f"in {wall:.3f} s = {generated / wall:.1f} tok/s; "
         f"{len(prefill_ms)} steps with a prefill chunk (mean "
@@ -793,6 +1007,11 @@ def _run_slice(ops, seed: int, dev, mode: str):
         f"min {min(decode_ms, default=0):.3f} ms); peak memory {peak / 2**30:.2f} GiB")
     log(f"slice {label} launches: {json.dumps(launches)}; per decode step "
         f"{json.dumps(per_step)}")
+    log(f"slice {label}: KV cache {cache_bytes} bytes = {cache_bytes / 2**20:.1f} MiB "
+        f"({cfg.num_hidden_layers} layers, B=4, S=1024); chunk boundaries crossed by "
+        f"decode writes: {crossed}")
+    if kv_dtype in KIVI_KERNELS and crossed < 1:
+        raise AssertionError(f"slice {label}: no decode step flushed a chunk")
     if any(launches[k] <= 0 for k in path):
         raise AssertionError(f"a kernel of the {label} path never launched: {launches}")
     if bad_steps or not decode_ms:
@@ -803,7 +1022,7 @@ def _run_slice(ops, seed: int, dev, mode: str):
     stats = {"tokens_per_s": generated / wall, "wall_s": wall,
              "prefill_step_ms": prefill_ms, "decode_step_ms": decode_ms,
              "peak_gib": peak / 2**30, "outputs": outs}
-    profile_decode(model, prompts)
+    profile_decode(model, prompts, kv_dtype=kv_dtype)
     del engine, model
     torch.cuda.empty_cache()
     return launches, stats
@@ -875,8 +1094,8 @@ def run_paged_slice(ops, seed: int, dev, mode: str = "weight_only"):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t_run = time.perf_counter()
-    outs, prefill_ms, decode_ms, bad_steps = serve(eng, prompts, ops, per_step,
-                                                   first_alone=True)
+    outs, prefill_ms, decode_ms, bad_steps, _ = serve(eng, prompts, ops, per_step,
+                                                      first_alone=True)
     wall = time.perf_counter() - t_run
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -952,7 +1171,11 @@ def plain_versions(**faulty):
              ("int8_kv_attention", kv_cache, ops.int8_kv_attention_ref),
              ("int8_kv_attention", paged_kv, ops.int8_kv_attention_ref),
              ("paged_kv_scatter_decode", paged_kv, ops.paged_kv_scatter_decode_ref),
-             ("paged_int8_attention", paged_kv, ops.paged_int8_attention_ref)]
+             ("paged_int8_attention", paged_kv, ops.paged_int8_attention_ref),
+             ("k4v8_decode_update", kv_cache, ops.k4v8_decode_update_ref),
+             ("k4v8_attention", kv_cache, ops.k4v8_attention_ref),
+             ("kivi4_decode_update", kv_cache, ops.kivi4_decode_update_ref),
+             ("int4_kv_attention", kv_cache, ops.int4_kv_attention_ref)]
     saved = [(mod, name, getattr(mod, name)) for name, mod, _ in swaps]
     try:
         for name, mod, plain in swaps:
@@ -970,11 +1193,33 @@ def _swap_nibbles(packed):
     return (((u & 0x0F) << 4) | (u >> 4)).to(torch.uint8).view(torch.int8)
 
 
-def planted_faults(ops, mode: str = "dynamic"):
+def _scale_row_shifted(writer):
+    """``writer`` (a KIVI decode writer's plain version) with a fault: the
+    channel scales of a flushed chunk c land in row c + 1 of kchs, and row c
+    keeps what it held."""
+    def faulty(kq, kchs, *rest, **kw):
+        before = kchs.clone()
+        out = writer(kq, kchs, *rest, **kw)
+        moved = (kchs != before).any(dim=-1, keepdim=True).roll(1, dims=2)
+        kchs.copy_(torch.where(moved, kchs.roll(1, dims=2), before))
+        return out
+    return faulty
+
+
+def planted_faults(ops, mode: str = "dynamic", kv_dtype: str = "int8"):
     """Plain versions with one small fault each, standing in for a wrong
     kernel: the agreement limits must reject every one. One fault for each
     kernel that a mode's agreement brought in (the fused path: its two
-    producers)."""
+    producers; a KIVI cache: its writer and its attention)."""
+    if kv_dtype in KIVI_KERNELS:
+        writer, attn = KIVI_KERNELS[kv_dtype]
+        plain_attn = getattr(ops, attn + "_ref")
+        return {
+            f"{writer} writes chunk c's scales into row c + 1": {
+                writer: _scale_row_shifted(getattr(ops, writer + "_ref"))},
+            f"{attn} swaps the low and high nibbles of K": {
+                attn: lambda q, kq, *a, **k: plain_attn(q, _swap_nibbles(kq), *a, **k)},
+        }
     if fused(mode):
         return {
             "rms_norm_quant reads the neighbouring channel's weight": {
@@ -1018,7 +1263,8 @@ def planted_faults(ops, mode: str = "dynamic"):
 
 
 def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
-                  formulation: str | None = None, fused_quant: str | None = None):
+                  formulation: str | None = None, fused_quant: str | None = None,
+                  kv_dtype: str = "int8"):
     """2 layers at full width on the card, run on the same prompt through
     the kernels, through their plain versions, and through the plain
     versions with each planted fault. A prefill of 48 tokens into 2 slots,
@@ -1031,23 +1277,28 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
     dynamic_int4 run; ``fused_quant``: the FUSED_QUANT knob (default: each
     as resolved). On the fused path the norm weights are drawn from
     [0.5, 1.5] (init_random_ sets them to 1, under which a kernel reading
-    the wrong weight would pass unseen)."""
+    the wrong weight would pass unseen). Over a KIVI cache (``kv_dtype``
+    "k4v8" or "int4", G = 64) the prompt is 62 tokens, so the second decode
+    step's write completes chunk 0 and flushes it, and the last three steps
+    read it from the packed store; its kernels act on the decode positions,
+    so its runs must pass the limit there too, as the paged ones."""
     from protoquant_tpu_torch import LlamaModel, ModelConfig
     from protoquant_tpu_torch.engine import PagedInt8KVCache
     from protoquant_tpu_torch.models import init_cache
     from protoquant_tpu_torch.models.llama import RMSNorm
 
     paged = mode.startswith("weight_only")
+    kivi = kv_dtype in KIVI_KERNELS
     cfg = ModelConfig(num_hidden_layers=2)
     model = LlamaModel(cfg, mode=mode, dtype=dtype, device=dev).init_random_(seed + 1)
     gen = torch.Generator().manual_seed(seed + 1)
-    prompt = torch.randint(1, cfg.vocab_size, (2, 48), generator=gen).to(dev)
+    prompt = torch.randint(1, cfg.vocab_size, (2, 62 if kivi else 48), generator=gen).to(dev)
     ps, max_pages = 16, 128 // 16
     order = torch.randperm(2 * max_pages, generator=gen).tolist()
 
     def new_caches():
         if not paged:
-            return init_cache(cfg, 2, 128, dev)
+            return init_cache(cfg, 2, 128, dev, kv_dtype)
         caches = [PagedInt8KVCache.init(2, 2 * max_pages + 1, max_pages, ps,
                                         cfg.num_key_value_heads, cfg.head_dim, dev)
                   for _ in range(cfg.num_hidden_layers)]
@@ -1067,9 +1318,10 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
 
     def compare(out, ref):
         """Readings over all positions, and the relative L2 error over the
-        decode positions alone (8 of the 104), where the decode scatter and
-        T = 1 attention act. The paged path's two attention kernels act
-        there only, so its runs must pass the limit there too."""
+        decode positions alone (8 of the 104, or of the 132 with a KIVI
+        cache), where the decode writer and T = 1 attention act. The paged
+        path's two attention kernels and the KIVI flush act there only, so
+        their runs must pass the limit there too."""
         a = torch.cat([x.reshape(-1, cfg.vocab_size) for x in out]).float()
         b = torch.cat([x.reshape(-1, cfg.vocab_size) for x in ref]).float()
         da = torch.cat([x.reshape(-1, cfg.vocab_size) for x in out[1:]]).float()
@@ -1081,7 +1333,7 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
                "finite": bool(torch.isfinite(a).all())}
         got["pass"] = (got["finite"] and got["rel_l2"] <= AGREE_REL
                        and got["argmax_agree"] >= AGREE_ARGMAX
-                       and (not paged or got["decode_rel_l2"] <= AGREE_REL))
+                       and (not (paged or kivi) or got["decode_rel_l2"] <= AGREE_REL))
         return got
 
     with knob(ops, "W4A8_FORMULATION", formulation), knob(ops, "FUSED_QUANT", fused_quant):
@@ -1096,12 +1348,12 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
         with plain_versions():
             plain, _ = run(toks)
         readings = {"kernels": compare(kern, plain)}
-        for fault, swaps in planted_faults(ops, mode).items():
+        for fault, swaps in planted_faults(ops, mode, kv_dtype).items():
             with plain_versions(**swaps):
                 readings[fault] = compare(run(toks)[0], plain)
-        path = path_kernels(ops, mode)
+        path = path_kernels(ops, mode, kv_dtype)
         label = ("paged agreement" if paged else "agreement") + (
-            " fused" if fused(mode) else "")
+            " fused" if fused(mode) else "") + (f" {kv_dtype} KV" if kivi else "")
     if any(ops.launch_counts().values()) or not all(launched[k] for k in path) or any(
             launched[k] for k in launched if k not in path):
         raise AssertionError(f"agreement: kernel run launched {launched}, plain runs "
@@ -1150,6 +1402,14 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
                      "protoquant_tpu/ops/fused_quant.py:56", "M=4 I=11008 silu"),
     "dequant": ("protoquant_tpu_torch/csrc/dequant.cu",
                 "protoquant_tpu/ops/dequant.py:20", "axis=0 f32 out"),
+    "k4v8_decode_update": ("protoquant_tpu_torch/csrc/kivi_update.cu",
+                           "protoquant_tpu/ops/kv_scatter.py:472", None),
+    "k4v8_attention": ("protoquant_tpu_torch/csrc/kivi_attention.cu",
+                       "protoquant_tpu/ops/attention.py:1037", "decode"),
+    "kivi4_decode_update": ("protoquant_tpu_torch/csrc/kivi_update.cu",
+                            "protoquant_tpu/ops/kv_scatter.py:205", None),
+    "int4_kv_attention": ("protoquant_tpu_torch/csrc/kivi_attention.cu",
+                          "protoquant_tpu/ops/attention.py:495", "decode"),
 }
 
 
@@ -1176,7 +1436,11 @@ def check_kernels(ops, gen, dev) -> dict:
               ("w4a8_group", lambda *a: check_w4a8(*a, "group")),
               ("rms_norm_quant", check_rms_norm_quant),
               ("swiglu_quant", check_swiglu_quant),
-              ("dequant", check_dequant))
+              ("dequant", check_dequant),
+              ("k4v8_decode_update", lambda *a: check_kivi_update(*a, "k4v8")),
+              ("k4v8_attention", lambda *a: check_kivi_attention(*a, "k4v8")),
+              ("kivi4_decode_update", lambda *a: check_kivi_update(*a, "int4")),
+              ("int4_kv_attention", lambda *a: check_kivi_attention(*a, "int4")))
     for name, fn in checks:
         results[name] = fn(ops, gen, dev)
         for c in results[name]:
@@ -1190,7 +1454,7 @@ def check_kernels(ops, gen, dev) -> dict:
 
 
 def run_all(ops, seed: int, dev) -> list:
-    """Phases 3 to 11 on ``dev``; returns the kernels line's entries."""
+    """Phases 3 to 14 on ``dev``; returns the kernels line's entries."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     results = timed("3 kernels", check_kernels, ops, gen, dev)
 
@@ -1223,6 +1487,14 @@ def run_all(ops, seed: int, dev) -> list:
     for dtype in (torch.float32, torch.bfloat16):
         timed(f"11 fused agreement {dtype}", run_agreement, ops, seed, dev, dtype,
               "dynamic", None, "on")
+    by_path["dense_k4v8"], stats["dense dynamic k4v8"] = timed(
+        "12 k4v8 slice", run_slice, ops, seed, dev, "dynamic", None, None, "k4v8")
+    by_path["dense_int4kv"], stats["dense dynamic int4"] = timed(
+        "13 int4 KV slice", run_slice, ops, seed, dev, "dynamic", None, None, "int4")
+    for kv_dtype in KIVI_KERNELS:
+        for dtype in (torch.float32, torch.bfloat16):
+            timed(f"14 KIVI agreement {kv_dtype} {dtype}", run_agreement, ops, seed, dev,
+                  dtype, "dynamic", None, None, kv_dtype)
     kernels = []
     for name, cases in results.items():
         source, replaces, main_shape = KERNEL_META[name]
@@ -1253,8 +1525,10 @@ def run_all(ops, seed: int, dev) -> list:
     # fused: rowquant for o_proj and lm_head, the producers for the rest
     producers = (rq_hidden * (L + 1) + by[("rms_norm_quant", f"M=4 K={HIDDEN} bf16")] * 2 * L
                  + by[("swiglu_quant", f"M=4 I={INTER} silu")] * L)
-    dense = (results["kv_scatter_decode"][0]["ms"] * L
-             + results["int8_kv_attention"][0]["ms"] * L)
+    def cache_ms(writer, attention):
+        return (results[writer][0]["ms"] + results[attention][0]["ms"]) * L
+
+    dense = cache_ms("kv_scatter_decode", "int8_kv_attention")
     paged = (results["paged_kv_scatter_decode"][0]["ms"] * L
              + results["paged_int8_attention"][0]["ms"] * L)
     for label, est in (("dense dynamic", rowquant + linears("qmatmul") + dense),
@@ -1264,7 +1538,11 @@ def run_all(ops, seed: int, dev) -> list:
                        ("paged weight_only_int4", linears("wo4_split") + paged),
                        ("dense dynamic_int4 group",
                         rowquant + linears("w4a8_group") + dense),
-                       ("dense dynamic fused", producers + linears("qmatmul") + dense)):
+                       ("dense dynamic fused", producers + linears("qmatmul") + dense),
+                       ("dense dynamic k4v8", rowquant + linears("qmatmul")
+                        + cache_ms(*KIVI_KERNELS["k4v8"])),
+                       ("dense dynamic int4", rowquant + linears("qmatmul")
+                        + cache_ms(*KIVI_KERNELS["int4"]))):
         steps = sorted(stats[label]["decode_step_ms"])
         log(f"decode step, {label}: kernels at the measured shapes sum to {est:.3f} ms; "
             f"engine decode step median {steps[len(steps) // 2]:.3f} ms")
@@ -1275,6 +1553,12 @@ def run_all(ops, seed: int, dev) -> list:
              for a, b in zip(o, r)]
     log(f"fused slice: {sum(a == b for a, b in pairs)} of {len(pairs)} generated tokens "
         f"equal to phase 4's ({sum(a == b for a, b in pairs) / len(pairs):.4f})")
+    for kv_dtype in KIVI_KERNELS:
+        pairs = [(a, b) for o, r in zip(stats[f"dense dynamic {kv_dtype}"]["outputs"],
+                                        stats["dense dynamic"]["outputs"])
+                 for a, b in zip(o, r)]
+        log(f"{kv_dtype} KV slice: {sum(a == b for a, b in pairs)} of {len(pairs)} generated "
+            f"tokens equal to phase 4's ({sum(a == b for a, b in pairs) / len(pairs):.4f})")
     return kernels
 
 

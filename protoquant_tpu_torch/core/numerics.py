@@ -177,6 +177,58 @@ def unpack_int4(packed: torch.Tensor, group: int | None = None) -> torch.Tensor:
     return torch.cat([low, high], dim=2).reshape(n, 2 * k2).to(torch.int8)
 
 
+def pack_nib_pair(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Two nibble values in [-8, 7] (integer tensors) -> one byte each:
+    ``lo`` in bits 0-3, ``hi`` in bits 4-7, two's-complement nibbles."""
+    return ((lo.to(torch.int32) & 0x0F) | (hi.to(torch.int32) << 4)).to(torch.int8)
+
+
+def unpack_nib_pair(packed: torch.Tensor):
+    """Inverse of :func:`pack_nib_pair`: (lo, hi) int32, sign-extended."""
+    u = packed.to(torch.int32)
+    return (u << 28) >> 28, (u << 24) >> 28
+
+
+def _kivi_requant(xf: torch.Tensor, dim: int):
+    """Int4 codes of f32 values under one scale per slice reduced over
+    ``dim``: s = max(amax * f32(1/7), 1e-12) (a multiply by the f32
+    reciprocal constant, as the JAX package writes it), nib = clamp(round(x
+    / s), -7, 7) dividing by a tensor. Returns (nib int32, s)."""
+    inv7 = xf.new_full((), 1.0 / QMAX4)
+    s = torch.clamp_min(xf.abs().amax(dim=dim) * inv7, SCALE_EPS)
+    nib = torch.round(xf / s.unsqueeze(dim)).clamp(-QMAX4, QMAX4).to(torch.int32)
+    return nib, s
+
+
+def kivi_chunk_quantize_k(k8c: torch.Tensor, ksc: torch.Tensor):
+    """The K half of :func:`kivi_chunk_quantize`: (packed_k [B, KV, G/2,
+    Dh] int8, s_ch [B, KV, Dh] f32)."""
+    kf = k8c.float() * ksc.unsqueeze(-1)
+    nib, s_ch = _kivi_requant(kf, 2)
+    return pack_nib_pair(nib[:, :, 0::2], nib[:, :, 1::2]), s_ch
+
+
+def kivi_chunk_quantize_v(v8c: torch.Tensor, vsc: torch.Tensor):
+    """The V half of :func:`kivi_chunk_quantize`: (packed_v [B, KV, G/2,
+    Dh] int8, s_v [B, KV, G] f32)."""
+    vf = v8c.float() * vsc.unsqueeze(-1)
+    nib, s_v = _kivi_requant(vf, 3)
+    return pack_nib_pair(nib[:, :, 0::2], nib[:, :, 1::2]), s_v
+
+
+def kivi_chunk_quantize(k8c, ksc, v8c, vsc):
+    """Requantize one complete G-token chunk from its int8 tail values: K
+    per (chunk, channel), V per token; token pairs packed (token 2r in the
+    low nibble, 2r + 1 in the high one).
+
+    k8c/v8c: [B, KV, G, Dh] int8;  ksc/vsc: [B, KV, G] f32.
+    Returns (packed_k [B, KV, G/2, Dh] int8, s_ch [B, KV, Dh] f32,
+             packed_v [B, KV, G/2, Dh] int8, s_v [B, KV, G] f32),
+    bit for bit the JAX package's ``models/kv_cache.py:kivi_chunk_quantize``.
+    """
+    return (*kivi_chunk_quantize_k(k8c, ksc), *kivi_chunk_quantize_v(v8c, vsc))
+
+
 def dequantize_int4(packed: torch.Tensor, scales: torch.Tensor, group: int) -> torch.Tensor:
     """Codes times their group's scale, f32 [N, K]."""
     q = unpack_int4(packed, group)

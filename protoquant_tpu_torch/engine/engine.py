@@ -10,7 +10,8 @@ lock-step and retired, and their slots reused. Inactive slots run the same
 decode forward with advance 0, so their lengths stay put and their rows
 stay masked.
 
-``kv_layout="dense"`` allocates the cache once at [max_batch, max_seq].
+``kv_layout="dense"`` allocates the cache once at [max_batch, max_seq], of
+``kv_dtype`` "int8" (default), "k4v8" or "int4" (the KIVI capacity tiers).
 ``kv_layout="paged"`` allocates one pool of B * max_seq / page_size pages
 (+1 trash page) per layer; a request reserves only the pages it can touch,
 from the native page allocator, when it is admitted, and waits while the
@@ -28,7 +29,8 @@ from typing import Optional
 
 import torch
 
-from ..models.llama import LlamaModel, init_cache
+from ..models.kv_cache import Int8KVCache
+from ..models.llama import LlamaModel, init_cache, kv_cache_class
 from ..native import PageAllocator
 from ..utils.config import EngineConfig
 from .paged_kv import PagedInt8KVCache
@@ -77,7 +79,7 @@ class Engine:
     """Continuous-batching inference engine; runs on the model's device."""
 
     def __init__(self, model: LlamaModel, config: EngineConfig | None = None,
-                 kv_layout: str = "dense"):
+                 kv_layout: str = "dense", kv_dtype="int8"):
         self.model = model
         self.cfg = config or EngineConfig()
         self.device = model.device
@@ -87,8 +89,14 @@ class Engine:
         self.prefix: Optional[PrefixCache] = None
         if self.cfg.prefix_cache and kv_layout != "paged":
             raise ValueError("prefix_cache requires kv_layout='paged'")
+        if kv_layout == "paged" and kv_cache_class(kv_dtype) is not Int8KVCache:
+            raise ValueError("the paged layout is int8 only; use kv_layout='dense' for "
+                             f"kv_dtype {kv_dtype!r}")
         if kv_layout == "dense":
-            self.caches = init_cache(model.cfg, B, self.cfg.max_seq_len, self.device)
+            self.caches = init_cache(model.cfg, B, self.cfg.max_seq_len, self.device,
+                                     kv_dtype)
+            if not isinstance(self.caches[0], Int8KVCache):
+                self._check_kivi_chunk(self.caches[0].group)
         elif kv_layout == "paged":
             ps = self.cfg.page_size
             if self.cfg.max_seq_len % ps:
@@ -131,6 +139,19 @@ class Engine:
             "prefill_times": deque(maxlen=256),
             "queue_waits": deque(maxlen=256),
         }
+
+    def _check_kivi_chunk(self, G: int) -> None:
+        """A KIVI cache writes a padded prefill piece's pad rows into its
+        2G-row tail too; a piece longer than the tail can then overwrite live
+        rows. Refuse the prefill chunks for which that can happen: allowed
+        are pieces no longer than 2G, or chunks that are a multiple of G and
+        at most 4G (each piece then starts on a chunk boundary)."""
+        chunk = self.cfg.prefill_chunk
+        if _bucket(chunk, chunk) <= 2 * G or (chunk % G == 0 and chunk <= 4 * G):
+            return
+        raise ValueError(f"prefill_chunk {chunk} with a KIVI group of {G}: padded "
+                         f"pieces could overwrite live tail rows; take a chunk of at most "
+                         f"{2 * G}, or a multiple of {G} up to {4 * G}")
 
     def _samp_tensors(self) -> dict:
         h, dev = self._samp_host, self.device

@@ -54,3 +54,11 @@ def params_from_numpy(tree: Mapping) -> dict:
         else:
             raise KeyError(f"unknown parameter {'/'.join(path)}")
     return out
+
+
+def cache_from_numpy(cls, arrays: Mapping, group: int | None = None, device="cpu"):
+    """A port cache of class ``cls`` from a JAX cache's arrays (field name
+    -> numpy array, the same layouts), on ``device``; ``group`` for the
+    KIVI caches. Starts both packages from one state."""
+    fields = {name: _tensor(a).to(device) for name, a in arrays.items()}
+    return cls(**fields) if group is None else cls(**fields, group=group)

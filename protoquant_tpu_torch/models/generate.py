@@ -9,15 +9,16 @@ from .llama import LlamaModel, init_cache
 
 @torch.no_grad()
 def greedy_generate(model: LlamaModel, prompt, max_new_tokens: int,
-                    max_seq: int | None = None) -> torch.Tensor:
-    """Greedy decode over the int8 KV cache; returns [B, max_new_tokens]
-    int64 ids on the model's device. ``prompt`` is [B, T] token ids."""
+                    max_seq: int | None = None, kv_dtype="int8") -> torch.Tensor:
+    """Greedy decode over a dense KV cache of ``kv_dtype`` (``init_cache``);
+    returns [B, max_new_tokens] int64 ids on the model's device. ``prompt``
+    is [B, T] token ids."""
     prompt = torch.as_tensor(prompt, device=model.device).long()
     B, T = prompt.shape
     if max_new_tokens == 0:
         return torch.zeros((B, 0), dtype=torch.long, device=model.device)
     max_seq = max_seq or (T + max_new_tokens)
-    caches = init_cache(model.cfg, B, max_seq, model.device)
+    caches = init_cache(model.cfg, B, max_seq, model.device, kv_dtype)
     logits = model(prompt, None, caches)
     token = logits[:, -1].argmax(dim=-1)
     out = [token]

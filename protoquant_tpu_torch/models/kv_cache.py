@@ -1,11 +1,13 @@
-"""Dense int8 KV cache with per-token, per-head scales.
+"""Dense KV caches: int8 with per-token, per-head scales, and the KIVI
+capacity tiers ``K4V8KVCache`` (int4 K, int8 V) and ``Int4KVCache`` (int4
+K and V), each with an int8 tail of the latest 2G tokens (below).
 
-Layout as in the JAX package: kq/vq [B, KV, S, Dh] int8 (head-major, so one
+Int8 layout as in the JAX package: kq/vq [B, KV, S, Dh] int8 (head-major, so one
 (batch, kv head) row of the cache is contiguous), ks/vs [B, KV, S] f32,
 lengths [B] int32 with a length per slot, so the same cache serves
 single-request generation and the continuous-batching engine.
 
-Unlike the JAX cache, which is an immutable pytree, this one is updated IN
+Unlike the JAX caches, which are immutable pytrees, these are updated IN
 PLACE: ``update`` and ``update_and_attend`` write the new tokens into the
 cache tensors and advance ``lengths`` on the same object, and
 ``slot_view`` returns views, so writes through a slot view land in the
@@ -18,9 +20,15 @@ import dataclasses
 
 import torch
 
-from ..core.numerics import SCALE_EPS, quantize_rowwise
-from ..ops.attention import int8_kv_attention
-from ..ops.kv_scatter import kv_scatter_decode
+from ..core import numerics
+# kivi_chunk_quantize and the nibble helpers live in core.numerics; they are
+# named here too, where the JAX package keeps them
+from ..core.numerics import (SCALE_EPS, kivi_chunk_quantize, pack_nib_pair,  # noqa: F401
+                             quantize_rowwise, unpack_nib_pair)
+from ..ops.attention import (int4_kv_attention, int8_kv_attention, k4v8_attention,
+                             kivi_dequant_k, kivi_dequant_v4)
+from ..ops.kv_scatter import (gather_rows, k4v8_decode_update, kivi4_decode_update,
+                              kv_scatter_decode, put_chunk, put_v_chunk)
 from ..utils.device import resolve_device
 
 _FIELDS = ("kq", "ks", "vq", "vs", "lengths")
@@ -129,3 +137,224 @@ class Int8KVCache:
         """Zero one slot's length (its rows are masked by length)."""
         self.lengths[slot] = 0
         return self
+
+
+# -- KIVI capacity tiers: K4V8KVCache and Int4KVCache ---------------------------
+
+# Default KIVI chunk size (tokens per per-channel K scale). A module global
+# read when a cache is made, as in the JAX package, so tests can lower it.
+INT4_KV_GROUP = 64
+
+_KIVI_FIELDS = ("kq", "kchs", "vq", "vs", "ktail", "kts", "vtail", "vts", "lengths")
+
+
+@dataclasses.dataclass
+class _KiviKVCache:
+    """The K side shared by both KIVI tiers (G = ``group``, F = (length //
+    G) G): kq [B, KV, S/2, Dh] int8 packed K nibbles of completed chunks
+    (row r: token 2r low nibble, 2r + 1 high), kchs [B, KV, S/G, Dh] f32
+    per-(chunk, channel) K scales, ktail [B, KV, 2G, Dh] int8 + kts [B, KV,
+    2G] f32 per-token int8 tail (row j: the latest token with position = j
+    mod 2G), and the V tail vtail/vts of the same shape. Every token goes to
+    the tail first; a chunk is requantized from its tail rows once complete
+    (``core.numerics.kivi_chunk_quantize``), so chunked prefill and
+    token-by-token decode give the same cache bit for bit. Updated in place,
+    as ``Int8KVCache``."""
+
+    kq: torch.Tensor
+    kchs: torch.Tensor
+    vq: torch.Tensor
+    vs: torch.Tensor
+    ktail: torch.Tensor
+    kts: torch.Tensor
+    vtail: torch.Tensor
+    vts: torch.Tensor
+    lengths: torch.Tensor
+    group: int = 64
+
+    V4 = False  # Int4KVCache: V packed like K (per-token scales)
+
+    @classmethod
+    def init(cls, batch, max_seq, kv_heads, head_dim, group=None, device=None):
+        """An empty cache on ``device`` (default cuda); ``group`` defaults
+        to INT4_KV_GROUP, at most max_seq."""
+        device = resolve_device(device)
+        group = min(INT4_KV_GROUP if group is None else group, max_seq)
+        if max_seq % group or group % 2:
+            raise ValueError(f"{cls.__name__} needs max_seq % group == 0 and an even group "
+                             f"(max_seq={max_seq}, group={group})")
+        B, KV, S, Dh, G = batch, kv_heads, max_seq, head_dim, group
+
+        def eps(*shape):
+            return torch.full(shape, SCALE_EPS, dtype=torch.float32, device=device)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int8, device=device)
+
+        if cls.V4:
+            vq, vs = zeros(B, KV, S // 2, Dh), eps(B, KV, 2, S // 2)
+        else:
+            vq, vs = zeros(B, KV, S, Dh), eps(B, KV, S)
+        return cls(kq=zeros(B, KV, S // 2, Dh), kchs=eps(B, KV, S // G, Dh), vq=vq, vs=vs,
+                   ktail=zeros(B, KV, 2 * G, Dh), kts=eps(B, KV, 2 * G),
+                   vtail=zeros(B, KV, 2 * G, Dh), vts=eps(B, KV, 2 * G),
+                   lengths=torch.zeros(B, dtype=torch.int32, device=device), group=G)
+
+    @property
+    def max_seq(self) -> int:
+        return self.kq.shape[2] * 2
+
+    def _tensors(self):
+        return tuple(getattr(self, f) for f in _KIVI_FIELDS[:-1])
+
+    def _write(self, k, v, adv) -> None:
+        """Quantize k/v [B, T, KV, Dh] to per-token int8 and write them, in
+        place, without advancing ``lengths``: T == 1 through the decode
+        writer, T > 1 through the prefill update."""
+        B, T, KV, Dh = k.shape
+        k8, ks8 = quantize_kv(k)
+        v8, vs8 = quantize_kv(v)
+        if T == 1:
+            self._decode_write(*self._tensors(), self.lengths,
+                               k8.reshape(B, KV, 1, Dh), ks8.reshape(B, KV, 1),
+                               v8.reshape(B, KV, 1, Dh), vs8.reshape(B, KV, 1),
+                               group=self.group, adv=adv)
+        else:
+            self._prefill(k8, ks8, v8, vs8, adv)
+
+    def _prefill(self, k8, ks8, v8, vs8, adv) -> None:
+        """T > 1 (the JAX caches' ``_xla_update``): up to (G - 1 + T) // G
+        chunk flushes whose token rows come from the old tails (positions
+        below the old length) or from the new tokens; then the tails take
+        the new tokens, anchored at [L_old, L_old + T) (positions past S
+        included, as in the JAX package); a flush past S is dropped.
+        Masked writes only, no host branch on the lengths."""
+        B, T = k8.shape[:2]
+        G, S, dev = self.group, self.max_seq, k8.device
+        L_old = self.lengths.long()
+        L_new = (L_old + adv.long()).clamp_max(S)
+        k8t, ks8t = k8.transpose(1, 2), ks8.transpose(1, 2)  # [B, KV, T, ...]
+        v8t, vs8t = v8.transpose(1, 2), vs8.transpose(1, 2)
+        if not self.V4:  # V: direct int8 writes at [L_old, L_old + T), past S dropped
+            pos = L_old[:, None] + torch.arange(T, device=dev)[None, :]
+            keep = pos < S
+            bi, si = torch.arange(B, device=dev)[:, None].expand(B, T)[keep], pos[keep]
+            self.vq[bi, :, si] = v8[keep]
+            self.vs[bi, :, si] = vs8[keep]
+
+        def chunk_rows(x8t, xs8t, xtail, xts, pos, use_tail):
+            idx = (pos - L_old[:, None]).clamp(0, T - 1)
+            row = pos % (2 * G)
+            c8 = torch.where(use_tail[:, None, :, None], gather_rows(xtail, row),
+                             gather_rows(x8t, idx))
+            cs = torch.where(use_tail[:, None, :], gather_rows(xts, row),
+                             gather_rows(xs8t, idx))
+            return c8, cs
+
+        j = torch.arange(G, device=dev)
+        for f in range((G - 1 + T) // G):
+            c = L_old // G + f
+            flush = (c + 1) * G <= L_new
+            pos = c[:, None] * G + j[None, :]
+            use_tail = pos < L_old[:, None]
+            packed_k, s_ch = numerics.kivi_chunk_quantize_k(
+                *chunk_rows(k8t, ks8t, self.ktail, self.kts, pos, use_tail))
+            rows = put_chunk(self.kq, self.kchs, packed_k, s_ch, c, flush, G)
+            if self.V4:
+                packed_v, s_v = numerics.kivi_chunk_quantize_v(
+                    *chunk_rows(v8t, vs8t, self.vtail, self.vts, pos, use_tail))
+                put_v_chunk(self.vq, self.vs, packed_v, s_v, rows, flush)
+
+        j2 = torch.arange(2 * G, device=dev)[None, :]
+        w_last = L_old[:, None] + T - 1
+        p_j = w_last - (w_last - j2) % (2 * G)  # the latest written position = j mod 2G
+        fresh = p_j >= L_old[:, None]
+        idx = (p_j - L_old[:, None]).clamp(0, T - 1)
+        for tail, ts, x8t, xs8t in ((self.ktail, self.kts, k8t, ks8t),
+                                    (self.vtail, self.vts, v8t, vs8t)):
+            tail.copy_(torch.where(fresh[:, None, :, None], gather_rows(x8t, idx), tail))
+            ts.copy_(torch.where(fresh[:, None, :], gather_rows(xs8t, idx), ts))
+
+    def _adv(self, T, advance):
+        if advance is None:
+            return torch.full_like(self.lengths, T)
+        return advance.to(torch.int32)
+
+    def update(self, k, v, advance=None):
+        """Append k/v [B, T, KV, Dh] at each slot's length, flush every
+        chunk the update completes, in place; ``advance`` [B] overrides how
+        far each length moves (default T; lengths keep counting past S)."""
+        adv = self._adv(k.shape[1], advance)
+        self._write(k, v, adv)
+        self.lengths += adv
+        return self
+
+    def update_and_attend(self, q, k, v, advance=None):
+        """Write k/v, attend q [B, T, H, Dh] with the lengths from before
+        (and the frontier from after) this step, then advance."""
+        adv = self._adv(k.shape[1], advance)
+        new_lengths = self.lengths + adv
+        self._write(k, v, adv)
+        out = self._attention(q, *self._tensors(), self.lengths, new_lengths,
+                              group=self.group)
+        self.lengths.copy_(new_lengths)
+        return out
+
+    def dequant_fp(self):
+        """f32 K/V [B, KV, S, Dh] at the current lengths (the plain
+        attention's operands; ``dequant_fp(lane=f32)`` of the JAX caches)."""
+        k = kivi_dequant_k(self.kq, self.kchs, self.ktail, self.kts, self.lengths,
+                           self.group)
+        if self.V4:
+            v = kivi_dequant_v4(self.vq, self.vs, self.vtail, self.vts, self.lengths,
+                                self.group)
+        else:
+            v = self.vq.float() * self.vs[..., None]
+        return k, v
+
+    def slot_view(self, slot: int):
+        """A batch-1 cache of views into slot ``slot`` (writes land here)."""
+        return type(self)(*(getattr(self, f)[slot:slot + 1] for f in _KIVI_FIELDS),
+                          group=self.group)
+
+    def merge_slot(self, small, slot: int):
+        """Copy a batch-1 cache into slot ``slot`` (nothing to copy for a
+        view made by ``slot_view``)."""
+        for f in _KIVI_FIELDS:
+            dst, src = getattr(self, f)[slot:slot + 1], getattr(small, f)
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+        return self
+
+    def reset_slot(self, slot: int):
+        """Zero one slot's length (its rows are masked by length)."""
+        self.lengths[slot] = 0
+        return self
+
+
+class K4V8KVCache(_KiviKVCache):
+    """K4V8: the KIVI K side with per-token int8 values. vq [B, KV, S, Dh]
+    int8 + vs [B, KV, S] f32 hold V at every position; vtail/vts mirror the
+    last 2G V rows. Port of ``protoquant_tpu/models/kv_cache.py:K4V8KVCache``
+    (the JAX CLI's ``--kv-bits 6``)."""
+
+    def _decode_write(self, *args, **kw):
+        k4v8_decode_update(*args, **kw)
+
+    def _attention(self, *args, **kw):
+        return k4v8_attention(*args, **kw)
+
+
+class Int4KVCache(_KiviKVCache):
+    """Int4 (KIVI): V packed like K, with per-token scales, parity-split:
+    vq [B, KV, S/2, Dh] int8, vs [B, KV, 2, S/2] f32 (plane 0 even tokens,
+    1 odd). Port of ``protoquant_tpu/models/kv_cache.py:Int4KVCache`` (the
+    JAX CLI's ``--kv-bits 4``)."""
+
+    V4 = True
+
+    def _decode_write(self, *args, **kw):
+        kivi4_decode_update(*args, **kw)
+
+    def _attention(self, *args, **kw):
+        return int4_kv_attention(*args, **kw)

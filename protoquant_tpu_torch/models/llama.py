@@ -25,14 +25,28 @@ from ..nn.qlinear import QLinear
 from ..ops.fused_quant import rms_norm, swiglu
 from ..utils.config import ModelConfig
 from ..utils.device import resolve_device
-from .kv_cache import Int8KVCache
+from .kv_cache import Int4KVCache, Int8KVCache, K4V8KVCache
+
+# kv_dtype -> the dense cache class that holds it
+KV_CACHES = {"int8": Int8KVCache, "k4v8": K4V8KVCache, "int4": Int4KVCache}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> list:
-    """One dense int8 KV cache per layer, on ``device`` (default cuda)."""
+def kv_cache_class(kv_dtype="int8"):
+    """The dense cache class of ``kv_dtype``: "int8" (or torch.int8), "k4v8"
+    (the JAX CLI's --kv-bits 6) or "int4" (KIVI, --kv-bits 4)."""
+    key = "int8" if kv_dtype is torch.int8 else kv_dtype
+    if not isinstance(key, str) or key not in KV_CACHES:
+        raise ValueError(f"kv_dtype {kv_dtype!r}: the port has {sorted(KV_CACHES)}")
+    return KV_CACHES[key]
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
+               kv_dtype="int8") -> list:
+    """One dense KV cache of ``kv_dtype`` per layer, on ``device`` (default
+    cuda)."""
+    cls = kv_cache_class(kv_dtype)
     device = resolve_device(device)
-    return [Int8KVCache.init(batch, max_seq, cfg.num_key_value_heads,
-                             cfg.head_dim, device)
+    return [cls.init(batch, max_seq, cfg.num_key_value_heads, cfg.head_dim, device=device)
             for _ in range(cfg.num_hidden_layers)]
 
 

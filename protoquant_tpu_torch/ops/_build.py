@@ -70,6 +70,14 @@ SIGNATURES = {
     "pq_swiglu_quant": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     # q, scale, out, out_dtype, M, N, scale_on_last, stream
     "pq_dequant": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, adv, k8, ks_new, v8,
+    # vs_new, B, KV, S, Dh, G, stream
+    "pq_k4v8_decode_update": [_P] * 14 + [_I] * 5 + [_P],
+    "pq_kivi4_decode_update": [_P] * 14 + [_I] * 5 + [_P],
+    # q, q_dtype, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
+    # new_lengths, out, B, T, H, KV, S, Dh, G, sm, stream
+    "pq_k4v8_attention": [_P, _I] + [_P] * 11 + [_I] * 7 + [_F, _P],
+    "pq_int4_kv_attention": [_P, _I] + [_P] * 11 + [_I] * 7 + [_F, _P],
 }
 
 # dtype codes shared with csrc/common.cuh

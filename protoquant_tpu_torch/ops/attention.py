@@ -1,8 +1,12 @@
-"""Attention over the dense int8 KV cache: kernel and plain version.
+"""Attention over the dense KV caches: kernels and plain versions.
 
-The kernel (``csrc/attention.cu``) replaces the Pallas kernel
-``protoquant_tpu/ops/attention.py:_attn_kernel`` for the causal GQA case.
-The plain version mirrors ``int8_kv_attention_xla`` of the JAX package.
+The int8 kernel (``csrc/attention.cu``) replaces the Pallas kernel
+``protoquant_tpu/ops/attention.py:_attn_kernel`` for the causal GQA case;
+its plain version mirrors ``int8_kv_attention_xla`` of the JAX package.
+The KIVI kernels (``csrc/kivi_attention.cu``) replace ``_attn_k4v8_kernel``
+and ``_attn4_kernel``; their plain versions dequantize the cache to f32
+(``dequant_fp(lane=f32)`` of the JAX caches) and run the int8 plain version
+with unit scales, as the JAX tests hold the Pallas kernels.
 The variants of the JAX functions (sliding window, score scale, softcap,
 learned sinks, ring positions, StreamingLLM sinks, ALiBi, tree masks) are
 not ported yet: both functions raise ``NotImplementedError`` on them.
@@ -16,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import numerics
 from . import _build
 
 NEG_INF = -1e30
@@ -94,3 +99,155 @@ def int8_kv_attention(q, kq, ks, vq, vs, lengths, **variants):
 
 
 int8_kv_attention.launches = 0
+
+
+# -- KIVI caches: K4V8 (int4 K, int8 V) and Int4 (int4 K and V) ----------------
+
+
+def _unpack_tokens(packed):
+    """Packed token pairs [B, KV, S/2, Dh] -> nibble values [B, KV, S, Dh]
+    (row r holds token 2r in its low nibble, 2r + 1 in its high one)."""
+    B, KV, S2, Dh = packed.shape
+    lo, hi = numerics.unpack_nib_pair(packed)
+    return torch.stack([lo, hi], dim=3).reshape(B, KV, 2 * S2, Dh)
+
+
+def _tail_overlay(x_fp, tail, ts, lengths, group):
+    """Positions [F, F + 2G) of x_fp [B, KV, S, Dh] (F = (lengths // G) G)
+    replaced by tail row pos mod 2G times its scale, in f32."""
+    B, KV, S, Dh = x_fp.shape
+    pos = torch.arange(S, device=x_fp.device)
+    F = (lengths.long() // group) * group
+    rel = pos[None, :] - F[:, None]
+    in_tail = (rel >= 0) & (rel < 2 * group)
+    row = pos % (2 * group)
+    t = tail[:, :, row].float() * ts[:, :, row][..., None]
+    return torch.where(in_tail[:, None, :, None], t, x_fp)
+
+
+def kivi_dequant_k(kq, kchs, ktail, kts, lengths, group):
+    """f32 keys [B, KV, S, Dh] of a KIVI cache whose length is ``lengths``:
+    nibble times its chunk-channel scale below the frontier, the int8 tail
+    row times its scale from it (``K4V8KVCache.dequant_fp(lane=f32)``'s K)."""
+    nib = _unpack_tokens(kq)
+    S = nib.shape[2]
+    ksc = kchs[:, :, torch.arange(S, device=kq.device) // group]
+    return _tail_overlay(nib.float() * ksc, ktail, kts, lengths, group)
+
+
+def kivi_dequant_v4(vq, vs, vtail, vts, lengths, group):
+    """f32 values [B, KV, S, Dh] of the Int4 cache (per-token scales from
+    the parity-split vs [B, KV, 2, S/2]), tail overlaid as for K."""
+    nib = _unpack_tokens(vq)
+    B, KV, S, Dh = nib.shape
+    vsc = vs.transpose(2, 3).reshape(B, KV, S)
+    return _tail_overlay(nib.float() * vsc[..., None], vtail, vts, lengths, group)
+
+
+def _kivi_ref(name, q, k_fp, v_fp, lengths, variants):
+    _reject_variants(name, **variants)
+    ones = torch.ones(k_fp.shape[:3], dtype=torch.float32, device=k_fp.device)
+    return int8_kv_attention_ref(q, k_fp, ones, v_fp, ones, lengths)
+
+
+def k4v8_attention_ref(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
+                       new_lengths, *, group, **variants):
+    """Plain version of :func:`k4v8_attention`: the cache dequantized to f32
+    at ``new_lengths`` (V from the int8 store), then
+    :func:`int8_kv_attention_ref` with unit scales, as the JAX tests hold
+    the Pallas kernel."""
+    k_fp = kivi_dequant_k(kq, kchs, ktail, kts, new_lengths, group)
+    v_fp = vq.float() * vs[..., None]
+    return _kivi_ref("k4v8_attention_ref", q, k_fp, v_fp, lengths, variants)
+
+
+def int4_kv_attention_ref(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
+                          new_lengths, *, group, **variants):
+    """Plain version of :func:`int4_kv_attention` (as
+    :func:`k4v8_attention_ref`, V from the packed store and the V tail)."""
+    k_fp = kivi_dequant_k(kq, kchs, ktail, kts, new_lengths, group)
+    v_fp = kivi_dequant_v4(vq, vs, vtail, vts, new_lengths, group)
+    return _kivi_ref("int4_kv_attention_ref", q, k_fp, v_fp, lengths, variants)
+
+
+def _kivi_attention_launch(name, fn, v4, q, kq, kchs, vq, vs, ktail, kts, vtail,
+                           vts, lengths, new_lengths, group):
+    B, T, H, Dh = q.shape
+    KV, S2 = kq.shape[1], kq.shape[2]
+    S, G = 2 * S2, group
+    if H % KV:
+        raise ValueError(f"{name}: {H} heads over {KV} kv heads")
+    if G < 2 or G % 2 or S % G:
+        raise ValueError(f"{name}: group {G} must be even and divide max_seq {S}")
+    if Dh not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {Dh} not in {_KERNEL_HEAD_DIMS}")
+    v_shape = ((B, KV, S2, Dh), (B, KV, 2, S2)) if v4 else ((B, KV, S, Dh), (B, KV, S))
+    shapes = {"kq": (kq, (B, KV, S2, Dh)), "kchs": (kchs, (B, KV, S // G, Dh)),
+              "vq": (vq, v_shape[0]), "vs": (vs, v_shape[1]),
+              "ktail": (ktail, (B, KV, 2 * G, Dh)), "kts": (kts, (B, KV, 2 * G)),
+              "vtail": (vtail, (B, KV, 2 * G, Dh)), "vts": (vts, (B, KV, 2 * G)),
+              "lengths": (lengths, (B,)), "new_lengths": (new_lengths, (B,))}
+    for key, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: {key} shape {tuple(t.shape)}, want {want}")
+    if q.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{name}: unsupported dtype {q.dtype}")
+    for t in (kq, vq, ktail, vtail):
+        if t.dtype != torch.int8:
+            raise TypeError(f"{name}: cache payload must be int8")
+    for t in (kchs, vs, kts, vts):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: cache scales must be float32")
+    if lengths.dtype != torch.int32 or new_lengths.dtype != torch.int32:
+        raise TypeError(f"{name}: lengths must be int32")
+    q = q.contiguous()
+    dev = _build.same_device_contiguous(name, q, kq, kchs, vq, vs, ktail, kts, vtail,
+                                        vts, lengths, new_lengths)
+    out = torch.empty_like(q)
+    c_name = "pq_int4_kv_attention" if v4 else "pq_k4v8_attention"
+    err = getattr(_build.lib(), c_name)(
+        q.data_ptr(), _build.DTYPE_CODES[q.dtype], kq.data_ptr(), kchs.data_ptr(),
+        vq.data_ptr(), vs.data_ptr(), ktail.data_ptr(), kts.data_ptr(), vtail.data_ptr(),
+        vts.data_ptr(), lengths.data_ptr(), new_lengths.data_ptr(), out.data_ptr(),
+        B, T, H, KV, S, Dh, G, float(Dh**-0.5), _build.stream_ptr(dev))
+    _build.check(err, c_name)
+    fn.launches += 1
+    return out
+
+
+def k4v8_attention(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
+                   new_lengths, *, group, **variants):
+    """Causal GQA attention over the K4V8 cache, prefill (T > 1) or decode.
+
+    q [B, T, H, Dh]; kq [B, KV, S/2, Dh] packed int4 K; kchs [B, KV, S/G,
+    Dh] f32; vq [B, KV, S, Dh] int8; vs [B, KV, S] f32; ktail/vtail [B, KV,
+    2G, Dh] int8 (the V tail mirrors vq); kts/vts [B, KV, 2G] f32;
+    lengths [B] int32 = length before this step, new_lengths after it
+    (keys at or past (min(new_lengths, S) // G) G are read from the tails).
+    Returns [B, T, H, Dh] in q.dtype. Replaces
+    ``protoquant_tpu/ops/attention.py:k4v8_attention`` (``_attn_k4v8_kernel``).
+    """
+    _reject_variants("k4v8_attention", **variants)
+    args = (q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, new_lengths)
+    if q.device.type == "cpu":
+        return k4v8_attention_ref(*args, group=group)
+    return _kivi_attention_launch("k4v8_attention", k4v8_attention, False, *args, group)
+
+
+k4v8_attention.launches = 0
+
+
+def int4_kv_attention(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
+                      new_lengths, *, group, **variants):
+    """Causal GQA attention over the Int4 (KIVI) cache: as
+    :func:`k4v8_attention` with vq [B, KV, S/2, Dh] packed int4 V and vs
+    [B, KV, 2, S/2] its parity-split per-token scales. Replaces
+    ``protoquant_tpu/ops/attention.py:int4_kv_attention`` (``_attn4_kernel``)."""
+    _reject_variants("int4_kv_attention", **variants)
+    args = (q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, new_lengths)
+    if q.device.type == "cpu":
+        return int4_kv_attention_ref(*args, group=group)
+    return _kivi_attention_launch("int4_kv_attention", int4_kv_attention, True, *args, group)
+
+
+int4_kv_attention.launches = 0

@@ -1,17 +1,20 @@
-"""In-place decode writes into the int8 KV cache, dense and paged: kernels
-and plain versions.
+"""In-place decode writes into the KV caches: kernels and plain versions.
 
-The kernels (``csrc/kv_scatter.cu``) replace the Pallas kernels
+The int8 kernels (``csrc/kv_scatter.cu``) replace the Pallas kernels
 ``protoquant_tpu/ops/kv_scatter.py:_scatter_kernel`` (dense) and
-``_paged_scatter_kernel`` (paged). Every version updates the cache tensors
-in place. A CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises.
+``_paged_scatter_kernel`` (paged); the KIVI decode updates
+(``csrc/kivi_update.cu``) replace ``k4v8_decode_update`` and
+``kivi4_decode_update`` of the same file, each the whole function in one
+launch (tail insert and chunk flush). Every version updates the cache
+tensors in place. A CPU tensor takes the plain version; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core import numerics
 from . import _build
 
 
@@ -143,3 +146,189 @@ def paged_kv_scatter_decode(kq, ks, vq, vs, page_table, lengths,
 
 
 paged_kv_scatter_decode.launches = 0
+
+
+# -- KIVI decode updates (K4V8 and Int4 caches) ----------------------------------
+
+
+def _put_row(tail, ts, new, new_s, b, row, keep):
+    """Row ``row[b]`` of tail [B, KV, n, Dh] / ts [B, KV, n] takes the new
+    token (new [B, KV, Dh], new_s [B, KV]) where ``keep[b]``."""
+    tail[b, :, row] = torch.where(keep[:, None, None], new, tail[b, :, row])
+    ts[b, :, row] = torch.where(keep[:, None], new_s, ts[b, :, row])
+
+
+def gather_rows(x, rows):
+    """x [B, KV, n, ...] at rows ``rows`` [B, m] of dim 2 -> [B, KV, m, ...]."""
+    idx = rows[:, None, :]
+    if x.dim() == 4:
+        idx = idx[..., None]
+    return x.gather(2, idx.expand(*x.shape[:2], rows.shape[1], *x.shape[3:]))
+
+
+def put_chunk(kq, kchs, packed_k, s_ch, c, flush, G):
+    """Where ``flush[b]``, write chunk ``c[b]``'s packed rows c*G/2 ... and
+    its channel scales; elsewhere rewrite what is there (no host branch).
+    Returns the packed rows [B, G/2] written."""
+    B, NC = kq.shape[0], kchs.shape[2]
+    b = torch.arange(B, device=kq.device)
+    cc = c.clamp(0, NC - 1)
+    rows = cc[:, None] * (G // 2) + torch.arange(G // 2, device=kq.device)
+    cur = kq[b[:, None], :, rows]  # [B, G/2, KV, Dh]
+    kq[b[:, None], :, rows] = torch.where(flush[:, None, None, None],
+                                          packed_k.transpose(1, 2), cur)
+    kchs[b, :, cc] = torch.where(flush[:, None, None], s_ch, kchs[b, :, cc])
+    return rows
+
+
+def put_v_chunk(vq, vs, packed_v, s_v, rows, flush):
+    """Int4 cache: where ``flush[b]``, write the packed V rows ``rows[b]``
+    (from :func:`put_chunk`) and their per-token scales, even tokens into
+    plane 0 of vs [B, KV, 2, S/2], odd ones into plane 1."""
+    b = torch.arange(vq.shape[0], device=vq.device)[:, None]
+    vq[b, :, rows] = torch.where(flush[:, None, None, None], packed_v.transpose(1, 2),
+                                 vq[b, :, rows])
+    for parity in (0, 1):
+        vs[b, :, parity, rows] = torch.where(
+            flush[:, None, None], s_v[:, :, parity::2].transpose(1, 2), vs[b, :, parity, rows])
+
+
+def _decode_flush_state(lengths, adv, G, S):
+    """(ln, chunk index, flush mask, tail rows of the chunk [B, G]): chunk
+    ``ln // G`` flushes when this step's advance completes it."""
+    ln = lengths.long().clamp_min(0)
+    c = ln // G
+    new_len = (lengths.long() + adv.long()).clamp(0, S)
+    flush = ((c + 1) * G <= new_len) & ((c + 1) * G > ln)
+    crow = ((c * G) % (2 * G))[:, None] + torch.arange(G, device=lengths.device)
+    return ln, c, flush, crow
+
+
+def _ones(lengths):
+    return torch.ones_like(lengths, dtype=torch.int32)
+
+
+def kivi4_decode_update_ref(kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
+                            k8, ks_new, v8, vs_new, *, group: int, adv=None):
+    """Plain version of :func:`kivi4_decode_update` (same contract). Masks
+    and index writes at clamped positions: nothing on the host depends on
+    the data (no sync)."""
+    B, KV, S2, Dh = kq.shape
+    G, S = group, 2 * S2
+    adv = _ones(lengths) if adv is None else adv
+    ln, c, flush, crow = _decode_flush_state(lengths, adv, G, S)
+    b = torch.arange(B, device=kq.device)
+    row, keep = ln % (2 * G), ln < S
+    _put_row(ktail, kts, k8.reshape(B, KV, Dh), ks_new.reshape(B, KV), b, row, keep)
+    _put_row(vtail, vts, v8.reshape(B, KV, Dh), vs_new.reshape(B, KV), b, row, keep)
+    packed_k, s_ch, packed_v, s_v = numerics.kivi_chunk_quantize(
+        gather_rows(ktail, crow), gather_rows(kts, crow),
+        gather_rows(vtail, crow), gather_rows(vts, crow))
+    rows = put_chunk(kq, kchs, packed_k, s_ch, c, flush, G)
+    put_v_chunk(vq, vs, packed_v, s_v, rows, flush)
+    return kq, kchs, vq, vs, ktail, kts, vtail, vts
+
+
+def k4v8_decode_update_ref(kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
+                           k8, ks_new, v8, vs_new, *, group: int, adv=None):
+    """Plain version of :func:`k4v8_decode_update` (same contract; no
+    sync)."""
+    B, KV, S, Dh = vq.shape
+    G = group
+    adv = _ones(lengths) if adv is None else adv
+    ln, c, flush, crow = _decode_flush_state(lengths, adv, G, S)
+    b = torch.arange(B, device=kq.device)
+    row, keep = ln % (2 * G), ln < S
+    _put_row(ktail, kts, k8.reshape(B, KV, Dh), ks_new.reshape(B, KV), b, row, keep)
+    _put_row(vtail, vts, v8.reshape(B, KV, Dh), vs_new.reshape(B, KV), b, row, keep)
+    _put_row(vq, vs, v8.reshape(B, KV, Dh), vs_new.reshape(B, KV), b, ln.clamp_max(S - 1), keep)
+    packed_k, s_ch = numerics.kivi_chunk_quantize_k(gather_rows(ktail, crow),
+                                                    gather_rows(kts, crow))
+    put_chunk(kq, kchs, packed_k, s_ch, c, flush, G)
+    return kq, kchs, vq, vs, ktail, kts, vtail, vts
+
+
+def _kivi_update_launch(name, fn, v4, kq, kchs, vq, vs, ktail, kts, vtail, vts,
+                        lengths, k8, ks_new, v8, vs_new, group, adv):
+    B, KV, S2, Dh = kq.shape
+    S, G = 2 * S2, group
+    if G < 2 or G % 2 or S % G:
+        raise ValueError(f"{name}: group {G} must be even and divide max_seq {S}")
+    if Dh % 32 or Dh > 1024:
+        raise ValueError(f"{name}: head_dim {Dh} must be a multiple of 32, at most 1024")
+    adv = _ones(lengths) if adv is None else adv
+    v_shape = ((B, KV, S2, Dh), (B, KV, 2, S2)) if v4 else ((B, KV, S, Dh), (B, KV, S))
+    shapes = {"kchs": (kchs, (B, KV, S // G, Dh)), "vq": (vq, v_shape[0]),
+              "vs": (vs, v_shape[1]), "ktail": (ktail, (B, KV, 2 * G, Dh)),
+              "kts": (kts, (B, KV, 2 * G)), "vtail": (vtail, (B, KV, 2 * G, Dh)),
+              "vts": (vts, (B, KV, 2 * G)), "lengths": (lengths, (B,)), "adv": (adv, (B,)),
+              "k8": (k8, (B, KV, 1, Dh)), "v8": (v8, (B, KV, 1, Dh)),
+              "ks_new": (ks_new, (B, KV, 1)), "vs_new": (vs_new, (B, KV, 1))}
+    for key, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: {key} shape {tuple(t.shape)}, want {want}")
+    for t in (kq, vq, ktail, vtail, k8, v8):
+        if t.dtype != torch.int8:
+            raise TypeError(f"{name}: {t.dtype} where torch.int8 is due")
+    for t in (kchs, vs, kts, vts, ks_new, vs_new):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {t.dtype} where torch.float32 is due")
+    if lengths.dtype != torch.int32 or adv.dtype != torch.int32:
+        raise TypeError(f"{name}: lengths and adv must be int32")
+    dev = _build.same_device_contiguous(name, kq, kchs, vq, vs, ktail, kts, vtail, vts,
+                                        lengths, adv, k8, ks_new, v8, vs_new)
+    c_name = "pq_kivi4_decode_update" if v4 else "pq_k4v8_decode_update"
+    err = getattr(_build.lib(), c_name)(
+        kq.data_ptr(), kchs.data_ptr(), vq.data_ptr(), vs.data_ptr(), ktail.data_ptr(),
+        kts.data_ptr(), vtail.data_ptr(), vts.data_ptr(), lengths.data_ptr(),
+        adv.data_ptr(), k8.data_ptr(), ks_new.data_ptr(), v8.data_ptr(),
+        vs_new.data_ptr(), B, KV, S, Dh, G, _build.stream_ptr(dev))
+    _build.check(err, c_name)
+    fn.launches += 1
+    return kq, kchs, vq, vs, ktail, kts, vtail, vts
+
+
+def kivi4_decode_update(kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
+                        k8, ks_new, v8, vs_new, *, group: int, adv=None):
+    """One decode token per batch row into the Int4 (KIVI) cache, in place:
+    the whole decode update in one launch.
+
+    kq/vq: [B, KV, S/2, Dh] int8 packed nibbles;  kchs: [B, KV, S/G, Dh] f32
+    vs: [B, KV, 2, S/2] f32 (parity-split);  ktail/vtail: [B, KV, 2G, Dh]
+    int8;  kts/vts: [B, KV, 2G] f32;  lengths/adv: [B] int32 (adv default 1)
+    k8/v8: [B, KV, 1, Dh] int8;  ks_new/vs_new: [B, KV, 1] f32.
+    With ln = max(lengths, 0): the new K/V rows go to tail row ln mod 2G
+    when ln < S; chunk c = ln // G is requantized from the updated tails
+    into the packed store (K per channel, V per token) when
+    (c + 1) G <= min(lengths + adv, S). Returns the eight cache tensors.
+    Replaces ``protoquant_tpu/ops/kv_scatter.py:kivi4_decode_update`` (its
+    XLA insert and flush math and its Pallas ``_kivi4_flush_kernel``).
+    """
+    if kq.device.type == "cpu":
+        return kivi4_decode_update_ref(kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
+                                       k8, ks_new, v8, vs_new, group=group, adv=adv)
+    return _kivi_update_launch("kivi4_decode_update", kivi4_decode_update, True, kq, kchs,
+                               vq, vs, ktail, kts, vtail, vts, lengths, k8, ks_new, v8,
+                               vs_new, group, adv)
+
+
+kivi4_decode_update.launches = 0
+
+
+def k4v8_decode_update(kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
+                       k8, ks_new, v8, vs_new, *, group: int, adv=None):
+    """One decode token per batch row into the K4V8 cache, in place: the K
+    side of :func:`kivi4_decode_update` (tail insert, K chunk flush), the V
+    row and scale written at ln into vq [B, KV, S, Dh] / vs [B, KV, S] and
+    into the V tail mirror, when ln < S. Returns the eight cache tensors.
+    Replaces ``protoquant_tpu/ops/kv_scatter.py:k4v8_decode_update`` (its
+    XLA math and its Pallas ``_k4v8_write_kernel``)."""
+    if kq.device.type == "cpu":
+        return k4v8_decode_update_ref(kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
+                                      k8, ks_new, v8, vs_new, group=group, adv=adv)
+    return _kivi_update_launch("k4v8_decode_update", k4v8_decode_update, False, kq, kchs,
+                               vq, vs, ktail, kts, vtail, vts, lengths, k8, ks_new, v8,
+                               vs_new, group, adv)
+
+
+k4v8_decode_update.launches = 0

@@ -13,7 +13,9 @@ and the two-level (r16, scol) made on the card equal the CPU's. The fused
 producers, ``rms_norm_quant`` and ``swiglu_quant``: codes equal or +-1 (the
 norm's in under 1e-3 of the elements, scales within rtol 1e-6; the gate's in
 under 5 %, scales within rtol 1e-2), what the JAX package demands of its
-kernels. ``dequant``: exact.
+kernels. ``dequant``: exact. The KIVI decode writers (K4V8, Int4): exact
+on all eight cache tensors; the KIVI attentions: ATOL in f32, 2^-7 of the
+largest output in bf16.
 """
 
 import pytest
@@ -439,3 +441,115 @@ def test_fused_wrappers_reject_and_count(cuda):
     ops.dequant_ref(q, torch.ones(64, device=cuda), 0)
     counts = ops.launch_counts()
     assert (counts["rms_norm_quant"], counts["swiglu_quant"], counts["dequant"]) == (1, 1, 1)
+
+
+# -- the KIVI caches: decode writers (exact) and attentions (ATOL) ---------------
+
+KIVI = {"k4v8": ("k4v8_decode_update", "k4v8_attention"),
+        "int4": ("kivi4_decode_update", "int4_kv_attention")}
+
+
+def _kivi_cache(g, dev, tier, B, KV, S, Dh, G):
+    """Random KIVI cache tensors: every packed byte and tail code drawn."""
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+    def sc(*shape):
+        return torch.rand(*shape, generator=g, device=dev) * 1e-2 + 1e-3
+
+    v = (i8(B, KV, S // 2, Dh), sc(B, KV, 2, S // 2)) if tier == "int4" else (
+        i8(B, KV, S, Dh), sc(B, KV, S))
+    return [i8(B, KV, S // 2, Dh), sc(B, KV, S // G, Dh), *v, i8(B, KV, 2 * G, Dh),
+            sc(B, KV, 2 * G), i8(B, KV, 2 * G, Dh), sc(B, KV, 2 * G)]
+
+
+def _mirror_v(cache, new_lengths, G):
+    """K4V8: the V tail rows of positions [F, F + 2G) below S (F the
+    frontier of ``new_lengths``) copied from vq/vs, as the cache's writes
+    keep its mirror; the kernel reads V there, the plain version from vq."""
+    vq, vs, vt, vts = cache[2], cache[3], cache[6], cache[7]
+    B, S = vq.shape[0], vq.shape[2]
+    F = (new_lengths.long().clamp(0, S) // G) * G
+    pos = F[:, None] + torch.arange(2 * G, device=vq.device)
+    keep, p = pos < S, pos.clamp_max(S - 1)
+    b, rows = torch.arange(B, device=vq.device)[:, None], pos % (2 * G)
+    vt[b, :, rows] = torch.where(keep[..., None, None], vq[b, :, p], vt[b, :, rows])
+    vts[b, :, rows] = torch.where(keep[..., None], vs[b, :, p], vts[b, :, rows])
+    return cache
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,head_dim", [(16, 64), (64, 128), (8, 32)])
+@pytest.mark.parametrize("tier", ["k4v8", "int4"])
+def test_kivi_decode_update_exact(cuda, tier, G, head_dim):
+    g = torch.Generator(device=cuda).manual_seed(G + head_dim)
+    S, KV = 8 * G, 3
+    # no flush, the flush of chunk 0, of the last chunk, at capacity, idle
+    lens = [G - 2, G - 1, S - 1, S, 2 * G - 1]
+    B = len(lens)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    adv = torch.tensor([1, 1, 1, 1, 0], dtype=torch.int32, device=cuda)
+    k8 = torch.randint(-127, 128, (B, KV, 1, head_dim), generator=g, device=cuda,
+                       dtype=torch.int8)
+    v8 = torch.randint_like(k8, -127, 128)
+    ksn = torch.rand(B, KV, 1, generator=g, device=cuda) * 1e-2 + 1e-3
+    vsn = torch.rand(B, KV, 1, generator=g, device=cuda) * 1e-2 + 1e-3
+    base = _kivi_cache(g, cuda, tier, B, KV, S, head_dim, G)
+    a = [t.clone() for t in base]
+    b = [t.clone() for t in base]
+    writer, _ = KIVI[tier]
+    getattr(ops, writer)(*a, lengths, k8, ksn, v8, vsn, group=G, adv=adv)
+    getattr(ops, writer + "_ref")(*b, lengths, k8, ksn, v8, vsn, group=G, adv=adv)
+    torch.cuda.synchronize()
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert torch.equal(x, y), i
+    assert not torch.equal(a[0][1], base[0][1]) and torch.equal(a[0][0], base[0][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,T,head_dim,dtype", [
+    (1, 1, 128, torch.float32), (4, 1, 128, torch.float32), (2, 5, 64, torch.float32),
+    (1, 33, 128, torch.float32), (2, 3, 256, torch.float32), (1, 1, 128, torch.bfloat16)])
+@pytest.mark.parametrize("tier", ["k4v8", "int4"])
+def test_kivi_attention_vs_plain(cuda, tier, group, T, head_dim, dtype):
+    g = torch.Generator(device=cuda).manual_seed(group * 7 + T)
+    G, S, KV = 16, 128, 2
+    lens = [0, 15, 40, S - T]
+    B = len(lens)
+    cache = _kivi_cache(g, cuda, tier, B, KV, S, head_dim, G)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    new_lengths = lengths + T
+    if tier == "k4v8":
+        _mirror_v(cache, new_lengths, G)
+    q = torch.randn(B, T, KV * group, head_dim, generator=g, device=cuda).to(dtype)
+    _, attn = KIVI[tier]
+    out = getattr(ops, attn)(q, *cache, lengths, new_lengths, group=G)
+    ref = getattr(ops, attn + "_ref")(q, *cache, lengths, new_lengths, group=G)
+    torch.cuda.synchronize()
+    atol = ATOL if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_kivi_wrappers_reject_and_count(cuda):
+    ops.reset_launch_counts()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    cache = _kivi_cache(g, cuda, "int4", 1, 2, 32, 64, 8)
+    lengths = torch.tensor([5], dtype=torch.int32, device=cuda)
+    q = torch.randn(1, 1, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.int4_kv_attention(torch.randn(1, 1, 2, 48, device=cuda), *cache, lengths,
+                              lengths + 1, group=8)
+    with pytest.raises(ValueError, match="vq shape"):  # an Int4 cache is no K4V8 cache
+        ops.k4v8_attention(q, *cache, lengths, lengths + 1, group=8)
+    with pytest.raises(TypeError, match="int32"):
+        ops.int4_kv_attention(q, *cache, lengths.long(), lengths + 1, group=8)
+    ops.int4_kv_attention(q, *cache, lengths, lengths + 1, group=8)
+    ops.int4_kv_attention_ref(q, *cache, lengths, lengths + 1, group=8)
+    k8 = torch.zeros(1, 2, 1, 64, dtype=torch.int8, device=cuda)
+    s1 = torch.ones(1, 2, 1, device=cuda)
+    ops.kivi4_decode_update(*cache, lengths, k8, s1, k8, s1, group=8)
+    ops.kivi4_decode_update([t.cpu() for t in cache][0], *[t.cpu() for t in cache][1:],
+                            lengths.cpu(), k8.cpu(), s1.cpu(), k8.cpu(), s1.cpu(), group=8)
+    counts = ops.launch_counts()
+    assert (counts["int4_kv_attention"], counts["kivi4_decode_update"]) == (1, 1)

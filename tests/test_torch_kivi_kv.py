@@ -1,0 +1,384 @@
+"""The port's KIVI capacity tiers (``K4V8KVCache``, ``Int4KVCache``) against
+the JAX package's.
+
+The chunk requantizer, the prefill update, both decode writers (plain
+versions, against ``*_decode_update(interpret=True)`` and the JAX caches'
+``_xla_update``) and the caches' state are held bit for bit: both sides
+quantize with the same arithmetic (a multiply by the f32 constant 1/7, a
+division by a tensor, round half to even). The JAX caches run eagerly,
+because under ``jit`` XLA:CPU multiplies by 1/127 where the int8 quantizer
+divides. Attention is held to 3e-5 (rtol and atol), the JAX test's own limit
+for its kernel against ``dequant_fp`` + the XLA formulation: both sum in f32
+in different orders. The models and engines emit the same greedy tokens.
+Where a test needs chunk boundaries at small sizes it sets INT4_KV_GROUP
+to 16 in both packages.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import protoquant_tpu.models.kv_cache as jkv
+from protoquant_tpu.engine import Engine as JEngine
+from protoquant_tpu.engine import EngineConfig as JEngineConfig
+from protoquant_tpu.models import LlamaModel as JLlamaModel
+from protoquant_tpu.models.llama import init_cache as j_init_cache
+from protoquant_tpu.ops.attention import int4_kv_attention as j_int4_attention
+from protoquant_tpu.ops.attention import k4v8_attention as j_k4v8_attention
+from protoquant_tpu.ops.kv_scatter import k4v8_decode_update as j_k4v8_update
+from protoquant_tpu.ops.kv_scatter import kivi4_decode_update as j_kivi4_update
+from protoquant_tpu.utils.config import ModelConfig as JModelConfig
+from protoquant_tpu_torch import (Engine, EngineConfig, LlamaModel, ModelConfig,
+                                  greedy_generate, ops, params_from_numpy)
+from protoquant_tpu_torch.core import numerics
+from protoquant_tpu_torch.models import (Int4KVCache, K4V8KVCache, cache_from_numpy,
+                                         init_cache)
+from protoquant_tpu_torch.models import kv_cache as tkv
+from test_torch_model import DIMS, to_numpy_tree
+
+TOL = 3e-5
+FIELDS = ("kq", "kchs", "vq", "vs", "ktail", "kts", "vtail", "vts", "lengths")
+# port class, JAX class, port writer (plain), JAX writer, port / JAX attention
+TIERS = {
+    "k4v8": (K4V8KVCache, jkv.K4V8KVCache, ops.k4v8_decode_update_ref, j_k4v8_update,
+             ops.k4v8_attention_ref, j_k4v8_attention),
+    "int4": (Int4KVCache, jkv.Int4KVCache, ops.kivi4_decode_update_ref, j_kivi4_update,
+             ops.int4_kv_attention_ref, j_int4_attention),
+}
+B, KV, H, DH, S, G = 2, 2, 4, 16, 64, 16
+
+
+def _port(jc, tier):
+    """The port cache holding the JAX cache's state."""
+    cls = TIERS[tier][0]
+    return cache_from_numpy(cls, {f: np.asarray(getattr(jc, f)) for f in FIELDS},
+                            group=jc.group, device="cpu")
+
+
+TAILS = ("ktail", "kts", "vtail", "vts")
+
+
+def _same(tc, jc, tail_rows=slice(None)):
+    """Every field equal; the tails only in batch rows ``tail_rows``."""
+    for f in FIELDS:
+        rows = tail_rows if f in TAILS else slice(None)
+        np.testing.assert_array_equal(getattr(tc, f).numpy()[rows],
+                                      np.asarray(getattr(jc, f))[rows], err_msg=f)
+
+
+def _clone(c):
+    return type(c)(*(getattr(c, f).clone() for f in FIELDS), group=c.group)
+
+
+def test_kivi_chunk_quantize_bitwise():
+    rng = np.random.default_rng(0)
+    k8 = rng.integers(-127, 128, (2, 3, 16, 32)).astype(np.int8)
+    v8 = rng.integers(-127, 128, (2, 3, 16, 32)).astype(np.int8)
+    ks = rng.uniform(1e-4, 3e-2, (2, 3, 16)).astype(np.float32)
+    vs = rng.uniform(1e-4, 3e-2, (2, 3, 16)).astype(np.float32)
+    k8[0, 0, :, 5] = 0  # an all-zero channel: the scale floor
+    v8[1, 2, 7] = 0  # an all-zero token
+    want = jkv.kivi_chunk_quantize(*map(jnp.asarray, (k8, ks, v8, vs)))
+    got = numerics.kivi_chunk_quantize(*map(torch.from_numpy, (k8, ks, v8, vs)))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[1][0, 0, 5].item() == np.float32(numerics.SCALE_EPS)
+    lo, hi = numerics.unpack_nib_pair(got[0])
+    assert lo.abs().max() <= 7 and hi.abs().max() <= 7
+    assert torch.equal(numerics.pack_nib_pair(lo, hi), got[0])
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_cache_updates_match_jax(tier):
+    """A sequence of prefills and decodes through both caches'
+    ``update_and_attend``: every field equal after each step, outputs within
+    TOL. It crosses chunk boundaries, pads a chunk (advance < T), idles a
+    row (advance 0) and writes past S."""
+    cls, jcls = TIERS[tier][:2]
+    rng = np.random.default_rng(1)
+    jc = jcls.init(B, S, KV, DH, group=G)
+    tc = cls.init(B, S, KV, DH, group=G, device="cpu")
+
+    def step(jc, T, advance=None, tail_rows=slice(None)):
+        q, k, v = (rng.standard_normal((B, T, h, DH)).astype(np.float32) for h in (H, KV, KV))
+        adv = None if advance is None else np.asarray(advance, np.int32)
+        jout, jc = jc.update_and_attend(*map(jnp.asarray, (q, k, v)),
+                                        None if adv is None else jnp.asarray(adv))
+        tout = tc.update_and_attend(*map(torch.from_numpy, (q, k, v)),
+                                    None if adv is None else torch.from_numpy(adv))
+        np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=TOL, atol=TOL)
+        _same(tc, jc, tail_rows)
+        return jc
+
+    jc = step(jc, 37)  # two chunks flushed in one prefill
+    jc = step(jc, 20, advance=[9, 20])  # padded: row 0 keeps 9 of 20
+    for adv in ([1, 1], [1, 0], [1, 1]):  # decode; row 1 idles once
+        jc = step(jc, 1, advance=adv)
+    jc = step(jc, 16, advance=[16, 2])  # row 0 passes S = 64
+    jc = step(jc, 12, advance=[12, 1])  # row 0's writes drop, its length keeps counting
+    # a decode step at capacity: on the CPU the JAX cache runs its XLA
+    # update, which writes row 0's tail at position 76 too; the decode
+    # writers (the JAX Pallas one and the port's) drop it, and no query
+    # reads a tail row at or past S
+    jc = step(jc, 1, tail_rows=[1])
+    assert tc.lengths.tolist() == [78, 63]
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_prefill_equals_decode_bitwise(tier):
+    cls = TIERS[tier][0]
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((B, 37, KV, DH))
+                         .astype(np.float32))
+    c1 = cls.init(B, S, KV, DH, group=G, device="cpu").update(x, x)
+    c2 = cls.init(B, S, KV, DH, group=G, device="cpu")
+    for t in range(x.shape[1]):
+        c2.update(x[:, t:t + 1], x[:, t:t + 1])
+    for f in FIELDS:
+        assert torch.equal(getattr(c1, f), getattr(c2, f)), f
+
+
+@pytest.mark.parametrize("adv", [[1, 1], [1, 0]])
+@pytest.mark.parametrize("fill", [0, 14, 15, 16, 31, S])
+@pytest.mark.parametrize("tier", TIERS)
+def test_decode_writer_matches_jax(tier, fill, adv):
+    """The plain decode writer against the JAX writer in interpret mode and
+    against the JAX cache's ``_xla_update``. At capacity the XLA update
+    still writes the tails (row S mod 2G), the writers do not; nothing
+    reads a tail row at or past S."""
+    cls, jcls, writer, j_writer = TIERS[tier][:4]
+    rng = np.random.default_rng(3 + fill)
+    jc = jcls.init(B, S, KV, DH, group=G)
+    if fill:
+        x = jnp.asarray(rng.standard_normal((B, fill, KV, DH)), jnp.float32)
+        jc = jc.update(x, x)
+    new = [rng.integers(-127, 128, (B, 1, KV, DH)).astype(np.int8),
+           rng.uniform(1e-3, 3e-2, (B, 1, KV)).astype(np.float32),
+           rng.integers(-127, 128, (B, 1, KV, DH)).astype(np.int8),
+           rng.uniform(1e-3, 3e-2, (B, 1, KV)).astype(np.float32)]
+    adv = np.asarray(adv, np.int32)
+    swapped = [np.swapaxes(a, 1, 2).copy() for a in new]  # [B, KV, 1, ...]
+    want = j_writer(*(getattr(jc, f) for f in FIELDS), *map(jnp.asarray, swapped),
+                    group=G, adv=jnp.asarray(adv), interpret=True)
+    xla = jc._xla_update(*map(jnp.asarray, new), jnp.asarray(adv))
+    tc = _port(jc, tier)
+    got = writer(*(getattr(tc, f) for f in FIELDS), *map(torch.from_numpy, swapped),
+                 group=G, adv=torch.from_numpy(adv))
+    for name, w, g, x in zip(FIELDS, want, got, (getattr(xla, f) for f in FIELDS)):
+        assert g.data_ptr() == getattr(tc, name).data_ptr()  # in place
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+        if fill < S or name not in ("ktail", "kts", "vtail", "vts"):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(x), err_msg=name)
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_rollback_across_flush_boundary(tier):
+    """Rewind ``lengths`` after a speculative window crossed a chunk
+    boundary: the next steps equal those of a cache that never saw the
+    rejected tokens (the tail rows persist; the chunk flushes again)."""
+    cls = TIERS[tier][0]
+    rng = np.random.default_rng(4)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    x, spec, good, q = t(1, 14, KV, DH), t(1, 4, KV, DH), t(1, 4, KV, DH), t(1, 1, H, DH)
+    base = cls.init(1, S, KV, DH, group=G, device="cpu").update(x, x)
+    c_a, c_b = _clone(base), _clone(base)
+    c_a.update(spec, spec)  # length 18: chunk 0 flushed with the rejected tokens
+    c_a.lengths.copy_(base.lengths)
+    for i in range(4):
+        out_a = c_a.update_and_attend(q, good[:, i:i + 1], good[:, i:i + 1])
+        out_b = c_b.update_and_attend(q, good[:, i:i + 1], good[:, i:i + 1])
+        np.testing.assert_allclose(out_a.numpy(), out_b.numpy(), rtol=1e-6, atol=1e-6)
+    for f in ("kq", "kchs", "vq", "vs", "lengths"):
+        assert torch.equal(getattr(c_a, f), getattr(c_b, f)), f
+
+
+@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("tier", TIERS)
+def test_attention_plain_vs_pallas(tier, T):
+    """The plain attention against the JAX kernel in interpret mode (f32
+    lanes), GQA H = 4 over KV = 2, the step crossing a chunk boundary."""
+    jcls, ref, j_attn = TIERS[tier][1], TIERS[tier][4], TIERS[tier][5]
+    rng = np.random.default_rng(5 + T)
+    x = jnp.asarray(rng.standard_normal((B, 30 + T, KV, DH)), jnp.float32)
+    jc = jcls.init(B, S, KV, DH, group=G).update(x[:, :30], x[:, :30])
+    lengths = jc.lengths
+    jc = jc.update(x[:, 30:], x[:, 30:])
+    q = rng.standard_normal((B, T, H, DH)).astype(np.float32)
+    arrays = [getattr(jc, f) for f in FIELDS[:-1]]
+    want = np.asarray(j_attn(jnp.asarray(q), *arrays, lengths, jc.lengths, group=G,
+                             interpret=True))
+    tc = _port(jc, tier)
+    got = ref(torch.from_numpy(q), *(getattr(tc, f) for f in FIELDS[:-1]),
+              torch.from_numpy(np.array(lengths)), tc.lengths, group=G)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    # the wrapper takes the plain version on the CPU and counts nothing
+    ops.reset_launch_counts()
+    wrapper = ops.k4v8_attention if tier == "k4v8" else ops.int4_kv_attention
+    assert torch.equal(wrapper(torch.from_numpy(q), *(getattr(tc, f) for f in FIELDS[:-1]),
+                               torch.from_numpy(np.array(lengths)), tc.lengths, group=G), got)
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_attention_variants_not_ported_raise(tier):
+    cls, attn = TIERS[tier][0], (ops.k4v8_attention if tier == "k4v8" else ops.int4_kv_attention)
+    c = cls.init(1, 16, 1, 16, group=8, device="cpu")
+    q = torch.zeros(1, 1, 2, 16)
+    for kw in ({"window": 4}, {"softcap": 5.0}, {"alibi_slopes": torch.ones(2)},
+               {"sink_logits": torch.zeros(2)}, {"tree_mask": torch.ones(1, 1)}):
+        with pytest.raises(NotImplementedError):
+            attn(q, *(getattr(c, f) for f in FIELDS), c.lengths, group=8, **kw)
+
+
+def test_cache_init_checks_and_group_global(monkeypatch):
+    with pytest.raises(ValueError, match="max_seq % group"):
+        K4V8KVCache.init(1, 48, 1, 16, group=32, device="cpu")
+    with pytest.raises(ValueError, match="even"):
+        Int4KVCache.init(1, 45, 1, 16, group=45, device="cpu")
+    assert Int4KVCache.init(1, 32, 1, 16, device="cpu").group == 32  # min(64, max_seq)
+    monkeypatch.setattr(tkv, "INT4_KV_GROUP", 8)
+    c = K4V8KVCache.init(2, 32, 3, 16, device="cpu")
+    assert c.group == 8 and c.max_seq == 32
+    assert c.kq.shape == (2, 3, 16, 16) and c.kchs.shape == (2, 3, 4, 16)
+    assert c.vq.shape == (2, 3, 32, 16) and c.ktail.shape == (2, 3, 16, 16)
+    c4 = Int4KVCache.init(2, 32, 3, 16, device="cpu")
+    assert c4.vq.shape == (2, 3, 16, 16) and c4.vs.shape == (2, 3, 2, 16)
+    view = c4.slot_view(1)
+    view.update(torch.ones(1, 9, 3, 16), torch.ones(1, 9, 3, 16))
+    assert c4.lengths.tolist() == [0, 9] and c4.kq[1].any() and not c4.kq[0].any()
+    c4.reset_slot(1)
+    assert c4.lengths.tolist() == [0, 0]
+
+
+def test_init_cache_kv_dtypes():
+    cfg = ModelConfig(**DIMS)
+    for kv_dtype, cls in (("int8", tkv.Int8KVCache), (torch.int8, tkv.Int8KVCache),
+                          ("k4v8", K4V8KVCache), ("int4", Int4KVCache)):
+        caches = init_cache(cfg, 2, 64, device="cpu", kv_dtype=kv_dtype)
+        assert len(caches) == 2 and all(type(c) is cls for c in caches)
+    for bad in ("bf16", "k8v4", torch.bfloat16, None):
+        with pytest.raises(ValueError, match="kv_dtype"):
+            init_cache(cfg, 2, 64, device="cpu", kv_dtype=bad)
+
+
+# -- the model and the engine ------------------------------------------------------
+
+KIVI_DIMS = dict(DIMS, vocab_size=76)  # a config of its own: no JAX trace reused
+JAX_KV = {"k4v8": "k4v8", "int4": jnp.int4}
+
+
+@pytest.fixture(scope="module")
+def kivi_pair():
+    jm = JLlamaModel(JModelConfig(**KIVI_DIMS), mode="dynamic", dtype=jnp.float32)
+    params = jm.init(jax.random.PRNGKey(7), jnp.zeros((1, 4), jnp.int32))
+    tm = LlamaModel(ModelConfig(**KIVI_DIMS), mode="dynamic", dtype=torch.float32,
+                    device="cpu")
+    tm.load_state_dict(params_from_numpy(to_numpy_tree(params)), strict=True)
+    return jm, params, tm
+
+
+@pytest.fixture
+def group16(monkeypatch):
+    monkeypatch.setattr(jkv, "INT4_KV_GROUP", G)
+    monkeypatch.setattr(tkv, "INT4_KV_GROUP", G)
+
+
+def _j_greedy_eager(jm, params, prompt, steps, kv_dtype):
+    """The JAX model's greedy decode, one eager ``apply`` per step: under
+    ``jit`` XLA:CPU quantizes K/V with a reciprocal multiply, and over an
+    int4 cache one scale an ulp off can flip a near-tied argmax."""
+    caches = j_init_cache(jm.cfg, prompt.shape[0], 64, kv_dtype=kv_dtype)
+    logits, caches = jm.apply(params, jnp.asarray(prompt), None, caches)
+    out = []
+    for _ in range(steps):
+        tok = np.asarray(logits)[:, -1].argmax(-1).astype(np.int32)[:, None]
+        out.append(tok[:, 0])
+        pos = np.asarray(caches[0].lengths)[:, None]
+        logits, caches = jm.apply(params, jnp.asarray(tok), jnp.asarray(pos), caches)
+    return np.stack(out, axis=1)
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_greedy_tokens_identical(kivi_pair, group16, tier):
+    jm, params, tm = kivi_pair
+    prompt = np.random.default_rng(8).integers(1, KIVI_DIMS["vocab_size"], (2, 13)).astype(
+        np.int32)
+    want = _j_greedy_eager(jm, params, prompt, 20, JAX_KV[tier])
+    got = greedy_generate(tm, torch.from_numpy(prompt), 20, max_seq=64, kv_dtype=tier)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _engine_outputs(engine, prompts):
+    rids = [engine.add_request(p) for p in prompts]
+    out = engine.run()
+    return [out[r] for r in rids]
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_engine_matches_jax_engine(kivi_pair, group16, tier):
+    jm, params, tm = kivi_pair
+    rng = np.random.default_rng(9)
+    prompts = [list(map(int, rng.integers(1, KIVI_DIMS["vocab_size"], n)))
+               for n in (5, 20, 33)]
+    kw = dict(max_batch_size=2, max_seq_len=64, prefill_chunk=16, max_new_tokens=9)
+    want = _engine_outputs(JEngine(jm, params, JEngineConfig(**kw), kv_dtype=JAX_KV[tier]),
+                           prompts)
+    engine = Engine(tm, EngineConfig(**kw), kv_dtype=tier)
+    assert type(engine.caches[0]) is TIERS[tier][0] and engine.caches[0].group == G
+    assert _engine_outputs(engine, prompts) == want
+    assert all(len(o) == 9 for o in want)
+
+
+def test_engine_guards(kivi_pair):
+    tm = kivi_pair[2]
+    with pytest.raises(ValueError, match="tail rows"):
+        Engine(tm, EngineConfig(max_batch_size=1, max_seq_len=1024, prefill_chunk=512),
+               kv_dtype="k4v8")
+    for chunk in (128, 256):  # at most 2G, or a multiple of G up to 4G
+        Engine(tm, EngineConfig(max_batch_size=1, max_seq_len=1024, prefill_chunk=chunk),
+               kv_dtype="int4")
+    with pytest.raises(ValueError, match="paged"):
+        Engine(tm, EngineConfig(max_batch_size=1, max_seq_len=64, page_size=16),
+               kv_layout="paged", kv_dtype="int4")
+    with pytest.raises(ValueError, match="kv_dtype"):
+        Engine(tm, EngineConfig(max_batch_size=1, max_seq_len=64), kv_dtype="fp8")
+
+
+def test_slot_view_merge_slot_roundtrip():
+    c = Int4KVCache.init(3, 32, 2, 16, group=8, device="cpu")
+    small = Int4KVCache.init(1, 32, 2, 16, group=8, device="cpu")
+    small.update(torch.randn(1, 11, 2, 16), torch.randn(1, 11, 2, 16))
+    c.merge_slot(small, 2)
+    for f in FIELDS:
+        assert torch.equal(getattr(c, f)[2:3], getattr(small, f)), f
+
+
+def pad_overwrite_delta(tier, T, n, seed=10):
+    """max |dK|, max |dV| over the valid positions of the JAX cache between a
+    prefill of ``n`` tokens padded to ``T`` (advance n) and the same prefill
+    unpadded (``dequant_fp`` in f32; G = 64, S = 1024). Nonzero where pad
+    rows took tail rows that valid positions still need."""
+    jcls = TIERS[tier][1]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((1, T, 1, 16)).astype(np.float32)
+    x[:, n:] = rng.standard_normal((1, T - n, 1, 16))  # pad rows hold other values
+    padded = jcls.init(1, 1024, 1, 16, group=64).update(
+        jnp.asarray(x), jnp.asarray(x), jnp.asarray([n], jnp.int32))
+    exact = jcls.init(1, 1024, 1, 16, group=64).update(jnp.asarray(x[:, :n]),
+                                                       jnp.asarray(x[:, :n]))
+    (kp, vp), (ke, ve) = padded.dequant_fp(jnp.float32), exact.dequant_fp(jnp.float32)
+    return (float(np.abs(np.asarray(kp - ke))[:, :, :n].max()),
+            float(np.abs(np.asarray(vp - ve))[:, :, :n].max()))
+
+
+@pytest.mark.parametrize("T,n,lost", [(256, 129, False), (256, 188, False), (512, 300, True),
+                                      (512, 400, False)])
+@pytest.mark.parametrize("tier", TIERS)
+def test_reference_pad_overwrite(tier, T, n, lost):
+    """The fault the engine guard keeps out: a padded piece longer than 4G
+    can overwrite live tail rows in the JAX caches (and, bit for bit, in the
+    port's). Pieces of the engine's allowed chunks never do."""
+    dk, dv = pad_overwrite_delta(tier, T, n)
+    assert (dk > 0) == lost
+    assert dv == 0 or (tier == "int4" and lost)  # K4V8 reads V from vq
