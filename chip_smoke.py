@@ -66,11 +66,20 @@ Phases (any failure exits non-zero and prints no result line):
               62-token prompt so that a decode write flushes chunk 0 and
               the later steps read it packed; a planted fault for each
               writer and attention; judged also on the decode positions
+ 15. k8v4     phase 4 again over Engine(kv_dtype="k8v4") (int8 K, packed
+              int4 V): per decode step 129 rowquant, 225 qmatmul, 32
+              kv_mixed_scatter_decode and 32 mixed_kv_attention, none of
+              the int8 or KIVI cache kernels; asserts the cache's bytes
+              (800 MiB against int8's 1056)
+ 16. K8V4 agreement  phase 5 over the K8V4 cache, f32 and bf16, with a
+              61-token prompt so that the decode writes land in both
+              nibble parities; a planted fault for the writer and the
+              attention; judged also on the decode positions
 Each phase prints its seconds, and the run its total.
 The line before the last is {"kernels": [...]}, one entry per kernel body
-(18): "launches" is its count summed over the eight engine runs (phases 4,
-6, 8.1, 8.2, 8.3, 10, 12, 13), each driven with the counts at 0 and read
-just after ("launches_by_path"). wo4_legacy and dequant are on no engine path
+(20): "launches" is its count summed over the nine engine runs (phases 4,
+6, 8.1, 8.2, 8.3, 10, 12, 13, 15), each driven with the counts at 0 and
+read just after ("launches_by_path"). wo4_legacy and dequant are on no engine path
 (a caller reaches wo4_legacy through the formulation argument of
 weight_only_int4_matmul, and dequant as ops.dequant; QTensor.dequantize
 stays on core.numerics, as in the JAX package), so their counts there are
@@ -78,14 +87,14 @@ stays on core.numerics, as in the JAX package), so their counts there are
 
 Tolerances. rowquant codes and scales, qmatmul outputs (f32 and bf16), both
 decode scatters and both W4A8 bodies (two_level, group) must equal their
-plain versions exactly, and so must dequant and both KIVI decode writers
-(all eight cache tensors). The fused producers are held
+plain versions exactly, and so must dequant, both KIVI decode writers
+(all eight cache tensors) and the K8V4 writer (all four). The fused producers are held
 to what the JAX package demands of its Pallas kernels against the module
 composition: codes equal or one step apart (they sum and compute the
 activation in other orders, and a code moves where a value sits on a
 rounding boundary) in under FLIP_SHARE of the elements, scales within
-SCALE_RTOL; their "max_abs_err" is in code steps. Attention, dense, paged
-and KIVI (bf16 q and output, f32
+SCALE_RTOL; their "max_abs_err" is in code steps. Attention, dense, paged,
+KIVI and K8V4 (bf16 q and output, f32
 arithmetic inside), is held to ATTN_TOL times the largest output: both
 round their f32 result to bf16 once, after summing in different orders.
 The weight-only products, int8 and int4 (split, legacy), are held to
@@ -833,7 +842,112 @@ def check_kivi_attention(ops, gen, dev, tier):
     return cases
 
 
-# -- phases 4 to 14: the slices and the agreements ---------------------------
+def _mixed_cache(gen, dev, B, KV, S, Dh):
+    """Random K8V4 cache tensors (kq, ks, vq, vs): int8 K, every packed V
+    byte drawn, scales positive."""
+    kq = torch.randint(-127, 128, (B, KV, S, Dh), generator=gen, device=dev, dtype=torch.int8)
+    vq = torch.randint(-128, 128, (B, KV, S // 2, Dh), generator=gen, device=dev,
+                       dtype=torch.int8)
+    ks = (torch.rand(B, KV, S, generator=gen, device=dev) + 0.5) * 0.02
+    vs = (torch.rand(B, KV, 2, S // 2, generator=gen, device=dev) + 0.5) * 0.02
+    return kq, ks, vq, vs
+
+
+def check_mixed_scatter(ops, gen, dev):
+    """The K8V4 decode writer against its plain version, all four tensors
+    exact: rows at 63, 1023 and 255 (high nibbles), 700 (low) and 1024 (at
+    capacity: nothing written). Library: none."""
+    B, KV, S, Dh = 5, HEADS, 1024, HEAD_DIM
+    lens = [63, 700, 1023, 255, S]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    k8 = torch.randint(-127, 128, (B, KV, 1, Dh), generator=gen, device=dev, dtype=torch.int8)
+    v4 = torch.randint(-7, 8, (B, KV, 1, Dh), generator=gen, device=dev, dtype=torch.int8)
+    ksn = torch.rand(B, KV, 1, generator=gen, device=dev)
+    vsn = torch.rand(B, KV, 1, generator=gen, device=dev)
+    base = _mixed_cache(gen, dev, B, KV, S, Dh)
+    a = [t.clone() for t in base]
+    b = [t.clone() for t in base]
+    new = (lengths, k8, ksn, v4, vsn)
+    ops.kv_mixed_scatter_decode(*a, *new)
+    ops.kv_mixed_scatter_decode_ref(*b, *new)
+    torch.cuda.synchronize()
+    bad = [n for n, x, y in zip(("kq", "ks", "vq", "vs"), a, b) if not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(f"kv_mixed_scatter_decode differs from its plain version in {bad}")
+    if not all(torch.equal(x[4], y[4]) for x, y in zip(a, base)):
+        raise AssertionError("kv_mixed_scatter_decode wrote into a slot at capacity")
+    # bytes: the new rows and lengths in; per row below S, K row and scale
+    # written, the V byte row read and written, the V scale written
+    live = sum(ln < S for ln in lens)
+    nbytes = 4 * B + B * KV * (2 * Dh + 8) + live * KV * (3 * Dh + 8)
+    bnd, kind = bound_ms(nbytes, 0, INT8_OPS_PER_S)
+    return [{
+        "shape": f"B={B} KV={KV} S={S} Dh={Dh} lengths={lens}", "max_abs_err": 0.0,
+        "ms": bench([lambda: ops.kv_mixed_scatter_decode(*a, *new)]),
+        "plain_ms": bench([lambda: ops.kv_mixed_scatter_decode_ref(*b, *new)]),
+        "bound_ms": bnd, "bound_by": kind, "library_ms": None}]
+
+
+def mixed_attention_bytes(lengths, B, KV, T, H, Dh, S=1024):
+    """Least bytes of one K8V4 attention call: per (b, kv head) the keys
+    the step reads (int8 K and its scale, the packed V byte rows and the V
+    scales), q and out in bf16, the lengths."""
+    total = 2 * 2 * B * T * H * Dh + 4 * B
+    for ln in lengths:
+        ctx = min(S, ln + T)
+        total += KV * (ctx * (Dh + 8) + -(-ctx // 2) * Dh)
+    return total
+
+
+def check_mixed_attention(ops, gen, dev):
+    """The K8V4 attention against its plain version within ATTN_TOL: decode
+    at lengths 63 / 700 / 1023 / 255 and a prefill chunk of 256 from 300.
+    Library: SDPA over the cache dequantized to bf16 (V unpacked)."""
+    import torch.nn.functional as F
+
+    from protoquant_tpu_torch.ops.attention import unpack_v4
+
+    S, KV, H, Dh = 1024, HEADS, HEADS, HEAD_DIM
+    cases = []
+    for label, B, T, lens in (("decode", 4, 1, [63, 700, 1023, 255]),
+                              ("prefill", 1, 256, [300])):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        caches = [_mixed_cache(gen, dev, B, KV, S, Dh)
+                  for _ in range(copies_for(B * KV * S * (3 * Dh // 2 + 8)))]
+        q = torch.randn(B, T, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
+        out = ops.mixed_kv_attention(q, *caches[0], lengths)
+        ref = ops.mixed_kv_attention_ref(q, *caches[0], lengths)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = ATTN_TOL * ref.float().abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"mixed_kv_attention {label}: max abs err {err} > {tol}")
+        t_idx = torch.arange(T, device=dev)
+        valid = (lengths.long()[:, None] + t_idx[None, :] + 1).clamp_max(S)
+        bnd, kind = bound_ms(mixed_attention_bytes(lens, B, KV, T, H, Dh),
+                             4 * Dh * H * valid.sum().item(), BF16_FLOPS_PER_S)
+        pos = torch.arange(S, device=dev)
+        mask = (pos[None, None, :] <= (lengths.long()[:, None] + t_idx)[:, :, None])[:, None]
+        deq = []
+        for kq, ks, vq, vs in caches[:copies_for(B * KV * S * Dh * 4)]:
+            nib, vsc = unpack_v4(vq, vs)
+            deq.append(((kq.float() * ks[..., None]).to(torch.bfloat16),
+                        (nib.float() * vsc[..., None]).to(torch.bfloat16)))
+        qh = q.transpose(1, 2)
+        cases.append({
+            "shape": f"{label} B={B} T={T} H={H} S={S} lengths={lens}",
+            "max_abs_err": err,
+            "ms": bench([lambda c=c: ops.mixed_kv_attention(q, *c, lengths) for c in caches]),
+            "plain_ms": bench([lambda c=c: ops.mixed_kv_attention_ref(q, *c, lengths)
+                               for c in caches], iters=5),
+            "bound_ms": bnd, "bound_by": kind,
+            "library_ms": bench([lambda k=k, v=v: F.scaled_dot_product_attention(
+                qh, k, v, attn_mask=mask) for k, v in deq])})
+        del caches, deq
+    return cases
+
+
+# -- phases 4 to 16: the slices and the agreements ---------------------------
 
 
 def fused(mode: str) -> bool:
@@ -842,6 +956,11 @@ def fused(mode: str) -> bool:
     from protoquant_tpu_torch.models.llama import producer_fused
 
     return producer_fused(mode)
+
+
+# kv_dtype -> (decode writer, attention) kernel bodies of its dense cache
+CACHE_KERNELS = {"int8": ("kv_scatter_decode", "int8_kv_attention"),
+                 "k8v4": ("kv_mixed_scatter_decode", "mixed_kv_attention"), **KIVI_KERNELS}
 
 
 def path_kernels(ops, mode: str, kv_dtype: str = "int8") -> tuple:
@@ -854,8 +973,7 @@ def path_kernels(ops, mode: str, kv_dtype: str = "int8") -> tuple:
             "weight_only_int4": "wo4_split",
             "dynamic_int4": "w4a8_" + ops.resolve_w4a8_formulation()}[mode]
     if mode in ("dynamic", "dynamic_int4"):
-        cache = KIVI_KERNELS.get(kv_dtype, ("kv_scatter_decode", "int8_kv_attention"))
-        return (("rowquant", gemm, *cache)
+        return (("rowquant", gemm, *CACHE_KERNELS[kv_dtype])
                 + (("rms_norm_quant", "swiglu_quant") if fused(mode) else ()))
     return (gemm, "paged_kv_scatter_decode", "paged_int8_attention", "int8_kv_attention")
 
@@ -941,7 +1059,7 @@ def _build_7b(mode: str, seed: int, dev):
 
 def run_slice(ops, seed: int, dev, mode: str = "dynamic", formulation: str | None = None,
               fused_quant: str | None = None, kv_dtype: str = "int8"):
-    """Phases 4, 8.1, 8.3, 10, 12 and 13: Llama-2-7B in a dynamic mode (int8
+    """Phases 4, 8.1, 8.3, 10, 12, 13 and 15: Llama-2-7B in a dynamic mode (int8
     or int4 weights) on the dense cache of ``kv_dtype``, 6 requests.
     ``formulation``: the W4A8 formulation of a dynamic_int4 run;
     ``fused_quant``: the FUSED_QUANT knob (default: each as resolved)."""
@@ -957,11 +1075,14 @@ def kv_cache_bytes(caches) -> int:
 
 def expected_cache_bytes(kv_dtype: str, layers: int, B: int, KV: int, S: int, Dh: int,
                          G: int = KIVI_G) -> int:
-    """The layout's bytes from its shapes: int8 K/V + per-token scales; the
-    KIVI tiers' packed K with chunk-channel scales, their V (int8 per token,
-    or packed with parity-split scales) and two 2G-row int8 tails."""
+    """The layout's bytes from its shapes: int8 K/V + per-token scales;
+    K8V4's int8 K and packed V, each with per-token scales; the KIVI tiers'
+    packed K with chunk-channel scales, their V (int8 per token, or packed
+    with parity-split scales) and two 2G-row int8 tails."""
     if kv_dtype == "int8":
         per = 2 * S * Dh + 2 * 4 * S
+    elif kv_dtype == "k8v4":
+        per = S * Dh + S // 2 * Dh + 2 * 4 * S
     else:
         v = S * Dh + 4 * S if kv_dtype == "k4v8" else S // 2 * Dh + 4 * S
         per = S // 2 * Dh + 4 * (S // G) * Dh + v + 2 * (2 * G * Dh + 4 * 2 * G)
@@ -1175,7 +1296,9 @@ def plain_versions(**faulty):
              ("k4v8_decode_update", kv_cache, ops.k4v8_decode_update_ref),
              ("k4v8_attention", kv_cache, ops.k4v8_attention_ref),
              ("kivi4_decode_update", kv_cache, ops.kivi4_decode_update_ref),
-             ("int4_kv_attention", kv_cache, ops.int4_kv_attention_ref)]
+             ("int4_kv_attention", kv_cache, ops.int4_kv_attention_ref),
+             ("kv_mixed_scatter_decode", kv_cache, ops.kv_mixed_scatter_decode_ref),
+             ("mixed_kv_attention", kv_cache, ops.mixed_kv_attention_ref)]
     saved = [(mod, name, getattr(mod, name)) for name, mod, _ in swaps]
     try:
         for name, mod, plain in swaps:
@@ -1206,11 +1329,38 @@ def _scale_row_shifted(writer):
     return faulty
 
 
+def _partner_nibble(ops):
+    """The K8V4 writer's plain version with a fault: each token's V nibble
+    lands in its pair partner's half of the byte, its own half keeps what
+    it held (K and both scales are written right)."""
+    from protoquant_tpu_torch.ops.kv_scatter import merge_nibble
+
+    def faulty(kq, ks, vq, vs, lengths, k8, ks_new, v4, vs_new):
+        B, S = kq.shape[0], kq.shape[2]
+        p = lengths.long().clamp(0, S - 1)
+        b, row = torch.arange(B, device=kq.device), p // 2
+        before = vq[b, :, row].clone()
+        out = ops.kv_mixed_scatter_decode_ref(kq, ks, vq, vs, lengths, k8, ks_new, v4, vs_new)
+        wrong = merge_nibble(before, v4.reshape(before.shape), (1 - p % 2)[:, None, None])
+        keep = (lengths.long().clamp_min(0) < S)[:, None, None]
+        vq[b, :, row] = torch.where(keep, wrong, vq[b, :, row])
+        return out
+    return faulty
+
+
 def planted_faults(ops, mode: str = "dynamic", kv_dtype: str = "int8"):
     """Plain versions with one small fault each, standing in for a wrong
     kernel: the agreement limits must reject every one. One fault for each
     kernel that a mode's agreement brought in (the fused path: its two
-    producers; a KIVI cache: its writer and its attention)."""
+    producers; a KIVI or K8V4 cache: its writer and its attention)."""
+    if kv_dtype == "k8v4":
+        return {
+            "kv_mixed_scatter_decode writes V into the pair partner's nibble": {
+                "kv_mixed_scatter_decode": _partner_nibble(ops)},
+            "mixed_kv_attention swaps the two V-scale planes": {
+                "mixed_kv_attention": lambda q, kq, ks, vq, vs, lengths:
+                    ops.mixed_kv_attention_ref(q, kq, ks, vq, vs.flip(2), lengths)},
+        }
     if kv_dtype in KIVI_KERNELS:
         writer, attn = KIVI_KERNELS[kv_dtype]
         plain_attn = getattr(ops, attn + "_ref")
@@ -1280,19 +1430,23 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
     the wrong weight would pass unseen). Over a KIVI cache (``kv_dtype``
     "k4v8" or "int4", G = 64) the prompt is 62 tokens, so the second decode
     step's write completes chunk 0 and flushes it, and the last three steps
-    read it from the packed store; its kernels act on the decode positions,
-    so its runs must pass the limit there too, as the paged ones."""
+    read it from the packed store; over the K8V4 cache it is 61 tokens, so
+    the decode writes land in both nibble parities (61 shares its byte with
+    the prompt's last token). These caches' kernels act on the decode
+    positions, so their runs must pass the limit there too, as the paged
+    ones."""
     from protoquant_tpu_torch import LlamaModel, ModelConfig
     from protoquant_tpu_torch.engine import PagedInt8KVCache
     from protoquant_tpu_torch.models import init_cache
     from protoquant_tpu_torch.models.llama import RMSNorm
 
     paged = mode.startswith("weight_only")
-    kivi = kv_dtype in KIVI_KERNELS
+    kv_kernels = kv_dtype != "int8"  # the decode writer and attention of a KIVI or K8V4 cache
     cfg = ModelConfig(num_hidden_layers=2)
     model = LlamaModel(cfg, mode=mode, dtype=dtype, device=dev).init_random_(seed + 1)
     gen = torch.Generator().manual_seed(seed + 1)
-    prompt = torch.randint(1, cfg.vocab_size, (2, 62 if kivi else 48), generator=gen).to(dev)
+    n_prompt = {"int8": 48, "k8v4": 61}.get(kv_dtype, 62)
+    prompt = torch.randint(1, cfg.vocab_size, (2, n_prompt), generator=gen).to(dev)
     ps, max_pages = 16, 128 // 16
     order = torch.randperm(2 * max_pages, generator=gen).tolist()
 
@@ -1319,9 +1473,10 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
     def compare(out, ref):
         """Readings over all positions, and the relative L2 error over the
         decode positions alone (8 of the 104, or of the 132 with a KIVI
-        cache), where the decode writer and T = 1 attention act. The paged
-        path's two attention kernels and the KIVI flush act there only, so
-        their runs must pass the limit there too."""
+        cache, 130 with K8V4), where the decode writer and T = 1 attention
+        act. The paged path's two attention kernels, the KIVI flush and the
+        K8V4 nibble writes act there only, so their runs must pass the limit
+        there too."""
         a = torch.cat([x.reshape(-1, cfg.vocab_size) for x in out]).float()
         b = torch.cat([x.reshape(-1, cfg.vocab_size) for x in ref]).float()
         da = torch.cat([x.reshape(-1, cfg.vocab_size) for x in out[1:]]).float()
@@ -1333,7 +1488,7 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
                "finite": bool(torch.isfinite(a).all())}
         got["pass"] = (got["finite"] and got["rel_l2"] <= AGREE_REL
                        and got["argmax_agree"] >= AGREE_ARGMAX
-                       and (not (paged or kivi) or got["decode_rel_l2"] <= AGREE_REL))
+                       and (not (paged or kv_kernels) or got["decode_rel_l2"] <= AGREE_REL))
         return got
 
     with knob(ops, "W4A8_FORMULATION", formulation), knob(ops, "FUSED_QUANT", fused_quant):
@@ -1353,7 +1508,7 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
                 readings[fault] = compare(run(toks)[0], plain)
         path = path_kernels(ops, mode, kv_dtype)
         label = ("paged agreement" if paged else "agreement") + (
-            " fused" if fused(mode) else "") + (f" {kv_dtype} KV" if kivi else "")
+            " fused" if fused(mode) else "") + (f" {kv_dtype} KV" if kv_kernels else "")
     if any(ops.launch_counts().values()) or not all(launched[k] for k in path) or any(
             launched[k] for k in launched if k not in path):
         raise AssertionError(f"agreement: kernel run launched {launched}, plain runs "
@@ -1410,6 +1565,10 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
                             "protoquant_tpu/ops/kv_scatter.py:205", None),
     "int4_kv_attention": ("protoquant_tpu_torch/csrc/kivi_attention.cu",
                           "protoquant_tpu/ops/attention.py:495", "decode"),
+    "kv_mixed_scatter_decode": ("protoquant_tpu_torch/csrc/kv_scatter.cu",
+                                "protoquant_tpu/ops/kv_scatter.py:362", None),
+    "mixed_kv_attention": ("protoquant_tpu_torch/csrc/attention.cu",
+                           "protoquant_tpu/ops/attention.py:854", "decode"),
 }
 
 
@@ -1440,7 +1599,9 @@ def check_kernels(ops, gen, dev) -> dict:
               ("k4v8_decode_update", lambda *a: check_kivi_update(*a, "k4v8")),
               ("k4v8_attention", lambda *a: check_kivi_attention(*a, "k4v8")),
               ("kivi4_decode_update", lambda *a: check_kivi_update(*a, "int4")),
-              ("int4_kv_attention", lambda *a: check_kivi_attention(*a, "int4")))
+              ("int4_kv_attention", lambda *a: check_kivi_attention(*a, "int4")),
+              ("kv_mixed_scatter_decode", check_mixed_scatter),
+              ("mixed_kv_attention", check_mixed_attention))
     for name, fn in checks:
         results[name] = fn(ops, gen, dev)
         for c in results[name]:
@@ -1454,7 +1615,7 @@ def check_kernels(ops, gen, dev) -> dict:
 
 
 def run_all(ops, seed: int, dev) -> list:
-    """Phases 3 to 14 on ``dev``; returns the kernels line's entries."""
+    """Phases 3 to 16 on ``dev``; returns the kernels line's entries."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     results = timed("3 kernels", check_kernels, ops, gen, dev)
 
@@ -1495,6 +1656,11 @@ def run_all(ops, seed: int, dev) -> list:
         for dtype in (torch.float32, torch.bfloat16):
             timed(f"14 KIVI agreement {kv_dtype} {dtype}", run_agreement, ops, seed, dev,
                   dtype, "dynamic", None, None, kv_dtype)
+    by_path["dense_k8v4"], stats["dense dynamic k8v4"] = timed(
+        "15 k8v4 slice", run_slice, ops, seed, dev, "dynamic", None, None, "k8v4")
+    for dtype in (torch.float32, torch.bfloat16):
+        timed(f"16 K8V4 agreement {dtype}", run_agreement, ops, seed, dev, dtype, "dynamic",
+              None, None, "k8v4")
     kernels = []
     for name, cases in results.items():
         source, replaces, main_shape = KERNEL_META[name]
@@ -1528,7 +1694,7 @@ def run_all(ops, seed: int, dev) -> list:
     def cache_ms(writer, attention):
         return (results[writer][0]["ms"] + results[attention][0]["ms"]) * L
 
-    dense = cache_ms("kv_scatter_decode", "int8_kv_attention")
+    dense = cache_ms(*CACHE_KERNELS["int8"])
     paged = (results["paged_kv_scatter_decode"][0]["ms"] * L
              + results["paged_int8_attention"][0]["ms"] * L)
     for label, est in (("dense dynamic", rowquant + linears("qmatmul") + dense),
@@ -1542,7 +1708,9 @@ def run_all(ops, seed: int, dev) -> list:
                        ("dense dynamic k4v8", rowquant + linears("qmatmul")
                         + cache_ms(*KIVI_KERNELS["k4v8"])),
                        ("dense dynamic int4", rowquant + linears("qmatmul")
-                        + cache_ms(*KIVI_KERNELS["int4"]))):
+                        + cache_ms(*KIVI_KERNELS["int4"])),
+                       ("dense dynamic k8v4", rowquant + linears("qmatmul")
+                        + cache_ms(*CACHE_KERNELS["k8v4"]))):
         steps = sorted(stats[label]["decode_step_ms"])
         log(f"decode step, {label}: kernels at the measured shapes sum to {est:.3f} ms; "
             f"engine decode step median {steps[len(steps) // 2]:.3f} ms")
@@ -1553,7 +1721,7 @@ def run_all(ops, seed: int, dev) -> list:
              for a, b in zip(o, r)]
     log(f"fused slice: {sum(a == b for a, b in pairs)} of {len(pairs)} generated tokens "
         f"equal to phase 4's ({sum(a == b for a, b in pairs) / len(pairs):.4f})")
-    for kv_dtype in KIVI_KERNELS:
+    for kv_dtype in (*KIVI_KERNELS, "k8v4"):
         pairs = [(a, b) for o, r in zip(stats[f"dense dynamic {kv_dtype}"]["outputs"],
                                         stats["dense dynamic"]["outputs"])
                  for a, b in zip(o, r)]

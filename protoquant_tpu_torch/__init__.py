@@ -11,10 +11,10 @@ the CPU every kernel wrapper takes its plain PyTorch version.
 
 from .core import QTensor, QTensor4, numerics
 from .engine import Engine, EngineConfig
-from .models import LlamaModel, greedy_generate, params_from_numpy
+from .models import BF16KVCache, LlamaModel, MixedKVCache, greedy_generate, params_from_numpy
 from .nn import QLinear, quantize_model
 from .utils import ModelConfig
 
-__all__ = ["Engine", "EngineConfig", "LlamaModel", "ModelConfig", "QLinear",
-           "QTensor", "QTensor4", "greedy_generate", "numerics", "params_from_numpy",
-           "quantize_model"]
+__all__ = ["BF16KVCache", "Engine", "EngineConfig", "LlamaModel", "MixedKVCache",
+           "ModelConfig", "QLinear", "QTensor", "QTensor4", "greedy_generate", "numerics",
+           "params_from_numpy", "quantize_model"]

@@ -1,7 +1,9 @@
-// Flash attention over the dense int8 KV cache, causal, with GQA.
+// Flash attention over the dense int8 KV cache, causal, with GQA, and over
+// the mixed K8V4 cache (the same keys, int4 values).
 //
 // Replaces protoquant_tpu/ops/attention.py:_attn_kernel (Pallas), base
-// variant (no window, softcap, sinks, ring positions or ALiBi).
+// variant (no window, softcap, sinks, ring positions or ALiBi), and
+// _attn_mixed_kernel (V4 = true; full-causal only, as the TPU kernel).
 //   q [B, T, H, Dh] (f32/bf16/f16), kq/vq [B, KV, S, Dh] int8,
 //   ks/vs [B, KV, S] f32, lengths [B] int32 = cache length BEFORE this
 //   step's T tokens. Query row r = t * group + g of kv head h is q head
@@ -23,8 +25,16 @@
 // each lane accumulates Dh/32 output dims. The output is acc / max(l, 1e-30).
 // Decode (one row per block) leaves three warps idle after loading and
 // runs one block per (b, kv head); splitting S across blocks is later work.
+// V4 (K8V4): vq [B, KV, S/2, Dh] int8 holds token pairs (row r: token 2r in
+// the low nibble, 2r + 1 in the high one) and vs [B, KV, 2, S/2] f32 their
+// per-token scales (plane 0 even tokens, plane 1 odd). Each tile's 32 byte
+// rows are unpacked into the same int8 Vs rows, one token each, and vss
+// takes the scale of each token's parity, so the rest of the loop is the
+// dense kernel's; V is int4, but the sum stays f32 (the TPU kernel's bf16
+// lanes are a choice for its matrix unit). Bound: bytes, Dh + 8 + Dh / 2
+// per valid key and kv head.
 
-#include "common.cuh"
+#include "kivi.cuh"
 
 constexpr int AT_WARPS = 4;
 constexpr int AT_RPW = 4;                   // query rows per warp
@@ -32,7 +42,7 @@ constexpr int AT_QROWS = AT_WARPS * AT_RPW;  // query rows per block
 constexpr int AT_THREADS = AT_WARPS * 32;
 constexpr float AT_NEG_INF = -1e30f;
 
-template <int DH, int KT, typename QT>
+template <int DH, int KT, bool V4, typename QT>
 __global__ void __launch_bounds__(AT_THREADS)
 attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
             const float* __restrict__ ks, const int8_t* __restrict__ vq,
@@ -67,9 +77,9 @@ attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
 
   const size_t bh = (size_t)b * KV + h;
   const int8_t* kb = kq + bh * S * DH;
-  const int8_t* vb = vq + bh * S * DH;
+  const int8_t* vb = vq + bh * (V4 ? S / 2 : S) * DH;
   const float* ksb = ks + bh * S;
-  const float* vsb = vs + bh * S;
+  const float* vsb = vs + bh * S;  // [2, S/2] or [S]: S floats either way
 
   const int wr0 = warp * AT_RPW;  // first block row of this warp
   const bool warp_live = r0 + wr0 < R;
@@ -89,15 +99,32 @@ attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
       int kw = 0, vw = 0;
       if (c < n_keys) {
         kw = ((const int*)(kb + (size_t)c * DH))[w];
-        vw = ((const int*)(vb + (size_t)c * DH))[w];
+        if constexpr (!V4) vw = ((const int*)(vb + (size_t)c * DH))[w];
       }
       *(int*)&Ks[j][4 * w] = kw;
-      *(int*)&Vs[j][4 * w] = vw;
+      if constexpr (!V4) *(int*)&Vs[j][4 * w] = vw;
     }
     for (int j = threadIdx.x; j < KT; j += AT_THREADS) {
       const int c = c0 + j;
       kss[j] = c < n_keys ? ksb[c] : 0.0f;
-      vss[j] = c < n_keys ? vsb[c] : 0.0f;
+      if constexpr (!V4) vss[j] = c < n_keys ? vsb[c] : 0.0f;
+    }
+    if constexpr (V4) {  // KT / 2 packed byte rows, two tokens each
+      for (int i = threadIdx.x; i < (KT / 2) * (DH / 4); i += AT_THREADS) {
+        const int pr = i / (DH / 4), w = i % (DH / 4), tok = c0 + 2 * pr;
+        const int vw = tok < n_keys ? ((const int*)(vb + (size_t)(tok / 2) * DH))[w] : 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int byte = pq_byte(vw, e);
+          Vs[2 * pr][4 * w + e] = (int8_t)pq_nib_lo(byte);
+          Vs[2 * pr + 1][4 * w + e] = (int8_t)pq_nib_hi(byte);
+        }
+      }
+      for (int j = threadIdx.x; j < KT / 2; j += AT_THREADS) {
+        const int tok = c0 + 2 * j;
+        vss[2 * j] = tok < n_keys ? vsb[tok / 2] : 0.0f;
+        vss[2 * j + 1] = tok + 1 < n_keys ? vsb[S / 2 + tok / 2] : 0.0f;
+      }
     }
     __syncthreads();
     if (!warp_live) continue;
@@ -182,28 +209,43 @@ attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
   }
 }
 
-template <int DH, int KT, typename QT>
+template <int DH, int KT, bool V4, typename QT>
 static cudaError_t launch_t(const void* q, const void* kq, const void* ks, const void* vq,
                             const void* vs, const void* lengths, void* out, int B, int T,
                             int H, int KV, int S, float sm, cudaStream_t stream) {
   const int R = T * (H / KV);
   dim3 grid((R + AT_QROWS - 1) / AT_QROWS, KV, B);
-  attn_kernel<DH, KT, QT><<<grid, AT_THREADS, 0, stream>>>(
+  attn_kernel<DH, KT, V4, QT><<<grid, AT_THREADS, 0, stream>>>(
       (const QT*)q, (const int8_t*)kq, (const float*)ks, (const int8_t*)vq,
       (const float*)vs, (const int*)lengths, (QT*)out, T, H, KV, S, sm);
   return cudaGetLastError();
 }
 
-template <typename QT>
+template <bool V4, typename QT>
 static cudaError_t launch_dh(int Dh, const void* q, const void* kq, const void* ks,
                              const void* vq, const void* vs, const void* lengths, void* out,
                              int B, int T, int H, int KV, int S, float sm,
                              cudaStream_t stream) {
   switch (Dh) {
-    case 32: return launch_t<32, 64, QT>(q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, stream);
-    case 64: return launch_t<64, 64, QT>(q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, stream);
-    case 128: return launch_t<128, 64, QT>(q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, stream);
-    case 256: return launch_t<256, 32, QT>(q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, stream);
+    case 32: return launch_t<32, 64, V4, QT>(q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, stream);
+    case 64: return launch_t<64, 64, V4, QT>(q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, stream);
+    case 128: return launch_t<128, 64, V4, QT>(q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, stream);
+    case 256: return launch_t<256, 32, V4, QT>(q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool V4>
+static int entry(const void* q, int q_dtype, const void* kq, const void* ks, const void* vq,
+                 const void* vs, const void* lengths, void* out, int B, int T, int H, int KV,
+                 int S, int Dh, float sm, void* stream) {
+  if (B == 0 || T == 0) return cudaSuccess;
+  if (KV == 0 || H % KV != 0 || (V4 && S % 2)) return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (q_dtype) {
+    case PQ_F32: return launch_dh<V4, float>(Dh, q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, st);
+    case PQ_BF16: return launch_dh<V4, __nv_bfloat16>(Dh, q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, st);
+    case PQ_F16: return launch_dh<V4, __half>(Dh, q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -212,13 +254,12 @@ PQ_EXPORT int pq_int8_kv_attention(const void* q, int q_dtype, const void* kq, c
                                    const void* vq, const void* vs, const void* lengths,
                                    void* out, int B, int T, int H, int KV, int S, int Dh,
                                    float sm, void* stream) {
-  if (B == 0 || T == 0) return cudaSuccess;
-  if (KV == 0 || H % KV != 0) return cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (q_dtype) {
-    case PQ_F32: return launch_dh<float>(Dh, q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, st);
-    case PQ_BF16: return launch_dh<__nv_bfloat16>(Dh, q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, st);
-    case PQ_F16: return launch_dh<__half>(Dh, q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return entry<false>(q, q_dtype, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, Dh, sm, stream);
+}
+
+PQ_EXPORT int pq_mixed_kv_attention(const void* q, int q_dtype, const void* kq, const void* ks,
+                                    const void* vq, const void* vs, const void* lengths,
+                                    void* out, int B, int T, int H, int KV, int S, int Dh,
+                                    float sm, void* stream) {
+  return entry<true>(q, q_dtype, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, Dh, sm, stream);
 }

@@ -1,4 +1,4 @@
-"""Continuous-batching serving engine over a ``LlamaModel`` with an int8 KV
+"""Continuous-batching serving engine over a ``LlamaModel`` with a KV
 cache, dense or paged (the non-speculative core of the JAX package's
 engine, single replica).
 
@@ -11,7 +11,10 @@ decode forward with advance 0, so their lengths stay put and their rows
 stay masked.
 
 ``kv_layout="dense"`` allocates the cache once at [max_batch, max_seq], of
-``kv_dtype`` "int8" (default), "k4v8" or "int4" (the KIVI capacity tiers).
+``kv_dtype`` "int8" (default, as the JAX engine's), "k8v4" (int8 K, int4
+V), "k4v8" or "int4" (the KIVI capacity tiers), or torch.bfloat16 (K/V
+unquantized). A KIVI engine refuses a ``prefill_chunk`` whose padded
+pieces could overwrite live tail rows (``kivi_pad_overwrites``).
 ``kv_layout="paged"`` allocates one pool of B * max_seq / page_size pages
 (+1 trash page) per layer; a request reserves only the pages it can touch,
 from the native page allocator, when it is admitted, and waits while the
@@ -29,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from ..models.kv_cache import Int8KVCache
+from ..models.kv_cache import Int4KVCache, Int8KVCache, K4V8KVCache
 from ..models.llama import LlamaModel, init_cache, kv_cache_class
 from ..native import PageAllocator
 from ..utils.config import EngineConfig
@@ -75,6 +78,29 @@ def _bucket(n: int, chunk: int, lo: int = 16) -> int:
     return min(b, max(chunk, lo))
 
 
+def kivi_pad_overwrites(chunk: int, G: int) -> bool:
+    """Whether a prefill piece of a KIVI cache with group G, padded by
+    :func:`_bucket`, can write a pad row into a tail row that a valid
+    position still reads.
+
+    A piece starts at a multiple L of the chunk and holds n <= chunk valid
+    tokens, padded to T = _bucket(n, chunk). Its pad positions [L + n, L +
+    T) land on tail rows q mod 2G; the valid positions read from the tail
+    are those of the open chunk, [F, L + n) with F = floor((L + n) / G) G.
+    The differences q - p of the two ranges fill [1, L + T - 1 - F], so
+    they meet modulo 2G iff both are non-empty and L + T - 1 - F >= 2G.
+    Everything shifts with L by multiples of 2G, so L's residues mod 2G
+    decide."""
+    starts = {k * chunk % (2 * G) for k in range(2 * G)}
+    for L in starts:
+        for n in range(1, chunk + 1):
+            T = _bucket(n, chunk)
+            front = (L + n) // G * G
+            if front < L + n < L + T and L + T - 1 - front >= 2 * G:
+                return True
+    return False
+
+
 class Engine:
     """Continuous-batching inference engine; runs on the model's device."""
 
@@ -95,7 +121,7 @@ class Engine:
         if kv_layout == "dense":
             self.caches = init_cache(model.cfg, B, self.cfg.max_seq_len, self.device,
                                      kv_dtype)
-            if not isinstance(self.caches[0], Int8KVCache):
+            if isinstance(self.caches[0], (K4V8KVCache, Int4KVCache)):
                 self._check_kivi_chunk(self.caches[0].group)
         elif kv_layout == "paged":
             ps = self.cfg.page_size
@@ -142,16 +168,12 @@ class Engine:
 
     def _check_kivi_chunk(self, G: int) -> None:
         """A KIVI cache writes a padded prefill piece's pad rows into its
-        2G-row tail too; a piece longer than the tail can then overwrite live
-        rows. Refuse the prefill chunks for which that can happen: allowed
-        are pieces no longer than 2G, or chunks that are a multiple of G and
-        at most 4G (each piece then starts on a chunk boundary)."""
+        2G-row tail too, where they can overwrite rows that valid positions
+        still read: refuse the prefill chunks for which that can happen."""
         chunk = self.cfg.prefill_chunk
-        if _bucket(chunk, chunk) <= 2 * G or (chunk % G == 0 and chunk <= 4 * G):
-            return
-        raise ValueError(f"prefill_chunk {chunk} with a KIVI group of {G}: padded "
-                         f"pieces could overwrite live tail rows; take a chunk of at most "
-                         f"{2 * G}, or a multiple of {G} up to {4 * G}")
+        if kivi_pad_overwrites(chunk, G):
+            raise ValueError(f"prefill_chunk {chunk} with a KIVI group of {G}: padded "
+                             f"pieces could overwrite live tail rows")
 
     def _samp_tensors(self) -> dict:
         h, dev = self._samp_host, self.device

@@ -9,10 +9,12 @@ from .llama import LlamaModel, init_cache
 
 @torch.no_grad()
 def greedy_generate(model: LlamaModel, prompt, max_new_tokens: int,
-                    max_seq: int | None = None, kv_dtype="int8") -> torch.Tensor:
-    """Greedy decode over a dense KV cache of ``kv_dtype`` (``init_cache``);
-    returns [B, max_new_tokens] int64 ids on the model's device. ``prompt``
-    is [B, T] token ids."""
+                    max_seq: int | None = None, kv_dtype=torch.bfloat16) -> torch.Tensor:
+    """Greedy decode over a dense KV cache of ``kv_dtype`` (``init_cache``;
+    the default is the JAX package's bf16 cache); returns [B,
+    max_new_tokens] int64 ids on the model's device. ``prompt`` is [B, T]
+    token ids. ``max_seq`` defaults to T + max_new_tokens, which "k8v4"
+    needs even."""
     prompt = torch.as_tensor(prompt, device=model.device).long()
     B, T = prompt.shape
     if max_new_tokens == 0:

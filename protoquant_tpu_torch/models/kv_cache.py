@@ -1,6 +1,8 @@
-"""Dense KV caches: int8 with per-token, per-head scales, and the KIVI
-capacity tiers ``K4V8KVCache`` (int4 K, int8 V) and ``Int4KVCache`` (int4
-K and V), each with an int8 tail of the latest 2G tokens (below).
+"""Dense KV caches: ``BF16KVCache`` (K/V unquantized, the reference's
+default), int8 with per-token, per-head scales, the mixed ``MixedKVCache``
+(int8 K, packed int4 V per token), and the KIVI capacity tiers
+``K4V8KVCache`` (int4 K, int8 V) and ``Int4KVCache`` (int4 K and V), each
+with an int8 tail of the latest 2G tokens (below).
 
 Int8 layout as in the JAX package: kq/vq [B, KV, S, Dh] int8 (head-major, so one
 (batch, kv head) row of the cache is contiguous), ks/vs [B, KV, S] f32,
@@ -23,15 +25,15 @@ import torch
 from ..core import numerics
 # kivi_chunk_quantize and the nibble helpers live in core.numerics; they are
 # named here too, where the JAX package keeps them
-from ..core.numerics import (SCALE_EPS, kivi_chunk_quantize, pack_nib_pair,  # noqa: F401
-                             quantize_rowwise, unpack_nib_pair)
+from ..core.numerics import (QMAX4, SCALE_EPS, kivi_chunk_quantize,  # noqa: F401
+                             pack_nib_pair, quantize_rowwise, unpack_nib_pair)
 from ..ops.attention import (int4_kv_attention, int8_kv_attention, k4v8_attention,
-                             kivi_dequant_k, kivi_dequant_v4)
+                             kivi_dequant_k, kivi_dequant_v4, mixed_kv_attention,
+                             unpack_v4)
 from ..ops.kv_scatter import (gather_rows, k4v8_decode_update, kivi4_decode_update,
-                              kv_scatter_decode, put_chunk, put_v_chunk)
+                              kv_mixed_scatter_decode, kv_scatter_decode, merge_nibble,
+                              put_chunk, put_v_chunk)
 from ..utils.device import resolve_device
-
-_FIELDS = ("kq", "ks", "vq", "vs", "lengths")
 
 
 def quantize_kv(x: torch.Tensor):
@@ -40,8 +42,132 @@ def quantize_kv(x: torch.Tensor):
     return quantize_rowwise(x)
 
 
+def quantize_kv4(x: torch.Tensor):
+    """Per-token, per-head symmetric int4: x [B, T, KV, Dh] -> (nibble
+    values as int8 in [-7, 7], unpacked, and scale f32 [B, T, KV]);
+    s = max(amax / 7, 1e-12) by true division, codes round(x / s) half to
+    even, as the JAX package's ``quantize_kv4`` run eagerly."""
+    return quantize_rowwise(x, QMAX4)
+
+
+def mha_attention(q, k, v, q_positions, k_positions):
+    """Plain causal GQA attention over unquantized keys and values (the
+    scoring path, and ``BF16KVCache``'s attention), in f32.
+
+    q [B, T, H, Dh]; k/v [B, S, KV, Dh]; a key is visible to a query iff its
+    position is not greater than the query's."""
+    B, T, H, Dh = q.shape
+    KV = k.shape[2]
+    group = H // KV
+    qf = q.reshape(B, T, KV, group, Dh).float()
+    scores = torch.einsum("btkgd,bskd->bkgts", qf, k.float()) * Dh**-0.5
+    mask = k_positions[:, None, None, None, :] <= q_positions[:, None, None, :, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v.float())
+    return out.reshape(B, T, H, Dh).to(q.dtype)
+
+
+def _prefill_positions(lengths, T: int, S: int):
+    """Where a prefill of T tokens lands: (batch index, position) of each
+    token below S, and the mask [B, T] of those tokens. Positions at or past
+    S are dropped, as the JAX scatter drops out-of-bounds indices (padded
+    prefill buckets can reach them; ``index_put_`` would raise instead)."""
+    B, dev = lengths.shape[0], lengths.device
+    pos = lengths.long()[:, None] + torch.arange(T, device=dev)[None, :]
+    keep = pos < S
+    return torch.arange(B, device=dev)[:, None].expand(B, T)[keep], pos[keep], keep
+
+
+class _DenseSlots:
+    """Slot handling shared by the dense caches, whose tensor fields
+    (``FIELDS``, ``lengths`` last) are all batch-major."""
+
+    FIELDS = ()
+
+    def slot_view(self, slot: int):
+        """A batch-1 cache of views into slot ``slot`` (writes land here)."""
+        return dataclasses.replace(
+            self, **{f: getattr(self, f)[slot:slot + 1] for f in self.FIELDS})
+
+    def merge_slot(self, small, slot: int):
+        """Copy a batch-1 cache into slot ``slot`` (nothing to copy for a
+        view made by ``slot_view``)."""
+        for f in self.FIELDS:
+            dst, src = getattr(self, f)[slot:slot + 1], getattr(small, f)
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+        return self
+
+    def reset_slot(self, slot: int):
+        """Zero one slot's length (its rows are masked by length)."""
+        self.lengths[slot] = 0
+        return self
+
+    def _advance(self, T: int, advance) -> None:
+        if advance is None:
+            self.lengths += T
+        else:
+            self.lengths += advance.to(torch.int32)
+
+    def update(self, k, v, advance=None):
+        """Append k/v [B, T, KV, Dh] at each slot's length, in place.
+
+        ``advance`` [B] overrides how far each slot's length moves (default
+        T): padded prefill advances only by the true prompt length and
+        inactive decode slots by 0, so their extra rows stay masked and are
+        overwritten by the slot's next real token.
+        """
+        self._write(k, v)
+        self._advance(k.shape[1], advance)
+        return self
+
+
 @dataclasses.dataclass
-class Int8KVCache:
+class BF16KVCache(_DenseSlots):
+    """k/v: [B, S, KV, Dh] in a float dtype (bf16 by default); lengths: [B]
+    int32. The JAX package's default cache: plain PyTorch, as the JAX one is
+    plain XLA (no TPU kernel backs it)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    lengths: torch.Tensor
+
+    FIELDS = ("k", "v", "lengths")
+
+    @classmethod
+    def init(cls, batch, max_seq, kv_heads, head_dim, dtype=torch.bfloat16, device=None):
+        """An empty cache of ``dtype`` on ``device`` (default cuda)."""
+        device = resolve_device(device)
+        shape = (batch, max_seq, kv_heads, head_dim)
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   lengths=torch.zeros(batch, dtype=torch.int32, device=device))
+
+    @property
+    def max_seq(self) -> int:
+        return self.k.shape[1]
+
+    def _write(self, k, v) -> None:
+        b_idx, s_idx, keep = _prefill_positions(self.lengths, k.shape[1], self.max_seq)
+        self.k[b_idx, s_idx] = k[keep].to(self.k.dtype)
+        self.v[b_idx, s_idx] = v[keep].to(self.v.dtype)
+
+    def update_and_attend(self, q, k, v, advance=None):
+        """Write k/v, attend q [B, T, H, Dh] (query t at position lengths +
+        t, before this step) over every cached key, then advance."""
+        B, T = k.shape[:2]
+        self._write(k, v)
+        dev = q.device
+        q_pos = self.lengths.long()[:, None] + torch.arange(T, device=dev)[None, :]
+        k_pos = torch.arange(self.max_seq, device=dev)[None, :].expand(B, self.max_seq)
+        out = mha_attention(q, self.k, self.v, q_pos, k_pos)
+        self._advance(T, advance)
+        return out
+
+
+@dataclasses.dataclass
+class Int8KVCache(_DenseSlots):
     """kq/vq: [B, KV, S, Dh] int8; ks/vs: [B, KV, S] f32; lengths: [B] int32."""
 
     kq: torch.Tensor
@@ -49,6 +175,8 @@ class Int8KVCache:
     vq: torch.Tensor
     vs: torch.Tensor
     lengths: torch.Tensor
+
+    FIELDS = ("kq", "ks", "vq", "vs", "lengths")
 
     @classmethod
     def init(cls, batch, max_seq, kv_heads, head_dim, device=None):
@@ -68,14 +196,15 @@ class Int8KVCache:
     def max_seq(self) -> int:
         return self.kq.shape[2]
 
-    def _write(self, k: torch.Tensor, v: torch.Tensor) -> None:
-        """Quantize k/v [B, T, KV, Dh] and write them at each slot's length.
+    def _write_k(self, k8, ks_new, b_idx, s_idx, keep) -> None:
+        """Prefill: K codes and scales at the kept positions."""
+        self.kq[b_idx, :, s_idx] = k8[keep]
+        self.ks[b_idx, :, s_idx] = ks_new[keep]
 
-        Decode (T == 1) goes through ``kv_scatter_decode``. Prefill writes
-        with a masked index_put: positions at or past S are dropped, as the
-        JAX scatter drops out-of-bounds indices (padded prefill buckets can
-        reach them; ``index_put_`` would raise instead).
-        """
+    def _write(self, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Quantize k/v [B, T, KV, Dh] and write them at each slot's length:
+        decode (T == 1) through ``kv_scatter_decode``, prefill with masked
+        index writes (``_prefill_positions``)."""
         B, T, KV, Dh = k.shape
         k8, ks_new = quantize_kv(k)
         v8, vs_new = quantize_kv(v)
@@ -85,32 +214,10 @@ class Int8KVCache:
                 k8.reshape(B, KV, 1, Dh), ks_new.reshape(B, KV, 1),
                 v8.reshape(B, KV, 1, Dh), vs_new.reshape(B, KV, 1))
             return
-        pos = self.lengths.long()[:, None] + torch.arange(T, device=k.device)[None, :]
-        keep = pos < self.max_seq
-        b_idx = torch.arange(B, device=k.device)[:, None].expand(B, T)[keep]
-        s_idx = pos[keep]
-        self.kq[b_idx, :, s_idx] = k8[keep]
+        b_idx, s_idx, keep = _prefill_positions(self.lengths, T, self.max_seq)
+        self._write_k(k8, ks_new, b_idx, s_idx, keep)
         self.vq[b_idx, :, s_idx] = v8[keep]
-        self.ks[b_idx, :, s_idx] = ks_new[keep]
         self.vs[b_idx, :, s_idx] = vs_new[keep]
-
-    def _advance(self, T: int, advance) -> None:
-        if advance is None:
-            self.lengths += T
-        else:
-            self.lengths += advance.to(torch.int32)
-
-    def update(self, k, v, advance=None) -> "Int8KVCache":
-        """Append k/v [B, T, KV, Dh] at each slot's length, in place.
-
-        ``advance`` [B] overrides how far each slot's length moves (default
-        T): padded prefill advances only by the true prompt length and
-        inactive decode slots by 0, so their extra rows stay masked and are
-        overwritten by the slot's next real token.
-        """
-        self._write(k, v)
-        self._advance(k.shape[1], advance)
-        return self
 
     def update_and_attend(self, q, k, v, advance=None):
         """Write k/v, attend q [B, T, H, Dh] over the cache with the lengths
@@ -120,23 +227,67 @@ class Int8KVCache:
         self._advance(k.shape[1], advance)
         return out
 
-    def slot_view(self, slot: int) -> "Int8KVCache":
-        """A batch-1 cache of views into slot ``slot`` (writes land here)."""
-        return Int8KVCache(*(getattr(self, f)[slot:slot + 1] for f in _FIELDS))
 
-    def merge_slot(self, small: "Int8KVCache", slot: int) -> "Int8KVCache":
-        """Copy a batch-1 cache into slot ``slot`` (nothing to copy for a
-        view made by ``slot_view``)."""
-        for f in _FIELDS:
-            dst, src = getattr(self, f)[slot:slot + 1], getattr(small, f)
-            if dst.data_ptr() != src.data_ptr():
-                dst.copy_(src)
-        return self
+@dataclasses.dataclass
+class MixedKVCache(Int8KVCache):
+    """K8V4: K int8 per token as ``Int8KVCache`` (kq [B, KV, S, Dh], ks [B,
+    KV, S]); V int4 per token, packed by token pair as ``Int4KVCache``'s V:
+    vq [B, KV, S/2, Dh] int8 (row r: token 2r in the low nibble, 2r + 1 in
+    the high one), vs [B, KV, 2, S/2] f32 (plane 0 even tokens, 1 odd).
+    Full-causal attention only. Port of
+    ``protoquant_tpu/models/kv_cache.py:MixedKVCache`` (``kv_dtype="k8v4"``);
+    updated in place. Prefill drops V writes at or past S, as the decode
+    writer does (the JAX prefill clamps them onto position S - 1)."""
 
-    def reset_slot(self, slot: int) -> "Int8KVCache":
-        """Zero one slot's length (its rows are masked by length)."""
-        self.lengths[slot] = 0
-        return self
+    @classmethod
+    def init(cls, batch, max_seq, kv_heads, head_dim, device=None):
+        """An empty cache on ``device`` (default cuda); ``max_seq`` even."""
+        if max_seq % 2:
+            raise ValueError("mixed KV needs an even max_seq (V pair packing)")
+        device = resolve_device(device)
+        B, KV, S, Dh = batch, kv_heads, max_seq, head_dim
+        return cls(
+            kq=torch.zeros(B, KV, S, Dh, dtype=torch.int8, device=device),
+            ks=torch.full((B, KV, S), SCALE_EPS, dtype=torch.float32, device=device),
+            vq=torch.zeros(B, KV, S // 2, Dh, dtype=torch.int8, device=device),
+            vs=torch.full((B, KV, 2, S // 2), SCALE_EPS, dtype=torch.float32, device=device),
+            lengths=torch.zeros(B, dtype=torch.int32, device=device))
+
+    def _write(self, k, v) -> None:
+        """Quantize K to int8 and V to int4 and write them at each slot's
+        length: decode through ``kv_mixed_scatter_decode``; prefill writes K
+        as ``Int8KVCache`` and V by two sequential parity merges, even
+        tokens first (the JAX ``_write_v_parity``)."""
+        B, T, KV, Dh = k.shape
+        k8, ks_new = quantize_kv(k)
+        v4, vs_new = quantize_kv4(v)
+        if T == 1:
+            kv_mixed_scatter_decode(
+                self.kq, self.ks, self.vq, self.vs, self.lengths,
+                k8.reshape(B, KV, 1, Dh), ks_new.reshape(B, KV, 1),
+                v4.reshape(B, KV, 1, Dh), vs_new.reshape(B, KV, 1))
+            return
+        b_idx, s_idx, keep = _prefill_positions(self.lengths, T, self.max_seq)
+        self._write_k(k8, ks_new, b_idx, s_idx, keep)
+        v4, vs_new = v4[keep], vs_new[keep]
+        for parity in (0, 1):
+            sel = s_idx % 2 == parity
+            b, row = b_idx[sel], s_idx[sel] // 2
+            self.vq[b, :, row] = merge_nibble(self.vq[b, :, row], v4[sel], parity)
+            self.vs[b, :, parity, row] = vs_new[sel]
+
+    def _unpack_v(self):
+        """V as per-token nibble values [B, KV, S, Dh] int8 and scales [B,
+        KV, S] (the JAX ``_unpack_v``)."""
+        return unpack_v4(self.vq, self.vs)
+
+    def update_and_attend(self, q, k, v, advance=None):
+        """Write k/v, attend q [B, T, H, Dh] over the cache with the lengths
+        from before this step, then advance. Returns [B, T, H, Dh]."""
+        self._write(k, v)
+        out = mixed_kv_attention(q, self.kq, self.ks, self.vq, self.vs, self.lengths)
+        self._advance(k.shape[1], advance)
+        return out
 
 
 # -- KIVI capacity tiers: K4V8KVCache and Int4KVCache ---------------------------
@@ -149,7 +300,7 @@ _KIVI_FIELDS = ("kq", "kchs", "vq", "vs", "ktail", "kts", "vtail", "vts", "lengt
 
 
 @dataclasses.dataclass
-class _KiviKVCache:
+class _KiviKVCache(_DenseSlots):
     """The K side shared by both KIVI tiers (G = ``group``, F = (length //
     G) G): kq [B, KV, S/2, Dh] int8 packed K nibbles of completed chunks
     (row r: token 2r low nibble, 2r + 1 high), kchs [B, KV, S/G, Dh] f32
@@ -173,6 +324,7 @@ class _KiviKVCache:
     group: int = 64
 
     V4 = False  # Int4KVCache: V packed like K (per-token scales)
+    FIELDS = _KIVI_FIELDS
 
     @classmethod
     def init(cls, batch, max_seq, kv_heads, head_dim, group=None, device=None):
@@ -312,24 +464,6 @@ class _KiviKVCache:
             v = self.vq.float() * self.vs[..., None]
         return k, v
 
-    def slot_view(self, slot: int):
-        """A batch-1 cache of views into slot ``slot`` (writes land here)."""
-        return type(self)(*(getattr(self, f)[slot:slot + 1] for f in _KIVI_FIELDS),
-                          group=self.group)
-
-    def merge_slot(self, small, slot: int):
-        """Copy a batch-1 cache into slot ``slot`` (nothing to copy for a
-        view made by ``slot_view``)."""
-        for f in _KIVI_FIELDS:
-            dst, src = getattr(self, f)[slot:slot + 1], getattr(small, f)
-            if dst.data_ptr() != src.data_ptr():
-                dst.copy_(src)
-        return self
-
-    def reset_slot(self, slot: int):
-        """Zero one slot's length (its rows are masked by length)."""
-        self.lengths[slot] = 0
-        return self
 
 
 class K4V8KVCache(_KiviKVCache):

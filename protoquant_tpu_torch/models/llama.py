@@ -25,28 +25,39 @@ from ..nn.qlinear import QLinear
 from ..ops.fused_quant import rms_norm, swiglu
 from ..utils.config import ModelConfig
 from ..utils.device import resolve_device
-from .kv_cache import Int4KVCache, Int8KVCache, K4V8KVCache
+from .kv_cache import (BF16KVCache, Int4KVCache, Int8KVCache, K4V8KVCache, MixedKVCache,
+                       mha_attention)
 
 # kv_dtype -> the dense cache class that holds it
-KV_CACHES = {"int8": Int8KVCache, "k4v8": K4V8KVCache, "int4": Int4KVCache}
+KV_CACHES = {"bf16": BF16KVCache, "int8": Int8KVCache, "k8v4": MixedKVCache,
+             "k4v8": K4V8KVCache, "int4": Int4KVCache}
+# torch dtypes taken as kv_dtype, and the element type of a BF16KVCache
+_DTYPE_KEYS = {torch.int8: "int8", torch.bfloat16: "bf16", torch.float32: "bf16"}
 
 
-def kv_cache_class(kv_dtype="int8"):
-    """The dense cache class of ``kv_dtype``: "int8" (or torch.int8), "k4v8"
-    (the JAX CLI's --kv-bits 6) or "int4" (KIVI, --kv-bits 4)."""
-    key = "int8" if kv_dtype is torch.int8 else kv_dtype
+def kv_cache_class(kv_dtype=torch.bfloat16):
+    """The dense cache class of ``kv_dtype``: torch.bfloat16, "bf16" or
+    torch.float32 (``BF16KVCache``, unquantized, the JAX package's default),
+    "int8" or torch.int8, "k8v4" (``MixedKVCache``), "k4v8" (the JAX CLI's
+    --kv-bits 6) or "int4" (KIVI, --kv-bits 4)."""
+    key = _DTYPE_KEYS.get(kv_dtype, kv_dtype) if isinstance(kv_dtype, torch.dtype) else kv_dtype
     if not isinstance(key, str) or key not in KV_CACHES:
-        raise ValueError(f"kv_dtype {kv_dtype!r}: the port has {sorted(KV_CACHES)}")
+        raise ValueError(f"kv_dtype {kv_dtype!r}: the port has {sorted(KV_CACHES)}, "
+                         "torch.int8, torch.bfloat16 and torch.float32")
     return KV_CACHES[key]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
-               kv_dtype="int8") -> list:
-    """One dense KV cache of ``kv_dtype`` per layer, on ``device`` (default
-    cuda)."""
+               kv_dtype=torch.bfloat16) -> list:
+    """One dense KV cache of ``kv_dtype`` per layer (``kv_cache_class``), on
+    ``device`` (default cuda). The default is the JAX package's: a
+    ``BF16KVCache`` in bf16; torch.float32 makes it f32."""
     cls = kv_cache_class(kv_dtype)
     device = resolve_device(device)
-    return [cls.init(batch, max_seq, cfg.num_key_value_heads, cfg.head_dim, device=device)
+    kw = {"device": device}
+    if cls is BF16KVCache:
+        kw["dtype"] = torch.float32 if kv_dtype is torch.float32 else torch.bfloat16
+    return [cls.init(batch, max_seq, cfg.num_key_value_heads, cfg.head_dim, **kw)
             for _ in range(cfg.num_hidden_layers)]
 
 
@@ -65,23 +76,6 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cos, sin) -> torch.Tens
     s = sin[positions][:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
-
-
-def mha_attention(q, k, v, q_positions, k_positions):
-    """Plain causal GQA attention without a cache (the scoring path).
-
-    q [B, T, H, Dh]; k/v [B, S, KV, Dh]; a key is visible to a query iff its
-    position is not greater than the query's."""
-    B, T, H, Dh = q.shape
-    KV = k.shape[2]
-    group = H // KV
-    qf = q.reshape(B, T, KV, group, Dh).float()
-    scores = torch.einsum("btkgd,bskd->bkgts", qf, k.float()) * Dh**-0.5
-    mask = k_positions[:, None, None, None, :] <= q_positions[:, None, None, :, None]
-    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgts,bskd->btkgd", probs, v.float())
-    return out.reshape(B, T, H, Dh).to(q.dtype)
 
 
 class RMSNorm(nn.Module):

@@ -10,12 +10,14 @@ package itself has. Each kernel body counts its launches in ``.launches``.
 import os as _os
 
 from .attention import (int4_kv_attention, int4_kv_attention_ref, int8_kv_attention,
-                        int8_kv_attention_ref, k4v8_attention, k4v8_attention_ref)
+                        int8_kv_attention_ref, k4v8_attention, k4v8_attention_ref,
+                        mixed_kv_attention, mixed_kv_attention_ref)
 from .dequant import dequant, dequant_ref
 from .fused_quant import (rms_norm_quant, rms_norm_quant_ref, swiglu_quant,
                           swiglu_quant_ref)
 from .kv_scatter import (k4v8_decode_update, k4v8_decode_update_ref, kivi4_decode_update,
-                         kivi4_decode_update_ref, kv_scatter_decode, kv_scatter_decode_ref,
+                         kivi4_decode_update_ref, kv_mixed_scatter_decode,
+                         kv_mixed_scatter_decode_ref, kv_scatter_decode, kv_scatter_decode_ref,
                          paged_kv_scatter_decode, paged_kv_scatter_decode_ref)
 from .paged_attention import paged_int8_attention, paged_int8_attention_ref
 from .qmatmul import dynamic_qlinear, qmatmul, qmatmul_ref
@@ -47,6 +49,8 @@ KERNELS = {
     "k4v8_attention": k4v8_attention,
     "kivi4_decode_update": kivi4_decode_update,
     "int4_kv_attention": int4_kv_attention,
+    "kv_mixed_scatter_decode": kv_mixed_scatter_decode,
+    "mixed_kv_attention": mixed_kv_attention,
 }
 
 # W4A8 (dynamic_int4) formulation, as the JAX package resolves it
@@ -92,7 +96,9 @@ __all__ = [
     "dynamic_qlinear", "int4_kv_attention", "int4_kv_attention_ref", "int8_kv_attention",
     "int8_kv_attention_ref", "k4v8_attention", "k4v8_attention_ref", "k4v8_decode_update",
     "k4v8_decode_update_ref", "kivi4_decode_update", "kivi4_decode_update_ref",
-    "kv_scatter_decode", "kv_scatter_decode_ref", "launch_counts", "paged_int8_attention",
+    "kv_mixed_scatter_decode", "kv_mixed_scatter_decode_ref", "kv_scatter_decode",
+    "kv_scatter_decode_ref", "launch_counts", "mixed_kv_attention", "mixed_kv_attention_ref",
+    "paged_int8_attention",
     "paged_int8_attention_ref", "paged_kv_scatter_decode", "paged_kv_scatter_decode_ref",
     "qmatmul", "qmatmul_ref", "reset_launch_counts", "resolve_fused_quant",
     "resolve_w4a8_formulation", "rms_norm_quant", "rms_norm_quant_ref", "rowquant",

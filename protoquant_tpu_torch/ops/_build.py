@@ -44,9 +44,12 @@ SIGNATURES = {
     # kq, ks, vq, vs, lengths, k8, ks_new, v8, vs_new, B, KV, S, Dh, stream
     "pq_kv_scatter_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _P],
+    # kq, ks, vq, vs, lengths, k8, ks_new, v4, vs_new, B, KV, S, Dh, stream
+    "pq_kv_mixed_scatter_decode": [_P] * 9 + [_I] * 4 + [_P],
     # q, q_dtype, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, Dh, sm, stream
     "pq_int8_kv_attention": [_P, _I, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _F, _P],
+    "pq_mixed_kv_attention": [_P, _I] + [_P] * 6 + [_I] * 6 + [_F, _P],
     # x, wq, sw, bias, out, out_dtype, M, N, K, stream
     "pq_weight_only_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # kq, ks, vq, vs, page_table, lengths, k8, ks_new, v8, vs_new,

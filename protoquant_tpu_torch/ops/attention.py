@@ -3,17 +3,21 @@
 The int8 kernel (``csrc/attention.cu``) replaces the Pallas kernel
 ``protoquant_tpu/ops/attention.py:_attn_kernel`` for the causal GQA case;
 its plain version mirrors ``int8_kv_attention_xla`` of the JAX package.
+The same source, with its V layout switched to packed int4 token pairs,
+replaces ``_attn_mixed_kernel`` (the K8V4 cache); its plain version
+unpacks V and runs the int8 one, as the JAX test holds the Pallas kernel.
 The KIVI kernels (``csrc/kivi_attention.cu``) replace ``_attn_k4v8_kernel``
 and ``_attn4_kernel``; their plain versions dequantize the cache to f32
 (``dequant_fp(lane=f32)`` of the JAX caches) and run the int8 plain version
 with unit scales, as the JAX tests hold the Pallas kernels.
 The variants of the JAX functions (sliding window, score scale, softcap,
 learned sinks, ring positions, StreamingLLM sinks, ALiBi, tree masks) are
-not ported yet: both functions raise ``NotImplementedError`` on them.
+not ported yet: every function here raises ``NotImplementedError`` on them.
 
-The two place the score scale differently, as in the JAX package: the
-kernel multiplies ``(q . k) * ks * Dh^-0.5`` after the dot, the plain
-version scales q before it. The outputs differ by a few f32 ulps.
+The kernels and the plain versions place the score scale differently, as
+in the JAX package: a kernel multiplies ``(q . k) * ks * Dh^-0.5`` after
+the dot, the plain version scales q before it. The outputs differ by a few
+f32 ulps.
 """
 
 from __future__ import annotations
@@ -62,43 +66,92 @@ def int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, **variants):
     return out.reshape(B, T, H, Dh).to(q.dtype)
 
 
+def _dense_attention_launch(name, fn, v4, q, kq, ks, vq, vs, lengths):
+    """Check the operands of ``csrc/attention.cu`` (V int8 per token, or
+    with ``v4`` packed token pairs and parity-split scales), launch it and
+    count the launch on ``fn``."""
+    B, T, H, Dh = q.shape
+    KV, S = kq.shape[1], kq.shape[2]
+    v_shape = ((B, KV, S // 2, Dh), (B, KV, 2, S // 2)) if v4 else ((B, KV, S, Dh), (B, KV, S))
+    if H % KV or kq.shape != (B, KV, S, Dh) or vq.shape != v_shape[0] or (v4 and S % 2):
+        raise ValueError(f"{name}: q {tuple(q.shape)} vs cache "
+                         f"{tuple(kq.shape)} / {tuple(vq.shape)}")
+    if ks.shape != (B, KV, S) or vs.shape != v_shape[1] or lengths.shape != (B,):
+        raise ValueError(f"{name}: scale or length shapes")
+    if Dh not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {Dh} not in {_KERNEL_HEAD_DIMS}")
+    if q.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{name}: unsupported dtype {q.dtype}")
+    if kq.dtype != torch.int8 or vq.dtype != torch.int8:
+        raise TypeError(f"{name}: cache payload must be int8")
+    if ks.dtype != torch.float32 or vs.dtype != torch.float32:
+        raise TypeError(f"{name}: cache scales must be float32")
+    if lengths.dtype != torch.int32:
+        raise TypeError(f"{name}: lengths must be int32")
+    q = q.contiguous()
+    dev = _build.same_device_contiguous(name, q, kq, ks, vq, vs, lengths)
+    out = torch.empty_like(q)
+    c_name = "pq_mixed_kv_attention" if v4 else "pq_int8_kv_attention"
+    err = getattr(_build.lib(), c_name)(
+        q.data_ptr(), _build.DTYPE_CODES[q.dtype], kq.data_ptr(), ks.data_ptr(),
+        vq.data_ptr(), vs.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        B, T, H, KV, S, Dh, float(Dh**-0.5), _build.stream_ptr(dev))
+    _build.check(err, c_name)
+    fn.launches += 1
+    return out
+
+
 def int8_kv_attention(q, kq, ks, vq, vs, lengths, **variants):
     """Causal GQA attention over the int8 cache; same contract as
     :func:`int8_kv_attention_ref`. Returns [B, T, H, Dh] in q.dtype."""
     _reject_variants("int8_kv_attention", **variants)
     if q.device.type == "cpu":
         return int8_kv_attention_ref(q, kq, ks, vq, vs, lengths)
-    B, T, H, Dh = q.shape
-    KV, S = kq.shape[1], kq.shape[2]
-    if H % KV or kq.shape != (B, KV, S, Dh) or vq.shape != kq.shape:
-        raise ValueError(f"int8_kv_attention: q {tuple(q.shape)} vs cache "
-                         f"{tuple(kq.shape)} / {tuple(vq.shape)}")
-    if ks.shape != (B, KV, S) or vs.shape != (B, KV, S) or lengths.shape != (B,):
-        raise ValueError("int8_kv_attention: scale or length shapes")
-    if Dh not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"int8_kv_attention: head_dim {Dh} not in "
-                         f"{_KERNEL_HEAD_DIMS}")
-    if q.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"int8_kv_attention: unsupported dtype {q.dtype}")
-    if kq.dtype != torch.int8 or vq.dtype != torch.int8:
-        raise TypeError("int8_kv_attention: cache payload must be int8")
-    if ks.dtype != torch.float32 or vs.dtype != torch.float32:
-        raise TypeError("int8_kv_attention: cache scales must be float32")
-    if lengths.dtype != torch.int32:
-        raise TypeError("int8_kv_attention: lengths must be int32")
-    q = q.contiguous()
-    dev = _build.same_device_contiguous("int8_kv_attention", q, kq, ks, vq, vs, lengths)
-    out = torch.empty_like(q)
-    err = _build.lib().pq_int8_kv_attention(
-        q.data_ptr(), _build.DTYPE_CODES[q.dtype], kq.data_ptr(), ks.data_ptr(),
-        vq.data_ptr(), vs.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, T, H, KV, S, Dh, float(Dh**-0.5), _build.stream_ptr(dev))
-    _build.check(err, "pq_int8_kv_attention")
-    int8_kv_attention.launches += 1
-    return out
+    return _dense_attention_launch("int8_kv_attention", int8_kv_attention, False,
+                                   q, kq, ks, vq, vs, lengths)
 
 
 int8_kv_attention.launches = 0
+
+
+# -- mixed K8V4 cache: int8 K per token, packed int4 V per token -----------------
+
+
+def unpack_v4(vq, vs):
+    """Packed V [B, KV, S/2, Dh] and parity-split scales vs [B, KV, 2, S/2]
+    -> per-token nibble values [B, KV, S, Dh] int8 and scales [B, KV, S]
+    (``MixedKVCache._unpack_v`` of the JAX package)."""
+    B, KV, S2, _ = vq.shape
+    return _unpack_tokens(vq).to(torch.int8), vs.transpose(2, 3).reshape(B, KV, 2 * S2)
+
+
+def mixed_kv_attention_ref(q, kq, ks, vq, vs, lengths, **variants):
+    """Plain version of :func:`mixed_kv_attention`: V unpacked to per-token
+    nibbles and scales, then :func:`int8_kv_attention_ref`."""
+    _reject_variants("mixed_kv_attention_ref", **variants)
+    return int8_kv_attention_ref(q, kq, ks, *unpack_v4(vq, vs), lengths)
+
+
+def mixed_kv_attention(q, kq, ks, vq, vs, lengths, **variants):
+    """Causal GQA attention over the K8V4 cache, prefill (T > 1) or decode.
+
+    q [B, T, H, Dh]; kq [B, KV, S, Dh] int8 and ks [B, KV, S] f32 as the
+    int8 cache; vq [B, KV, S/2, Dh] int8 packed token pairs (row r: token
+    2r in the low nibble, 2r + 1 in the high one), vs [B, KV, 2, S/2] f32
+    per-token scales (plane 0 even tokens, plane 1 odd); lengths [B] int32 =
+    length before this step. Query t sees keys p <= lengths + t. Returns
+    [B, T, H, Dh] in q.dtype. Replaces
+    ``protoquant_tpu/ops/attention.py:mixed_kv_attention``
+    (``_attn_mixed_kernel``); its ``scale`` is not ported either.
+    """
+    _reject_variants("mixed_kv_attention", **variants)
+    if q.device.type == "cpu":
+        return mixed_kv_attention_ref(q, kq, ks, vq, vs, lengths)
+    return _dense_attention_launch("mixed_kv_attention", mixed_kv_attention, True,
+                                   q, kq, ks, vq, vs, lengths)
+
+
+mixed_kv_attention.launches = 0
 
 
 # -- KIVI caches: K4V8 (int4 K, int8 V) and Int4 (int4 K and V) ----------------

@@ -2,7 +2,8 @@
 
 The int8 kernels (``csrc/kv_scatter.cu``) replace the Pallas kernels
 ``protoquant_tpu/ops/kv_scatter.py:_scatter_kernel`` (dense) and
-``_paged_scatter_kernel`` (paged); the KIVI decode updates
+``_paged_scatter_kernel`` (paged), and its mixed K8V4 writer
+``_scatter_mixed_kernel`` (int8 K, a nibble of packed int4 V); the KIVI decode updates
 (``csrc/kivi_update.cu``) replace ``k4v8_decode_update`` and
 ``kivi4_decode_update`` of the same file, each the whole function in one
 launch (tail insert and chunk flush). Every version updates the cache
@@ -34,6 +35,38 @@ def kv_scatter_decode_ref(kq, ks, vq, vs, lengths, k8, ks_new, v8, vs_new):
     return kq, ks, vq, vs
 
 
+def _dense_scatter_launch(name, fn, v4, kq, ks, vq, vs, lengths, k8, ks_new, v8, vs_new):
+    """Check the operands of a dense decode writer of ``csrc/kv_scatter.cu``
+    (V int8 per token, or with ``v4`` packed token pairs with parity-split
+    scales), launch it in place and count the launch on ``fn``."""
+    B, KV, S, Dh = kq.shape
+    v_shape = ((B, KV, S // 2, Dh), (B, KV, 2, S // 2)) if v4 else ((B, KV, S, Dh), (B, KV, S))
+    if v4 and S % 2:
+        raise ValueError(f"{name}: max_seq {S} must be even")
+    shapes = {"ks": (ks, (B, KV, S)), "vq": (vq, v_shape[0]),
+              "vs": (vs, v_shape[1]), "lengths": (lengths, (B,)),
+              "k8": (k8, (B, KV, 1, Dh)), "v8": (v8, (B, KV, 1, Dh)),
+              "ks_new": (ks_new, (B, KV, 1)), "vs_new": (vs_new, (B, KV, 1))}
+    for key, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: {key} shape {tuple(t.shape)}, want {want}")
+    for t, dt in ((kq, torch.int8), (vq, torch.int8), (k8, torch.int8),
+                  (v8, torch.int8), (ks, torch.float32), (vs, torch.float32),
+                  (ks_new, torch.float32), (vs_new, torch.float32),
+                  (lengths, torch.int32)):
+        if t.dtype != dt:
+            raise TypeError(f"{name}: {t.dtype} where {dt} is due")
+    dev = _build.same_device_contiguous(name, kq, ks, vq, vs, lengths, k8, ks_new, v8, vs_new)
+    c_name = "pq_kv_mixed_scatter_decode" if v4 else "pq_kv_scatter_decode"
+    err = getattr(_build.lib(), c_name)(
+        kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+        lengths.data_ptr(), k8.data_ptr(), ks_new.data_ptr(), v8.data_ptr(),
+        vs_new.data_ptr(), B, KV, S, Dh, _build.stream_ptr(dev))
+    _build.check(err, c_name)
+    fn.launches += 1
+    return kq, ks, vq, vs
+
+
 def kv_scatter_decode(kq, ks, vq, vs, lengths, k8, ks_new, v8, vs_new):
     """Write one decode token per batch row into the int8 cache, in place.
 
@@ -44,33 +77,60 @@ def kv_scatter_decode(kq, ks, vq, vs, lengths, k8, ks_new, v8, vs_new):
     """
     if kq.device.type == "cpu":
         return kv_scatter_decode_ref(kq, ks, vq, vs, lengths, k8, ks_new, v8, vs_new)
-    B, KV, S, Dh = kq.shape
-    shapes = {"ks": (ks, (B, KV, S)), "vq": (vq, (B, KV, S, Dh)),
-              "vs": (vs, (B, KV, S)), "lengths": (lengths, (B,)),
-              "k8": (k8, (B, KV, 1, Dh)), "v8": (v8, (B, KV, 1, Dh)),
-              "ks_new": (ks_new, (B, KV, 1)), "vs_new": (vs_new, (B, KV, 1))}
-    for name, (t, want) in shapes.items():
-        if tuple(t.shape) != want:
-            raise ValueError(f"kv_scatter_decode: {name} shape "
-                             f"{tuple(t.shape)}, want {want}")
-    for t, dt in ((kq, torch.int8), (vq, torch.int8), (k8, torch.int8),
-                  (v8, torch.int8), (ks, torch.float32), (vs, torch.float32),
-                  (ks_new, torch.float32), (vs_new, torch.float32),
-                  (lengths, torch.int32)):
-        if t.dtype != dt:
-            raise TypeError(f"kv_scatter_decode: {t.dtype} where {dt} is due")
-    dev = _build.same_device_contiguous("kv_scatter_decode", kq, ks, vq, vs, lengths,
-                              k8, ks_new, v8, vs_new)
-    err = _build.lib().pq_kv_scatter_decode(
-        kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-        lengths.data_ptr(), k8.data_ptr(), ks_new.data_ptr(), v8.data_ptr(),
-        vs_new.data_ptr(), B, KV, S, Dh, _build.stream_ptr(dev))
-    _build.check(err, "pq_kv_scatter_decode")
-    kv_scatter_decode.launches += 1
-    return kq, ks, vq, vs
+    return _dense_scatter_launch("kv_scatter_decode", kv_scatter_decode, False, kq, ks, vq,
+                                 vs, lengths, k8, ks_new, v8, vs_new)
 
 
 kv_scatter_decode.launches = 0
+
+
+def merge_nibble(cur, nib, parity):
+    """Bytes ``cur`` with the nibble of ``parity`` (0 low, 1 high; a tensor
+    broadcasting against them) replaced by the nibble values ``nib``, the
+    other nibble kept: the read-modify-write of one packed int4 token."""
+    c, n = cur.to(torch.int32), nib.to(torch.int32) & 0x0F
+    low = torch.as_tensor(parity, device=cur.device) == 0
+    merged = torch.where(low, (c & ~0x0F) | n, (c & 0x0F) | (n << 4))
+    return (merged & 0xFF).to(torch.uint8).view(torch.int8)
+
+
+def kv_mixed_scatter_decode_ref(kq, ks, vq, vs, lengths, k8, ks_new, v4, vs_new):
+    """Plain version (same contract as :func:`kv_mixed_scatter_decode`);
+    masked writes at clamped positions, no host sync."""
+    B, KV, S, Dh = kq.shape
+    pos = lengths.long().clamp_min(0)
+    keep = pos < S
+    p = pos.clamp_max(S - 1)
+    b = torch.arange(B, device=kq.device)
+    _put_row(kq, ks, k8.reshape(B, KV, Dh), ks_new.reshape(B, KV), b, p, keep)
+    row, parity = p // 2, p % 2
+    merged = merge_nibble(vq[b, :, row], v4.reshape(B, KV, Dh), parity[:, None, None])
+    vq[b, :, row] = torch.where(keep[:, None, None], merged, vq[b, :, row])
+    vs[b, :, parity, row] = torch.where(keep[:, None], vs_new.reshape(B, KV),
+                                        vs[b, :, parity, row])
+    return kq, ks, vq, vs
+
+
+def kv_mixed_scatter_decode(kq, ks, vq, vs, lengths, k8, ks_new, v4, vs_new):
+    """Write one decode token per batch row into the K8V4 cache, in place.
+
+    kq: [B, KV, S, Dh] int8;  ks: [B, KV, S] f32;  lengths: [B] int32
+    vq: [B, KV, S/2, Dh] int8 packed token pairs;  vs: [B, KV, 2, S/2] f32
+    k8: [B, KV, 1, Dh] int8;  v4: [B, KV, 1, Dh] int8 nibbles in [-7, 7]
+    ks_new/vs_new: [B, KV, 1] f32.
+    With ln = max(lengths[b], 0) < S: K row ln and its scale; the nibble of
+    parity ln % 2 of byte row ln // 2 (the other nibble kept) and vs[b, :,
+    ln % 2, ln // 2]. A row at capacity drops its write. Returns the four
+    cache tensors. Replaces ``protoquant_tpu/ops/kv_scatter.py:
+    kv_mixed_scatter_decode`` (``_scatter_mixed_kernel``).
+    """
+    if kq.device.type == "cpu":
+        return kv_mixed_scatter_decode_ref(kq, ks, vq, vs, lengths, k8, ks_new, v4, vs_new)
+    return _dense_scatter_launch("kv_mixed_scatter_decode", kv_mixed_scatter_decode, True,
+                                 kq, ks, vq, vs, lengths, k8, ks_new, v4, vs_new)
+
+
+kv_mixed_scatter_decode.launches = 0
 
 
 def page_slots(page_table, pos, page_size: int, num_pages: int):

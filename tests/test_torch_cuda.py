@@ -15,7 +15,8 @@ norm's in under 1e-3 of the elements, scales within rtol 1e-6; the gate's in
 under 5 %, scales within rtol 1e-2), what the JAX package demands of its
 kernels. ``dequant``: exact. The KIVI decode writers (K4V8, Int4): exact
 on all eight cache tensors; the KIVI attentions: ATOL in f32, 2^-7 of the
-largest output in bf16.
+largest output in bf16. The mixed K8V4 writer: exact on all four cache
+tensors; the mixed attention as the KIVI ones.
 """
 
 import pytest
@@ -553,3 +554,99 @@ def test_kivi_wrappers_reject_and_count(cuda):
                             lengths.cpu(), k8.cpu(), s1.cpu(), k8.cpu(), s1.cpu(), group=8)
     counts = ops.launch_counts()
     assert (counts["int4_kv_attention"], counts["kivi4_decode_update"]) == (1, 1)
+
+
+# -- the mixed K8V4 cache: decode writer (exact) and attention (ATOL) ------------
+
+
+def _mixed_cache(g, dev, B, KV, S, Dh):
+    """Random K8V4 cache tensors (kq, ks, vq, vs): every packed V byte drawn."""
+    kq = torch.randint(-127, 128, (B, KV, S, Dh), generator=g, device=dev, dtype=torch.int8)
+    vq = torch.randint(-128, 128, (B, KV, S // 2, Dh), generator=g, device=dev,
+                       dtype=torch.int8)
+    ks = torch.rand(B, KV, S, generator=g, device=dev) * 1e-2 + 1e-3
+    vs = torch.rand(B, KV, 2, S // 2, generator=g, device=dev) * 1e-2 + 1e-3
+    return [kq, ks, vq, vs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [32, 128])
+def test_mixed_scatter_exact(cuda, head_dim):
+    g = torch.Generator(device=cuda).manual_seed(head_dim)
+    B, KV, S = 6, 3, 96
+    # even, odd, the last position, at capacity and past it (dropped), zero
+    lengths = torch.tensor([10, 11, S - 1, S, S + 3, 0], dtype=torch.int32, device=cuda)
+    base = _mixed_cache(g, cuda, B, KV, S, head_dim)
+    k8 = torch.randint(-127, 128, (B, KV, 1, head_dim), generator=g, device=cuda,
+                       dtype=torch.int8)
+    v4 = torch.randint(-7, 8, (B, KV, 1, head_dim), generator=g, device=cuda,
+                       dtype=torch.int8)
+    ksn = torch.rand(B, KV, 1, generator=g, device=cuda)
+    vsn = torch.rand(B, KV, 1, generator=g, device=cuda)
+    a = [t.clone() for t in base]
+    b = [t.clone() for t in base]
+    ops.kv_mixed_scatter_decode(*a, lengths, k8, ksn, v4, vsn)
+    ops.kv_mixed_scatter_decode_ref(*b, lengths, k8, ksn, v4, vsn)
+    torch.cuda.synchronize()
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert torch.equal(x, y), i
+    for r in (3, 4):  # rows at or past S: nothing written
+        assert all(torch.equal(x[r], y[r]) for x, y in zip(a, base))
+    # row 0 (even) changed only low nibbles of its V byte row, row 1 only high ones
+    assert torch.equal(a[2][0, :, 5] & -16, base[2][0, :, 5] & -16)
+    assert torch.equal(a[2][1, :, 5] & 15, base[2][1, :, 5] & 15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,T,head_dim,dtype", [
+    (1, 1, 128, torch.float32), (4, 1, 128, torch.float32), (2, 5, 64, torch.float32),
+    (1, 33, 128, torch.float32), (2, 3, 256, torch.float32), (1, 40, 32, torch.float32),
+    (1, 1, 128, torch.bfloat16)])
+def test_mixed_attention_vs_plain(cuda, group, T, head_dim, dtype):
+    g = torch.Generator(device=cuda).manual_seed(group * 11 + T)
+    S, KV = 96, 2
+    # an empty row, odd and even lengths, a chunk ending at S, and for
+    # T > 1 a chunk that reaches past S
+    lens = [0, 15, 40, S - T] + ([S - T // 2] if T > 1 else [])
+    B = len(lens)
+    cache = _mixed_cache(g, cuda, B, KV, S, head_dim)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = torch.randn(B, T, KV * group, head_dim, generator=g, device=cuda).to(dtype)
+    out = ops.mixed_kv_attention(q, *cache, lengths)
+    ref = ops.mixed_kv_attention_ref(q, *cache, lengths)
+    torch.cuda.synchronize()
+    atol = ATOL if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_mixed_wrappers_reject_and_count(cuda):
+    ops.reset_launch_counts()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    kq, ks, vq, vs = _mixed_cache(g, cuda, 1, 2, 32, 64)
+    lengths = torch.tensor([5], dtype=torch.int32, device=cuda)
+    q = torch.randn(1, 1, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        c48 = _mixed_cache(g, cuda, 1, 2, 32, 48)
+        ops.mixed_kv_attention(torch.randn(1, 1, 2, 48, device=cuda), *c48, lengths)
+    with pytest.raises(ValueError, match="scale or length"):  # an int8 cache's V scales
+        ops.mixed_kv_attention(q, kq, ks, vq, ks, lengths)
+    with pytest.raises(ValueError, match="vs cache"):  # an int8 cache's V
+        ops.mixed_kv_attention(q, kq, ks, kq, vs, lengths)
+    with pytest.raises(TypeError, match="int32"):
+        ops.mixed_kv_attention(q, kq, ks, vq, vs, lengths.long())
+    k8 = torch.zeros(1, 2, 1, 64, dtype=torch.int8, device=cuda)
+    s1 = torch.ones(1, 2, 1, device=cuda)
+    with pytest.raises(ValueError, match="vs shape"):
+        ops.kv_mixed_scatter_decode(kq, ks, vq, ks, lengths, k8, s1, k8, s1)
+    with pytest.raises(TypeError, match="int8"):
+        ops.kv_mixed_scatter_decode(kq, ks, vq, vs, lengths, k8, s1, k8.float(), s1)
+    with pytest.raises(ValueError, match="tensors on"):
+        ops.kv_mixed_scatter_decode(kq, ks, vq, vs, lengths.cpu(), k8, s1, k8, s1)
+    ops.mixed_kv_attention(q, kq, ks, vq, vs, lengths)
+    ops.mixed_kv_attention_ref(q, kq, ks, vq, vs, lengths)
+    ops.kv_mixed_scatter_decode(kq, ks, vq, vs, lengths, k8, s1, k8, s1)
+    ops.kv_mixed_scatter_decode(*(t.cpu() for t in (kq, ks, vq, vs, lengths, k8, s1, k8, s1)))
+    counts = ops.launch_counts()
+    assert (counts["mixed_kv_attention"], counts["kv_mixed_scatter_decode"]) == (1, 1)
+    assert counts["int8_kv_attention"] == counts["kv_scatter_decode"] == 0

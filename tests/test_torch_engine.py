@@ -66,7 +66,7 @@ def test_engine_batched_equals_sequential(pair):
     rids = [e.add_request(p) for p in prompts]
     out = e.run()
     for rid, p in zip(rids, prompts):
-        alone = greedy_generate(tm, torch.tensor([p]), 6, 64)
+        alone = greedy_generate(tm, torch.tensor([p]), 6, 64, kv_dtype="int8")
         assert out[rid] == alone[0].tolist()
 
 

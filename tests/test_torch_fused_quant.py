@@ -207,10 +207,10 @@ def test_fused_model_equals_unfused_bitwise(monkeypatch, spy, dtype):
         if name.endswith("layernorm") or name == "norm":
             mod.weight.copy_(torch.rand(mod.weight.shape, generator=g) + 0.5)
     tokens = torch.from_numpy(_prompt(2, 11, seed=6))
-    want = (m(tokens), greedy_generate(m, tokens, 8, 32))
+    want = (m(tokens), greedy_generate(m, tokens, 8, 32, kv_dtype="int8"))
     assert spy == {"rms_norm_quant": 0, "swiglu_quant": 0}
     monkeypatch.setattr(ops, "FUSED_QUANT", "on")
-    got = (m(tokens), greedy_generate(m, tokens, 8, 32))
+    got = (m(tokens), greedy_generate(m, tokens, 8, 32, kv_dtype="int8"))
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     layers = DIMSF["num_hidden_layers"]
     assert spy["rms_norm_quant"] == 2 * layers * 9  # scoring, prefill, 7 decode steps
@@ -241,9 +241,9 @@ def test_fused_ops_only_on_the_dynamic_path(monkeypatch, spy, mode):
     m = LlamaModel(ModelConfig(**dims), mode=mode, int4_group=32, dtype=torch.float32,
                    device="cpu").init_random_(2)
     tokens = torch.from_numpy(_prompt(2, 7, seed=7))
-    want = greedy_generate(m, tokens, 4, 32)
+    want = greedy_generate(m, tokens, 4, 32, kv_dtype="int8")
     monkeypatch.setattr(ops, "FUSED_QUANT", "on")
-    assert torch.equal(greedy_generate(m, tokens, 4, 32), want)
+    assert torch.equal(greedy_generate(m, tokens, 4, 32, kv_dtype="int8"), want)
     assert spy == {"rms_norm_quant": 0, "swiglu_quant": 0}
 
 
@@ -273,7 +273,7 @@ def test_fused_greedy_tokens_identical(fused_pair, fused_on):
     jm, params, tm = fused_pair
     prompt = _prompt(2, 6, seed=3)
     want = np.asarray(j_greedy(jm, params, jnp.asarray(prompt), 16, 32, kv_dtype=jnp.int8))
-    got = greedy_generate(tm, torch.from_numpy(prompt), 16, 32)
+    got = greedy_generate(tm, torch.from_numpy(prompt), 16, 32, kv_dtype="int8")
     np.testing.assert_array_equal(got.numpy(), want)
 
 

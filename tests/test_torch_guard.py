@@ -14,7 +14,8 @@ import protoquant_tpu_torch
 from protoquant_tpu_torch import Engine, LlamaModel, ModelConfig, QLinear
 from protoquant_tpu_torch.engine import PagedInt8KVCache
 from protoquant_tpu_torch.models import init_cache
-from protoquant_tpu_torch.models.kv_cache import Int4KVCache, Int8KVCache, K4V8KVCache
+from protoquant_tpu_torch.models.kv_cache import (BF16KVCache, Int4KVCache, Int8KVCache,
+                                                  K4V8KVCache, MixedKVCache)
 from protoquant_tpu_torch.models.llama import MLP, Attention, DecoderLayer, RMSNorm
 from protoquant_tpu_torch.utils import resolve_device
 
@@ -74,10 +75,14 @@ CONSTRUCTORS = {
     "LlamaModel": lambda **d: LlamaModel(CFG, **d),
     "QLinear": lambda **d: QLinear(32, 16, "dynamic", **d),
     "QLinear_int4": lambda **d: QLinear(32, 16, "dynamic_int4", int4_group=16, **d),
-    "init_cache": lambda **d: init_cache(CFG, 2, 16, **d),
+    "init_cache": lambda **d: init_cache(CFG, 2, 16, kv_dtype="int8", **d),
+    "init_cache_default": lambda **d: init_cache(CFG, 2, 16, **d),  # bf16
+    "init_cache_k8v4": lambda **d: init_cache(CFG, 2, 16, kv_dtype="k8v4", **d),
     "Int8KVCache.init": lambda **d: Int8KVCache.init(2, 16, 1, 16, **d),
     "K4V8KVCache.init": lambda **d: K4V8KVCache.init(2, 16, 1, 16, **d),
     "Int4KVCache.init": lambda **d: Int4KVCache.init(2, 16, 1, 16, **d),
+    "MixedKVCache.init": lambda **d: MixedKVCache.init(2, 16, 1, 16, **d),
+    "BF16KVCache.init": lambda **d: BF16KVCache.init(2, 16, 1, 16, **d),
     "init_cache_int4": lambda **d: init_cache(CFG, 2, 16, kv_dtype="int4", **d),
     "PagedInt8KVCache.init": lambda **d: PagedInt8KVCache.init(2, 5, 2, 8, 1, 16, **d),
     "RMSNorm": lambda **d: RMSNorm(32, **d),

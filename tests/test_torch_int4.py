@@ -414,7 +414,7 @@ def test_int4_greedy_tokens_identical_16_steps(int4_pair, pallas_linears):
     _, jm, params, tm = int4_pair
     prompt = _tokens(2, 6, seed=9)
     want = np.asarray(j_greedy(jm, params, jnp.asarray(prompt), 16, 32, kv_dtype=jnp.int8))
-    got = greedy_generate(tm, torch.from_numpy(prompt), 16, 32)
+    got = greedy_generate(tm, torch.from_numpy(prompt), 16, 32, kv_dtype="int8")
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -457,7 +457,7 @@ def test_int4_engine_matches_jax_engine(int4_pair, pallas_linears):
     got, m = _serve(e, _prompts())
     assert got == want and all(len(o) == 5 for o in got)
     for p, out in zip(_prompts(), got):
-        assert greedy_generate(tm, torch.tensor([p]), 5, 64)[0].tolist() == out
+        assert greedy_generate(tm, torch.tensor([p]), 5, 64, kv_dtype="int8")[0].tolist() == out
     if paged:
         assert m["prefix_hit_tokens"] == jmet["prefix_hit_tokens"] == 16 * 3
         assert not e.prefix.refs

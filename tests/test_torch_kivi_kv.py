@@ -254,10 +254,14 @@ def test_cache_init_checks_and_group_global(monkeypatch):
 def test_init_cache_kv_dtypes():
     cfg = ModelConfig(**DIMS)
     for kv_dtype, cls in (("int8", tkv.Int8KVCache), (torch.int8, tkv.Int8KVCache),
-                          ("k4v8", K4V8KVCache), ("int4", Int4KVCache)):
+                          ("k4v8", K4V8KVCache), ("int4", Int4KVCache),
+                          ("k8v4", tkv.MixedKVCache), ("bf16", tkv.BF16KVCache),
+                          (torch.bfloat16, tkv.BF16KVCache), (torch.float32, tkv.BF16KVCache)):
         caches = init_cache(cfg, 2, 64, device="cpu", kv_dtype=kv_dtype)
         assert len(caches) == 2 and all(type(c) is cls for c in caches)
-    for bad in ("bf16", "k8v4", torch.bfloat16, None):
+    assert init_cache(cfg, 2, 64, device="cpu", kv_dtype=torch.float32)[0].k.dtype == torch.float32
+    assert init_cache(cfg, 2, 64, device="cpu")[0].k.dtype == torch.bfloat16  # the default
+    for bad in ("fp8", "f32", torch.float16, None):
         with pytest.raises(ValueError, match="kv_dtype"):
             init_cache(cfg, 2, 64, device="cpu", kv_dtype=bad)
 
@@ -330,14 +334,31 @@ def test_engine_matches_jax_engine(kivi_pair, group16, tier):
     assert all(len(o) == 9 for o in want)
 
 
-def test_engine_guards(kivi_pair):
+def test_engine_guards(kivi_pair, monkeypatch):
     tm = kivi_pair[2]
     with pytest.raises(ValueError, match="tail rows"):
         Engine(tm, EngineConfig(max_batch_size=1, max_seq_len=1024, prefill_chunk=512),
                kv_dtype="k4v8")
-    for chunk in (128, 256):  # at most 2G, or a multiple of G up to 4G
+    for chunk in (128, 256):
         Engine(tm, EngineConfig(max_batch_size=1, max_seq_len=1024, prefill_chunk=chunk),
                kv_dtype="int4")
+    # pieces padded to the 16-token bucket past a small group (G = 4, 8)
+    # overwrite rows of the previous piece; the safe settings are admitted,
+    # the 7B one (G = 64, chunk 256) among them
+    for group, chunk, refused in ((4, 8, True), (4, 16, True), (8, 12, True),
+                                  (8, 16, False), (8, 32, False), (16, 24, False),
+                                  (16, 64, False), (64, 256, False)):
+        monkeypatch.setattr(tkv, "INT4_KV_GROUP", group)
+        for tier in TIERS:
+            cfg = EngineConfig(max_batch_size=1, max_seq_len=8 * chunk, prefill_chunk=chunk)
+            if refused:
+                with pytest.raises(ValueError, match="tail rows"):
+                    Engine(tm, cfg, kv_dtype=tier)
+            else:
+                assert Engine(tm, cfg, kv_dtype=tier).caches[0].group == group
+    monkeypatch.setattr(tkv, "INT4_KV_GROUP", 64)
+    Engine(tm, EngineConfig(max_batch_size=1, max_seq_len=64, prefill_chunk=512),
+           kv_dtype="k8v4")  # no tail: no chunk is refused
     with pytest.raises(ValueError, match="paged"):
         Engine(tm, EngineConfig(max_batch_size=1, max_seq_len=64, page_size=16),
                kv_layout="paged", kv_dtype="int4")
@@ -382,3 +403,29 @@ def test_reference_pad_overwrite(tier, T, n, lost):
     dk, dv = pad_overwrite_delta(tier, T, n)
     assert (dk > 0) == lost
     assert dv == 0 or (tier == "int4" and lost)  # K4V8 reads V from vq
+
+
+@pytest.mark.parametrize("G,chunk", [(4, 8), (4, 16), (8, 12), (8, 16), (8, 32), (16, 24)])
+def test_engine_guard_matches_pad_overwrites(G, chunk):
+    """The engine's guard against the port's Int4 cache (bit for bit the JAX
+    one): every prompt prefilled in the engine's padded pieces is compared
+    with one unpadded update over its valid positions; the guard refuses a
+    chunk iff some prompt loses live tail rows."""
+    from protoquant_tpu_torch.engine.engine import _bucket, kivi_pad_overwrites
+
+    S = 16 * chunk
+    rng = np.random.default_rng(G * 100 + chunk)
+    lost = False
+    for total in range(1, 2 * G * chunk // np.gcd(2 * G, chunk) + chunk + 1):
+        x = torch.from_numpy(rng.standard_normal((1, S, 1, 16)).astype(np.float32))
+        exact = Int4KVCache.init(1, S, 1, 16, group=G, device="cpu").update(
+            x[:, :total], x[:, :total])
+        padded = Int4KVCache.init(1, S, 1, 16, group=G, device="cpu")
+        for off in range(0, total, chunk):
+            n = min(chunk, total - off)
+            padded.update(x[:, off:off + _bucket(n, chunk)], x[:, off:off + _bucket(n, chunk)],
+                          torch.tensor([n], dtype=torch.int32))
+        (kp, vp), (ke, ve) = padded.dequant_fp(), exact.dequant_fp()
+        lost |= not (torch.equal(kp[:, :, :total], ke[:, :, :total])
+                     and torch.equal(vp[:, :, :total], ve[:, :, :total]))
+    assert lost == kivi_pad_overwrites(chunk, G)

@@ -113,7 +113,7 @@ def test_int8_cache_prefill_logits_close(pair):
     jc = j_init_cache(cfg, 2, 32, kv_dtype=jnp.int8)
     pos = np.broadcast_to(np.arange(10)[None], (2, 10)).astype(np.int32)
     want, _ = jm.apply(params, jnp.asarray(tokens), jnp.asarray(pos), jc)
-    tc = init_cache(tm.cfg, 2, 32, "cpu")
+    tc = init_cache(tm.cfg, 2, 32, "cpu", kv_dtype="int8")
     got = tm(torch.from_numpy(tokens), torch.from_numpy(pos), tc)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=LOGIT_ATOL, rtol=0)
     assert tc[0].lengths.tolist() == [10, 10]
@@ -124,6 +124,6 @@ def test_greedy_tokens_identical_16_steps(pair):
     prompt = _prompt(2, 6, seed=3)
     want = np.asarray(j_greedy(jm, params, jnp.asarray(prompt), 16, 32,
                                kv_dtype=jnp.int8))
-    got = greedy_generate(tm, torch.from_numpy(prompt), 16, 32)
+    got = greedy_generate(tm, torch.from_numpy(prompt), 16, 32, kv_dtype="int8")
     np.testing.assert_array_equal(got.numpy(), want)
 

@@ -140,7 +140,7 @@ def test_weight_only_greedy_tokens_identical_16_steps(wo_pair):
     jm, params, tm, _ = wo_pair
     prompt = np.random.default_rng(9).integers(1, DIMS["vocab_size"], (2, 6)).astype(np.int32)
     want = np.asarray(j_greedy(jm, params, jnp.asarray(prompt), 16, 32, kv_dtype=jnp.int8))
-    got = greedy_generate(tm, torch.from_numpy(prompt), 16, 32)
+    got = greedy_generate(tm, torch.from_numpy(prompt), 16, 32, kv_dtype="int8")
     np.testing.assert_array_equal(got.numpy(), want)
 
 
