@@ -7,7 +7,17 @@ Phases (any failure exits non-zero and prints no result line):
   2. build    nvcc build of protoquant_tpu_torch/csrc/*.cu (timed)
   3. kernels  each kernel against its plain PyTorch version at the
               Llama-2-7B shapes of the main paths, timed with CUDA events
-              beside its plain version, a library call and its bound
+              beside its plain version, a library call and its bound; the
+              GEMM, rowquant and decode write also at Gemma-2-9B's shapes,
+              and the int8, K4V8 and Int4 attentions at Gemma-2-9B's
+              shapes with its variants (sliding window 4096, score scale
+              256^-0.5, softcap 50: ragged and equal-length decode over
+              S = 8192, a prefill chunk of 512 crossing the window), each
+              also against its plain version without the window and
+              without the softcap (planted faults, which must miss); at
+              equal lengths the windowed int8 decode must take at most
+              0.65 of the full-causal time (its tiles below the window are
+              skipped); the K8V4 attention also with a score scale of 0.1
   4. slice    LlamaModel(llama2_7b, "dynamic") at full width and depth,
               random int8 weights from --seed, serving 6 greedy requests
               through Engine(max_batch_size=4, max_seq_len=1024,
@@ -75,10 +85,26 @@ Phases (any failure exits non-zero and prints no result line):
               61-token prompt so that the decode writes land in both
               nibble parities; a planted fault for the writer and the
               attention; judged also on the decode positions
+ 17. gemma2   LlamaModel(gemma2_9b, "dynamic") at full width and all 42
+              layers, random int8 weights from --seed, serving 6 greedy
+              requests (prompts of 64 to 6000 tokens, three past the window)
+              through Engine(max_batch_size=4, max_seq_len=8192,
+              prefill_chunk=512) over the int8 cache: each decode step must
+              launch exactly 169 rowquant, 295 qmatmul, 42 / 42 scatter and
+              attention; asserts the cache's bytes (5460.0 MiB); prints the
+              step median, the kernel sum at its shapes and peak memory
+ 18. gemma2 agreement  phase 5 for a 2-layer Gemma-2-9B at full width
+              (layer 0 sliding, layer 1 global) over the int8, K4V8 and
+              Int4 caches, f32 and bf16, with a prompt of 6206 tokens
+              prefilled in chunks of 1024 (logits kept at every 16th prompt
+              position) and judged also on the decode positions; planted
+              faults: its attention ignoring the window, and dropping the
+              score scale; ignoring the softcap is printed as a reading
+              (random weights never reach the cap: phase 3 shows that fault)
 Each phase prints its seconds, and the run its total.
 The line before the last is {"kernels": [...]}, one entry per kernel body
-(20): "launches" is its count summed over the nine engine runs (phases 4,
-6, 8.1, 8.2, 8.3, 10, 12, 13, 15), each driven with the counts at 0 and
+(20): "launches" is its count summed over the ten engine runs (phases 4,
+6, 8.1, 8.2, 8.3, 10, 12, 13, 15, 17), each driven with the counts at 0 and
 read just after ("launches_by_path"). wo4_legacy and dequant are on no engine path
 (a caller reaches wo4_legacy through the formulation argument of
 weight_only_int4_matmul, and dequant as ops.dequant; QTensor.dequantize
@@ -134,6 +160,15 @@ ATTN_TOL = 2.0**-7
 AGREE_REL, AGREE_ARGMAX = 3e-2, 0.9
 
 HIDDEN, INTER, VOCAB, HEADS, HEAD_DIM, LAYERS = 4096, 11008, 32000, 32, 128, 32
+# Gemma-2-9B (ModelConfig.gemma2_9b): 16 query heads over 8 KV heads of 256,
+# a window of 4096 on every other layer, scores scaled by 256^-0.5 and
+# capped at 50; the phase-17 engine holds 8192 positions
+G2_HIDDEN, G2_INTER, G2_VOCAB, G2_HEADS, G2_KV, G2_HEAD_DIM, G2_LAYERS = (
+    3584, 14336, 256000, 16, 8, 256, 42)
+G2_SEQ, G2_WINDOW, G2_SCALE, G2_SOFTCAP = 8192, 4096, 256.0**-0.5, 50.0
+# the windowed int8 decode at equal lengths 8000 reads 4096 of 8001 keys: at
+# most this share of the full-causal time, or its tiles are not skipped
+WINDOW_TIME_SHARE = 0.65
 
 
 def log(msg: str) -> None:
@@ -181,55 +216,67 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
 
 
 def check_rowquant(ops, gen, dev):
+    """Llama-2-7B's activation widths at M = 4 and 256, and Gemma-2-9B's
+    other two (3584, 14336; its o_proj input is 4096 wide) at M = 4."""
     cases = []
-    for m in (4, 256):
-        for k in (HIDDEN, INTER):
-            xs = [torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
-                  for _ in range(copies_for(m * k * 2))]
-            xq, sx = ops.rowquant(xs[0])
-            rq, rs = ops.rowquant_ref(xs[0])
-            torch.cuda.synchronize()
-            if not (torch.equal(xq, rq) and torch.equal(sx, rs)):
-                raise AssertionError(f"rowquant M={m} K={k}: codes or scales differ")
-            b, kind = bound_ms(m * k * 3 + 4 * m, 0, INT8_OPS_PER_S)
-            cases.append({
-                "shape": f"M={m} K={k} bf16", "max_abs_err": 0.0,
-                "ms": bench([lambda x=x: ops.rowquant(x) for x in xs]),
-                "plain_ms": bench([lambda x=x: ops.rowquant_ref(x) for x in xs]),
-                "bound_ms": b, "bound_by": kind, "library_ms": None})
+    shapes = [(m, k) for m in (4, 256) for k in (HIDDEN, INTER)]
+    for m, k in shapes + [(4, G2_HIDDEN), (4, G2_INTER)]:
+        xs = [torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(copies_for(m * k * 2))]
+        xq, sx = ops.rowquant(xs[0])
+        rq, rs = ops.rowquant_ref(xs[0])
+        torch.cuda.synchronize()
+        if not (torch.equal(xq, rq) and torch.equal(sx, rs)):
+            raise AssertionError(f"rowquant M={m} K={k}: codes or scales differ")
+        b, kind = bound_ms(m * k * 3 + 4 * m, 0, INT8_OPS_PER_S)
+        cases.append({
+            "shape": f"M={m} K={k} bf16", "max_abs_err": 0.0,
+            "ms": bench([lambda x=x: ops.rowquant(x) for x in xs]),
+            "plain_ms": bench([lambda x=x: ops.rowquant_ref(x) for x in xs]),
+            "bound_ms": b, "bound_by": kind, "library_ms": None})
     return cases
 
 
+# Gemma-2-9B's projections (K, N): q, k and v, o, gate and up, down, lm_head
+G2_LINEAR_SHAPES = ((G2_HIDDEN, G2_HEADS * G2_HEAD_DIM), (G2_HIDDEN, G2_KV * G2_HEAD_DIM),
+                    (G2_HEADS * G2_HEAD_DIM, G2_HIDDEN), (G2_HIDDEN, G2_INTER),
+                    (G2_INTER, G2_HIDDEN), (G2_HIDDEN, G2_VOCAB))
+
+
 def check_qmatmul(ops, gen, dev):
+    """Llama-2-7B's projections at M = 4 and 256, Gemma-2-9B's at M = 4."""
     cases = []
-    for m in (4, 256):
-        for k, n in ((HIDDEN, HIDDEN), (HIDDEN, INTER), (INTER, HIDDEN), (HIDDEN, VOCAB)):
-            xq, sx = ops.rowquant_ref(torch.randn(m, k, generator=gen, device=dev))
-            ws = [torch.randint(-127, 128, (n, k), generator=gen, device=dev,
-                                dtype=torch.int8) for _ in range(copies_for(n * k))]
-            sw = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
-            for out in (torch.float32, torch.bfloat16):
-                y = ops.qmatmul(xq, ws[0], sx, sw, out_dtype=out)
-                ref = ops.qmatmul_ref(xq, ws[0], sx, sw, out_dtype=out)
-                torch.cuda.synchronize()
-                if not torch.equal(y, ref):
-                    err = (y.float() - ref.float()).abs().max().item()
-                    raise AssertionError(f"qmatmul M={m} K={k} N={n} {out}: "
-                                         f"max abs err {err}")
-            b, kind = bound_ms(m * k + n * k + 2 * m * n + 4 * (m + n),
-                               2 * m * n * k, INT8_OPS_PER_S)
-            # library yardstick: the int32 GEMM alone (cuBLASLt), M padded
-            # to the 32 rows it accepts; no epilogue
-            xpad = torch.zeros(max(m, 32), k, dtype=torch.int8, device=dev)
-            xpad[:m] = xq
-            bf = torch.bfloat16
-            cases.append({
-                "shape": f"M={m} K={k} N={n} bf16 out", "max_abs_err": 0.0,
-                "ms": bench([lambda w=w: ops.qmatmul(xq, w, sx, sw, out_dtype=bf) for w in ws]),
-                "plain_ms": bench([lambda w=w: ops.qmatmul_ref(xq, w, sx, sw, out_dtype=bf)
-                                   for w in ws], iters=5),
-                "bound_ms": b, "bound_by": kind,
-                "library_ms": bench([lambda w=w: torch._int_mm(xpad, w.t()) for w in ws])})
+    shapes = [(m, k, n) for m in (4, 256)
+              for k, n in ((HIDDEN, HIDDEN), (HIDDEN, INTER), (INTER, HIDDEN), (HIDDEN, VOCAB))]
+    for m, k, n in shapes + [(4, k, n) for k, n in G2_LINEAR_SHAPES]:
+        xq, sx = ops.rowquant_ref(torch.randn(m, k, generator=gen, device=dev))
+        ws = [torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(copies_for(n * k))]
+        sw = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+        for out in (torch.float32, torch.bfloat16):
+            y = ops.qmatmul(xq, ws[0], sx, sw, out_dtype=out)
+            ref = ops.qmatmul_ref(xq, ws[0], sx, sw, out_dtype=out)
+            torch.cuda.synchronize()
+            if not torch.equal(y, ref):
+                err = (y.float() - ref.float()).abs().max().item()
+                raise AssertionError(f"qmatmul M={m} K={k} N={n} {out}: "
+                                     f"max abs err {err}")
+            del y, ref
+        b, kind = bound_ms(m * k + n * k + 2 * m * n + 4 * (m + n),
+                           2 * m * n * k, INT8_OPS_PER_S)
+        # library yardstick: the int32 GEMM alone (cuBLASLt), M padded
+        # to the 32 rows it accepts; no epilogue
+        xpad = torch.zeros(max(m, 32), k, dtype=torch.int8, device=dev)
+        xpad[:m] = xq
+        bf = torch.bfloat16
+        cases.append({
+            "shape": f"M={m} K={k} N={n} bf16 out", "max_abs_err": 0.0,
+            "ms": bench([lambda w=w: ops.qmatmul(xq, w, sx, sw, out_dtype=bf) for w in ws]),
+            "plain_ms": bench([lambda w=w: ops.qmatmul_ref(xq, w, sx, sw, out_dtype=bf)
+                               for w in ws], iters=5),
+            "bound_ms": b, "bound_by": kind,
+            "library_ms": bench([lambda w=w: torch._int_mm(xpad, w.t()) for w in ws])})
+        del ws
     return cases
 
 
@@ -244,30 +291,36 @@ def _cache(gen, dev, B, KV, S, Dh):
 
 
 def check_scatter(ops, gen, dev):
-    B, KV, S, Dh = 4, HEADS, 1024, HEAD_DIM
-    lengths = torch.tensor([5, S, 0, S - 1], dtype=torch.int32, device=dev)  # row 1 full
-    k8 = torch.randint(-127, 128, (B, KV, 1, Dh), generator=gen, device=dev,
-                       dtype=torch.int8)
-    v8 = torch.randint_like(k8, -127, 128)
-    ksn = torch.rand(B, KV, 1, generator=gen, device=dev)
-    vsn = torch.rand(B, KV, 1, generator=gen, device=dev)
-    base = _cache(gen, dev, B, KV, S, Dh)
-    a = [t.clone() for t in base]
-    b = [t.clone() for t in base]
-    ops.kv_scatter_decode(*a, lengths, k8, ksn, v8, vsn)
-    ops.kv_scatter_decode_ref(*b, lengths, k8, ksn, v8, vsn)
-    torch.cuda.synchronize()
-    if not all(torch.equal(x, y) for x, y in zip(a, b)):
-        raise AssertionError("kv_scatter_decode differs from its plain version")
-    if not torch.equal(a[0][1], base[0][1]):
-        raise AssertionError("kv_scatter_decode wrote into a slot at capacity")
-    moved = B * KV * (2 * Dh + 8)
-    bnd, kind = bound_ms(2 * moved + 4 * B, 0, INT8_OPS_PER_S)
-    return [{
-        "shape": f"B={B} KV={KV} S={S} Dh={Dh}", "max_abs_err": 0.0,
-        "ms": bench([lambda: ops.kv_scatter_decode(*a, lengths, k8, ksn, v8, vsn)]),
-        "plain_ms": bench([lambda: ops.kv_scatter_decode_ref(*b, lengths, k8, ksn, v8, vsn)]),
-        "bound_ms": bnd, "bound_by": kind, "library_ms": None}]
+    """The decode write at Llama-2-7B's cache shape, then Gemma-2-9B's."""
+    cases = []
+    for KV, S, Dh in ((HEADS, 1024, HEAD_DIM), (G2_KV, G2_SEQ, G2_HEAD_DIM)):
+        B = 4
+        lengths = torch.tensor([5, S, 0, S - 1], dtype=torch.int32, device=dev)  # row 1 full
+        k8 = torch.randint(-127, 128, (B, KV, 1, Dh), generator=gen, device=dev,
+                           dtype=torch.int8)
+        v8 = torch.randint_like(k8, -127, 128)
+        ksn = torch.rand(B, KV, 1, generator=gen, device=dev)
+        vsn = torch.rand(B, KV, 1, generator=gen, device=dev)
+        base = _cache(gen, dev, B, KV, S, Dh)
+        a = [t.clone() for t in base]
+        b = [t.clone() for t in base]
+        ops.kv_scatter_decode(*a, lengths, k8, ksn, v8, vsn)
+        ops.kv_scatter_decode_ref(*b, lengths, k8, ksn, v8, vsn)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError("kv_scatter_decode differs from its plain version")
+        if not torch.equal(a[0][1], base[0][1]):
+            raise AssertionError("kv_scatter_decode wrote into a slot at capacity")
+        moved = B * KV * (2 * Dh + 8)
+        bnd, kind = bound_ms(2 * moved + 4 * B, 0, INT8_OPS_PER_S)
+        cases.append({
+            "shape": f"B={B} KV={KV} S={S} Dh={Dh}", "max_abs_err": 0.0,
+            "ms": bench([lambda: ops.kv_scatter_decode(*a, lengths, k8, ksn, v8, vsn)]),
+            "plain_ms": bench([lambda: ops.kv_scatter_decode_ref(*b, lengths, k8, ksn, v8,
+                                                                 vsn)]),
+            "bound_ms": bnd, "bound_by": kind, "library_ms": None})
+        del base, a, b
+    return cases
 
 
 def check_attention(ops, gen, dev):
@@ -769,19 +822,23 @@ def check_kivi_update(ops, gen, dev, tier):
         "bound_ms": bnd, "bound_by": kind, "library_ms": None}]
 
 
-def kivi_attention_bytes(tier, lengths, new_lengths, B, KV, T, H, Dh, G=KIVI_G, S=1024):
+def kivi_attention_bytes(tier, lengths, new_lengths, B, KV, T, H, Dh, G=KIVI_G, S=1024,
+                         window=0):
     """Least bytes of one KIVI attention call: per (b, kv head) the packed
-    keys below the frontier that the step reads (K nibbles and chunk scales,
-    V int8 or nibbles with their scales), the live tail rows (positions
-    from the frontier to the last query's), q and out in bf16."""
+    keys below the frontier that the step's rows see (K nibbles and the
+    chunk scales they touch, V int8 or nibbles with their scales), the live
+    tail rows they see (positions from the frontier to the last query's),
+    q and out in bf16. With a window, only keys inside some row's window."""
     total = 2 * 2 * B * T * H * Dh + 8 * B
     v_row = Dh + 4 if tier == "k4v8" else Dh // 2 + 4
     for ln, nl in zip(lengths, new_lengths):
         front = (min(nl, S) // G) * G
-        packed = min(front, ln + T)
-        live = max(0, min(S, ln + T) - front)
-        total += KV * (packed * (Dh // 2 + v_row) + -(-packed // G) * 4 * Dh
-                       + live * 2 * (Dh + 4))
+        lo, hi = max(0, ln - window + 1) if window else 0, min(S, ln + T)
+        top = min(front, hi)  # packed keys seen: [lo, top)
+        packed = max(0, top - lo)
+        chunks = -(-top // G) - lo // G if packed else 0
+        live = max(0, hi - max(front, lo))
+        total += KV * (packed * (Dh // 2 + v_row) + chunks * 4 * Dh + live * 2 * (Dh + 4))
     return total
 
 
@@ -901,7 +958,8 @@ def mixed_attention_bytes(lengths, B, KV, T, H, Dh, S=1024):
 
 def check_mixed_attention(ops, gen, dev):
     """The K8V4 attention against its plain version within ATTN_TOL: decode
-    at lengths 63 / 700 / 1023 / 255 and a prefill chunk of 256 from 300.
+    at lengths 63 / 700 / 1023 / 255 and a prefill chunk of 256 from 300,
+    then the decode again with a score scale of 0.1 (its only variant).
     Library: SDPA over the cache dequantized to bf16 (V unpacked)."""
     import torch.nn.functional as F
 
@@ -909,19 +967,28 @@ def check_mixed_attention(ops, gen, dev):
 
     S, KV, H, Dh = 1024, HEADS, HEADS, HEAD_DIM
     cases = []
-    for label, B, T, lens in (("decode", 4, 1, [63, 700, 1023, 255]),
-                              ("prefill", 1, 256, [300])):
+    for label, B, T, lens, scale in (("decode", 4, 1, [63, 700, 1023, 255], 0.0),
+                                     ("prefill", 1, 256, [300], 0.0),
+                                     ("decode scale=0.1", 4, 1, [63, 700, 1023, 255], 0.1)):
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         caches = [_mixed_cache(gen, dev, B, KV, S, Dh)
                   for _ in range(copies_for(B * KV * S * (3 * Dh // 2 + 8)))]
         q = torch.randn(B, T, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
-        out = ops.mixed_kv_attention(q, *caches[0], lengths)
-        ref = ops.mixed_kv_attention_ref(q, *caches[0], lengths)
+        kw = {"scale": scale}
+        out = ops.mixed_kv_attention(q, *caches[0], lengths, **kw)
+        ref = ops.mixed_kv_attention_ref(q, *caches[0], lengths, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         tol = ATTN_TOL * ref.float().abs().max().item()
         if not err <= tol:
             raise AssertionError(f"mixed_kv_attention {label}: max abs err {err} > {tol}")
+        faults = {}
+        if scale:  # planted fault: the plain version without the scale must miss
+            bad = ops.mixed_kv_attention_ref(q, *caches[0], lengths)
+            faults["scale ignored"] = (out.float() - bad.float()).abs().max().item() / tol
+            if faults["scale ignored"] <= 1:
+                raise AssertionError(f"mixed_kv_attention {label}: the tolerance passes "
+                                     f"the plain version without its scale {faults}")
         t_idx = torch.arange(T, device=dev)
         valid = (lengths.long()[:, None] + t_idx[None, :] + 1).clamp_max(S)
         bnd, kind = bound_ms(mixed_attention_bytes(lens, B, KV, T, H, Dh),
@@ -936,18 +1003,168 @@ def check_mixed_attention(ops, gen, dev):
         qh = q.transpose(1, 2)
         cases.append({
             "shape": f"{label} B={B} T={T} H={H} S={S} lengths={lens}",
-            "max_abs_err": err,
-            "ms": bench([lambda c=c: ops.mixed_kv_attention(q, *c, lengths) for c in caches]),
-            "plain_ms": bench([lambda c=c: ops.mixed_kv_attention_ref(q, *c, lengths)
+            "max_abs_err": err, **({"fault_margins": faults} if faults else {}),
+            "ms": bench([lambda c=c: ops.mixed_kv_attention(q, *c, lengths, **kw)
+                         for c in caches]),
+            "plain_ms": bench([lambda c=c: ops.mixed_kv_attention_ref(q, *c, lengths, **kw)
                                for c in caches], iters=5),
             "bound_ms": bnd, "bound_by": kind,
             "library_ms": bench([lambda k=k, v=v: F.scaled_dot_product_attention(
-                qh, k, v, attn_mask=mask) for k, v in deq])})
+                qh, k, v, attn_mask=mask, scale=scale or None) for k, v in deq])})
         del caches, deq
     return cases
 
 
-# -- phases 4 to 16: the slices and the agreements ---------------------------
+def gemma2_attention_cases():
+    """(label, B, T, lengths, variants) of the attention checks at Gemma-2-9B's
+    shapes: ragged decode of a sliding layer (window, scale, softcap) and of
+    a global one (scale, softcap); decode at equal lengths with and without
+    the window (scale alone, so that SDPA computes the same function); and
+    a prefill chunk of a sliding layer whose rows' windows start in 16
+    different tiles."""
+    sliding = {"window": G2_WINDOW, "scale": G2_SCALE, "softcap": G2_SOFTCAP}
+    ragged, equal = [63, 4500, G2_SEQ - 1, 1000], [G2_SEQ - 192] * 4
+    return (("gemma2 decode sliding", 4, 1, ragged, sliding),
+            ("gemma2 decode global", 4, 1, ragged, {"scale": G2_SCALE, "softcap": G2_SOFTCAP}),
+            ("gemma2 decode window", 4, 1, equal, {"window": G2_WINDOW, "scale": G2_SCALE}),
+            ("gemma2 decode full", 4, 1, equal, {"scale": G2_SCALE}),
+            ("gemma2 prefill sliding", 1, 512, [4500], sliding))
+
+
+def visible_keys(lens, T, S, window=0):
+    """Per (b, t), the number of keys the query row sees; per b, the span
+    [lo, hi) of the keys that some row of the step sees."""
+    counts, spans = [], []
+    for ln in lens:
+        for t in range(T):
+            p = ln + t
+            counts.append(max(0, min(p + 1, S) - (max(0, p - window + 1) if window else 0)))
+        spans.append((max(0, ln - window + 1) if window else 0, min(S, ln + T)))
+    return counts, spans
+
+
+# In the softcap cases of phase 3 the largest score is this many times the
+# cap: a tenth of the keys or so then sit near the cap, so no single key
+# takes all of a row's softmax and a window that admits other keys shows.
+CAP_REACH = 8.0
+
+
+def check_gemma2_attention(ops, gen, dev, kv_dtype):
+    """The attention of the ``kv_dtype`` cache with its variants at
+    Gemma-2-9B's shapes (S = 8192, KIVI G = 64) against its plain version
+    within ATTN_TOL, over gemma2_attention_cases(). In a softcap case q is
+    scaled so that the largest score a row sees is CAP_REACH times the cap.
+    Planted
+    faults: the plain version without the case's window, and without its
+    softcap, must both miss the tolerance (the margins are printed; at
+    random weights the model's scores stay far below the cap, so phase 18
+    cannot show a softcap fault). The bound counts the keys inside the
+    rows' windows only. Library: SDPA with the window's mask and ``scale=``
+    over the cache dequantized to bf16, none once a softcap is set (no one
+    PyTorch call caps scores)."""
+    import torch.nn.functional as F
+
+    from protoquant_tpu_torch.ops.attention import kivi_dequant_k, kivi_dequant_v4
+
+    name = CACHE_KERNELS[kv_dtype][1]
+    attn, plain = getattr(ops, name), getattr(ops, name + "_ref")
+    S, KV, H, Dh, G = G2_SEQ, G2_KV, G2_HEADS, G2_HEAD_DIM, KIVI_G
+    cases = []
+    for label, B, T, lens, variants in gemma2_attention_cases():
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        new_lengths = lengths + T
+        window, softcap = variants.get("window", 0), variants.get("softcap", 0.0)
+        if kv_dtype == "int8":
+            caches = [_cache(gen, dev, B, KV, S, Dh)
+                      for _ in range(copies_for(B * KV * S * (2 * Dh + 8)))]
+            extra, kw = (), dict(variants)
+        else:
+            per_copy = B * KV * S * (2 * Dh if kv_dtype == "k4v8" else Dh) // 2
+            caches = [_kivi_cache(gen, dev, kv_dtype, B, KV, S, Dh)
+                      for _ in range(copies_for(per_copy))]
+            if kv_dtype == "k4v8":
+                caches = [_mirror_v(c, new_lengths) for c in caches]
+            extra, kw = (new_lengths,), dict(variants, group=G)
+
+        def dequant(c):
+            """The cache as f32 K and V [B, KV, S, Dh]."""
+            if kv_dtype == "int8":
+                kq, ks, vq, vs = c
+                return kq.float() * ks[..., None], vq.float() * vs[..., None]
+            kq, kchs, vq, vs, kt, kts, vt, vts = c
+            v = (vq.float() * vs[..., None] if kv_dtype == "k4v8"
+                 else kivi_dequant_v4(vq, vs, vt, vts, new_lengths, G))
+            return kivi_dequant_k(kq, kchs, kt, kts, new_lengths, G), v
+
+        qpos = lengths.long()[:, None] + torch.arange(T, device=dev)
+        pos = torch.arange(S, device=dev)
+        mask = pos <= qpos[..., None]
+        if window:
+            mask &= pos > qpos[..., None] - window
+        mask = mask[:, None]  # [B, 1, T, S]
+        sm = variants.get("scale") or Dh**-0.5
+        q = torch.randn(B, T, H, Dh, generator=gen, device=dev)
+        max_score = None
+        if softcap:
+            k0 = dequant(caches[0])[0]
+            raw = torch.einsum("btkgd,bksd->bkgts", q.reshape(B, T, KV, H // KV, Dh) * sm, k0)
+            peak = raw.abs().masked_fill(~mask[:, :, None], 0.0).amax()
+            q *= CAP_REACH * softcap / peak
+            max_score = CAP_REACH * softcap
+            del k0, raw
+        q = q.to(torch.bfloat16)
+        out = attn(q, *caches[0], lengths, *extra, **kw)
+        ref = plain(q, *caches[0], lengths, *extra, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = ATTN_TOL * ref.float().abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
+        faults = {}
+        for fault, key in (("window ignored", "window"), ("softcap ignored", "softcap")):
+            if variants.get(key):
+                bad = plain(q, *caches[0], lengths, *extra, **dict(kw, **{key: 0}))
+                faults[fault] = (out.float() - bad.float()).abs().max().item() / tol
+        if any(m <= 1 for m in faults.values()):
+            raise AssertionError(f"{name} {label}: the tolerance passes a planted fault "
+                                 f"(margins over it {faults})")
+        counts, spans = visible_keys(lens, T, S, window)
+        if kv_dtype == "int8":
+            nbytes = (KV * sum(hi - lo for lo, hi in spans) * (2 * Dh + 8)
+                      + 2 * 2 * q.numel() + 4 * B)
+        else:
+            nbytes = kivi_attention_bytes(kv_dtype, lens, new_lengths.tolist(), B, KV, T, H,
+                                          Dh, G, S, window)
+        bnd, kind = bound_ms(nbytes, 4 * Dh * H * sum(counts), BF16_FLOPS_PER_S)
+        library = None
+        if not softcap:
+            deq = [tuple(x.to(torch.bfloat16) for x in dequant(c))
+                   for c in caches[:copies_for(B * KV * S * Dh * 4)]]
+            qh = q.transpose(1, 2)
+            library = bench([lambda k=k, v=v: F.scaled_dot_product_attention(
+                qh, k, v, attn_mask=mask, scale=sm, enable_gqa=True) for k, v in deq])
+            del deq
+        cases.append({
+            "shape": f"{label} B={B} T={T} H={H} KV={KV} Dh={Dh} S={S} lengths={lens} "
+                     f"{json.dumps(variants)}",
+            "max_abs_err": err, "fault_margins": faults, "max_score": max_score,
+            "ms": bench([lambda c=c: attn(q, *c, lengths, *extra, **kw) for c in caches]),
+            "plain_ms": bench([lambda c=c: plain(q, *c, lengths, *extra, **kw)
+                               for c in caches], iters=5),
+            "bound_ms": bnd, "bound_by": kind, "library_ms": library})
+        del caches
+    by = {c["shape"].split(" B=")[0]: c["ms"] for c in cases}
+    ratio = by["gemma2 decode window"] / by["gemma2 decode full"]
+    log(f"kernel {name}: decode at equal lengths {G2_SEQ - 192}, window {G2_WINDOW} over full "
+        f"causal: {ratio:.4f} of the time")
+    if kv_dtype == "int8" and ratio > WINDOW_TIME_SHARE:
+        raise AssertionError(f"{name}: windowed decode takes {ratio:.4f} of the full-causal "
+                             f"time (> {WINDOW_TIME_SHARE}): the tiles below the window are "
+                             "not skipped")
+    return cases
+
+
+# -- phases 4 to 18: the slices and the agreements ---------------------------
 
 
 def fused(mode: str) -> bool:
@@ -1043,28 +1260,37 @@ def serve(engine, prompts, ops, per_step, first_alone: bool = False):
     return [outs.get(r) for r in rids], prefill_ms, decode_ms, bad_steps, crossed[0]
 
 
-def _build_7b(mode: str, seed: int, dev):
+def _build(preset: str, mode: str, seed: int, dev):
     from protoquant_tpu_torch import LlamaModel, ModelConfig
 
-    cfg = ModelConfig.llama2_7b()
+    cfg = getattr(ModelConfig, preset)()
     t0 = time.perf_counter()
     model = LlamaModel(cfg, mode=mode, dtype=torch.bfloat16, device=dev)
     model.init_random_(seed)
     torch.cuda.synchronize()
-    log(f"model: Llama-2-7B {mode}, {cfg.num_hidden_layers} layers, built in "
+    log(f"model: {preset} {mode}, {cfg.num_hidden_layers} layers, built in "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     return cfg, model
 
 
+# the dense slices' traffic, by preset: (max_seq_len, prefill_chunk, prompt
+# lengths of the 6 requests). Gemma-2's longest prompts pass the window by
+# more than one 512-key tile, so its sliding layers' decode skips tiles.
+SLICES = {"llama2_7b": (1024, 256, [64, 700, 130, 411, 256, 517]),
+          "gemma2_9b": (G2_SEQ, 512, [64, 6000, 300, 4700, 1000, 5200])}
+
+
 def run_slice(ops, seed: int, dev, mode: str = "dynamic", formulation: str | None = None,
-              fused_quant: str | None = None, kv_dtype: str = "int8"):
-    """Phases 4, 8.1, 8.3, 10, 12, 13 and 15: Llama-2-7B in a dynamic mode (int8
-    or int4 weights) on the dense cache of ``kv_dtype``, 6 requests.
-    ``formulation``: the W4A8 formulation of a dynamic_int4 run;
-    ``fused_quant``: the FUSED_QUANT knob (default: each as resolved)."""
+              fused_quant: str | None = None, kv_dtype: str = "int8",
+              preset: str = "llama2_7b"):
+    """Phases 4, 8.1, 8.3, 10, 12, 13, 15 (Llama-2-7B) and 17 (Gemma-2-9B):
+    the ``preset`` model in a dynamic mode (int8 or int4 weights) on the
+    dense cache of ``kv_dtype``, 6 requests. ``formulation``: the W4A8
+    formulation of a dynamic_int4 run; ``fused_quant``: the FUSED_QUANT knob
+    (default: each as resolved)."""
     with knob(ops, "W4A8_FORMULATION", formulation), knob(ops, "FUSED_QUANT", fused_quant):
-        return _run_slice(ops, seed, dev, mode, kv_dtype)
+        return _run_slice(ops, seed, dev, mode, kv_dtype, preset)
 
 
 def kv_cache_bytes(caches) -> int:
@@ -1089,20 +1315,20 @@ def expected_cache_bytes(kv_dtype: str, layers: int, B: int, KV: int, S: int, Dh
     return layers * (B * KV * per + 4 * B)
 
 
-def _run_slice(ops, seed: int, dev, mode: str, kv_dtype: str):
+def _run_slice(ops, seed: int, dev, mode: str, kv_dtype: str, preset: str):
     from protoquant_tpu_torch import Engine, EngineConfig
 
-    cfg, model = _build_7b(mode, seed, dev)
-    engine = Engine(model, EngineConfig(max_batch_size=4, max_seq_len=1024,
-                                        prefill_chunk=256, max_new_tokens=32),
+    max_seq, chunk, prompt_lens = SLICES[preset]
+    cfg, model = _build(preset, mode, seed, dev)
+    engine = Engine(model, EngineConfig(max_batch_size=4, max_seq_len=max_seq,
+                                        prefill_chunk=chunk, max_new_tokens=32),
                     kv_dtype=kv_dtype)
     cache_bytes = kv_cache_bytes(engine.caches)
     want_bytes = expected_cache_bytes(kv_dtype, cfg.num_hidden_layers, 4,
-                                      cfg.num_key_value_heads, 1024, cfg.head_dim)
+                                      cfg.num_key_value_heads, max_seq, cfg.head_dim)
     if cache_bytes != want_bytes:
         raise AssertionError(f"{kv_dtype} cache: {cache_bytes} bytes, want {want_bytes}")
     gen = torch.Generator().manual_seed(seed)
-    prompt_lens = [64, 700, 130, 411, 256, 517]
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in prompt_lens]
 
@@ -1118,7 +1344,8 @@ def _run_slice(ops, seed: int, dev, mode: str, kv_dtype: str):
 
     generated = sum(len(o or []) for o in outs)
     path = path_kernels(ops, mode, kv_dtype)
-    label = f"{mode} ({path[1]}{', fused' if fused(mode) else ''}, {kv_dtype} KV)"
+    label = (f"{'' if preset == 'llama2_7b' else preset + ' '}{mode} "
+             f"({path[1]}{', fused' if fused(mode) else ''}, {kv_dtype} KV)")
     log(f"slice {label}: {len(prompts)} requests, prompts {prompt_lens}, {generated} tokens "
         f"in {wall:.3f} s = {generated / wall:.1f} tok/s; "
         f"{len(prefill_ms)} steps with a prefill chunk (mean "
@@ -1129,7 +1356,7 @@ def _run_slice(ops, seed: int, dev, mode: str, kv_dtype: str):
     log(f"slice {label} launches: {json.dumps(launches)}; per decode step "
         f"{json.dumps(per_step)}")
     log(f"slice {label}: KV cache {cache_bytes} bytes = {cache_bytes / 2**20:.1f} MiB "
-        f"({cfg.num_hidden_layers} layers, B=4, S=1024); chunk boundaries crossed by "
+        f"({cfg.num_hidden_layers} layers, B=4, S={max_seq}); chunk boundaries crossed by "
         f"decode writes: {crossed}")
     if kv_dtype in KIVI_KERNELS and crossed < 1:
         raise AssertionError(f"slice {label}: no decode step flushed a chunk")
@@ -1143,24 +1370,36 @@ def _run_slice(ops, seed: int, dev, mode: str, kv_dtype: str):
     stats = {"tokens_per_s": generated / wall, "wall_s": wall,
              "prefill_step_ms": prefill_ms, "decode_step_ms": decode_ms,
              "peak_gib": peak / 2**30, "outputs": outs}
-    profile_decode(model, prompts, kv_dtype=kv_dtype)
-    del engine, model
+    del engine
+    if preset == "llama2_7b":
+        profile_decode(model, prompts, kv_dtype=kv_dtype)
+    else:  # the first 4 prompts whole, so that the window matters
+        profile_decode(model, prompts, max_seq_len=max_seq, prefill_chunk=chunk,
+                       ctx=max_seq, kv_dtype=kv_dtype)
+    del model
     torch.cuda.empty_cache()
     return launches, stats
 
 
-def profile_decode(model, prompts, steps: int = 5, **engine_kw):
+def profile_decode(model, prompts, steps: int = 5, max_seq_len: int = 1024,
+                   prefill_chunk: int = 256, ctx: int = 200, **engine_kw):
     """Device busy share and time by kernel over ``steps`` decode steps of
-    4 slots, from torch.profiler (after the timed run, so it slows nothing
-    that is reported above). ``engine_kw`` go to the Engine."""
+    4 slots holding the first 4 prompts cut to ``ctx`` tokens, from
+    torch.profiler (after the timed run, so it slows nothing that is
+    reported above). ``engine_kw`` go to the Engine."""
     from torch.profiler import ProfilerActivity, profile
 
     from protoquant_tpu_torch import Engine, EngineConfig
 
-    engine = Engine(model, EngineConfig(max_batch_size=4, max_seq_len=1024,
-                                        prefill_chunk=256, max_new_tokens=24), **engine_kw)
-    for p in prompts[:4]:
-        engine.add_request(p[:200])
+    prompts = [p[:ctx] for p in prompts[:4]]
+    # every slot still decoding when the window opens: a slot decodes one
+    # token per tick from the end of its prefill
+    ticks = sum(-(-len(p) // prefill_chunk) for p in prompts) + steps + 1
+    engine = Engine(model, EngineConfig(max_batch_size=4, max_seq_len=max_seq_len,
+                                        prefill_chunk=prefill_chunk,
+                                        max_new_tokens=max(24, ticks)), **engine_kw)
+    for p in prompts:
+        engine.add_request(p)
     while engine.prefilling or engine.waiting:
         engine.step()
     torch.cuda.synchronize()
@@ -1179,8 +1418,8 @@ def profile_decode(model, prompts, steps: int = 5, **engine_kw):
         log(f"profile: not measured ({exc})")
         return
     busy = sum(e.self_device_time_total for e in rows)
-    log(f"profile {engine.kv_layout} ({steps} decode steps, 4 slots, ~200-token "
-        f"contexts): wall "
+    log(f"profile {engine.kv_layout} ({steps} decode steps, 4 slots, prompts of "
+        f"{[len(p) for p in prompts]} tokens): wall "
         f"{wall_us / steps:.1f} us/step, device busy {busy / steps:.1f} us/step, "
         f"idle share {1 - busy / wall_us:.3f}")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
@@ -1198,7 +1437,7 @@ def run_paged_slice(ops, seed: int, dev, mode: str = "weight_only"):
     one system prompt."""
     from protoquant_tpu_torch import Engine, EngineConfig
 
-    cfg, model = _build_7b(mode, seed, dev)
+    cfg, model = _build("llama2_7b", mode, seed, dev)
     gen = torch.Generator().manual_seed(seed + 2)
     system = torch.randint(1, cfg.vocab_size, (SYSTEM_TOKENS,), generator=gen).tolist()
     prompts = [system + torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
@@ -1348,18 +1587,40 @@ def _partner_nibble(ops):
     return faulty
 
 
-def planted_faults(ops, mode: str = "dynamic", kv_dtype: str = "int8"):
+def gemma2_attention_faults(ops, kv_dtype: str):
+    """Gemma-2's planted faults in the attention of the ``kv_dtype`` cache,
+    as (faults the limits must reject, faults only read): the plain version
+    ignoring the sliding window, and dropping the score scale (scores times
+    1 for 256^-0.5, where the model's own Dh^-0.5 would equal it); and
+    ignoring the softcap, which the model's scores at random weights reach
+    too rarely for a gate."""
+    attn = CACHE_KERNELS[kv_dtype][1]
+    plain = getattr(ops, attn + "_ref")
+
+    def fault(**wrong):
+        return {attn: lambda *a, **k: plain(*a, **dict(k, **wrong))}
+
+    return ({f"{attn} ignores the sliding window": fault(window=0),
+             f"{attn} drops the score scale": fault(scale=1.0)},
+            {f"{attn} ignores the softcap (a reading)": fault(softcap=0.0)})
+
+
+def planted_faults(ops, mode: str = "dynamic", kv_dtype: str = "int8",
+                   preset: str = "llama2_7b"):
     """Plain versions with one small fault each, standing in for a wrong
     kernel: the agreement limits must reject every one. One fault for each
     kernel that a mode's agreement brought in (the fused path: its two
-    producers; a KIVI or K8V4 cache: its writer and its attention)."""
+    producers; a KIVI or K8V4 cache: its writer and its attention; Gemma-2:
+    its attention's variants)."""
+    if preset == "gemma2_9b":
+        return gemma2_attention_faults(ops, kv_dtype)[0]
     if kv_dtype == "k8v4":
         return {
             "kv_mixed_scatter_decode writes V into the pair partner's nibble": {
                 "kv_mixed_scatter_decode": _partner_nibble(ops)},
             "mixed_kv_attention swaps the two V-scale planes": {
-                "mixed_kv_attention": lambda q, kq, ks, vq, vs, lengths:
-                    ops.mixed_kv_attention_ref(q, kq, ks, vq, vs.flip(2), lengths)},
+                "mixed_kv_attention": lambda q, kq, ks, vq, vs, lengths, **k:
+                    ops.mixed_kv_attention_ref(q, kq, ks, vq, vs.flip(2), lengths, **k)},
         }
     if kv_dtype in KIVI_KERNELS:
         writer, attn = KIVI_KERNELS[kv_dtype]
@@ -1383,8 +1644,8 @@ def planted_faults(ops, mode: str = "dynamic", kv_dtype: str = "int8"):
                 "qmatmul": lambda xq, w, sx, sw, *a, **k: ops.qmatmul_ref(
                     xq, w, sx, sw.roll(1), *a, **k)},
             "attention mask one key short": {
-                "int8_kv_attention": lambda q, kq, ks, vq, vs, lengths:
-                    ops.int8_kv_attention_ref(q, kq, ks, vq, vs, lengths - 1)},
+                "int8_kv_attention": lambda q, kq, ks, vq, vs, lengths, **k:
+                    ops.int8_kv_attention_ref(q, kq, ks, vq, vs, lengths - 1, **k)},
         }
     if mode == "weight_only":
         return {
@@ -1412,9 +1673,16 @@ def planted_faults(ops, mode: str = "dynamic", kv_dtype: str = "int8"):
     }
 
 
+# Gemma-2's agreement prompt: 1.5 times the window and more, so that layer
+# 0's window hides keys from every decode position; the second decode write
+# completes a KIVI chunk (G = 64) and flushes it. Prefill in chunks of 1024,
+# logits kept at every 16th prompt position.
+G2_AGREE_PROMPT, G2_AGREE_CHUNK, G2_AGREE_STRIDE = 6206, 1024, 16
+
+
 def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
                   formulation: str | None = None, fused_quant: str | None = None,
-                  kv_dtype: str = "int8"):
+                  kv_dtype: str = "int8", preset: str = "llama2_7b"):
     """2 layers at full width on the card, run on the same prompt through
     the kernels, through their plain versions, and through the plain
     versions with each planted fault. A prefill of 48 tokens into 2 slots,
@@ -1434,25 +1702,39 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
     the decode writes land in both nibble parities (61 shares its byte with
     the prompt's last token). These caches' kernels act on the decode
     positions, so their runs must pass the limit there too, as the paged
-    ones."""
+    ones.
+
+    ``preset="gemma2_9b"`` (phase 18): a 2-layer Gemma-2-9B, layer 0 sliding
+    (window 4096) and layer 1 global, over the dense cache of ``kv_dtype``,
+    with a prompt of G2_AGREE_PROMPT tokens prefilled in chunks; judged on
+    the decode positions too, against the window and scale faults of its
+    attention; the softcap fault is printed as a reading."""
+    import dataclasses
+
     from protoquant_tpu_torch import LlamaModel, ModelConfig
     from protoquant_tpu_torch.engine import PagedInt8KVCache
     from protoquant_tpu_torch.models import init_cache
     from protoquant_tpu_torch.models.llama import RMSNorm
 
+    gemma = preset == "gemma2_9b"
     paged = mode.startswith("weight_only")
     kv_kernels = kv_dtype != "int8"  # the decode writer and attention of a KIVI or K8V4 cache
-    cfg = ModelConfig(num_hidden_layers=2)
+    cfg = dataclasses.replace(getattr(ModelConfig, preset)(), num_hidden_layers=2)
     model = LlamaModel(cfg, mode=mode, dtype=dtype, device=dev).init_random_(seed + 1)
     gen = torch.Generator().manual_seed(seed + 1)
-    n_prompt = {"int8": 48, "k8v4": 61}.get(kv_dtype, 62)
+    if gemma:
+        n_prompt, chunk, stride = G2_AGREE_PROMPT, G2_AGREE_CHUNK, G2_AGREE_STRIDE
+        max_seq = -(-(n_prompt + 4) // KIVI_G) * KIVI_G
+    else:
+        n_prompt, max_seq, stride = {"int8": 48, "k8v4": 61}.get(kv_dtype, 62), 128, 1
+        chunk = n_prompt
     prompt = torch.randint(1, cfg.vocab_size, (2, n_prompt), generator=gen).to(dev)
     ps, max_pages = 16, 128 // 16
     order = torch.randperm(2 * max_pages, generator=gen).tolist()
 
     def new_caches():
         if not paged:
-            return init_cache(cfg, 2, 128, dev, kv_dtype)
+            return init_cache(cfg, 2, max_seq, dev, kv_dtype)
         caches = [PagedInt8KVCache.init(2, 2 * max_pages + 1, max_pages, ps,
                                         cfg.num_key_value_heads, cfg.head_dim, dev)
                   for _ in range(cfg.num_hidden_layers)]
@@ -1462,25 +1744,34 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
         return caches
 
     def run(tokens_in=None):
-        caches = new_caches()
-        out, toks = [model(prompt, None, caches)], []
+        """Logits of every ``stride``-th prompt position, then of the 4
+        decode steps, and the tokens decoded."""
+        caches, out, toks = new_caches(), [], []
+        for c0 in range(0, n_prompt, chunk):
+            piece = prompt[:, c0:c0 + chunk]
+            pos = torch.arange(c0, c0 + piece.shape[1], device=dev)[None].expand(2, -1)
+            logits = model(piece, pos, caches)
+            last = logits[:, -1]
+            out.append(logits[:, ::stride].clone())
+            del logits
         for i in range(4):
-            tok = out[-1][:, -1].argmax(-1) if tokens_in is None else tokens_in[i]
+            tok = last.argmax(-1) if tokens_in is None else tokens_in[i]
             toks.append(tok)
             out.append(model(tok[:, None], caches[0].lengths.long()[:, None], caches))
+            last = out[-1][:, -1]
         return out, toks
 
     def compare(out, ref):
-        """Readings over all positions, and the relative L2 error over the
-        decode positions alone (8 of the 104, or of the 132 with a KIVI
+        """Readings over all positions kept, and the relative L2 error over
+        the decode positions alone (8 of the 104, or of the 132 with a KIVI
         cache, 130 with K8V4), where the decode writer and T = 1 attention
         act. The paged path's two attention kernels, the KIVI flush and the
         K8V4 nibble writes act there only, so their runs must pass the limit
-        there too."""
+        there too; so must Gemma-2's, whose window hides keys there."""
         a = torch.cat([x.reshape(-1, cfg.vocab_size) for x in out]).float()
         b = torch.cat([x.reshape(-1, cfg.vocab_size) for x in ref]).float()
-        da = torch.cat([x.reshape(-1, cfg.vocab_size) for x in out[1:]]).float()
-        db = torch.cat([x.reshape(-1, cfg.vocab_size) for x in ref[1:]]).float()
+        da = torch.cat([x.reshape(-1, cfg.vocab_size) for x in out[-4:]]).float()
+        db = torch.cat([x.reshape(-1, cfg.vocab_size) for x in ref[-4:]]).float()
         got = {"rel_l2": ((a - b).norm() / b.norm()).item(),
                "decode_rel_l2": ((da - db).norm() / db.norm()).item(),
                "argmax_agree": (a.argmax(-1) == b.argmax(-1)).float().mean().item(),
@@ -1488,7 +1779,8 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
                "finite": bool(torch.isfinite(a).all())}
         got["pass"] = (got["finite"] and got["rel_l2"] <= AGREE_REL
                        and got["argmax_agree"] >= AGREE_ARGMAX
-                       and (not (paged or kv_kernels) or got["decode_rel_l2"] <= AGREE_REL))
+                       and (not (paged or kv_kernels or gemma)
+                            or got["decode_rel_l2"] <= AGREE_REL))
         return got
 
     with knob(ops, "W4A8_FORMULATION", formulation), knob(ops, "FUSED_QUANT", fused_quant):
@@ -1503,12 +1795,16 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
         with plain_versions():
             plain, _ = run(toks)
         readings = {"kernels": compare(kern, plain)}
-        for fault, swaps in planted_faults(ops, mode, kv_dtype).items():
+        del kern
+        faults = planted_faults(ops, mode, kv_dtype, preset)
+        unjudged = gemma2_attention_faults(ops, kv_dtype)[1] if gemma else {}
+        for fault, swaps in {**faults, **unjudged}.items():
             with plain_versions(**swaps):
                 readings[fault] = compare(run(toks)[0], plain)
         path = path_kernels(ops, mode, kv_dtype)
         label = ("paged agreement" if paged else "agreement") + (
             " fused" if fused(mode) else "") + (f" {kv_dtype} KV" if kv_kernels else "")
+        label = f"gemma2 {label}" if gemma else label
     if any(ops.launch_counts().values()) or not all(launched[k] for k in path) or any(
             launched[k] for k in launched if k not in path):
         raise AssertionError(f"agreement: kernel run launched {launched}, plain runs "
@@ -1516,11 +1812,11 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
     gemm = path[1] if path[0] == "rowquant" else path[0]
     for name, got in readings.items():
         log(f"{label} {str(dtype).replace('torch.', '')} (2 layers, full width, {mode}, {gemm}, "
-            f"{name} vs plain on the card): {json.dumps(got)}; limits rel_l2 <= "
-            f"{AGREE_REL}, argmax_agree >= {AGREE_ARGMAX}")
+            f"prompt {n_prompt}, {name} vs plain on the card): {json.dumps(got)}; limits "
+            f"rel_l2 <= {AGREE_REL}, argmax_agree >= {AGREE_ARGMAX}")
     if not readings.pop("kernels")["pass"]:
         raise AssertionError(f"{label} {mode}: kernel and plain logits disagree")
-    missed = [name for name, got in readings.items() if got["pass"]]
+    missed = [name for name in faults if readings[name]["pass"]]
     if missed:
         raise AssertionError(f"{label} {mode}: the limits pass planted fault(s) {missed}")
 
@@ -1585,7 +1881,8 @@ def check_kernels(ops, gen, dev) -> dict:
     results = {}
     checks = (("rowquant", check_rowquant), ("qmatmul", check_qmatmul),
               ("kv_scatter_decode", check_scatter),
-              ("int8_kv_attention", check_attention),
+              ("int8_kv_attention",
+               lambda *a: check_attention(*a) + check_gemma2_attention(*a, "int8")),
               ("weight_only_matmul", check_weight_only),
               ("paged_kv_scatter_decode", check_paged_scatter),
               ("paged_int8_attention", check_paged_attention),
@@ -1597,9 +1894,11 @@ def check_kernels(ops, gen, dev) -> dict:
               ("swiglu_quant", check_swiglu_quant),
               ("dequant", check_dequant),
               ("k4v8_decode_update", lambda *a: check_kivi_update(*a, "k4v8")),
-              ("k4v8_attention", lambda *a: check_kivi_attention(*a, "k4v8")),
+              ("k4v8_attention", lambda *a: check_kivi_attention(*a, "k4v8")
+               + check_gemma2_attention(*a, "k4v8")),
               ("kivi4_decode_update", lambda *a: check_kivi_update(*a, "int4")),
-              ("int4_kv_attention", lambda *a: check_kivi_attention(*a, "int4")),
+              ("int4_kv_attention", lambda *a: check_kivi_attention(*a, "int4")
+               + check_gemma2_attention(*a, "int4")),
               ("kv_mixed_scatter_decode", check_mixed_scatter),
               ("mixed_kv_attention", check_mixed_attention))
     for name, fn in checks:
@@ -1607,6 +1906,8 @@ def check_kernels(ops, gen, dev) -> dict:
         for c in results[name]:
             flips = (f", flip share {c['flip_share']}, scales max rel err "
                      f"{c['scale_max_rel_err']}" if "flip_share" in c else "")
+            if c.get("fault_margins"):
+                flips += f", planted faults' errors over the tolerance {c['fault_margins']}"
             log(f"kernel {name} {c['shape']}: {c['ms']:.4f} ms, plain "
                 f"{c['plain_ms']:.4f} ms, library {c['library_ms']}, bound "
                 f"{c['bound_ms']:.4f} ms ({c['bound_by']}), err {c['max_abs_err']}{flips}")
@@ -1615,7 +1916,7 @@ def check_kernels(ops, gen, dev) -> dict:
 
 
 def run_all(ops, seed: int, dev) -> list:
-    """Phases 3 to 16 on ``dev``; returns the kernels line's entries."""
+    """Phases 3 to 18 on ``dev``; returns the kernels line's entries."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     results = timed("3 kernels", check_kernels, ops, gen, dev)
 
@@ -1661,6 +1962,13 @@ def run_all(ops, seed: int, dev) -> list:
     for dtype in (torch.float32, torch.bfloat16):
         timed(f"16 K8V4 agreement {dtype}", run_agreement, ops, seed, dev, dtype, "dynamic",
               None, None, "k8v4")
+    by_path["dense_gemma2"], stats["gemma2_9b dense dynamic"] = timed(
+        "17 gemma2 slice", run_slice, ops, seed, dev, "dynamic", None, None, "int8",
+        "gemma2_9b")
+    for kv_dtype in ("int8", *KIVI_KERNELS):
+        for dtype in (torch.float32, torch.bfloat16):
+            timed(f"18 gemma2 agreement {kv_dtype} {dtype}", run_agreement, ops, seed, dev,
+                  dtype, "dynamic", None, None, kv_dtype, "gemma2_9b")
     kernels = []
     for name, cases in results.items():
         source, replaces, main_shape = KERNEL_META[name]
@@ -1714,6 +2022,23 @@ def run_all(ops, seed: int, dev) -> list:
         steps = sorted(stats[label]["decode_step_ms"])
         log(f"decode step, {label}: kernels at the measured shapes sum to {est:.3f} ms; "
             f"engine decode step median {steps[len(steps) // 2]:.3f} ms")
+    # Gemma-2-9B: half the layers slide, half attend globally, at the ragged
+    # decode lengths of phase 3
+    gl, rq = G2_LAYERS, lambda k: by[("rowquant", f"M=4 K={k} bf16")]
+    qm = lambda k, n: by[("qmatmul", f"M=4 K={k} N={n} bf16 out")]
+    attn = {c["shape"].split(" B=")[0]: c["ms"] for c in results["int8_kv_attention"]}
+    g2_rowquant = (rq(G2_HIDDEN) * (2 * gl + 1) + rq(G2_HEADS * G2_HEAD_DIM) * gl
+                   + rq(G2_INTER) * gl)
+    g2_linears = sum(qm(k, n) * count for (k, n), count in zip(
+        G2_LINEAR_SHAPES, (gl, 2 * gl, gl, 2 * gl, gl, 1)))
+    g2_cache = (results["kv_scatter_decode"][1]["ms"] * gl
+                + (attn["gemma2 decode sliding"] + attn["gemma2 decode global"]) * gl / 2)
+    steps = sorted(stats["gemma2_9b dense dynamic"]["decode_step_ms"])
+    log(f"decode step, gemma2_9b dense dynamic: kernels at the measured shapes sum to "
+        f"{g2_rowquant + g2_linears + g2_cache:.3f} ms (rowquant {g2_rowquant:.3f}, qmatmul "
+        f"{g2_linears:.3f}, scatter and attention {g2_cache:.3f}); engine decode step median "
+        f"{steps[len(steps) // 2]:.3f} ms; peak memory "
+        f"{stats['gemma2_9b dense dynamic']['peak_gib']:.2f} GiB")
     # a reading, not a gate: codes of the fused producers may move by one
     # step against the unfused path's, and greedy tokens with them
     pairs = [(a, b) for o, r in zip(stats["dense dynamic fused"]["outputs"],

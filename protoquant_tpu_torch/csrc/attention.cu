@@ -1,28 +1,41 @@
 // Flash attention over the dense int8 KV cache, causal, with GQA, and over
 // the mixed K8V4 cache (the same keys, int4 values).
 //
-// Replaces protoquant_tpu/ops/attention.py:_attn_kernel (Pallas), base
-// variant (no window, softcap, sinks, ring positions or ALiBi), and
-// _attn_mixed_kernel (V4 = true; full-causal only, as the TPU kernel).
+// Replaces protoquant_tpu/ops/attention.py:_attn_kernel (Pallas) with its
+// sliding-window, score-scale and softcap variants (not its learned sinks,
+// ring positions, StreamingLLM sinks or ALiBi), and _attn_mixed_kernel
+// (V4 = true; the wrapper passes its score scale and no window or softcap,
+// as the TPU kernel takes).
 //   q [B, T, H, Dh] (f32/bf16/f16), kq/vq [B, KV, S, Dh] int8,
 //   ks/vs [B, KV, S] f32, lengths [B] int32 = cache length BEFORE this
 //   step's T tokens. Query row r = t * group + g of kv head h is q head
-//   h * group + g at absolute position lengths[b] + t; key c is visible iff
-//   c <= lengths[b] + t.
-//   score[r, c] = (q[r] . kq[c]) * ks[c] * Dh^-0.5
+//   h * group + g at absolute position p_t = lengths[b] + t; key c is visible
+//   iff c <= p_t and, with window > 0, c > p_t - window.
+//   score[r, c] = (q[r] . kq[c]) * ks[c] * sm      (sm = scale or Dh^-0.5)
+//   with softcap > 0: score = softcap * tanh(score / softcap), before the mask
 //   out[r]      = sum_c softmax(score)[r, c] * vs[c] * vq[c]
 // The per-token scales factor out of both dots, so no f32 copy of the cache
 // is ever made.
-// Bound on the H100: bytes, the valid part of the int8 cache
-// (2 * L * Dh + 8 * L per (b, kv head)) plus q and out.
+// Bound on the H100: bytes, the visible part of the int8 cache
+// (2 * L * Dh + 8 * L per (b, kv head), L the keys inside the rows' windows)
+// plus q and out.
 // Design: one block of 4 warps per (b, kv head, 16 query rows); each warp
-// owns 4 rows. The loop runs over 64-key tiles only up to
-// lengths[b] + t_max of the block, so dead tiles are never read. Each tile's
-// int8 K and V rows and their scales are staged in shared memory (K rows
-// padded by 4 bytes so a warp's 32 keys fall in 32 banks). Lane j scores
-// keys j and j + 32 against the warp's rows; the online softmax (running
-// max m, denominator l) is in f32; p * vs goes through shared memory and
-// each lane accumulates Dh/32 output dims. The output is acc / max(l, 1e-30).
+// owns 4 rows. The loop runs over 64-key tiles (32 at Dh = 256) from the
+// tile holding the first row's earliest visible key, lengths[b] + t_min -
+// window + 1 (0 without a window: the TPU kernel's block skipping, so
+// windowed decode reads O(window) bytes), up to lengths[b] + t_max, so dead
+// tiles are never read. Rows of one block whose windows are disjoint see
+// tiles where every key of theirs is masked: p is zeroed by the mask, not by
+// exp, so their running max and sum stay untouched. Each tile's int8 K and V
+// rows and their scales are staged in shared memory (K rows padded by 4
+// bytes so a warp's 32 keys fall in 32 banks). Lane j scores keys j and
+// j + 32 against the warp's rows; the online softmax (running max m,
+// denominator l) is in f32; p * vs goes through shared memory and each lane
+// accumulates Dh/32 output dims. The output is acc / max(l, 1e-30). The
+// window and the softcap are runtime values read only by the VAR instance,
+// which a call with either takes; the full-causal instance compiles them
+// out (read by every instance, they cost Llama-2-7B's decode 2.5-8 % on an
+// H100: tools/attention_timing.py).
 // Decode (one row per block) leaves three warps idle after loading and
 // runs one block per (b, kv head); splitting S across blocks is later work.
 // V4 (K8V4): vq [B, KV, S/2, Dh] int8 holds token pairs (row r: token 2r in
@@ -42,12 +55,13 @@ constexpr int AT_QROWS = AT_WARPS * AT_RPW;  // query rows per block
 constexpr int AT_THREADS = AT_WARPS * 32;
 constexpr float AT_NEG_INF = -1e30f;
 
-template <int DH, int KT, bool V4, typename QT>
+template <int DH, int KT, bool V4, bool VAR, typename QT>
 __global__ void __launch_bounds__(AT_THREADS)
 attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
             const float* __restrict__ ks, const int8_t* __restrict__ vq,
             const float* __restrict__ vs, const int* __restrict__ lengths,
-            QT* __restrict__ out, int T, int H, int KV, int S, float sm) {
+            QT* __restrict__ out, int T, int H, int KV, int S, float sm, int window,
+            float softcap) {
   constexpr int DPL = DH / 32;  // output dims per lane
   constexpr int KPL = KT / 32;  // keys per lane
   constexpr int KSTR = DH + 4;  // padded K row (bytes)
@@ -64,6 +78,10 @@ attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
   const int rows_here = min(AT_QROWS, R - r0);
   const int t_max = (r0 + rows_here - 1) / group;
   const int n_keys = max(0, min(S, len + t_max + 1));
+  // first tile holding a key inside the block's first row's window
+  const int c_start =
+      VAR && window > 0 ? (max(len + r0 / group - window + 1, 0) / KT) * KT : 0;
+  const float inv_cap = VAR && softcap > 0.0f ? 1.0f / softcap : 0.0f;
 
   for (int i = threadIdx.x; i < AT_QROWS * DH; i += AT_THREADS) {
     const int r = i / DH, d = i % DH, gr = r0 + r;
@@ -92,7 +110,7 @@ attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
     for (int e = 0; e < DPL; ++e) acc[i][e] = 0.0f;
   }
 
-  for (int c0 = 0; c0 < n_keys; c0 += KT) {
+  for (int c0 = c_start; c0 < n_keys; c0 += KT) {
     __syncthreads();  // Q staged / previous tile consumed
     for (int i = threadIdx.x; i < KT * (DH / 4); i += AT_THREADS) {
       const int j = i / (DH / 4), w = i % (DH / 4), c = c0 + j;
@@ -153,13 +171,17 @@ attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
     for (int i = 0; i < AT_RPW; ++i) {
       const int r = r0 + wr0 + i;
       const int limit = r < R ? len + r / group : -1;  // dead rows see no key
+      const int lower = VAR && window > 0 ? limit - window : -1;  // keys <= lower are out
+      bool valid[KPL];
       float sc[KPL];
       float tmax = AT_NEG_INF;
 #pragma unroll
       for (int kk = 0; kk < KPL; ++kk) {
         const int j = lane + 32 * kk, c = c0 + j;
-        const bool valid = c < n_keys && c <= limit;
-        sc[kk] = valid ? (s[i][kk] * kss[j]) * sm : AT_NEG_INF;
+        valid[kk] = c < n_keys && c <= limit && (!VAR || c > lower);
+        float v = (s[i][kk] * kss[j]) * sm;
+        if (VAR && softcap > 0.0f) v = softcap * tanhf(v * inv_cap);
+        sc[kk] = valid[kk] ? v : AT_NEG_INF;
         tmax = fmaxf(tmax, sc[kk]);
       }
       tmax = pq_warp_max(tmax);
@@ -168,9 +190,8 @@ attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
       float psum = 0.0f;
 #pragma unroll
       for (int kk = 0; kk < KPL; ++kk) {
-        const int j = lane + 32 * kk, c = c0 + j;
-        const bool valid = c < n_keys && c <= limit;
-        const float p = valid ? expf(sc[kk] - m_new) : 0.0f;
+        const int j = lane + 32 * kk;
+        const float p = valid[kk] ? expf(sc[kk] - m_new) : 0.0f;
         psum += p;
         Ps[wr0 + i][j] = p * vss[j];
       }
@@ -212,54 +233,68 @@ attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
 template <int DH, int KT, bool V4, typename QT>
 static cudaError_t launch_t(const void* q, const void* kq, const void* ks, const void* vq,
                             const void* vs, const void* lengths, void* out, int B, int T,
-                            int H, int KV, int S, float sm, cudaStream_t stream) {
+                            int H, int KV, int S, float sm, int window, float softcap,
+                            cudaStream_t stream) {
   const int R = T * (H / KV);
   dim3 grid((R + AT_QROWS - 1) / AT_QROWS, KV, B);
-  attn_kernel<DH, KT, V4, QT><<<grid, AT_THREADS, 0, stream>>>(
-      (const QT*)q, (const int8_t*)kq, (const float*)ks, (const int8_t*)vq,
-      (const float*)vs, (const int*)lengths, (QT*)out, T, H, KV, S, sm);
+#define PQ_AT_KARGS (const QT*)q, (const int8_t*)kq, (const float*)ks, (const int8_t*)vq, \
+      (const float*)vs, (const int*)lengths, (QT*)out, T, H, KV, S, sm, window, softcap
+  if constexpr (!V4) {  // K8V4 takes no window or softcap: no VAR instance
+    if (window > 0 || softcap > 0.0f) {
+      attn_kernel<DH, KT, false, true, QT><<<grid, AT_THREADS, 0, stream>>>(PQ_AT_KARGS);
+      return cudaGetLastError();
+    }
+  }
+  attn_kernel<DH, KT, V4, false, QT><<<grid, AT_THREADS, 0, stream>>>(PQ_AT_KARGS);
+#undef PQ_AT_KARGS
   return cudaGetLastError();
 }
 
 template <bool V4, typename QT>
 static cudaError_t launch_dh(int Dh, const void* q, const void* kq, const void* ks,
                              const void* vq, const void* vs, const void* lengths, void* out,
-                             int B, int T, int H, int KV, int S, float sm,
-                             cudaStream_t stream) {
+                             int B, int T, int H, int KV, int S, float sm, int window,
+                             float softcap, cudaStream_t stream) {
+#define PQ_AT_ARGS q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, window, softcap, stream
   switch (Dh) {
-    case 32: return launch_t<32, 64, V4, QT>(q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, stream);
-    case 64: return launch_t<64, 64, V4, QT>(q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, stream);
-    case 128: return launch_t<128, 64, V4, QT>(q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, stream);
-    case 256: return launch_t<256, 32, V4, QT>(q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, stream);
+    case 32: return launch_t<32, 64, V4, QT>(PQ_AT_ARGS);
+    case 64: return launch_t<64, 64, V4, QT>(PQ_AT_ARGS);
+    case 128: return launch_t<128, 64, V4, QT>(PQ_AT_ARGS);
+    case 256: return launch_t<256, 32, V4, QT>(PQ_AT_ARGS);
     default: return cudaErrorInvalidValue;
   }
+#undef PQ_AT_ARGS
 }
 
 template <bool V4>
 static int entry(const void* q, int q_dtype, const void* kq, const void* ks, const void* vq,
                  const void* vs, const void* lengths, void* out, int B, int T, int H, int KV,
-                 int S, int Dh, float sm, void* stream) {
+                 int S, int Dh, float sm, int window, float softcap, void* stream) {
   if (B == 0 || T == 0) return cudaSuccess;
-  if (KV == 0 || H % KV != 0 || (V4 && S % 2)) return cudaErrorInvalidValue;
+  if (KV == 0 || H % KV != 0 || (V4 && S % 2) || window < 0) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+#define PQ_AT_DARGS Dh, q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, window, softcap, st
   switch (q_dtype) {
-    case PQ_F32: return launch_dh<V4, float>(Dh, q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, st);
-    case PQ_BF16: return launch_dh<V4, __nv_bfloat16>(Dh, q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, st);
-    case PQ_F16: return launch_dh<V4, __half>(Dh, q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, st);
+    case PQ_F32: return launch_dh<V4, float>(PQ_AT_DARGS);
+    case PQ_BF16: return launch_dh<V4, __nv_bfloat16>(PQ_AT_DARGS);
+    case PQ_F16: return launch_dh<V4, __half>(PQ_AT_DARGS);
     default: return cudaErrorInvalidValue;
   }
+#undef PQ_AT_DARGS
 }
 
 PQ_EXPORT int pq_int8_kv_attention(const void* q, int q_dtype, const void* kq, const void* ks,
                                    const void* vq, const void* vs, const void* lengths,
                                    void* out, int B, int T, int H, int KV, int S, int Dh,
-                                   float sm, void* stream) {
-  return entry<false>(q, q_dtype, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, Dh, sm, stream);
+                                   float sm, int window, float softcap, void* stream) {
+  return entry<false>(q, q_dtype, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, Dh, sm, window,
+                      softcap, stream);
 }
 
 PQ_EXPORT int pq_mixed_kv_attention(const void* q, int q_dtype, const void* kq, const void* ks,
                                     const void* vq, const void* vs, const void* lengths,
                                     void* out, int B, int T, int H, int KV, int S, int Dh,
                                     float sm, void* stream) {
-  return entry<true>(q, q_dtype, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, Dh, sm, stream);
+  return entry<true>(q, q_dtype, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, Dh, sm, 0, 0.0f,
+                     stream);
 }

@@ -23,7 +23,9 @@ Attention: decode steps (T == 1) run ``paged_int8_attention``, which walks
 the page table itself, so no window is gathered. Prefill chunks gather the
 mapped pages into a contiguous window and run ``int8_kv_attention`` over it
 (the JAX package runs its XLA formulation there; both compute the same
-function).
+function). So do decode steps with a sliding window, a score scale or a
+softcap: the page-walk kernel is full-causal, as in the JAX package, which
+sends the same cases to its gathered XLA path.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 
 from ..core.numerics import SCALE_EPS
 from ..models.kv_cache import quantize_kv
-from ..ops.attention import int8_kv_attention
+from ..ops.attention import int8_kv_attention, reject_variants
 from ..ops.kv_scatter import page_slots, paged_kv_scatter_decode
 from ..ops.paged_attention import gather_window, paged_int8_attention
 from ..utils.device import resolve_device
@@ -122,16 +124,19 @@ class PagedInt8KVCache:
         self._advance(k.shape[1], advance)
         return self
 
-    def update_and_attend(self, q, k, v, advance=None):
+    def update_and_attend(self, q, k, v, advance=None, window=0, scale=0.0, softcap=0.0,
+                          tree_mask=None, alibi_slopes=None):
         """Write k/v, attend q [B, T, H, Dh] over the slot's pages with the
         lengths from before this step, then advance. Returns [B, T, H, Dh]."""
+        reject_variants("PagedInt8KVCache", tree_mask=tree_mask, alibi_slopes=alibi_slopes)
         self._write(k, v)
         pools = (self.kq, self.ks, self.vq, self.vs)
-        if q.shape[1] == 1:
+        if q.shape[1] == 1 and not (window or scale or softcap):
             out = paged_int8_attention(q, *pools, self.page_table, self.lengths)
         else:
             out = int8_kv_attention(q, *gather_window(*pools, self.page_table),
-                                    self.lengths)
+                                    self.lengths, window=window, scale=scale,
+                                    softcap=softcap)
         self._advance(k.shape[1], advance)
         return out
 

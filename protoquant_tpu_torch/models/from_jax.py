@@ -1,4 +1,5 @@
-"""Carry weights of the JAX package's Llama model across to the port.
+"""Carry weights of the JAX package's Llama model across to the port (its
+Gemma-2 sandwich norms too, by name; zero-centred norm weights as stored).
 
 ``params_from_numpy`` takes the flax params tree as nested dicts of numpy
 arrays (a ``QTensor`` or a packed ``QTensor4`` given as ``{"data",

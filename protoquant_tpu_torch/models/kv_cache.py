@@ -14,6 +14,14 @@ PLACE: ``update`` and ``update_and_attend`` write the new tokens into the
 cache tensors and advance ``lengths`` on the same object, and
 ``slot_view`` returns views, so writes through a slot view land in the
 full cache.
+
+Every ``update_and_attend`` takes the keyword arguments of its JAX
+counterpart: ``window`` (sliding window), ``scale`` (score scale),
+``softcap`` (Gemma-2 logit cap), ``sink_logits``, ``tree_mask``,
+``alibi_slopes``. The bf16, int8 and KIVI caches attend with the first
+three; the K8V4 cache with ``scale`` alone and raises on a window or a
+softcap, as the JAX one does. The others are not ported: each cache raises
+``NotImplementedError`` on them before it writes anything.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from ..core.numerics import (QMAX4, SCALE_EPS, kivi_chunk_quantize,  # noqa: F40
                              pack_nib_pair, quantize_rowwise, unpack_nib_pair)
 from ..ops.attention import (int4_kv_attention, int8_kv_attention, k4v8_attention,
                              kivi_dequant_k, kivi_dequant_v4, mixed_kv_attention,
-                             unpack_v4)
+                             reject_variants, score_scale, unpack_v4)
 from ..ops.kv_scatter import (gather_rows, k4v8_decode_update, kivi4_decode_update,
                               kv_mixed_scatter_decode, kv_scatter_decode, merge_nibble,
                               put_chunk, put_v_chunk)
@@ -50,18 +58,28 @@ def quantize_kv4(x: torch.Tensor):
     return quantize_rowwise(x, QMAX4)
 
 
-def mha_attention(q, k, v, q_positions, k_positions):
+def mha_attention(q, k, v, q_positions, k_positions, window: int = 0, scale: float = 0.0,
+                  softcap: float = 0.0):
     """Plain causal GQA attention over unquantized keys and values (the
     scoring path, and ``BF16KVCache``'s attention), in f32.
 
     q [B, T, H, Dh]; k/v [B, S, KV, Dh]; a key is visible to a query iff its
-    position is not greater than the query's."""
+    position is not greater than the query's and, with ``window`` > 0, more
+    than window - 1 positions behind it. ``scale`` > 0 replaces Dh^-0.5;
+    ``softcap`` > 0 caps the scaled scores, cap * tanh(s / cap), before the
+    mask (``protoquant_tpu/models/llama.py:mha_attention``)."""
     B, T, H, Dh = q.shape
     KV = k.shape[2]
     group = H // KV
     qf = q.reshape(B, T, KV, group, Dh).float()
-    scores = torch.einsum("btkgd,bskd->bkgts", qf, k.float()) * Dh**-0.5
-    mask = k_positions[:, None, None, None, :] <= q_positions[:, None, None, :, None]
+    scores = torch.einsum("btkgd,bskd->bkgts", qf, k.float()) * score_scale(Dh, scale)
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
+    kp = k_positions[:, None, None, None, :]
+    qp = q_positions[:, None, None, :, None]
+    mask = kp <= qp
+    if window > 0:
+        mask &= kp > qp - window
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v.float())
@@ -153,15 +171,18 @@ class BF16KVCache(_DenseSlots):
         self.k[b_idx, s_idx] = k[keep].to(self.k.dtype)
         self.v[b_idx, s_idx] = v[keep].to(self.v.dtype)
 
-    def update_and_attend(self, q, k, v, advance=None):
+    def update_and_attend(self, q, k, v, advance=None, window=0, scale=0.0, softcap=0.0,
+                          sink_logits=None, tree_mask=None, alibi_slopes=None):
         """Write k/v, attend q [B, T, H, Dh] (query t at position lengths +
         t, before this step) over every cached key, then advance."""
+        reject_variants("BF16KVCache", sink_logits=sink_logits, tree_mask=tree_mask,
+                         alibi_slopes=alibi_slopes)
         B, T = k.shape[:2]
         self._write(k, v)
         dev = q.device
         q_pos = self.lengths.long()[:, None] + torch.arange(T, device=dev)[None, :]
         k_pos = torch.arange(self.max_seq, device=dev)[None, :].expand(B, self.max_seq)
-        out = mha_attention(q, self.k, self.v, q_pos, k_pos)
+        out = mha_attention(q, self.k, self.v, q_pos, k_pos, window, scale, softcap)
         self._advance(T, advance)
         return out
 
@@ -219,11 +240,16 @@ class Int8KVCache(_DenseSlots):
         self.vq[b_idx, :, s_idx] = v8[keep]
         self.vs[b_idx, :, s_idx] = vs_new[keep]
 
-    def update_and_attend(self, q, k, v, advance=None):
+    def update_and_attend(self, q, k, v, advance=None, window=0, scale=0.0, softcap=0.0,
+                          sink_logits=None, tree_mask=None, alibi_slopes=None):
         """Write k/v, attend q [B, T, H, Dh] over the cache with the lengths
-        from before this step, then advance. Returns [B, T, H, Dh]."""
+        from before this step (and the window, scale and softcap given),
+        then advance. Returns [B, T, H, Dh]."""
+        reject_variants("Int8KVCache", sink_logits=sink_logits, tree_mask=tree_mask,
+                         alibi_slopes=alibi_slopes)
         self._write(k, v)
-        out = int8_kv_attention(q, self.kq, self.ks, self.vq, self.vs, self.lengths)
+        out = int8_kv_attention(q, self.kq, self.ks, self.vq, self.vs, self.lengths,
+                                window=window, scale=scale, softcap=softcap)
         self._advance(k.shape[1], advance)
         return out
 
@@ -234,7 +260,7 @@ class MixedKVCache(Int8KVCache):
     KV, S]); V int4 per token, packed by token pair as ``Int4KVCache``'s V:
     vq [B, KV, S/2, Dh] int8 (row r: token 2r in the low nibble, 2r + 1 in
     the high one), vs [B, KV, 2, S/2] f32 (plane 0 even tokens, 1 odd).
-    Full-causal attention only. Port of
+    Full-causal attention only, with a score scale. Port of
     ``protoquant_tpu/models/kv_cache.py:MixedKVCache`` (``kv_dtype="k8v4"``);
     updated in place. Prefill drops V writes at or past S, as the decode
     writer does (the JAX prefill clamps them onto position S - 1)."""
@@ -281,11 +307,17 @@ class MixedKVCache(Int8KVCache):
         KV, S] (the JAX ``_unpack_v``)."""
         return unpack_v4(self.vq, self.vs)
 
-    def update_and_attend(self, q, k, v, advance=None):
+    def update_and_attend(self, q, k, v, advance=None, window=0, scale=0.0, softcap=0.0,
+                          sink_logits=None, tree_mask=None, alibi_slopes=None):
         """Write k/v, attend q [B, T, H, Dh] over the cache with the lengths
-        from before this step, then advance. Returns [B, T, H, Dh]."""
+        from before this step, then advance. Returns [B, T, H, Dh]. A
+        window, a softcap, sinks or ALiBi raise, as in the JAX cache."""
+        reject_variants("MixedKVCache (full-causal rope attention only)", window=window,
+                         softcap=softcap, sink_logits=sink_logits, tree_mask=tree_mask,
+                         alibi_slopes=alibi_slopes)
         self._write(k, v)
-        out = mixed_kv_attention(q, self.kq, self.ks, self.vq, self.vs, self.lengths)
+        out = mixed_kv_attention(q, self.kq, self.ks, self.vq, self.vs, self.lengths,
+                                 scale=scale)
         self._advance(k.shape[1], advance)
         return out
 
@@ -441,14 +473,18 @@ class _KiviKVCache(_DenseSlots):
         self.lengths += adv
         return self
 
-    def update_and_attend(self, q, k, v, advance=None):
+    def update_and_attend(self, q, k, v, advance=None, window=0, scale=0.0, softcap=0.0,
+                          sink_logits=None, tree_mask=None, alibi_slopes=None):
         """Write k/v, attend q [B, T, H, Dh] with the lengths from before
-        (and the frontier from after) this step, then advance."""
+        (and the frontier from after) this step, and the window, scale and
+        softcap given, then advance."""
+        reject_variants(type(self).__name__, sink_logits=sink_logits, tree_mask=tree_mask,
+                         alibi_slopes=alibi_slopes)
         adv = self._adv(k.shape[1], advance)
         new_lengths = self.lengths + adv
         self._write(k, v, adv)
         out = self._attention(q, *self._tensors(), self.lengths, new_lengths,
-                              group=self.group)
+                              group=self.group, window=window, scale=scale, softcap=softcap)
         self.lengths.copy_(new_lengths)
         return out
 

@@ -1,15 +1,23 @@
-"""Llama decoder: RMSNorm, RoPE, GQA attention and SwiGLU MLP, every
-projection a ``QLinear``.
+"""Llama-family decoder: RMSNorm, RoPE, GQA attention and a gated MLP,
+every projection a ``QLinear``; with the config's switches, Mistral (a
+sliding window on every layer) and Gemma-2 (GeGLU, zero-centred norm
+weights, sandwich norms, the embedding normalizer, a sliding window on
+alternate layers, the query_pre_attn_scalar score scale, attention and
+final-logit softcaps).
 
 Module and parameter names follow the flax tree of the JAX package
 (``embed_tokens``, ``layers_{i}.self_attn.{q,k,v,o}_proj``,
-``layers_{i}.mlp.{gate,up,down}_proj``, ``norm``, ``lm_head``), so
-``models.from_jax.params_from_numpy`` carries weights across by name.
-RMSNorm, RoPE and SiLU compute in f32 and cast back to the activation
-dtype, as the JAX model does. Under ``ops.FUSED_QUANT == "on"`` a
-``dynamic`` layer takes the JAX model's producer-fused path: both norms and
-the SwiGLU gate emit the int8 activations of the projections that read
-them (``ops.rms_norm_quant``, ``ops.swiglu_quant``); the final norm before
+``layers_{i}.mlp.{gate,up,down}_proj``, ``layers_{i}.{input,
+post_attention,pre_feedforward,post_feedforward}_layernorm``, ``norm``,
+``lm_head``), so ``models.from_jax.params_from_numpy`` carries weights
+across by name. RMSNorm, RoPE and the gate activation compute in f32 and
+cast back to the activation dtype, as the JAX model does. Under
+``ops.FUSED_QUANT == "on"`` a ``dynamic`` layer takes the JAX model's
+producer-fused path: the norms that feed projections and the gate emit the
+int8 activations of the projections that read them (``ops.rms_norm_quant``,
+``ops.swiglu_quant``). With sandwich norms no norm is fused (the JAX
+gating: the MLP's input norm is ``pre_feedforward_layernorm`` and the
+attention's stays plain) and the gate still is; the final norm before
 ``lm_head`` stays unfused.
 """
 
@@ -79,20 +87,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cos, sin) -> torch.Tens
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float = 1e-5, dtype=torch.bfloat16, device=None):
+    """``unit_offset`` (Gemma): the stored weight is zero-centred and the
+    norm multiplies by ``weight + 1``, formed in f32 (a fresh norm stores 0)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, dtype=torch.bfloat16, device=None,
+                 unit_offset: bool = False):
         super().__init__()
-        self.eps, self.dtype = eps, dtype
+        self.eps, self.dtype, self.unit_offset = eps, dtype, unit_offset
+        init = torch.zeros if unit_offset else torch.ones
         self.weight = nn.Parameter(
-            torch.ones(dim, dtype=torch.float32, device=resolve_device(device)),
+            init(dim, dtype=torch.float32, device=resolve_device(device)),
             requires_grad=False)
 
+    def effective_weight(self) -> torch.Tensor:
+        return self.weight + 1.0 if self.unit_offset else self.weight
+
     def forward(self, x):
-        return rms_norm(x, self.weight, self.eps, self.dtype)
+        return rms_norm(x, self.effective_weight(), self.eps, self.dtype)
 
     def quantized(self, x):
         """The norm fused with per-token int8 quantization: (xq, s_x), what
         ``ops.shared_rowquant(self(x))`` gives, in one pass."""
-        return ops.rms_norm_quant(x, self.weight, eps=self.eps, cast_dtype=self.dtype)
+        return ops.rms_norm_quant(x, self.effective_weight(), eps=self.eps,
+                                  cast_dtype=self.dtype)
 
 
 # Modes whose projections read int8 activations: a block quantizes its
@@ -109,9 +126,20 @@ def producer_fused(mode: str) -> bool:
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128):
+    """GQA attention of layer ``layer_idx``: its sliding window
+    (``cfg.layer_window``), score scale (query_pre_attn_scalar^-0.5 when
+    set) and logit softcap go to the cache, or to ``mha_attention`` without
+    one."""
+
+    def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128,
+                 layer_idx: int = 0):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
+        self.variants = {
+            "window": cfg.layer_window(layer_idx),
+            "scale": (cfg.query_pre_attn_scalar**-0.5 if cfg.query_pre_attn_scalar > 0.0
+                      else 0.0),
+            "softcap": cfg.attn_logit_softcap}
         device = resolve_device(device)
         D, H, KV, Dh = (cfg.hidden_size, cfg.num_attention_heads,
                         cfg.num_key_value_heads, cfg.head_dim)
@@ -140,9 +168,9 @@ class Attention(nn.Module):
         q = apply_rope(q, positions, cos, sin)
         k = apply_rope(k, positions, cos, sin)
         if cache is not None:
-            out = cache.update_and_attend(q, k, v, advance)
+            out = cache.update_and_attend(q, k, v, advance, **self.variants)
         else:
-            out = mha_attention(q, k, v, positions, positions)
+            out = mha_attention(q, k, v, positions, positions, **self.variants)
         return self.o_proj(out.reshape(B, T, H * Dh))
 
 
@@ -150,6 +178,8 @@ class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128):
         super().__init__()
         self.dtype = dtype
+        # SwiGLU (silu) or GeGLU (the tanh approximation of gelu)
+        self.act = "silu" if cfg.hidden_act == "silu" else "gelu"
         device = resolve_device(device)
         D, I = cfg.hidden_size, cfg.intermediate_size
         lin = lambda k, n: QLinear(k, n, mode, bias=False, dtype=dtype, device=device,
@@ -170,22 +200,38 @@ class MLP(nn.Module):
         # the linears' mode, not the constructor's: quantize_model converts
         # them in place
         if producer_fused(self.gate_proj.mode):
-            return self.down_proj(None, ops.swiglu_quant(gate, up, act="silu",
+            return self.down_proj(None, ops.swiglu_quant(gate, up, act=self.act,
                                                          cast_dtype=self.dtype))
-        return self.down_proj(swiglu(gate, up, "silu", self.dtype))
+        return self.down_proj(swiglu(gate, up, self.act, self.dtype))
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128):
+    """Pre-norm block; with ``cfg.sandwich_norms`` (Gemma-2),
+    ``post_attention_layernorm`` norms the attention OUTPUT, and
+    ``pre_feedforward_layernorm`` / ``post_feedforward_layernorm`` the MLP's
+    input and output."""
+
+    def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128,
+                 layer_idx: int = 0):
         super().__init__()
         device = resolve_device(device)
-        eps = cfg.rms_norm_eps
-        self.input_layernorm = RMSNorm(cfg.hidden_size, eps, dtype, device)
-        self.self_attn = Attention(cfg, mode, dtype, device, int4_group)
-        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, eps, dtype, device)
+        norm = lambda: RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, device,
+                               cfg.rmsnorm_unit_offset)
+        self.sandwich = cfg.sandwich_norms
+        self.input_layernorm = norm()
+        self.self_attn = Attention(cfg, mode, dtype, device, int4_group, layer_idx)
+        self.post_attention_layernorm = norm()
+        if self.sandwich:
+            self.pre_feedforward_layernorm = norm()
+            self.post_feedforward_layernorm = norm()
         self.mlp = MLP(cfg, mode, dtype, device, int4_group)
 
     def forward(self, x, positions, cos, sin, cache=None, advance=None):
+        if self.sandwich:
+            h = self.self_attn(self.input_layernorm(x), positions, cos, sin, cache, advance)
+            x = x + self.post_attention_layernorm(h)
+            h = self.mlp(self.pre_feedforward_layernorm(x))
+            return x + self.post_feedforward_layernorm(h)
         if producer_fused(self.mlp.gate_proj.mode):
             # the norms emit the projections' int8 input directly; the
             # normed activation itself is never made
@@ -217,9 +263,14 @@ class LlamaModel(nn.Module):
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          dtype=dtype, device=dev)
         self.embed_tokens.weight.requires_grad_(False)
+        # Gemma's normalizer sqrt(D), rounded to the activation dtype as in
+        # the JAX model and HF (bf16: 59.75 at D = 3584)
+        self.embed_scale = (float(torch.tensor(cfg.hidden_size**0.5, dtype=dtype))
+                            if cfg.scale_embeddings else None)
         for i in range(cfg.num_hidden_layers):
-            self.add_module(f"layers_{i}", DecoderLayer(cfg, mode, dtype, dev, int4_group))
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, dev)
+            self.add_module(f"layers_{i}", DecoderLayer(cfg, mode, dtype, dev, int4_group, i))
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, dev,
+                            cfg.rmsnorm_unit_offset)
         self.lm_head = QLinear(cfg.hidden_size, cfg.vocab_size, mode, bias=False,
                                dtype=dtype, device=dev, int4_group=int4_group)
         cos, sin = rope_tables(cfg.head_dim, cfg.max_position_embeddings,
@@ -237,10 +288,15 @@ class LlamaModel(nn.Module):
         projection at a time: in the quantized modes (int8 or int4) each fp
         weight is quantized as soon as it is drawn, so no fp copy of the
         model exists whole. Linear weights are
-        N(0, 1/K), embeddings N(0, 1), norms 1."""
+        N(0, 1/K), embeddings N(0, 1) as the first layer sees them (N(0, 1/D)
+        under Gemma's sqrt(D) normalizer), norms the identity (weights 1, or 0
+        when stored zero-centred)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.embed_tokens.weight.copy_(torch.randn(
-            self.embed_tokens.weight.shape, generator=gen, device=self.device))
+        emb = torch.randn(self.embed_tokens.weight.shape, generator=gen, device=self.device)
+        if self.cfg.scale_embeddings:
+            emb.mul_(self.cfg.hidden_size**-0.5)
+        self.embed_tokens.weight.copy_(emb)
+        del emb
         for module in self.modules():
             if isinstance(module, QLinear):
                 w = torch.randn(module.out_features, module.in_features,
@@ -248,7 +304,7 @@ class LlamaModel(nn.Module):
                 module.set_weight(w.mul_(1.0 / math.sqrt(module.in_features)))
                 del w
             elif isinstance(module, RMSNorm):
-                module.weight.fill_(1.0)
+                module.weight.fill_(0.0 if module.unit_offset else 1.0)
         return self
 
     @torch.no_grad()
@@ -258,8 +314,12 @@ class LlamaModel(nn.Module):
             positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
         positions = positions.long()
         x = self.embed_tokens(tokens.long())
+        if self.embed_scale is not None:
+            x = x * self.embed_scale
         for i, layer in enumerate(self.layers):
             cache = caches[i] if caches is not None else None
             x = layer(x, positions, self.rope_cos, self.rope_sin, cache, advance)
         x = self.norm(x)
-        return self.lm_head(x).float()
+        logits = self.lm_head(x).float()
+        cap = self.cfg.final_logit_softcap
+        return cap * torch.tanh(logits / cap) if cap else logits

@@ -1,7 +1,8 @@
 """Attention over the dense KV caches: kernels and plain versions.
 
 The int8 kernel (``csrc/attention.cu``) replaces the Pallas kernel
-``protoquant_tpu/ops/attention.py:_attn_kernel`` for the causal GQA case;
+``protoquant_tpu/ops/attention.py:_attn_kernel`` for causal GQA with its
+sliding window (tiles wholly below it skipped), score scale and softcap;
 its plain version mirrors ``int8_kv_attention_xla`` of the JAX package.
 The same source, with its V layout switched to packed int4 token pairs,
 replaces ``_attn_mixed_kernel`` (the K8V4 cache); its plain version
@@ -10,13 +11,18 @@ The KIVI kernels (``csrc/kivi_attention.cu``) replace ``_attn_k4v8_kernel``
 and ``_attn4_kernel``; their plain versions dequantize the cache to f32
 (``dequant_fp(lane=f32)`` of the JAX caches) and run the int8 plain version
 with unit scales, as the JAX tests hold the Pallas kernels.
-The variants of the JAX functions (sliding window, score scale, softcap,
-learned sinks, ring positions, StreamingLLM sinks, ALiBi, tree masks) are
-not ported yet: every function here raises ``NotImplementedError`` on them.
+Variants, as the JAX functions take them: ``window`` > 0 hides keys more
+than window - 1 positions behind each query, ``scale`` > 0 replaces the
+score scale Dh^-0.5, ``softcap`` > 0 caps the scaled score to softcap *
+tanh(score / softcap) before the mask. The int8 and KIVI functions take all
+three, the K8V4 ones ``scale`` alone (as ``mixed_kv_attention`` of the JAX
+package). The other variants of the JAX functions (learned sinks, ring
+positions, StreamingLLM sinks, ALiBi, tree masks) are not ported yet:
+every function here raises ``NotImplementedError`` on them.
 
 The kernels and the plain versions place the score scale differently, as
-in the JAX package: a kernel multiplies ``(q . k) * ks * Dh^-0.5`` after
-the dot, the plain version scales q before it. The outputs differ by a few
+in the JAX package: a kernel multiplies ``(q . k) * ks * sm`` (sm the
+scale, or Dh^-0.5) after the dot, the plain version scales q before it. The outputs differ by a few
 f32 ulps.
 """
 
@@ -31,11 +37,10 @@ NEG_INF = -1e30
 _KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 
 
-def _reject_variants(name, window=0, scale=0.0, softcap=0.0, sink_logits=None,
-                     k_positions=None, sinks=0, alibi_slopes=None,
-                     tree_mask=None):
-    given = {"window": window != 0, "scale": scale != 0.0,
-             "softcap": softcap != 0.0, "sink_logits": sink_logits is not None,
+def reject_variants(name, window=0, softcap=0.0, sink_logits=None, k_positions=None,
+                     sinks=0, alibi_slopes=None, tree_mask=None):
+    given = {"window": window != 0, "softcap": softcap != 0.0,
+             "sink_logits": sink_logits is not None,
              "k_positions": k_positions is not None, "sinks": sinks != 0,
              "alibi_slopes": alibi_slopes is not None,
              "tree_mask": tree_mask is not None}
@@ -44,21 +49,38 @@ def _reject_variants(name, window=0, scale=0.0, softcap=0.0, sink_logits=None,
         raise NotImplementedError(f"{name}: variant(s) {used} not ported")
 
 
-def int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, **variants):
+def score_scale(head_dim: int, scale: float = 0.0) -> float:
+    """The score multiplier: ``scale`` if > 0, else head_dim^-0.5."""
+    return float(scale) if scale > 0.0 else head_dim**-0.5
+
+
+def _window(name: str, window) -> int:
+    if window < 0:
+        raise ValueError(f"{name}: window {window} < 0")
+    return int(window)
+
+
+def int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, window=0, scale=0.0, softcap=0.0,
+                          **variants):
     """Plain version. q [B, T, H, Dh]; kq/vq [B, KV, S, Dh] int8 (already
     holding this step's tokens); ks/vs [B, KV, S] f32; lengths [B] = cache
-    length before this step. Returns [B, T, H, Dh] in q.dtype."""
-    _reject_variants("int8_kv_attention_ref", **variants)
+    length before this step; ``window``, ``scale``, ``softcap`` as the
+    module says. Returns [B, T, H, Dh] in q.dtype."""
+    reject_variants("int8_kv_attention_ref", **variants)
+    window = _window("int8_kv_attention_ref", window)
     B, T, H, Dh = q.shape
     KV, S = kq.shape[1], kq.shape[2]
     group = H // KV
-    sm = Dh**-0.5
-    qh = (q.float() * sm).reshape(B, T, KV, group, Dh)
+    qh = (q.float() * score_scale(Dh, scale)).reshape(B, T, KV, group, Dh)
     scores = torch.einsum("btkgd,bksd->bkgts", qh, kq.float())
     scores = scores * ks[:, :, None, None, :]
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
     t_pos = lengths.long()[:, None] + torch.arange(T, device=q.device)[None, :]
-    s_pos = torch.arange(S, device=q.device)
-    mask = s_pos[None, None, None, None, :] <= t_pos[:, None, None, :, None]
+    s_pos = torch.arange(S, device=q.device)[None, None, None, None, :]
+    mask = s_pos <= t_pos[:, None, None, :, None]
+    if window > 0:
+        mask &= s_pos > t_pos[:, None, None, :, None] - window
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     pv = probs * vs[:, :, None, None, :]
@@ -66,10 +88,11 @@ def int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, **variants):
     return out.reshape(B, T, H, Dh).to(q.dtype)
 
 
-def _dense_attention_launch(name, fn, v4, q, kq, ks, vq, vs, lengths):
+def _dense_attention_launch(name, fn, v4, q, kq, ks, vq, vs, lengths, scale=0.0, window=0,
+                            softcap=0.0):
     """Check the operands of ``csrc/attention.cu`` (V int8 per token, or
-    with ``v4`` packed token pairs and parity-split scales), launch it and
-    count the launch on ``fn``."""
+    with ``v4`` packed token pairs and parity-split scales, which take the
+    score scale alone), launch it and count the launch on ``fn``."""
     B, T, H, Dh = q.shape
     KV, S = kq.shape[1], kq.shape[2]
     v_shape = ((B, KV, S // 2, Dh), (B, KV, 2, S // 2)) if v4 else ((B, KV, S, Dh), (B, KV, S))
@@ -92,23 +115,27 @@ def _dense_attention_launch(name, fn, v4, q, kq, ks, vq, vs, lengths):
     dev = _build.same_device_contiguous(name, q, kq, ks, vq, vs, lengths)
     out = torch.empty_like(q)
     c_name = "pq_mixed_kv_attention" if v4 else "pq_int8_kv_attention"
+    variants = () if v4 else (window, float(softcap))
     err = getattr(_build.lib(), c_name)(
         q.data_ptr(), _build.DTYPE_CODES[q.dtype], kq.data_ptr(), ks.data_ptr(),
         vq.data_ptr(), vs.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, T, H, KV, S, Dh, float(Dh**-0.5), _build.stream_ptr(dev))
+        B, T, H, KV, S, Dh, score_scale(Dh, scale), *variants, _build.stream_ptr(dev))
     _build.check(err, c_name)
     fn.launches += 1
     return out
 
 
-def int8_kv_attention(q, kq, ks, vq, vs, lengths, **variants):
-    """Causal GQA attention over the int8 cache; same contract as
-    :func:`int8_kv_attention_ref`. Returns [B, T, H, Dh] in q.dtype."""
-    _reject_variants("int8_kv_attention", **variants)
+def int8_kv_attention(q, kq, ks, vq, vs, lengths, window=0, scale=0.0, softcap=0.0,
+                      **variants):
+    """Causal GQA attention over the int8 cache, with its sliding window,
+    score scale and softcap; same contract as :func:`int8_kv_attention_ref`.
+    Returns [B, T, H, Dh] in q.dtype."""
+    reject_variants("int8_kv_attention", **variants)
+    window = _window("int8_kv_attention", window)
     if q.device.type == "cpu":
-        return int8_kv_attention_ref(q, kq, ks, vq, vs, lengths)
+        return int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, window, scale, softcap)
     return _dense_attention_launch("int8_kv_attention", int8_kv_attention, False,
-                                   q, kq, ks, vq, vs, lengths)
+                                   q, kq, ks, vq, vs, lengths, scale, window, softcap)
 
 
 int8_kv_attention.launches = 0
@@ -125,30 +152,30 @@ def unpack_v4(vq, vs):
     return _unpack_tokens(vq).to(torch.int8), vs.transpose(2, 3).reshape(B, KV, 2 * S2)
 
 
-def mixed_kv_attention_ref(q, kq, ks, vq, vs, lengths, **variants):
+def mixed_kv_attention_ref(q, kq, ks, vq, vs, lengths, scale=0.0, **variants):
     """Plain version of :func:`mixed_kv_attention`: V unpacked to per-token
     nibbles and scales, then :func:`int8_kv_attention_ref`."""
-    _reject_variants("mixed_kv_attention_ref", **variants)
-    return int8_kv_attention_ref(q, kq, ks, *unpack_v4(vq, vs), lengths)
+    reject_variants("mixed_kv_attention_ref", **variants)
+    return int8_kv_attention_ref(q, kq, ks, *unpack_v4(vq, vs), lengths, scale=scale)
 
 
-def mixed_kv_attention(q, kq, ks, vq, vs, lengths, **variants):
+def mixed_kv_attention(q, kq, ks, vq, vs, lengths, scale=0.0, **variants):
     """Causal GQA attention over the K8V4 cache, prefill (T > 1) or decode.
 
     q [B, T, H, Dh]; kq [B, KV, S, Dh] int8 and ks [B, KV, S] f32 as the
     int8 cache; vq [B, KV, S/2, Dh] int8 packed token pairs (row r: token
     2r in the low nibble, 2r + 1 in the high one), vs [B, KV, 2, S/2] f32
     per-token scales (plane 0 even tokens, plane 1 odd); lengths [B] int32 =
-    length before this step. Query t sees keys p <= lengths + t. Returns
-    [B, T, H, Dh] in q.dtype. Replaces
-    ``protoquant_tpu/ops/attention.py:mixed_kv_attention``
-    (``_attn_mixed_kernel``); its ``scale`` is not ported either.
+    length before this step. Query t sees keys p <= lengths + t; ``scale``
+    > 0 replaces the score scale Dh^-0.5. Returns [B, T, H, Dh] in q.dtype.
+    Replaces ``protoquant_tpu/ops/attention.py:mixed_kv_attention``
+    (``_attn_mixed_kernel``), full-causal as it is.
     """
-    _reject_variants("mixed_kv_attention", **variants)
+    reject_variants("mixed_kv_attention", **variants)
     if q.device.type == "cpu":
-        return mixed_kv_attention_ref(q, kq, ks, vq, vs, lengths)
+        return mixed_kv_attention_ref(q, kq, ks, vq, vs, lengths, scale)
     return _dense_attention_launch("mixed_kv_attention", mixed_kv_attention, True,
-                                   q, kq, ks, vq, vs, lengths)
+                                   q, kq, ks, vq, vs, lengths, scale)
 
 
 mixed_kv_attention.launches = 0
@@ -197,34 +224,36 @@ def kivi_dequant_v4(vq, vs, vtail, vts, lengths, group):
     return _tail_overlay(nib.float() * vsc[..., None], vtail, vts, lengths, group)
 
 
-def _kivi_ref(name, q, k_fp, v_fp, lengths, variants):
-    _reject_variants(name, **variants)
+def _kivi_ref(name, q, k_fp, v_fp, lengths, window, scale, softcap, variants):
+    reject_variants(name, **variants)
     ones = torch.ones(k_fp.shape[:3], dtype=torch.float32, device=k_fp.device)
-    return int8_kv_attention_ref(q, k_fp, ones, v_fp, ones, lengths)
+    return int8_kv_attention_ref(q, k_fp, ones, v_fp, ones, lengths, window, scale, softcap)
 
 
 def k4v8_attention_ref(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
-                       new_lengths, *, group, **variants):
+                       new_lengths, *, group, window=0, scale=0.0, softcap=0.0, **variants):
     """Plain version of :func:`k4v8_attention`: the cache dequantized to f32
     at ``new_lengths`` (V from the int8 store), then
-    :func:`int8_kv_attention_ref` with unit scales, as the JAX tests hold
-    the Pallas kernel."""
+    :func:`int8_kv_attention_ref` with unit scales and the same variants, as
+    the JAX tests hold the Pallas kernel."""
     k_fp = kivi_dequant_k(kq, kchs, ktail, kts, new_lengths, group)
     v_fp = vq.float() * vs[..., None]
-    return _kivi_ref("k4v8_attention_ref", q, k_fp, v_fp, lengths, variants)
+    return _kivi_ref("k4v8_attention_ref", q, k_fp, v_fp, lengths, window, scale, softcap,
+                     variants)
 
 
 def int4_kv_attention_ref(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
-                          new_lengths, *, group, **variants):
+                          new_lengths, *, group, window=0, scale=0.0, softcap=0.0, **variants):
     """Plain version of :func:`int4_kv_attention` (as
     :func:`k4v8_attention_ref`, V from the packed store and the V tail)."""
     k_fp = kivi_dequant_k(kq, kchs, ktail, kts, new_lengths, group)
     v_fp = kivi_dequant_v4(vq, vs, vtail, vts, new_lengths, group)
-    return _kivi_ref("int4_kv_attention_ref", q, k_fp, v_fp, lengths, variants)
+    return _kivi_ref("int4_kv_attention_ref", q, k_fp, v_fp, lengths, window, scale, softcap,
+                     variants)
 
 
 def _kivi_attention_launch(name, fn, v4, q, kq, kchs, vq, vs, ktail, kts, vtail,
-                           vts, lengths, new_lengths, group):
+                           vts, lengths, new_lengths, group, window, scale, softcap):
     B, T, H, Dh = q.shape
     KV, S2 = kq.shape[1], kq.shape[2]
     S, G = 2 * S2, group
@@ -262,45 +291,53 @@ def _kivi_attention_launch(name, fn, v4, q, kq, kchs, vq, vs, ktail, kts, vtail,
         q.data_ptr(), _build.DTYPE_CODES[q.dtype], kq.data_ptr(), kchs.data_ptr(),
         vq.data_ptr(), vs.data_ptr(), ktail.data_ptr(), kts.data_ptr(), vtail.data_ptr(),
         vts.data_ptr(), lengths.data_ptr(), new_lengths.data_ptr(), out.data_ptr(),
-        B, T, H, KV, S, Dh, G, float(Dh**-0.5), _build.stream_ptr(dev))
+        B, T, H, KV, S, Dh, G, score_scale(Dh, scale), window, float(softcap),
+        _build.stream_ptr(dev))
     _build.check(err, c_name)
     fn.launches += 1
     return out
 
 
 def k4v8_attention(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
-                   new_lengths, *, group, **variants):
+                   new_lengths, *, group, window=0, scale=0.0, softcap=0.0, **variants):
     """Causal GQA attention over the K4V8 cache, prefill (T > 1) or decode.
 
     q [B, T, H, Dh]; kq [B, KV, S/2, Dh] packed int4 K; kchs [B, KV, S/G,
     Dh] f32; vq [B, KV, S, Dh] int8; vs [B, KV, S] f32; ktail/vtail [B, KV,
     2G, Dh] int8 (the V tail mirrors vq); kts/vts [B, KV, 2G] f32;
     lengths [B] int32 = length before this step, new_lengths after it
-    (keys at or past (min(new_lengths, S) // G) G are read from the tails).
-    Returns [B, T, H, Dh] in q.dtype. Replaces
+    (keys at or past (min(new_lengths, S) // G) G are read from the tails);
+    ``window``, ``scale``, ``softcap`` as the module says. Returns [B, T,
+    H, Dh] in q.dtype. Replaces
     ``protoquant_tpu/ops/attention.py:k4v8_attention`` (``_attn_k4v8_kernel``).
     """
-    _reject_variants("k4v8_attention", **variants)
+    reject_variants("k4v8_attention", **variants)
+    window = _window("k4v8_attention", window)
     args = (q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, new_lengths)
     if q.device.type == "cpu":
-        return k4v8_attention_ref(*args, group=group)
-    return _kivi_attention_launch("k4v8_attention", k4v8_attention, False, *args, group)
+        return k4v8_attention_ref(*args, group=group, window=window, scale=scale,
+                                  softcap=softcap)
+    return _kivi_attention_launch("k4v8_attention", k4v8_attention, False, *args, group,
+                                  window, scale, softcap)
 
 
 k4v8_attention.launches = 0
 
 
 def int4_kv_attention(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
-                      new_lengths, *, group, **variants):
+                      new_lengths, *, group, window=0, scale=0.0, softcap=0.0, **variants):
     """Causal GQA attention over the Int4 (KIVI) cache: as
     :func:`k4v8_attention` with vq [B, KV, S/2, Dh] packed int4 V and vs
     [B, KV, 2, S/2] its parity-split per-token scales. Replaces
     ``protoquant_tpu/ops/attention.py:int4_kv_attention`` (``_attn4_kernel``)."""
-    _reject_variants("int4_kv_attention", **variants)
+    reject_variants("int4_kv_attention", **variants)
+    window = _window("int4_kv_attention", window)
     args = (q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, new_lengths)
     if q.device.type == "cpu":
-        return int4_kv_attention_ref(*args, group=group)
-    return _kivi_attention_launch("int4_kv_attention", int4_kv_attention, True, *args, group)
+        return int4_kv_attention_ref(*args, group=group, window=window, scale=scale,
+                                     softcap=softcap)
+    return _kivi_attention_launch("int4_kv_attention", int4_kv_attention, True, *args, group,
+                                  window, scale, softcap)
 
 
 int4_kv_attention.launches = 0

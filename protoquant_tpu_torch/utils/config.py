@@ -1,4 +1,5 @@
-"""Model and engine configs: the fields the Llama path reads.
+"""Model and engine configs: the fields the Llama, Mistral and Gemma-2
+paths read.
 
 Field names and defaults follow ``protoquant_tpu.utils.config`` so a config
 carries across by name. The defaults are Llama-2-7B.
@@ -20,11 +21,50 @@ class ModelConfig:
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    # Kept for configs that carry it; lm_head is its own parameter either way,
+    # as in the JAX model.
+    tie_word_embeddings: bool = False
+    # MLP gate activation: "silu" (Llama SwiGLU) | "gelu_tanh" (Gemma GeGLU).
+    hidden_act: str = "silu"
+    # Gemma family: RMSNorm computes y * (1 + w) (weights stored zero-centred).
+    rmsnorm_unit_offset: bool = False
+    # Gemma family: scale embeddings by sqrt(hidden_size) after lookup.
+    scale_embeddings: bool = False
+    # Gemma-2 style final-logit soft-capping: cap * tanh(logits / cap); 0 = off.
+    final_logit_softcap: float = 0.0
+    # Head dim when it differs from hidden_size // heads (Gemma: 256). 0 = derive.
     head_dim_override: int = 0
+    # Mistral-family sliding-window attention: each query attends to at most
+    # the last `sliding_window` positions. 0 = full causal attention.
+    sliding_window: int = 0
+    # Gemma-2: the window applies only on even layers (odd layers full).
+    alternating_sliding_window: bool = False
+    # Every Nth layer global, the rest sliding: layer i slides iff (i+1) %
+    # pattern != 0 (2 == Gemma-2's alternation; 0 = all layers sliding when
+    # sliding_window > 0).
+    sliding_window_pattern: int = 0
+    # Gemma-2: attention scores scaled by query_pre_attn_scalar^-0.5 instead
+    # of head_dim^-0.5 (0 = default head_dim scaling).
+    query_pre_attn_scalar: float = 0.0
+    # Gemma-2: attention-logit soft-capping cap*tanh(s/cap) pre-mask (0=off).
+    attn_logit_softcap: float = 0.0
+    # Gemma-2 sandwich norms: post-attention norm on the attention OUTPUT,
+    # plus pre/post-feedforward norms around the MLP.
+    sandwich_norms: bool = False
 
     def __post_init__(self):
         if self.num_attention_heads % self.num_key_value_heads:
             raise ValueError("num_attention_heads must divide by num_key_value_heads")
+        if self.hidden_act not in ("silu", "gelu_tanh"):
+            raise ValueError(f"hidden_act {self.hidden_act!r}: the port has 'silu' and "
+                             "'gelu_tanh'")
+
+    def layer_window(self, layer_idx: int) -> int:
+        """The sliding window of layer ``layer_idx`` (0 = full causal), as
+        ``protoquant_tpu/models/llama.py:Attention`` picks it."""
+        pattern = self.sliding_window_pattern or (2 if self.alternating_sliding_window else 0)
+        sliding = self.sliding_window > 0 and (pattern == 0 or bool((layer_idx + 1) % pattern))
+        return self.sliding_window if sliding else 0
 
     @property
     def head_dim(self) -> int:
@@ -34,6 +74,45 @@ class ModelConfig:
     @classmethod
     def llama2_7b(cls) -> "ModelConfig":
         return cls()
+
+    @classmethod
+    def mistral_7b(cls) -> "ModelConfig":
+        return cls(
+            vocab_size=32000,
+            hidden_size=4096,
+            intermediate_size=14336,
+            num_hidden_layers=32,
+            num_attention_heads=32,
+            num_key_value_heads=8,
+            max_position_embeddings=32768,
+            rms_norm_eps=1e-5,
+            rope_theta=10000.0,
+            sliding_window=4096,
+        )
+
+    @classmethod
+    def gemma2_9b(cls) -> "ModelConfig":
+        return cls(
+            vocab_size=256000,
+            hidden_size=3584,
+            intermediate_size=14336,
+            num_hidden_layers=42,
+            num_attention_heads=16,
+            num_key_value_heads=8,
+            max_position_embeddings=8192,
+            rms_norm_eps=1e-6,
+            tie_word_embeddings=True,
+            hidden_act="gelu_tanh",
+            rmsnorm_unit_offset=True,
+            scale_embeddings=True,
+            head_dim_override=256,
+            sliding_window=4096,
+            alternating_sliding_window=True,
+            query_pre_attn_scalar=256.0,
+            attn_logit_softcap=50.0,
+            final_logit_softcap=30.0,
+            sandwich_norms=True,
+        )
 
     @classmethod
     def tiny(cls, vocab_size: int = 256) -> "ModelConfig":

@@ -650,3 +650,68 @@ def test_mixed_wrappers_reject_and_count(cuda):
     counts = ops.launch_counts()
     assert (counts["mixed_kv_attention"], counts["kv_mixed_scatter_decode"]) == (1, 1)
     assert counts["int8_kv_attention"] == counts["kv_scatter_decode"] == 0
+
+
+# -- the sliding-window, score-scale and softcap variants (Gemma-2 heads) --------
+
+# (T, window, scale, softcap): decode with a window across tiles, a prefill
+# chunk whose rows' windows are disjoint (window < T), the score scale
+# alone, and Gemma-2's three together
+VARIANTS = [(1, 40, 0.0, 0.0), (9, 3, 0.0, 0.0), (1, 0, 0.0625, 0.0), (5, 50, 0.0625, 8.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,window,scale,softcap", VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_variants_vs_plain(cuda, T, window, scale, softcap, dtype):
+    g = torch.Generator(device=cuda).manual_seed(T + window)
+    B, KV, group, S, Dh = 4, 2, 2, 192, 256
+    kq = torch.randint(-127, 128, (B, KV, S, Dh), generator=g, device=cuda, dtype=torch.int8)
+    vq = torch.randint_like(kq, -127, 128)
+    ks = torch.rand(B, KV, S, generator=g, device=cuda) * 1e-2 + 1e-3
+    vs = torch.rand(B, KV, S, generator=g, device=cuda) * 1e-2 + 1e-3
+    lengths = torch.tensor([0, 37, 130, S - T], dtype=torch.int32, device=cuda)
+    # q large enough that the scores pass the softcap
+    q = (torch.randn(B, T, KV * group, Dh, generator=g, device=cuda) * 8).to(dtype)
+    kw = dict(window=window, scale=scale, softcap=softcap)
+    out = ops.int8_kv_attention(q, kq, ks, vq, vs, lengths, **kw)
+    ref = ops.int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, **kw)
+    torch.cuda.synchronize()
+    atol = ATOL if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,window,scale,softcap", VARIANTS)
+@pytest.mark.parametrize("tier", ["k4v8", "int4"])
+def test_kivi_attention_variants_vs_plain(cuda, tier, T, window, scale, softcap):
+    g = torch.Generator(device=cuda).manual_seed(T + window + 1)
+    G, S, KV, group, Dh = 16, 128, 2, 2, 256
+    lens = [0, 15, 70, S - T]
+    B = len(lens)
+    cache = _kivi_cache(g, cuda, tier, B, KV, S, Dh, G)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    new_lengths = lengths + T
+    if tier == "k4v8":
+        _mirror_v(cache, new_lengths, G)
+    q = torch.randn(B, T, KV * group, Dh, generator=g, device=cuda) * 8
+    _, attn = KIVI[tier]
+    kw = dict(group=G, window=window, scale=scale, softcap=softcap)
+    out = getattr(ops, attn)(q, *cache, lengths, new_lengths, **kw)
+    ref = getattr(ops, attn + "_ref")(q, *cache, lengths, new_lengths, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 6])
+def test_mixed_attention_scale_vs_plain(cuda, T):
+    g = torch.Generator(device=cuda).manual_seed(T + 3)
+    S, KV, Dh = 96, 2, 128
+    cache = _mixed_cache(g, cuda, 3, KV, S, Dh)
+    lengths = torch.tensor([0, 41, S - T], dtype=torch.int32, device=cuda)
+    q = torch.randn(3, T, 2 * KV, Dh, generator=g, device=cuda)
+    out = ops.mixed_kv_attention(q, *cache, lengths, scale=0.1)
+    ref = ops.mixed_kv_attention_ref(q, *cache, lengths, scale=0.1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)

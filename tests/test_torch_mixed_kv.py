@@ -200,7 +200,7 @@ def test_attention_variants_not_ported_raise():
     c = MixedKVCache.init(1, 16, 1, 16, device="cpu")
     q = torch.zeros(1, 1, 2, 16)
     for fn in (ops.mixed_kv_attention, ops.mixed_kv_attention_ref):
-        for kw in ({"window": 4}, {"scale": 0.5}, {"softcap": 5.0},
+        for kw in ({"window": 4}, {"softcap": 5.0},
                    {"alibi_slopes": torch.ones(2)}, {"sink_logits": torch.zeros(2)},
                    {"tree_mask": torch.ones(1, 1)}):
             with pytest.raises(NotImplementedError):
