@@ -17,7 +17,16 @@ Phases (any failure exits non-zero and prints no result line):
               without the softcap (planted faults, which must miss); at
               equal lengths the windowed int8 decode must take at most
               0.65 of the full-causal time (its tiles below the window are
-              skipped); the K8V4 attention also with a score scale of 0.1
+              skipped); the K8V4 attention also with a score scale of 0.1;
+              the int8 attention over a ring at Mistral-7B's shapes (window
+              4096, 4608 columns, and 4640 with 4 StreamingLLM sinks; decode
+              at lengths 63 / 4607 / 9000 / 20000, a prefill chunk of 512),
+              against its plain version reading the columns as positions
+              and dropping the sinks (planted faults, which must miss); the
+              int8, paged, K4V8 and Int4 attentions with ALiBi at
+              BLOOM-560m's shapes (16 heads of 64, S = 2048; decode, and a
+              prefill chunk of 256 but paged), each against its plain
+              version without the slopes (a planted fault)
   4. slice    LlamaModel(llama2_7b, "dynamic") at full width and depth,
               random int8 weights from --seed, serving 6 greedy requests
               through Engine(max_batch_size=4, max_seq_len=1024,
@@ -101,11 +110,49 @@ Phases (any failure exits non-zero and prints no result line):
               faults: its attention ignoring the window, and dropping the
               score scale; ignoring the softcap is printed as a reading
               (random weights never reach the cap: phase 3 shows that fault)
+ 19. mistral ring  LlamaModel(mistral_7b, "dynamic") at full width and all
+              32 layers served through Engine(max_batch_size=4,
+              max_seq_len=32768, prefill_chunk=512, kv_layout="ring"): 6
+              greedy requests, prompts of 64 to 9000 tokens (three past the
+              ring's 4608 columns, so it wraps); asserts the cache's bytes
+              (1188.0 MiB, where the dense int8 layout takes 8448.0) and
+              each decode step's launches: 129 rowquant, 225 qmatmul, no
+              decode scatter (the ring writes in plain PyTorch), 32
+              int8_kv_attention; prints the step median, the kernel sum
+              and peak memory
+ 20. gemma2 hybrid ring  (run right after phase 17) phase 17's model and
+              requests over kv_layout="ring": rings on its 21 sliding layers, dense int8
+              caches on its 21 global ones (4265.625 MiB against phase 17's
+              5460.0); per decode step 169 rowquant, 295 qmatmul, 21 scatter,
+              42 attention; prints the step median and the share of tokens
+              equal to phase 17's (a reading)
+ 21. ring agreement  phase 5 for a 2-layer full-width Mistral-7B (both
+              layers on rings of 5120 columns, a 6000-token prompt that
+              wraps them) and Gemma-2 hybrid (a 6206-token prompt), f32 and
+              bf16, prefilled in chunks of 1024: the ring's kernels against
+              the same kernels over the dense windowed int8 cache and
+              against the plain versions; planted faults: the columns read
+              as positions, the window dropped on the ring
+ 22. bloom    LlamaModel(bloom_560m, "dynamic") at full width and all 24
+              layers, 4 slots, prefill_chunk=256, 32 new tokens, over the
+              dense int8 cache (max_seq_len 2048, 408.0 MiB), the paged pool
+              (128-token pages, prefix caching, 8 requests sharing a
+              512-token system prompt), the K4V8 and Int4 caches (G = 64),
+              and the ring with stream_window=512, attention_sinks=4,
+              max_seq_len=8192 (800 columns, 159.375 MiB; prompts up to
+              6000 tokens, past the 2048 trained positions); each decode
+              step must launch 97 rowquant, 145 qmatmul and 24 / 24 of the
+              layout's writer and attention (the ring: no writer)
+ 23. bloom agreement  phase 5 for a 2-layer full-width BLOOM over the int8,
+              paged, K4V8, Int4 and ring-with-sinks caches, f32 and bf16;
+              planted faults: each attention dropping ALiBi, the ring
+              dropping its sinks
 Each phase prints its seconds, and the run its total.
 The line before the last is {"kernels": [...]}, one entry per kernel body
-(20): "launches" is its count summed over the ten engine runs (phases 4,
-6, 8.1, 8.2, 8.3, 10, 12, 13, 15, 17), each driven with the counts at 0 and
-read just after ("launches_by_path"). wo4_legacy and dequant are on no engine path
+(20): "launches" is its count summed over the seventeen engine runs (phases
+4, 6, 8.1, 8.2, 8.3, 10, 12, 13, 15, 17, 19, 20 and the five of 22), each
+driven with the counts at 0 and read just after ("launches_by_path").
+wo4_legacy and dequant are on no engine path
 (a caller reaches wo4_legacy through the formulation argument of
 weight_only_int4_matmul, and dequant as ops.dequant; QTensor.dequantize
 stays on core.numerics, as in the JAX package), so their counts there are
@@ -169,6 +216,19 @@ G2_SEQ, G2_WINDOW, G2_SCALE, G2_SOFTCAP = 8192, 4096, 256.0**-0.5, 50.0
 # the windowed int8 decode at equal lengths 8000 reads 4096 of 8001 keys: at
 # most this share of the full-causal time, or its tiles are not skipped
 WINDOW_TIME_SHARE = 0.65
+# Mistral-7B (ModelConfig.mistral_7b): 32 query heads over 8 KV heads of
+# 128, a window of 4096 on every layer; its ring behind a prefill chunk of
+# 512 holds 4608 columns (4640 with 4 StreamingLLM sinks). Decode lengths:
+# two rows inside the ring, two wrapped (9000, 20000).
+M7_KV, M7_INTER, M7_WINDOW, M7_CHUNK = 8, 14336, 4096, 512
+RING_LENGTHS = [63, 4607, 9000, 20000]
+# BLOOM-560m (ModelConfig.bloom_560m): 16 heads of 64 (no GQA), ALiBi; the
+# phase-22 dense caches hold 2048 positions
+BL_HEADS, BL_HEAD_DIM, BL_SEQ, BL_LENGTHS = 16, 64, 2048, [63, 700, 2047, 1000]
+# In the sinks cases of phase 3 the sink columns' key scales are this many
+# times the others', so that the sinks draw attention, as StreamingLLM's
+# do, and a kernel that drops them shows
+SINK_SCALE = 10.0
 
 
 def log(msg: str) -> None:
@@ -241,14 +301,17 @@ def check_rowquant(ops, gen, dev):
 G2_LINEAR_SHAPES = ((G2_HIDDEN, G2_HEADS * G2_HEAD_DIM), (G2_HIDDEN, G2_KV * G2_HEAD_DIM),
                     (G2_HEADS * G2_HEAD_DIM, G2_HIDDEN), (G2_HIDDEN, G2_INTER),
                     (G2_INTER, G2_HIDDEN), (G2_HIDDEN, G2_VOCAB))
+# Mistral-7B's projections that Llama-2-7B lacks: k and v, gate and up, down
+M7_LINEAR_SHAPES = ((HIDDEN, M7_KV * HEAD_DIM), (HIDDEN, M7_INTER), (M7_INTER, HIDDEN))
 
 
 def check_qmatmul(ops, gen, dev):
-    """Llama-2-7B's projections at M = 4 and 256, Gemma-2-9B's at M = 4."""
+    """Llama-2-7B's projections at M = 4 and 256, Gemma-2-9B's and the
+    three other Mistral-7B ones at M = 4."""
     cases = []
     shapes = [(m, k, n) for m in (4, 256)
               for k, n in ((HIDDEN, HIDDEN), (HIDDEN, INTER), (INTER, HIDDEN), (HIDDEN, VOCAB))]
-    for m, k, n in shapes + [(4, k, n) for k, n in G2_LINEAR_SHAPES]:
+    for m, k, n in shapes + [(4, k, n) for k, n in G2_LINEAR_SHAPES + M7_LINEAR_SHAPES]:
         xq, sx = ops.rowquant_ref(torch.randn(m, k, generator=gen, device=dev))
         ws = [torch.randint(-127, 128, (n, k), generator=gen, device=dev,
                             dtype=torch.int8) for _ in range(copies_for(n * k))]
@@ -1164,7 +1227,197 @@ def check_gemma2_attention(ops, gen, dev, kv_dtype):
     return cases
 
 
-# -- phases 4 to 18: the slices and the agreements ---------------------------
+
+
+def ring_capacity(window: int, max_chunk: int, sinks: int = 0) -> int:
+    """Columns of a RingInt8KVCache (its init's rounding)."""
+    return -(-(sinks + window + max_chunk) // 32) * 32
+
+
+def _margins(name, label, out, tol, faults):
+    """Each planted fault's largest error over ``tol``; every one must miss."""
+    got = {f: (out.float() - bad.float()).abs().max().item() / tol for f, bad in faults.items()}
+    if any(m <= 1 for m in got.values()):
+        raise AssertionError(f"{name} {label}: the tolerance passes a planted fault "
+                             f"(margins over it {got})")
+    return got
+
+
+def check_ring_attention(ops, gen, dev):
+    """The int8 attention over a ring at Mistral-7B's shapes (B = 4, 32
+    heads over 8, Dh = 128, window 4096): decode at lengths 63 / 4607 /
+    9000 / 20000 and a prefill chunk of 512 from 63 and 9000, each over the
+    ring of 4608 columns (no sinks) and of 4640 (4 sinks). Planted faults:
+    the plain version reading the columns as positions, and dropping the
+    sinks; both must miss the tolerance. Bound: the bytes of the columns
+    some row of the step sees, the positions, q and out. Library: SDPA over
+    the ring dequantized to bf16 with a boolean mask from the positions."""
+    import torch.nn.functional as F
+
+    from protoquant_tpu_torch.models import ring_positions
+
+    KV, H, Dh, W = M7_KV, HEADS, HEAD_DIM, M7_WINDOW
+    cases = []
+    for label, B, T, lens in (("ring decode", 4, 1, RING_LENGTHS),
+                              ("ring prefill", 2, M7_CHUNK, [63, 9000])):
+        for sinks in (0, 4):
+            C = ring_capacity(W, M7_CHUNK, sinks)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            k_pos = ring_positions(lengths + T, C, sinks)
+            caches = [_cache(gen, dev, B, KV, C, Dh)
+                      for _ in range(copies_for(B * KV * C * (2 * Dh + 8)))]
+            for c in caches:
+                c[1][:, :, :sinks] *= SINK_SCALE
+            q = torch.randn(B, T, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
+            kw = dict(window=W, k_positions=k_pos, sinks=sinks)
+            out = ops.int8_kv_attention(q, *caches[0], lengths, **kw)
+            ref = ops.int8_kv_attention_ref(q, *caches[0], lengths, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = ATTN_TOL * ref.float().abs().max().item()
+            name = f"{label}{' sinks' if sinks else ''}"
+            if not err <= tol:
+                raise AssertionError(f"int8_kv_attention {name}: max abs err {err} > {tol}")
+            plain = lambda **wrong: ops.int8_kv_attention_ref(q, *caches[0], lengths,
+                                                              **dict(kw, **wrong))
+            faults = {"positions read as columns": plain(k_positions=None)}
+            if sinks:
+                faults["sinks dropped"] = plain(sinks=0)
+            margins = _margins("int8_kv_attention", name, out, tol, faults)
+            qpos = lengths.long()[:, None] + torch.arange(T, device=dev)
+            kp = k_pos.long()[:, None, :]
+            vis = ((kp >= 0) & (kp <= qpos[..., None])
+                   & ((kp > qpos[..., None] - W) | (kp < sinks)))  # [B, T, C]
+            cols = vis.any(1).sum().item()  # columns some row of the step sees
+            nbytes = KV * cols * (2 * Dh + 8) + 4 * B * C + 2 * 2 * q.numel() + 4 * B
+            bnd, kind = bound_ms(nbytes, 4 * Dh * H * vis.sum().item(), BF16_FLOPS_PER_S)
+            deq = [((kq.float() * ks[..., None]).to(torch.bfloat16),
+                    (vq.float() * vs[..., None]).to(torch.bfloat16))
+                   for kq, ks, vq, vs in caches[:copies_for(B * KV * C * Dh * 4)]]
+            qh, mask = q.transpose(1, 2), vis[:, None]
+            cases.append({
+                "shape": f"{name} B={B} T={T} H={H} KV={KV} Dh={Dh} C={C} window={W} "
+                         f"sinks={sinks} lengths={lens}",
+                "max_abs_err": err, "fault_margins": margins,
+                "ms": bench([lambda c=c: ops.int8_kv_attention(q, *c, lengths, **kw)
+                             for c in caches]),
+                "plain_ms": bench([lambda c=c: ops.int8_kv_attention_ref(q, *c, lengths, **kw)
+                                   for c in caches], iters=5),
+                "bound_ms": bnd, "bound_by": kind,
+                "library_ms": bench([lambda k=k, v=v: F.scaled_dot_product_attention(
+                    qh, k, v, attn_mask=mask, enable_gqa=True) for k, v in deq])})
+            del caches, deq
+    return cases
+
+
+# kernel -> the attention of phase 3's ALiBi cases
+ALIBI_KERNELS = {"int8": "int8_kv_attention", "paged": "paged_int8_attention",
+                 "k4v8": "k4v8_attention", "int4": "int4_kv_attention"}
+
+
+def check_alibi_attention(ops, gen, dev, kernel):
+    """The ``kernel`` attention with ALiBi at BLOOM-560m's shapes (16 heads
+    of 64, S = 2048; paged: 128-token pages in a shuffled table; KIVI: G =
+    64) against its plain version within ATTN_TOL: decode at lengths 63 /
+    700 / 2047 / 1000 and (but paged, decode only) a prefill chunk of 256
+    from 700. Planted fault: the plain version without the slopes, which
+    must miss. Bound: the visible keys' bytes, q, out and the slopes.
+    Library: SDPA with the bias as a bf16 float mask (-inf where masked)
+    over the cache dequantized to bf16 (paged: each row's gathered window)."""
+    import torch.nn.functional as F
+
+    from protoquant_tpu_torch.models.llama import alibi_slopes
+    from protoquant_tpu_torch.ops.attention import kivi_dequant_k, kivi_dequant_v4
+    from protoquant_tpu_torch.ops.paged_attention import gather_window
+
+    name = ALIBI_KERNELS[kernel]
+    attn, plain = getattr(ops, name), getattr(ops, name + "_ref")
+    S, KV, H, Dh, G = BL_SEQ, BL_HEADS, BL_HEADS, BL_HEAD_DIM, KIVI_G
+    slopes = alibi_slopes(H).to(dev)
+    shapes = [("bloom decode alibi", 4, 1, BL_LENGTHS)]
+    if kernel != "paged":
+        shapes.append(("bloom prefill alibi", 1, 256, [700]))
+    cases = []
+    for label, B, T, lens in shapes:
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        new_lengths = lengths + T
+        max_pages = S // PAGE
+        if kernel == "int8":
+            caches = [_cache(gen, dev, B, KV, S, Dh)
+                      for _ in range(copies_for(B * KV * S * (2 * Dh + 8)))]
+            after = (lengths,)
+        elif kernel == "paged":
+            P = B * max_pages + 1
+            pt = _shuffled_table(gen, B, max_pages, P, dev)
+            caches = [_pools(gen, dev, P, KV, PAGE, Dh)
+                      for _ in range(copies_for(P * KV * PAGE * (2 * Dh + 8)))]
+            after = (pt, lengths)
+        else:
+            caches = [_kivi_cache(gen, dev, kernel, B, KV, S, Dh)
+                      for _ in range(copies_for(B * KV * S * (2 * Dh if kernel == "k4v8"
+                                                             else Dh) // 2))]
+            if kernel == "k4v8":
+                caches = [_mirror_v(c, new_lengths) for c in caches]
+            after = (lengths, new_lengths)
+        kw = {"group": G} if kernel in KIVI_KERNELS else {}
+        q = torch.randn(B, T, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
+        call = lambda fn, c, **k: fn(q, *c, *after, **k)
+        out = call(attn, caches[0], alibi_slopes=slopes, **kw)
+        ref = call(plain, caches[0], alibi_slopes=slopes, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = ATTN_TOL * ref.float().abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
+        margins = _margins(name, label, out, tol, {"ALiBi dropped": call(plain, caches[0], **kw)})
+        qpos = lengths.long()[:, None] + torch.arange(T, device=dev)
+        span = max_pages * PAGE if kernel == "paged" else S
+        kpos = torch.arange(span, device=dev)
+        valid = kpos <= qpos[..., None]  # [B, T, S]
+        if kernel == "int8":
+            ctx = (lengths.long() + T).clamp_max(S)
+            nbytes = KV * ctx.sum().item() * (2 * Dh + 8) + 2 * 2 * q.numel() + 4 * B + 4 * H
+        elif kernel == "paged":
+            nbytes = (KV * (lengths.long() + 1).sum().item() * (2 * Dh + 8) + 2 * 2 * q.numel()
+                      + 4 * B * (1 + max_pages) + 4 * H)
+        else:
+            nbytes = kivi_attention_bytes(kernel, lens, new_lengths.tolist(), B, KV, T, H, Dh,
+                                          G, S) + 4 * H
+        bnd, kind = bound_ms(nbytes, 4 * Dh * H * valid.sum().item(), BF16_FLOPS_PER_S)
+        dist = (qpos[..., None] - kpos).float()  # [B, T, S]
+        bias = torch.where(valid[:, None], -slopes[None, :, None, None] * dist[:, None],
+                           torch.tensor(float("-inf"), device=dev)).to(torch.bfloat16)
+        deq = []
+        for c in caches[:copies_for(B * KV * span * Dh * 4)]:
+            if kernel == "int8":
+                kq, ks, vq, vs = c
+            elif kernel == "paged":
+                kq, ks, vq, vs = gather_window(*c, pt)
+            if kernel in ("int8", "paged"):
+                k, v = kq.float() * ks[..., None], vq.float() * vs[..., None]
+            else:
+                kq, kchs, vq, vs, kt, kts, vt, vts = c
+                k = kivi_dequant_k(kq, kchs, kt, kts, new_lengths, G)
+                v = (vq.float() * vs[..., None] if kernel == "k4v8"
+                     else kivi_dequant_v4(vq, vs, vt, vts, new_lengths, G))
+            deq.append((k.to(torch.bfloat16), v.to(torch.bfloat16)))
+        qh = q.transpose(1, 2)
+        cases.append({
+            "shape": f"{label} B={B} T={T} H={H} Dh={Dh} S={S}"
+                     f"{f' ps={PAGE}' if kernel == 'paged' else ''}"
+                     f"{f' G={G}' if kw else ''} lengths={lens}",
+            "max_abs_err": err, "fault_margins": margins,
+            "ms": bench([lambda c=c: call(attn, c, alibi_slopes=slopes, **kw) for c in caches]),
+            "plain_ms": bench([lambda c=c: call(plain, c, alibi_slopes=slopes, **kw)
+                               for c in caches], iters=5),
+            "bound_ms": bnd, "bound_by": kind,
+            "library_ms": bench([lambda k=k, v=v: F.scaled_dot_product_attention(
+                qh, k, v, attn_mask=bias) for k, v in deq])})
+        del caches, deq
+    return cases
+
+
+# -- phases 4 to 23: the slices and the agreements ---------------------------
 
 
 def fused(mode: str) -> bool:
@@ -1283,14 +1536,15 @@ SLICES = {"llama2_7b": (1024, 256, [64, 700, 130, 411, 256, 517]),
 
 def run_slice(ops, seed: int, dev, mode: str = "dynamic", formulation: str | None = None,
               fused_quant: str | None = None, kv_dtype: str = "int8",
-              preset: str = "llama2_7b"):
+              preset: str = "llama2_7b", keep_model: bool = False):
     """Phases 4, 8.1, 8.3, 10, 12, 13, 15 (Llama-2-7B) and 17 (Gemma-2-9B):
     the ``preset`` model in a dynamic mode (int8 or int4 weights) on the
     dense cache of ``kv_dtype``, 6 requests. ``formulation``: the W4A8
     formulation of a dynamic_int4 run; ``fused_quant``: the FUSED_QUANT knob
-    (default: each as resolved)."""
+    (default: each as resolved); ``keep_model``: the model comes back in the
+    stats (phase 20 serves phase 17's)."""
     with knob(ops, "W4A8_FORMULATION", formulation), knob(ops, "FUSED_QUANT", fused_quant):
-        return _run_slice(ops, seed, dev, mode, kv_dtype, preset)
+        return _run_slice(ops, seed, dev, mode, kv_dtype, preset, keep_model)
 
 
 def kv_cache_bytes(caches) -> int:
@@ -1315,7 +1569,8 @@ def expected_cache_bytes(kv_dtype: str, layers: int, B: int, KV: int, S: int, Dh
     return layers * (B * KV * per + 4 * B)
 
 
-def _run_slice(ops, seed: int, dev, mode: str, kv_dtype: str, preset: str):
+def _run_slice(ops, seed: int, dev, mode: str, kv_dtype: str, preset: str,
+               keep_model: bool = False):
     from protoquant_tpu_torch import Engine, EngineConfig
 
     max_seq, chunk, prompt_lens = SLICES[preset]
@@ -1376,6 +1631,8 @@ def _run_slice(ops, seed: int, dev, mode: str, kv_dtype: str, preset: str):
     else:  # the first 4 prompts whole, so that the window matters
         profile_decode(model, prompts, max_seq_len=max_seq, prefill_chunk=chunk,
                        ctx=max_seq, kv_dtype=kv_dtype)
+    if keep_model:
+        stats["model"] = model
     del model
     torch.cuda.empty_cache()
     return launches, stats
@@ -1496,6 +1753,208 @@ def run_paged_slice(ops, seed: int, dev, mode: str = "weight_only"):
     del eng, model
     torch.cuda.empty_cache()
     return launches, stats
+
+
+def step_launches(ops, cfg, writer: str | None, n_writes: int, attention: str) -> dict:
+    """Exact launches of one unfused dynamic decode step of ``cfg``: 4
+    rowquant per layer (the input of q/k/v, of o_proj, of the MLP, of
+    down_proj) and one for lm_head; a qmatmul per projection (7 per gated
+    layer, 6 per plain one) and lm_head; ``n_writes`` launches of the
+    decode ``writer`` (the layers whose cache has one) and one
+    ``attention`` per layer."""
+    L = cfg.num_hidden_layers
+    per_step = dict.fromkeys(ops.KERNELS, 0)
+    per_step.update({"rowquant": 4 * L + 1, "qmatmul": (7 if cfg.mlp_gated else 6) * L + 1,
+                     attention: L})
+    if writer:
+        per_step[writer] = n_writes
+    return per_step
+
+
+def mib_close(nbytes: int, mib: float) -> bool:
+    """``nbytes`` is ``mib`` MiB give or take the caches' length vectors."""
+    return abs(nbytes / 2**20 - mib) < 0.01
+
+
+def _layer_bytes(B: int, KV: int, S: int, Dh: int) -> int:
+    """Bytes of one int8 cache (dense or ring) of S columns."""
+    return B * KV * S * (2 * Dh + 8) + 4 * B
+
+
+def _check_served(label, cfg, launches, path, per_step, bad_steps, decode_ms, prompts, outs):
+    if any(launches[k] <= 0 for k in path):
+        raise AssertionError(f"a kernel of the {label} path never launched: {launches}")
+    if bad_steps or not decode_ms:
+        raise AssertionError(f"{label}: decode-step launches {bad_steps[:3]} != {per_step}")
+    for p, out in zip(prompts, outs):
+        if out is None or len(out) != 32 or not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"{label} request (prompt {len(p)}): bad output {out}")
+
+
+def _log_served(label, prompts, outs, wall, prefill_ms, decode_ms, peak):
+    generated = sum(len(o or []) for o in outs)
+    log(f"{label}: {len(prompts)} requests, prompts {[len(p) for p in prompts]}, {generated} "
+        f"tokens in {wall:.3f} s = {generated / wall:.1f} tok/s; {len(prefill_ms)} steps with "
+        f"a prefill chunk (mean {sum(prefill_ms) / max(1, len(prefill_ms)):.3f} ms), "
+        f"{len(decode_ms)} decode steps (median {sorted(decode_ms)[len(decode_ms) // 2]:.3f} ms, "
+        f"min {min(decode_ms):.3f} ms); peak memory {peak / 2**30:.2f} GiB")
+    return {"tokens_per_s": generated / wall, "wall_s": wall, "prefill_step_ms": prefill_ms,
+            "decode_step_ms": decode_ms, "peak_gib": peak / 2**30, "outputs": outs}
+
+
+# the ring slices' traffic: Mistral's 6 prompts, three past its 4608 columns
+RING_PROMPTS = [64, 9000, 300, 6100, 1000, 4700]
+# cache MiB of the ring slices, and of the dense int8 layout they replace
+RING_MIB = {"mistral_7b": (1188.0, 8448.0), "gemma2_9b": (4265.625, 5460.0)}
+
+
+def run_ring_slice(ops, seed: int, dev, preset: str = "mistral_7b", model=None):
+    """Phases 19 and 20: ``preset`` in ``dynamic`` mode over
+    Engine(kv_layout="ring"), 4 slots, 6 greedy requests of 32 new tokens.
+    Mistral-7B (built here, max_seq_len 32768, prefill_chunk 512): a ring on
+    every layer. Gemma-2-9B (``model``, phase 17's, with its prompts and
+    EngineConfig): the per-layer hybrid, a ring on each sliding layer and a
+    dense int8 cache on each global one. Asserts the cache bytes and each
+    decode step's launches (the ring writes in plain PyTorch: no decode
+    scatter on its layers)."""
+    from protoquant_tpu_torch import Engine, EngineConfig
+    from protoquant_tpu_torch.models import RingInt8KVCache
+
+    if preset == "mistral_7b":
+        max_seq, chunk, prompt_lens = 32768, M7_CHUNK, RING_PROMPTS
+        cfg, model = _build(preset, "dynamic", seed, dev)
+    else:
+        (max_seq, chunk, prompt_lens), cfg = SLICES[preset], model.cfg
+    engine = Engine(model, EngineConfig(max_batch_size=4, max_seq_len=max_seq,
+                                        prefill_chunk=chunk, max_new_tokens=32),
+                    kv_layout="ring")
+    rings = [c for c in engine.caches if isinstance(c, RingInt8KVCache)]
+    L, KV, Dh = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    n_dense = L - len(rings)
+    C = ring_capacity(cfg.sliding_window, chunk)
+    cache_bytes = kv_cache_bytes(engine.caches)
+    want = len(rings) * _layer_bytes(4, KV, C, Dh) + n_dense * _layer_bytes(4, KV, max_seq, Dh)
+    want_mib, dense_mib = RING_MIB[preset]
+    if (cache_bytes != want or not mib_close(cache_bytes, want_mib)
+            or any(c.capacity != C for c in rings)
+            or not mib_close(L * _layer_bytes(4, KV, max_seq, Dh), dense_mib)):
+        raise AssertionError(f"ring cache: {cache_bytes} bytes, want {want} = {want_mib} MiB "
+                             f"({len(rings)} rings of {C} columns)")
+    gen = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in prompt_lens]
+    per_step = step_launches(ops, cfg, "kv_scatter_decode", n_dense, "int8_kv_attention")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t_run = time.perf_counter()
+    outs, prefill_ms, decode_ms, bad_steps, _ = serve(engine, prompts, ops, per_step)
+    wall = time.perf_counter() - t_run
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    label = f"ring slice {preset} dynamic"
+    stats = _log_served(label, prompts, outs, wall, prefill_ms, decode_ms, peak)
+    log(f"{label} launches: {json.dumps(launches)}; per decode step {json.dumps(per_step)}")
+    log(f"{label}: {len(rings)} rings of {C} columns and {n_dense} dense int8 caches of "
+        f"{max_seq}: KV cache {cache_bytes} bytes = {cache_bytes / 2**20} MiB (the dense "
+        f"int8 layout: {dense_mib} MiB)")
+    path = ("rowquant", "qmatmul", "int8_kv_attention") + (
+        ("kv_scatter_decode",) if n_dense else ())
+    _check_served(label, cfg, launches, path, per_step, bad_steps, decode_ms, prompts, outs)
+    del engine
+    if preset == "mistral_7b":  # the first 4 prompts cut past the ring's columns
+        profile_decode(model, prompts, max_seq_len=max_seq, prefill_chunk=chunk, ctx=C + 92,
+                       kv_layout="ring")
+    del model
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+# phase 22: BLOOM-560m's runs, each (path, EngineConfig fields, kv_layout,
+# kv_dtype, decode writer, attention)
+BLOOM_RUNS = (
+    ("bloom_dense", {}, "dense", "int8", "kv_scatter_decode", "int8_kv_attention"),
+    ("bloom_paged", {"page_size": PAGE, "prefix_cache": True}, "paged", "int8",
+     "paged_kv_scatter_decode", "paged_int8_attention"),
+    ("bloom_k4v8", {}, "dense", "k4v8", *KIVI_KERNELS["k4v8"]),
+    ("bloom_int4", {}, "dense", "int4", *KIVI_KERNELS["int4"]),
+    ("bloom_ring", {"max_seq_len": 8192, "stream_window": 512, "attention_sinks": 4}, "ring",
+     "int8", None, "int8_kv_attention"),
+)
+BLOOM_PROMPTS = [64, 700, 130, 1500, 256, 1017]
+# the ring's prompts run past BLOOM's 2048 trained positions
+BLOOM_RING_PROMPTS = [64, 6000, 300, 2500, 1000, 4000]
+BLOOM_MIB = {"bloom_dense": 408.0, "bloom_ring": 159.375}
+
+
+def run_bloom(ops, seed: int, dev) -> dict:
+    """Phase 22: BLOOM-560m in ``dynamic`` mode at full width and depth,
+    random int8 weights from ``seed``, 4 slots, prefill chunks of 256, 32
+    new tokens, over the dense int8 (max_seq_len 2048), paged (128-token
+    pages, prefix caching, 8 requests sharing a 512-token system prompt),
+    K4V8 and Int4 (G = 64) caches, and the ring with StreamingLLM serving
+    (window 512, 4 sinks, max_seq_len 8192: 800 columns). Each run is driven
+    with the counts at 0 and asserts every decode step's launches; returns
+    {path: (launches, stats)}."""
+    from protoquant_tpu_torch import Engine, EngineConfig
+
+    cfg, model = _build("bloom_560m", "dynamic", seed, dev)
+    L, KV, Dh = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    gen = torch.Generator().manual_seed(seed + 3)
+    draw = lambda n: torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+    system = draw(SYSTEM_TOKENS)
+    out = {}
+    for path, extra, layout, kv_dtype, writer, attention in BLOOM_RUNS:
+        ecfg = dict(max_batch_size=4, max_seq_len=BL_SEQ, prefill_chunk=256, max_new_tokens=32)
+        ecfg.update(extra)
+        engine = Engine(model, EngineConfig(**ecfg), kv_layout=layout, kv_dtype=kv_dtype)
+        if layout == "paged":
+            prompts = [system + draw(n) for n in SUFFIXES]
+        else:
+            prompts = [draw(n) for n in (BLOOM_RING_PROMPTS if layout == "ring"
+                                         else BLOOM_PROMPTS)]
+        cache_bytes = kv_cache_bytes(engine.caches)
+        if layout == "ring":
+            want = L * _layer_bytes(4, KV, ring_capacity(512, 256, 4), Dh)
+            if engine.caches[0].capacity != 800:
+                raise AssertionError(f"{path}: {engine.caches[0].capacity} columns, want 800")
+        elif layout == "paged":
+            P = 4 * BL_SEQ // PAGE + 1
+            want = L * (P * KV * PAGE * (2 * Dh + 8) + 4 * 4 * BL_SEQ // PAGE + 4 * 4)
+        else:
+            want = expected_cache_bytes(kv_dtype, L, 4, KV, BL_SEQ, Dh)
+        if cache_bytes != want or (path in BLOOM_MIB
+                                   and not mib_close(cache_bytes, BLOOM_MIB[path])):
+            raise AssertionError(f"{path}: KV cache {cache_bytes} bytes, want {want}")
+        per_step = step_launches(ops, cfg, writer, L, attention)
+        kernels = ("rowquant", "qmatmul", attention) + ((writer,) if writer else ()) + (
+            ("int8_kv_attention",) if layout == "paged" else ())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t_run = time.perf_counter()
+        outs, prefill_ms, decode_ms, bad_steps, crossed = serve(
+            engine, prompts, ops, per_step, first_alone=layout == "paged")
+        wall = time.perf_counter() - t_run
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        label = f"bloom slice {layout} {kv_dtype}"
+        stats = _log_served(label, prompts, outs, wall, prefill_ms, decode_ms, peak)
+        log(f"{label} launches: {json.dumps(launches)}; per decode step "
+            f"{json.dumps(per_step)}; KV cache {cache_bytes} bytes = {cache_bytes / 2**20} MiB"
+            f"{f'; chunk boundaries crossed by decode writes: {crossed}' if crossed else ''}")
+        _check_served(label, cfg, launches, kernels, per_step, bad_steps, decode_ms, prompts,
+                      outs)
+        if layout == "paged":
+            m = engine.metrics()
+            log(f"{label} metrics: {json.dumps(m)}")
+            if m["prefix_hit_tokens"] != (len(prompts) - 1) * SYSTEM_TOKENS:
+                raise AssertionError(f"{label}: prefix_hit_tokens {m['prefix_hit_tokens']}")
+        out[path] = (launches, stats)
+        del engine
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 @contextlib.contextmanager
@@ -1653,8 +2112,8 @@ def planted_faults(ops, mode: str = "dynamic", kv_dtype: str = "int8",
                 "weight_only_matmul": lambda x, w, sw, *a, **k: ops.weight_only_matmul_ref(
                     x, w, sw.roll(1), *a, **k)},
             "paged attention one key short": {
-                "paged_int8_attention": lambda q, kq, ks, vq, vs, pt, lengths:
-                    ops.paged_int8_attention_ref(q, kq, ks, vq, vs, pt, lengths - 1)},
+                "paged_int8_attention": lambda q, kq, ks, vq, vs, pt, lengths, **k:
+                    ops.paged_int8_attention_ref(q, kq, ks, vq, vs, pt, lengths - 1, **k)},
             "paged scatter writes every row to the trash page": {
                 "paged_kv_scatter_decode": lambda kq, ks, vq, vs, pt, *a:
                     ops.paged_kv_scatter_decode_ref(kq, ks, vq, vs, torch.full_like(pt, -1),
@@ -1676,13 +2135,61 @@ def planted_faults(ops, mode: str = "dynamic", kv_dtype: str = "int8",
 # Gemma-2's agreement prompt: 1.5 times the window and more, so that layer
 # 0's window hides keys from every decode position; the second decode write
 # completes a KIVI chunk (G = 64) and flushes it. Prefill in chunks of 1024,
-# logits kept at every 16th prompt position.
+# logits kept at every 16th prompt position. Mistral's ring agreement: 6000
+# tokens through a ring of 4096 + 1024 columns, which wraps.
 G2_AGREE_PROMPT, G2_AGREE_CHUNK, G2_AGREE_STRIDE = 6206, 1024, 16
+M7_AGREE_PROMPT = 6000
+# BLOOM's ring agreement: a serving window of 16 and 4 sinks behind
+# 8-token chunks (32 columns) under a 60-token prompt, so the ring wraps and
+# the sinks hold a share of each row's keys that dropping them shows
+BL_AGREE_RING = dict(window=16, sinks=4, chunk=8, prompt=60)
+# In the ring agreements q_proj's output is scaled by this much, so that a
+# row's attention falls on few keys, as a trained model's does, and not
+# spread evenly over thousands: which keys a row sees then shows in the
+# logits, and a fault in the mask with it
+RING_Q_GAIN = 4.0
+
+
+def ring_faults(ops):
+    """The ring's planted faults in the int8 attention's plain version: the
+    columns read as positions, and the window dropped."""
+    plain = ops.int8_kv_attention_ref
+    return {"int8_kv_attention reads the ring's columns as positions": {
+                "int8_kv_attention": lambda *a, **k: plain(*a, **dict(k, k_positions=None))},
+            "int8_kv_attention drops the window on the ring": {
+                "int8_kv_attention": lambda *a, **k: plain(*a, **dict(k, window=0))}}
+
+
+def bloom_faults(ops, kv_dtype: str, layout: str):
+    """BLOOM's planted faults: each attention of the cache dropping the
+    ALiBi slopes; on the ring, also the sinks."""
+    attns = {"paged": ("paged_int8_attention", "int8_kv_attention"),
+             "ring": ("int8_kv_attention",)}.get(layout, (CACHE_KERNELS[kv_dtype][1],))
+
+    def fault(attn, **wrong):
+        plain = getattr(ops, attn + "_ref")
+        return {attn: lambda *a, **k: plain(*a, **dict(k, **wrong))}
+
+    faults = {f"{a} drops ALiBi": fault(a, alibi_slopes=None) for a in attns}
+    if layout == "ring":
+        faults["int8_kv_attention drops the ring's sinks"] = fault("int8_kv_attention", sinks=0)
+    return faults
+
+
+def agreement_path(ops, mode: str, kv_dtype: str, layout: str, n_dense: int) -> tuple:
+    """The kernel bodies an agreement's kernel run launches."""
+    if layout == "ring":
+        return ("rowquant", "qmatmul", "int8_kv_attention") + (
+            ("kv_scatter_decode",) if n_dense else ())
+    if layout == "paged" and mode == "dynamic":
+        return ("rowquant", "qmatmul", "paged_kv_scatter_decode", "paged_int8_attention",
+                "int8_kv_attention")
+    return path_kernels(ops, mode, kv_dtype)
 
 
 def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
                   formulation: str | None = None, fused_quant: str | None = None,
-                  kv_dtype: str = "int8", preset: str = "llama2_7b"):
+                  kv_dtype: str = "int8", preset: str = "llama2_7b", layout: str | None = None):
     """2 layers at full width on the card, run on the same prompt through
     the kernels, through their plain versions, and through the plain
     versions with each planted fault. A prefill of 48 tokens into 2 slots,
@@ -1708,45 +2215,69 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
     (window 4096) and layer 1 global, over the dense cache of ``kv_dtype``,
     with a prompt of G2_AGREE_PROMPT tokens prefilled in chunks; judged on
     the decode positions too, against the window and scale faults of its
-    attention; the softcap fault is printed as a reading."""
+    attention; the softcap fault is printed as a reading.
+
+    ``layout="ring"`` (phase 21): Mistral-7B (M7_AGREE_PROMPT tokens, both
+    layers on rings of 5120 columns) or the Gemma-2 hybrid (layer 0 on a
+    ring, layer 1 dense), prefilled in chunks of 1024, q_proj scaled by
+    RING_Q_GAIN; the kernel run must also agree with the kernels over the
+    dense windowed int8 cache, and the ring's faults (columns read as
+    positions, window dropped) must fail.
+    ``preset="bloom_560m"`` (phase 23): a 2-layer BLOOM over ``layout``
+    "dense" (``kv_dtype`` int8, k4v8 or int4), "paged" (``mode`` dynamic)
+    or "ring" (BL_AGREE_RING), against the faults of ``bloom_faults``."""
     import dataclasses
 
     from protoquant_tpu_torch import LlamaModel, ModelConfig
     from protoquant_tpu_torch.engine import PagedInt8KVCache
-    from protoquant_tpu_torch.models import init_cache
+    from protoquant_tpu_torch.models import Int8KVCache, RingInt8KVCache, init_cache
     from protoquant_tpu_torch.models.llama import RMSNorm
 
-    gemma = preset == "gemma2_9b"
-    paged = mode.startswith("weight_only")
+    layout = layout or ("paged" if mode.startswith("weight_only") else "dense")
+    gemma, bloom = preset == "gemma2_9b", preset == "bloom_560m"
+    paged, ring = layout == "paged", layout == "ring"
     kv_kernels = kv_dtype != "int8"  # the decode writer and attention of a KIVI or K8V4 cache
     cfg = dataclasses.replace(getattr(ModelConfig, preset)(), num_hidden_layers=2)
     model = LlamaModel(cfg, mode=mode, dtype=dtype, device=dev).init_random_(seed + 1)
     gen = torch.Generator().manual_seed(seed + 1)
-    if gemma:
-        n_prompt, chunk, stride = G2_AGREE_PROMPT, G2_AGREE_CHUNK, G2_AGREE_STRIDE
+    window, sinks = cfg.sliding_window, 0
+    if gemma or preset == "mistral_7b":
+        n_prompt = G2_AGREE_PROMPT if gemma else M7_AGREE_PROMPT
+        chunk, stride = G2_AGREE_CHUNK, G2_AGREE_STRIDE
         max_seq = -(-(n_prompt + 4) // KIVI_G) * KIVI_G
+    elif bloom and ring:
+        window, sinks = BL_AGREE_RING["window"], BL_AGREE_RING["sinks"]
+        n_prompt, chunk, max_seq, stride = BL_AGREE_RING["prompt"], BL_AGREE_RING["chunk"], 128, 1
     else:
         n_prompt, max_seq, stride = {"int8": 48, "k8v4": 61}.get(kv_dtype, 62), 128, 1
         chunk = n_prompt
     prompt = torch.randint(1, cfg.vocab_size, (2, n_prompt), generator=gen).to(dev)
     ps, max_pages = 16, 128 // 16
     order = torch.randperm(2 * max_pages, generator=gen).tolist()
+    KV, Dh = cfg.num_key_value_heads, cfg.head_dim
+    n_dense = sum(ring and cfg.layer_window(i) == 0 and not bloom for i in range(2))
 
-    def new_caches():
-        if not paged:
+    def new_caches(kind=layout):
+        if kind == "ring":
+            return [RingInt8KVCache.init(2, window, chunk, KV, Dh, sinks=sinks, device=dev)
+                    if bloom or cfg.layer_window(i) else Int8KVCache.init(2, max_seq, KV, Dh, dev)
+                    for i in range(cfg.num_hidden_layers)]
+        if kind != "paged":
             return init_cache(cfg, 2, max_seq, dev, kv_dtype)
-        caches = [PagedInt8KVCache.init(2, 2 * max_pages + 1, max_pages, ps,
-                                        cfg.num_key_value_heads, cfg.head_dim, dev)
+        caches = [PagedInt8KVCache.init(2, 2 * max_pages + 1, max_pages, ps, KV, Dh, dev)
                   for _ in range(cfg.num_hidden_layers)]
         for c in caches:
             for slot in range(2):
                 c.map_slot(slot, order[slot * max_pages:(slot + 1) * max_pages])
         return caches
 
-    def run(tokens_in=None):
+    def run(tokens_in=None, kind=layout):
         """Logits of every ``stride``-th prompt position, then of the 4
         decode steps, and the tokens decoded."""
-        caches, out, toks = new_caches(), [], []
+        caches, out, toks = new_caches(kind), [], []
+        if ring and kind == "ring" and not any(isinstance(c, RingInt8KVCache)
+                                               and c.capacity < n_prompt for c in caches):
+            raise AssertionError(f"ring agreement: the prompt of {n_prompt} does not wrap")
         for c0 in range(0, n_prompt, chunk):
             piece = prompt[:, c0:c0 + chunk]
             pos = torch.arange(c0, c0 + piece.shape[1], device=dev)[None].expand(2, -1)
@@ -1767,7 +2298,8 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
         cache, 130 with K8V4), where the decode writer and T = 1 attention
         act. The paged path's two attention kernels, the KIVI flush and the
         K8V4 nibble writes act there only, so their runs must pass the limit
-        there too; so must Gemma-2's, whose window hides keys there."""
+        there too; so must Gemma-2's, whose window hides keys there, and
+        the ring's and BLOOM's."""
         a = torch.cat([x.reshape(-1, cfg.vocab_size) for x in out]).float()
         b = torch.cat([x.reshape(-1, cfg.vocab_size) for x in ref]).float()
         da = torch.cat([x.reshape(-1, cfg.vocab_size) for x in out[-4:]]).float()
@@ -1779,7 +2311,7 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
                "finite": bool(torch.isfinite(a).all())}
         got["pass"] = (got["finite"] and got["rel_l2"] <= AGREE_REL
                        and got["argmax_agree"] >= AGREE_ARGMAX
-                       and (not (paged or kv_kernels or gemma)
+                       and (not (paged or kv_kernels or gemma or ring or bloom)
                             or got["decode_rel_l2"] <= AGREE_REL))
         return got
 
@@ -1788,34 +2320,49 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
             with torch.no_grad():
                 for norm in (m for m in model.modules() if isinstance(m, RMSNorm)):
                     norm.weight.copy_(torch.rand(norm.weight.shape, generator=gen) + 0.5)
+        if ring and not bloom:
+            for layer in model.layers:
+                layer.self_attn.q_proj.qscale.mul_(RING_Q_GAIN)
         ops.reset_launch_counts()
         kern, toks = run()
         launched = ops.launch_counts()
+        readings, must_pass = {}, ["kernels"]
+        if ring and not bloom:  # the same kernels over the dense windowed cache
+            readings["ring vs dense windowed cache"] = compare(kern, run(toks, "dense")[0])
+            must_pass.append("ring vs dense windowed cache")
         ops.reset_launch_counts()
         with plain_versions():
             plain, _ = run(toks)
-        readings = {"kernels": compare(kern, plain)}
+        readings["kernels"] = compare(kern, plain)
         del kern
-        faults = planted_faults(ops, mode, kv_dtype, preset)
-        unjudged = gemma2_attention_faults(ops, kv_dtype)[1] if gemma else {}
+        if bloom:
+            faults = bloom_faults(ops, kv_dtype, layout)
+        elif ring:
+            faults = ring_faults(ops)
+        else:
+            faults = planted_faults(ops, mode, kv_dtype, preset)
+        unjudged = gemma2_attention_faults(ops, kv_dtype)[1] if gemma and not ring else {}
         for fault, swaps in {**faults, **unjudged}.items():
             with plain_versions(**swaps):
                 readings[fault] = compare(run(toks)[0], plain)
-        path = path_kernels(ops, mode, kv_dtype)
-        label = ("paged agreement" if paged else "agreement") + (
-            " fused" if fused(mode) else "") + (f" {kv_dtype} KV" if kv_kernels else "")
-        label = f"gemma2 {label}" if gemma else label
+        path = agreement_path(ops, mode, kv_dtype, layout, n_dense)
+        label = {"paged": "paged agreement", "ring": "ring agreement"}.get(
+            layout, "agreement") + (" fused" if fused(mode) else "") + (
+            f" {kv_dtype} KV" if kv_kernels else "")
+        label = f"{preset.split('_')[0]} {label}" if preset != "llama2_7b" else label
     if any(ops.launch_counts().values()) or not all(launched[k] for k in path) or any(
             launched[k] for k in launched if k not in path):
         raise AssertionError(f"agreement: kernel run launched {launched}, plain runs "
                              f"{ops.launch_counts()}")
     gemm = path[1] if path[0] == "rowquant" else path[0]
     for name, got in readings.items():
+        vs = "" if " vs " in name else " vs plain"
         log(f"{label} {str(dtype).replace('torch.', '')} (2 layers, full width, {mode}, {gemm}, "
-            f"prompt {n_prompt}, {name} vs plain on the card): {json.dumps(got)}; limits "
+            f"prompt {n_prompt}, {name}{vs} on the card): {json.dumps(got)}; limits "
             f"rel_l2 <= {AGREE_REL}, argmax_agree >= {AGREE_ARGMAX}")
-    if not readings.pop("kernels")["pass"]:
-        raise AssertionError(f"{label} {mode}: kernel and plain logits disagree")
+    failed = [name for name in must_pass if not readings[name]["pass"]]
+    if failed:
+        raise AssertionError(f"{label} {mode}: {failed} disagree")
     missed = [name for name in faults if readings[name]["pass"]]
     if missed:
         raise AssertionError(f"{label} {mode}: the limits pass planted fault(s) {missed}")
@@ -1882,10 +2429,12 @@ def check_kernels(ops, gen, dev) -> dict:
     checks = (("rowquant", check_rowquant), ("qmatmul", check_qmatmul),
               ("kv_scatter_decode", check_scatter),
               ("int8_kv_attention",
-               lambda *a: check_attention(*a) + check_gemma2_attention(*a, "int8")),
+               lambda *a: check_attention(*a) + check_gemma2_attention(*a, "int8")
+               + check_ring_attention(*a) + check_alibi_attention(*a, "int8")),
               ("weight_only_matmul", check_weight_only),
               ("paged_kv_scatter_decode", check_paged_scatter),
-              ("paged_int8_attention", check_paged_attention),
+              ("paged_int8_attention",
+               lambda *a: check_paged_attention(*a) + check_alibi_attention(*a, "paged")),
               ("wo4_split", lambda *a: check_wo4(*a, "split")),
               ("wo4_legacy", lambda *a: check_wo4(*a, "legacy")),
               ("w4a8_two_level", lambda *a: check_w4a8(*a, "two_level")),
@@ -1895,10 +2444,10 @@ def check_kernels(ops, gen, dev) -> dict:
               ("dequant", check_dequant),
               ("k4v8_decode_update", lambda *a: check_kivi_update(*a, "k4v8")),
               ("k4v8_attention", lambda *a: check_kivi_attention(*a, "k4v8")
-               + check_gemma2_attention(*a, "k4v8")),
+               + check_gemma2_attention(*a, "k4v8") + check_alibi_attention(*a, "k4v8")),
               ("kivi4_decode_update", lambda *a: check_kivi_update(*a, "int4")),
               ("int4_kv_attention", lambda *a: check_kivi_attention(*a, "int4")
-               + check_gemma2_attention(*a, "int4")),
+               + check_gemma2_attention(*a, "int4") + check_alibi_attention(*a, "int4")),
               ("kv_mixed_scatter_decode", check_mixed_scatter),
               ("mixed_kv_attention", check_mixed_attention))
     for name, fn in checks:
@@ -1916,7 +2465,7 @@ def check_kernels(ops, gen, dev) -> dict:
 
 
 def run_all(ops, seed: int, dev) -> list:
-    """Phases 3 to 18 on ``dev``; returns the kernels line's entries."""
+    """Phases 3 to 23 on ``dev``; returns the kernels line's entries."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     results = timed("3 kernels", check_kernels, ops, gen, dev)
 
@@ -1964,11 +2513,30 @@ def run_all(ops, seed: int, dev) -> list:
               None, None, "k8v4")
     by_path["dense_gemma2"], stats["gemma2_9b dense dynamic"] = timed(
         "17 gemma2 slice", run_slice, ops, seed, dev, "dynamic", None, None, "int8",
-        "gemma2_9b")
+        "gemma2_9b", True)
+    # phase 20 serves phase 17's model, so it runs next: no other model is
+    # resident beside one of them
+    by_path["ring_gemma2"], stats["gemma2_9b ring"] = timed(
+        "20 gemma2 hybrid ring slice", run_ring_slice, ops, seed, dev, "gemma2_9b",
+        stats["gemma2_9b dense dynamic"].pop("model"))
+    torch.cuda.empty_cache()
     for kv_dtype in ("int8", *KIVI_KERNELS):
         for dtype in (torch.float32, torch.bfloat16):
             timed(f"18 gemma2 agreement {kv_dtype} {dtype}", run_agreement, ops, seed, dev,
                   dtype, "dynamic", None, None, kv_dtype, "gemma2_9b")
+    by_path["ring_mistral"], stats["mistral_7b ring"] = timed(
+        "19 mistral ring slice", run_ring_slice, ops, seed, dev)
+    for preset in ("mistral_7b", "gemma2_9b"):
+        for dtype in (torch.float32, torch.bfloat16):
+            timed(f"21 ring agreement {preset} {dtype}", run_agreement, ops, seed, dev, dtype,
+                  "dynamic", None, None, "int8", preset, "ring")
+    for path, (launches, st) in timed("22 bloom slices", run_bloom, ops, seed, dev).items():
+        by_path[path], stats[path] = launches, st
+    for layout, kv_dtype in (("dense", "int8"), ("paged", "int8"), ("dense", "k4v8"),
+                             ("dense", "int4"), ("ring", "int8")):
+        for dtype in (torch.float32, torch.bfloat16):
+            timed(f"23 bloom agreement {layout} {kv_dtype} {dtype}", run_agreement, ops, seed,
+                  dev, dtype, "dynamic", None, None, kv_dtype, "bloom_560m", layout)
     kernels = []
     for name, cases in results.items():
         source, replaces, main_shape = KERNEL_META[name]
@@ -2039,6 +2607,29 @@ def run_all(ops, seed: int, dev) -> list:
         f"{g2_linears:.3f}, scatter and attention {g2_cache:.3f}); engine decode step median "
         f"{steps[len(steps) // 2]:.3f} ms; peak memory "
         f"{stats['gemma2_9b dense dynamic']['peak_gib']:.2f} GiB")
+    # Mistral-7B over the ring: the 7B widths of its linears, the ring decode
+    # of phase 3 on every layer
+    mq = lambda k, n: by[("qmatmul", f"M=4 K={k} N={n} bf16 out")]
+    m7_rowquant = rq_hidden * (3 * L + 1) + by[("rowquant", f"M=4 K={M7_INTER} bf16")] * L
+    m7_linears = ((mq(HIDDEN, HIDDEN) + mq(HIDDEN, M7_KV * HEAD_DIM)) * 2 * L
+                  + mq(HIDDEN, M7_INTER) * 2 * L + mq(M7_INTER, HIDDEN) * L + mq(HIDDEN, VOCAB))
+    m7_attn = next(c["ms"] for c in results["int8_kv_attention"]
+                   if c["shape"].startswith("ring decode B=")) * L
+    steps = sorted(stats["mistral_7b ring"]["decode_step_ms"])
+    log(f"decode step, mistral_7b ring dynamic: kernels at the measured shapes sum to "
+        f"{m7_rowquant + m7_linears + m7_attn:.3f} ms (rowquant {m7_rowquant:.3f}, qmatmul "
+        f"{m7_linears:.3f}, attention {m7_attn:.3f}); engine decode step median "
+        f"{steps[len(steps) // 2]:.3f} ms; peak memory "
+        f"{stats['mistral_7b ring']['peak_gib']:.2f} GiB")
+    # a reading, not a gate: the hybrid ring serves phase 17's prompts with
+    # the same function, its sums in another order
+    pairs = [(a, b) for o, r in zip(stats["gemma2_9b ring"]["outputs"],
+                                    stats["gemma2_9b dense dynamic"]["outputs"])
+             for a, b in zip(o, r)]
+    steps = sorted(stats["gemma2_9b ring"]["decode_step_ms"])
+    log(f"gemma2_9b hybrid ring: decode step median {steps[len(steps) // 2]:.3f} ms; "
+        f"{sum(a == b for a, b in pairs)} of {len(pairs)} generated tokens equal to phase 17's "
+        f"({sum(a == b for a, b in pairs) / len(pairs):.4f})")
     # a reading, not a gate: codes of the fused producers may move by one
     # step against the unfused path's, and greedy tokens with them
     pairs = [(a, b) for o, r in zip(stats["dense dynamic fused"]["outputs"],

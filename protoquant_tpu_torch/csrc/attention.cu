@@ -2,40 +2,51 @@
 // the mixed K8V4 cache (the same keys, int4 values).
 //
 // Replaces protoquant_tpu/ops/attention.py:_attn_kernel (Pallas) with its
-// sliding-window, score-scale and softcap variants (not its learned sinks,
-// ring positions, StreamingLLM sinks or ALiBi), and _attn_mixed_kernel
-// (V4 = true; the wrapper passes its score scale and no window or softcap,
-// as the TPU kernel takes).
+// sliding-window, score-scale, softcap, ring-position, StreamingLLM-sink and
+// ALiBi variants (not its learned sinks), and _attn_mixed_kernel (V4 =
+// true; the wrapper passes its score scale and no other variant, as the TPU
+// kernel takes).
 //   q [B, T, H, Dh] (f32/bf16/f16), kq/vq [B, KV, S, Dh] int8,
 //   ks/vs [B, KV, S] f32, lengths [B] int32 = cache length BEFORE this
-//   step's T tokens. Query row r = t * group + g of kv head h is q head
-//   h * group + g at absolute position p_t = lengths[b] + t; key c is visible
-//   iff c <= p_t and, with window > 0, c > p_t - window.
+//   step's T tokens; kpos [B, S] int32 or null, alibi [H] f32 or null.
+//   Query row r = t * group + g of kv head h is q head h * group + g at
+//   absolute position p_t = lengths[b] + t. Column c holds position pos_c =
+//   kpos[b, c] (a ring cache; negative = never written) or c. It is visible
+//   iff 0 <= pos_c <= p_t and, with window > 0, pos_c > p_t - window or
+//   pos_c < sinks (StreamingLLM sinks stay visible).
 //   score[r, c] = (q[r] . kq[c]) * ks[c] * sm      (sm = scale or Dh^-0.5)
-//   with softcap > 0: score = softcap * tanh(score / softcap), before the mask
+//   with softcap > 0: score = softcap * tanh(score / softcap), then with
+//   ALiBi: score -= alibi[h * group + g] * (p_t - pos_c), before the mask
 //   out[r]      = sum_c softmax(score)[r, c] * vs[c] * vq[c]
 // The per-token scales factor out of both dots, so no f32 copy of the cache
 // is ever made.
 // Bound on the H100: bytes, the visible part of the int8 cache
 // (2 * L * Dh + 8 * L per (b, kv head), L the keys inside the rows' windows)
-// plus q and out.
+// plus q and out (and a ring's positions, 4 * S per b).
 // Design: one block of 4 warps per (b, kv head, 16 query rows); each warp
 // owns 4 rows. The loop runs over 64-key tiles (32 at Dh = 256) from the
 // tile holding the first row's earliest visible key, lengths[b] + t_min -
 // window + 1 (0 without a window: the TPU kernel's block skipping, so
 // windowed decode reads O(window) bytes), up to lengths[b] + t_max, so dead
-// tiles are never read. Rows of one block whose windows are disjoint see
-// tiles where every key of theirs is masked: p is zeroed by the mask, not by
-// exp, so their running max and sum stay untouched. Each tile's int8 K and V
-// rows and their scales are staged in shared memory (K rows padded by 4
-// bytes so a warp's 32 keys fall in 32 banks). Lane j scores keys j and
-// j + 32 against the warp's rows; the online softmax (running max m,
-// denominator l) is in f32; p * vs goes through shared memory and each lane
-// accumulates Dh/32 output dims. The output is acc / max(l, 1e-30). The
-// window and the softcap are runtime values read only by the VAR instance,
-// which a call with either takes; the full-causal instance compiles them
-// out (read by every instance, they cost Llama-2-7B's decode 2.5-8 % on an
-// H100: tools/attention_timing.py).
+// tiles are never read; with sinks the tiles holding columns < sinks are
+// walked first, then the skip. A ring cache scatters positions over its
+// columns, so every tile of its S = O(window) columns is walked, as on the
+// TPU, each tile's [KT] positions staged in shared memory. Rows of one
+// block whose windows are disjoint see tiles where every key of theirs is
+// masked: p is zeroed by the mask, not by exp, so their running max and sum
+// stay untouched. Each tile's int8 K and V rows and their scales are staged
+// in shared memory (K rows padded by 4 bytes so a warp's 32 keys fall in 32
+// banks). Lane j scores keys j and j + 32 against the warp's rows; the
+// online softmax (running max m, denominator l) is in f32; p * vs goes
+// through shared memory and each lane accumulates Dh/32 output dims. The
+// output is acc / max(l, 1e-30). Every variant is a runtime value read only
+// by an instance that takes it: VAR = 1 reads the window and the softcap
+// (Gemma-2, Mistral), VAR = 2 also the ring's positions, the sinks and
+// ALiBi, and a call takes the least instance its variants need; the
+// full-causal instance (VAR = 0) compiles them all out (read by every
+// instance, the window and softcap alone cost Llama-2-7B's decode 2.5-8 %
+// on an H100, and the positions and slopes Gemma-2's sliding decode 4.5 %:
+// tools/attention_timing.py). Each row's ALiBi slope sits in a register.
 // Decode (one row per block) leaves three warps idle after loading and
 // runs one block per (b, kv head); splitting S across blocks is later work.
 // V4 (K8V4): vq [B, KV, S/2, Dh] int8 holds token pairs (row r: token 2r in
@@ -55,13 +66,14 @@ constexpr int AT_QROWS = AT_WARPS * AT_RPW;  // query rows per block
 constexpr int AT_THREADS = AT_WARPS * 32;
 constexpr float AT_NEG_INF = -1e30f;
 
-template <int DH, int KT, bool V4, bool VAR, typename QT>
+template <int DH, int KT, bool V4, int VAR, typename QT>
 __global__ void __launch_bounds__(AT_THREADS)
 attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
             const float* __restrict__ ks, const int8_t* __restrict__ vq,
             const float* __restrict__ vs, const int* __restrict__ lengths,
+            const int* __restrict__ kpos, const float* __restrict__ alibi,
             QT* __restrict__ out, int T, int H, int KV, int S, float sm, int window,
-            float softcap) {
+            float softcap, int sinks) {
   constexpr int DPL = DH / 32;  // output dims per lane
   constexpr int KPL = KT / 32;  // keys per lane
   constexpr int KSTR = DH + 4;  // padded K row (bytes)
@@ -70,6 +82,7 @@ attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
   __shared__ __align__(16) int8_t Vs[KT][DH];
   __shared__ float kss[KT], vss[KT];
   __shared__ float Ps[AT_QROWS][KT];
+  __shared__ int poss[KT];  // EXT: the tile's positions (-1 past the keys)
 
   const int b = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * AT_QROWS;
   const int group = H / KV, R = T * group;
@@ -77,11 +90,15 @@ attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
   const int len = lengths[b];
   const int rows_here = min(AT_QROWS, R - r0);
   const int t_max = (r0 + rows_here - 1) / group;
-  const int n_keys = max(0, min(S, len + t_max + 1));
-  // first tile holding a key inside the block's first row's window
-  const int c_start =
-      VAR && window > 0 ? (max(len + r0 / group - window + 1, 0) / KT) * KT : 0;
-  const float inv_cap = VAR && softcap > 0.0f ? 1.0f / softcap : 0.0f;
+  constexpr bool EXT = VAR == 2;  // ring positions, sinks, ALiBi
+  const bool ring = EXT && kpos != nullptr;  // positions scattered: walk every column
+  const int n_keys = ring ? S : max(0, min(S, len + t_max + 1));
+  // first tile holding a key inside the block's first row's window; with
+  // sinks, the tiles holding columns < c_sink come first
+  const bool skip = VAR > 0 && window > 0 && !ring;
+  const int c_start = skip ? (max(len + r0 / group - window + 1, 0) / KT) * KT : 0;
+  const int c_sink = EXT && skip ? min(sinks, n_keys) : 0;
+  const float inv_cap = VAR > 0 && softcap > 0.0f ? 1.0f / softcap : 0.0f;
 
   for (int i = threadIdx.x; i < AT_QROWS * DH; i += AT_THREADS) {
     const int r = i / DH, d = i % DH, gr = r0 + r;
@@ -101,16 +118,19 @@ attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
 
   const int wr0 = warp * AT_RPW;  // first block row of this warp
   const bool warp_live = r0 + wr0 < R;
-  float m[AT_RPW], l[AT_RPW], acc[AT_RPW][DPL];
+  float m[AT_RPW], l[AT_RPW], acc[AT_RPW][DPL], slope[AT_RPW];
 #pragma unroll
   for (int i = 0; i < AT_RPW; ++i) {
+    const int r = r0 + wr0 + i;
+    slope[i] = EXT && alibi != nullptr && r < R ? alibi[h * group + r % group] : 0.0f;
     m[i] = AT_NEG_INF;
     l[i] = 0.0f;
 #pragma unroll
     for (int e = 0; e < DPL; ++e) acc[i][e] = 0.0f;
   }
 
-  for (int c0 = c_start; c0 < n_keys; c0 += KT) {
+  for (int c0 = c_sink > 0 ? 0 : c_start; c0 < n_keys;
+       c0 = EXT ? max(c0 + KT, c0 + KT < c_sink ? 0 : c_start) : c0 + KT) {
     __syncthreads();  // Q staged / previous tile consumed
     for (int i = threadIdx.x; i < KT * (DH / 4); i += AT_THREADS) {
       const int j = i / (DH / 4), w = i % (DH / 4), c = c0 + j;
@@ -126,6 +146,7 @@ attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
       const int c = c0 + j;
       kss[j] = c < n_keys ? ksb[c] : 0.0f;
       if constexpr (!V4) vss[j] = c < n_keys ? vsb[c] : 0.0f;
+      if constexpr (EXT) poss[j] = c >= n_keys ? -1 : ring ? kpos[(size_t)b * S + c] : c;
     }
     if constexpr (V4) {  // KT / 2 packed byte rows, two tokens each
       for (int i = threadIdx.x; i < (KT / 2) * (DH / 4); i += AT_THREADS) {
@@ -171,16 +192,22 @@ attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
     for (int i = 0; i < AT_RPW; ++i) {
       const int r = r0 + wr0 + i;
       const int limit = r < R ? len + r / group : -1;  // dead rows see no key
-      const int lower = VAR && window > 0 ? limit - window : -1;  // keys <= lower are out
+      const int lower = VAR > 0 && window > 0 ? limit - window : -1;  // keys <= lower are out
       bool valid[KPL];
       float sc[KPL];
       float tmax = AT_NEG_INF;
 #pragma unroll
       for (int kk = 0; kk < KPL; ++kk) {
         const int j = lane + 32 * kk, c = c0 + j;
-        valid[kk] = c < n_keys && c <= limit && (!VAR || c > lower);
         float v = (s[i][kk] * kss[j]) * sm;
-        if (VAR && softcap > 0.0f) v = softcap * tanhf(v * inv_cap);
+        if constexpr (EXT) {
+          const int pos = poss[j];  // -1 past the keys
+          valid[kk] = pos >= 0 && pos <= limit && (window <= 0 || pos > lower || pos < sinks);
+        } else {
+          valid[kk] = c < n_keys && c <= limit && (VAR == 0 || c > lower);
+        }
+        if (VAR > 0 && softcap > 0.0f) v = softcap * tanhf(v * inv_cap);
+        if constexpr (EXT) v -= slope[i] * (float)(limit - poss[j]);  // slope 0 without ALiBi
         sc[kk] = valid[kk] ? v : AT_NEG_INF;
         tmax = fmaxf(tmax, sc[kk]);
       }
@@ -232,30 +259,38 @@ attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
 
 template <int DH, int KT, bool V4, typename QT>
 static cudaError_t launch_t(const void* q, const void* kq, const void* ks, const void* vq,
-                            const void* vs, const void* lengths, void* out, int B, int T,
-                            int H, int KV, int S, float sm, int window, float softcap,
+                            const void* vs, const void* lengths, const void* kpos,
+                            const void* alibi, void* out, int B, int T, int H, int KV, int S,
+                            float sm, int window, float softcap, int sinks,
                             cudaStream_t stream) {
   const int R = T * (H / KV);
   dim3 grid((R + AT_QROWS - 1) / AT_QROWS, KV, B);
 #define PQ_AT_KARGS (const QT*)q, (const int8_t*)kq, (const float*)ks, (const int8_t*)vq, \
-      (const float*)vs, (const int*)lengths, (QT*)out, T, H, KV, S, sm, window, softcap
-  if constexpr (!V4) {  // K8V4 takes no window or softcap: no VAR instance
+      (const float*)vs, (const int*)lengths, (const int*)kpos, (const float*)alibi, (QT*)out, \
+      T, H, KV, S, sm, window, softcap, sinks
+  if constexpr (!V4) {  // K8V4 takes no variant but the scale: no VAR instance
+    if (kpos != nullptr || alibi != nullptr || sinks > 0) {
+      attn_kernel<DH, KT, false, 2, QT><<<grid, AT_THREADS, 0, stream>>>(PQ_AT_KARGS);
+      return cudaGetLastError();
+    }
     if (window > 0 || softcap > 0.0f) {
-      attn_kernel<DH, KT, false, true, QT><<<grid, AT_THREADS, 0, stream>>>(PQ_AT_KARGS);
+      attn_kernel<DH, KT, false, 1, QT><<<grid, AT_THREADS, 0, stream>>>(PQ_AT_KARGS);
       return cudaGetLastError();
     }
   }
-  attn_kernel<DH, KT, V4, false, QT><<<grid, AT_THREADS, 0, stream>>>(PQ_AT_KARGS);
+  attn_kernel<DH, KT, V4, 0, QT><<<grid, AT_THREADS, 0, stream>>>(PQ_AT_KARGS);
 #undef PQ_AT_KARGS
   return cudaGetLastError();
 }
 
 template <bool V4, typename QT>
 static cudaError_t launch_dh(int Dh, const void* q, const void* kq, const void* ks,
-                             const void* vq, const void* vs, const void* lengths, void* out,
-                             int B, int T, int H, int KV, int S, float sm, int window,
-                             float softcap, cudaStream_t stream) {
-#define PQ_AT_ARGS q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, window, softcap, stream
+                             const void* vq, const void* vs, const void* lengths,
+                             const void* kpos, const void* alibi, void* out, int B, int T,
+                             int H, int KV, int S, float sm, int window, float softcap,
+                             int sinks, cudaStream_t stream) {
+#define PQ_AT_ARGS q, kq, ks, vq, vs, lengths, kpos, alibi, out, B, T, H, KV, S, sm, window, \
+                   softcap, sinks, stream
   switch (Dh) {
     case 32: return launch_t<32, 64, V4, QT>(PQ_AT_ARGS);
     case 64: return launch_t<64, 64, V4, QT>(PQ_AT_ARGS);
@@ -268,12 +303,15 @@ static cudaError_t launch_dh(int Dh, const void* q, const void* kq, const void* 
 
 template <bool V4>
 static int entry(const void* q, int q_dtype, const void* kq, const void* ks, const void* vq,
-                 const void* vs, const void* lengths, void* out, int B, int T, int H, int KV,
-                 int S, int Dh, float sm, int window, float softcap, void* stream) {
+                 const void* vs, const void* lengths, const void* kpos, const void* alibi,
+                 void* out, int B, int T, int H, int KV, int S, int Dh, float sm, int window,
+                 float softcap, int sinks, void* stream) {
   if (B == 0 || T == 0) return cudaSuccess;
-  if (KV == 0 || H % KV != 0 || (V4 && S % 2) || window < 0) return cudaErrorInvalidValue;
+  if (KV == 0 || H % KV != 0 || (V4 && S % 2) || window < 0 || sinks < 0)
+    return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define PQ_AT_DARGS Dh, q, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, sm, window, softcap, st
+#define PQ_AT_DARGS Dh, q, kq, ks, vq, vs, lengths, kpos, alibi, out, B, T, H, KV, S, sm, \
+                    window, softcap, sinks, st
   switch (q_dtype) {
     case PQ_F32: return launch_dh<V4, float>(PQ_AT_DARGS);
     case PQ_BF16: return launch_dh<V4, __nv_bfloat16>(PQ_AT_DARGS);
@@ -285,16 +323,17 @@ static int entry(const void* q, int q_dtype, const void* kq, const void* ks, con
 
 PQ_EXPORT int pq_int8_kv_attention(const void* q, int q_dtype, const void* kq, const void* ks,
                                    const void* vq, const void* vs, const void* lengths,
-                                   void* out, int B, int T, int H, int KV, int S, int Dh,
-                                   float sm, int window, float softcap, void* stream) {
-  return entry<false>(q, q_dtype, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, Dh, sm, window,
-                      softcap, stream);
+                                   const void* kpos, const void* alibi, void* out, int B, int T,
+                                   int H, int KV, int S, int Dh, float sm, int window,
+                                   float softcap, int sinks, void* stream) {
+  return entry<false>(q, q_dtype, kq, ks, vq, vs, lengths, kpos, alibi, out, B, T, H, KV, S,
+                      Dh, sm, window, softcap, sinks, stream);
 }
 
 PQ_EXPORT int pq_mixed_kv_attention(const void* q, int q_dtype, const void* kq, const void* ks,
                                     const void* vq, const void* vs, const void* lengths,
                                     void* out, int B, int T, int H, int KV, int S, int Dh,
                                     float sm, void* stream) {
-  return entry<true>(q, q_dtype, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, Dh, sm, 0, 0.0f,
-                     stream);
+  return entry<true>(q, q_dtype, kq, ks, vq, vs, lengths, nullptr, nullptr, out, B, T, H, KV,
+                     S, Dh, sm, 0, 0.0f, 0, stream);
 }

@@ -1,8 +1,8 @@
 // Flash attention over the KIVI caches, causal, with GQA, prefill or decode.
 //
 // Replaces protoquant_tpu/ops/attention.py:_attn_k4v8_kernel (K4V8KVCache)
-// and _attn4_kernel (Int4KVCache) with their sliding-window, score-scale and
-// softcap variants (not their learned sinks or ALiBi); one template, V4
+// and _attn4_kernel (Int4KVCache) with their sliding-window, score-scale,
+// softcap and ALiBi variants (not their learned sinks); one template, V4
 // choosing the V layout.
 //   q [B, T, H, Dh] (f32/bf16/f16); kq [B, KV, S/2, Dh] int8 packed K (row
 //   r: token 2r in the low nibble, 2r + 1 in the high one); kchs [B, KV,
@@ -11,7 +11,7 @@
 //   2G); K4V8: vq [B, KV, S, Dh] int8, vs [B, KV, S] f32; Int4 (V4): vq
 //   [B, KV, S/2, Dh] packed like K, vs [B, KV, 2, S/2] per-token scales,
 //   plane 0 even tokens, plane 1 odd; lengths [B] = length BEFORE this
-//   step's T tokens, new_lengths after it.
+//   step's T tokens, new_lengths after it; alibi [H] f32 or null.
 // Query row t (horizon len + t) sees key position p <= len + t and, with
 // window > 0, p > len + t - window. Positions
 // below the frontier F = (min(new_len, S) / G) G come from the packed
@@ -22,8 +22,9 @@
 // the tail mirror (vtail/vts), as the TPU kernel does; it holds the same
 // rows as vq/vs at those positions.
 //   score = (q . k) * sm (sm = scale or Dh^-0.5); with softcap > 0, score =
-//   softcap * tanh(score / softcap) before the mask, in the packed tiles and
-//   the tail alike; softmax online in f32, out = sum p * vs * v
+//   softcap * tanh(score / softcap), then with ALiBi score -= alibi[head] *
+//   (horizon - pos), before the mask, in the packed tiles and the tail
+//   alike; softmax online in f32, out = sum p * vs * v
 // The per-channel K scale cannot leave the q . k sum, so each 64-key tile
 // is unpacked into f32 in shared memory; the per-token V scale multiplies
 // p, as in the dense kernel. All arithmetic is f32 (the TPU kernel's bf16
@@ -36,8 +37,10 @@
 // walked from the tile of the first row's earliest visible key (packed tiles
 // wholly below the window are skipped, as the TPU kernel skips its blocks)
 // up to min(F, len + t_max + 1), then the tail in 64-row tiles, masked by
-// the same window. The window and the softcap are read only by the VAR
-// instance, which a call with either takes, as in csrc/attention.cu.
+// the same window. The window and the softcap are read only by the VAR >= 1
+// instances, the ALiBi slopes only by VAR = 2, and a call takes the least
+// instance its variants need, as in csrc/attention.cu; each row's slope
+// sits in a register.
 // Shared memory is dynamic (about 53 KB at Dh = 128). Decode runs one block
 // per (b, kv head), in series along the row; splitting S across blocks is
 // later work.
@@ -55,15 +58,16 @@ constexpr int ka_smem_bytes() {
   return 4 * (KA_QROWS * DH + KT * (DH + 4) + KA_QROWS * KT + KT) + KT * DH;
 }
 
-template <int DH, int KT, bool V4, bool VAR, typename QT>
+template <int DH, int KT, bool V4, int VAR, typename QT>
 __global__ void __launch_bounds__(KA_THREADS)
 kivi_attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
                  const float* __restrict__ kchs, const int8_t* __restrict__ vq,
                  const float* __restrict__ vs, const int8_t* __restrict__ ktail,
                  const float* __restrict__ kts, const int8_t* __restrict__ vtail,
                  const float* __restrict__ vts, const int* __restrict__ lengths,
-                 const int* __restrict__ new_lengths, QT* __restrict__ out, int T, int H,
-                 int KV, int S, int G, float sm, int window, float softcap) {
+                 const int* __restrict__ new_lengths, const float* __restrict__ alibi,
+                 QT* __restrict__ out, int T, int H, int KV, int S, int G, float sm, int window,
+                 float softcap) {
   constexpr int DPL = DH / 32;  // output dims per lane
   constexpr int KPL = KT / 32;  // keys per lane
   constexpr int KSTR = DH + 4;  // padded f32 K row: float4 reads of 8 rows hit 8 bank groups
@@ -87,8 +91,8 @@ kivi_attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
   const int n_packed = (n_keys + KT - 1) / KT, n_tail = (TC + KT - 1) / KT;
   // first packed tile holding a key inside the block's first row's window
   const int tile0 =
-      VAR && window > 0 ? min(max(len + r0 / group - window + 1, 0) / KT, n_packed) : 0;
-  const float inv_cap = VAR && softcap > 0.0f ? 1.0f / softcap : 0.0f;
+      VAR > 0 && window > 0 ? min(max(len + r0 / group - window + 1, 0) / KT, n_packed) : 0;
+  const float inv_cap = VAR > 0 && softcap > 0.0f ? 1.0f / softcap : 0.0f;
 
   for (int i = threadIdx.x; i < KA_QROWS * DH; i += KA_THREADS) {
     const int r = i / DH, d = i % DH, gr = r0 + r;
@@ -112,9 +116,11 @@ kivi_attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
 
   const int wr0 = warp * KA_RPW;
   const bool warp_live = r0 + wr0 < R;
-  float m[KA_RPW], l[KA_RPW], acc[KA_RPW][DPL];
+  float m[KA_RPW], l[KA_RPW], acc[KA_RPW][DPL], slope[KA_RPW];
 #pragma unroll
   for (int i = 0; i < KA_RPW; ++i) {
+    const int r = r0 + wr0 + i;
+    slope[i] = VAR == 2 && alibi != nullptr && r < R ? alibi[h * group + r % group] : 0.0f;
     m[i] = KA_NEG_INF;
     l[i] = 0.0f;
 #pragma unroll
@@ -213,7 +219,7 @@ kivi_attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
       const int r = r0 + wr0 + i;
       const int horizon = len + r / group;
       // positions <= lower are out
-      const int lower = VAR && window > 0 ? horizon - window : -1 - S;
+      const int lower = VAR > 0 && window > 0 ? horizon - window : -1 - S;
       bool valid[KPL];
       float sc[KPL];
       float tmax = KA_NEG_INF;
@@ -221,17 +227,19 @@ kivi_attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
       for (int kk = 0; kk < KPL; ++kk) {
         const int c = c0 + lane + 32 * kk;
         bool ok = r < R && c < n_here;
+        int pos = c;  // the packed store holds position c
         if (ok && !tail) {
-          ok = c <= horizon && (!VAR || c > lower);  // c < n_keys <= frontier
+          ok = c <= horizon && (VAR == 0 || c > lower);  // c < n_keys <= frontier
         } else if (ok) {
           int md = (horizon - c) % TC;
           if (md < 0) md += TC;
-          const int pos = horizon - md;
-          ok = pos >= frontier && pos < S && (!VAR || pos > lower);
+          pos = horizon - md;
+          ok = pos >= frontier && pos < S && (VAR == 0 || pos > lower);
         }
         valid[kk] = ok;
         float v = s[i][kk] * sm;
-        if (VAR && softcap > 0.0f) v = softcap * tanhf(v * inv_cap);
+        if (VAR > 0 && softcap > 0.0f) v = softcap * tanhf(v * inv_cap);
+        if (VAR == 2) v -= slope[i] * (float)(horizon - pos);
         sc[kk] = ok ? v : KA_NEG_INF;
         tmax = fmaxf(tmax, sc[kk]);
       }
@@ -281,13 +289,13 @@ kivi_attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
   }
 }
 
-template <int DH, int KT, bool V4, bool VAR, typename QT>
+template <int DH, int KT, bool V4, int VAR, typename QT>
 static cudaError_t launch_var(const void* q, const void* kq, const void* kchs, const void* vq,
                               const void* vs, const void* ktail, const void* kts,
                               const void* vtail, const void* vts, const void* lengths,
-                              const void* new_lengths, void* out, int B, int T, int H, int KV,
-                              int S, int G, float sm, int window, float softcap,
-                              cudaStream_t stream) {
+                              const void* new_lengths, const void* alibi, void* out, int B,
+                              int T, int H, int KV, int S, int G, float sm, int window,
+                              float softcap, cudaStream_t stream) {
   constexpr int smem = ka_smem_bytes<DH, KT>();
   static bool configured = false;
   cudaError_t err = pq_allow_smem(kivi_attn_kernel<DH, KT, V4, VAR, QT>, smem, configured);
@@ -297,8 +305,8 @@ static cudaError_t launch_var(const void* q, const void* kq, const void* kchs, c
   kivi_attn_kernel<DH, KT, V4, VAR, QT><<<grid, KA_THREADS, smem, stream>>>(
       (const QT*)q, (const int8_t*)kq, (const float*)kchs, (const int8_t*)vq,
       (const float*)vs, (const int8_t*)ktail, (const float*)kts, (const int8_t*)vtail,
-      (const float*)vts, (const int*)lengths, (const int*)new_lengths, (QT*)out, T, H, KV,
-      S, G, sm, window, softcap);
+      (const float*)vts, (const int*)lengths, (const int*)new_lengths, (const float*)alibi,
+      (QT*)out, T, H, KV, S, G, sm, window, softcap);
   return cudaGetLastError();
 }
 
@@ -306,13 +314,14 @@ template <int DH, int KT, bool V4, typename QT>
 static cudaError_t launch_t(const void* q, const void* kq, const void* kchs, const void* vq,
                             const void* vs, const void* ktail, const void* kts,
                             const void* vtail, const void* vts, const void* lengths,
-                            const void* new_lengths, void* out, int B, int T, int H, int KV,
-                            int S, int G, float sm, int window, float softcap,
-                            cudaStream_t stream) {
-#define PQ_KA_VARGS q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, new_lengths, out, \
-                    B, T, H, KV, S, G, sm, window, softcap, stream
-  if (window > 0 || softcap > 0.0f) return launch_var<DH, KT, V4, true, QT>(PQ_KA_VARGS);
-  return launch_var<DH, KT, V4, false, QT>(PQ_KA_VARGS);
+                            const void* new_lengths, const void* alibi, void* out, int B,
+                            int T, int H, int KV, int S, int G, float sm, int window,
+                            float softcap, cudaStream_t stream) {
+#define PQ_KA_VARGS q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, new_lengths, alibi, \
+                    out, B, T, H, KV, S, G, sm, window, softcap, stream
+  if (alibi != nullptr) return launch_var<DH, KT, V4, 2, QT>(PQ_KA_VARGS);
+  if (window > 0 || softcap > 0.0f) return launch_var<DH, KT, V4, 1, QT>(PQ_KA_VARGS);
+  return launch_var<DH, KT, V4, 0, QT>(PQ_KA_VARGS);
 #undef PQ_KA_VARGS
 }
 
@@ -320,11 +329,11 @@ template <bool V4, typename QT>
 static cudaError_t launch_dh(int Dh, const void* q, const void* kq, const void* kchs,
                              const void* vq, const void* vs, const void* ktail, const void* kts,
                              const void* vtail, const void* vts, const void* lengths,
-                             const void* new_lengths, void* out, int B, int T, int H, int KV,
-                             int S, int G, float sm, int window, float softcap,
-                             cudaStream_t st) {
-#define PQ_KA_ARGS q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, new_lengths, out, \
-                   B, T, H, KV, S, G, sm, window, softcap, st
+                             const void* new_lengths, const void* alibi, void* out, int B,
+                             int T, int H, int KV, int S, int G, float sm, int window,
+                             float softcap, cudaStream_t st) {
+#define PQ_KA_ARGS q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, new_lengths, alibi, \
+                   out, B, T, H, KV, S, G, sm, window, softcap, st
   switch (Dh) {
     case 32: return launch_t<32, 64, V4, QT>(PQ_KA_ARGS);
     case 64: return launch_t<64, 64, V4, QT>(PQ_KA_ARGS);
@@ -338,15 +347,15 @@ static cudaError_t launch_dh(int Dh, const void* q, const void* kq, const void* 
 template <bool V4>
 static int entry(const void* q, int q_dtype, const void* kq, const void* kchs, const void* vq,
                  const void* vs, const void* ktail, const void* kts, const void* vtail,
-                 const void* vts, const void* lengths, const void* new_lengths, void* out,
-                 int B, int T, int H, int KV, int S, int Dh, int G, float sm, int window,
-                 float softcap, void* stream) {
+                 const void* vts, const void* lengths, const void* new_lengths,
+                 const void* alibi, void* out, int B, int T, int H, int KV, int S, int Dh,
+                 int G, float sm, int window, float softcap, void* stream) {
   if (B == 0 || T == 0) return cudaSuccess;
   if (KV == 0 || H % KV != 0 || G < 2 || G % 2 || S % G || window < 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define PQ_KA_DARGS Dh, q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, new_lengths, out, \
-                    B, T, H, KV, S, G, sm, window, softcap, st
+#define PQ_KA_DARGS Dh, q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, new_lengths, \
+                    alibi, out, B, T, H, KV, S, G, sm, window, softcap, st
   switch (q_dtype) {
     case PQ_F32: return launch_dh<V4, float>(PQ_KA_DARGS);
     case PQ_BF16: return launch_dh<V4, __nv_bfloat16>(PQ_KA_DARGS);
@@ -359,20 +368,23 @@ static int entry(const void* q, int q_dtype, const void* kq, const void* kchs, c
 PQ_EXPORT int pq_k4v8_attention(const void* q, int q_dtype, const void* kq, const void* kchs,
                                 const void* vq, const void* vs, const void* ktail,
                                 const void* kts, const void* vtail, const void* vts,
-                                const void* lengths, const void* new_lengths, void* out, int B,
-                                int T, int H, int KV, int S, int Dh, int G, float sm,
-                                int window, float softcap, void* stream) {
+                                const void* lengths, const void* new_lengths,
+                                const void* alibi, void* out, int B, int T, int H, int KV,
+                                int S, int Dh, int G, float sm, int window, float softcap,
+                                void* stream) {
   return entry<false>(q, q_dtype, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
-                      new_lengths, out, B, T, H, KV, S, Dh, G, sm, window, softcap, stream);
+                      new_lengths, alibi, out, B, T, H, KV, S, Dh, G, sm, window, softcap,
+                      stream);
 }
 
 PQ_EXPORT int pq_int4_kv_attention(const void* q, int q_dtype, const void* kq,
                                    const void* kchs, const void* vq, const void* vs,
                                    const void* ktail, const void* kts, const void* vtail,
                                    const void* vts, const void* lengths,
-                                   const void* new_lengths, void* out, int B, int T, int H,
-                                   int KV, int S, int Dh, int G, float sm, int window,
-                                   float softcap, void* stream) {
+                                   const void* new_lengths, const void* alibi, void* out,
+                                   int B, int T, int H, int KV, int S, int Dh, int G, float sm,
+                                   int window, float softcap, void* stream) {
   return entry<true>(q, q_dtype, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
-                     new_lengths, out, B, T, H, KV, S, Dh, G, sm, window, softcap, stream);
+                     new_lengths, alibi, out, B, T, H, KV, S, Dh, G, sm, window, softcap,
+                     stream);
 }

@@ -1,14 +1,15 @@
 // Decode attention over the paged int8 KV pool, walking the page table.
 //
-// Replaces protoquant_tpu/ops/paged_attention.py:_kernel (Pallas), base
-// variant (no ALiBi).
+// Replaces protoquant_tpu/ops/paged_attention.py:_kernel (Pallas), with its
+// ALiBi variant.
 //   q [B, 1, H, Dh] (f32/bf16/f16), kq/vq [P, KV, ps, Dh] int8 pools,
 //   ks/vs [P, KV, 1, ps] f32, page_table [B, maxP] int32 (-1 unmapped, read
 //   as page 0, as the TPU kernel's index map clamps), lengths [B] int32 =
-//   cache length BEFORE this step. Key slot s of table entry j is absolute
-//   position j * ps + s and is visible iff it is <= lengths[b]. Query head
-//   h * G + g reads kv head h.
+//   cache length BEFORE this step, alibi [H] f32 or null. Key slot s of
+//   table entry j is absolute position p_c = j * ps + s and is visible iff
+//   it is <= lengths[b]. Query head h * G + g reads kv head h.
 //   score[g, c] = (q[g] . kq[c]) * ks[c] * Dh^-0.5
+//                 (ALiBi: - alibi[h * G + g] * (lengths[b] - p_c))
 //   out[g]      = sum_c softmax(score)[g, c] * vs[c] * vq[c]
 // Bound on the H100: bytes, the valid keys of each row's pages
 // ((lengths[b] + 1) * (2 * Dh + 8) per (b, kv head)) plus q and out.
@@ -22,7 +23,8 @@
 // Thread s scores key s against the G rows; one warp per row runs the
 // online softmax in f32 (running max m, denominator l, rescale factor);
 // then thread d accumulates output dim d over the page's keys with p * vs.
-// The output is acc / max(l, 1e-30). At B = 4 and KV = 32 that is 128
+// The output is acc / max(l, 1e-30). ALiBi is a template switch, so the
+// plain instance is the kernel as it was. At B = 4 and KV = 32 that is 128
 // blocks, and the longest row sets the time: splitting a row's pages over
 // blocks (flash-decoding) is later work.
 
@@ -47,13 +49,13 @@ struct PaLayout {
   }
 };
 
-template <int DH, typename QT>
+template <int DH, bool ALIBI, typename QT>
 __global__ void __launch_bounds__(PA_THREADS)
 paged_attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
                   const float* __restrict__ ks, const int8_t* __restrict__ vq,
                   const float* __restrict__ vs, const int* __restrict__ page_table,
-                  const int* __restrict__ lengths, QT* __restrict__ out, int H, int KV,
-                  int maxP, int ps, float sm) {
+                  const int* __restrict__ lengths, const float* __restrict__ alibi,
+                  QT* __restrict__ out, int H, int KV, int maxP, int ps, float sm) {
   constexpr int KSTR = DH + 4;
   constexpr int DPT = (DH + PA_THREADS - 1) / PA_THREADS;  // output dims per thread
   extern __shared__ __align__(16) unsigned char pa_smem[];
@@ -80,11 +82,13 @@ paged_attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
     ms[tid] = PA_NEG_INF;
     ls[tid] = 0.0f;
   }
-  float acc[PA_MAXG][DPT];
+  float acc[PA_MAXG][DPT], slope[PA_MAXG];
 #pragma unroll
-  for (int g = 0; g < PA_MAXG; ++g)
+  for (int g = 0; g < PA_MAXG; ++g) {
+    slope[g] = ALIBI && g < G ? alibi[h * G + g] : 0.0f;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) acc[g][i] = 0.0f;
+  }
 
   for (int j = 0; j < n_pages; ++j) {
     const int page = max(page_table[(size_t)b * maxP + j], 0);
@@ -127,9 +131,15 @@ paged_attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
         }
       }
       const float kscale = kss[s];
+      const float dist = (float)(len - (j * ps + s));  // the query's position minus the key's
 #pragma unroll
-      for (int g = 0; g < PA_MAXG; ++g)
-        if (g < G) Ps[g * ps + s] = (dot[g] * kscale) * sm;
+      for (int g = 0; g < PA_MAXG; ++g) {
+        if (g < G) {
+          float v = (dot[g] * kscale) * sm;
+          if constexpr (ALIBI) v -= slope[g] * dist;
+          Ps[g * ps + s] = v;
+        }
+      }
     }
     __syncthreads();
 
@@ -187,50 +197,70 @@ paged_attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
   }
 }
 
-template <int DH, typename QT>
-static cudaError_t launch_t(const void* q, const void* kq, const void* ks, const void* vq,
+template <int DH, bool ALIBI, typename QT>
+static cudaError_t launch_a(const void* q, const void* kq, const void* ks, const void* vq,
                             const void* vs, const void* page_table, const void* lengths,
-                            void* out, int B, int H, int KV, int maxP, int ps, float sm,
-                            cudaStream_t stream) {
+                            const void* alibi, void* out, int B, int H, int KV, int maxP,
+                            int ps, float sm, cudaStream_t stream) {
   const int bytes = PaLayout(ps, DH, H / KV).bytes;
   if (bytes > 48 * 1024) {
     if (bytes > 227 * 1024) return cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute(paged_attn_kernel<DH, QT>,
+    cudaError_t e = cudaFuncSetAttribute(paged_attn_kernel<DH, ALIBI, QT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
   }
   dim3 grid(KV, B);
-  paged_attn_kernel<DH, QT><<<grid, PA_THREADS, bytes, stream>>>(
+  paged_attn_kernel<DH, ALIBI, QT><<<grid, PA_THREADS, bytes, stream>>>(
       (const QT*)q, (const int8_t*)kq, (const float*)ks, (const int8_t*)vq, (const float*)vs,
-      (const int*)page_table, (const int*)lengths, (QT*)out, H, KV, maxP, ps, sm);
+      (const int*)page_table, (const int*)lengths, (const float*)alibi, (QT*)out, H, KV,
+      maxP, ps, sm);
   return cudaGetLastError();
+}
+
+template <int DH, typename QT>
+static cudaError_t launch_t(const void* q, const void* kq, const void* ks, const void* vq,
+                            const void* vs, const void* page_table, const void* lengths,
+                            const void* alibi, void* out, int B, int H, int KV, int maxP,
+                            int ps, float sm, cudaStream_t stream) {
+  if (alibi != nullptr)
+    return launch_a<DH, true, QT>(q, kq, ks, vq, vs, page_table, lengths, alibi, out, B, H,
+                                  KV, maxP, ps, sm, stream);
+  return launch_a<DH, false, QT>(q, kq, ks, vq, vs, page_table, lengths, alibi, out, B, H,
+                                 KV, maxP, ps, sm, stream);
 }
 
 template <typename QT>
 static cudaError_t launch_dh(int Dh, const void* q, const void* kq, const void* ks,
                              const void* vq, const void* vs, const void* page_table,
-                             const void* lengths, void* out, int B, int H, int KV, int maxP,
-                             int ps, float sm, cudaStream_t stream) {
+                             const void* lengths, const void* alibi, void* out, int B, int H,
+                             int KV, int maxP, int ps, float sm, cudaStream_t stream) {
+#define PQ_PA_ARGS q, kq, ks, vq, vs, page_table, lengths, alibi, out, B, H, KV, maxP, ps, sm, \
+                   stream
   switch (Dh) {
-    case 64: return launch_t<64, QT>(q, kq, ks, vq, vs, page_table, lengths, out, B, H, KV, maxP, ps, sm, stream);
-    case 128: return launch_t<128, QT>(q, kq, ks, vq, vs, page_table, lengths, out, B, H, KV, maxP, ps, sm, stream);
-    case 256: return launch_t<256, QT>(q, kq, ks, vq, vs, page_table, lengths, out, B, H, KV, maxP, ps, sm, stream);
+    case 64: return launch_t<64, QT>(PQ_PA_ARGS);
+    case 128: return launch_t<128, QT>(PQ_PA_ARGS);
+    case 256: return launch_t<256, QT>(PQ_PA_ARGS);
     default: return cudaErrorInvalidValue;
   }
+#undef PQ_PA_ARGS
 }
 
 PQ_EXPORT int pq_paged_int8_attention(const void* q, int q_dtype, const void* kq, const void* ks,
                                       const void* vq, const void* vs, const void* page_table,
-                                      const void* lengths, void* out, int B, int H, int KV,
-                                      int maxP, int ps, int Dh, float sm, void* stream) {
+                                      const void* lengths, const void* alibi, void* out, int B,
+                                      int H, int KV, int maxP, int ps, int Dh, float sm,
+                                      void* stream) {
   if (B == 0) return cudaSuccess;
   if (KV == 0 || H % KV != 0 || H / KV > PA_MAXG || maxP < 1 || ps < 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+#define PQ_PA_DARGS Dh, q, kq, ks, vq, vs, page_table, lengths, alibi, out, B, H, KV, maxP, ps, \
+                    sm, st
   switch (q_dtype) {
-    case PQ_F32: return launch_dh<float>(Dh, q, kq, ks, vq, vs, page_table, lengths, out, B, H, KV, maxP, ps, sm, st);
-    case PQ_BF16: return launch_dh<__nv_bfloat16>(Dh, q, kq, ks, vq, vs, page_table, lengths, out, B, H, KV, maxP, ps, sm, st);
-    case PQ_F16: return launch_dh<__half>(Dh, q, kq, ks, vq, vs, page_table, lengths, out, B, H, KV, maxP, ps, sm, st);
+    case PQ_F32: return launch_dh<float>(PQ_PA_DARGS);
+    case PQ_BF16: return launch_dh<__nv_bfloat16>(PQ_PA_DARGS);
+    case PQ_F16: return launch_dh<__half>(PQ_PA_DARGS);
     default: return cudaErrorInvalidValue;
   }
+#undef PQ_PA_DARGS
 }

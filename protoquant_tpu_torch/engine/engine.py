@@ -20,7 +20,11 @@ pieces could overwrite live tail rows (``kivi_pad_overwrites``).
 from the native page allocator, when it is admitted, and waits while the
 pool is short. With ``EngineConfig.prefix_cache`` a request adopts the
 longest chain of resident pages that hold its prompt's prefix and prefills
-only the tail (``engine/prefix_cache.py``).
+only the tail (``engine/prefix_cache.py``). ``kv_layout="ring"`` (int8
+only) serves a sliding window, the model's or ``EngineConfig.
+stream_window`` (StreamingLLM, with ``attention_sinks``), from
+``RingInt8KVCache``s of O(window) columns; on a model whose window skips
+some layers (Gemma-2) those layers keep dense int8 caches.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from ..models.kv_cache import Int4KVCache, Int8KVCache, K4V8KVCache
+from ..models.kv_cache import Int4KVCache, Int8KVCache, K4V8KVCache, RingInt8KVCache
 from ..models.llama import LlamaModel, init_cache, kv_cache_class
 from ..native import PageAllocator
 from ..utils.config import EngineConfig
@@ -115,9 +119,9 @@ class Engine:
         self.prefix: Optional[PrefixCache] = None
         if self.cfg.prefix_cache and kv_layout != "paged":
             raise ValueError("prefix_cache requires kv_layout='paged'")
-        if kv_layout == "paged" and kv_cache_class(kv_dtype) is not Int8KVCache:
-            raise ValueError("the paged layout is int8 only; use kv_layout='dense' for "
-                             f"kv_dtype {kv_dtype!r}")
+        if kv_layout in ("paged", "ring") and kv_cache_class(kv_dtype) is not Int8KVCache:
+            raise ValueError(f"the {kv_layout} layout is int8 only; use kv_layout='dense' "
+                             f"for kv_dtype {kv_dtype!r}")
         if kv_layout == "dense":
             self.caches = init_cache(model.cfg, B, self.cfg.max_seq_len, self.device,
                                      kv_dtype)
@@ -140,8 +144,11 @@ class Engine:
             self.allocator = PageAllocator(num_pages - 1)
             if self.cfg.prefix_cache:
                 self.prefix = PrefixCache(self.allocator)
+        elif kv_layout == "ring":
+            self.caches = self._ring_caches(model.cfg)
         else:
-            raise ValueError(f"kv_layout {kv_layout!r}: the port has 'dense' and 'paged'")
+            raise ValueError(f"kv_layout {kv_layout!r}: the port has 'dense', 'paged' and "
+                             "'ring'")
         c, dev = self.cfg, self.device
         self._samp_host = {
             "temps": [c.temperature] * B, "top_ks": [c.top_k] * B,
@@ -165,6 +172,25 @@ class Engine:
             "prefill_times": deque(maxlen=256),
             "queue_waits": deque(maxlen=256),
         }
+
+    def _ring_caches(self, mcfg) -> list:
+        """The ring layout's caches (``protoquant_tpu/engine/engine.py``'s):
+        a ``RingInt8KVCache`` on every sliding layer, whose slack covers a
+        padded prefill piece, and a dense int8 cache on the layers the
+        model's window pattern leaves global."""
+        c = self.cfg
+        window = c.stream_window or mcfg.sliding_window
+        if window <= 0:
+            raise ValueError("kv_layout='ring' needs cfg.sliding_window > 0 or "
+                             "EngineConfig.stream_window > 0 (StreamingLLM serving)")
+        max_chunk = _bucket(c.prefill_chunk, c.prefill_chunk)
+        pattern = mcfg.sliding_window_pattern or (2 if mcfg.alternating_sliding_window else 0)
+        B, KV, Dh = c.max_batch_size, mcfg.num_key_value_heads, mcfg.head_dim
+        return [RingInt8KVCache.init(B, window, max_chunk, KV, Dh, sinks=c.attention_sinks,
+                                     device=self.device)
+                if pattern == 0 or (i + 1) % pattern
+                else Int8KVCache.init(B, c.max_seq_len, KV, Dh, device=self.device)
+                for i in range(mcfg.num_hidden_layers)]
 
     def _check_kivi_chunk(self, G: int) -> None:
         """A KIVI cache writes a padded prefill piece's pad rows into its

@@ -20,12 +20,13 @@ on the same object, and ``slot_view`` shares the pools and views one row of
 the table and lengths.
 
 Attention: decode steps (T == 1) run ``paged_int8_attention``, which walks
-the page table itself, so no window is gathered. Prefill chunks gather the
-mapped pages into a contiguous window and run ``int8_kv_attention`` over it
-(the JAX package runs its XLA formulation there; both compute the same
-function). So do decode steps with a sliding window, a score scale or a
-softcap: the page-walk kernel is full-causal, as in the JAX package, which
-sends the same cases to its gathered XLA path.
+the page table itself (with ALiBi slopes, if given), so no window is
+gathered. Prefill chunks gather the mapped pages into a contiguous window
+and run ``int8_kv_attention`` over it (the JAX package runs its XLA
+formulation there; both compute the same function). So do decode steps
+with a sliding window, a score scale or a softcap: the page-walk kernel is
+full-causal, as in the JAX package, which sends the same cases to its
+gathered XLA path; ALiBi goes along to either.
 """
 
 from __future__ import annotations
@@ -128,15 +129,16 @@ class PagedInt8KVCache:
                           tree_mask=None, alibi_slopes=None):
         """Write k/v, attend q [B, T, H, Dh] over the slot's pages with the
         lengths from before this step, then advance. Returns [B, T, H, Dh]."""
-        reject_variants("PagedInt8KVCache", tree_mask=tree_mask, alibi_slopes=alibi_slopes)
+        reject_variants("PagedInt8KVCache", tree_mask=tree_mask)
         self._write(k, v)
         pools = (self.kq, self.ks, self.vq, self.vs)
         if q.shape[1] == 1 and not (window or scale or softcap):
-            out = paged_int8_attention(q, *pools, self.page_table, self.lengths)
+            out = paged_int8_attention(q, *pools, self.page_table, self.lengths,
+                                       alibi_slopes=alibi_slopes)
         else:
             out = int8_kv_attention(q, *gather_window(*pools, self.page_table),
                                     self.lengths, window=window, scale=scale,
-                                    softcap=softcap)
+                                    softcap=softcap, alibi_slopes=alibi_slopes)
         self._advance(k.shape[1], advance)
         return out
 

@@ -1,5 +1,6 @@
 """Carry weights of the JAX package's Llama model across to the port (its
-Gemma-2 sandwich norms too, by name; zero-centred norm weights as stored).
+Gemma-2 sandwich norms and BLOOM's LayerNorms, embedding LayerNorm and
+linear biases too, by name; zero-centred norm weights as stored).
 
 ``params_from_numpy`` takes the flax params tree as nested dicts of numpy
 arrays (a ``QTensor`` or a packed ``QTensor4`` given as ``{"data",
@@ -17,6 +18,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from ..utils.device import resolve_device
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()):
@@ -57,9 +60,14 @@ def params_from_numpy(tree: Mapping) -> dict:
     return out
 
 
-def cache_from_numpy(cls, arrays: Mapping, group: int | None = None, device="cpu"):
+def cache_from_numpy(cls, arrays: Mapping, group: int | None = None, device=None, **meta):
     """A port cache of class ``cls`` from a JAX cache's arrays (field name
-    -> numpy array, the same layouts), on ``device``; ``group`` for the
-    KIVI caches. Starts both packages from one state."""
+    -> numpy array, the same layouts), on ``device`` (default cuda, as every
+    entry point); ``group`` for the KIVI caches, ``meta`` for the other
+    meta fields (``window``, ``sinks`` of a ring). Starts both packages from
+    one state."""
+    device = resolve_device(device)
     fields = {name: _tensor(a).to(device) for name, a in arrays.items()}
-    return cls(**fields) if group is None else cls(**fields, group=group)
+    if group is not None:
+        meta["group"] = group
+    return cls(**fields, **meta)

@@ -1,8 +1,9 @@
 """Dense KV caches: ``BF16KVCache`` (K/V unquantized, the reference's
-default), int8 with per-token, per-head scales, the mixed ``MixedKVCache``
-(int8 K, packed int4 V per token), and the KIVI capacity tiers
-``K4V8KVCache`` (int4 K, int8 V) and ``Int4KVCache`` (int4 K and V), each
-with an int8 tail of the latest 2G tokens (below).
+default), int8 with per-token, per-head scales, the ring ``RingInt8KVCache``
+(int8, O(window) columns for sliding-window and StreamingLLM serving), the
+mixed ``MixedKVCache`` (int8 K, packed int4 V per token), and the KIVI
+capacity tiers ``K4V8KVCache`` (int4 K, int8 V) and ``Int4KVCache`` (int4 K
+and V), each with an int8 tail of the latest 2G tokens (below).
 
 Int8 layout as in the JAX package: kq/vq [B, KV, S, Dh] int8 (head-major, so one
 (batch, kv head) row of the cache is contiguous), ks/vs [B, KV, S] f32,
@@ -17,11 +18,14 @@ full cache.
 
 Every ``update_and_attend`` takes the keyword arguments of its JAX
 counterpart: ``window`` (sliding window), ``scale`` (score scale),
-``softcap`` (Gemma-2 logit cap), ``sink_logits``, ``tree_mask``,
-``alibi_slopes``. The bf16, int8 and KIVI caches attend with the first
-three; the K8V4 cache with ``scale`` alone and raises on a window or a
-softcap, as the JAX one does. The others are not ported: each cache raises
-``NotImplementedError`` on them before it writes anything.
+``softcap`` (Gemma-2 logit cap), ``alibi_slopes`` (BLOOM), ``sink_logits``,
+``tree_mask``. The bf16, int8, ring and KIVI caches attend with the first
+four; the K8V4 cache with ``scale`` alone and raises on a window, a softcap
+or ALiBi, as the JAX one does. The last two are not ported: each cache
+raises ``NotImplementedError`` on them before it writes anything.
+``mha_attention`` and ``BF16KVCache`` apply ALiBi before the softcap (the
+JAX model's ``mha_attention``), the int8 and KIVI kernels after it (its
+``int8_kv_attention_xla``).
 """
 
 from __future__ import annotations
@@ -59,20 +63,25 @@ def quantize_kv4(x: torch.Tensor):
 
 
 def mha_attention(q, k, v, q_positions, k_positions, window: int = 0, scale: float = 0.0,
-                  softcap: float = 0.0):
+                  softcap: float = 0.0, alibi_slopes=None):
     """Plain causal GQA attention over unquantized keys and values (the
     scoring path, and ``BF16KVCache``'s attention), in f32.
 
     q [B, T, H, Dh]; k/v [B, S, KV, Dh]; a key is visible to a query iff its
     position is not greater than the query's and, with ``window`` > 0, more
     than window - 1 positions behind it. ``scale`` > 0 replaces Dh^-0.5;
-    ``softcap`` > 0 caps the scaled scores, cap * tanh(s / cap), before the
-    mask (``protoquant_tpu/models/llama.py:mha_attention``)."""
+    ``alibi_slopes`` [H] subtract slope_h * (query position - key position)
+    from the scaled scores; ``softcap`` > 0 then caps them, cap * tanh(s /
+    cap), before the mask (``protoquant_tpu/models/llama.py:mha_attention``)."""
     B, T, H, Dh = q.shape
     KV = k.shape[2]
     group = H // KV
     qf = q.reshape(B, T, KV, group, Dh).float()
     scores = torch.einsum("btkgd,bskd->bkgts", qf, k.float()) * score_scale(Dh, scale)
+    if alibi_slopes is not None:
+        dist = (q_positions[:, :, None] - k_positions[:, None, :]).float()  # [B, T, S]
+        sl = alibi_slopes.float().reshape(KV, group)
+        scores = scores - sl[None, :, :, None, None] * dist[:, None, None]
     if softcap > 0.0:
         scores = softcap * torch.tanh(scores / softcap)
     kp = k_positions[:, None, None, None, :]
@@ -175,14 +184,14 @@ class BF16KVCache(_DenseSlots):
                           sink_logits=None, tree_mask=None, alibi_slopes=None):
         """Write k/v, attend q [B, T, H, Dh] (query t at position lengths +
         t, before this step) over every cached key, then advance."""
-        reject_variants("BF16KVCache", sink_logits=sink_logits, tree_mask=tree_mask,
-                         alibi_slopes=alibi_slopes)
+        reject_variants("BF16KVCache", sink_logits=sink_logits, tree_mask=tree_mask)
         B, T = k.shape[:2]
         self._write(k, v)
         dev = q.device
         q_pos = self.lengths.long()[:, None] + torch.arange(T, device=dev)[None, :]
         k_pos = torch.arange(self.max_seq, device=dev)[None, :].expand(B, self.max_seq)
-        out = mha_attention(q, self.k, self.v, q_pos, k_pos, window, scale, softcap)
+        out = mha_attention(q, self.k, self.v, q_pos, k_pos, window, scale, softcap,
+                            alibi_slopes)
         self._advance(T, advance)
         return out
 
@@ -243,14 +252,121 @@ class Int8KVCache(_DenseSlots):
     def update_and_attend(self, q, k, v, advance=None, window=0, scale=0.0, softcap=0.0,
                           sink_logits=None, tree_mask=None, alibi_slopes=None):
         """Write k/v, attend q [B, T, H, Dh] over the cache with the lengths
-        from before this step (and the window, scale and softcap given),
-        then advance. Returns [B, T, H, Dh]."""
-        reject_variants("Int8KVCache", sink_logits=sink_logits, tree_mask=tree_mask,
-                         alibi_slopes=alibi_slopes)
+        from before this step (and the window, scale, softcap and ALiBi
+        slopes given), then advance. Returns [B, T, H, Dh]."""
+        reject_variants("Int8KVCache", sink_logits=sink_logits, tree_mask=tree_mask)
         self._write(k, v)
         out = int8_kv_attention(q, self.kq, self.ks, self.vq, self.vs, self.lengths,
-                                window=window, scale=scale, softcap=softcap)
+                                window=window, scale=scale, softcap=softcap,
+                                alibi_slopes=alibi_slopes)
         self._advance(k.shape[1], advance)
+        return out
+
+
+def ring_positions(lengths, capacity: int, sinks: int = 0) -> torch.Tensor:
+    """The absolute position each ring column holds once a slot's length is
+    ``lengths`` [B] (after this step's writes), as [B, capacity] int32,
+    negative for a column never written: the first ``sinks`` columns hold
+    their own positions, the others the latest position >= sinks that maps
+    to them (``RingInt8KVCache.update_and_attend`` of the JAX package)."""
+    L = lengths.long()[:, None]
+    c = torch.arange(capacity, device=lengths.device)[None, :]
+    if sinks == 0:
+        return ((L - 1) - ((L - 1 - c) % capacity)).to(torch.int32)
+    R = capacity - sinks
+    rot = (L - 1) - ((L - 1 - c) % R)
+    rot = torch.where(rot >= sinks, rot, torch.full_like(rot, -1))
+    pinned = torch.where(c < L, c, torch.full_like(c, -1))
+    return torch.where(c < sinks, pinned, rot).to(torch.int32)
+
+
+@dataclasses.dataclass
+class RingInt8KVCache(_DenseSlots):
+    """Ring-buffer int8 cache for sliding-window and StreamingLLM serving:
+    O(window) columns per slot instead of O(max_seq). The layout of
+    ``Int8KVCache`` (kq/vq [B, KV, C, Dh] int8, ks/vs [B, KV, C] f32,
+    lengths [B] int32) over a ring of C = capacity >= sinks + window +
+    max_chunk columns: position p < sinks lives in column p forever
+    (StreamingLLM sinks), any other in column sinks + (p - sinks) mod (C -
+    sinks), so a T-token update never overwrites a column any of its own
+    queries still needs. Attention rebuilds each column's position from the
+    length after the write (``ring_positions``) and masks on it, so the
+    result is the dense windowed cache's. Port of
+    ``protoquant_tpu/models/kv_cache.py:RingInt8KVCache``, updated in place;
+    the write is plain PyTorch, as the JAX one is plain XLA."""
+
+    kq: torch.Tensor
+    ks: torch.Tensor
+    vq: torch.Tensor
+    vs: torch.Tensor
+    lengths: torch.Tensor
+    window: int
+    sinks: int = 0
+
+    FIELDS = ("kq", "ks", "vq", "vs", "lengths")
+
+    @classmethod
+    def init(cls, batch, window, max_chunk, kv_heads, head_dim, sinks=0, device=None):
+        """An empty ring on ``device`` (default cuda) of capacity sinks +
+        window + max_chunk rounded up to a multiple of 32."""
+        device = resolve_device(device)
+        cap = -(-(sinks + window + max_chunk) // 32) * 32
+        payload = (batch, kv_heads, cap, head_dim)
+        scales = (batch, kv_heads, cap)
+        return cls(
+            kq=torch.zeros(payload, dtype=torch.int8, device=device),
+            ks=torch.full(scales, SCALE_EPS, dtype=torch.float32, device=device),
+            vq=torch.zeros(payload, dtype=torch.int8, device=device),
+            vs=torch.full(scales, SCALE_EPS, dtype=torch.float32, device=device),
+            lengths=torch.zeros(batch, dtype=torch.int32, device=device),
+            window=window, sinks=sinks)
+
+    @property
+    def capacity(self) -> int:
+        return self.kq.shape[2]
+
+    @property
+    def max_seq(self) -> int:
+        """A ring imposes no position limit (the engine bounds lengths)."""
+        return 1 << 30
+
+    def _column(self, pos):
+        """Ring column of absolute position(s) ``pos``."""
+        R = self.capacity - self.sinks
+        return torch.where(pos < self.sinks, pos, self.sinks + (pos - self.sinks) % R)
+
+    def _write(self, k, v) -> None:
+        """Quantize k/v [B, T, KV, Dh] and write all T tokens (padding
+        included, as the JAX cache does) at their ring columns."""
+        B, T = k.shape[:2]
+        slack = self.capacity - self.window - self.sinks
+        if T > slack:
+            raise ValueError(f"chunk {T} exceeds ring slack {slack} (init with max_chunk >= "
+                             "prefill chunk)")
+        k8, ks_new = quantize_kv(k)
+        v8, vs_new = quantize_kv(v)
+        pos = self.lengths.long()[:, None] + torch.arange(T, device=k.device)[None, :]
+        b_idx = torch.arange(B, device=k.device)[:, None]
+        col = self._column(pos)
+        self.kq[b_idx, :, col] = k8
+        self.ks[b_idx, :, col] = ks_new
+        self.vq[b_idx, :, col] = v8
+        self.vs[b_idx, :, col] = vs_new
+
+    def update_and_attend(self, q, k, v, advance=None, window=0, scale=0.0, softcap=0.0,
+                          sink_logits=None, tree_mask=None, alibi_slopes=None):
+        """Write k/v, attend q [B, T, H, Dh] over the ring's columns at the
+        positions they hold after the write (the window is ``window``, or
+        the ring's own), then advance. Returns [B, T, H, Dh]."""
+        reject_variants("RingInt8KVCache", sink_logits=sink_logits, tree_mask=tree_mask)
+        T = k.shape[1]
+        self._write(k, v)
+        k_pos = ring_positions(self.lengths + T, self.capacity, self.sinks)
+        out = int8_kv_attention(q, self.kq, self.ks, self.vq, self.vs, self.lengths,
+                                window=window if window > 0 else self.window, scale=scale,
+                                softcap=softcap, k_positions=k_pos, sinks=self.sinks,
+                                alibi_slopes=alibi_slopes)
+        self._advance(T, advance)
         return out
 
 
@@ -476,15 +592,15 @@ class _KiviKVCache(_DenseSlots):
     def update_and_attend(self, q, k, v, advance=None, window=0, scale=0.0, softcap=0.0,
                           sink_logits=None, tree_mask=None, alibi_slopes=None):
         """Write k/v, attend q [B, T, H, Dh] with the lengths from before
-        (and the frontier from after) this step, and the window, scale and
-        softcap given, then advance."""
-        reject_variants(type(self).__name__, sink_logits=sink_logits, tree_mask=tree_mask,
-                         alibi_slopes=alibi_slopes)
+        (and the frontier from after) this step, and the window, scale,
+        softcap and ALiBi slopes given, then advance."""
+        reject_variants(type(self).__name__, sink_logits=sink_logits, tree_mask=tree_mask)
         adv = self._adv(k.shape[1], advance)
         new_lengths = self.lengths + adv
         self._write(k, v, adv)
         out = self._attention(q, *self._tensors(), self.lengths, new_lengths,
-                              group=self.group, window=window, scale=scale, softcap=softcap)
+                              group=self.group, window=window, scale=scale, softcap=softcap,
+                              alibi_slopes=alibi_slopes)
         self.lengths.copy_(new_lengths)
         return out
 

@@ -1,24 +1,26 @@
 """Llama-family decoder: RMSNorm, RoPE, GQA attention and a gated MLP,
 every projection a ``QLinear``; with the config's switches, Mistral (a
-sliding window on every layer) and Gemma-2 (GeGLU, zero-centred norm
+sliding window on every layer), Gemma-2 (GeGLU, zero-centred norm
 weights, sandwich norms, the embedding normalizer, a sliding window on
 alternate layers, the query_pre_attn_scalar score scale, attention and
-final-logit softcaps).
+final-logit softcaps) and BLOOM (LayerNorm with a bias, an embedding
+LayerNorm, biased projections, a plain gelu MLP, ALiBi instead of RoPE).
 
 Module and parameter names follow the flax tree of the JAX package
 (``embed_tokens``, ``layers_{i}.self_attn.{q,k,v,o}_proj``,
 ``layers_{i}.mlp.{gate,up,down}_proj``, ``layers_{i}.{input,
 post_attention,pre_feedforward,post_feedforward}_layernorm``, ``norm``,
-``lm_head``), so ``models.from_jax.params_from_numpy`` carries weights
-across by name. RMSNorm, RoPE and the gate activation compute in f32 and
-cast back to the activation dtype, as the JAX model does. Under
-``ops.FUSED_QUANT == "on"`` a ``dynamic`` layer takes the JAX model's
-producer-fused path: the norms that feed projections and the gate emit the
-int8 activations of the projections that read them (``ops.rms_norm_quant``,
-``ops.swiglu_quant``). With sandwich norms no norm is fused (the JAX
-gating: the MLP's input norm is ``pre_feedforward_layernorm`` and the
-attention's stays plain) and the gate still is; the final norm before
-``lm_head`` stays unfused.
+``lm_head``, ``embed_norm``), so ``models.from_jax.params_from_numpy``
+carries weights across by name. The norms, RoPE and the activations
+compute in f32 and cast back to the activation dtype, as the JAX model
+does. Under ``ops.FUSED_QUANT == "on"`` a ``dynamic`` layer takes the JAX
+model's producer-fused path: the norms that feed projections and the gate
+emit the int8 activations of the projections that read them
+(``ops.rms_norm_quant``, ``ops.swiglu_quant``). With sandwich norms no norm
+is fused (the JAX gating: the MLP's input norm is
+``pre_feedforward_layernorm`` and the attention's stays plain) and the gate
+still is; with LayerNorm nothing is (no norm is an RMSNorm and the MLP has
+no gate); the final norm before ``lm_head`` stays unfused.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from torch import nn
 
 from .. import ops
 from ..nn.qlinear import QLinear
-from ..ops.fused_quant import rms_norm, swiglu
+from ..ops.fused_quant import activation, rms_norm, swiglu
 from ..utils.config import ModelConfig
 from ..utils.device import resolve_device
 from .kv_cache import (BF16KVCache, Int4KVCache, Int8KVCache, K4V8KVCache, MixedKVCache,
@@ -86,6 +88,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cos, sin) -> torch.Tens
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+def alibi_slopes(n_heads: int) -> torch.Tensor:
+    """ALiBi head slopes (Press et al. 2021, the BLOOM scheme) as [n_heads]
+    f32: for 2^k heads the geometric sequence 2^(-8 (i + 1) / n); other
+    counts take the closest lower power of two's sequence plus every other
+    entry of the doubled one (the transformers ``build_alibi_tensor``
+    recipe, as the JAX package's ``alibi_slopes``)."""
+    def pow2(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start ** (i + 1) for i in range(n)]
+
+    if math.log2(n_heads).is_integer():
+        slopes = pow2(n_heads)
+    else:
+        c = 2 ** math.floor(math.log2(n_heads))
+        slopes = pow2(c) + pow2(2 * c)[0::2][:n_heads - c]
+    return torch.tensor(slopes, dtype=torch.float32)
+
+
 class RMSNorm(nn.Module):
     """``unit_offset`` (Gemma): the stored weight is zero-centred and the
     norm multiplies by ``weight + 1``, formed in f32 (a fresh norm stores 0)."""
@@ -112,6 +132,34 @@ class RMSNorm(nn.Module):
                                   cast_dtype=self.dtype)
 
 
+class LayerNorm(nn.Module):
+    """Mean-centred norm with a weight and a bias (BLOOM): f32 math, output
+    in the activation dtype, as the JAX model's ``LayerNorm``."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        device = resolve_device(device)
+        self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device),
+                                   requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=torch.float32, device=device),
+                                 requires_grad=False)
+
+    def forward(self, x):
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + self.eps)
+        return (y * self.weight + self.bias).to(self.dtype)
+
+
+def make_norm(cfg: ModelConfig, dtype, device=None) -> nn.Module:
+    """The model-wide norm of ``cfg.norm_type``."""
+    if cfg.norm_type == "layernorm":
+        return LayerNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, device)
+    return RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, device, cfg.rmsnorm_unit_offset)
+
+
 # Modes whose projections read int8 activations: a block quantizes its
 # input once for all the projections that read it.
 ROWQUANT_MODES = ("dynamic", "dynamic_int4")
@@ -128,8 +176,8 @@ def producer_fused(mode: str) -> bool:
 class Attention(nn.Module):
     """GQA attention of layer ``layer_idx``: its sliding window
     (``cfg.layer_window``), score scale (query_pre_attn_scalar^-0.5 when
-    set) and logit softcap go to the cache, or to ``mha_attention`` without
-    one."""
+    set), logit softcap and ALiBi slopes go to the cache, or to
+    ``mha_attention`` without one. Under ALiBi, q and k take no RoPE."""
 
     def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128,
                  layer_idx: int = 0):
@@ -143,12 +191,15 @@ class Attention(nn.Module):
         device = resolve_device(device)
         D, H, KV, Dh = (cfg.hidden_size, cfg.num_attention_heads,
                         cfg.num_key_value_heads, cfg.head_dim)
-        lin = lambda k, n: QLinear(k, n, mode, bias=False, dtype=dtype, device=device,
-                                   int4_group=int4_group)
-        self.q_proj = lin(D, H * Dh)
-        self.k_proj = lin(D, KV * Dh)
-        self.v_proj = lin(D, KV * Dh)
-        self.o_proj = lin(H * Dh, D)
+        lin = lambda k, n, bias: QLinear(k, n, mode, bias=bias, dtype=dtype, device=device,
+                                         int4_group=int4_group)
+        self.q_proj = lin(D, H * Dh, cfg.attention_bias)
+        self.k_proj = lin(D, KV * Dh, cfg.attention_bias)
+        self.v_proj = lin(D, KV * Dh, cfg.attention_bias)
+        self.o_proj = lin(H * Dh, D, cfg.attention_out_bias)
+        self.alibi = cfg.position_embedding == "alibi"
+        if self.alibi:
+            self.register_buffer("alibi_slopes", alibi_slopes(H).to(device), persistent=False)
 
     def forward(self, x, positions, cos, sin, cache=None, advance=None, preq=None):
         """``preq``: the (xq, s_x) of the normed input from the producer
@@ -165,26 +216,35 @@ class Attention(nn.Module):
         q = self.q_proj(x, preq).reshape(B, T, H, Dh)
         k = self.k_proj(x, preq).reshape(B, T, KV, Dh)
         v = self.v_proj(x, preq).reshape(B, T, KV, Dh)
-        q = apply_rope(q, positions, cos, sin)
-        k = apply_rope(k, positions, cos, sin)
+        slopes = self.alibi_slopes if self.alibi else None
+        if not self.alibi:
+            q = apply_rope(q, positions, cos, sin)
+            k = apply_rope(k, positions, cos, sin)
         if cache is not None:
-            out = cache.update_and_attend(q, k, v, advance, **self.variants)
+            out = cache.update_and_attend(q, k, v, advance, alibi_slopes=slopes,
+                                          **self.variants)
         else:
-            out = mha_attention(q, k, v, positions, positions, **self.variants)
+            out = mha_attention(q, k, v, positions, positions, alibi_slopes=slopes,
+                                **self.variants)
         return self.o_proj(out.reshape(B, T, H * Dh))
 
 
 class MLP(nn.Module):
+    """Gated (SwiGLU, GeGLU) or, with ``cfg.mlp_gated`` False, the plain
+    up_proj -> act -> down_proj of BLOOM; biased with ``cfg.mlp_bias``."""
+
     def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128):
         super().__init__()
         self.dtype = dtype
-        # SwiGLU (silu) or GeGLU (the tanh approximation of gelu)
+        # silu, or the tanh approximation of gelu ("gelu_tanh", "gelu")
         self.act = "silu" if cfg.hidden_act == "silu" else "gelu"
+        self.gated = cfg.mlp_gated
         device = resolve_device(device)
         D, I = cfg.hidden_size, cfg.intermediate_size
-        lin = lambda k, n: QLinear(k, n, mode, bias=False, dtype=dtype, device=device,
+        lin = lambda k, n: QLinear(k, n, mode, bias=cfg.mlp_bias, dtype=dtype, device=device,
                                    int4_group=int4_group)
-        self.gate_proj = lin(D, I)
+        if self.gated:
+            self.gate_proj = lin(D, I)
         self.up_proj = lin(D, I)
         self.down_proj = lin(I, D)
 
@@ -194,7 +254,10 @@ class MLP(nn.Module):
         (``ops.swiglu_quant``) and ``down_proj`` reads its (hq, s_h)."""
         if preq is None:
             x = x.to(self.dtype)
-            preq = ops.shared_rowquant(x) if self.gate_proj.mode in ROWQUANT_MODES else None
+            preq = ops.shared_rowquant(x) if self.up_proj.mode in ROWQUANT_MODES else None
+        if not self.gated:
+            h = activation(self.act)(self.up_proj(x, preq).float()).to(self.dtype)
+            return self.down_proj(h)
         gate = self.gate_proj(x, preq)
         up = self.up_proj(x, preq)
         # the linears' mode, not the constructor's: quantize_model converts
@@ -215,9 +278,9 @@ class DecoderLayer(nn.Module):
                  layer_idx: int = 0):
         super().__init__()
         device = resolve_device(device)
-        norm = lambda: RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, device,
-                               cfg.rmsnorm_unit_offset)
+        norm = lambda: make_norm(cfg, dtype, device)
         self.sandwich = cfg.sandwich_norms
+        self.rms = cfg.norm_type == "rmsnorm"
         self.input_layernorm = norm()
         self.self_attn = Attention(cfg, mode, dtype, device, int4_group, layer_idx)
         self.post_attention_layernorm = norm()
@@ -232,7 +295,7 @@ class DecoderLayer(nn.Module):
             x = x + self.post_attention_layernorm(h)
             h = self.mlp(self.pre_feedforward_layernorm(x))
             return x + self.post_feedforward_layernorm(h)
-        if producer_fused(self.mlp.gate_proj.mode):
+        if self.rms and producer_fused(self.mlp.up_proj.mode):
             # the norms emit the projections' int8 input directly; the
             # normed activation itself is never made
             x = x + self.self_attn(None, positions, cos, sin, cache, advance,
@@ -267,10 +330,11 @@ class LlamaModel(nn.Module):
         # the JAX model and HF (bf16: 59.75 at D = 3584)
         self.embed_scale = (float(torch.tensor(cfg.hidden_size**0.5, dtype=dtype))
                             if cfg.scale_embeddings else None)
+        if cfg.embedding_layernorm:
+            self.embed_norm = make_norm(cfg, dtype, dev)
         for i in range(cfg.num_hidden_layers):
             self.add_module(f"layers_{i}", DecoderLayer(cfg, mode, dtype, dev, int4_group, i))
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, dev,
-                            cfg.rmsnorm_unit_offset)
+        self.norm = make_norm(cfg, dtype, dev)
         self.lm_head = QLinear(cfg.hidden_size, cfg.vocab_size, mode, bias=False,
                                dtype=dtype, device=dev, int4_group=int4_group)
         cos, sin = rope_tables(cfg.head_dim, cfg.max_position_embeddings,
@@ -290,7 +354,7 @@ class LlamaModel(nn.Module):
         model exists whole. Linear weights are
         N(0, 1/K), embeddings N(0, 1) as the first layer sees them (N(0, 1/D)
         under Gemma's sqrt(D) normalizer), norms the identity (weights 1, or 0
-        when stored zero-centred)."""
+        when stored zero-centred; biases 0), linear biases 0."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         emb = torch.randn(self.embed_tokens.weight.shape, generator=gen, device=self.device)
         if self.cfg.scale_embeddings:
@@ -303,8 +367,13 @@ class LlamaModel(nn.Module):
                                 generator=gen, device=self.device)
                 module.set_weight(w.mul_(1.0 / math.sqrt(module.in_features)))
                 del w
+                if module.bias is not None:
+                    module.bias.zero_()
             elif isinstance(module, RMSNorm):
                 module.weight.fill_(0.0 if module.unit_offset else 1.0)
+            elif isinstance(module, LayerNorm):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
         return self
 
     @torch.no_grad()
@@ -316,6 +385,8 @@ class LlamaModel(nn.Module):
         x = self.embed_tokens(tokens.long())
         if self.embed_scale is not None:
             x = x * self.embed_scale
+        if self.cfg.embedding_layernorm:
+            x = self.embed_norm(x)
         for i, layer in enumerate(self.layers):
             cache = caches[i] if caches is not None else None
             x = layer(x, positions, self.rope_cos, self.rope_sin, cache, advance)

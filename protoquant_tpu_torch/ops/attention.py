@@ -14,11 +14,19 @@ with unit scales, as the JAX tests hold the Pallas kernels.
 Variants, as the JAX functions take them: ``window`` > 0 hides keys more
 than window - 1 positions behind each query, ``scale`` > 0 replaces the
 score scale Dh^-0.5, ``softcap`` > 0 caps the scaled score to softcap *
-tanh(score / softcap) before the mask. The int8 and KIVI functions take all
-three, the K8V4 ones ``scale`` alone (as ``mixed_kv_attention`` of the JAX
-package). The other variants of the JAX functions (learned sinks, ring
-positions, StreamingLLM sinks, ALiBi, tree masks) are not ported yet:
-every function here raises ``NotImplementedError`` on them.
+tanh(score / softcap) before the mask, ``alibi_slopes`` [H] subtracts
+slope_h * (query position - key position) after the cap, before the mask.
+The int8 functions also take ``k_positions`` [B, S] int32, the absolute
+position each column holds (a ring cache; negative = never written), and
+``sinks``: with a window, positions below it stay visible (StreamingLLM).
+The int8 and KIVI functions take window, scale, softcap and ALiBi, the
+K8V4 ones ``scale`` alone (as ``mixed_kv_attention`` of the JAX package).
+The JAX functions' other variants (learned sinks, tree masks) are not
+ported yet: every function here raises ``NotImplementedError`` on them.
+With sinks over a contiguous cache (no ``k_positions``) the port keeps the
+sink keys visible, as ``int8_kv_attention_xla`` does; the Pallas kernel
+skips the tiles below the window and drops them (no JAX caller passes
+sinks without positions).
 
 The kernels and the plain versions place the score scale differently, as
 in the JAX package: a kernel multiplies ``(q . k) * ks * sm`` (sm the
@@ -60,27 +68,47 @@ def _window(name: str, window) -> int:
     return int(window)
 
 
+def _alibi(name, alibi_slopes, H):
+    if alibi_slopes is not None and tuple(alibi_slopes.shape) != (H,):
+        raise ValueError(f"{name}: alibi_slopes shape {tuple(alibi_slopes.shape)}, want ({H},)")
+
+
 def int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, window=0, scale=0.0, softcap=0.0,
-                          **variants):
+                          k_positions=None, sinks=0, alibi_slopes=None, **variants):
     """Plain version. q [B, T, H, Dh]; kq/vq [B, KV, S, Dh] int8 (already
     holding this step's tokens); ks/vs [B, KV, S] f32; lengths [B] = cache
-    length before this step; ``window``, ``scale``, ``softcap`` as the
-    module says. Returns [B, T, H, Dh] in q.dtype."""
+    length before this step; ``window``, ``scale``, ``softcap``,
+    ``k_positions``, ``sinks``, ``alibi_slopes`` as the module says (the
+    JAX package's ``int8_kv_attention_xla``). Returns [B, T, H, Dh] in
+    q.dtype."""
     reject_variants("int8_kv_attention_ref", **variants)
     window = _window("int8_kv_attention_ref", window)
     B, T, H, Dh = q.shape
     KV, S = kq.shape[1], kq.shape[2]
     group = H // KV
+    _alibi("int8_kv_attention_ref", alibi_slopes, H)
     qh = (q.float() * score_scale(Dh, scale)).reshape(B, T, KV, group, Dh)
     scores = torch.einsum("btkgd,bksd->bkgts", qh, kq.float())
     scores = scores * ks[:, :, None, None, :]
     if softcap > 0.0:
         scores = softcap * torch.tanh(scores / softcap)
-    t_pos = lengths.long()[:, None] + torch.arange(T, device=q.device)[None, :]
-    s_pos = torch.arange(S, device=q.device)[None, None, None, None, :]
-    mask = s_pos <= t_pos[:, None, None, :, None]
+    t_pos = lengths.long()[:, None] + torch.arange(T, device=q.device)[None, :]  # [B, T]
+    if k_positions is None:
+        s_pos = torch.arange(S, device=q.device)[None, :].expand(B, S)
+    else:
+        s_pos = k_positions.long()
+    if alibi_slopes is not None:
+        dist = (t_pos[:, :, None] - s_pos[:, None, :]).float()  # [B, T, S]
+        sl = alibi_slopes.float().reshape(KV, group)
+        scores = scores - sl[None, :, :, None, None] * dist[:, None, None]
+    kp = s_pos[:, None, None, None, :]
+    qp = t_pos[:, None, None, :, None]
+    mask = (kp <= qp) & (kp >= 0)
     if window > 0:
-        mask &= s_pos > t_pos[:, None, None, :, None] - window
+        in_window = kp > qp - window
+        if sinks > 0:
+            in_window |= kp < sinks
+        mask &= in_window
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     pv = probs * vs[:, :, None, None, :]
@@ -89,7 +117,7 @@ def int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, window=0, scale=0.0, softc
 
 
 def _dense_attention_launch(name, fn, v4, q, kq, ks, vq, vs, lengths, scale=0.0, window=0,
-                            softcap=0.0):
+                            softcap=0.0, k_positions=None, sinks=0, alibi_slopes=None):
     """Check the operands of ``csrc/attention.cu`` (V int8 per token, or
     with ``v4`` packed token pairs and parity-split scales, which take the
     score scale alone), launch it and count the launch on ``fn``."""
@@ -111,31 +139,55 @@ def _dense_attention_launch(name, fn, v4, q, kq, ks, vq, vs, lengths, scale=0.0,
         raise TypeError(f"{name}: cache scales must be float32")
     if lengths.dtype != torch.int32:
         raise TypeError(f"{name}: lengths must be int32")
+    if sinks < 0:
+        raise ValueError(f"{name}: sinks {sinks} < 0")
+    extra = []
+    if k_positions is not None:
+        if tuple(k_positions.shape) != (B, S) or k_positions.dtype != torch.int32:
+            raise ValueError(f"{name}: k_positions must be [B, S] = {(B, S)} int32, got "
+                             f"{tuple(k_positions.shape)} {k_positions.dtype}")
+        extra.append(k_positions)
+    _alibi(name, alibi_slopes, H)
+    if alibi_slopes is not None:
+        if alibi_slopes.dtype != torch.float32:
+            raise TypeError(f"{name}: alibi_slopes must be float32")
+        extra.append(alibi_slopes)
     q = q.contiguous()
-    dev = _build.same_device_contiguous(name, q, kq, ks, vq, vs, lengths)
+    dev = _build.same_device_contiguous(name, q, kq, ks, vq, vs, lengths, *extra)
     out = torch.empty_like(q)
-    c_name = "pq_mixed_kv_attention" if v4 else "pq_int8_kv_attention"
-    variants = () if v4 else (window, float(softcap))
-    err = getattr(_build.lib(), c_name)(
-        q.data_ptr(), _build.DTYPE_CODES[q.dtype], kq.data_ptr(), ks.data_ptr(),
-        vq.data_ptr(), vs.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, T, H, KV, S, Dh, score_scale(Dh, scale), *variants, _build.stream_ptr(dev))
-    _build.check(err, c_name)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _build.lib()
+    if v4:
+        err = lib.pq_mixed_kv_attention(
+            q.data_ptr(), _build.DTYPE_CODES[q.dtype], kq.data_ptr(), ks.data_ptr(),
+            vq.data_ptr(), vs.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            B, T, H, KV, S, Dh, score_scale(Dh, scale), _build.stream_ptr(dev))
+        _build.check(err, "pq_mixed_kv_attention")
+    else:
+        err = lib.pq_int8_kv_attention(
+            q.data_ptr(), _build.DTYPE_CODES[q.dtype], kq.data_ptr(), ks.data_ptr(),
+            vq.data_ptr(), vs.data_ptr(), lengths.data_ptr(), ptr(k_positions),
+            ptr(alibi_slopes), out.data_ptr(), B, T, H, KV, S, Dh, score_scale(Dh, scale),
+            window, float(softcap), int(sinks), _build.stream_ptr(dev))
+        _build.check(err, "pq_int8_kv_attention")
     fn.launches += 1
     return out
 
 
 def int8_kv_attention(q, kq, ks, vq, vs, lengths, window=0, scale=0.0, softcap=0.0,
-                      **variants):
+                      k_positions=None, sinks=0, alibi_slopes=None, **variants):
     """Causal GQA attention over the int8 cache, with its sliding window,
-    score scale and softcap; same contract as :func:`int8_kv_attention_ref`.
-    Returns [B, T, H, Dh] in q.dtype."""
+    score scale, softcap, ring positions, StreamingLLM sinks and ALiBi;
+    same contract as :func:`int8_kv_attention_ref`. Returns [B, T, H, Dh]
+    in q.dtype."""
     reject_variants("int8_kv_attention", **variants)
     window = _window("int8_kv_attention", window)
+    kw = dict(window=window, scale=scale, softcap=softcap, k_positions=k_positions,
+              sinks=sinks, alibi_slopes=alibi_slopes)
     if q.device.type == "cpu":
-        return int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, window, scale, softcap)
+        return int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, **kw)
     return _dense_attention_launch("int8_kv_attention", int8_kv_attention, False,
-                                   q, kq, ks, vq, vs, lengths, scale, window, softcap)
+                                   q, kq, ks, vq, vs, lengths, **kw)
 
 
 int8_kv_attention.launches = 0
@@ -224,14 +276,16 @@ def kivi_dequant_v4(vq, vs, vtail, vts, lengths, group):
     return _tail_overlay(nib.float() * vsc[..., None], vtail, vts, lengths, group)
 
 
-def _kivi_ref(name, q, k_fp, v_fp, lengths, window, scale, softcap, variants):
+def _kivi_ref(name, q, k_fp, v_fp, lengths, window, scale, softcap, alibi_slopes, variants):
     reject_variants(name, **variants)
     ones = torch.ones(k_fp.shape[:3], dtype=torch.float32, device=k_fp.device)
-    return int8_kv_attention_ref(q, k_fp, ones, v_fp, ones, lengths, window, scale, softcap)
+    return int8_kv_attention_ref(q, k_fp, ones, v_fp, ones, lengths, window, scale, softcap,
+                                 alibi_slopes=alibi_slopes)
 
 
 def k4v8_attention_ref(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
-                       new_lengths, *, group, window=0, scale=0.0, softcap=0.0, **variants):
+                       new_lengths, *, group, window=0, scale=0.0, softcap=0.0,
+                       alibi_slopes=None, **variants):
     """Plain version of :func:`k4v8_attention`: the cache dequantized to f32
     at ``new_lengths`` (V from the int8 store), then
     :func:`int8_kv_attention_ref` with unit scales and the same variants, as
@@ -239,21 +293,23 @@ def k4v8_attention_ref(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
     k_fp = kivi_dequant_k(kq, kchs, ktail, kts, new_lengths, group)
     v_fp = vq.float() * vs[..., None]
     return _kivi_ref("k4v8_attention_ref", q, k_fp, v_fp, lengths, window, scale, softcap,
-                     variants)
+                     alibi_slopes, variants)
 
 
 def int4_kv_attention_ref(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
-                          new_lengths, *, group, window=0, scale=0.0, softcap=0.0, **variants):
+                          new_lengths, *, group, window=0, scale=0.0, softcap=0.0,
+                          alibi_slopes=None, **variants):
     """Plain version of :func:`int4_kv_attention` (as
     :func:`k4v8_attention_ref`, V from the packed store and the V tail)."""
     k_fp = kivi_dequant_k(kq, kchs, ktail, kts, new_lengths, group)
     v_fp = kivi_dequant_v4(vq, vs, vtail, vts, new_lengths, group)
     return _kivi_ref("int4_kv_attention_ref", q, k_fp, v_fp, lengths, window, scale, softcap,
-                     variants)
+                     alibi_slopes, variants)
 
 
 def _kivi_attention_launch(name, fn, v4, q, kq, kchs, vq, vs, ktail, kts, vtail,
-                           vts, lengths, new_lengths, group, window, scale, softcap):
+                           vts, lengths, new_lengths, group, window, scale, softcap,
+                           alibi_slopes):
     B, T, H, Dh = q.shape
     KV, S2 = kq.shape[1], kq.shape[2]
     S, G = 2 * S2, group
@@ -282,15 +338,22 @@ def _kivi_attention_launch(name, fn, v4, q, kq, kchs, vq, vs, ktail, kts, vtail,
             raise TypeError(f"{name}: cache scales must be float32")
     if lengths.dtype != torch.int32 or new_lengths.dtype != torch.int32:
         raise TypeError(f"{name}: lengths must be int32")
+    _alibi(name, alibi_slopes, H)
+    extra = []
+    if alibi_slopes is not None:
+        if alibi_slopes.dtype != torch.float32:
+            raise TypeError(f"{name}: alibi_slopes must be float32")
+        extra.append(alibi_slopes)
     q = q.contiguous()
     dev = _build.same_device_contiguous(name, q, kq, kchs, vq, vs, ktail, kts, vtail,
-                                        vts, lengths, new_lengths)
+                                        vts, lengths, new_lengths, *extra)
     out = torch.empty_like(q)
     c_name = "pq_int4_kv_attention" if v4 else "pq_k4v8_attention"
     err = getattr(_build.lib(), c_name)(
         q.data_ptr(), _build.DTYPE_CODES[q.dtype], kq.data_ptr(), kchs.data_ptr(),
         vq.data_ptr(), vs.data_ptr(), ktail.data_ptr(), kts.data_ptr(), vtail.data_ptr(),
-        vts.data_ptr(), lengths.data_ptr(), new_lengths.data_ptr(), out.data_ptr(),
+        vts.data_ptr(), lengths.data_ptr(), new_lengths.data_ptr(),
+        None if alibi_slopes is None else alibi_slopes.data_ptr(), out.data_ptr(),
         B, T, H, KV, S, Dh, G, score_scale(Dh, scale), window, float(softcap),
         _build.stream_ptr(dev))
     _build.check(err, c_name)
@@ -299,7 +362,8 @@ def _kivi_attention_launch(name, fn, v4, q, kq, kchs, vq, vs, ktail, kts, vtail,
 
 
 def k4v8_attention(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
-                   new_lengths, *, group, window=0, scale=0.0, softcap=0.0, **variants):
+                   new_lengths, *, group, window=0, scale=0.0, softcap=0.0, alibi_slopes=None,
+                   **variants):
     """Causal GQA attention over the K4V8 cache, prefill (T > 1) or decode.
 
     q [B, T, H, Dh]; kq [B, KV, S/2, Dh] packed int4 K; kchs [B, KV, S/G,
@@ -307,7 +371,7 @@ def k4v8_attention(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
     2G, Dh] int8 (the V tail mirrors vq); kts/vts [B, KV, 2G] f32;
     lengths [B] int32 = length before this step, new_lengths after it
     (keys at or past (min(new_lengths, S) // G) G are read from the tails);
-    ``window``, ``scale``, ``softcap`` as the module says. Returns [B, T,
+    ``window``, ``scale``, ``softcap``, ``alibi_slopes`` as the module says. Returns [B, T,
     H, Dh] in q.dtype. Replaces
     ``protoquant_tpu/ops/attention.py:k4v8_attention`` (``_attn_k4v8_kernel``).
     """
@@ -316,16 +380,17 @@ def k4v8_attention(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
     args = (q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, new_lengths)
     if q.device.type == "cpu":
         return k4v8_attention_ref(*args, group=group, window=window, scale=scale,
-                                  softcap=softcap)
+                                  softcap=softcap, alibi_slopes=alibi_slopes)
     return _kivi_attention_launch("k4v8_attention", k4v8_attention, False, *args, group,
-                                  window, scale, softcap)
+                                  window, scale, softcap, alibi_slopes)
 
 
 k4v8_attention.launches = 0
 
 
 def int4_kv_attention(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
-                      new_lengths, *, group, window=0, scale=0.0, softcap=0.0, **variants):
+                      new_lengths, *, group, window=0, scale=0.0, softcap=0.0,
+                      alibi_slopes=None, **variants):
     """Causal GQA attention over the Int4 (KIVI) cache: as
     :func:`k4v8_attention` with vq [B, KV, S/2, Dh] packed int4 V and vs
     [B, KV, 2, S/2] its parity-split per-token scales. Replaces
@@ -335,9 +400,9 @@ def int4_kv_attention(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
     args = (q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, new_lengths)
     if q.device.type == "cpu":
         return int4_kv_attention_ref(*args, group=group, window=window, scale=scale,
-                                     softcap=softcap)
+                                     softcap=softcap, alibi_slopes=alibi_slopes)
     return _kivi_attention_launch("int4_kv_attention", int4_kv_attention, True, *args, group,
-                                  window, scale, softcap)
+                                  window, scale, softcap, alibi_slopes)
 
 
 int4_kv_attention.launches = 0

@@ -47,7 +47,7 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
     return (xf * torch.rsqrt(var + eps) * w.float()).to(cast_dtype)
 
 
-def _activation(act: str):
+def activation(act: str):
     if act == "silu":
         return F.silu
     if act == "gelu":  # tanh approximation (Gemma)
@@ -59,7 +59,7 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor, act: str = "silu",
            cast_dtype=torch.bfloat16) -> torch.Tensor:
     """The gated MLP's product: ``act(gate in f32)`` cast to ``cast_dtype``,
     times ``up`` in ``cast_dtype`` (one rounding of the product)."""
-    return _activation(act)(gate.float()).to(cast_dtype) * up.to(cast_dtype)
+    return activation(act)(gate.float()).to(cast_dtype) * up.to(cast_dtype)
 
 
 def rms_norm_quant_ref(x, w, *, eps: float, cast_dtype=torch.bfloat16):

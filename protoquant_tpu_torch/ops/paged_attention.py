@@ -4,8 +4,8 @@ The kernel (``csrc/paged_attention.cu``) replaces the Pallas kernel
 ``protoquant_tpu/ops/paged_attention.py:_kernel``: it walks each row's page
 table itself, so no contiguous window is ever gathered. The plain version
 is the JAX package's gather path (``PagedInt8KVCache._gather_window``, then
-the dense attention's plain version). ALiBi is not ported yet: both raise
-``NotImplementedError`` on ``alibi_slopes``.
+the dense attention's plain version). Both take ALiBi slopes, as the JAX
+function does.
 """
 
 from __future__ import annotations
@@ -36,15 +36,10 @@ def gather_window(kq, ks, vq, vs, page_table):
     return payload(kq), scales(ks), payload(vq), scales(vs)
 
 
-def _reject_alibi(name, alibi_slopes):
-    if alibi_slopes is not None:
-        raise NotImplementedError(f"{name}: variant(s) ['alibi_slopes'] not ported")
-
-
 def paged_int8_attention_ref(q, kq, ks, vq, vs, page_table, lengths, alibi_slopes=None):
     """Plain version (same contract as :func:`paged_int8_attention`)."""
-    _reject_alibi("paged_int8_attention_ref", alibi_slopes)
-    return int8_kv_attention_ref(q, *gather_window(kq, ks, vq, vs, page_table), lengths)
+    return int8_kv_attention_ref(q, *gather_window(kq, ks, vq, vs, page_table), lengths,
+                                 alibi_slopes=alibi_slopes)
 
 
 def paged_int8_attention(q, kq, ks, vq, vs, page_table, lengths, alibi_slopes=None):
@@ -55,12 +50,12 @@ def paged_int8_attention(q, kq, ks, vq, vs, page_table, lengths, alibi_slopes=No
     page_table: [B, maxP] int32 (-1 unmapped, read as page 0); lengths: [B]
     int32, the lengths from before this step's write. Key slot s of table
     entry j sits at position j * ps + s and is visible iff that is <=
-    lengths[b]. GQA: query head h * G + g reads kv head h. Returns
-    [B, 1, H, Dh] in q.dtype.
+    lengths[b]. GQA: query head h * G + g reads kv head h. ``alibi_slopes``
+    [H] f32: ALiBi, slope_h * (lengths[b] - position) off each score.
+    Returns [B, 1, H, Dh] in q.dtype.
     """
-    _reject_alibi("paged_int8_attention", alibi_slopes)
     if q.device.type == "cpu":
-        return paged_int8_attention_ref(q, kq, ks, vq, vs, page_table, lengths)
+        return paged_int8_attention_ref(q, kq, ks, vq, vs, page_table, lengths, alibi_slopes)
     B, T, H, Dh = q.shape
     P, KV, ps, _ = kq.shape
     width = page_table.shape[1]
@@ -84,16 +79,22 @@ def paged_int8_attention(q, kq, ks, vq, vs, page_table, lengths, alibi_slopes=No
         raise TypeError("paged_int8_attention: pool scales must be float32")
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("paged_int8_attention: page_table and lengths must be int32")
+    extra = []
+    if alibi_slopes is not None:
+        if tuple(alibi_slopes.shape) != (H,) or alibi_slopes.dtype != torch.float32:
+            raise ValueError(f"paged_int8_attention: alibi_slopes must be [{H}] float32")
+        extra.append(alibi_slopes)
     q = q.contiguous()
     dev = _build.same_device_contiguous("paged_int8_attention", q, kq, ks, vq, vs,
-                                        page_table, lengths)
+                                        page_table, lengths, *extra)
     if kq.data_ptr() % 16 or vq.data_ptr() % 16:
         raise ValueError("paged_int8_attention: pools must be 16-byte aligned")
     out = torch.empty_like(q)
     err = _build.lib().pq_paged_int8_attention(
         q.data_ptr(), _build.DTYPE_CODES[q.dtype], kq.data_ptr(), ks.data_ptr(),
         vq.data_ptr(), vs.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, KV, width, ps, Dh, float(Dh**-0.5),
+        None if alibi_slopes is None else alibi_slopes.data_ptr(), out.data_ptr(),
+        B, H, KV, width, ps, Dh, float(Dh**-0.5),
         _build.stream_ptr(dev))
     _build.check(err, "pq_paged_int8_attention")
     paged_int8_attention.launches += 1

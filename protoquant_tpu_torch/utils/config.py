@@ -1,5 +1,5 @@
-"""Model and engine configs: the fields the Llama, Mistral and Gemma-2
-paths read.
+"""Model and engine configs: the fields the Llama, Mistral, Gemma-2 and
+BLOOM paths read.
 
 Field names and defaults follow ``protoquant_tpu.utils.config`` so a config
 carries across by name. The defaults are Llama-2-7B.
@@ -24,7 +24,8 @@ class ModelConfig:
     # Kept for configs that carry it; lm_head is its own parameter either way,
     # as in the JAX model.
     tie_word_embeddings: bool = False
-    # MLP gate activation: "silu" (Llama SwiGLU) | "gelu_tanh" (Gemma GeGLU).
+    # MLP activation: "silu" (Llama SwiGLU) | "gelu_tanh" (Gemma GeGLU) |
+    # "gelu" (BLOOM; the tanh approximation too, as the JAX model maps it).
     hidden_act: str = "silu"
     # Gemma family: RMSNorm computes y * (1 + w) (weights stored zero-centred).
     rmsnorm_unit_offset: bool = False
@@ -51,13 +52,31 @@ class ModelConfig:
     # Gemma-2 sandwich norms: post-attention norm on the attention OUTPUT,
     # plus pre/post-feedforward norms around the MLP.
     sandwich_norms: bool = False
+    # "rmsnorm" | "layernorm" (mean-centred, with a bias: BLOOM).
+    norm_type: str = "rmsnorm"
+    # False: a plain 2-layer MLP, up_proj -> act -> down_proj (BLOOM).
+    mlp_gated: bool = True
+    # Biases on the MLP projections, on q/k/v, and on o_proj.
+    mlp_bias: bool = False
+    attention_bias: bool = False
+    attention_out_bias: bool = False
+    # "rope" | "alibi" (BLOOM: rope-free, per-head linear distance biases
+    # on the attention logits, slopes from the head count).
+    position_embedding: str = "rope"
+    # BLOOM: a LayerNorm on the token embedding output.
+    embedding_layernorm: bool = False
 
     def __post_init__(self):
         if self.num_attention_heads % self.num_key_value_heads:
             raise ValueError("num_attention_heads must divide by num_key_value_heads")
-        if self.hidden_act not in ("silu", "gelu_tanh"):
-            raise ValueError(f"hidden_act {self.hidden_act!r}: the port has 'silu' and "
-                             "'gelu_tanh'")
+        if self.hidden_act not in ("silu", "gelu_tanh", "gelu"):
+            raise ValueError(f"hidden_act {self.hidden_act!r}: the port has 'silu', "
+                             "'gelu_tanh' and 'gelu'")
+        if self.norm_type not in ("rmsnorm", "layernorm"):
+            raise ValueError("norm_type must be 'rmsnorm' or 'layernorm'")
+        if self.position_embedding not in ("rope", "alibi"):
+            raise ValueError(f"position_embedding {self.position_embedding!r}: the port "
+                             "has 'rope' and 'alibi'")
 
     def layer_window(self, layer_idx: int) -> int:
         """The sliding window of layer ``layer_idx`` (0 = full causal), as
@@ -115,6 +134,29 @@ class ModelConfig:
         )
 
     @classmethod
+    def bloom_560m(cls) -> "ModelConfig":
+        """BLOOM-560m: ALiBi positions (rope-free), an embedding LayerNorm,
+        biased LayerNorms and projections, a plain gelu MLP, tied head."""
+        return cls(
+            vocab_size=250880,
+            hidden_size=1024,
+            intermediate_size=4096,
+            num_hidden_layers=24,
+            num_attention_heads=16,
+            num_key_value_heads=16,
+            max_position_embeddings=2048,
+            norm_type="layernorm",
+            mlp_gated=False,
+            mlp_bias=True,
+            attention_bias=True,
+            attention_out_bias=True,
+            hidden_act="gelu",
+            position_embedding="alibi",
+            embedding_layernorm=True,
+            tie_word_embeddings=True,
+        )
+
+    @classmethod
     def tiny(cls, vocab_size: int = 256) -> "ModelConfig":
         """2-layer d=512 toy config."""
         return cls(
@@ -130,7 +172,8 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Continuous-batching engine config (int8 KV cache, dense or paged)."""
+    """Continuous-batching engine config (int8 KV cache, dense, paged or
+    ring)."""
 
     max_batch_size: int = 8
     max_seq_len: int = 2048
@@ -143,6 +186,11 @@ class EngineConfig:
     min_p: float = 0.0  # 0.0 => no min-p truncation
     return_logprobs: bool = False
     seed: int = 0
+    # Ring layout (kv_layout="ring"): the serving window of a model without
+    # a trained one (0 = the model's sliding_window), and StreamingLLM
+    # attention sinks: the first N positions stay visible to every query.
+    stream_window: int = 0
+    attention_sinks: int = 0
     # Block-level prefix caching (paged layout only): requests sharing a
     # prompt prefix adopt its resident KV pages and skip their prefill
     # (engine/prefix_cache.py).

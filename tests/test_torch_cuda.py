@@ -715,3 +715,127 @@ def test_mixed_attention_scale_vs_plain(cuda, T):
     ref = ops.mixed_kv_attention_ref(q, *cache, lengths, scale=0.1)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+# -- the ring-position, StreamingLLM-sink and ALiBi variants (Mistral, BLOOM) ----
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("sinks,T", [(0, 1), (0, 7), (4, 1), (4, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_ring_positions_vs_plain(cuda, sinks, T, alibi, dtype):
+    """A ring of 256 columns, window 128: rows never wrapped (columns never
+    written), wrapped once and many times."""
+    from protoquant_tpu_torch.models import ring_positions
+    from protoquant_tpu_torch.models.llama import alibi_slopes
+
+    g = torch.Generator(device=cuda).manual_seed(sinks * 10 + T)
+    B, KV, group, C, Dh, W = 4, 2, 2, 256, 128, 128
+    kq = torch.randint(-127, 128, (B, KV, C, Dh), generator=g, device=cuda, dtype=torch.int8)
+    vq = torch.randint_like(kq, -127, 128)
+    ks = torch.rand(B, KV, C, generator=g, device=cuda) * 1e-2 + 1e-3
+    vs = torch.rand(B, KV, C, generator=g, device=cuda) * 1e-2 + 1e-3
+    lengths = torch.tensor([0, 30, 300, 5000], dtype=torch.int32, device=cuda)
+    q = torch.randn(B, T, KV * group, Dh, generator=g, device=cuda).to(dtype)
+    kw = dict(window=W, k_positions=ring_positions(lengths + T, C, sinks), sinks=sinks)
+    if alibi:
+        kw["alibi_slopes"] = alibi_slopes(KV * group).to(cuda)
+    out = ops.int8_kv_attention(q, kq, ks, vq, vs, lengths, **kw)
+    ref = ops.int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, **kw)
+    torch.cuda.synchronize()
+    atol = ATOL if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,window,sinks,alibi", [
+    (1, 0, 0, True), (5, 0, 0, True), (1, 40, 4, False), (9, 3, 4, True),
+    (1, 50, 70, False), (6, 50, 70, True)])
+def test_attention_sinks_and_alibi_vs_plain(cuda, T, window, sinks, alibi):
+    """ALiBi full-causal and windowed; StreamingLLM sinks over a contiguous
+    cache, which the kernel keeps visible while it skips the tiles below
+    the window (70 sinks span two 64-key tiles)."""
+    from protoquant_tpu_torch.models.llama import alibi_slopes
+
+    g = torch.Generator(device=cuda).manual_seed(T + window + sinks)
+    B, KV, group, S, Dh = 4, 2, 2, 320, 64
+    kq = torch.randint(-127, 128, (B, KV, S, Dh), generator=g, device=cuda, dtype=torch.int8)
+    vq = torch.randint_like(kq, -127, 128)
+    ks = torch.rand(B, KV, S, generator=g, device=cuda) * 1e-2 + 1e-3
+    vs = torch.rand(B, KV, S, generator=g, device=cuda) * 1e-2 + 1e-3
+    lengths = torch.tensor([0, 37, 200, S - T], dtype=torch.int32, device=cuda)
+    q = torch.randn(B, T, KV * group, Dh, generator=g, device=cuda)
+    kw = dict(window=window, sinks=sinks,
+              alibi_slopes=alibi_slopes(KV * group).to(cuda) if alibi else None)
+    out = ops.int8_kv_attention(q, kq, ks, vq, vs, lengths, **kw)
+    ref = ops.int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,ps,head_dim", [(1, 128, 64), (2, 16, 128), (4, 8, 64)])
+def test_paged_attention_alibi_vs_plain(cuda, group, ps, head_dim):
+    from protoquant_tpu_torch.models.llama import alibi_slopes
+
+    g = torch.Generator(device=cuda).manual_seed(group * 13 + ps)
+    B, KV, maxP = 4, 2, 6
+    P = B * maxP + 2
+    pools = _pools(g, cuda, P, KV, ps, head_dim)
+    pt = _table(g, B, maxP, P).to(cuda)
+    lengths = torch.tensor([ps - 1, 0, ps, maxP * ps - 1], dtype=torch.int32, device=cuda)
+    q = torch.randn(B, 1, KV * group, head_dim, generator=g, device=cuda)
+    slopes = alibi_slopes(KV * group).to(cuda)
+    out = ops.paged_int8_attention(q, *pools, pt, lengths, alibi_slopes=slopes)
+    ref = ops.paged_int8_attention_ref(q, *pools, pt, lengths, alibi_slopes=slopes)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,window", [(1, 0), (5, 0), (1, 40), (9, 3)])
+@pytest.mark.parametrize("tier", ["k4v8", "int4"])
+def test_kivi_attention_alibi_vs_plain(cuda, tier, T, window):
+    from protoquant_tpu_torch.models.llama import alibi_slopes
+
+    g = torch.Generator(device=cuda).manual_seed(T + window + 5)
+    G, S, KV, group, Dh = 16, 128, 2, 2, 64
+    lens = [0, 15, 70, S - T]
+    B = len(lens)
+    cache = _kivi_cache(g, cuda, tier, B, KV, S, Dh, G)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    new_lengths = lengths + T
+    if tier == "k4v8":
+        _mirror_v(cache, new_lengths, G)
+    q = torch.randn(B, T, KV * group, Dh, generator=g, device=cuda)
+    _, attn = KIVI[tier]
+    kw = dict(group=G, window=window, alibi_slopes=alibi_slopes(KV * group).to(cuda))
+    out = getattr(ops, attn)(q, *cache, lengths, new_lengths, **kw)
+    ref = getattr(ops, attn + "_ref")(q, *cache, lengths, new_lengths, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_variant_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    B, KV, S, Dh = 1, 2, 64, 64
+    q = torch.randn(B, 1, 4, Dh, device=cuda)
+    kq = torch.zeros(B, KV, S, Dh, dtype=torch.int8, device=cuda)
+    s = torch.ones(B, KV, S, device=cuda)
+    lengths = torch.zeros(B, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="k_positions"):
+        ops.int8_kv_attention(q, kq, s, kq, s, lengths, window=8,
+                              k_positions=torch.zeros(B, S, device=cuda))  # not int32
+    with pytest.raises(ValueError, match="alibi_slopes"):
+        ops.int8_kv_attention(q, kq, s, kq, s, lengths, alibi_slopes=torch.ones(2, device=cuda))
+    with pytest.raises(ValueError, match="tensors on"):
+        ops.int8_kv_attention(q, kq, s, kq, s, lengths, alibi_slopes=torch.ones(4))
+    pools = (torch.zeros(3, KV, 8, Dh, dtype=torch.int8, device=cuda),
+             torch.ones(3, KV, 1, 8, device=cuda))
+    pt = torch.zeros(B, 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="alibi_slopes"):
+        ops.paged_int8_attention(q, *pools, *pools, pt, lengths,
+                                 alibi_slopes=torch.ones(4, dtype=torch.float64, device=cuda))
+    with pytest.raises(NotImplementedError):
+        ops.int8_kv_attention(q, kq, s, kq, s, lengths, sink_logits=torch.zeros(4, device=cuda))

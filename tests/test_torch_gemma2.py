@@ -162,7 +162,7 @@ def test_kivi_attention_variants_vs_pallas(tier, case):
     want = np.asarray(j_attn(jnp.asarray(q), *(jnp.asarray(state[f]) for f in KIVI_FIELDS),
                              jnp.asarray(before), jnp.asarray(state["lengths"]),
                              group=KG, interpret=True, **kw))
-    tc = cache_from_numpy(tcls, state, group=KG)
+    tc = cache_from_numpy(tcls, state, group=KG, device="cpu")
     got = getattr(ops, name)(torch.from_numpy(q), *(getattr(tc, f) for f in KIVI_FIELDS),
                              torch.from_numpy(before), tc.lengths, group=KG, **kw)
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)

@@ -13,10 +13,10 @@ import torch
 import protoquant_tpu_torch
 from protoquant_tpu_torch import Engine, LlamaModel, ModelConfig, QLinear
 from protoquant_tpu_torch.engine import PagedInt8KVCache
-from protoquant_tpu_torch.models import init_cache
+from protoquant_tpu_torch.models import cache_from_numpy, init_cache
 from protoquant_tpu_torch.models.kv_cache import (BF16KVCache, Int4KVCache, Int8KVCache,
-                                                  K4V8KVCache, MixedKVCache)
-from protoquant_tpu_torch.models.llama import MLP, Attention, DecoderLayer, RMSNorm
+                                                  K4V8KVCache, MixedKVCache, RingInt8KVCache)
+from protoquant_tpu_torch.models.llama import MLP, Attention, DecoderLayer, LayerNorm, RMSNorm
 from protoquant_tpu_torch.utils import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -68,6 +68,14 @@ def test_importing_the_port_loads_no_jax():
 CFG = ModelConfig(vocab_size=32, hidden_size=32, intermediate_size=64,
                   num_hidden_layers=1, num_attention_heads=2,
                   num_key_value_heads=1, max_position_embeddings=32)
+BLOOM_CFG = ModelConfig(vocab_size=32, hidden_size=32, intermediate_size=64,
+                        num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=2,
+                        max_position_embeddings=32, norm_type="layernorm", mlp_gated=False,
+                        mlp_bias=True, attention_bias=True, attention_out_bias=True,
+                        hidden_act="gelu", position_embedding="alibi",
+                        embedding_layernorm=True)
+_INT8_STATE = {f: getattr(Int8KVCache.init(1, 8, 1, 16, device="cpu"), f).numpy()
+               for f in ("kq", "ks", "vq", "vs", "lengths")}
 
 # Every public constructor that makes tensors, called with ``device`` (the
 # keyword each takes) and nothing else of where to put them.
@@ -85,6 +93,10 @@ CONSTRUCTORS = {
     "BF16KVCache.init": lambda **d: BF16KVCache.init(2, 16, 1, 16, **d),
     "init_cache_int4": lambda **d: init_cache(CFG, 2, 16, kv_dtype="int4", **d),
     "PagedInt8KVCache.init": lambda **d: PagedInt8KVCache.init(2, 5, 2, 8, 1, 16, **d),
+    "RingInt8KVCache.init": lambda **d: RingInt8KVCache.init(2, 8, 4, 1, 16, sinks=2, **d),
+    "cache_from_numpy": lambda **d: cache_from_numpy(Int8KVCache, _INT8_STATE, **d),
+    "LlamaModel_bloom": lambda **d: LlamaModel(BLOOM_CFG, **d),
+    "LayerNorm": lambda **d: LayerNorm(32, **d),
     "RMSNorm": lambda **d: RMSNorm(32, **d),
     "Attention": lambda **d: Attention(CFG, "dynamic", torch.float32, **d),
     "MLP": lambda **d: MLP(CFG, "dynamic", torch.float32, **d),

@@ -52,7 +52,8 @@ B, KV, H, DH, S = 2, 2, 4, 16, 64
 
 def _port(jc):
     """The port cache holding the JAX cache's state."""
-    return cache_from_numpy(MixedKVCache, {f: np.asarray(getattr(jc, f)) for f in FIELDS})
+    return cache_from_numpy(MixedKVCache, {f: np.asarray(getattr(jc, f)) for f in FIELDS},
+                            device="cpu")
 
 
 def _same(tc, jc):

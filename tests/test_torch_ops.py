@@ -142,8 +142,7 @@ def test_int8_attention_vs_pallas_and_xla(t_q, group):
 
 
 @pytest.mark.parametrize("variant", [
-    {"sinks": 2}, {"sink_logits": torch.zeros(2)}, {"k_positions": torch.zeros(1, 8)},
-    {"alibi_slopes": torch.ones(2)}, {"tree_mask": torch.ones(1, 1)},
+    {"sink_logits": torch.zeros(2)}, {"tree_mask": torch.ones(1, 1)},
 ])
 def test_attention_variants_not_ported_raise(variant):
     q = torch.zeros(1, 1, 2, 16)

@@ -157,14 +157,27 @@ def test_paged_attention_vs_pallas(group, ps):
 
 
 def test_paged_attention_alibi_not_ported_raises():
-    q = torch.zeros(1, 1, 2, 16)
-    kq = torch.zeros(2, 2, 8, 16, dtype=torch.int8)
-    s = torch.ones(2, 2, 1, 8)
-    pt = torch.zeros(1, 1, dtype=torch.int32)
-    lengths = torch.zeros(1, dtype=torch.int32)
-    for fn in (ops.paged_int8_attention, ops.paged_int8_attention_ref):
-        with pytest.raises(NotImplementedError):
-            fn(q, kq, s, kq, s, pt, lengths, alibi_slopes=torch.ones(2))
+    """Once a raise of the unported variant, now its parity test: ALiBi in
+    the page walk, slope_h * (length - position) off each score, against the
+    Pallas kernel in interpret mode (the cases of
+    test_paged_attention_vs_pallas, group 2, 16-token pages)."""
+    from protoquant_tpu.models.llama import alibi_slopes
+
+    rng = np.random.default_rng(12)
+    B, KV, maxP, Dh, ps, group = 4, 2, 4, 32, 16, 2
+    P = B * maxP + 2
+    pools = _np_pools(rng, P, KV, ps, Dh)
+    pt = _np_table(rng, B, maxP, P)
+    lengths = np.array([ps - 1, 0, ps, maxP * ps - 1], np.int32)
+    q = rng.standard_normal((B, 1, KV * group, Dh)).astype(np.float32)
+    slopes = np.asarray(alibi_slopes(KV * group))
+    args = [q] + pools + [pt, lengths]
+    want = np.asarray(j_paged_attention(*map(jnp.asarray, args), interpret=True,
+                                        alibi_slopes=jnp.asarray(slopes)))
+    targs = list(map(torch.from_numpy, args))
+    got = ops.paged_int8_attention(*targs, alibi_slopes=torch.from_numpy(slopes)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    assert np.abs(got - ops.paged_int8_attention(*targs).numpy()).max() > 1e-3
 
 
 # -- PagedInt8KVCache ---------------------------------------------------------------

@@ -6,11 +6,12 @@ Imports protoquant_tpu_torch from DIR (default: the checkout holding this
 script), builds its kernels there, and prints one JSON line: the card, and
 the device time per call in ms (``chip_smoke.bench``: a CUDA graph of 20
 calls over input copies larger than the L2) of the cases every version of
-the kernels takes, with no attention variant: the int8 decode and prefill at
+the kernels takes: with no attention variant, the int8 decode and prefill at
 Llama-2-7B's shapes, the int8 decode at Gemma-2-9B's (Dh 256, S 8192,
-lengths 8000), and the K8V4, K4V8 and Int4 decodes at Llama-2-7B's shapes.
-To compare two checkouts, run it on each in turns (A, B, B, A) within one
-call on one card.
+lengths 8000), and the K8V4, K4V8 and Int4 decodes at Llama-2-7B's shapes;
+then the int8 decode of a Gemma-2 sliding layer (window, scale, softcap:
+the variant instance). To compare two checkouts, run it on each in turns
+(A, B, B, A) within one call on one card.
 """
 
 import argparse
@@ -44,16 +45,19 @@ def main() -> int:
     lengths = torch.tensor(decode, dtype=torch.int32, device=dev)
     times = {}
 
-    def time_int8(label, B, T, H, KV, S, Dh, lens):
+    def time_int8(label, B, T, H, KV, S, Dh, lens, **kw):
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
         caches = [cs._cache(gen, dev, B, KV, S, Dh)
                   for _ in range(cs.copies_for(B * KV * S * (2 * Dh + 8)))]
         q = torch.randn(B, T, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
-        times[label] = cs.bench([lambda c=c: ops.int8_kv_attention(q, *c, ln) for c in caches])
+        times[label] = cs.bench([lambda c=c: ops.int8_kv_attention(q, *c, ln, **kw)
+                                 for c in caches])
 
     time_int8("int8 decode 7B", 4, 1, 32, 32, 1024, 128, decode)
     time_int8("int8 prefill 7B T=256 from 256", 1, 256, 32, 32, 1024, 128, [256])
     time_int8("int8 decode gemma2 full-causal lengths 8000", 4, 1, 16, 8, 8192, 256, [8000] * 4)
+    time_int8("int8 decode gemma2 sliding lengths 8000", 4, 1, 16, 8, 8192, 256, [8000] * 4,
+              window=4096, scale=0.0625, softcap=50.0)
     q = torch.randn(4, 1, 32, 128, generator=gen, device=dev).to(torch.bfloat16)
     caches = [cs._mixed_cache(gen, dev, 4, 32, 1024, 128) for _ in range(cs.copies_for(
         4 * 32 * 1024 * (3 * 128 // 2 + 8)))]
