@@ -26,7 +26,16 @@ Phases (any failure exits non-zero and prints no result line):
               int8, paged, K4V8 and Int4 attentions with ALiBi at
               BLOOM-560m's shapes (16 heads of 64, S = 2048; decode, and a
               prefill chunk of 256 but paged), each against its plain
-              version without the slopes (a planted fault)
+              version without the slopes (a planted fault); the int8, K4V8
+              and Int4 attentions with learned sinks at GPT-OSS-20B's
+              shapes (64 heads over 8 KV heads of 64, S = 8192; decode of a
+              sliding layer, window 128, and of a global one, a prefill
+              chunk of 512 from 4500), each against its plain version
+              dropping the sinks and counting the sink as a key of value 1
+              (planted faults, which must miss); the int8 global decode
+              with sinks timed against the full-causal instance (a reading);
+              the GEMM, rowquant and decode write also at GPT-OSS-20B's
+              shapes (its experts' products at M = 1)
   4. slice    LlamaModel(llama2_7b, "dynamic") at full width and depth,
               random int8 weights from --seed, serving 6 greedy requests
               through Engine(max_batch_size=4, max_seq_len=1024,
@@ -147,11 +156,38 @@ Phases (any failure exits non-zero and prints no result line):
               paged, K4V8, Int4 and ring-with-sinks caches, f32 and bf16;
               planted faults: each attention dropping ALiBi, the ring
               dropping its sinks
+ 24. gpt_oss  LlamaModel(gpt_oss_20b, "dynamic") at full width and all 24
+              layers (32 experts, top 4), random int8 weights and N(0, 1)
+              learned sinks from --seed, serving 6 greedy requests (prompts
+              of 64 to 6000 tokens, five past the window of 128) through
+              Engine(max_batch_size=4, max_seq_len=8192, prefill_chunk=512)
+              over the int8 cache (816.0 MiB asserted): each decode step
+              must launch exactly 97 rowquant, 1633 qmatmul (4 projections
+              and 2 per expert on each layer, lm_head), 24 / 24 scatter and
+              attention (with the sinks); prints the step median, the
+              kernel sum at its shapes, peak memory and the share of expert
+              assignments the capacity dropped
+ 25. gpt_oss KIVI  phase 24's model over kv_dtype "k4v8" and "int4" (G =
+              64, max_seq_len 2048, prefill_chunk 256): 24 of the tier's
+              writer and attention per decode step, none of the int8
+              cache's; cache bytes asserted
+ 26. gpt_oss agreement  phase 5 for a 2-layer GPT-OSS-20B at full width
+              (layer 0 sliding, layer 1 global), "dynamic" and
+              "weight_only_int4" (the wo4 split kernel per expert), over the
+              int8, K4V8, Int4 and bf16 caches, f32 and bf16, with a
+              1200-token prompt prefilled in chunks (512; 128 for int4) and
+              judged also on the decode positions; planted faults: each
+              attention dropping its learned sinks, the experts' gate/up
+              read de-interleaved. The plain and faulted runs take the
+              kernel run's expert choices; one more plain run routes on
+              its own, a reading whose first route flips must sit on top-k
+              margins within twice the router noise of that forward
 Each phase prints its seconds, and the run its total.
 The line before the last is {"kernels": [...]}, one entry per kernel body
-(20): "launches" is its count summed over the seventeen engine runs (phases
-4, 6, 8.1, 8.2, 8.3, 10, 12, 13, 15, 17, 19, 20 and the five of 22), each
-driven with the counts at 0 and read just after ("launches_by_path").
+(20): "launches" is its count summed over the twenty engine runs (phases
+4, 6, 8.1, 8.2, 8.3, 10, 12, 13, 15, 17, 19, 20, the five of 22 and the
+three of 24-25), each driven with the counts at 0 and read just after
+("launches_by_path").
 wo4_legacy and dequant are on no engine path
 (a caller reaches wo4_legacy through the formulation argument of
 weight_only_int4_matmul, and dequant as ops.dequant; QTensor.dequantize
@@ -229,6 +265,14 @@ BL_HEADS, BL_HEAD_DIM, BL_SEQ, BL_LENGTHS = 16, 64, 2048, [63, 700, 2047, 1000]
 # times the others', so that the sinks draw attention, as StreamingLLM's
 # do, and a kernel that drops them shows
 SINK_SCALE = 10.0
+# GPT-OSS-20B (ModelConfig.gpt_oss_20b): 64 query heads over 8 KV heads of
+# 64 (group 8), learned attention sinks, a window of 128 on every other
+# layer, 32 experts (top 4) of width 2880; the phase-24 engine holds 8192
+# positions. At a decode step of 4 slots each expert holds 1 token
+# (capacity ceil(4 * 4 / 32 * 1.25)), so its products run at M = 1.
+GO_HIDDEN, GO_INTER, GO_VOCAB, GO_HEADS, GO_KV, GO_HEAD_DIM, GO_LAYERS, GO_EXPERTS = (
+    2880, 2880, 201088, 64, 8, 64, 24, 32)
+GO_SEQ, GO_WINDOW = 8192, 128
 
 
 def log(msg: str) -> None:
@@ -276,11 +320,14 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
 
 
 def check_rowquant(ops, gen, dev):
-    """Llama-2-7B's activation widths at M = 4 and 256, and Gemma-2-9B's
-    other two (3584, 14336; its o_proj input is 4096 wide) at M = 4."""
+    """Llama-2-7B's activation widths at M = 4 and 256, Gemma-2-9B's other
+    two (3584, 14336; its o_proj input is 4096 wide) at M = 4, and
+    GPT-OSS-20B's 2880 at M = 4 and at M = 32 (a decode step's expert
+    slots, one per expert)."""
     cases = []
     shapes = [(m, k) for m in (4, 256) for k in (HIDDEN, INTER)]
-    for m, k in shapes + [(4, G2_HIDDEN), (4, G2_INTER)]:
+    for m, k in shapes + [(4, G2_HIDDEN), (4, G2_INTER), (4, GO_HIDDEN),
+                          (GO_EXPERTS, GO_HIDDEN)]:
         xs = [torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
               for _ in range(copies_for(m * k * 2))]
         xq, sx = ops.rowquant(xs[0])
@@ -303,15 +350,23 @@ G2_LINEAR_SHAPES = ((G2_HIDDEN, G2_HEADS * G2_HEAD_DIM), (G2_HIDDEN, G2_KV * G2_
                     (G2_INTER, G2_HIDDEN), (G2_HIDDEN, G2_VOCAB))
 # Mistral-7B's projections that Llama-2-7B lacks: k and v, gate and up, down
 M7_LINEAR_SHAPES = ((HIDDEN, M7_KV * HEAD_DIM), (HIDDEN, M7_INTER), (M7_INTER, HIDDEN))
+# GPT-OSS-20B's projections: q, k and v, o, lm_head (at M = 4); an expert's
+# gate_up and down (at M = 1)
+GO_LINEAR_SHAPES = ((GO_HIDDEN, GO_HEADS * GO_HEAD_DIM), (GO_HIDDEN, GO_KV * GO_HEAD_DIM),
+                    (GO_HEADS * GO_HEAD_DIM, GO_HIDDEN), (GO_HIDDEN, GO_VOCAB))
+GO_EXPERT_SHAPES = ((GO_HIDDEN, 2 * GO_INTER), (GO_INTER, GO_HIDDEN))
 
 
 def check_qmatmul(ops, gen, dev):
-    """Llama-2-7B's projections at M = 4 and 256, Gemma-2-9B's and the
-    three other Mistral-7B ones at M = 4."""
+    """Llama-2-7B's projections at M = 4 and 256, Gemma-2-9B's, the three
+    other Mistral-7B ones and GPT-OSS-20B's at M = 4, and GPT-OSS-20B's
+    expert products at M = 1."""
     cases = []
     shapes = [(m, k, n) for m in (4, 256)
               for k, n in ((HIDDEN, HIDDEN), (HIDDEN, INTER), (INTER, HIDDEN), (HIDDEN, VOCAB))]
-    for m, k, n in shapes + [(4, k, n) for k, n in G2_LINEAR_SHAPES + M7_LINEAR_SHAPES]:
+    for m, k, n in (shapes + [(4, k, n) for k, n in G2_LINEAR_SHAPES + M7_LINEAR_SHAPES
+                              + GO_LINEAR_SHAPES]
+                    + [(1, k, n) for k, n in GO_EXPERT_SHAPES]):
         xq, sx = ops.rowquant_ref(torch.randn(m, k, generator=gen, device=dev))
         ws = [torch.randint(-127, 128, (n, k), generator=gen, device=dev,
                             dtype=torch.int8) for _ in range(copies_for(n * k))]
@@ -354,9 +409,11 @@ def _cache(gen, dev, B, KV, S, Dh):
 
 
 def check_scatter(ops, gen, dev):
-    """The decode write at Llama-2-7B's cache shape, then Gemma-2-9B's."""
+    """The decode write at Llama-2-7B's cache shape, then Gemma-2-9B's and
+    GPT-OSS-20B's."""
     cases = []
-    for KV, S, Dh in ((HEADS, 1024, HEAD_DIM), (G2_KV, G2_SEQ, G2_HEAD_DIM)):
+    for KV, S, Dh in ((HEADS, 1024, HEAD_DIM), (G2_KV, G2_SEQ, G2_HEAD_DIM),
+                      (GO_KV, GO_SEQ, GO_HEAD_DIM)):
         B = 4
         lengths = torch.tensor([5, S, 0, S - 1], dtype=torch.int32, device=dev)  # row 1 full
         k8 = torch.randint(-127, 128, (B, KV, 1, Dh), generator=gen, device=dev,
@@ -833,56 +890,71 @@ def _mirror_v(cache, new_lengths, G=KIVI_G):
 
 def check_kivi_update(ops, gen, dev, tier):
     """The tier's decode writer against its plain version, all eight
-    tensors exact: rows at 62 and 64 (no flush), 63 and 1023 (flushes of
-    chunks 0 and 15), 1024 (at capacity: nothing written) and 127 with
-    adv = 0 (inserts, never flushes). Library: none."""
+    tensors exact, at Llama-2-7B's cache shape (S = 1024) and GPT-OSS-20B's
+    (B = 4, KV = 8, Dh = 64, S = 2048 as in phase 25): rows that flush no
+    chunk, rows that flush chunk 0 and the last chunk, a row at capacity
+    (nothing written) and, at 7B, a row with adv = 0 (inserts, never
+    flushes). Library: none."""
     writer = getattr(ops, KIVI_KERNELS[tier][0])
     plain = getattr(ops, KIVI_KERNELS[tier][0] + "_ref")
-    B, KV, S, Dh, G = 6, HEADS, 1024, HEAD_DIM, KIVI_G
-    lens = [62, 63, 64, 1023, 1024, 127]
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-    adv = torch.tensor([1, 1, 1, 1, 1, 0], dtype=torch.int32, device=dev)
-    k8 = torch.randint(-127, 128, (B, KV, 1, Dh), generator=gen, device=dev, dtype=torch.int8)
-    v8 = torch.randint_like(k8, -127, 128)
-    ksn = torch.rand(B, KV, 1, generator=gen, device=dev) * 0.02 + 1e-3
-    vsn = torch.rand(B, KV, 1, generator=gen, device=dev) * 0.02 + 1e-3
-    base = _kivi_cache(gen, dev, tier, B, KV, S, Dh)
-    a = [t.clone() for t in base]
-    b = [t.clone() for t in base]
-    new = (lengths, k8, ksn, v8, vsn)
-    writer(*a, *new, group=G, adv=adv)
-    plain(*b, *new, group=G, adv=adv)
-    torch.cuda.synchronize()
-    names = ("kq", "kchs", "vq", "vs", "ktail", "kts", "vtail", "vts")
-    bad = [n for n, x, y in zip(names, a, b) if not torch.equal(x, y)]
-    if bad:
-        raise AssertionError(f"{KIVI_KERNELS[tier][0]} differs from its plain version in {bad}")
-    flushed = [bool((a[0][r] != base[0][r]).any() or (a[1][r] != base[1][r]).any())
-               for r in range(B)]
-    if flushed != [False, True, False, True, False, False]:
-        raise AssertionError(f"{KIVI_KERNELS[tier][0]}: rows flushed {flushed}, "
-                             "want rows 1 and 3 only")
-    if not all(torch.equal(x[4], y[4]) for x, y in zip(a, base)):
-        raise AssertionError(f"{KIVI_KERNELS[tier][0]} wrote into a slot at capacity")
-    # bytes: the new rows in; per row below S the tail rows written (K4V8 also
-    # the V row); per flushing row G tail rows read (K, and V for int4) and
-    # the packed rows and scales written
-    row = Dh + 4
-    nbytes = 8 * B + B * KV * 2 * row
-    for ln, ad in zip(lens, adv.tolist()):
-        if ln < S:
-            nbytes += KV * row * (2 if tier == "int4" else 3)
-        c = ln // G
-        if ad and (c + 1) * G <= min(ln + ad, S):
-            sides = 2 if tier == "int4" else 1
-            nbytes += KV * sides * (G * row + G // 2 * Dh) + KV * (4 * Dh + (4 * G if sides == 2 else 0))
-    bnd, kind = bound_ms(nbytes, 0, INT8_OPS_PER_S)
-    return [{
-        "shape": f"B={B} KV={KV} S={S} Dh={Dh} G={G} lengths={lens} adv={adv.tolist()}",
-        "max_abs_err": 0.0,
-        "ms": bench([lambda: writer(*a, *new, group=G, adv=adv)]),
-        "plain_ms": bench([lambda: plain(*b, *new, group=G, adv=adv)]),
-        "bound_ms": bnd, "bound_by": kind, "library_ms": None}]
+    G = KIVI_G
+    cases = []
+    # (KV, S, Dh, lengths, adv, rows that must flush)
+    for KV, S, Dh, lens, advs, want in (
+            (HEADS, 1024, HEAD_DIM, [62, 63, 64, 1023, 1024, 127], [1, 1, 1, 1, 1, 0],
+             [False, True, False, True, False, False]),
+            (GO_KV, 2048, GO_HEAD_DIM, [63, 2047, 2048, 1000], [1, 1, 1, 1],
+             [True, True, False, False])):
+        B = len(lens)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        adv = torch.tensor(advs, dtype=torch.int32, device=dev)
+        k8 = torch.randint(-127, 128, (B, KV, 1, Dh), generator=gen, device=dev,
+                           dtype=torch.int8)
+        v8 = torch.randint_like(k8, -127, 128)
+        ksn = torch.rand(B, KV, 1, generator=gen, device=dev) * 0.02 + 1e-3
+        vsn = torch.rand(B, KV, 1, generator=gen, device=dev) * 0.02 + 1e-3
+        base = _kivi_cache(gen, dev, tier, B, KV, S, Dh)
+        a = [t.clone() for t in base]
+        b = [t.clone() for t in base]
+        new = (lengths, k8, ksn, v8, vsn)
+        writer(*a, *new, group=G, adv=adv)
+        plain(*b, *new, group=G, adv=adv)
+        torch.cuda.synchronize()
+        names = ("kq", "kchs", "vq", "vs", "ktail", "kts", "vtail", "vts")
+        bad = [n for n, x, y in zip(names, a, b) if not torch.equal(x, y)]
+        if bad:
+            raise AssertionError(f"{KIVI_KERNELS[tier][0]} differs from its plain version "
+                                 f"in {bad} at KV={KV} S={S} Dh={Dh}")
+        flushed = [bool((a[0][r] != base[0][r]).any() or (a[1][r] != base[1][r]).any())
+                   for r in range(B)]
+        if flushed != want:
+            raise AssertionError(f"{KIVI_KERNELS[tier][0]}: rows flushed {flushed}, "
+                                 f"want {want} at S={S}")
+        full = lens.index(S)
+        if not all(torch.equal(x[full], y[full]) for x, y in zip(a, base)):
+            raise AssertionError(f"{KIVI_KERNELS[tier][0]} wrote into a slot at capacity")
+        # bytes: the new rows in; per row below S the tail rows written (K4V8
+        # also the V row); per flushing row G tail rows read (K, and V for
+        # int4) and the packed rows and scales written
+        row = Dh + 4
+        nbytes = 8 * B + B * KV * 2 * row
+        for ln, ad in zip(lens, advs):
+            if ln < S:
+                nbytes += KV * row * (2 if tier == "int4" else 3)
+            c = ln // G
+            if ad and (c + 1) * G <= min(ln + ad, S):
+                sides = 2 if tier == "int4" else 1
+                nbytes += (KV * sides * (G * row + G // 2 * Dh)
+                           + KV * (4 * Dh + (4 * G if sides == 2 else 0)))
+        bnd, kind = bound_ms(nbytes, 0, INT8_OPS_PER_S)
+        cases.append({
+            "shape": f"B={B} KV={KV} S={S} Dh={Dh} G={G} lengths={lens} adv={advs}",
+            "max_abs_err": 0.0,
+            "ms": bench([lambda: writer(*a, *new, group=G, adv=adv)]),
+            "plain_ms": bench([lambda: plain(*b, *new, group=G, adv=adv)]),
+            "bound_ms": bnd, "bound_by": kind, "library_ms": None})
+        del base, a, b
+    return cases
 
 
 def kivi_attention_bytes(tier, lengths, new_lengths, B, KV, T, H, Dh, G=KIVI_G, S=1024,
@@ -1227,6 +1299,135 @@ def check_gemma2_attention(ops, gen, dev, kv_dtype):
     return cases
 
 
+
+
+def gpt_oss_attention_cases(kv_dtype: str):
+    """(label, B, T, lengths, window, sinks?) of the attention checks at
+    GPT-OSS-20B's shapes: ragged decode of a sliding layer (window 128) and
+    of a global one, a prefill chunk of 512 from 4500 crossing the window,
+    all with learned sinks; for the int8 kernel also decode at equal
+    lengths of a global layer with sinks and of a full-causal one without,
+    to time the instance the global layers take (VAR = 1, which reads the
+    sinks) against the one without variants (VAR = 0)."""
+    ragged = [63, 4500, GO_SEQ - 1, 1000]
+    cases = [("gpt_oss decode sliding", 4, 1, ragged, GO_WINDOW, True),
+             ("gpt_oss decode global", 4, 1, ragged, 0, True),
+             ("gpt_oss prefill sliding", 1, 512, [4500], GO_WINDOW, True)]
+    if kv_dtype == "int8":
+        equal = [GO_SEQ - 192] * 4
+        cases += [("gpt_oss decode global equal", 4, 1, equal, 0, True),
+                  ("gpt_oss decode full equal", 4, 1, equal, 0, False)]
+    return cases
+
+
+def _v_ones(kv_dtype: str, cache):
+    """The cache with every value 1 (codes and scales), so that the plain
+    attention's output is each row's total probability over the keys."""
+    c = list(cache)
+    if kv_dtype == "int8":
+        c[2], c[3] = torch.ones_like(c[2]), torch.ones_like(c[3])
+    else:  # K4V8 reads vq * vs; Int4 its packed nibbles (0x11: 1 and 1) and the tail
+        c[2] = torch.full_like(c[2], 1 if kv_dtype == "k4v8" else 0x11)
+        c[3], c[6], c[7] = (torch.ones_like(c[3]), torch.ones_like(c[6]),
+                            torch.ones_like(c[7]))
+    return c
+
+
+def check_gpt_oss_attention(ops, gen, dev, kv_dtype):
+    """The attention of the ``kv_dtype`` cache with learned sinks at
+    GPT-OSS-20B's shapes (B = 4, H = 64, KV = 8, Dh = 64, S = 8192, KIVI G =
+    64) against its plain version within ATTN_TOL, over
+    gpt_oss_attention_cases(). Each head's sink logit is drawn N(0, 1) from
+    the run's seed plus ln of the median of the keys the case's rows see, so
+    that a sink takes a share of its row's softmax that a kernel dropping it
+    would show. Planted faults, which must miss the tolerance: the plain
+    version without the sinks, and the sink counted as a key whose value is
+    1 in every dim (acc started at 1, not 0). The bound counts the keys
+    inside the rows' windows, the sinks' 4 H bytes, q and out. Library:
+    none with sinks (no one PyTorch call takes them); SDPA for the
+    full-causal case without."""
+    import torch.nn.functional as F
+
+    name = CACHE_KERNELS[kv_dtype][1]
+    attn, plain = getattr(ops, name), getattr(ops, name + "_ref")
+    S, KV, H, Dh, G = GO_SEQ, GO_KV, GO_HEADS, GO_HEAD_DIM, KIVI_G
+    cases = []
+    for label, B, T, lens, window, with_sinks in gpt_oss_attention_cases(kv_dtype):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        new_lengths = lengths + T
+        if kv_dtype == "int8":
+            caches = [_cache(gen, dev, B, KV, S, Dh)
+                      for _ in range(copies_for(B * KV * S * (2 * Dh + 8)))]
+            extra, kw = (), {}
+        else:
+            per_copy = B * KV * S * (2 * Dh if kv_dtype == "k4v8" else Dh) // 2
+            caches = [_kivi_cache(gen, dev, kv_dtype, B, KV, S, Dh)
+                      for _ in range(copies_for(per_copy))]
+            if kv_dtype == "k4v8":
+                caches = [_mirror_v(c, new_lengths) for c in caches]
+            extra, kw = (new_lengths,), {"group": G}
+        counts, spans = visible_keys(lens, T, S, window)
+        kw["window"] = window
+        variants = {"window": window}
+        if with_sinks:
+            offset = math.log(sorted(counts)[len(counts) // 2])
+            kw["sink_logits"] = torch.randn(H, generator=gen, device=dev) + offset
+            variants["sinks"] = f"N(0, 1) + ln {sorted(counts)[len(counts) // 2]}"
+        q = torch.randn(B, T, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
+        out = attn(q, *caches[0], lengths, *extra, **kw)
+        ref = plain(q, *caches[0], lengths, *extra, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = ATTN_TOL * ref.float().abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
+        faults = {}
+        if with_sinks:
+            dropped = plain(q, *caches[0], lengths, *extra, **dict(kw, sink_logits=None))
+            mass = plain(q, *_v_ones(kv_dtype, caches[0]), lengths, *extra, **kw)
+            valued = ref.float() + (1.0 - mass.float())  # the sink's share times a value of 1
+            faults = {"sinks dropped": (out.float() - dropped.float()).abs().max().item() / tol,
+                      "sink counted as a key of value 1":
+                          (out.float() - valued).abs().max().item() / tol}
+            del dropped, mass, valued
+        if any(m <= 1 for m in faults.values()):
+            raise AssertionError(f"{name} {label}: the tolerance passes a planted fault "
+                                 f"(margins over it {faults})")
+        if kv_dtype == "int8":
+            nbytes = (KV * sum(hi - lo for lo, hi in spans) * (2 * Dh + 8)
+                      + 2 * 2 * q.numel() + 4 * B)
+        else:
+            nbytes = kivi_attention_bytes(kv_dtype, lens, new_lengths.tolist(), B, KV, T, H,
+                                          Dh, G, S, window)
+        nbytes += 4 * H if with_sinks else 0
+        bnd, kind = bound_ms(nbytes, 4 * Dh * H * sum(counts), BF16_FLOPS_PER_S)
+        library = None
+        if not with_sinks:
+            qpos = lengths.long()[:, None] + torch.arange(T, device=dev)
+            mask = (torch.arange(S, device=dev) <= qpos[..., None])[:, None]
+            deq = [((c[0].float() * c[1][..., None]).to(torch.bfloat16),
+                    (c[2].float() * c[3][..., None]).to(torch.bfloat16))
+                   for c in caches[:copies_for(B * KV * S * Dh * 4)]]
+            qh = q.transpose(1, 2)
+            library = bench([lambda k=k, v=v: F.scaled_dot_product_attention(
+                qh, k, v, attn_mask=mask, enable_gqa=True) for k, v in deq])
+            del deq
+        cases.append({
+            "shape": f"{label} B={B} T={T} H={H} KV={KV} Dh={Dh} S={S} lengths={lens} "
+                     f"{json.dumps(variants)}",
+            "max_abs_err": err, "fault_margins": faults,
+            "ms": bench([lambda c=c: attn(q, *c, lengths, *extra, **kw) for c in caches]),
+            "plain_ms": bench([lambda c=c: plain(q, *c, lengths, *extra, **kw)
+                               for c in caches], iters=5),
+            "bound_ms": bnd, "bound_by": kind, "library_ms": library})
+        del caches
+    if kv_dtype == "int8":
+        by = {c["shape"].split(" B=")[0]: c["ms"] for c in cases}
+        log(f"kernel {name}: decode at equal lengths {GO_SEQ - 192}, a global layer with "
+            f"learned sinks (instance VAR = 1) over full causal without them (VAR = 0): "
+            f"{by['gpt_oss decode global equal'] / by['gpt_oss decode full equal']:.4f} of "
+            f"the time (a reading)")
+    return cases
 
 
 def ring_capacity(window: int, max_chunk: int, sinks: int = 0) -> int:
@@ -1957,6 +2158,99 @@ def run_bloom(ops, seed: int, dev) -> dict:
     return out
 
 
+# phases 24 and 25: GPT-OSS-20B's runs, each (path, kv_dtype, max_seq_len,
+# prefill_chunk, prompt lengths): the int8 cache at 8192 positions behind
+# chunks of 512 (prompts past the window of 128 but one), then the KIVI tiers
+# at 2048 behind chunks of 256 (a chunk the KIVI guard admits at G = 64)
+GO_RUNS = (("gpt_oss_dense", "int8", GO_SEQ, 512, [64, 6000, 300, 4700, 1000, 2500]),
+           ("gpt_oss_k4v8", "k4v8", 2048, 256, [64, 1500, 300, 1900, 1000, 700]),
+           ("gpt_oss_int4", "int4", 2048, 256, [64, 1500, 300, 1900, 1000, 700]))
+GO_MIB = {"gpt_oss_dense": 816.0}
+
+
+def moe_step_launches(ops, cfg, writer: str, attention: str) -> dict:
+    """Exact launches of one dynamic decode step of a MoE model (every layer
+    MoE): per layer one rowquant for q/k/v, one for o_proj, one of the
+    experts' dispatched input and one of their hidden state; a qmatmul per
+    attention projection and two per expert (gate_up or w1/w3 are one or
+    two, and down); then lm_head's rowquant and qmatmul; one ``writer`` and
+    one ``attention`` per layer."""
+    L, E = cfg.num_hidden_layers, cfg.num_local_experts
+    per_expert = 2 if cfg.moe_variant == "gpt_oss" else 3
+    per_step = dict.fromkeys(ops.KERNELS, 0)
+    per_step.update({"rowquant": 4 * L + 1, "qmatmul": (4 + per_expert * E) * L + 1,
+                     writer: L, attention: L})
+    return per_step
+
+
+def run_gpt_oss(ops, seed: int, dev) -> dict:
+    """Phases 24 and 25: GPT-OSS-20B in ``dynamic`` mode at full width and
+    all 24 layers, random int8 weights from ``seed`` (learned sinks drawn
+    N(0, 1)), 4 slots, 32 new tokens, over the int8 cache (8192 positions,
+    816.0 MiB) and the K4V8 and Int4 caches (2048 positions, G = 64). Each
+    run is driven with the counts at 0 and asserts every decode step's
+    launches and its cache's bytes; it prints the step median, peak memory
+    and the share of expert assignments the capacity dropped. Returns
+    {path: (launches, stats)}."""
+    from protoquant_tpu_torch import Engine, EngineConfig
+    from protoquant_tpu_torch.models.moe import MoEMLP
+
+    cfg, model = _build("gpt_oss_20b", "dynamic", seed, dev)
+    sink_gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    with torch.no_grad():
+        for layer in model.layers:
+            layer.self_attn.sinks.copy_(torch.randn(cfg.num_attention_heads, generator=sink_gen,
+                                                    device=dev))
+    moes = [m for m in model.modules() if isinstance(m, MoEMLP)]
+    L, KV, Dh = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    gen = torch.Generator().manual_seed(seed + 7)
+    out = {}
+    for path, kv_dtype, max_seq, chunk, prompt_lens in GO_RUNS:
+        engine = Engine(model, EngineConfig(max_batch_size=4, max_seq_len=max_seq,
+                                            prefill_chunk=chunk, max_new_tokens=32),
+                        kv_dtype=kv_dtype)
+        prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+                   for n in prompt_lens]
+        cache_bytes = kv_cache_bytes(engine.caches)
+        want = expected_cache_bytes(kv_dtype, L, 4, KV, max_seq, Dh)
+        if cache_bytes != want or (path in GO_MIB and not mib_close(cache_bytes, GO_MIB[path])):
+            raise AssertionError(f"{path}: KV cache {cache_bytes} bytes, want {want}")
+        writer, attention = CACHE_KERNELS[kv_dtype]
+        per_step = moe_step_launches(ops, cfg, writer, attention)
+        for m in moes:
+            m.assignments, m.kept = 0, torch.zeros((), device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t_run = time.perf_counter()
+        outs, prefill_ms, decode_ms, bad_steps, crossed = serve(engine, prompts, ops, per_step)
+        wall = time.perf_counter() - t_run
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        label = f"gpt_oss slice {kv_dtype}"
+        stats = _log_served(label, prompts, outs, wall, prefill_ms, decode_ms, peak)
+        assigned = sum(m.assignments for m in moes)
+        dropped = assigned - sum(float(m.kept) for m in moes)
+        stats["dropped_share"] = dropped / assigned
+        log(f"{label} launches: {json.dumps(launches)}; per decode step "
+            f"{json.dumps(per_step)}; KV cache {cache_bytes} bytes = {cache_bytes / 2**20} MiB"
+            f"{f'; chunk boundaries crossed by decode writes: {crossed}' if crossed else ''}; "
+            f"expert assignments dropped by the capacity: {dropped:.0f} of {assigned} "
+            f"({dropped / assigned:.4f}), idle slots and padding included")
+        _check_served(label, cfg, launches, ("rowquant", "qmatmul", writer, attention),
+                      per_step, bad_steps, decode_ms, prompts, outs)
+        if kv_dtype in KIVI_KERNELS and crossed < 1:
+            raise AssertionError(f"{label}: no decode step flushed a chunk")
+        out[path] = (launches, stats)
+        del engine
+        if path == "gpt_oss_dense":  # the first 4 prompts whole, past the window
+            profile_decode(model, prompts, max_seq_len=max_seq, prefill_chunk=chunk,
+                           ctx=max_seq, kv_dtype=kv_dtype)
+    del model, moes
+    torch.cuda.empty_cache()
+    return out
+
+
 @contextlib.contextmanager
 def knob(ops, name: str, value: str | None):
     """Within the block, the module knob ``ops.<name>`` (W4A8_FORMULATION,
@@ -2005,6 +2299,70 @@ def plain_versions(**faulty):
     finally:
         for mod, name, orig in saved:
             setattr(mod, name, orig)
+
+
+@contextlib.contextmanager
+def pinned_routing(record: list, replay: bool):
+    """Within the block every MoE layer routes as in a recorded run: a
+    recording run (``replay`` False) appends each forward's expert choices
+    and router logits to ``record``; a replay takes the choices in the same
+    order and computes only their combine weights from its own router
+    logits. Top-k is discontinuous: the kernels sum in other orders than
+    their plain versions, a router logit near a tie then picks another
+    expert, and an agreement would measure that choice and not the
+    kernels. ``route_divergence`` reads, from a run with its own routing,
+    where that happens. A harness for the agreement phases only."""
+    from protoquant_tpu_torch.models.moe import MoEMLP
+
+    orig, calls = MoEMLP.route, iter(record)
+
+    def route(self, xf):
+        if not replay:
+            gate_idx, gate_vals = orig(self, xf)
+            record.append((gate_idx, self.router_logits(xf)))
+            return gate_idx, gate_vals
+        gate_idx = next(calls)[0]
+        return gate_idx, self.gate_values(self.router_logits(xf), gate_idx)
+
+    MoEMLP.route = route
+    try:
+        yield
+    finally:
+        MoEMLP.route = orig
+
+
+def route_divergence(kern: list, plain: list, k: int) -> dict:
+    """Where a run with its own routing (``plain``) routes otherwise than
+    the kernel run (``kern``), both recorded by ``pinned_routing``: the
+    (token, MoE call) routes whose expert sets differ, and at the first
+    call in execution order with any, each such token's top-k margin in
+    the kernel run (the k-th minus the (k+1)-th router logit), also in f32
+    ulps of the k-th logit, beside the call's noise: the largest router
+    logit difference between the two runs over the call's tokens whose
+    routes agree. Upstream of that call the runs differ only by the
+    kernels' rounding, so a route that flips there on a margin above twice
+    the noise (more than the noise the call shows can move) is a fault:
+    ``explained`` is False."""
+    got = {"calls": len(kern), "routes": 0, "differ": 0, "first_call": None,
+           "margins": [], "margins_ulps": [], "noise": None, "noise_ulps": None,
+           "explained": True}
+    for call, ((ia, la), (ib, lb)) in enumerate(zip(kern, plain)):
+        bad = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+        got["routes"] += bad.numel()
+        got["differ"] += int(bad.sum())
+        if got["first_call"] is not None or not bad.any():
+            continue
+        top = la.topk(k + 1, dim=-1).values
+        kth = top[:, k - 1]
+        ulp = (torch.nextafter(kth, torch.full_like(kth, math.inf)) - kth).abs()
+        margin = (kth - top[:, k])[bad]
+        diff = (la - lb).abs().amax(-1)
+        noise = diff[~bad].max().item() if (~bad).any() else math.inf
+        got.update(first_call=call, margins=margin.tolist(),
+                   margins_ulps=(margin / ulp[bad]).tolist(), noise=noise,
+                   noise_ulps=noise / ulp.median().item(),
+                   explained=bool((margin <= 2 * noise).all()))
+    return got
 
 
 def _swap_nibbles(packed):
@@ -2176,8 +2534,52 @@ def bloom_faults(ops, kv_dtype: str, layout: str):
     return faults
 
 
-def agreement_path(ops, mode: str, kv_dtype: str, layout: str, n_dense: int) -> tuple:
+# GPT-OSS's agreement prompt: past the window of 128 many times, prefilled in
+# chunks of 512 (128 for the weight_only_int4 model, whose plain lm_head
+# keeps a [K/64, chunk, 201088] f32 partial per group), logits kept at every
+# 16th prompt position; each sink logit ln 128 + N(0, 1), so that a sink
+# holds about half of a sliding row's mass and dropping it shows
+GO_AGREE_PROMPT, GO_AGREE_STRIDE = 1200, 16
+GO_AGREE_CHUNK = {"dynamic": 512, "weight_only_int4": 128}
+
+
+def _gate_up_halves(y, n: int, inter: int):
+    """A gate_up product's output laid out so that the MoE, reading gate from
+    the even columns and up from the odd ones, reads gate from the first
+    half and up from the second (the layout de-interleaved); any other
+    product's output as it is."""
+    if n != 2 * inter:
+        return y
+    return torch.stack([y[..., :inter], y[..., inter:]], dim=-1).reshape(y.shape)
+
+
+def gpt_oss_faults(ops, mode: str, kv_dtype: str, inter: int):
+    """GPT-OSS's planted faults: the cache's attention dropping its learned
+    sinks (the bf16 cache attends in plain PyTorch: no kernel to fault), and
+    the experts' gate/up read de-interleaved, through the mode's GEMM."""
+    faults = {}
+    if kv_dtype != "bf16":
+        attn = CACHE_KERNELS[kv_dtype][1]
+        plain = getattr(ops, attn + "_ref")
+        faults[f"{attn} drops the learned sinks"] = {
+            attn: lambda *a, **k: plain(*a, **dict(k, sink_logits=None))}
+    if mode == "dynamic":
+        faults["the experts' gate/up de-interleaved"] = {
+            "qmatmul": lambda xq, w, *a, **k: _gate_up_halves(
+                ops.qmatmul_ref(xq, w, *a, **k), w.shape[0], inter)}
+    else:
+        faults["the experts' gate/up de-interleaved"] = {
+            "weight_only_int4_matmul": lambda x, p, *a, **k: _gate_up_halves(
+                ops.weight_only_int4_matmul_ref(x, p, *a, **k), p.shape[0], inter)}
+    return faults
+
+
+def agreement_path(ops, mode: str, kv_dtype: str, layout: str, n_dense: int,
+                   preset: str = "llama2_7b") -> tuple:
     """The kernel bodies an agreement's kernel run launches."""
+    if preset == "gpt_oss_20b":  # dense caches only; the bf16 one attends in plain PyTorch
+        gemm = ("rowquant", "qmatmul") if mode == "dynamic" else ("wo4_split",)
+        return gemm + (CACHE_KERNELS[kv_dtype] if kv_dtype != "bf16" else ())
     if layout == "ring":
         return ("rowquant", "qmatmul", "int8_kv_attention") + (
             ("kv_scatter_decode",) if n_dense else ())
@@ -2225,7 +2627,16 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
     positions, window dropped) must fail.
     ``preset="bloom_560m"`` (phase 23): a 2-layer BLOOM over ``layout``
     "dense" (``kv_dtype`` int8, k4v8 or int4), "paged" (``mode`` dynamic)
-    or "ring" (BL_AGREE_RING), against the faults of ``bloom_faults``."""
+    or "ring" (BL_AGREE_RING), against the faults of ``bloom_faults``.
+    ``preset="gpt_oss_20b"`` (phase 26): a 2-layer GPT-OSS-20B (layer 0
+    sliding, layer 1 global, both MoE) in ``mode`` "dynamic" or
+    "weight_only_int4" over the dense cache of ``kv_dtype`` (int8, k4v8,
+    int4 or bf16), GO_AGREE_PROMPT tokens prefilled in chunks, sinks drawn
+    ln 128 + N(0, 1), judged on the decode positions too, against the
+    faults of ``gpt_oss_faults``; the plain and faulted runs route every
+    token to the experts the kernel run chose (``pinned_routing``), and one
+    more plain run with routing of its own is a reading whose first route
+    flip must be explained by the router noise (``route_divergence``)."""
     import dataclasses
 
     from protoquant_tpu_torch import LlamaModel, ModelConfig
@@ -2233,7 +2644,8 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
     from protoquant_tpu_torch.models import Int8KVCache, RingInt8KVCache, init_cache
     from protoquant_tpu_torch.models.llama import RMSNorm
 
-    layout = layout or ("paged" if mode.startswith("weight_only") else "dense")
+    gpt = preset == "gpt_oss_20b"
+    layout = layout or ("paged" if mode.startswith("weight_only") and not gpt else "dense")
     gemma, bloom = preset == "gemma2_9b", preset == "bloom_560m"
     paged, ring = layout == "paged", layout == "ring"
     kv_kernels = kv_dtype != "int8"  # the decode writer and attention of a KIVI or K8V4 cache
@@ -2245,6 +2657,14 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
         n_prompt = G2_AGREE_PROMPT if gemma else M7_AGREE_PROMPT
         chunk, stride = G2_AGREE_CHUNK, G2_AGREE_STRIDE
         max_seq = -(-(n_prompt + 4) // KIVI_G) * KIVI_G
+    elif gpt:
+        n_prompt, chunk, stride = GO_AGREE_PROMPT, GO_AGREE_CHUNK[mode], GO_AGREE_STRIDE
+        max_seq = -(-(n_prompt + 4) // KIVI_G) * KIVI_G
+        with torch.no_grad():
+            for layer in model.layers:
+                layer.self_attn.sinks.copy_(
+                    torch.randn(cfg.num_attention_heads, generator=gen).to(dev)
+                    + math.log(GO_WINDOW))
     elif bloom and ring:
         window, sinks = BL_AGREE_RING["window"], BL_AGREE_RING["sinks"]
         n_prompt, chunk, max_seq, stride = BL_AGREE_RING["prompt"], BL_AGREE_RING["chunk"], 128, 1
@@ -2311,7 +2731,7 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
                "finite": bool(torch.isfinite(a).all())}
         got["pass"] = (got["finite"] and got["rel_l2"] <= AGREE_REL
                        and got["argmax_agree"] >= AGREE_ARGMAX
-                       and (not (paged or kv_kernels or gemma or ring or bloom)
+                       and (not (paged or kv_kernels or gemma or ring or bloom or gpt)
                             or got["decode_rel_l2"] <= AGREE_REL))
         return got
 
@@ -2323,29 +2743,42 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
         if ring and not bloom:
             for layer in model.layers:
                 layer.self_attn.q_proj.qscale.mul_(RING_Q_GAIN)
+        # a MoE model's plain and faulted runs take the kernel run's routing
+        routes = []
+        routing = ((lambda replay: pinned_routing(routes, replay)) if gpt
+                   else (lambda replay: contextlib.nullcontext()))
         ops.reset_launch_counts()
-        kern, toks = run()
+        with routing(False):
+            kern, toks = run()
         launched = ops.launch_counts()
         readings, must_pass = {}, ["kernels"]
         if ring and not bloom:  # the same kernels over the dense windowed cache
             readings["ring vs dense windowed cache"] = compare(kern, run(toks, "dense")[0])
             must_pass.append("ring vs dense windowed cache")
         ops.reset_launch_counts()
-        with plain_versions():
+        with plain_versions(), routing(True):
             plain, _ = run(toks)
         readings["kernels"] = compare(kern, plain)
+        if gpt:  # a reading: the plain versions with routing of their own
+            free = []
+            with plain_versions(), pinned_routing(free, False):
+                readings["kernels, routing not pinned"] = compare(kern, run(toks)[0])
+            divergence = route_divergence(routes, free, cfg.num_experts_per_tok)
         del kern
         if bloom:
             faults = bloom_faults(ops, kv_dtype, layout)
+        elif gpt:
+            faults = gpt_oss_faults(ops, mode, kv_dtype,
+                                    cfg.moe_intermediate_size or cfg.intermediate_size)
         elif ring:
             faults = ring_faults(ops)
         else:
             faults = planted_faults(ops, mode, kv_dtype, preset)
         unjudged = gemma2_attention_faults(ops, kv_dtype)[1] if gemma and not ring else {}
         for fault, swaps in {**faults, **unjudged}.items():
-            with plain_versions(**swaps):
+            with plain_versions(**swaps), routing(True):
                 readings[fault] = compare(run(toks)[0], plain)
-        path = agreement_path(ops, mode, kv_dtype, layout, n_dense)
+        path = agreement_path(ops, mode, kv_dtype, layout, n_dense, preset)
         label = {"paged": "paged agreement", "ring": "ring agreement"}.get(
             layout, "agreement") + (" fused" if fused(mode) else "") + (
             f" {kv_dtype} KV" if kv_kernels else "")
@@ -2360,9 +2793,15 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
         log(f"{label} {str(dtype).replace('torch.', '')} (2 layers, full width, {mode}, {gemm}, "
             f"prompt {n_prompt}, {name}{vs} on the card): {json.dumps(got)}; limits "
             f"rel_l2 <= {AGREE_REL}, argmax_agree >= {AGREE_ARGMAX}")
+    if gpt:
+        log(f"{label} {str(dtype).replace('torch.', '')} ({mode}) routes of the plain run "
+            f"with its own routing against the kernel run's: {json.dumps(divergence)}")
     failed = [name for name in must_pass if not readings[name]["pass"]]
     if failed:
         raise AssertionError(f"{label} {mode}: {failed} disagree")
+    if gpt and not divergence["explained"]:
+        raise AssertionError(f"{label} {mode}: a route flips on a margin above twice the "
+                             f"router noise: {divergence}")
     missed = [name for name in faults if readings[name]["pass"]]
     if missed:
         raise AssertionError(f"{label} {mode}: the limits pass planted fault(s) {missed}")
@@ -2430,7 +2869,8 @@ def check_kernels(ops, gen, dev) -> dict:
               ("kv_scatter_decode", check_scatter),
               ("int8_kv_attention",
                lambda *a: check_attention(*a) + check_gemma2_attention(*a, "int8")
-               + check_ring_attention(*a) + check_alibi_attention(*a, "int8")),
+               + check_ring_attention(*a) + check_alibi_attention(*a, "int8")
+               + check_gpt_oss_attention(*a, "int8")),
               ("weight_only_matmul", check_weight_only),
               ("paged_kv_scatter_decode", check_paged_scatter),
               ("paged_int8_attention",
@@ -2444,10 +2884,12 @@ def check_kernels(ops, gen, dev) -> dict:
               ("dequant", check_dequant),
               ("k4v8_decode_update", lambda *a: check_kivi_update(*a, "k4v8")),
               ("k4v8_attention", lambda *a: check_kivi_attention(*a, "k4v8")
-               + check_gemma2_attention(*a, "k4v8") + check_alibi_attention(*a, "k4v8")),
+               + check_gemma2_attention(*a, "k4v8") + check_alibi_attention(*a, "k4v8")
+               + check_gpt_oss_attention(*a, "k4v8")),
               ("kivi4_decode_update", lambda *a: check_kivi_update(*a, "int4")),
               ("int4_kv_attention", lambda *a: check_kivi_attention(*a, "int4")
-               + check_gemma2_attention(*a, "int4") + check_alibi_attention(*a, "int4")),
+               + check_gemma2_attention(*a, "int4") + check_alibi_attention(*a, "int4")
+               + check_gpt_oss_attention(*a, "int4")),
               ("kv_mixed_scatter_decode", check_mixed_scatter),
               ("mixed_kv_attention", check_mixed_attention))
     for name, fn in checks:
@@ -2537,6 +2979,14 @@ def run_all(ops, seed: int, dev) -> list:
         for dtype in (torch.float32, torch.bfloat16):
             timed(f"23 bloom agreement {layout} {kv_dtype} {dtype}", run_agreement, ops, seed,
                   dev, dtype, "dynamic", None, None, kv_dtype, "bloom_560m", layout)
+    for path, (launches, st) in timed("24-25 gpt_oss slices", run_gpt_oss, ops, seed,
+                                      dev).items():
+        by_path[path], stats[path] = launches, st
+    for mode in GO_AGREE_CHUNK:
+        for kv_dtype in ("int8", *KIVI_KERNELS, "bf16"):
+            for dtype in (torch.float32, torch.bfloat16):
+                timed(f"26 gpt_oss agreement {mode} {kv_dtype} {dtype}", run_agreement, ops,
+                      seed, dev, dtype, mode, None, None, kv_dtype, "gpt_oss_20b", "dense")
     kernels = []
     for name, cases in results.items():
         source, replaces, main_shape = KERNEL_META[name]
@@ -2621,6 +3071,28 @@ def run_all(ops, seed: int, dev) -> list:
         f"{m7_linears:.3f}, attention {m7_attn:.3f}); engine decode step median "
         f"{steps[len(steps) // 2]:.3f} ms; peak memory "
         f"{stats['mistral_7b ring']['peak_gib']:.2f} GiB")
+    # GPT-OSS-20B: half the layers slide (window 128), half attend globally,
+    # at the ragged decode lengths of phase 3; a decode step's 32 expert
+    # slots make the experts' rowquant M = 32 and their products M = 1
+    gq = lambda m, k, n: by[("qmatmul", f"M={m} K={k} N={n} bf16 out")]
+    go_attn = {c["shape"].split(" B=")[0]: c["ms"] for c in results["int8_kv_attention"]}
+    go_rowquant = (rq(GO_HIDDEN) * (GO_LAYERS + 1) + rq_hidden * GO_LAYERS
+                   + by[("rowquant", f"M={GO_EXPERTS} K={GO_HIDDEN} bf16")] * 2 * GO_LAYERS)
+    go_linears = (gq(4, *GO_LINEAR_SHAPES[0]) + 2 * gq(4, *GO_LINEAR_SHAPES[1])
+                  + gq(4, *GO_LINEAR_SHAPES[2])) * GO_LAYERS + gq(4, *GO_LINEAR_SHAPES[3])
+    go_experts = sum(gq(1, k, n) for k, n in GO_EXPERT_SHAPES) * GO_EXPERTS * GO_LAYERS
+    go_cache = (results["kv_scatter_decode"][2]["ms"] * GO_LAYERS
+                + (go_attn["gpt_oss decode sliding"] + go_attn["gpt_oss decode global"])
+                * GO_LAYERS / 2)
+    for path in ("gpt_oss_dense", "gpt_oss_k4v8", "gpt_oss_int4"):
+        steps = sorted(stats[path]["decode_step_ms"])
+        extra = (f"kernels at the measured shapes sum to "
+                 f"{go_rowquant + go_linears + go_experts + go_cache:.3f} ms (rowquant "
+                 f"{go_rowquant:.3f}, projections {go_linears:.3f}, experts {go_experts:.3f}, "
+                 f"scatter and attention {go_cache:.3f}); " if path == "gpt_oss_dense" else "")
+        log(f"decode step, {path}: {extra}engine decode step median "
+            f"{steps[len(steps) // 2]:.3f} ms; peak memory {stats[path]['peak_gib']:.2f} GiB; "
+            f"expert assignments dropped {stats[path]['dropped_share']:.4f}")
     # a reading, not a gate: the hybrid ring serves phase 17's prompts with
     # the same function, its sums in another order
     pairs = [(a, b) for o, r in zip(stats["gemma2_9b ring"]["outputs"],

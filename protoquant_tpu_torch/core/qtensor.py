@@ -1,5 +1,6 @@
 """QTensor: an int8 payload with per-channel f32 scales; QTensor4: packed
-int4 codes with per-(channel, group) f32 scales."""
+int4 codes with per-(channel, group) f32 scales. Both also hold a stack of
+MoE expert weights [E, N, K], each expert quantized on its own."""
 
 from __future__ import annotations
 
@@ -15,7 +16,10 @@ class QTensor:
     """int8 ``data`` and f32 ``scale`` reduced over ``axis`` of ``data``.
 
     A linear weight in the port is stored [N, K] (the ``nn.Linear`` layout,
-    K contiguous) with per-output-channel scales [N], so ``axis`` is 1.
+    K contiguous) with per-output-channel scales [N], so ``axis`` is 1. A
+    stack of expert weights [E, N, K] takes ``axis`` 2: per-expert,
+    per-output-channel scales [E, N] (what the JAX package's ``QTensor``
+    holds for [E, K, N] with axis 1).
     """
 
     data: torch.Tensor
@@ -47,7 +51,10 @@ class QTensor:
 class QTensor4:
     """Group-wise int4 weight: ``data`` int8 [N, K/2], two codes per byte
     packed along K (``numerics.pack_int4``: within each group, byte j holds
-    k = j low and k = j + group/2 high), ``scale`` f32 [N, K/group].
+    k = j low and k = j + group/2 high), ``scale`` f32 [N, K/group]. A
+    stack of expert weights [E, N, K] packs each expert along its own K:
+    ``data`` [E, N, K/2], ``scale`` [E, N, K/group] (the JAX package's [E,
+    K/2, N] and [E, K/group, N], transposed per expert).
 
     The port stores the byte-packed layout only. The JAX package's
     ``storage="native"`` is XLA's s4 dtype, which only its XLA formulation
@@ -63,23 +70,34 @@ class QTensor4:
     @classmethod
     def quantize(cls, w: torch.Tensor, group: int = 128, storage: str = "packed",
                  clip: str = "mse") -> "QTensor4":
-        """Quantize a 2-D [N, K] weight (K the contraction axis)."""
+        """Quantize a 2-D [N, K] weight, or a 3-D [E, N, K] stack of expert
+        weights expert by expert (K the contraction axis)."""
         if storage != "packed":
             raise ValueError(f"int4 storage {storage!r} is not ported; the port "
                              "stores the byte-packed layout only")
+        if w.ndim == 3:
+            parts = [cls.quantize(we, group, storage, clip) for we in w]
+            return cls(data=torch.stack([p.data for p in parts]),
+                       scale=torch.stack([p.scale for p in parts]), group=group,
+                       orig_k=w.shape[2], orig_dtype=w.dtype)
         if w.ndim != 2:
-            raise ValueError(f"QTensor4 takes a 2-D [N, K] weight, got {tuple(w.shape)}")
+            raise ValueError(f"QTensor4 takes a [N, K] or [E, N, K] weight, got "
+                             f"{tuple(w.shape)}")
         q, s = numerics.quantize_groupwise_int4(w, group=group, clip=clip)
         return cls(data=numerics.pack_int4(q, group), scale=s, group=group,
                    orig_k=w.shape[1], orig_dtype=w.dtype)
 
     @property
     def shape(self):
-        return (self.data.shape[0], self.orig_k)
+        return (*self.data.shape[:-1], self.orig_k)
 
     def dequantize(self) -> torch.Tensor:
-        return numerics.dequantize_int4(self.data, self.scale, self.group).to(
-            self.orig_dtype)
+        if self.data.ndim == 3:
+            w = torch.stack([numerics.dequantize_int4(d, s, self.group)
+                             for d, s in zip(self.data, self.scale)])
+        else:
+            w = numerics.dequantize_int4(self.data, self.scale, self.group)
+        return w.to(self.orig_dtype)
 
     def nbytes(self) -> int:
         return self.data.numel() + self.scale.numel() * self.scale.element_size()

@@ -1,14 +1,15 @@
 // Flash attention over the dense int8 KV cache, causal, with GQA, and over
 // the mixed K8V4 cache (the same keys, int4 values).
 //
-// Replaces protoquant_tpu/ops/attention.py:_attn_kernel (Pallas) with its
-// sliding-window, score-scale, softcap, ring-position, StreamingLLM-sink and
-// ALiBi variants (not its learned sinks), and _attn_mixed_kernel (V4 =
+// Replaces protoquant_tpu/ops/attention.py:_attn_kernel (Pallas) with all
+// its variants (sliding window, score scale, softcap, ring positions,
+// StreamingLLM sinks, ALiBi, learned sinks), and _attn_mixed_kernel (V4 =
 // true; the wrapper passes its score scale and no other variant, as the TPU
 // kernel takes).
 //   q [B, T, H, Dh] (f32/bf16/f16), kq/vq [B, KV, S, Dh] int8,
 //   ks/vs [B, KV, S] f32, lengths [B] int32 = cache length BEFORE this
-//   step's T tokens; kpos [B, S] int32 or null, alibi [H] f32 or null.
+//   step's T tokens; kpos [B, S] int32 or null, alibi [H] f32 or null,
+//   sink [H] f32 or null (GPT-OSS's learned sinks).
 //   Query row r = t * group + g of kv head h is q head h * group + g at
 //   absolute position p_t = lengths[b] + t. Column c holds position pos_c =
 //   kpos[b, c] (a ring cache; negative = never written) or c. It is visible
@@ -18,6 +19,11 @@
 //   with softcap > 0: score = softcap * tanh(score / softcap), then with
 //   ALiBi: score -= alibi[h * group + g] * (p_t - pos_c), before the mask
 //   out[r]      = sum_c softmax(score)[r, c] * vs[c] * vq[c]
+//   with learned sinks the softmax runs over [score[r, :], sink[h * group +
+//   g]] and the sink's share is dropped: row r's online softmax starts from
+//   m = sink, l = 1, acc = 0 (the TPU kernel's initial state), read once
+//   into registers, so no tile is walked for it and it composes with every
+//   other variant.
 // The per-token scales factor out of both dots, so no f32 copy of the cache
 // is ever made.
 // Bound on the H100: bytes, the visible part of the int8 cache
@@ -40,8 +46,9 @@
 // online softmax (running max m, denominator l) is in f32; p * vs goes
 // through shared memory and each lane accumulates Dh/32 output dims. The
 // output is acc / max(l, 1e-30). Every variant is a runtime value read only
-// by an instance that takes it: VAR = 1 reads the window and the softcap
-// (Gemma-2, Mistral), VAR = 2 also the ring's positions, the sinks and
+// by an instance that takes it: VAR = 1 reads the window, the softcap and
+// the learned sinks (Gemma-2, Mistral, GPT-OSS: its global layers too, with
+// window 0), VAR = 2 also the ring's positions, the StreamingLLM sinks and
 // ALiBi, and a call takes the least instance its variants need; the
 // full-causal instance (VAR = 0) compiles them all out (read by every
 // instance, the window and softcap alone cost Llama-2-7B's decode 2.5-8 %
@@ -72,8 +79,8 @@ attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
             const float* __restrict__ ks, const int8_t* __restrict__ vq,
             const float* __restrict__ vs, const int* __restrict__ lengths,
             const int* __restrict__ kpos, const float* __restrict__ alibi,
-            QT* __restrict__ out, int T, int H, int KV, int S, float sm, int window,
-            float softcap, int sinks) {
+            const float* __restrict__ sink, QT* __restrict__ out, int T, int H, int KV, int S,
+            float sm, int window, float softcap, int sinks) {
   constexpr int DPL = DH / 32;  // output dims per lane
   constexpr int KPL = KT / 32;  // keys per lane
   constexpr int KSTR = DH + 4;  // padded K row (bytes)
@@ -123,8 +130,10 @@ attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
   for (int i = 0; i < AT_RPW; ++i) {
     const int r = r0 + wr0 + i;
     slope[i] = EXT && alibi != nullptr && r < R ? alibi[h * group + r % group] : 0.0f;
-    m[i] = AT_NEG_INF;
-    l[i] = 0.0f;
+    // a learned sink: denominator mass without a value
+    const bool has_sink = VAR > 0 && sink != nullptr && r < R;
+    m[i] = has_sink ? sink[h * group + r % group] : AT_NEG_INF;
+    l[i] = has_sink ? 1.0f : 0.0f;
 #pragma unroll
     for (int e = 0; e < DPL; ++e) acc[i][e] = 0.0f;
   }
@@ -260,20 +269,20 @@ attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
 template <int DH, int KT, bool V4, typename QT>
 static cudaError_t launch_t(const void* q, const void* kq, const void* ks, const void* vq,
                             const void* vs, const void* lengths, const void* kpos,
-                            const void* alibi, void* out, int B, int T, int H, int KV, int S,
-                            float sm, int window, float softcap, int sinks,
-                            cudaStream_t stream) {
+                            const void* alibi, const void* sink, void* out, int B, int T,
+                            int H, int KV, int S, float sm, int window, float softcap,
+                            int sinks, cudaStream_t stream) {
   const int R = T * (H / KV);
   dim3 grid((R + AT_QROWS - 1) / AT_QROWS, KV, B);
 #define PQ_AT_KARGS (const QT*)q, (const int8_t*)kq, (const float*)ks, (const int8_t*)vq, \
-      (const float*)vs, (const int*)lengths, (const int*)kpos, (const float*)alibi, (QT*)out, \
-      T, H, KV, S, sm, window, softcap, sinks
+      (const float*)vs, (const int*)lengths, (const int*)kpos, (const float*)alibi, \
+      (const float*)sink, (QT*)out, T, H, KV, S, sm, window, softcap, sinks
   if constexpr (!V4) {  // K8V4 takes no variant but the scale: no VAR instance
     if (kpos != nullptr || alibi != nullptr || sinks > 0) {
       attn_kernel<DH, KT, false, 2, QT><<<grid, AT_THREADS, 0, stream>>>(PQ_AT_KARGS);
       return cudaGetLastError();
     }
-    if (window > 0 || softcap > 0.0f) {
+    if (window > 0 || softcap > 0.0f || sink != nullptr) {
       attn_kernel<DH, KT, false, 1, QT><<<grid, AT_THREADS, 0, stream>>>(PQ_AT_KARGS);
       return cudaGetLastError();
     }
@@ -286,11 +295,11 @@ static cudaError_t launch_t(const void* q, const void* kq, const void* ks, const
 template <bool V4, typename QT>
 static cudaError_t launch_dh(int Dh, const void* q, const void* kq, const void* ks,
                              const void* vq, const void* vs, const void* lengths,
-                             const void* kpos, const void* alibi, void* out, int B, int T,
-                             int H, int KV, int S, float sm, int window, float softcap,
-                             int sinks, cudaStream_t stream) {
-#define PQ_AT_ARGS q, kq, ks, vq, vs, lengths, kpos, alibi, out, B, T, H, KV, S, sm, window, \
-                   softcap, sinks, stream
+                             const void* kpos, const void* alibi, const void* sink,
+                             void* out, int B, int T, int H, int KV, int S, float sm,
+                             int window, float softcap, int sinks, cudaStream_t stream) {
+#define PQ_AT_ARGS q, kq, ks, vq, vs, lengths, kpos, alibi, sink, out, B, T, H, KV, S, sm, \
+                   window, softcap, sinks, stream
   switch (Dh) {
     case 32: return launch_t<32, 64, V4, QT>(PQ_AT_ARGS);
     case 64: return launch_t<64, 64, V4, QT>(PQ_AT_ARGS);
@@ -304,14 +313,14 @@ static cudaError_t launch_dh(int Dh, const void* q, const void* kq, const void* 
 template <bool V4>
 static int entry(const void* q, int q_dtype, const void* kq, const void* ks, const void* vq,
                  const void* vs, const void* lengths, const void* kpos, const void* alibi,
-                 void* out, int B, int T, int H, int KV, int S, int Dh, float sm, int window,
-                 float softcap, int sinks, void* stream) {
+                 const void* sink, void* out, int B, int T, int H, int KV, int S, int Dh,
+                 float sm, int window, float softcap, int sinks, void* stream) {
   if (B == 0 || T == 0) return cudaSuccess;
   if (KV == 0 || H % KV != 0 || (V4 && S % 2) || window < 0 || sinks < 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define PQ_AT_DARGS Dh, q, kq, ks, vq, vs, lengths, kpos, alibi, out, B, T, H, KV, S, sm, \
-                    window, softcap, sinks, st
+#define PQ_AT_DARGS Dh, q, kq, ks, vq, vs, lengths, kpos, alibi, sink, out, B, T, H, KV, S, \
+                    sm, window, softcap, sinks, st
   switch (q_dtype) {
     case PQ_F32: return launch_dh<V4, float>(PQ_AT_DARGS);
     case PQ_BF16: return launch_dh<V4, __nv_bfloat16>(PQ_AT_DARGS);
@@ -323,17 +332,18 @@ static int entry(const void* q, int q_dtype, const void* kq, const void* ks, con
 
 PQ_EXPORT int pq_int8_kv_attention(const void* q, int q_dtype, const void* kq, const void* ks,
                                    const void* vq, const void* vs, const void* lengths,
-                                   const void* kpos, const void* alibi, void* out, int B, int T,
-                                   int H, int KV, int S, int Dh, float sm, int window,
-                                   float softcap, int sinks, void* stream) {
-  return entry<false>(q, q_dtype, kq, ks, vq, vs, lengths, kpos, alibi, out, B, T, H, KV, S,
-                      Dh, sm, window, softcap, sinks, stream);
+                                   const void* kpos, const void* alibi, const void* sink,
+                                   void* out, int B, int T, int H, int KV, int S, int Dh,
+                                   float sm, int window, float softcap, int sinks,
+                                   void* stream) {
+  return entry<false>(q, q_dtype, kq, ks, vq, vs, lengths, kpos, alibi, sink, out, B, T, H, KV,
+                      S, Dh, sm, window, softcap, sinks, stream);
 }
 
 PQ_EXPORT int pq_mixed_kv_attention(const void* q, int q_dtype, const void* kq, const void* ks,
                                     const void* vq, const void* vs, const void* lengths,
                                     void* out, int B, int T, int H, int KV, int S, int Dh,
                                     float sm, void* stream) {
-  return entry<true>(q, q_dtype, kq, ks, vq, vs, lengths, nullptr, nullptr, out, B, T, H, KV,
-                     S, Dh, sm, 0, 0.0f, 0, stream);
+  return entry<true>(q, q_dtype, kq, ks, vq, vs, lengths, nullptr, nullptr, nullptr, out, B, T,
+                     H, KV, S, Dh, sm, 0, 0.0f, 0, stream);
 }

@@ -2,7 +2,7 @@
 //
 // Replaces protoquant_tpu/ops/attention.py:_attn_k4v8_kernel (K4V8KVCache)
 // and _attn4_kernel (Int4KVCache) with their sliding-window, score-scale,
-// softcap and ALiBi variants (not their learned sinks); one template, V4
+// softcap, ALiBi and learned-sink variants (all they take); one template, V4
 // choosing the V layout.
 //   q [B, T, H, Dh] (f32/bf16/f16); kq [B, KV, S/2, Dh] int8 packed K (row
 //   r: token 2r in the low nibble, 2r + 1 in the high one); kchs [B, KV,
@@ -11,7 +11,8 @@
 //   2G); K4V8: vq [B, KV, S, Dh] int8, vs [B, KV, S] f32; Int4 (V4): vq
 //   [B, KV, S/2, Dh] packed like K, vs [B, KV, 2, S/2] per-token scales,
 //   plane 0 even tokens, plane 1 odd; lengths [B] = length BEFORE this
-//   step's T tokens, new_lengths after it; alibi [H] f32 or null.
+//   step's T tokens, new_lengths after it; alibi [H] f32 or null; sink [H]
+//   f32 or null (GPT-OSS's learned sinks).
 // Query row t (horizon len + t) sees key position p <= len + t and, with
 // window > 0, p > len + t - window. Positions
 // below the frontier F = (min(new_len, S) / G) G come from the packed
@@ -24,7 +25,9 @@
 //   score = (q . k) * sm (sm = scale or Dh^-0.5); with softcap > 0, score =
 //   softcap * tanh(score / softcap), then with ALiBi score -= alibi[head] *
 //   (horizon - pos), before the mask, in the packed tiles and the tail
-//   alike; softmax online in f32, out = sum p * vs * v
+//   alike; softmax online in f32, out = sum p * vs * v; a learned sink
+//   joins each row's softmax without a value, as the initial state m =
+//   sink, l = 1, acc = 0 (the TPU kernels' init).
 // The per-channel K scale cannot leave the q . k sum, so each 64-key tile
 // is unpacked into f32 in shared memory; the per-token V scale multiplies
 // p, as in the dense kernel. All arithmetic is f32 (the TPU kernel's bf16
@@ -37,8 +40,9 @@
 // walked from the tile of the first row's earliest visible key (packed tiles
 // wholly below the window are skipped, as the TPU kernel skips its blocks)
 // up to min(F, len + t_max + 1), then the tail in 64-row tiles, masked by
-// the same window. The window and the softcap are read only by the VAR >= 1
-// instances, the ALiBi slopes only by VAR = 2, and a call takes the least
+// the same window. The window, the softcap and the learned sinks are read
+// only by the VAR >= 1 instances, the ALiBi slopes only by VAR = 2, and a
+// call takes the least
 // instance its variants need, as in csrc/attention.cu; each row's slope
 // sits in a register.
 // Shared memory is dynamic (about 53 KB at Dh = 128). Decode runs one block
@@ -66,8 +70,8 @@ kivi_attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
                  const float* __restrict__ kts, const int8_t* __restrict__ vtail,
                  const float* __restrict__ vts, const int* __restrict__ lengths,
                  const int* __restrict__ new_lengths, const float* __restrict__ alibi,
-                 QT* __restrict__ out, int T, int H, int KV, int S, int G, float sm, int window,
-                 float softcap) {
+                 const float* __restrict__ sink, QT* __restrict__ out, int T, int H, int KV,
+                 int S, int G, float sm, int window, float softcap) {
   constexpr int DPL = DH / 32;  // output dims per lane
   constexpr int KPL = KT / 32;  // keys per lane
   constexpr int KSTR = DH + 4;  // padded f32 K row: float4 reads of 8 rows hit 8 bank groups
@@ -121,8 +125,10 @@ kivi_attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kq,
   for (int i = 0; i < KA_RPW; ++i) {
     const int r = r0 + wr0 + i;
     slope[i] = VAR == 2 && alibi != nullptr && r < R ? alibi[h * group + r % group] : 0.0f;
-    m[i] = KA_NEG_INF;
-    l[i] = 0.0f;
+    // a learned sink: denominator mass without a value
+    const bool has_sink = VAR > 0 && sink != nullptr && r < R;
+    m[i] = has_sink ? sink[h * group + r % group] : KA_NEG_INF;
+    l[i] = has_sink ? 1.0f : 0.0f;
 #pragma unroll
     for (int e = 0; e < DPL; ++e) acc[i][e] = 0.0f;
   }
@@ -293,9 +299,9 @@ template <int DH, int KT, bool V4, int VAR, typename QT>
 static cudaError_t launch_var(const void* q, const void* kq, const void* kchs, const void* vq,
                               const void* vs, const void* ktail, const void* kts,
                               const void* vtail, const void* vts, const void* lengths,
-                              const void* new_lengths, const void* alibi, void* out, int B,
-                              int T, int H, int KV, int S, int G, float sm, int window,
-                              float softcap, cudaStream_t stream) {
+                              const void* new_lengths, const void* alibi, const void* sink,
+                              void* out, int B, int T, int H, int KV, int S, int G, float sm,
+                              int window, float softcap, cudaStream_t stream) {
   constexpr int smem = ka_smem_bytes<DH, KT>();
   static bool configured = false;
   cudaError_t err = pq_allow_smem(kivi_attn_kernel<DH, KT, V4, VAR, QT>, smem, configured);
@@ -306,7 +312,7 @@ static cudaError_t launch_var(const void* q, const void* kq, const void* kchs, c
       (const QT*)q, (const int8_t*)kq, (const float*)kchs, (const int8_t*)vq,
       (const float*)vs, (const int8_t*)ktail, (const float*)kts, (const int8_t*)vtail,
       (const float*)vts, (const int*)lengths, (const int*)new_lengths, (const float*)alibi,
-      (QT*)out, T, H, KV, S, G, sm, window, softcap);
+      (const float*)sink, (QT*)out, T, H, KV, S, G, sm, window, softcap);
   return cudaGetLastError();
 }
 
@@ -314,13 +320,14 @@ template <int DH, int KT, bool V4, typename QT>
 static cudaError_t launch_t(const void* q, const void* kq, const void* kchs, const void* vq,
                             const void* vs, const void* ktail, const void* kts,
                             const void* vtail, const void* vts, const void* lengths,
-                            const void* new_lengths, const void* alibi, void* out, int B,
-                            int T, int H, int KV, int S, int G, float sm, int window,
-                            float softcap, cudaStream_t stream) {
+                            const void* new_lengths, const void* alibi, const void* sink,
+                            void* out, int B, int T, int H, int KV, int S, int G, float sm,
+                            int window, float softcap, cudaStream_t stream) {
 #define PQ_KA_VARGS q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, new_lengths, alibi, \
-                    out, B, T, H, KV, S, G, sm, window, softcap, stream
+                    sink, out, B, T, H, KV, S, G, sm, window, softcap, stream
   if (alibi != nullptr) return launch_var<DH, KT, V4, 2, QT>(PQ_KA_VARGS);
-  if (window > 0 || softcap > 0.0f) return launch_var<DH, KT, V4, 1, QT>(PQ_KA_VARGS);
+  if (window > 0 || softcap > 0.0f || sink != nullptr)
+    return launch_var<DH, KT, V4, 1, QT>(PQ_KA_VARGS);
   return launch_var<DH, KT, V4, 0, QT>(PQ_KA_VARGS);
 #undef PQ_KA_VARGS
 }
@@ -329,11 +336,11 @@ template <bool V4, typename QT>
 static cudaError_t launch_dh(int Dh, const void* q, const void* kq, const void* kchs,
                              const void* vq, const void* vs, const void* ktail, const void* kts,
                              const void* vtail, const void* vts, const void* lengths,
-                             const void* new_lengths, const void* alibi, void* out, int B,
-                             int T, int H, int KV, int S, int G, float sm, int window,
-                             float softcap, cudaStream_t st) {
+                             const void* new_lengths, const void* alibi, const void* sink,
+                             void* out, int B, int T, int H, int KV, int S, int G, float sm,
+                             int window, float softcap, cudaStream_t st) {
 #define PQ_KA_ARGS q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, new_lengths, alibi, \
-                   out, B, T, H, KV, S, G, sm, window, softcap, st
+                   sink, out, B, T, H, KV, S, G, sm, window, softcap, st
   switch (Dh) {
     case 32: return launch_t<32, 64, V4, QT>(PQ_KA_ARGS);
     case 64: return launch_t<64, 64, V4, QT>(PQ_KA_ARGS);
@@ -348,14 +355,14 @@ template <bool V4>
 static int entry(const void* q, int q_dtype, const void* kq, const void* kchs, const void* vq,
                  const void* vs, const void* ktail, const void* kts, const void* vtail,
                  const void* vts, const void* lengths, const void* new_lengths,
-                 const void* alibi, void* out, int B, int T, int H, int KV, int S, int Dh,
-                 int G, float sm, int window, float softcap, void* stream) {
+                 const void* alibi, const void* sink, void* out, int B, int T, int H, int KV,
+                 int S, int Dh, int G, float sm, int window, float softcap, void* stream) {
   if (B == 0 || T == 0) return cudaSuccess;
   if (KV == 0 || H % KV != 0 || G < 2 || G % 2 || S % G || window < 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define PQ_KA_DARGS Dh, q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, new_lengths, \
-                    alibi, out, B, T, H, KV, S, G, sm, window, softcap, st
+                    alibi, sink, out, B, T, H, KV, S, G, sm, window, softcap, st
   switch (q_dtype) {
     case PQ_F32: return launch_dh<V4, float>(PQ_KA_DARGS);
     case PQ_BF16: return launch_dh<V4, __nv_bfloat16>(PQ_KA_DARGS);
@@ -369,11 +376,11 @@ PQ_EXPORT int pq_k4v8_attention(const void* q, int q_dtype, const void* kq, cons
                                 const void* vq, const void* vs, const void* ktail,
                                 const void* kts, const void* vtail, const void* vts,
                                 const void* lengths, const void* new_lengths,
-                                const void* alibi, void* out, int B, int T, int H, int KV,
-                                int S, int Dh, int G, float sm, int window, float softcap,
-                                void* stream) {
+                                const void* alibi, const void* sink, void* out, int B, int T,
+                                int H, int KV, int S, int Dh, int G, float sm, int window,
+                                float softcap, void* stream) {
   return entry<false>(q, q_dtype, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
-                      new_lengths, alibi, out, B, T, H, KV, S, Dh, G, sm, window, softcap,
+                      new_lengths, alibi, sink, out, B, T, H, KV, S, Dh, G, sm, window, softcap,
                       stream);
 }
 
@@ -381,10 +388,11 @@ PQ_EXPORT int pq_int4_kv_attention(const void* q, int q_dtype, const void* kq,
                                    const void* kchs, const void* vq, const void* vs,
                                    const void* ktail, const void* kts, const void* vtail,
                                    const void* vts, const void* lengths,
-                                   const void* new_lengths, const void* alibi, void* out,
-                                   int B, int T, int H, int KV, int S, int Dh, int G, float sm,
-                                   int window, float softcap, void* stream) {
+                                   const void* new_lengths, const void* alibi,
+                                   const void* sink, void* out, int B, int T, int H, int KV,
+                                   int S, int Dh, int G, float sm, int window, float softcap,
+                                   void* stream) {
   return entry<true>(q, q_dtype, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
-                     new_lengths, alibi, out, B, T, H, KV, S, Dh, G, sm, window, softcap,
+                     new_lengths, alibi, sink, out, B, T, H, KV, S, Dh, G, sm, window, softcap,
                      stream);
 }

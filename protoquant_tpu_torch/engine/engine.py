@@ -24,7 +24,10 @@ only the tail (``engine/prefix_cache.py``). ``kv_layout="ring"`` (int8
 only) serves a sliding window, the model's or ``EngineConfig.
 stream_window`` (StreamingLLM, with ``attention_sinks``), from
 ``RingInt8KVCache``s of O(window) columns; on a model whose window skips
-some layers (Gemma-2) those layers keep dense int8 caches.
+some layers (Gemma-2) those layers keep dense int8 caches. A model with
+learned attention sinks (GPT-OSS) is served over the dense bf16, int8,
+K4V8 and Int4 caches only: the JAX package's paged, ring and K8V4 caches
+take no sinks, so the engine refuses those before it admits a request.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from typing import Optional
 
 import torch
 
-from ..models.kv_cache import Int4KVCache, Int8KVCache, K4V8KVCache, RingInt8KVCache
+from ..models.kv_cache import (Int4KVCache, Int8KVCache, K4V8KVCache, MixedKVCache,
+                               RingInt8KVCache)
 from ..models.llama import LlamaModel, init_cache, kv_cache_class
 from ..native import PageAllocator
 from ..utils.config import EngineConfig
@@ -122,6 +126,12 @@ class Engine:
         if kv_layout in ("paged", "ring") and kv_cache_class(kv_dtype) is not Int8KVCache:
             raise ValueError(f"the {kv_layout} layout is int8 only; use kv_layout='dense' "
                              f"for kv_dtype {kv_dtype!r}")
+        if model.cfg.learned_attention_sinks and (
+                kv_layout != "dense" or kv_cache_class(kv_dtype) is MixedKVCache):
+            raise ValueError(
+                f"kv_layout {kv_layout!r}, kv_dtype {kv_dtype!r}: learned attention sinks "
+                "(GPT-OSS) are served over the dense bf16, int8, k4v8 and int4 caches only, "
+                "as in the JAX package (its paged, ring and K8V4 caches take no sinks)")
         if kv_layout == "dense":
             self.caches = init_cache(model.cfg, B, self.cfg.max_seq_len, self.device,
                                      kv_dtype)

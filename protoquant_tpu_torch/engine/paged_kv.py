@@ -126,10 +126,14 @@ class PagedInt8KVCache:
         return self
 
     def update_and_attend(self, q, k, v, advance=None, window=0, scale=0.0, softcap=0.0,
-                          tree_mask=None, alibi_slopes=None):
+                          tree_mask=None, alibi_slopes=None, sink_logits=None):
         """Write k/v, attend q [B, T, H, Dh] over the slot's pages with the
-        lengths from before this step, then advance. Returns [B, T, H, Dh]."""
-        reject_variants("PagedInt8KVCache", tree_mask=tree_mask)
+        lengths from before this step, then advance. Returns [B, T, H, Dh].
+        Learned sinks raise: the JAX paged cache takes none, so GPT-OSS is
+        not served paged."""
+        reject_variants("PagedInt8KVCache (the JAX paged cache takes no learned sinks: "
+                        "serve GPT-OSS over a dense cache)", tree_mask=tree_mask,
+                        sink_logits=sink_logits)
         self._write(k, v)
         pools = (self.kq, self.ks, self.vq, self.vs)
         if q.shape[1] == 1 and not (window or scale or softcap):

@@ -18,11 +18,13 @@ full cache.
 
 Every ``update_and_attend`` takes the keyword arguments of its JAX
 counterpart: ``window`` (sliding window), ``scale`` (score scale),
-``softcap`` (Gemma-2 logit cap), ``alibi_slopes`` (BLOOM), ``sink_logits``,
-``tree_mask``. The bf16, int8, ring and KIVI caches attend with the first
-four; the K8V4 cache with ``scale`` alone and raises on a window, a softcap
-or ALiBi, as the JAX one does. The last two are not ported: each cache
-raises ``NotImplementedError`` on them before it writes anything.
+``softcap`` (Gemma-2 logit cap), ``alibi_slopes`` (BLOOM), ``sink_logits``
+(GPT-OSS's learned sinks), ``tree_mask``. The bf16, int8 and KIVI caches
+attend with the first five; the ring with the first four and the K8V4
+cache with ``scale`` alone: they raise on the others as the JAX ones do
+(the JAX ring takes no learned sinks, so GPT-OSS is served over neither).
+Tree masks are not ported. A cache raises ``NotImplementedError`` before
+it writes anything.
 ``mha_attention`` and ``BF16KVCache`` apply ALiBi before the softcap (the
 JAX model's ``mha_attention``), the int8 and KIVI kernels after it (its
 ``int8_kv_attention_xla``).
@@ -41,7 +43,7 @@ from ..core.numerics import (QMAX4, SCALE_EPS, kivi_chunk_quantize,  # noqa: F40
                              pack_nib_pair, quantize_rowwise, unpack_nib_pair)
 from ..ops.attention import (int4_kv_attention, int8_kv_attention, k4v8_attention,
                              kivi_dequant_k, kivi_dequant_v4, mixed_kv_attention,
-                             reject_variants, score_scale, unpack_v4)
+                             reject_variants, score_scale, softmax_with_sinks, unpack_v4)
 from ..ops.kv_scatter import (gather_rows, k4v8_decode_update, kivi4_decode_update,
                               kv_mixed_scatter_decode, kv_scatter_decode, merge_nibble,
                               put_chunk, put_v_chunk)
@@ -63,7 +65,7 @@ def quantize_kv4(x: torch.Tensor):
 
 
 def mha_attention(q, k, v, q_positions, k_positions, window: int = 0, scale: float = 0.0,
-                  softcap: float = 0.0, alibi_slopes=None):
+                  softcap: float = 0.0, alibi_slopes=None, sink_logits=None):
     """Plain causal GQA attention over unquantized keys and values (the
     scoring path, and ``BF16KVCache``'s attention), in f32.
 
@@ -72,7 +74,8 @@ def mha_attention(q, k, v, q_positions, k_positions, window: int = 0, scale: flo
     than window - 1 positions behind it. ``scale`` > 0 replaces Dh^-0.5;
     ``alibi_slopes`` [H] subtract slope_h * (query position - key position)
     from the scaled scores; ``softcap`` > 0 then caps them, cap * tanh(s /
-    cap), before the mask (``protoquant_tpu/models/llama.py:mha_attention``)."""
+    cap), before the mask; ``sink_logits`` [H] join the softmax without a
+    value (``protoquant_tpu/models/llama.py:mha_attention``)."""
     B, T, H, Dh = q.shape
     KV = k.shape[2]
     group = H // KV
@@ -90,7 +93,7 @@ def mha_attention(q, k, v, q_positions, k_positions, window: int = 0, scale: flo
     if window > 0:
         mask &= kp > qp - window
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-    probs = torch.softmax(scores, dim=-1)
+    probs = softmax_with_sinks(scores, sink_logits, KV, group)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v.float())
     return out.reshape(B, T, H, Dh).to(q.dtype)
 
@@ -184,14 +187,14 @@ class BF16KVCache(_DenseSlots):
                           sink_logits=None, tree_mask=None, alibi_slopes=None):
         """Write k/v, attend q [B, T, H, Dh] (query t at position lengths +
         t, before this step) over every cached key, then advance."""
-        reject_variants("BF16KVCache", sink_logits=sink_logits, tree_mask=tree_mask)
+        reject_variants("BF16KVCache", tree_mask=tree_mask)
         B, T = k.shape[:2]
         self._write(k, v)
         dev = q.device
         q_pos = self.lengths.long()[:, None] + torch.arange(T, device=dev)[None, :]
         k_pos = torch.arange(self.max_seq, device=dev)[None, :].expand(B, self.max_seq)
         out = mha_attention(q, self.k, self.v, q_pos, k_pos, window, scale, softcap,
-                            alibi_slopes)
+                            alibi_slopes, sink_logits)
         self._advance(T, advance)
         return out
 
@@ -252,13 +255,13 @@ class Int8KVCache(_DenseSlots):
     def update_and_attend(self, q, k, v, advance=None, window=0, scale=0.0, softcap=0.0,
                           sink_logits=None, tree_mask=None, alibi_slopes=None):
         """Write k/v, attend q [B, T, H, Dh] over the cache with the lengths
-        from before this step (and the window, scale, softcap and ALiBi
-        slopes given), then advance. Returns [B, T, H, Dh]."""
-        reject_variants("Int8KVCache", sink_logits=sink_logits, tree_mask=tree_mask)
+        from before this step (and the window, scale, softcap, ALiBi slopes
+        and learned sinks given), then advance. Returns [B, T, H, Dh]."""
+        reject_variants("Int8KVCache", tree_mask=tree_mask)
         self._write(k, v)
         out = int8_kv_attention(q, self.kq, self.ks, self.vq, self.vs, self.lengths,
                                 window=window, scale=scale, softcap=softcap,
-                                alibi_slopes=alibi_slopes)
+                                alibi_slopes=alibi_slopes, sink_logits=sink_logits)
         self._advance(k.shape[1], advance)
         return out
 
@@ -358,7 +361,8 @@ class RingInt8KVCache(_DenseSlots):
         """Write k/v, attend q [B, T, H, Dh] over the ring's columns at the
         positions they hold after the write (the window is ``window``, or
         the ring's own), then advance. Returns [B, T, H, Dh]."""
-        reject_variants("RingInt8KVCache", sink_logits=sink_logits, tree_mask=tree_mask)
+        reject_variants("RingInt8KVCache (the JAX ring takes no learned sinks: serve GPT-OSS "
+                        "over a dense cache)", sink_logits=sink_logits, tree_mask=tree_mask)
         T = k.shape[1]
         self._write(k, v)
         k_pos = ring_positions(self.lengths + T, self.capacity, self.sinks)
@@ -428,7 +432,8 @@ class MixedKVCache(Int8KVCache):
         """Write k/v, attend q [B, T, H, Dh] over the cache with the lengths
         from before this step, then advance. Returns [B, T, H, Dh]. A
         window, a softcap, sinks or ALiBi raise, as in the JAX cache."""
-        reject_variants("MixedKVCache (full-causal rope attention only)", window=window,
+        reject_variants("MixedKVCache (full-causal rope attention only, as the JAX one; no "
+                        "GPT-OSS learned sinks)", window=window,
                          softcap=softcap, sink_logits=sink_logits, tree_mask=tree_mask,
                          alibi_slopes=alibi_slopes)
         self._write(k, v)
@@ -593,14 +598,14 @@ class _KiviKVCache(_DenseSlots):
                           sink_logits=None, tree_mask=None, alibi_slopes=None):
         """Write k/v, attend q [B, T, H, Dh] with the lengths from before
         (and the frontier from after) this step, and the window, scale,
-        softcap and ALiBi slopes given, then advance."""
-        reject_variants(type(self).__name__, sink_logits=sink_logits, tree_mask=tree_mask)
+        softcap, ALiBi slopes and learned sinks given, then advance."""
+        reject_variants(type(self).__name__, tree_mask=tree_mask)
         adv = self._adv(k.shape[1], advance)
         new_lengths = self.lengths + adv
         self._write(k, v, adv)
         out = self._attention(q, *self._tensors(), self.lengths, new_lengths,
                               group=self.group, window=window, scale=scale, softcap=softcap,
-                              alibi_slopes=alibi_slopes)
+                              alibi_slopes=alibi_slopes, sink_logits=sink_logits)
         self.lengths.copy_(new_lengths)
         return out
 

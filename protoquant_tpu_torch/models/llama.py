@@ -3,12 +3,15 @@ every projection a ``QLinear``; with the config's switches, Mistral (a
 sliding window on every layer), Gemma-2 (GeGLU, zero-centred norm
 weights, sandwich norms, the embedding normalizer, a sliding window on
 alternate layers, the query_pre_attn_scalar score scale, attention and
-final-logit softcaps) and BLOOM (LayerNorm with a bias, an embedding
-LayerNorm, biased projections, a plain gelu MLP, ALiBi instead of RoPE).
+final-logit softcaps), BLOOM (LayerNorm with a bias, an embedding
+LayerNorm, biased projections, a plain gelu MLP, ALiBi instead of RoPE) and
+GPT-OSS (learned attention sinks, yarn RoPE, biased q/k/v/o, a mixture of
+experts in place of the MLP: ``models/moe.py``).
 
 Module and parameter names follow the flax tree of the JAX package
 (``embed_tokens``, ``layers_{i}.self_attn.{q,k,v,o}_proj``,
-``layers_{i}.mlp.{gate,up,down}_proj``, ``layers_{i}.{input,
+``layers_{i}.mlp.{gate,up,down}_proj``, ``layers_{i}.block_sparse_moe``,
+``layers_{i}.self_attn.sinks``, ``layers_{i}.{input,
 post_attention,pre_feedforward,post_feedforward}_layernorm``, ``norm``,
 ``lm_head``, ``embed_norm``), so ``models.from_jax.params_from_numpy``
 carries weights across by name. The norms, RoPE and the activations
@@ -20,7 +23,9 @@ emit the int8 activations of the projections that read them
 is fused (the JAX gating: the MLP's input norm is
 ``pre_feedforward_layernorm`` and the attention's stays plain) and the gate
 still is; with LayerNorm nothing is (no norm is an RMSNorm and the MLP has
-no gate); the final norm before ``lm_head`` stays unfused.
+no gate); on a MoE model only the input norm is (the experts quantize
+their own dispatched input); the final norm before ``lm_head`` stays
+unfused.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from ..utils.config import ModelConfig
 from ..utils.device import resolve_device
 from .kv_cache import (BF16KVCache, Int4KVCache, Int8KVCache, K4V8KVCache, MixedKVCache,
                        mha_attention)
+from .moe import MoEMLP, StackedWeight
 
 # kv_dtype -> the dense cache class that holds it
 KV_CACHES = {"bf16": BF16KVCache, "int8": Int8KVCache, "k8v4": MixedKVCache,
@@ -71,13 +77,59 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
             for _ in range(cfg.num_hidden_layers)]
 
 
-def rope_tables(head_dim: int, max_len: int, theta: float, device=None):
-    """cos/sin tables [max_len, head_dim // 2], f32 (plain RoPE, no scaling)."""
+def rope_tables(head_dim: int, max_len: int, theta: float, cfg: ModelConfig | None = None,
+                device=None):
+    """cos/sin tables [max_len, head_dim // 2], f32. With ``cfg`` whose
+    ``rope_scaling_type`` is "yarn", the YaRN scaling of
+    ``protoquant_tpu/models/llama.py:rope_tables``: the inverse frequencies
+    blend from extrapolated (fast dims) to interpolated by the factor (slow
+    dims) along a linear ramp between the beta_fast and beta_slow
+    correction dims (floored and ceiled under ``rope_scaling_truncate``),
+    and cos and sin are multiplied by ``yarn_attention_factor(cfg)``."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     inv_freq = 1.0 / (theta ** exps)
+    yarn = cfg is not None and cfg.rope_scaling_type == "yarn"
+    if yarn:
+        factor = cfg.rope_scaling_factor
+        orig = cfg.rope_scaling_original_max_position_embeddings
+
+        def corr_dim(n_rot):
+            # the dim whose wavelength completes n_rot rotations at orig
+            return head_dim * math.log(orig / (n_rot * 2 * math.pi)) / (2 * math.log(theta))
+
+        lo, hi = corr_dim(cfg.rope_scaling_beta_fast), corr_dim(cfg.rope_scaling_beta_slow)
+        if cfg.rope_scaling_truncate:
+            lo, hi = math.floor(lo), math.ceil(hi)
+        low, high = max(lo, 0), min(hi, head_dim - 1)
+        if low == high:
+            high += 0.001  # the singularity guard of transformers
+        dims = torch.arange(head_dim // 2, dtype=torch.float32, device=device)
+        extrap = 1.0 - torch.clamp((dims - low) / (high - low), 0.0, 1.0)
+        inv_freq = (inv_freq / factor) * (1.0 - extrap) + inv_freq * extrap
     t = torch.arange(max_len, dtype=torch.float32, device=device)
     freqs = torch.outer(t, inv_freq)
-    return torch.cos(freqs), torch.sin(freqs)
+    cos, sin = torch.cos(freqs), torch.sin(freqs)
+    if yarn:
+        f = yarn_attention_factor(cfg)
+        cos, sin = cos * f, sin * f
+    return cos, sin
+
+
+def yarn_mscale(scale: float, mscale: float = 1.0) -> float:
+    """YaRN's attention-magnitude correction: 0.1 mscale ln(scale) + 1."""
+    if scale <= 1.0:
+        return 1.0
+    return 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_attention_factor(cfg: ModelConfig) -> float:
+    """The multiplier on cos and sin under yarn scaling (the attention
+    factor transformers infers)."""
+    f, m, mad = (cfg.rope_scaling_factor, cfg.rope_scaling_mscale,
+                 cfg.rope_scaling_mscale_all_dim)
+    if m and mad:
+        return yarn_mscale(f, m) / yarn_mscale(f, mad)
+    return yarn_mscale(f)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, cos, sin) -> torch.Tensor:
@@ -176,7 +228,8 @@ def producer_fused(mode: str) -> bool:
 class Attention(nn.Module):
     """GQA attention of layer ``layer_idx``: its sliding window
     (``cfg.layer_window``), score scale (query_pre_attn_scalar^-0.5 when
-    set), logit softcap and ALiBi slopes go to the cache, or to
+    set), logit softcap, ALiBi slopes and learned sinks (``sinks`` [H] f32,
+    under ``cfg.learned_attention_sinks``) go to the cache, or to
     ``mha_attention`` without one. Under ALiBi, q and k take no RoPE."""
 
     def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128,
@@ -200,6 +253,8 @@ class Attention(nn.Module):
         self.alibi = cfg.position_embedding == "alibi"
         if self.alibi:
             self.register_buffer("alibi_slopes", alibi_slopes(H).to(device), persistent=False)
+        self.sinks = (nn.Parameter(torch.zeros(H, device=device), requires_grad=False)
+                      if cfg.learned_attention_sinks else None)
 
     def forward(self, x, positions, cos, sin, cache=None, advance=None, preq=None):
         """``preq``: the (xq, s_x) of the normed input from the producer
@@ -222,10 +277,10 @@ class Attention(nn.Module):
             k = apply_rope(k, positions, cos, sin)
         if cache is not None:
             out = cache.update_and_attend(q, k, v, advance, alibi_slopes=slopes,
-                                          **self.variants)
+                                          sink_logits=self.sinks, **self.variants)
         else:
             out = mha_attention(q, k, v, positions, positions, alibi_slopes=slopes,
-                                **self.variants)
+                                sink_logits=self.sinks, **self.variants)
         return self.o_proj(out.reshape(B, T, H * Dh))
 
 
@@ -272,7 +327,8 @@ class DecoderLayer(nn.Module):
     """Pre-norm block; with ``cfg.sandwich_norms`` (Gemma-2),
     ``post_attention_layernorm`` norms the attention OUTPUT, and
     ``pre_feedforward_layernorm`` / ``post_feedforward_layernorm`` the MLP's
-    input and output."""
+    input and output. Under ``cfg.layer_is_moe(layer_idx)`` the MLP is a
+    ``MoEMLP`` (``block_sparse_moe``)."""
 
     def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128,
                  layer_idx: int = 0):
@@ -287,23 +343,37 @@ class DecoderLayer(nn.Module):
         if self.sandwich:
             self.pre_feedforward_layernorm = norm()
             self.post_feedforward_layernorm = norm()
-        self.mlp = MLP(cfg, mode, dtype, device, int4_group)
+        self.moe = cfg.layer_is_moe(layer_idx)
+        # a MoE model fuses no post-attention norm, on its dense layers too
+        self.fuse_mlp_norm = not cfg.is_moe
+        if self.moe:
+            self.block_sparse_moe = MoEMLP(cfg, mode, dtype, device, int4_group)
+        else:
+            self.mlp = MLP(cfg, mode, dtype, device, int4_group)
+
+    def _mlp(self, x, preq=None):
+        return self.block_sparse_moe(x) if self.moe else self.mlp(x, preq)
 
     def forward(self, x, positions, cos, sin, cache=None, advance=None):
         if self.sandwich:
             h = self.self_attn(self.input_layernorm(x), positions, cos, sin, cache, advance)
             x = x + self.post_attention_layernorm(h)
-            h = self.mlp(self.pre_feedforward_layernorm(x))
+            h = self._mlp(self.pre_feedforward_layernorm(x))
             return x + self.post_feedforward_layernorm(h)
-        if self.rms and producer_fused(self.mlp.up_proj.mode):
-            # the norms emit the projections' int8 input directly; the
-            # normed activation itself is never made
+        # the linears' mode, not the constructor's: quantize_model converts
+        # them in place
+        fused = self.rms and producer_fused(self.self_attn.q_proj.mode)
+        if fused:
+            # the norm emits the projections' int8 input directly; the normed
+            # activation itself is never made
             x = x + self.self_attn(None, positions, cos, sin, cache, advance,
                                    preq=self.input_layernorm.quantized(x))
+        else:
+            x = x + self.self_attn(self.input_layernorm(x), positions, cos, sin,
+                                   cache, advance)
+        if fused and self.fuse_mlp_norm:
             return x + self.mlp(None, preq=self.post_attention_layernorm.quantized(x))
-        x = x + self.self_attn(self.input_layernorm(x), positions, cos, sin,
-                               cache, advance)
-        return x + self.mlp(self.post_attention_layernorm(x))
+        return x + self._mlp(self.post_attention_layernorm(x))
 
 
 class LlamaModel(nn.Module):
@@ -338,7 +408,7 @@ class LlamaModel(nn.Module):
         self.lm_head = QLinear(cfg.hidden_size, cfg.vocab_size, mode, bias=False,
                                dtype=dtype, device=dev, int4_group=int4_group)
         cos, sin = rope_tables(cfg.head_dim, cfg.max_position_embeddings,
-                               cfg.rope_theta, dev)
+                               cfg.rope_theta, cfg, dev)
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
 
@@ -354,7 +424,11 @@ class LlamaModel(nn.Module):
         model exists whole. Linear weights are
         N(0, 1/K), embeddings N(0, 1) as the first layer sees them (N(0, 1/D)
         under Gemma's sqrt(D) normalizer), norms the identity (weights 1, or 0
-        when stored zero-centred; biases 0), linear biases 0."""
+        when stored zero-centred; biases 0), linear biases 0. A MoE router
+        is drawn N(0, 1/D) in f32, each expert's weight N(0, 1/K) and
+        quantized alone (so the peak stays near the quantized model); expert
+        biases and learned sinks are 0, as the JAX package initializes
+        them."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         emb = torch.randn(self.embed_tokens.weight.shape, generator=gen, device=self.device)
         if self.cfg.scale_embeddings:
@@ -374,6 +448,21 @@ class LlamaModel(nn.Module):
             elif isinstance(module, LayerNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
+            elif isinstance(module, StackedWeight):
+                for e in range(module.E):
+                    w = torch.randn(module.N, module.K, generator=gen, device=self.device)
+                    module.set_expert(e, w.mul_(1.0 / math.sqrt(module.K)))
+                    del w
+            elif isinstance(module, MoEMLP):
+                D = module.gate.in_features
+                module.gate.weight.copy_(torch.randn(module.gate.weight.shape, generator=gen,
+                                                     device=self.device).mul_(D**-0.5))
+                for p in (module.gate.bias, getattr(module, "gate_up_proj_bias", None),
+                          getattr(module, "down_proj_bias", None)):
+                    if p is not None:
+                        p.zero_()
+            elif isinstance(module, Attention) and module.sinks is not None:
+                module.sinks.zero_()
         return self
 
     @torch.no_grad()

@@ -46,9 +46,10 @@ SIGNATURES = {
                              _I, _I, _I, _I, _P],
     # kq, ks, vq, vs, lengths, k8, ks_new, v4, vs_new, B, KV, S, Dh, stream
     "pq_kv_mixed_scatter_decode": [_P] * 9 + [_I] * 4 + [_P],
-    # q, q_dtype, kq, ks, vq, vs, lengths, kpos, alibi, out, B, T, H, KV, S,
-    # Dh, sm, window, softcap, sinks, stream (kpos and alibi may be null)
-    "pq_int8_kv_attention": [_P, _I] + [_P] * 8 + [_I] * 6 + [_F, _I, _F, _I, _P],
+    # q, q_dtype, kq, ks, vq, vs, lengths, kpos, alibi, sink, out, B, T, H,
+    # KV, S, Dh, sm, window, softcap, sinks, stream (kpos, alibi and the
+    # learned sinks may be null)
+    "pq_int8_kv_attention": [_P, _I] + [_P] * 9 + [_I] * 6 + [_F, _I, _F, _I, _P],
     # q, q_dtype, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, Dh, sm, stream
     "pq_mixed_kv_attention": [_P, _I] + [_P] * 6 + [_I] * 6 + [_F, _P],
     # x, wq, sw, bias, out, out_dtype, M, N, K, stream
@@ -78,10 +79,10 @@ SIGNATURES = {
     "pq_k4v8_decode_update": [_P] * 14 + [_I] * 5 + [_P],
     "pq_kivi4_decode_update": [_P] * 14 + [_I] * 5 + [_P],
     # q, q_dtype, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
-    # new_lengths, alibi (or null), out, B, T, H, KV, S, Dh, G, sm, window,
-    # softcap, stream
-    "pq_k4v8_attention": [_P, _I] + [_P] * 12 + [_I] * 7 + [_F, _I, _F, _P],
-    "pq_int4_kv_attention": [_P, _I] + [_P] * 12 + [_I] * 7 + [_F, _I, _F, _P],
+    # new_lengths, alibi (or null), sink (or null), out, B, T, H, KV, S, Dh,
+    # G, sm, window, softcap, stream
+    "pq_k4v8_attention": [_P, _I] + [_P] * 13 + [_I] * 7 + [_F, _I, _F, _P],
+    "pq_int4_kv_attention": [_P, _I] + [_P] * 13 + [_I] * 7 + [_F, _I, _F, _P],
 }
 
 # dtype codes shared with csrc/common.cuh

@@ -19,10 +19,15 @@ slope_h * (query position - key position) after the cap, before the mask.
 The int8 functions also take ``k_positions`` [B, S] int32, the absolute
 position each column holds (a ring cache; negative = never written), and
 ``sinks``: with a window, positions below it stay visible (StreamingLLM).
-The int8 and KIVI functions take window, scale, softcap and ALiBi, the
-K8V4 ones ``scale`` alone (as ``mixed_kv_attention`` of the JAX package).
-The JAX functions' other variants (learned sinks, tree masks) are not
-ported yet: every function here raises ``NotImplementedError`` on them.
+The int8 and KIVI functions also take ``sink_logits`` [H] f32, GPT-OSS's
+learned sinks: one logit per head joins every softmax and carries no value
+(its probability mass is dropped); the kernels start each row's online
+softmax from it (m0 = sink, l0 = 1, acc0 = 0), as the TPU kernels do.
+The int8 and KIVI functions take window, scale, softcap, ALiBi and learned
+sinks, the K8V4 ones ``scale`` alone (as ``mixed_kv_attention`` of the JAX
+package), and the paged one ALiBi alone. Tree masks are not ported yet:
+every function here raises ``NotImplementedError`` on them, and on a
+variant the JAX function does not take.
 With sinks over a contiguous cache (no ``k_positions``) the port keeps the
 sink keys visible, as ``int8_kv_attention_xla`` does; the Pallas kernel
 skips the tiles below the window and drops them (no JAX caller passes
@@ -68,25 +73,45 @@ def _window(name: str, window) -> int:
     return int(window)
 
 
-def _alibi(name, alibi_slopes, H):
-    if alibi_slopes is not None and tuple(alibi_slopes.shape) != (H,):
-        raise ValueError(f"{name}: alibi_slopes shape {tuple(alibi_slopes.shape)}, want ({H},)")
+def _per_head(name, key, t, H):
+    """Check a per-head operand ([H] f32, ``alibi_slopes`` or
+    ``sink_logits``); return it as a list of the kernel's extra operands."""
+    if t is None:
+        return []
+    if tuple(t.shape) != (H,):
+        raise ValueError(f"{name}: {key} shape {tuple(t.shape)}, want ({H},)")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: {key} must be float32")
+    return [t]
+
+
+def softmax_with_sinks(scores, sink_logits, KV: int, group: int):
+    """Softmax over the key axis of scores [B, KV, group, T, S], joined by
+    one logit per head (``sink_logits`` [H], or None) whose probability is
+    dropped, so a row's probabilities sum to less than 1
+    (``protoquant_tpu/models/llama.py:_softmax_with_sinks``)."""
+    if sink_logits is None:
+        return torch.softmax(scores, dim=-1)
+    sink = sink_logits.float().reshape(1, KV, group, 1, 1).expand(*scores.shape[:-1], 1)
+    return torch.softmax(torch.cat([scores, sink], dim=-1), dim=-1)[..., :-1]
 
 
 def int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, window=0, scale=0.0, softcap=0.0,
-                          k_positions=None, sinks=0, alibi_slopes=None, **variants):
+                          k_positions=None, sinks=0, alibi_slopes=None, sink_logits=None,
+                          **variants):
     """Plain version. q [B, T, H, Dh]; kq/vq [B, KV, S, Dh] int8 (already
     holding this step's tokens); ks/vs [B, KV, S] f32; lengths [B] = cache
     length before this step; ``window``, ``scale``, ``softcap``,
-    ``k_positions``, ``sinks``, ``alibi_slopes`` as the module says (the
-    JAX package's ``int8_kv_attention_xla``). Returns [B, T, H, Dh] in
-    q.dtype."""
+    ``k_positions``, ``sinks``, ``alibi_slopes``, ``sink_logits`` as the
+    module says (the JAX package's ``int8_kv_attention_xla``). Returns [B,
+    T, H, Dh] in q.dtype."""
     reject_variants("int8_kv_attention_ref", **variants)
     window = _window("int8_kv_attention_ref", window)
     B, T, H, Dh = q.shape
     KV, S = kq.shape[1], kq.shape[2]
     group = H // KV
-    _alibi("int8_kv_attention_ref", alibi_slopes, H)
+    _per_head("int8_kv_attention_ref", "alibi_slopes", alibi_slopes, H)
+    _per_head("int8_kv_attention_ref", "sink_logits", sink_logits, H)
     qh = (q.float() * score_scale(Dh, scale)).reshape(B, T, KV, group, Dh)
     scores = torch.einsum("btkgd,bksd->bkgts", qh, kq.float())
     scores = scores * ks[:, :, None, None, :]
@@ -110,14 +135,15 @@ def int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, window=0, scale=0.0, softc
             in_window |= kp < sinks
         mask &= in_window
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
+    probs = softmax_with_sinks(scores, sink_logits, KV, group)
     pv = probs * vs[:, :, None, None, :]
     out = torch.einsum("bkgts,bksd->btkgd", pv, vq.float())
     return out.reshape(B, T, H, Dh).to(q.dtype)
 
 
 def _dense_attention_launch(name, fn, v4, q, kq, ks, vq, vs, lengths, scale=0.0, window=0,
-                            softcap=0.0, k_positions=None, sinks=0, alibi_slopes=None):
+                            softcap=0.0, k_positions=None, sinks=0, alibi_slopes=None,
+                            sink_logits=None):
     """Check the operands of ``csrc/attention.cu`` (V int8 per token, or
     with ``v4`` packed token pairs and parity-split scales, which take the
     score scale alone), launch it and count the launch on ``fn``."""
@@ -147,11 +173,8 @@ def _dense_attention_launch(name, fn, v4, q, kq, ks, vq, vs, lengths, scale=0.0,
             raise ValueError(f"{name}: k_positions must be [B, S] = {(B, S)} int32, got "
                              f"{tuple(k_positions.shape)} {k_positions.dtype}")
         extra.append(k_positions)
-    _alibi(name, alibi_slopes, H)
-    if alibi_slopes is not None:
-        if alibi_slopes.dtype != torch.float32:
-            raise TypeError(f"{name}: alibi_slopes must be float32")
-        extra.append(alibi_slopes)
+    extra += _per_head(name, "alibi_slopes", alibi_slopes, H)
+    extra += _per_head(name, "sink_logits", sink_logits, H)
     q = q.contiguous()
     dev = _build.same_device_contiguous(name, q, kq, ks, vq, vs, lengths, *extra)
     out = torch.empty_like(q)
@@ -167,7 +190,8 @@ def _dense_attention_launch(name, fn, v4, q, kq, ks, vq, vs, lengths, scale=0.0,
         err = lib.pq_int8_kv_attention(
             q.data_ptr(), _build.DTYPE_CODES[q.dtype], kq.data_ptr(), ks.data_ptr(),
             vq.data_ptr(), vs.data_ptr(), lengths.data_ptr(), ptr(k_positions),
-            ptr(alibi_slopes), out.data_ptr(), B, T, H, KV, S, Dh, score_scale(Dh, scale),
+            ptr(alibi_slopes), ptr(sink_logits), out.data_ptr(), B, T, H, KV, S, Dh,
+            score_scale(Dh, scale),
             window, float(softcap), int(sinks), _build.stream_ptr(dev))
         _build.check(err, "pq_int8_kv_attention")
     fn.launches += 1
@@ -175,15 +199,16 @@ def _dense_attention_launch(name, fn, v4, q, kq, ks, vq, vs, lengths, scale=0.0,
 
 
 def int8_kv_attention(q, kq, ks, vq, vs, lengths, window=0, scale=0.0, softcap=0.0,
-                      k_positions=None, sinks=0, alibi_slopes=None, **variants):
+                      k_positions=None, sinks=0, alibi_slopes=None, sink_logits=None,
+                      **variants):
     """Causal GQA attention over the int8 cache, with its sliding window,
-    score scale, softcap, ring positions, StreamingLLM sinks and ALiBi;
-    same contract as :func:`int8_kv_attention_ref`. Returns [B, T, H, Dh]
-    in q.dtype."""
+    score scale, softcap, ring positions, StreamingLLM sinks, ALiBi and
+    learned sinks; same contract as :func:`int8_kv_attention_ref`. Returns
+    [B, T, H, Dh] in q.dtype."""
     reject_variants("int8_kv_attention", **variants)
     window = _window("int8_kv_attention", window)
     kw = dict(window=window, scale=scale, softcap=softcap, k_positions=k_positions,
-              sinks=sinks, alibi_slopes=alibi_slopes)
+              sinks=sinks, alibi_slopes=alibi_slopes, sink_logits=sink_logits)
     if q.device.type == "cpu":
         return int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, **kw)
     return _dense_attention_launch("int8_kv_attention", int8_kv_attention, False,
@@ -276,16 +301,17 @@ def kivi_dequant_v4(vq, vs, vtail, vts, lengths, group):
     return _tail_overlay(nib.float() * vsc[..., None], vtail, vts, lengths, group)
 
 
-def _kivi_ref(name, q, k_fp, v_fp, lengths, window, scale, softcap, alibi_slopes, variants):
+def _kivi_ref(name, q, k_fp, v_fp, lengths, window, scale, softcap, alibi_slopes,
+              sink_logits, variants):
     reject_variants(name, **variants)
     ones = torch.ones(k_fp.shape[:3], dtype=torch.float32, device=k_fp.device)
     return int8_kv_attention_ref(q, k_fp, ones, v_fp, ones, lengths, window, scale, softcap,
-                                 alibi_slopes=alibi_slopes)
+                                 alibi_slopes=alibi_slopes, sink_logits=sink_logits)
 
 
 def k4v8_attention_ref(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
                        new_lengths, *, group, window=0, scale=0.0, softcap=0.0,
-                       alibi_slopes=None, **variants):
+                       alibi_slopes=None, sink_logits=None, **variants):
     """Plain version of :func:`k4v8_attention`: the cache dequantized to f32
     at ``new_lengths`` (V from the int8 store), then
     :func:`int8_kv_attention_ref` with unit scales and the same variants, as
@@ -293,23 +319,23 @@ def k4v8_attention_ref(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
     k_fp = kivi_dequant_k(kq, kchs, ktail, kts, new_lengths, group)
     v_fp = vq.float() * vs[..., None]
     return _kivi_ref("k4v8_attention_ref", q, k_fp, v_fp, lengths, window, scale, softcap,
-                     alibi_slopes, variants)
+                     alibi_slopes, sink_logits, variants)
 
 
 def int4_kv_attention_ref(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
                           new_lengths, *, group, window=0, scale=0.0, softcap=0.0,
-                          alibi_slopes=None, **variants):
+                          alibi_slopes=None, sink_logits=None, **variants):
     """Plain version of :func:`int4_kv_attention` (as
     :func:`k4v8_attention_ref`, V from the packed store and the V tail)."""
     k_fp = kivi_dequant_k(kq, kchs, ktail, kts, new_lengths, group)
     v_fp = kivi_dequant_v4(vq, vs, vtail, vts, new_lengths, group)
     return _kivi_ref("int4_kv_attention_ref", q, k_fp, v_fp, lengths, window, scale, softcap,
-                     alibi_slopes, variants)
+                     alibi_slopes, sink_logits, variants)
 
 
 def _kivi_attention_launch(name, fn, v4, q, kq, kchs, vq, vs, ktail, kts, vtail,
                            vts, lengths, new_lengths, group, window, scale, softcap,
-                           alibi_slopes):
+                           alibi_slopes, sink_logits):
     B, T, H, Dh = q.shape
     KV, S2 = kq.shape[1], kq.shape[2]
     S, G = 2 * S2, group
@@ -338,22 +364,19 @@ def _kivi_attention_launch(name, fn, v4, q, kq, kchs, vq, vs, ktail, kts, vtail,
             raise TypeError(f"{name}: cache scales must be float32")
     if lengths.dtype != torch.int32 or new_lengths.dtype != torch.int32:
         raise TypeError(f"{name}: lengths must be int32")
-    _alibi(name, alibi_slopes, H)
-    extra = []
-    if alibi_slopes is not None:
-        if alibi_slopes.dtype != torch.float32:
-            raise TypeError(f"{name}: alibi_slopes must be float32")
-        extra.append(alibi_slopes)
+    extra = (_per_head(name, "alibi_slopes", alibi_slopes, H)
+             + _per_head(name, "sink_logits", sink_logits, H))
     q = q.contiguous()
     dev = _build.same_device_contiguous(name, q, kq, kchs, vq, vs, ktail, kts, vtail,
                                         vts, lengths, new_lengths, *extra)
     out = torch.empty_like(q)
     c_name = "pq_int4_kv_attention" if v4 else "pq_k4v8_attention"
+    ptr = lambda t: None if t is None else t.data_ptr()
     err = getattr(_build.lib(), c_name)(
         q.data_ptr(), _build.DTYPE_CODES[q.dtype], kq.data_ptr(), kchs.data_ptr(),
         vq.data_ptr(), vs.data_ptr(), ktail.data_ptr(), kts.data_ptr(), vtail.data_ptr(),
-        vts.data_ptr(), lengths.data_ptr(), new_lengths.data_ptr(),
-        None if alibi_slopes is None else alibi_slopes.data_ptr(), out.data_ptr(),
+        vts.data_ptr(), lengths.data_ptr(), new_lengths.data_ptr(), ptr(alibi_slopes),
+        ptr(sink_logits), out.data_ptr(),
         B, T, H, KV, S, Dh, G, score_scale(Dh, scale), window, float(softcap),
         _build.stream_ptr(dev))
     _build.check(err, c_name)
@@ -363,7 +386,7 @@ def _kivi_attention_launch(name, fn, v4, q, kq, kchs, vq, vs, ktail, kts, vtail,
 
 def k4v8_attention(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
                    new_lengths, *, group, window=0, scale=0.0, softcap=0.0, alibi_slopes=None,
-                   **variants):
+                   sink_logits=None, **variants):
     """Causal GQA attention over the K4V8 cache, prefill (T > 1) or decode.
 
     q [B, T, H, Dh]; kq [B, KV, S/2, Dh] packed int4 K; kchs [B, KV, S/G,
@@ -371,18 +394,18 @@ def k4v8_attention(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
     2G, Dh] int8 (the V tail mirrors vq); kts/vts [B, KV, 2G] f32;
     lengths [B] int32 = length before this step, new_lengths after it
     (keys at or past (min(new_lengths, S) // G) G are read from the tails);
-    ``window``, ``scale``, ``softcap``, ``alibi_slopes`` as the module says. Returns [B, T,
-    H, Dh] in q.dtype. Replaces
+    ``window``, ``scale``, ``softcap``, ``alibi_slopes``, ``sink_logits`` as
+    the module says. Returns [B, T, H, Dh] in q.dtype. Replaces
     ``protoquant_tpu/ops/attention.py:k4v8_attention`` (``_attn_k4v8_kernel``).
     """
     reject_variants("k4v8_attention", **variants)
     window = _window("k4v8_attention", window)
     args = (q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, new_lengths)
+    kw = dict(window=window, scale=scale, softcap=softcap, alibi_slopes=alibi_slopes,
+              sink_logits=sink_logits)
     if q.device.type == "cpu":
-        return k4v8_attention_ref(*args, group=group, window=window, scale=scale,
-                                  softcap=softcap, alibi_slopes=alibi_slopes)
-    return _kivi_attention_launch("k4v8_attention", k4v8_attention, False, *args, group,
-                                  window, scale, softcap, alibi_slopes)
+        return k4v8_attention_ref(*args, group=group, **kw)
+    return _kivi_attention_launch("k4v8_attention", k4v8_attention, False, *args, group, **kw)
 
 
 k4v8_attention.launches = 0
@@ -390,7 +413,7 @@ k4v8_attention.launches = 0
 
 def int4_kv_attention(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
                       new_lengths, *, group, window=0, scale=0.0, softcap=0.0,
-                      alibi_slopes=None, **variants):
+                      alibi_slopes=None, sink_logits=None, **variants):
     """Causal GQA attention over the Int4 (KIVI) cache: as
     :func:`k4v8_attention` with vq [B, KV, S/2, Dh] packed int4 V and vs
     [B, KV, 2, S/2] its parity-split per-token scales. Replaces
@@ -398,11 +421,12 @@ def int4_kv_attention(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
     reject_variants("int4_kv_attention", **variants)
     window = _window("int4_kv_attention", window)
     args = (q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, new_lengths)
+    kw = dict(window=window, scale=scale, softcap=softcap, alibi_slopes=alibi_slopes,
+              sink_logits=sink_logits)
     if q.device.type == "cpu":
-        return int4_kv_attention_ref(*args, group=group, window=window, scale=scale,
-                                     softcap=softcap, alibi_slopes=alibi_slopes)
+        return int4_kv_attention_ref(*args, group=group, **kw)
     return _kivi_attention_launch("int4_kv_attention", int4_kv_attention, True, *args, group,
-                                  window, scale, softcap, alibi_slopes)
+                                  **kw)
 
 
 int4_kv_attention.launches = 0

@@ -5,7 +5,8 @@ The kernel (``csrc/paged_attention.cu``) replaces the Pallas kernel
 table itself, so no contiguous window is ever gathered. The plain version
 is the JAX package's gather path (``PagedInt8KVCache._gather_window``, then
 the dense attention's plain version). Both take ALiBi slopes, as the JAX
-function does.
+function does, and raise ``NotImplementedError`` on any other variant
+(learned sinks, which the JAX function does not take either).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .attention import int8_kv_attention_ref
+from .attention import int8_kv_attention_ref, reject_variants
 
 _KERNEL_HEAD_DIMS = (64, 128, 256)
 _MAX_GROUP = 8  # query heads per kv head the kernel holds
@@ -36,13 +37,16 @@ def gather_window(kq, ks, vq, vs, page_table):
     return payload(kq), scales(ks), payload(vq), scales(vs)
 
 
-def paged_int8_attention_ref(q, kq, ks, vq, vs, page_table, lengths, alibi_slopes=None):
+def paged_int8_attention_ref(q, kq, ks, vq, vs, page_table, lengths, alibi_slopes=None,
+                             **variants):
     """Plain version (same contract as :func:`paged_int8_attention`)."""
+    reject_variants("paged_int8_attention_ref", **variants)
     return int8_kv_attention_ref(q, *gather_window(kq, ks, vq, vs, page_table), lengths,
                                  alibi_slopes=alibi_slopes)
 
 
-def paged_int8_attention(q, kq, ks, vq, vs, page_table, lengths, alibi_slopes=None):
+def paged_int8_attention(q, kq, ks, vq, vs, page_table, lengths, alibi_slopes=None,
+                         **variants):
     """Decode attention through the page table.
 
     q: [B, 1, H, Dh] (this step's query, after RoPE); kq/vq: [P, KV, ps, Dh]
@@ -54,6 +58,7 @@ def paged_int8_attention(q, kq, ks, vq, vs, page_table, lengths, alibi_slopes=No
     [H] f32: ALiBi, slope_h * (lengths[b] - position) off each score.
     Returns [B, 1, H, Dh] in q.dtype.
     """
+    reject_variants("paged_int8_attention", **variants)
     if q.device.type == "cpu":
         return paged_int8_attention_ref(q, kq, ks, vq, vs, page_table, lengths, alibi_slopes)
     B, T, H, Dh = q.shape

@@ -1,5 +1,5 @@
-"""Model and engine configs: the fields the Llama, Mistral, Gemma-2 and
-BLOOM paths read.
+"""Model and engine configs: the fields the Llama, Mistral, Gemma-2, BLOOM
+and GPT-OSS paths read.
 
 Field names and defaults follow ``protoquant_tpu.utils.config`` so a config
 carries across by name. The defaults are Llama-2-7B.
@@ -65,6 +65,44 @@ class ModelConfig:
     position_embedding: str = "rope"
     # BLOOM: a LayerNorm on the token embedding output.
     embedding_layernorm: bool = False
+    # GPT-OSS: a learned logit per head joins every softmax and carries no
+    # value (its probability mass is dropped).
+    learned_attention_sinks: bool = False
+    # Mixture of experts (0 = the dense MLP): experts, the top-k each token
+    # takes, the GShard capacity factor, the expert FFN width (0 =
+    # intermediate_size), top-k weights normalized to sum 1, a multiplier
+    # on them, and the first K layers kept dense.
+    num_local_experts: int = 0
+    num_experts_per_tok: int = 2
+    expert_capacity_factor: float = 1.25
+    moe_intermediate_size: int = 0
+    moe_norm_topk: bool = True
+    routed_scaling_factor: float = 1.0
+    first_k_dense_replace: int = 0
+    # "mixtral" (w1/w3/w2 SwiGLU) or "gpt_oss" (fused interleaved gate_up
+    # with biases, clamped glu); a biased router; GPT-OSS routing: top-k on
+    # the raw logits, then softmax over the k chosen.
+    moe_variant: str = "mixtral"
+    moe_router_bias: bool = False
+    moe_softmax_after_topk: bool = False
+    # DeepSeek routing: not ported (they wait for MLA); kept so a JAX config
+    # carries across by name, and refused when set.
+    moe_score_func: str = "softmax"
+    moe_gate_bias: bool = False
+    n_group: int = 0
+    topk_group: int = 0
+    n_shared_experts: int = 0
+    # RoPE scaling: "" (none) or "yarn" (ramped interpolation between the
+    # beta_fast / beta_slow correction dims, with an attention factor on
+    # cos and sin; truncate floors and ceils the correction range).
+    rope_scaling_type: str = ""
+    rope_scaling_factor: float = 8.0
+    rope_scaling_original_max_position_embeddings: int = 8192
+    rope_scaling_beta_fast: float = 32.0
+    rope_scaling_beta_slow: float = 1.0
+    rope_scaling_mscale: float = 0.0  # 0 = unset
+    rope_scaling_mscale_all_dim: float = 0.0  # 0 = unset
+    rope_scaling_truncate: bool = True
 
     def __post_init__(self):
         if self.num_attention_heads % self.num_key_value_heads:
@@ -77,6 +115,28 @@ class ModelConfig:
         if self.position_embedding not in ("rope", "alibi"):
             raise ValueError(f"position_embedding {self.position_embedding!r}: the port "
                              "has 'rope' and 'alibi'")
+        if self.rope_scaling_type not in ("", "yarn"):
+            raise ValueError(f"rope_scaling_type {self.rope_scaling_type!r}: the port has "
+                             "'' and 'yarn'")
+        if self.moe_variant not in ("mixtral", "gpt_oss"):
+            raise ValueError(f"moe_variant {self.moe_variant!r}: the port has 'mixtral' "
+                             "and 'gpt_oss'")
+        deepseek = {"moe_score_func": self.moe_score_func != "softmax",
+                    "moe_gate_bias": self.moe_gate_bias,
+                    "n_group/topk_group": self.n_group > 1 or self.topk_group > 0,
+                    "n_shared_experts": self.n_shared_experts > 0}
+        if any(deepseek.values()):
+            raise ValueError(f"DeepSeek routing {[k for k, v in deepseek.items() if v]} is "
+                             "not ported")
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_local_experts > 0
+
+    def layer_is_moe(self, layer_idx: int) -> bool:
+        """Whether layer ``layer_idx`` takes the MoE block: the first
+        ``first_k_dense_replace`` layers keep the dense MLP."""
+        return self.is_moe and layer_idx >= self.first_k_dense_replace
 
     def layer_window(self, layer_idx: int) -> int:
         """The sliding window of layer ``layer_idx`` (0 = full causal), as
@@ -154,6 +214,41 @@ class ModelConfig:
             position_embedding="alibi",
             embedding_layernorm=True,
             tie_word_embeddings=True,
+        )
+
+    @classmethod
+    def gpt_oss_20b(cls) -> "ModelConfig":
+        """GPT-OSS-20B: GQA 64/8 at Dh 64 with learned attention sinks and
+        biases on q/k/v/o, a window of 128 on alternate layers, untruncated
+        yarn, and 32 experts (top 4) of the fused interleaved clamped-glu
+        kind behind a biased router with softmax after top-k."""
+        return cls(
+            vocab_size=201088,
+            hidden_size=2880,
+            intermediate_size=2880,
+            num_hidden_layers=24,
+            num_attention_heads=64,
+            num_key_value_heads=8,
+            max_position_embeddings=131072,
+            rms_norm_eps=1e-5,
+            rope_theta=150000.0,
+            head_dim_override=64,
+            sliding_window=128,
+            alternating_sliding_window=True,
+            attention_bias=True,
+            attention_out_bias=True,
+            learned_attention_sinks=True,
+            num_local_experts=32,
+            num_experts_per_tok=4,
+            moe_variant="gpt_oss",
+            moe_router_bias=True,
+            moe_softmax_after_topk=True,
+            rope_scaling_type="yarn",
+            rope_scaling_factor=32.0,
+            rope_scaling_beta_fast=32.0,
+            rope_scaling_beta_slow=1.0,
+            rope_scaling_truncate=False,
+            rope_scaling_original_max_position_embeddings=4096,
         )
 
     @classmethod

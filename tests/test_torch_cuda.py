@@ -16,7 +16,11 @@ under 5 %, scales within rtol 1e-2), what the JAX package demands of its
 kernels. ``dequant``: exact. The KIVI decode writers (K4V8, Int4): exact
 on all eight cache tensors; the KIVI attentions: ATOL in f32, 2^-7 of the
 largest output in bf16. The mixed K8V4 writer: exact on all four cache
-tensors; the mixed attention as the KIVI ones.
+tensors; the mixed attention as the KIVI ones. The learned-sink variants
+(GPT-OSS) as their attentions; a tiny GPT-OSS on the card against the same
+model on the CPU: logits within 2^-7 of their scale, at least 0.9 of the
+engine's greedy tokens equal (an int8 activation code on a rounding
+boundary may move a step, and a near-tied token with it).
 """
 
 import pytest
@@ -837,5 +841,121 @@ def test_variant_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="alibi_slopes"):
         ops.paged_int8_attention(q, *pools, *pools, pt, lengths,
                                  alibi_slopes=torch.ones(4, dtype=torch.float64, device=cuda))
-    with pytest.raises(NotImplementedError):
-        ops.int8_kv_attention(q, kq, s, kq, s, lengths, sink_logits=torch.zeros(4, device=cuda))
+    sl = torch.randn(4, device=cuda)
+    with pytest.raises(ValueError, match="sink_logits"):
+        ops.int8_kv_attention(q, kq, s, kq, s, lengths, sink_logits=sl[:2])
+    with pytest.raises(TypeError, match="sink_logits"):
+        ops.int8_kv_attention(q, kq, s, kq, s, lengths, sink_logits=sl.double())
+    with pytest.raises(NotImplementedError):  # the JAX paged attention takes no sinks
+        ops.paged_int8_attention(q, *pools, *pools, pt, lengths, sink_logits=sl)
+    torch.testing.assert_close(  # learned sinks are ported: the kernel holds its plain version
+        ops.int8_kv_attention(q, kq, s, kq, s, lengths, sink_logits=sl),
+        ops.int8_kv_attention_ref(q, kq, s, kq, s, lengths, sink_logits=sl), atol=ATOL, rtol=0)
+
+
+# -- learned sinks (GPT-OSS: group 8, Dh 64) ----------------------------------------
+
+# (T, window): decode full causal and windowed across tiles, prefill chunks
+# full causal and with disjoint windows
+SINK_CASES = [(1, 0), (1, 40), (7, 0), (9, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,window", SINK_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_learned_sinks_vs_plain(cuda, T, window, dtype):
+    """Sinks drawn N(0, 4): some rows put most of their mass on the sink;
+    a row of length 0 sees one key beside it."""
+    g = torch.Generator(device=cuda).manual_seed(T + window + 11)
+    B, KV, group, S, Dh = 4, 2, 8, 256, 64
+    kq = torch.randint(-127, 128, (B, KV, S, Dh), generator=g, device=cuda, dtype=torch.int8)
+    vq = torch.randint_like(kq, -127, 128)
+    ks = torch.rand(B, KV, S, generator=g, device=cuda) * 1e-2 + 1e-3
+    vs = torch.rand(B, KV, S, generator=g, device=cuda) * 1e-2 + 1e-3
+    lengths = torch.tensor([0, 37, 130, S - T], dtype=torch.int32, device=cuda)
+    q = torch.randn(B, T, KV * group, Dh, generator=g, device=cuda).to(dtype)
+    sl = torch.randn(KV * group, generator=g, device=cuda) * 4
+    kw = dict(window=window, sink_logits=sl)
+    out = ops.int8_kv_attention(q, kq, ks, vq, vs, lengths, **kw)
+    ref = ops.int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, **kw)
+    torch.cuda.synchronize()
+    atol = ATOL if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    plain = ops.int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, window=window)
+    assert (plain.float() - ref.float()).abs().max() > 10 * atol  # the sinks bite
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,window", SINK_CASES)
+@pytest.mark.parametrize("tier", ["k4v8", "int4"])
+def test_kivi_attention_learned_sinks_vs_plain(cuda, tier, T, window):
+    g = torch.Generator(device=cuda).manual_seed(T + window + 13)
+    G, S, KV, group, Dh = 16, 128, 2, 8, 64
+    lens = [0, 15, 70, S - T]
+    B = len(lens)
+    cache = _kivi_cache(g, cuda, tier, B, KV, S, Dh, G)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    new_lengths = lengths + T
+    if tier == "k4v8":
+        _mirror_v(cache, new_lengths, G)
+    q = torch.randn(B, T, KV * group, Dh, generator=g, device=cuda) * 0.2
+    _, attn = KIVI[tier]
+    kw = dict(group=G, window=window, sink_logits=torch.randn(KV * group, generator=g,
+                                                               device=cuda) * 4)
+    out = getattr(ops, attn)(q, *cache, lengths, new_lengths, **kw)
+    ref = getattr(ops, attn + "_ref")(q, *cache, lengths, new_lengths, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["int8", "k4v8", "int4"])
+def test_tiny_gpt_oss_on_card(cuda, kv):
+    """A 2-layer GPT-OSS (learned sinks, yarn, the gpt_oss MoE, window 8 on
+    layer 0) served on the card, with the CPU model's weights: its logits
+    equal the CPU model's within 2^-7 of their scale, the tier's attention
+    and the qmatmul kernel launch, and at least 0.9 of the engine's greedy
+    tokens equal the CPU engine's (the kernels sum in other orders, so an
+    int8 activation code on a rounding boundary may move a step and a
+    near-tied token with it, as in chip_smoke.py's agreements)."""
+    from protoquant_tpu_torch import Engine, EngineConfig, LlamaModel, ModelConfig
+    from protoquant_tpu_torch.models import kv_cache as tkv
+
+    tkv.INT4_KV_GROUP, old_group = 16, tkv.INT4_KV_GROUP
+    try:
+        cfg = ModelConfig(
+            vocab_size=96, hidden_size=128, intermediate_size=64, num_hidden_layers=2,
+            num_attention_heads=16, num_key_value_heads=2, max_position_embeddings=256,
+            head_dim_override=64, sliding_window=8, alternating_sliding_window=True,
+            attention_bias=True, attention_out_bias=True, learned_attention_sinks=True,
+            num_local_experts=8, num_experts_per_tok=2, moe_variant="gpt_oss",
+            moe_router_bias=True, moe_softmax_after_topk=True, rope_scaling_type="yarn",
+            rope_scaling_factor=32.0, rope_scaling_truncate=False,
+            rope_scaling_original_max_position_embeddings=32)
+        cpu = LlamaModel(cfg, "dynamic", torch.float32, device="cpu").init_random_(0)
+        for layer in cpu.layers:
+            layer.self_attn.sinks.copy_(torch.linspace(-2, 3, 16))
+        card = LlamaModel(cfg, "dynamic", torch.float32, device=cuda)
+        card.load_state_dict(cpu.state_dict())
+        models = {"cpu": cpu, "cuda": card}
+        tokens = torch.randint(1, 96, (2, 20), generator=torch.Generator().manual_seed(0))
+        ref = models["cpu"](tokens)
+        out = models["cuda"](tokens.to(cuda)).cpu()
+        torch.testing.assert_close(out, ref, atol=2.0**-7 * ref.abs().max().item(), rtol=0)
+        prompts = [[int(t) for t in tokens[0, :n]] for n in (5, 20, 13)]
+        kw = dict(max_batch_size=2, max_seq_len=64, prefill_chunk=16, max_new_tokens=8)
+        outs = {}
+        for dev, m in models.items():
+            ops.reset_launch_counts()
+            e = Engine(m, EngineConfig(**kw), kv_dtype=kv)
+            rids = [e.add_request(p) for p in prompts]
+            res = e.run()
+            outs[dev] = [res[r] for r in rids]
+        counts = ops.launch_counts()
+        attn = {"int8": "int8_kv_attention", "k4v8": "k4v8_attention",
+                "int4": "int4_kv_attention"}[kv]
+        assert counts[attn] > 0 and counts["qmatmul"] > 0
+        pairs = [(a, b) for o, r in zip(outs["cuda"], outs["cpu"]) for a, b in zip(o, r)]
+        assert len(pairs) == 24 and sum(a == b for a, b in pairs) >= 0.9 * len(pairs)
+    finally:
+        tkv.INT4_KV_GROUP = old_group

@@ -17,6 +17,7 @@ from protoquant_tpu_torch.models import cache_from_numpy, init_cache
 from protoquant_tpu_torch.models.kv_cache import (BF16KVCache, Int4KVCache, Int8KVCache,
                                                   K4V8KVCache, MixedKVCache, RingInt8KVCache)
 from protoquant_tpu_torch.models.llama import MLP, Attention, DecoderLayer, LayerNorm, RMSNorm
+from protoquant_tpu_torch.models.moe import MoEMLP, StackedWeight
 from protoquant_tpu_torch.utils import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -74,6 +75,11 @@ BLOOM_CFG = ModelConfig(vocab_size=32, hidden_size=32, intermediate_size=64,
                         mlp_bias=True, attention_bias=True, attention_out_bias=True,
                         hidden_act="gelu", position_embedding="alibi",
                         embedding_layernorm=True)
+MOE_CFG = ModelConfig(vocab_size=32, hidden_size=32, intermediate_size=16,
+                      num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1,
+                      max_position_embeddings=32, learned_attention_sinks=True,
+                      num_local_experts=4, moe_variant="gpt_oss", moe_router_bias=True,
+                      moe_softmax_after_topk=True, rope_scaling_type="yarn")
 _INT8_STATE = {f: getattr(Int8KVCache.init(1, 8, 1, 16, device="cpu"), f).numpy()
                for f in ("kq", "ks", "vq", "vs", "lengths")}
 
@@ -101,6 +107,9 @@ CONSTRUCTORS = {
     "Attention": lambda **d: Attention(CFG, "dynamic", torch.float32, **d),
     "MLP": lambda **d: MLP(CFG, "dynamic", torch.float32, **d),
     "DecoderLayer": lambda **d: DecoderLayer(CFG, "dynamic", torch.float32, **d),
+    "LlamaModel_gpt_oss": lambda **d: LlamaModel(MOE_CFG, **d),
+    "MoEMLP": lambda **d: MoEMLP(MOE_CFG, "dynamic", torch.float32, **d),
+    "StackedWeight_int4": lambda **d: StackedWeight(2, 32, 16, "weight_only_int4", **d),
 }
 
 

@@ -225,7 +225,7 @@ def test_attention_variants_not_ported_raise(tier):
     cls, attn = TIERS[tier][0], (ops.k4v8_attention if tier == "k4v8" else ops.int4_kv_attention)
     c = cls.init(1, 16, 1, 16, group=8, device="cpu")
     q = torch.zeros(1, 1, 2, 16)
-    for kw in ({"sink_logits": torch.zeros(2)}, {"tree_mask": torch.ones(1, 1)}):
+    for kw in ({"tree_mask": torch.ones(1, 1)},):
         with pytest.raises(NotImplementedError):
             attn(q, *(getattr(c, f) for f in FIELDS), c.lengths, group=8, **kw)
 

@@ -142,7 +142,7 @@ def test_int8_attention_vs_pallas_and_xla(t_q, group):
 
 
 @pytest.mark.parametrize("variant", [
-    {"sink_logits": torch.zeros(2)}, {"tree_mask": torch.ones(1, 1)},
+    {"tree_mask": torch.ones(1, 1)},
 ])
 def test_attention_variants_not_ported_raise(variant):
     q = torch.zeros(1, 1, 2, 16)
