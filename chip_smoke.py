@@ -182,12 +182,36 @@ Phases (any failure exits non-zero and prints no result line):
               kernel run's expert choices; one more plain run routes on
               its own, a reading whose first route flips must sit on top-k
               margins within twice the router noise of that forward
+ 27. ring     the ring reduce-scatter matmul (B19, all ranks one launch on
+              the card) at Llama-2-7B's row-parallel shapes (o_proj K = N
+              = 4096, down_proj K = 11008, N = 4096), tp = 2 and 4, M = 4
+              and 256: equal to its plain version bit for bit with unit and
+              with real scales; planted faults in the plain version (a hop
+              dropped, the chunk one off, at tp = 4 the ring's order
+              reversed) must differ; 1000 back-to-back calls of M from 1 to
+              256 (tp 2 and 4 in turn) all equal; timed with CUDA events
+              beside its bound (the weight's bytes, every rank reading the
+              one card), its plain version and torch._int_mm of the
+              unsharded product (a reading)
+ 28. tp       phase 4's model split over tp = 2 ranks sharing the card
+              (threads of this process, make_mesh(devices=["cuda:0"] * 2)),
+              collective=True under RING_BACKEND="dma", serving phase 4's
+              6 requests through Engine(..., mesh=mesh); each decode step
+              must launch 2 x 32 ring kernels and per rank the rowquant,
+              qmatmul, scatter and attention the model implies; the share
+              of tokens equal to phase 4's is a reading
+ 29. tp agreement  phase 5 for a 2-layer full-width TP model, tp = 2 and 4,
+              f32 and bf16, kernels against plain versions on the card;
+              planted faults: the ring dropping a hop, adding the chunk
+              one off
+Timings with ranks sharing one card measure the kernel and its protocol,
+not a link between cards.
 Each phase prints its seconds, and the run its total.
 The line before the last is {"kernels": [...]}, one entry per kernel body
-(20): "launches" is its count summed over the twenty engine runs (phases
-4, 6, 8.1, 8.2, 8.3, 10, 12, 13, 15, 17, 19, 20, the five of 22 and the
-three of 24-25), each driven with the counts at 0 and read just after
-("launches_by_path").
+(21): "launches" is its count summed over the twenty-one engine runs
+(phases 4, 6, 8.1, 8.2, 8.3, 10, 12, 13, 15, 17, 19, 20, the five of 22,
+the three of 24-25 and 28), each driven with the counts at 0 and read just
+after ("launches_by_path").
 wo4_legacy and dequant are on no engine path
 (a caller reaches wo4_legacy through the formulation argument of
 weight_only_int4_matmul, and dequant as ops.dequant; QTensor.dequantize
@@ -2251,6 +2275,340 @@ def run_gpt_oss(ops, seed: int, dev) -> dict:
     return out
 
 
+# -- phases 27 to 29: tensor parallelism, ranks sharing the card --------------
+
+# the row-parallel products of Llama-2-7B (K, N): o_proj, down_proj
+TP_SHAPES = ((HIDDEN, HIDDEN), (INTER, HIDDEN))
+TP_RING_CALLS = 1000  # back-to-back calls of phase 27, M drawn from 1..256
+
+
+def bench_eager(calls, iters: int = 20) -> float:
+    """Device time per call, in ms, of ``iters`` calls cycling through
+    ``calls``, launched one after another (no CUDA graph: a graph's replays
+    would repeat the ring's per-call epoch). The card first sleeps while the
+    host enqueues them all, so the events time the kernels back to back and
+    not the host's launch overhead."""
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the card's clock
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(iters):
+        calls[i % len(calls)]()
+    end.record()
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    if enqueue_ms > 40:
+        raise AssertionError(f"bench_eager: enqueueing took {enqueue_ms:.1f} ms, the card "
+                             "may have waited on the host")
+    return start.elapsed_time(end) / iters
+
+
+def ring_ref(xqs, sxs, wqs, sws, drop_hop=None, shift=0, reverse=False):
+    """The ring written out, with the planted faults of phase 27: one hop's
+    contribution dropped (``drop_hop``), each rank multiplying the chunk
+    ``shift`` past the one it adds into, the ring's order reversed."""
+    from protoquant_tpu_torch.core import numerics
+
+    tp = len(xqs)
+    nc = wqs[0].shape[0] // tp
+
+    def part(d, e):
+        rows = slice((e + shift) % tp * nc, ((e + shift) % tp + 1) * nc)
+        return numerics.qmatmul_ref(xqs[d], wqs[d][rows], sxs[d], sws[d][rows])
+
+    outs = []
+    for e in range(tp):
+        ranks = [(e + h) % tp for h in range(1, tp + 1)]  # e + 1, ..., e
+        if reverse:
+            ranks = [(e - h) % tp for h in range(1, tp + 1)]
+        acc = None
+        for i, d in enumerate(ranks):
+            if i == drop_hop:
+                continue
+            acc = part(d, e) if acc is None else acc + part(d, e)
+        outs.append(acc)
+    return outs
+
+
+def _ring_operands(gen, dev, tp, m, k, n, real, wqs=None):
+    """Rank r's K slice of int8 activations [m, k] and of a weight [n, k]
+    (``wqs``: the slices of an earlier call, reused); unit or real scales."""
+    ks = k // tp
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+    if wqs is None:
+        wq = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        wqs = [wq[:, r * ks:(r + 1) * ks].contiguous() for r in range(tp)]
+    sx = (torch.rand(m, generator=gen, device=dev) * 0.05 + 1e-3 if real
+          else torch.ones(m, device=dev))
+    sw = (torch.rand(n, generator=gen, device=dev) * 0.02 + 5e-4 if real
+          else torch.ones(n, device=dev))
+    return [xq[:, r * ks:(r + 1) * ks].contiguous() for r in range(tp)], [sx] * tp, wqs, [sw] * tp
+
+
+def check_ring(ops, gen, dev):
+    """Phase 27: the ring reduce-scatter matmul (B19) at Llama-2-7B's
+    row-parallel shapes, tp = 2 and 4, M = 4 and 256, all ranks one launch
+    on the card: equal to its plain version bit for bit with unit and with
+    real scales; the planted faults of ``ring_ref`` (a hop dropped, the
+    chunk one off, and at tp = 4 the order reversed, which only real scales
+    show) must differ; then TP_RING_CALLS back-to-back calls of M from 1 to
+    256, all equal. Timed (``bench_eager``) beside its bound (the weight's
+    bytes: all ranks read from the one card), its plain version and, as a
+    reading, ``torch._int_mm`` of the unsharded product with M padded to
+    32 (no one PyTorch call computes a ring reduce-scatter)."""
+    cases = []
+    for tp in (2, 4):
+        for k, n in TP_SHAPES:
+            for m in (4, 256):
+                faults = {}
+                for real in (False, True):
+                    args = _ring_operands(gen, dev, tp, m, k, n, real)
+                    got = ops.qmatmul_reduce_scatter_dma_all(*args)
+                    want = ops.qmatmul_reduce_scatter_dma_all_ref(*args)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+                        raise AssertionError(f"ring tp={tp} M={m} K={k} N={n} real={real}: "
+                                             f"max abs err {err}")
+                    if not all(torch.equal(a, b) for a, b in zip(got, ring_ref(*args))):
+                        raise AssertionError("ring_ref differs from the plain version")
+                    planted = {"hop dropped": dict(drop_hop=1), "chunk one off": dict(shift=1)}
+                    if tp > 2 and real:
+                        planted["order reversed"] = dict(reverse=True)
+                    for name, kw in planted.items():
+                        bad = ring_ref(*args, **kw)
+                        faults[f"{name}{'' if real else ', unit scales'}"] = sum(
+                            int((a != b).sum()) for a, b in zip(got, bad))
+                missed = [f for f, differ in faults.items() if differ == 0]
+                if missed:
+                    raise AssertionError(f"ring tp={tp} M={m}: planted faults {missed} "
+                                         "equal the kernel")
+                copies = [_ring_operands(gen, dev, tp, m, k, n, True)
+                          for _ in range(copies_for(n * k))]
+                xpad = torch.zeros(max(m, 32), k, dtype=torch.int8, device=dev)
+                xpad[:m] = torch.cat(copies[0][0], 1)
+                b, kind = bound_ms(n * k + m * k + 4 * tp * (m + n) + 4 * m * n,
+                                   2 * m * n * k, INT8_OPS_PER_S)
+                full = [torch.cat(c[2], 1) for c in copies]
+                cases.append({
+                    "shape": f"tp={tp} M={m} K={k} N={n}", "max_abs_err": 0.0,
+                    "ms": bench_eager([lambda c=c: ops.qmatmul_reduce_scatter_dma_all(*c)
+                                       for c in copies]),
+                    "plain_ms": bench_eager([lambda c=c: ops.qmatmul_reduce_scatter_dma_all_ref(
+                        *c) for c in copies], iters=5),
+                    "bound_ms": b, "bound_by": kind,
+                    "library_ms": bench([lambda w=w: torch._int_mm(xpad, w.t()) for w in full]),
+                    "faults_differing_elements": faults})
+                del copies, full
+    # back-to-back calls, as the engine makes them: flags and slots of one
+    # call must not leak into the next
+    rng = torch.Generator().manual_seed(1234)
+    wqs = {tp: _ring_operands(gen, dev, tp, 1, HIDDEN, HIDDEN, True)[2] for tp in (2, 4)}
+    calls = []
+    for i in range(TP_RING_CALLS):
+        tp = (2, 4)[i % 2]
+        m = int(torch.randint(1, 257, (1,), generator=rng))
+        args = _ring_operands(gen, dev, tp, m, HIDDEN, HIDDEN, True, wqs[tp])
+        calls.append((args, ops.qmatmul_reduce_scatter_dma_all(*args)))
+    torch.cuda.synchronize()
+    bad = [i for i, (args, got) in enumerate(calls)
+           if not all(torch.equal(a, b) for a, b in
+                      zip(got, ops.qmatmul_reduce_scatter_dma_all_ref(*args)))]
+    if bad:
+        raise AssertionError(f"ring: back-to-back calls {bad[:10]} of {TP_RING_CALLS} differ")
+    log(f"ring: {TP_RING_CALLS} back-to-back calls (tp 2 and 4 in turn, M from 1 to 256, "
+        f"K = N = {HIDDEN}) equal their plain versions")
+    return cases
+
+
+TP = 2  # phase 28's ranks, sharing the card
+
+
+def tp_step_launches(ops, layers: int, tp: int) -> dict:
+    """Exact launches of one TP decode step, ``collective=True`` under the
+    "dma" ring: per rank, rowquant for q/k/v, o_proj, gate/up, down_proj
+    and lm_head, qmatmul for q, k, v, gate, up and its lm_head shard, a
+    decode write and an attention per layer; one ring launch for all ranks
+    per row-parallel layer."""
+    per_step = dict.fromkeys(ops.KERNELS, 0)
+    per_step.update({"rowquant": tp * (4 * layers + 1), "qmatmul": tp * (5 * layers + 1),
+                     "kv_scatter_decode": tp * layers, "int8_kv_attention": tp * layers,
+                     "qmatmul_reduce_scatter_dma": 2 * layers})
+    return per_step
+
+
+TP_KERNELS = ("rowquant", "qmatmul", "kv_scatter_decode", "int8_kv_attention",
+              "qmatmul_reduce_scatter_dma")
+
+
+@contextlib.contextmanager
+def ring_backend(value: str):
+    from protoquant_tpu_torch.parallel import collective as coll
+
+    saved = coll.RING_BACKEND
+    try:
+        coll.RING_BACKEND = value
+        yield
+    finally:
+        coll.RING_BACKEND = saved
+
+
+def _tp_from(model, mesh, collective=True):
+    """The TP model of ``mesh`` holding ``model``'s weights, split by
+    ``shard_params``."""
+    from protoquant_tpu_torch.parallel import shard_params, tp_model
+
+    tpm = tp_model(model.cfg, "dynamic", mesh, model.dtype, collective=collective)
+    return tpm.load_shards(shard_params(model.state_dict(), mesh))
+
+
+def run_tp_slice(ops, seed: int, dev, single_outputs):
+    """Phase 28: Llama-2-7B ``dynamic`` at full width and all 32 layers, the
+    weights of phase 4 (same seed) split over tp = 2 ranks that share the
+    card (``devices=["cuda:0"] * 2``), ``collective=True`` under
+    ``RING_BACKEND="dma"``: every o_proj and down_proj reduction is one ring
+    launch. Phase 4's 6 requests through Engine(max_batch_size=4,
+    max_seq_len=1024, prefill_chunk=256, mesh=mesh); every decode step's
+    launches asserted. The share of tokens equal to phase 4's is a reading:
+    each rank quantizes its activations against its own K rows."""
+    from protoquant_tpu_torch import Engine, EngineConfig
+    from protoquant_tpu_torch.parallel import make_mesh
+    from protoquant_tpu_torch.utils import MeshConfig
+
+    max_seq, chunk, prompt_lens = SLICES["llama2_7b"]
+    cfg, model = _build("llama2_7b", "dynamic", seed, dev)
+    mesh = make_mesh(MeshConfig(tp=TP), [dev] * TP)
+    t0 = time.perf_counter()
+    tpm = _tp_from(model, mesh)
+    del model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"tp model: {TP} ranks on {mesh.devices}, sharded in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    engine = Engine(tpm, EngineConfig(max_batch_size=4, max_seq_len=max_seq,
+                                      prefill_chunk=chunk, max_new_tokens=32),
+                    kv_dtype="int8", mesh=mesh)
+    cache_bytes = sum(kv_cache_bytes(c.shards) for c in engine.caches)
+    want = expected_cache_bytes("int8", cfg.num_hidden_layers, 4, cfg.num_key_value_heads,
+                                max_seq, cfg.head_dim) + 4 * 4 * cfg.num_hidden_layers * (TP - 1)
+    if cache_bytes != want:  # each rank keeps its own lengths vector
+        raise AssertionError(f"tp cache: {cache_bytes} bytes, want {want}")
+    gen = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in prompt_lens]
+    per_step = tp_step_launches(ops, cfg.num_hidden_layers, TP)
+    with ring_backend("dma"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t_run = time.perf_counter()
+        outs, prefill_ms, decode_ms, bad_steps, _ = serve(engine, prompts, ops, per_step)
+        wall = time.perf_counter() - t_run
+        launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    label = f"tp slice dynamic tp={TP} (ring dma, int8 KV)"
+    stats = _log_served(label, prompts, outs, wall, prefill_ms, decode_ms, peak)
+    log(f"{label} launches: {json.dumps(launches)}; per decode step {json.dumps(per_step)}; "
+        f"KV cache {cache_bytes} bytes = {cache_bytes / 2**20:.4f} MiB over {TP} ranks")
+    _check_served(label, cfg, launches, TP_KERNELS, per_step, bad_steps, decode_ms, prompts,
+                  outs)
+    pairs = [(a, b) for o, r in zip(outs, single_outputs) for a, b in zip(o, r)]
+    log(f"{label}: {sum(a == b for a, b in pairs)} of {len(pairs)} generated tokens equal to "
+        f"phase 4's single-card engine ({sum(a == b for a, b in pairs) / len(pairs):.4f}; a "
+        "reading)")
+    del engine, tpm
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def run_tp_agreement(ops, seed: int, dev, dtype, tp: int):
+    """Phase 29: a 2-layer full-width Llama-2-7B ``dynamic`` model split
+    over tp ranks sharing the card (``collective=True``, "dma"), run on
+    phase 5's prompt (48 tokens into 2 slots, then 4 greedy decode steps
+    over ``make_tp_caches``) through the kernels, through the plain versions
+    (on the card too) and through the plain versions with the ring's
+    planted faults: prefill and decode logits must agree within phase 5's
+    limits, and each fault must fail them."""
+    import dataclasses
+
+    from protoquant_tpu_torch import LlamaModel, ModelConfig
+    from protoquant_tpu_torch.parallel import make_mesh, make_tp_caches
+    from protoquant_tpu_torch.utils import MeshConfig
+
+    cfg = dataclasses.replace(ModelConfig.llama2_7b(), num_hidden_layers=2)
+    model = LlamaModel(cfg, mode="dynamic", dtype=dtype, device=dev).init_random_(seed + 1)
+    mesh = make_mesh(MeshConfig(tp=tp), [dev] * tp)
+    tpm = _tp_from(model, mesh)
+    del model
+    gen = torch.Generator().manual_seed(seed + 1)
+    n_prompt = 48
+    prompt = torch.randint(1, cfg.vocab_size, (2, n_prompt), generator=gen).to(dev)
+
+    def run(tokens_in=None):
+        caches, out, toks = make_tp_caches(cfg, mesh, 2, 128, "int8"), [], []
+        pos = torch.arange(n_prompt, device=dev)[None].expand(2, -1)
+        out.append(tpm(prompt, pos, caches))
+        last = out[-1][:, -1]
+        for i in range(4):
+            tok = last.argmax(-1) if tokens_in is None else tokens_in[i]
+            toks.append(tok)
+            out.append(tpm(tok[:, None], caches[0].lengths.long()[:, None], caches))
+            last = out[-1][:, -1]
+        return out, toks
+
+    def compare(out, ref):
+        a = torch.cat([x.reshape(-1, cfg.vocab_size) for x in out]).float()
+        b = torch.cat([x.reshape(-1, cfg.vocab_size) for x in ref]).float()
+        da, db = a[-8:], b[-8:]  # the 4 decode steps of the 2 slots
+        got = {"rel_l2": ((a - b).norm() / b.norm()).item(),
+               "decode_rel_l2": ((da - db).norm() / db.norm()).item(),
+               "argmax_agree": (a.argmax(-1) == b.argmax(-1)).float().mean().item(),
+               "max_abs": (a - b).abs().max().item(), "positions": a.shape[0],
+               "finite": bool(torch.isfinite(a).all())}
+        got["pass"] = (got["finite"] and got["rel_l2"] <= AGREE_REL
+                       and got["decode_rel_l2"] <= AGREE_REL
+                       and got["argmax_agree"] >= AGREE_ARGMAX)
+        return got
+
+    def faulty(**kw):
+        return lambda xq, sx, wq, sw, group: group.collective(
+            (xq, sx, wq, sw), lambda o: ring_ref(*map(list, zip(*o)), **kw),
+            "qmatmul_reduce_scatter_dma")
+
+    with ring_backend("dma"):
+        ops.reset_launch_counts()
+        kern, toks = run()
+        launched = ops.launch_counts()
+        ops.reset_launch_counts()
+        with plain_versions():
+            plain, _ = run(toks)
+        readings = {"kernels": compare(kern, plain)}
+        faults = {"ring drops a hop": faulty(drop_hop=1),
+                  "ring adds the chunk one off": faulty(shift=1)}
+        for name, fn in faults.items():
+            with plain_versions(qmatmul_reduce_scatter_dma=fn):
+                readings[name] = compare(run(toks)[0], plain)
+    if any(ops.launch_counts().values()) or not all(launched[k] for k in TP_KERNELS) or any(
+            launched[k] for k in launched if k not in TP_KERNELS):
+        raise AssertionError(f"tp agreement: kernel run launched {launched}, plain runs "
+                             f"{ops.launch_counts()}")
+    for name, got in readings.items():
+        log(f"tp agreement tp={tp} {str(dtype).replace('torch.', '')} (2 layers, full width, "
+            f"dynamic, ring dma, prompt {n_prompt}, {name} vs plain on the card): "
+            f"{json.dumps(got)}; limits rel_l2 <= {AGREE_REL}, argmax_agree >= {AGREE_ARGMAX}")
+    if not readings["kernels"]["pass"]:
+        raise AssertionError(f"tp agreement tp={tp} {dtype}: kernels and plain disagree")
+    missed = [name for name in faults if readings[name]["pass"]]
+    if missed:
+        raise AssertionError(f"tp agreement tp={tp}: the limits pass planted fault(s) {missed}")
+    del tpm
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def knob(ops, name: str, value: str | None):
     """Within the block, the module knob ``ops.<name>`` (W4A8_FORMULATION,
@@ -2290,7 +2648,8 @@ def plain_versions(**faulty):
              ("kivi4_decode_update", kv_cache, ops.kivi4_decode_update_ref),
              ("int4_kv_attention", kv_cache, ops.int4_kv_attention_ref),
              ("kv_mixed_scatter_decode", kv_cache, ops.kv_mixed_scatter_decode_ref),
-             ("mixed_kv_attention", kv_cache, ops.mixed_kv_attention_ref)]
+             ("mixed_kv_attention", kv_cache, ops.mixed_kv_attention_ref),
+             ("qmatmul_reduce_scatter_dma", ops, ops.qmatmul_reduce_scatter_dma_ref)]
     saved = [(mod, name, getattr(mod, name)) for name, mod, _ in swaps]
     try:
         for name, mod, plain in swaps:
@@ -2851,6 +3210,9 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
                                 "protoquant_tpu/ops/kv_scatter.py:362", None),
     "mixed_kv_attention": ("protoquant_tpu_torch/csrc/attention.cu",
                            "protoquant_tpu/ops/attention.py:854", "decode"),
+    "qmatmul_reduce_scatter_dma": ("protoquant_tpu_torch/csrc/collective_matmul.cu",
+                                   "protoquant_tpu/ops/collective_matmul.py:48",
+                                   f"tp=2 M=4 K={HIDDEN} N={HIDDEN}"),
 }
 
 
@@ -2907,7 +3269,7 @@ def check_kernels(ops, gen, dev) -> dict:
 
 
 def run_all(ops, seed: int, dev) -> list:
-    """Phases 3 to 23 on ``dev``; returns the kernels line's entries."""
+    """Phases 3 to 29 on ``dev``; returns the kernels line's entries."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     results = timed("3 kernels", check_kernels, ops, gen, dev)
 
@@ -2987,6 +3349,28 @@ def run_all(ops, seed: int, dev) -> list:
             for dtype in (torch.float32, torch.bfloat16):
                 timed(f"26 gpt_oss agreement {mode} {kv_dtype} {dtype}", run_agreement, ops,
                       seed, dev, dtype, mode, None, None, kv_dtype, "gpt_oss_20b", "dense")
+    results["qmatmul_reduce_scatter_dma"] = timed("27 ring kernel", check_ring, ops, gen, dev)
+    for c in results["qmatmul_reduce_scatter_dma"]:
+        log(f"kernel qmatmul_reduce_scatter_dma {c['shape']}: {c['ms']:.4f} ms, plain "
+            f"{c['plain_ms']:.4f} ms, library (torch._int_mm, unsharded, a reading) "
+            f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}), err "
+            f"{c['max_abs_err']}, planted faults' differing elements "
+            f"{c['faults_differing_elements']}")
+    by_path["tp"], stats["tp dynamic"] = timed(
+        "28 tp slice", run_tp_slice, ops, seed, dev, stats["dense dynamic"]["outputs"])
+    for tp in (2, 4):
+        for dtype in (torch.float32, torch.bfloat16):
+            timed(f"29 tp agreement tp={tp} {dtype}", run_tp_agreement, ops, seed, dev, dtype,
+                  tp)
+    ring = {c["shape"]: c["ms"] for c in results["qmatmul_reduce_scatter_dma"]}
+    steps = sorted(stats["tp dynamic"]["decode_step_ms"])
+    single = sorted(stats["dense dynamic"]["decode_step_ms"])
+    ring_ms = LAYERS * (ring[f"tp={TP} M=4 K={HIDDEN} N={HIDDEN}"]
+                        + ring[f"tp={TP} M=4 K={INTER} N={HIDDEN}"])
+    log(f"decode step, tp dynamic (tp={TP} on one card): the ring launches at the measured "
+        f"shapes sum to {ring_ms:.3f} ms; engine decode step median "
+        f"{steps[len(steps) // 2]:.3f} ms (phase 4: {single[len(single) // 2]:.3f} ms); peak "
+        f"memory {stats['tp dynamic']['peak_gib']:.2f} GiB")
     kernels = []
     for name, cases in results.items():
         source, replaces, main_shape = KERNEL_META[name]

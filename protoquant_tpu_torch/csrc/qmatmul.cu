@@ -8,54 +8,16 @@
 // Bound on the H100: at decode (M = 4) bytes, the weight stream N*K; at
 // prefill (M = 256) still bytes for these widths (the int8 tensor-core rate
 // needs M in the thousands). Design: a 64 x 64 output tile per block of 4
-// warps, each warp 32 x 32 through mma.sync.m16n8k32 (s8 x s8 -> s32),
-// 64-deep K tiles staged in shared memory with cp.async, double buffered so
-// the next tile loads while this one multiplies. The int32 accumulator lives
-// in registers and never reaches device memory. Ragged M, N and K edges are
-// zero-filled by cp.async (src-size 0), which adds nothing to the sums.
+// warps (int8_mma.cuh: each warp 32 x 32 through mma.sync.m16n8k32, 64-deep
+// K tiles double buffered through shared memory with cp.async, ragged edges
+// zero-filled). The int32 accumulator lives in registers and never reaches
+// device memory.
 // The epilogue multiplies and adds with __fmul_rn / __fadd_rn so it is
 // never contracted into an FMA and matches the plain version bit for bit.
 // A later version moves to wgmma and TMA, and splits K at decode to put
 // more than N/64 blocks on the card.
 
-#include "common.cuh"
-
-constexpr int BM = 64, BN = 64, BK = 64;
-constexpr int LDS = BK + 16;  // padded row stride (bytes): conflict-free fragment reads
-constexpr int QM_THREADS = 128;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Stage one BM x BK tile of A and one BN x BK tile of B (16-byte chunks).
-__device__ __forceinline__ void load_tile(int8_t (*As)[LDS], int8_t (*Bs)[LDS],
-                                          const int8_t* A, const int8_t* B,
-                                          int M, int N, int K, int m0, int n0, int k0) {
-  constexpr int CHUNKS = BM * BK / 16;  // per operand; BM == BN
-  for (int c = threadIdx.x; c < CHUNKS; c += QM_THREADS) {
-    int r = c / (BK / 16), kc = (c % (BK / 16)) * 16;
-    int k = k0 + kc;
-    int gm = m0 + r, gn = n0 + r;
-    bool pa = gm < M && k < K, pb = gn < N && k < K;
-    // A clamped address keeps the pointer inside the tensor when pred is off
-    cp_async16(&As[r][kc], A + (size_t)(pa ? gm : 0) * K + (pa ? k : 0), pa);
-    cp_async16(&Bs[r][kc], B + (size_t)(pb ? gn : 0) * K + (pb ? k : 0), pb);
-  }
-}
+#include "int8_mma.cuh"
 
 template <typename OutT>
 __global__ void __launch_bounds__(QM_THREADS)
@@ -72,50 +34,7 @@ qmatmul_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
   const int g = lane >> 2, t = lane & 3;
 
   int acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  const int nk = (K + BK - 1) / BK;
-  load_tile(As[0], Bs[0], A, B, M, N, K, m0, n0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile(As[cur ^ 1], Bs[cur ^ 1], A, B, M, N, K, m0, n0, (kt + 1) * BK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[2][4], bf[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wm + i * 16 + g;
-        af[i][0] = *(const uint32_t*)&As[cur][r][kk + 4 * t];
-        af[i][1] = *(const uint32_t*)&As[cur][r + 8][kk + 4 * t];
-        af[i][2] = *(const uint32_t*)&As[cur][r][kk + 16 + 4 * t];
-        af[i][3] = *(const uint32_t*)&As[cur][r + 8][kk + 16 + 4 * t];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = wn + j * 8 + g;
-        bf[j][0] = *(const uint32_t*)&Bs[cur][c][kk + 4 * t];
-        bf[j][1] = *(const uint32_t*)&Bs[cur][c][kk + 16 + 4 * t];
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bf[j]);
-    }
-    __syncthreads();
-  }
+  int8_tile_mma(acc, As, Bs, A, B, M, N, K, m0, n0);
 
   // Epilogue: c0,c1 at (row g, cols 2t, 2t+1); c2,c3 at row g + 8.
 #pragma unroll

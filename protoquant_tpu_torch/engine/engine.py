@@ -28,6 +28,15 @@ some layers (Gemma-2) those layers keep dense int8 caches. A model with
 learned attention sinks (GPT-OSS) is served over the dense bf16, int8,
 K4V8 and Int4 caches only: the JAX package's paged, ring and K8V4 caches
 take no sinks, so the engine refuses those before it admits a request.
+
+With ``mesh`` (a ``parallel.make_mesh`` mesh of one replica of tp ranks)
+the model is a ``parallel.tp_model`` of that mesh: each layer's cache is a
+``TPCache`` of one dense cache per rank (KV/tp heads, bf16 or int8),
+prefill chunks and decode steps run every rank through ``Mesh.run``, and
+sampling runs once, on the gathered logits (the dp = 1 case of the JAX
+engine's ``_build_tp_engine_fns``). Under a mesh the paged and ring
+layouts, the K8V4 and KIVI caches, and more than one replica are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -39,10 +48,11 @@ from typing import Optional
 
 import torch
 
-from ..models.kv_cache import (Int4KVCache, Int8KVCache, K4V8KVCache, MixedKVCache,
-                               RingInt8KVCache)
+from ..models.kv_cache import (BF16KVCache, Int4KVCache, Int8KVCache, K4V8KVCache,
+                               MixedKVCache, RingInt8KVCache)
 from ..models.llama import LlamaModel, init_cache, kv_cache_class
 from ..native import PageAllocator
+from ..parallel.tp import TPModel, make_tp_caches
 from ..utils.config import EngineConfig
 from .paged_kv import PagedInt8KVCache
 from .prefix_cache import PrefixCache
@@ -113,8 +123,13 @@ class Engine:
     """Continuous-batching inference engine; runs on the model's device."""
 
     def __init__(self, model: LlamaModel, config: EngineConfig | None = None,
-                 kv_layout: str = "dense", kv_dtype="int8"):
+                 kv_layout: str = "dense", kv_dtype="int8", mesh=None):
+        if (mesh is not None) != isinstance(model, TPModel) or (
+                mesh is not None and model.mesh is not mesh):
+            raise ValueError("a mesh engine serves parallel.tp_model(cfg, mode, mesh) with "
+                             "that mesh, and a TP model needs its mesh")
         self.model = model
+        self.mesh = mesh
         self.cfg = config or EngineConfig()
         self.device = model.device
         self.kv_layout = kv_layout
@@ -132,7 +147,14 @@ class Engine:
                 f"kv_layout {kv_layout!r}, kv_dtype {kv_dtype!r}: learned attention sinks "
                 "(GPT-OSS) are served over the dense bf16, int8, k4v8 and int4 caches only, "
                 "as in the JAX package (its paged, ring and K8V4 caches take no sinks)")
-        if kv_layout == "dense":
+        if mesh is not None:
+            if kv_layout != "dense" or kv_cache_class(kv_dtype) not in (Int8KVCache,
+                                                                        BF16KVCache):
+                raise NotImplementedError(
+                    f"kv_layout {kv_layout!r}, kv_dtype {kv_dtype!r} under a mesh: only the "
+                    "dense bf16 and int8 caches are ported under tensor parallelism")
+            self.caches = make_tp_caches(model.cfg, mesh, B, self.cfg.max_seq_len, kv_dtype)
+        elif kv_layout == "dense":
             self.caches = init_cache(model.cfg, B, self.cfg.max_seq_len, self.device,
                                      kv_dtype)
             if isinstance(self.caches[0], (K4V8KVCache, Int4KVCache)):

@@ -64,16 +64,23 @@ def kv_cache_class(kv_dtype=torch.bfloat16):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
-               kv_dtype=torch.bfloat16) -> list:
+               kv_dtype=torch.bfloat16, tp: int = 1) -> list:
     """One dense KV cache of ``kv_dtype`` per layer (``kv_cache_class``), on
     ``device`` (default cuda). The default is the JAX package's: a
-    ``BF16KVCache`` in bf16; torch.float32 makes it f32."""
+    ``BF16KVCache`` in bf16; torch.float32 makes it f32. ``tp``: the caches
+    of one tensor-parallel rank, KV/tp heads each (the bf16 and int8 caches
+    only, in this slice)."""
     cls = kv_cache_class(kv_dtype)
+    if tp > 1 and cls not in (BF16KVCache, Int8KVCache):
+        raise NotImplementedError(f"kv_dtype {kv_dtype!r} under tensor parallelism is not "
+                                  "ported yet (bf16 and int8 are)")
+    if cfg.num_key_value_heads % tp:
+        raise ValueError(f"{cfg.num_key_value_heads} KV heads do not split over tp={tp}")
     device = resolve_device(device)
     kw = {"device": device}
     if cls is BF16KVCache:
         kw["dtype"] = torch.float32 if kv_dtype is torch.float32 else torch.bfloat16
-    return [cls.init(batch, max_seq, cfg.num_key_value_heads, cfg.head_dim, **kw)
+    return [cls.init(batch, max_seq, cfg.num_key_value_heads // tp, cfg.head_dim, **kw)
             for _ in range(cfg.num_hidden_layers)]
 
 
@@ -225,31 +232,42 @@ def producer_fused(mode: str) -> bool:
     return mode == "dynamic" and ops.resolve_fused_quant()
 
 
+def _tp(tp_group) -> int:
+    return 1 if tp_group is None else tp_group.size
+
+
 class Attention(nn.Module):
     """GQA attention of layer ``layer_idx``: its sliding window
     (``cfg.layer_window``), score scale (query_pre_attn_scalar^-0.5 when
     set), logit softcap, ALiBi slopes and learned sinks (``sinks`` [H] f32,
     under ``cfg.learned_attention_sinks``) go to the cache, or to
-    ``mha_attention`` without one. Under ALiBi, q and k take no RoPE."""
+    ``mha_attention`` without one. Under ALiBi, q and k take no RoPE.
+
+    ``tp_group`` (tensor parallelism, a ``parallel.mesh.RankGroup``): this
+    rank's H/tp query and KV/tp key/value heads (column-parallel q/k/v) and
+    a row-parallel o_proj reduced over the group (through the ring under
+    ``collective``)."""
 
     def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128,
-                 layer_idx: int = 0):
+                 layer_idx: int = 0, tp_group=None, collective: bool = False):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
+        tp = _tp(tp_group)
+        self.H, self.KV = cfg.num_attention_heads // tp, cfg.num_key_value_heads // tp
         self.variants = {
             "window": cfg.layer_window(layer_idx),
             "scale": (cfg.query_pre_attn_scalar**-0.5 if cfg.query_pre_attn_scalar > 0.0
                       else 0.0),
             "softcap": cfg.attn_logit_softcap}
         device = resolve_device(device)
-        D, H, KV, Dh = (cfg.hidden_size, cfg.num_attention_heads,
-                        cfg.num_key_value_heads, cfg.head_dim)
-        lin = lambda k, n, bias: QLinear(k, n, mode, bias=bias, dtype=dtype, device=device,
-                                         int4_group=int4_group)
+        D, H, KV, Dh = cfg.hidden_size, self.H, self.KV, cfg.head_dim
+        lin = lambda k, n, bias, **kw: QLinear(k, n, mode, bias=bias, dtype=dtype,
+                                               device=device, int4_group=int4_group, **kw)
         self.q_proj = lin(D, H * Dh, cfg.attention_bias)
         self.k_proj = lin(D, KV * Dh, cfg.attention_bias)
         self.v_proj = lin(D, KV * Dh, cfg.attention_bias)
-        self.o_proj = lin(H * Dh, D, cfg.attention_out_bias)
+        self.o_proj = lin(H * Dh, D, cfg.attention_out_bias, psum_axis=tp_group,
+                          collective=collective)
         self.alibi = cfg.position_embedding == "alibi"
         if self.alibi:
             self.register_buffer("alibi_slopes", alibi_slopes(H).to(device), persistent=False)
@@ -259,8 +277,7 @@ class Attention(nn.Module):
     def forward(self, x, positions, cos, sin, cache=None, advance=None, preq=None):
         """``preq``: the (xq, s_x) of the normed input from the producer
         (``RMSNorm.quantized``); q/k/v then read it and ``x`` may be None."""
-        cfg = self.cfg
-        H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        H, KV, Dh = self.H, self.KV, self.cfg.head_dim
         if preq is None:
             B, T, _ = x.shape
             x = x.to(self.dtype)
@@ -288,20 +305,24 @@ class MLP(nn.Module):
     """Gated (SwiGLU, GeGLU) or, with ``cfg.mlp_gated`` False, the plain
     up_proj -> act -> down_proj of BLOOM; biased with ``cfg.mlp_bias``."""
 
-    def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128):
+    def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128,
+                 tp_group=None, collective: bool = False):
         super().__init__()
         self.dtype = dtype
         # silu, or the tanh approximation of gelu ("gelu_tanh", "gelu")
         self.act = "silu" if cfg.hidden_act == "silu" else "gelu"
         self.gated = cfg.mlp_gated
         device = resolve_device(device)
-        D, I = cfg.hidden_size, cfg.intermediate_size
-        lin = lambda k, n: QLinear(k, n, mode, bias=cfg.mlp_bias, dtype=dtype, device=device,
-                                   int4_group=int4_group)
+        # column-parallel gate/up over I/tp, row-parallel down_proj
+        D, I = cfg.hidden_size, cfg.intermediate_size // _tp(tp_group)
+        lin = lambda k, n, **kw: QLinear(k, n, mode, bias=cfg.mlp_bias, dtype=dtype,
+                                         device=device, int4_group=int4_group, **kw)
         if self.gated:
             self.gate_proj = lin(D, I)
         self.up_proj = lin(D, I)
-        self.down_proj = lin(I, D)
+        self.down_proj = lin(I, D, psum_axis=tp_group, collective=collective)
+        # the ring quantizes down_proj's input itself (the JAX gating)
+        self.ring = tp_group is not None and collective
 
     def forward(self, x, preq=None):
         """``preq``: as in ``Attention.forward``, for gate/up. Under
@@ -317,7 +338,7 @@ class MLP(nn.Module):
         up = self.up_proj(x, preq)
         # the linears' mode, not the constructor's: quantize_model converts
         # them in place
-        if producer_fused(self.gate_proj.mode):
+        if producer_fused(self.gate_proj.mode) and not self.ring:
             return self.down_proj(None, ops.swiglu_quant(gate, up, act=self.act,
                                                          cast_dtype=self.dtype))
         return self.down_proj(swiglu(gate, up, self.act, self.dtype))
@@ -331,14 +352,15 @@ class DecoderLayer(nn.Module):
     ``MoEMLP`` (``block_sparse_moe``)."""
 
     def __init__(self, cfg: ModelConfig, mode: str, dtype, device=None, int4_group: int = 128,
-                 layer_idx: int = 0):
+                 layer_idx: int = 0, tp_group=None, collective: bool = False):
         super().__init__()
         device = resolve_device(device)
         norm = lambda: make_norm(cfg, dtype, device)
         self.sandwich = cfg.sandwich_norms
         self.rms = cfg.norm_type == "rmsnorm"
         self.input_layernorm = norm()
-        self.self_attn = Attention(cfg, mode, dtype, device, int4_group, layer_idx)
+        self.self_attn = Attention(cfg, mode, dtype, device, int4_group, layer_idx, tp_group,
+                                   collective)
         self.post_attention_layernorm = norm()
         if self.sandwich:
             self.pre_feedforward_layernorm = norm()
@@ -349,7 +371,7 @@ class DecoderLayer(nn.Module):
         if self.moe:
             self.block_sparse_moe = MoEMLP(cfg, mode, dtype, device, int4_group)
         else:
-            self.mlp = MLP(cfg, mode, dtype, device, int4_group)
+            self.mlp = MLP(cfg, mode, dtype, device, int4_group, tp_group, collective)
 
     def _mlp(self, x, preq=None):
         return self.block_sparse_moe(x) if self.moe else self.mlp(x, preq)
@@ -376,6 +398,24 @@ class DecoderLayer(nn.Module):
         return x + self._mlp(self.post_attention_layernorm(x))
 
 
+def _check_tp(cfg: ModelConfig, mode: str, tp: int) -> None:
+    """Raise on what tensor parallelism does not take in this slice."""
+    if mode not in ("fp", "dynamic"):
+        raise NotImplementedError(f"mode {mode!r} under tensor parallelism is not ported yet "
+                                  "(fp and dynamic are)")
+    for what, on in (("MoE (expert parallelism)", cfg.is_moe),
+                     ("learned attention sinks", cfg.learned_attention_sinks),
+                     ("ALiBi", cfg.position_embedding == "alibi")):
+        if on:
+            raise NotImplementedError(f"{what} under tensor parallelism is not ported yet")
+    for name, n in (("num_attention_heads", cfg.num_attention_heads),
+                    ("num_key_value_heads", cfg.num_key_value_heads),
+                    ("intermediate_size", cfg.intermediate_size),
+                    ("vocab_size", cfg.vocab_size)):
+        if n % tp:
+            raise ValueError(f"{name}={n} does not split over tp={tp}")
+
+
 class LlamaModel(nn.Module):
     """Decoder-only LM.
 
@@ -385,13 +425,24 @@ class LlamaModel(nn.Module):
     unless the caller names another (a CUDA request without a card raises).
     ``int4_group``: the group of the int4 modes' weights, every projection
     and ``lm_head`` (``pick_int4_group(K, int4_group)`` per projection).
+
+    ``tp_group``: one rank of a tensor-parallel model (``parallel.tp_model``
+    builds them), run inside ``Mesh.run``: H/tp and KV/tp heads, I/tp MLP
+    columns, a vocab-parallel lm_head whose logits are all-gathered, the
+    embedding and norms replicated; ``collective`` sends o_proj's and
+    down_proj's reductions through the ring (``parallel.collective``).
+    Modes fp and dynamic only; MoE, learned sinks and ALiBi raise.
     """
 
     def __init__(self, cfg: ModelConfig, mode: str = "dynamic",
-                 dtype=torch.bfloat16, device=None, int4_group: int = 128):
+                 dtype=torch.bfloat16, device=None, int4_group: int = 128,
+                 tp_group=None, collective: bool = False):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         self.device = resolve_device(device)
+        self.tp_group = tp_group
+        if tp_group is not None:
+            _check_tp(cfg, mode, tp_group.size)
         dev = self.device
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          dtype=dtype, device=dev)
@@ -403,10 +454,11 @@ class LlamaModel(nn.Module):
         if cfg.embedding_layernorm:
             self.embed_norm = make_norm(cfg, dtype, dev)
         for i in range(cfg.num_hidden_layers):
-            self.add_module(f"layers_{i}", DecoderLayer(cfg, mode, dtype, dev, int4_group, i))
+            self.add_module(f"layers_{i}", DecoderLayer(cfg, mode, dtype, dev, int4_group, i,
+                                                        tp_group, collective))
         self.norm = make_norm(cfg, dtype, dev)
-        self.lm_head = QLinear(cfg.hidden_size, cfg.vocab_size, mode, bias=False,
-                               dtype=dtype, device=dev, int4_group=int4_group)
+        self.lm_head = QLinear(cfg.hidden_size, cfg.vocab_size // _tp(tp_group), mode,
+                               bias=False, dtype=dtype, device=dev, int4_group=int4_group)
         cos, sin = rope_tables(cfg.head_dim, cfg.max_position_embeddings,
                                cfg.rope_theta, cfg, dev)
         self.register_buffer("rope_cos", cos, persistent=False)
@@ -481,5 +533,7 @@ class LlamaModel(nn.Module):
             x = layer(x, positions, self.rope_cos, self.rope_sin, cache, advance)
         x = self.norm(x)
         logits = self.lm_head(x).float()
+        if self.tp_group is not None:  # vocab-parallel: every rank gets all of V
+            logits = self.tp_group.all_gather(logits, axis=logits.ndim - 1, tiled=True)
         cap = self.cfg.final_logit_softcap
         return cap * torch.tanh(logits / cap) if cap else logits

@@ -22,6 +22,14 @@
                         weights on the int8 tensor cores), formulation from
                         ``ops.resolve_w4a8_formulation()``.
 
+Tensor parallelism (``psum_axis``, the mesh's ``RankGroup`` of the model
+axis; the JAX layer takes the axis name): a row-parallel layer holds its
+K/tp slice of the weight, reduces its f32 product over the ranks (in rank
+order) and adds its bias after the reduction; with ``collective`` (mode
+``dynamic``) the reduction is the ring of
+``parallel.collective.dynamic_qlinear_collective``. Modes ``fp`` and
+``dynamic`` only.
+
 The weight is stored [N, K] = [out_features, in_features] (the ``nn.Linear``
 layout, K contiguous); the JAX package stores [K, N]
 (``models.from_jax.params_from_numpy`` transposes). The int4 modes hold
@@ -57,10 +65,15 @@ def pick_int4_group(k: int, want: int = 128) -> int:
 class QLinear(nn.Module):
     def __init__(self, in_features: int, out_features: int, mode: str = "dynamic",
                  bias: bool = False, dtype=torch.bfloat16, device=None,
-                 int4_group: int = 128):
+                 int4_group: int = 128, psum_axis=None, collective: bool = False):
         super().__init__()
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; ported modes are {MODES}")
+        if psum_axis is not None and mode not in ("fp", "dynamic"):
+            raise NotImplementedError(f"a row-parallel {mode} layer is not ported yet")
+        # row-parallel reduction over this rank group, through the ring
+        # collective matmul under ``collective`` (mode dynamic)
+        self.psum_axis, self.collective = psum_axis, collective
         self.in_features, self.out_features = in_features, out_features
         self.mode = mode
         self.dtype = dtype
@@ -141,6 +154,8 @@ class QLinear(nn.Module):
             return
         if self.mode != "fp":
             raise ValueError(f"layer is already in mode {self.mode!r}")
+        if self.psum_axis is not None and mode != "dynamic":
+            raise NotImplementedError(f"a row-parallel {mode} layer is not ported yet")
         w = self.weight
         del self.weight
         self.mode = mode
@@ -156,6 +171,8 @@ class QLinear(nn.Module):
         ``x`` is then not read and may be None."""
         if x is not None:
             x = x.to(self.dtype)
+        if self.psum_axis is not None:
+            return self._row_parallel(x, prequantized)
         if self.mode == "fp":
             y = x @ self.weight.to(self.dtype).t()
             if self.bias is not None:
@@ -179,7 +196,26 @@ class QLinear(nn.Module):
         return ops.qmatmul(xq, self.qweight, s_x, self.qscale, self.bias,
                            out_dtype=self.dtype)
 
+    def _row_parallel(self, x, prequantized):
+        """This rank's K slice of a row-parallel product, reduced over the
+        ranks; the bias joins after the reduction, in f32."""
+        if self.mode == "fp":
+            y = self.psum_axis.psum(x @ self.weight.to(self.dtype).t())
+        elif self.collective:
+            from ..parallel.collective import dynamic_qlinear_collective
+
+            y = dynamic_qlinear_collective(x, self.qweight, self.qscale, self.psum_axis)
+        else:
+            xq, s_x = prequantized if prequantized is not None else ops.rowquant(x)
+            y = self.psum_axis.psum(ops.qmatmul(xq, self.qweight, s_x, self.qscale,
+                                                out_dtype=torch.float32))
+        if self.bias is not None:
+            y = y.float() + self.bias
+        return y.to(self.dtype)
+
     def extra_repr(self) -> str:
         group = f", group={self.group}" if self.group else ""
+        tp = (f", row-parallel over {self.psum_axis.size}"
+              f"{' (collective)' if self.collective else ''}" if self.psum_axis else "")
         return (f"in_features={self.in_features}, out_features={self.out_features}, "
-                f"mode={self.mode}{group}, bias={self.bias is not None}")
+                f"mode={self.mode}{group}, bias={self.bias is not None}{tp}")

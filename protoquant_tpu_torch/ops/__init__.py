@@ -12,6 +12,8 @@ import os as _os
 from .attention import (int4_kv_attention, int4_kv_attention_ref, int8_kv_attention,
                         int8_kv_attention_ref, k4v8_attention, k4v8_attention_ref,
                         mixed_kv_attention, mixed_kv_attention_ref)
+from .collective_matmul import (qmatmul_reduce_scatter_dma, qmatmul_reduce_scatter_dma_all,
+                                qmatmul_reduce_scatter_dma_all_ref, qmatmul_reduce_scatter_dma_ref)
 from .dequant import dequant, dequant_ref
 from .fused_quant import (rms_norm_quant, rms_norm_quant_ref, swiglu_quant,
                           swiglu_quant_ref)
@@ -51,6 +53,7 @@ KERNELS = {
     "int4_kv_attention": int4_kv_attention,
     "kv_mixed_scatter_decode": kv_mixed_scatter_decode,
     "mixed_kv_attention": mixed_kv_attention,
+    "qmatmul_reduce_scatter_dma": qmatmul_reduce_scatter_dma,
 }
 
 # W4A8 (dynamic_int4) formulation, as the JAX package resolves it
@@ -100,7 +103,9 @@ __all__ = [
     "kv_scatter_decode_ref", "launch_counts", "mixed_kv_attention", "mixed_kv_attention_ref",
     "paged_int8_attention",
     "paged_int8_attention_ref", "paged_kv_scatter_decode", "paged_kv_scatter_decode_ref",
-    "qmatmul", "qmatmul_ref", "reset_launch_counts", "resolve_fused_quant",
+    "qmatmul", "qmatmul_reduce_scatter_dma", "qmatmul_reduce_scatter_dma_all",
+    "qmatmul_reduce_scatter_dma_all_ref", "qmatmul_reduce_scatter_dma_ref", "qmatmul_ref",
+    "reset_launch_counts", "resolve_fused_quant",
     "resolve_w4a8_formulation", "rms_norm_quant", "rms_norm_quant_ref", "rowquant",
     "rowquant_ref", "shared_rowquant", "swiglu_quant", "swiglu_quant_ref",
     "two_level_scales", "w4a8_group", "w4a8_matmul", "w4a8_matmul_ref", "w4a8_two_level",

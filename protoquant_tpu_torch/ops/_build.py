@@ -34,6 +34,7 @@ NVCC_FLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)
 # C signatures of the entry points in csrc/*.cu (every one returns an int
 # cudaError_t and takes the stream last).
 SIGNATURES = {
@@ -83,6 +84,9 @@ SIGNATURES = {
     # G, sm, window, softcap, stream
     "pq_k4v8_attention": [_P, _I] + [_P] * 13 + [_I] * 7 + [_F, _I, _F, _P],
     "pq_int4_kv_attention": [_P, _I] + [_P] * 13 + [_I] * 7 + [_F, _I, _F, _P],
+    # pointer arrays xq, sx, wq, sw, out (by local rank), comm, data, credit
+    # (by ring rank); tp, rank_base, tp_local, M, N, K, epoch, stream
+    "pq_ring_qmatmul_rs": [_PP] * 8 + [_I] * 6 + [ctypes.c_uint, _P],
 }
 
 # dtype codes shared with csrc/common.cuh

@@ -1,4 +1,4 @@
-"""Model and engine configs: the fields the Llama, Mistral, Gemma-2, BLOOM
+"""Model, mesh and engine configs: the fields the Llama, Mistral, Gemma-2, BLOOM
 and GPT-OSS paths read.
 
 Field names and defaults follow ``protoquant_tpu.utils.config`` so a config
@@ -263,6 +263,19 @@ class ModelConfig:
             num_key_value_heads=8,
             max_position_embeddings=512,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Rank layout: ``dp`` replicas of ``tp`` tensor-parallel ranks, as
+    ``protoquant_tpu.utils.config.MeshConfig`` (``parallel.make_mesh``)."""
+
+    dp: int = 1
+    tp: int = 1
+    axis_names: tuple = ("data", "model")
+
+    def __post_init__(self):
+        object.__setattr__(self, "axis_names", tuple(self.axis_names))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,7 +20,11 @@ tensors; the mixed attention as the KIVI ones. The learned-sink variants
 (GPT-OSS) as their attentions; a tiny GPT-OSS on the card against the same
 model on the CPU: logits within 2^-7 of their scale, at least 0.9 of the
 engine's greedy tokens equal (an int8 activation code on a rounding
-boundary may move a step, and a near-tied token with it).
+boundary may move a step, and a near-tied token with it). The ring
+reduce-scatter matmul (B19): exact, with unit scales and with real ones,
+over one launch for all ranks and over the per-rank call on a mesh whose
+ranks share the card, also over back-to-back calls of changing M (the
+flags' epochs).
 """
 
 import pytest
@@ -959,3 +963,57 @@ def test_tiny_gpt_oss_on_card(cuda, kv):
         assert len(pairs) == 24 and sum(a == b for a, b in pairs) >= 0.9 * len(pairs)
     finally:
         tkv.INT4_KV_GROUP = old_group
+
+
+def _ring_operands(g, dev, tp, M, K, N, real):
+    ks = K // tp
+    xq = torch.randint(-127, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (N, K), generator=g, device=dev, dtype=torch.int8)
+    sx = (torch.rand(M, generator=g, device=dev) * 0.05 + 1e-3 if real
+          else torch.ones(M, device=dev))
+    sw = (torch.rand(N, generator=g, device=dev) * 0.02 + 5e-4 if real
+          else torch.ones(N, device=dev))
+    return ([xq[:, r * ks:(r + 1) * ks].contiguous() for r in range(tp)], [sx] * tp,
+            [wq[:, r * ks:(r + 1) * ks].contiguous() for r in range(tp)], [sw] * tp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("real", [False, True])
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 4096), (256, 11008, 4096), (3, 128, 192)])
+def test_ring_reduce_scatter_exact(cuda, tp, real, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(tp * 7 + m)
+    ops_in = _ring_operands(g, cuda, tp, m, k, n, real)
+    ops.reset_launch_counts()
+    got = ops.qmatmul_reduce_scatter_dma_all(*ops_in)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["qmatmul_reduce_scatter_dma"] == 1
+    want = ops.qmatmul_reduce_scatter_dma_all_ref(*ops_in)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+def test_ring_reduce_scatter_back_to_back(cuda, tp):
+    """200 calls of M from 1 to 256, enqueued without a synchronize, each
+    exact: no call reads a flag or a slot of another."""
+    from protoquant_tpu_torch.parallel import make_mesh
+    from protoquant_tpu_torch.utils import MeshConfig
+
+    g = torch.Generator(device=cuda).manual_seed(tp)
+    ms = torch.randint(1, 257, (200,), generator=torch.Generator().manual_seed(tp)).tolist()
+    cases = [_ring_operands(g, cuda, tp, m, 1024, 2048, True) for m in ms]
+    outs = [ops.qmatmul_reduce_scatter_dma_all(*c) for c in cases]
+    torch.cuda.synchronize()
+    for c, out in zip(cases, outs):
+        assert all(torch.equal(a, b)
+                   for a, b in zip(out, ops.qmatmul_reduce_scatter_dma_all_ref(*c)))
+    # the per-rank call, ranks as threads sharing the card: one launch a call
+    mesh = make_mesh(MeshConfig(tp=tp), [cuda] * tp)
+    ops.reset_launch_counts()
+    for c in cases[:20]:
+        got = mesh.run(lambda r: ops.qmatmul_reduce_scatter_dma(
+            c[0][r], c[1][r], c[2][r], c[3][r], mesh.group))
+        want = ops.qmatmul_reduce_scatter_dma_all_ref(*c)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ops.launch_counts()["qmatmul_reduce_scatter_dma"] == 20

@@ -18,7 +18,8 @@ from protoquant_tpu_torch.models.kv_cache import (BF16KVCache, Int4KVCache, Int8
                                                   K4V8KVCache, MixedKVCache, RingInt8KVCache)
 from protoquant_tpu_torch.models.llama import MLP, Attention, DecoderLayer, LayerNorm, RMSNorm
 from protoquant_tpu_torch.models.moe import MoEMLP, StackedWeight
-from protoquant_tpu_torch.utils import resolve_device
+from protoquant_tpu_torch.parallel import Mesh, make_mesh, make_tp_caches, tp_model
+from protoquant_tpu_torch.utils import MeshConfig, resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "protoquant_tpu_torch").rglob("*.py")) + [
@@ -149,3 +150,38 @@ def test_cpu_entry_points_run_on_cpu():
     for name, make in CONSTRUCTORS.items():
         tensors = _tensors(make(device="cpu"))
         assert tensors and all(t.device.type == "cpu" for t in tensors), name
+
+
+TP_CFG = ModelConfig(vocab_size=32, hidden_size=32, intermediate_size=64, num_hidden_layers=1,
+                     num_attention_heads=2, num_key_value_heads=2, max_position_embeddings=32)
+
+
+def test_mesh_and_tp_model_resolve_to_cuda(monkeypatch):
+    """A mesh puts rank r on cuda:r unless the caller names the devices, and
+    raises on a machine with fewer cards than ranks; the TP model and its
+    caches go where the mesh says (cuda: raise without a card)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs 2 CUDA cards"):
+        make_mesh(MeshConfig(tp=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(MeshConfig(tp=2), ["cuda:0"] * 2)
+    cuda_mesh = Mesh(MeshConfig(tp=2), [torch.device("cuda", 0)] * 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tp_model(TP_CFG, "dynamic", cuda_mesh)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_tp_caches(TP_CFG, cuda_mesh, 2, 16, "int8")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="needs 2 CUDA cards, this machine has 1"):
+        make_mesh(MeshConfig(tp=2))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert make_mesh(MeshConfig(tp=2)).devices == [torch.device("cuda", 0),
+                                                   torch.device("cuda", 1)]
+
+
+def test_cpu_mesh_runs_on_cpu():
+    mesh = make_mesh(MeshConfig(tp=2), ["cpu"] * 2)
+    model = tp_model(TP_CFG, "dynamic", mesh, torch.float32)
+    tensors = _tensors(model) + [t for c in make_tp_caches(TP_CFG, mesh, 2, 16, "int8")
+                                 for s in c.shards for t in _tensors(s)]
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
