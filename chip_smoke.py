@@ -211,7 +211,9 @@ The line before the last is {"kernels": [...]}, one entry per kernel body
 (21): "launches" is its count summed over the twenty-one engine runs
 (phases 4, 6, 8.1, 8.2, 8.3, 10, 12, 13, 15, 17, 19, 20, the five of 22,
 the three of 24-25 and 28), each driven with the counts at 0 and read just
-after ("launches_by_path").
+after ("launches_by_path"). A wrapper counts calls: a KIVI attention's
+decode call is two CUDA launches (the split kernel and the merge), and its
+entry names every file it runs under "sources".
 wo4_legacy and dequant are on no engine path
 (a caller reaches wo4_legacy through the formulation argument of
 weight_only_int4_matmul, and dequant as ops.dequant; QTensor.dequantize
@@ -1001,12 +1003,35 @@ def kivi_attention_bytes(tier, lengths, new_lengths, B, KV, T, H, Dh, G=KIVI_G, 
     return total
 
 
+def split_dropped(q, cache, lengths, new_lengths, tier):
+    """A planted fault: the plain split formulation
+    (``kivi_attention_partials_ref``, merged) with each row's last live
+    packed split dropped, as a kernel that lost a split would compute."""
+    from protoquant_tpu_torch.ops.attention import (kivi_attention_partials_ref, kivi_split_plan,
+                                                    merge_partials_ref)
+
+    B, T, H, Dh = q.shape
+    KV, S = cache[0].shape[1], 2 * cache[0].shape[2]
+    span, _ = kivi_split_plan(T, H, KV, S, Dh, KIVI_G)
+    acc, m, l = kivi_attention_partials_ref(q, *cache, lengths, new_lengths, group=KIVI_G,
+                                            v4=tier == "int4", span=span)
+    packed = l[:, :, :-1] > 0  # [B, KV, n_split - 1, R]
+    idx = torch.arange(packed.shape[2], device=l.device)[None, None, :, None]
+    last = torch.where(packed, idx, -1).amax(dim=2, keepdim=True)
+    l_drop = torch.cat([torch.where(idx == last, 0.0, l[:, :, :-1]), l[:, :, -1:]], dim=2)
+    return merge_partials_ref(acc, m, l_drop, q.shape[2], dtype=q.dtype)
+
+
 def check_kivi_attention(ops, gen, dev, tier):
     """The tier's attention against its plain version within ATTN_TOL:
     decode at lengths 63 / 700 / 1023 / 255 (63's step completes chunk 0),
-    and a prefill chunk of 256 from 300 (crossing chunk boundaries 320 to
-    512). Library: SDPA over the cache dequantized to bf16 (the plain
-    version's f32 dequant, rounded)."""
+    a prefill chunk of 256 from 300 (crossing chunk boundaries 320 to 512),
+    and decode at lengths 255 / 256 / 511 / 1023, on and beside the split
+    design's boundaries (128 keys a split at Dh 128). Two calls on the same inputs
+    must give the same bits. Planted fault in the split case: the plain
+    split formulation with each row's last live packed split dropped must
+    miss the tolerance. Library: SDPA over the cache dequantized to bf16
+    (the plain version's f32 dequant, rounded)."""
     import torch.nn.functional as F
 
     from protoquant_tpu_torch.ops.attention import kivi_dequant_k, kivi_dequant_v4
@@ -1016,7 +1041,8 @@ def check_kivi_attention(ops, gen, dev, tier):
     S, KV, H, Dh, G = 1024, HEADS, HEADS, HEAD_DIM, KIVI_G
     cases = []
     for label, B, T, lens in (("decode", 4, 1, [63, 700, 1023, 255]),
-                              ("prefill", 1, 256, [300])):
+                              ("prefill", 1, 256, [300]),
+                              ("decode split boundaries", 4, 1, [255, 256, 511, 1023])):
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         new_lengths = lengths + T
         per_copy = B * KV * S * (2 * Dh if tier == "k4v8" else Dh) // 2
@@ -1032,6 +1058,12 @@ def check_kivi_attention(ops, gen, dev, tier):
         tol = ATTN_TOL * ref.float().abs().max().item()
         if not err <= tol:
             raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
+        if not torch.equal(attn(q, *caches[0], lengths, new_lengths, **kw), out):
+            raise AssertionError(f"{name} {label}: two calls on the same inputs differ")
+        margins = {}
+        if label.startswith("decode split"):
+            margins = _margins(name, label, out, tol, {"last live packed split dropped":
+                               split_dropped(q, caches[0], lengths, new_lengths, tier)})
         t_idx = torch.arange(T, device=dev)
         valid = (lengths.long()[:, None] + t_idx[None, :] + 1).clamp_max(S)
         nbytes = kivi_attention_bytes(tier, lens, new_lengths.tolist(), B, KV, T, H, Dh)
@@ -1047,7 +1079,7 @@ def check_kivi_attention(ops, gen, dev, tier):
         qh = q.transpose(1, 2)
         cases.append({
             "shape": f"{label} B={B} T={T} H={H} S={S} G={G} lengths={lens}",
-            "max_abs_err": err,
+            "max_abs_err": err, "fault_margins": margins,
             "ms": bench([lambda c=c: attn(q, *c, lengths, new_lengths, **kw) for c in caches]),
             "plain_ms": bench([lambda c=c: plain(q, *c, lengths, new_lengths, **kw)
                                for c in caches], iters=5),
@@ -1055,6 +1087,9 @@ def check_kivi_attention(ops, gen, dev, tier):
             "library_ms": bench([lambda k=k, v=v: F.scaled_dot_product_attention(
                 qh, k, v, attn_mask=mask) for k, v in deq])})
         del caches, deq
+    d = cases[0]
+    log(f"kernel {name}: 7B decode {d['ms']:.4f} ms against SDPA's {d['library_ms']:.4f} ms "
+        f"on the dequantized bf16 cache ({d['ms'] / d['library_ms']:.4f} of it, a reading)")
     return cases
 
 
@@ -3200,11 +3235,11 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
                 "protoquant_tpu/ops/dequant.py:20", "axis=0 f32 out"),
     "k4v8_decode_update": ("protoquant_tpu_torch/csrc/kivi_update.cu",
                            "protoquant_tpu/ops/kv_scatter.py:472", None),
-    "k4v8_attention": ("protoquant_tpu_torch/csrc/kivi_attention.cu",
+    "k4v8_attention": ("protoquant_tpu_torch/csrc/kivi_split.cuh",
                        "protoquant_tpu/ops/attention.py:1037", "decode"),
     "kivi4_decode_update": ("protoquant_tpu_torch/csrc/kivi_update.cu",
                             "protoquant_tpu/ops/kv_scatter.py:205", None),
-    "int4_kv_attention": ("protoquant_tpu_torch/csrc/kivi_attention.cu",
+    "int4_kv_attention": ("protoquant_tpu_torch/csrc/kivi_split.cuh",
                           "protoquant_tpu/ops/attention.py:495", "decode"),
     "kv_mixed_scatter_decode": ("protoquant_tpu_torch/csrc/kv_scatter.cu",
                                 "protoquant_tpu/ops/kv_scatter.py:362", None),
@@ -3214,6 +3249,16 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
                                    "protoquant_tpu/ops/collective_matmul.py:48",
                                    f"tp=2 M=4 K={HIDDEN} N={HIDDEN}"),
 }
+# Every file of a kernel whose wrapper runs more than one source, by the
+# calls that run each: a KIVI decode is the split kernel and then the merge,
+# two CUDA launches that the wrapper counts as one call; a prefill chunk is
+# the one-pass kernel. The "decode" row's times are those of the pair.
+_KIVI_CSRC = "protoquant_tpu_torch/csrc/"
+KERNEL_SOURCES = {
+    name: {"decode": [_KIVI_CSRC + "kivi_split.cuh", _KIVI_CSRC + f"kivi_split_{tier}.cu",
+                      _KIVI_CSRC + "kivi_combine.cu"],
+           "prefill": [_KIVI_CSRC + "kivi_attention.cu"]}
+    for name, tier in (("k4v8_attention", "k4v8"), ("int4_kv_attention", "int4"))}
 
 
 def timed(name: str, fn, *args, **kwargs):
@@ -3384,6 +3429,8 @@ def run_all(ops, seed: int, dev) -> list:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
+            **({"sources": KERNEL_SOURCES[name], "cuda_launches_per_decode_call": 2}
+               if name in KERNEL_SOURCES else {}),
             "cases": cases})
 
     # kernel time of one decode step at the measured decode shapes

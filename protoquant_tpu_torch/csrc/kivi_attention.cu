@@ -45,9 +45,10 @@
 // call takes the least
 // instance its variants need, as in csrc/attention.cu; each row's slope
 // sits in a register.
-// Shared memory is dynamic (about 53 KB at Dh = 128). Decode runs one block
-// per (b, kv head), in series along the row; splitting S across blocks is
-// later work.
+// Shared memory is dynamic (about 53 KB at Dh = 128). This one-pass kernel
+// takes the calls that the split-S design of csrc/kivi_split.cuh cannot:
+// more query rows a kv head than a split block holds (prefill chunks), or a
+// chunk G it does not tile (ks_plan there decides).
 
 #include "kivi.cuh"
 

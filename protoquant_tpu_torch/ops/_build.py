@@ -35,8 +35,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _PP = ctypes.POINTER(ctypes.c_void_p)
-# C signatures of the entry points in csrc/*.cu (every one returns an int
-# cudaError_t and takes the stream last).
+# C signatures of the entry points in csrc/*.cu (every one returns an int,
+# a cudaError_t, and takes the stream last, but pq_kivi_split_plan).
 SIGNATURES = {
     # x, x_dtype, xq, sx, M, K, stream
     "pq_rowquant": [_P, _I, _P, _P, _I, _I, _P],
@@ -84,6 +84,13 @@ SIGNATURES = {
     # G, sm, window, softcap, stream
     "pq_k4v8_attention": [_P, _I] + [_P] * 13 + [_I] * 7 + [_F, _I, _F, _P],
     "pq_int4_kv_attention": [_P, _I] + [_P] * 13 + [_I] * 7 + [_F, _I, _F, _P],
+    # the split-S decode: as above, with the partials' workspace (acc, (m, l))
+    # after out and its n_split before the stream
+    "pq_k4v8_attention_split": [_P, _I] + [_P] * 15 + [_I] * 7 + [_F, _I, _F, _I, _P],
+    "pq_int4_kv_attention_split": [_P, _I] + [_P] * 15 + [_I] * 7 + [_F, _I, _F, _I, _P],
+    # T, H, KV, S, Dh, G, out span; returns n_split (0: the one-pass kernel),
+    # launches nothing and takes no stream
+    "pq_kivi_split_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
     # pointer arrays xq, sx, wq, sw, out (by local rank), comm, data, credit
     # (by ring rank); tp, rank_base, tp_local, M, N, K, epoch, stream
     "pq_ring_qmatmul_rs": [_PP] * 8 + [_I] * 6 + [ctypes.c_uint, _P],

@@ -7,10 +7,17 @@ its plain version mirrors ``int8_kv_attention_xla`` of the JAX package.
 The same source, with its V layout switched to packed int4 token pairs,
 replaces ``_attn_mixed_kernel`` (the K8V4 cache); its plain version
 unpacks V and runs the int8 one, as the JAX test holds the Pallas kernel.
-The KIVI kernels (``csrc/kivi_attention.cu``) replace ``_attn_k4v8_kernel``
-and ``_attn4_kernel``; their plain versions dequantize the cache to f32
-(``dequant_fp(lane=f32)`` of the JAX caches) and run the int8 plain version
-with unit scales, as the JAX tests hold the Pallas kernels.
+The KIVI kernels replace ``_attn_k4v8_kernel`` and ``_attn4_kernel``: a
+call whose query rows a kv head fit one split block (every decode), at any
+batch, takes the split-S design (``csrc/kivi_split.cuh``,
+``kivi_combine.cu``: blocks over fixed key ranges and the tail, partials
+merged in split order; :func:`kivi_split_plan` asks the library's plan),
+any other call the one-pass kernel (``csrc/kivi_attention.cu``); their
+plain versions dequantize the cache to f32 (``dequant_fp(lane=f32)`` of
+the JAX caches) and run the int8 plain version with unit scales, as the
+JAX tests hold the Pallas kernels.
+:func:`kivi_attention_partials_ref` and :func:`merge_partials_ref` spell
+out the split design's decomposition in plain PyTorch, for the tests.
 Variants, as the JAX functions take them: ``window`` > 0 hides keys more
 than window - 1 positions behind each query, ``scale`` > 0 replaces the
 score scale Dh^-0.5, ``softcap`` > 0 caps the scaled score to softcap *
@@ -40,6 +47,8 @@ f32 ulps.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -333,6 +342,83 @@ def int4_kv_attention_ref(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
                      alibi_slopes, sink_logits, variants)
 
 
+def kivi_split_plan(T, H, KV, S, head_dim, group):
+    """(span, n_split) of the split-S decode for a KIVI attention call, or
+    None where the one-pass kernel takes it, as ``ks_plan`` in
+    ``csrc/kivi_split.cuh`` decides (asked through the built library): the
+    packed keys of a split and the number of splits, the packed ones over
+    the capacity S and the tail's."""
+    span = ctypes.c_int(0)
+    n_split = _build.lib().pq_kivi_split_plan(T, H, KV, S, head_dim, group, ctypes.byref(span))
+    return (span.value, n_split) if n_split else None
+
+
+def kivi_attention_partials_ref(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
+                                new_lengths, *, group, v4, span, window=0, scale=0.0,
+                                softcap=0.0, alibi_slopes=None):
+    """The split design's partials in plain PyTorch: for each (b, kv head),
+    split i < n_split - 1 holds the packed keys [i span, (i + 1) span)
+    (``span`` a multiple of G; the kernel's is :func:`kivi_split_plan`'s) below
+    the frontier F = (min(new_lengths, S) // G) G, the last split the
+    positions from F (the tails, V from the tail mirror for K4V8 too, as the
+    kernel reads it), n_split = ceil(S / span) + 1. Per split and query row
+    r = t group + g: m = the largest visible score, l = sum e^(score - m),
+    acc = sum e^(score - m) v; a split with no visible key is empty (m =
+    NEG_INF, l = 0, acc = 0). Returns acc [B, KV, n_split, R, Dh], m and l
+    [B, KV, n_split, R], f32. The learned sinks join in
+    :func:`merge_partials_ref`."""
+    B, T, H, Dh = q.shape
+    KV, S = kq.shape[1], 2 * kq.shape[2]
+    grp, R = H // KV, T * (H // KV)
+    n_split = -(-S // span) + 1
+    k_fp = kivi_dequant_k(kq, kchs, ktail, kts, new_lengths, group)
+    v_fp = (kivi_dequant_v4(vq, vs, vtail, vts, new_lengths, group) if v4 else
+            _tail_overlay(vq.float() * vs[..., None], vtail, vts, new_lengths, group))
+    qh = (q.float() * score_scale(Dh, scale)).reshape(B, T, KV, grp, Dh)
+    scores = torch.einsum("btkgd,bksd->bktgs", qh, k_fp).reshape(B, KV, R, S)
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
+    pos = torch.arange(S, device=q.device)
+    t_pos = (lengths.long()[:, None] + torch.arange(T, device=q.device))[:, None, :, None]
+    t_pos = t_pos.expand(B, 1, T, grp).reshape(B, 1, R, 1)
+    if alibi_slopes is not None:
+        sl = alibi_slopes.float().reshape(KV, grp).repeat(1, T)  # [KV, R]
+        scores = scores - sl[None, :, :, None] * (t_pos - pos).float()
+    valid = pos <= t_pos
+    if window > 0:
+        valid &= pos > t_pos - window
+    frontier = (new_lengths.long().clamp(0, S) // group) * group
+    split_of = torch.where(pos < frontier[:, None], pos // span, n_split - 1)  # [B, S]
+    member = (split_of[..., None] == torch.arange(n_split, device=q.device))[:, None, None]
+    live = valid[..., None] & member  # [B, KV, R, S, n_split]
+    m = torch.where(live, scores[..., None], NEG_INF).amax(dim=3)  # [B, KV, R, n_split]
+    p = torch.where(live, torch.exp(scores[..., None] - m[:, :, :, None]), 0.0)
+    acc = torch.einsum("bkrsn,bksd->bknrd", p, v_fp)
+    return acc, m.transpose(2, 3), p.sum(dim=3).transpose(2, 3)
+
+
+def merge_partials_ref(acc, m, l, heads, sink_logits=None, dtype=torch.float32):
+    """The merge of :func:`kivi_attention_partials_ref`'s partials in split
+    order, the learned sink (``sink_logits`` [heads]) joining once as the
+    state m = sink, l = 1, acc = 0: M = max(sink, m_i over the splits with l_i
+    > 0), out = sum_i acc_i e^(m_i - M) / (e^(sink - M) + sum_i l_i e^(m_i -
+    M)). Returns [B, T, heads, Dh] in ``dtype``."""
+    B, KV, _, R, Dh = acc.shape
+    grp = heads // KV
+    live = l > 0
+    M = torch.where(live, m, NEG_INF).amax(dim=2)  # [B, KV, R]
+    if sink_logits is not None:
+        sink = sink_logits.float().reshape(KV, grp).repeat(1, R // grp)[None]  # [1, KV, R]
+        M = torch.maximum(M, sink)
+    w = torch.where(live, torch.exp(m - M[:, :, None]), 0.0)  # [B, KV, n_split, R]
+    L = (l * w).sum(dim=2)
+    if sink_logits is not None:
+        L = L + torch.exp(sink - M)
+    out = (acc * w[..., None]).sum(dim=2) / L.clamp_min(1e-30)[..., None]  # [B, KV, R, Dh]
+    out = out.reshape(B, KV, R // grp, grp, Dh).permute(0, 2, 1, 3, 4)
+    return out.reshape(B, R // grp, heads, Dh).to(dtype)
+
+
 def _kivi_attention_launch(name, fn, v4, q, kq, kchs, vq, vs, ktail, kts, vtail,
                            vts, lengths, new_lengths, group, window, scale, softcap,
                            alibi_slopes, sink_logits):
@@ -372,13 +458,22 @@ def _kivi_attention_launch(name, fn, v4, q, kq, kchs, vq, vs, ktail, kts, vtail,
     out = torch.empty_like(q)
     c_name = "pq_int4_kv_attention" if v4 else "pq_k4v8_attention"
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = getattr(_build.lib(), c_name)(
-        q.data_ptr(), _build.DTYPE_CODES[q.dtype], kq.data_ptr(), kchs.data_ptr(),
-        vq.data_ptr(), vs.data_ptr(), ktail.data_ptr(), kts.data_ptr(), vtail.data_ptr(),
-        vts.data_ptr(), lengths.data_ptr(), new_lengths.data_ptr(), ptr(alibi_slopes),
-        ptr(sink_logits), out.data_ptr(),
-        B, T, H, KV, S, Dh, G, score_scale(Dh, scale), window, float(softcap),
-        _build.stream_ptr(dev))
+    args = (q.data_ptr(), _build.DTYPE_CODES[q.dtype], kq.data_ptr(), kchs.data_ptr(),
+            vq.data_ptr(), vs.data_ptr(), ktail.data_ptr(), kts.data_ptr(), vtail.data_ptr(),
+            vts.data_ptr(), lengths.data_ptr(), new_lengths.data_ptr(), ptr(alibi_slopes),
+            ptr(sink_logits), out.data_ptr())
+    shape = (B, T, H, KV, S, Dh, G, score_scale(Dh, scale), window, float(softcap))
+    plan = kivi_split_plan(T, H, KV, S, Dh, G)
+    if plan is None:
+        err = getattr(_build.lib(), c_name)(*args, *shape, _build.stream_ptr(dev))
+    else:  # the partials' workspace, from PyTorch's allocator: nothing kept between calls
+        c_name += "_split"
+        n_split = plan[1]
+        R = T * (H // KV)
+        part_acc = torch.empty(B, KV, n_split, R, Dh, dtype=torch.float32, device=dev)
+        part_ml = torch.empty(B, KV, n_split, R, 2, dtype=torch.float32, device=dev)
+        err = getattr(_build.lib(), c_name)(*args, part_acc.data_ptr(), part_ml.data_ptr(),
+                                            *shape, n_split, _build.stream_ptr(dev))
     _build.check(err, c_name)
     fn.launches += 1
     return out

@@ -16,7 +16,10 @@ under 5 %, scales within rtol 1e-2), what the JAX package demands of its
 kernels. ``dequant``: exact. The KIVI decode writers (K4V8, Int4): exact
 on all eight cache tensors; the KIVI attentions: ATOL in f32, 2^-7 of the
 largest output in bf16. The mixed K8V4 writer: exact on all four cache
-tensors; the mixed attention as the KIVI ones. The learned-sink variants
+tensors; the mixed attention as the KIVI ones. The split-S KIVI decode:
+the same tolerances at split boundaries, with dead splits below a window and
+with only the tail live, and bit for bit across two calls and in a CUDA
+graph. The learned-sink variants
 (GPT-OSS) as their attentions; a tiny GPT-OSS on the card against the same
 model on the CPU: logits within 2^-7 of their scale, at least 0.9 of the
 engine's greedy tokens equal (an int8 activation code on a rounding
@@ -562,6 +565,166 @@ def test_kivi_wrappers_reject_and_count(cuda):
                             lengths.cpu(), k8.cpu(), s1.cpu(), k8.cpu(), s1.cpu(), group=8)
     counts = ops.launch_counts()
     assert (counts["int4_kv_attention"], counts["kivi4_decode_update"]) == (1, 1)
+
+
+# -- the split-S KIVI decode (csrc/kivi_split.cuh): against the plain versions -----
+
+SPLIT_G, SPLIT_S = 64, 1024
+# head dim -> GQA group of the decode rows (GPT-OSS's 8 at 64, Llama's 1 at
+# 128, Gemma-2's 2 at 256)
+SPLIT_GROUPS = {64: 8, 128: 1, 256: 2}
+
+
+def _split_case(g, dev, tier, Dh, lens, T=1, KV=2, group=None):
+    """q (f32), a KIVI cache with its V tail mirrored, and the lengths before
+    and after the step, for a call that takes the split design."""
+    group = SPLIT_GROUPS[Dh] if group is None else group
+    B = len(lens)
+    cache = _kivi_cache(g, dev, tier, B, KV, SPLIT_S, Dh, SPLIT_G)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    new_lengths = lengths + T
+    if tier == "k4v8":
+        _mirror_v(cache, new_lengths, SPLIT_G)
+    q = torch.randn(B, T, KV * group, Dh, generator=g, device=dev)
+    from protoquant_tpu_torch.ops.attention import kivi_split_plan
+    assert kivi_split_plan(T, KV * group, KV, SPLIT_S, Dh, SPLIT_G) is not None
+    return q, cache, lengths, new_lengths
+
+
+def _split_lengths(Dh):
+    """0, G - 1, G, a split - 1, a split, S - 1 and S (the last one's row
+    sees every key, its own position past the capacity)."""
+    from protoquant_tpu_torch.ops.attention import kivi_split_plan
+    span, _ = kivi_split_plan(1, SPLIT_GROUPS[Dh], 1, SPLIT_S, Dh, SPLIT_G)
+    return [0, SPLIT_G - 1, SPLIT_G, span - 1, span, SPLIT_S - 1, SPLIT_S]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
+@pytest.mark.parametrize("tier", ["k4v8", "int4"])
+def test_kivi_split_boundaries_vs_plain(cuda, tier, head_dim, dtype):
+    g = torch.Generator(device=cuda).manual_seed(head_dim + 3)
+    q, cache, lengths, new_lengths = _split_case(g, cuda, tier, head_dim,
+                                                 _split_lengths(head_dim))
+    q = q.to(dtype)
+    _, attn = KIVI[tier]
+    out = getattr(ops, attn)(q, *cache, lengths, new_lengths, group=SPLIT_G)
+    ref = getattr(ops, attn + "_ref")(q, *cache, lengths, new_lengths, group=SPLIT_G)
+    torch.cuda.synchronize()
+    atol = ATOL if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("tier", ["k4v8", "int4"])
+def test_kivi_split_window_dead_splits_vs_plain(cuda, tier, T):
+    """A window of 100 at lengths 900 to 1020: splits 0 to 2 (keys below 768)
+    are wholly below every row's window; with softcap and scale."""
+    g = torch.Generator(device=cuda).manual_seed(T + 21)
+    q, cache, lengths, new_lengths = _split_case(g, cuda, tier, 128, [900, 1000, 1020 - T],
+                                                 T=T, group=2)
+    _, attn = KIVI[tier]
+    kw = dict(group=SPLIT_G, window=100, scale=0.1, softcap=5.0)
+    out = getattr(ops, attn)(q * 4, *cache, lengths, new_lengths, **kw)
+    ref = getattr(ops, attn + "_ref")(q * 4, *cache, lengths, new_lengths, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("tier", ["k4v8", "int4"])
+def test_kivi_split_sinks_tail_only_vs_plain(cuda, tier, alibi):
+    """Learned sinks where only the tail split is live: a window of 8 at
+    lengths 10 to 40 past a chunk boundary sees tail positions alone."""
+    from protoquant_tpu_torch.models.llama import alibi_slopes
+
+    g = torch.Generator(device=cuda).manual_seed(31 + alibi)
+    q, cache, lengths, new_lengths = _split_case(g, cuda, tier, 64, [74, 266, 650, 1000])
+    H = q.shape[2]
+    _, attn = KIVI[tier]
+    kw = dict(group=SPLIT_G, window=8,
+              sink_logits=torch.randn(H, generator=g, device=cuda) * 2,
+              alibi_slopes=alibi_slopes(H).to(cuda) if alibi else None)
+    out = getattr(ops, attn)(q, *cache, lengths, new_lengths, **kw)
+    ref = getattr(ops, attn + "_ref")(q, *cache, lengths, new_lengths, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["k4v8", "int4"])
+def test_kivi_split_large_batch_vs_plain(cuda, tier):
+    """A 7B decode at batch 9 (B KV = 288 blocks a split, more than twice
+    the SMs) takes the split design too; with a window and learned sinks."""
+    g = torch.Generator(device=cuda).manual_seed(43)
+    lens = [63, 700, 1023, 255, 0, 128, 511, 900, SPLIT_S - 1]
+    q, cache, lengths, new_lengths = _split_case(g, cuda, tier, 128, lens, KV=32)
+    _, attn = KIVI[tier]
+    kw = dict(group=SPLIT_G, window=300,
+              sink_logits=torch.randn(q.shape[2], generator=g, device=cuda))
+    out = getattr(ops, attn)(q, *cache, lengths, new_lengths, **kw)
+    ref = getattr(ops, attn + "_ref")(q, *cache, lengths, new_lengths, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh,group,G", [(128, 1, 4), (256, 8, 64), (64, 1, 96)])
+@pytest.mark.parametrize("tier", ["k4v8", "int4"])
+def test_kivi_one_pass_decode_vs_plain(cuda, tier, Dh, group, G):
+    """The decodes the split design cannot take go to the one-pass kernel: a
+    chunk G below 8, more rows a kv head than a split block holds (8 at Dh
+    256), a G that neither divides nor is divided by the tile (96 at Dh 64);
+    with a window and learned sinks, at batch 9."""
+    from protoquant_tpu_torch.ops.attention import kivi_split_plan
+
+    g = torch.Generator(device=cuda).manual_seed(Dh + group + G)
+    S, KV = 8 * G if G > 8 else 256, 4
+    assert kivi_split_plan(1, KV * group, KV, S, Dh, G) is None
+    lens = [0, 1, G - 1, G, 2 * G + 3, S // 2, S - 2, S - 1, S]
+    B = len(lens)
+    cache = _kivi_cache(g, cuda, tier, B, KV, S, Dh, G)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    new_lengths = lengths + 1
+    if tier == "k4v8":
+        _mirror_v(cache, new_lengths, G)
+    q = torch.randn(B, 1, KV * group, Dh, generator=g, device=cuda)
+    _, attn = KIVI[tier]
+    kw = dict(group=G, window=S // 3,
+              sink_logits=torch.randn(KV * group, generator=g, device=cuda))
+    out = getattr(ops, attn)(q, *cache, lengths, new_lengths, **kw)
+    ref = getattr(ops, attn + "_ref")(q, *cache, lengths, new_lengths, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["k4v8", "int4"])
+def test_kivi_split_bitwise_and_cuda_graph(cuda, tier):
+    """Two calls give the same bits; the call captured in a CUDA graph and
+    replayed gives the eager call's bits, and counts one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(41)
+    q, cache, lengths, new_lengths = _split_case(g, cuda, tier, 128, [63, 700, 1023, 255],
+                                                 KV=32)
+    q = q.to(torch.bfloat16)
+    _, attn = KIVI[tier]
+    fn = getattr(ops, attn)
+    sinks = torch.randn(q.shape[2], generator=g, device=cuda)
+    call = lambda: fn(q, *cache, lengths, new_lengths, group=SPLIT_G, sink_logits=sinks)
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    ops.reset_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+    assert ops.launch_counts()[attn] == 1
 
 
 # -- the mixed K8V4 cache: decode writer (exact) and attention (ATOL) ------------

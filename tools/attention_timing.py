@@ -1,6 +1,6 @@
 """Time the full-causal attention kernels of one checkout on the card.
 
-    python3 tools/attention_timing.py [--tree DIR] [--label NAME]
+    python3 tools/attention_timing.py [--tree DIR] [--label NAME] [--profile]
 
 Imports protoquant_tpu_torch from DIR (default: the checkout holding this
 script), builds its kernels there, and prints one JSON line: the card, and
@@ -8,10 +8,22 @@ the device time per call in ms (``chip_smoke.bench``: a CUDA graph of 20
 calls over input copies larger than the L2) of the cases every version of
 the kernels takes: with no attention variant, the int8 decode and prefill at
 Llama-2-7B's shapes, the int8 decode at Gemma-2-9B's (Dh 256, S 8192,
-lengths 8000), and the K8V4, K4V8 and Int4 decodes at Llama-2-7B's shapes;
-then the int8 decode of a Gemma-2 sliding layer (window, scale, softcap:
-the variant instance). To compare two checkouts, run it on each in turns
-(A, B, B, A) within one call on one card.
+lengths 8000), and the K8V4 decode at Llama-2-7B's shapes; then the int8
+decode of a Gemma-2 sliding layer (window, scale, softcap: the variant
+instance); and for K4V8 and Int4 the decode (lengths 63/700/1023/255) and
+the prefill (T = 256 from 300) at Llama-2-7B's shapes, the decode of a
+Gemma-2 global layer (scale, softcap) and of a GPT-OSS-20B global layer
+(learned sinks), both at S 8192 and lengths 63/4500/8191/1000, and the
+7B decode at B 9, 16 and 32 and the GPT-OSS one at B 32 and 64 (the lengths
+repeated). To compare
+two checkouts, run it on each in turns (A, B, B, A) within one call on one
+card:
+
+    python3 tools/attention_timing.py --tree scratch_tree/parent --label parent
+
+With ``--profile`` it also prints, for each KIVI decode, the device time of
+every CUDA kernel one call launches (``torch.profiler``, ms a launch, the
+mean of 20 calls on one cache copy, so L2-warm where the cache fits).
 """
 
 import argparse
@@ -29,6 +41,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--label", default="")
+    parser.add_argument("--profile", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("attention_timing: needs an NVIDIA card", file=sys.stderr)
@@ -43,7 +56,23 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     decode = [63, 700, 1023, 255]
     lengths = torch.tensor(decode, dtype=torch.int32, device=dev)
-    times = {}
+    times, profiles = {}, {}
+
+    def profile_kernels(call, n=20):
+        from torch.profiler import ProfilerActivity, profile
+
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            total = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+            if e.count and total:
+                out[e.key[:80]] = total / e.count / 1000.0
+        return out
 
     def time_int8(label, B, T, H, KV, S, Dh, lens, **kw):
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -63,19 +92,45 @@ def main() -> int:
         4 * 32 * 1024 * (3 * 128 // 2 + 8)))]
     times["k8v4 decode 7B"] = cs.bench(
         [lambda c=c: ops.mixed_kv_attention(q, *c, lengths) for c in caches])
-    for tier, (_, name) in cs.KIVI_KERNELS.items():
-        caches = [cs._kivi_cache(gen, dev, tier, 4, 32, 1024, 128)
-                  for _ in range(cs.copies_for(4 * 32 * 1024 * 128))]
+
+    def time_kivi(label, tier, B, T, H, KV, S, Dh, lens, **kw):
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        nl = ln + T
+        per_copy = B * KV * S * (2 * Dh if tier == "k4v8" else Dh) // 2
+        caches = [cs._kivi_cache(gen, dev, tier, B, KV, S, Dh)
+                  for _ in range(cs.copies_for(per_copy))]
         if tier == "k4v8":
-            caches = [cs._mirror_v(c, lengths + 1) for c in caches]
-        fn = getattr(ops, name)
-        times[f"{tier} decode 7B"] = cs.bench(
-            [lambda c=c, fn=fn: fn(q, *c, lengths, lengths + 1, group=cs.KIVI_G)
-             for c in caches])
+            caches = [cs._mirror_v(c, nl) for c in caches]
+        q = torch.randn(B, T, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
+        fn = getattr(ops, cs.KIVI_KERNELS[tier][1])
+        times[label] = cs.bench([lambda c=c: fn(q, *c, ln, nl, group=cs.KIVI_G, **kw)
+                                 for c in caches])
+        if args.profile and T == 1:
+            profiles[label] = profile_kernels(
+                lambda: fn(q, *caches[0], ln, nl, group=cs.KIVI_G, **kw))
+
+    ragged = [63, 4500, 8191, 1000]
+    for tier in cs.KIVI_KERNELS:
+        time_kivi(f"{tier} decode 7B", tier, 4, 1, 32, 32, 1024, 128, decode)
+        time_kivi(f"{tier} prefill 7B T=256 from 300", tier, 1, 256, 32, 32, 1024, 128, [300])
+        time_kivi(f"{tier} decode gemma2 global", tier, 4, 1, cs.G2_HEADS, cs.G2_KV,
+                  cs.G2_SEQ, cs.G2_HEAD_DIM, ragged, scale=cs.G2_SCALE, softcap=cs.G2_SOFTCAP)
+        time_kivi(f"{tier} decode gpt_oss global", tier, 4, 1, cs.GO_HEADS, cs.GO_KV,
+                  cs.GO_SEQ, cs.GO_HEAD_DIM, ragged,
+                  sink_logits=torch.randn(cs.GO_HEADS, generator=gen, device=dev))
+        for B in (9, 16, 32):  # B KV at and past twice the SM count
+            time_kivi(f"{tier} decode 7B B={B}", tier, B, 1, 32, 32, 1024, 128,
+                      (decode * B)[:B])
+        for B in (32, 64):
+            time_kivi(f"{tier} decode gpt_oss global B={B}", tier, B, 1, cs.GO_HEADS, cs.GO_KV,
+                      cs.GO_SEQ, cs.GO_HEAD_DIM, (ragged * B)[:B],
+                      sink_logits=torch.randn(cs.GO_HEADS, generator=gen, device=dev))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    print(json.dumps({"label": args.label, "tree": args.tree, "card": smi.stdout.strip(),
-                      "ms": times}), flush=True)
+    line = {"label": args.label, "tree": args.tree, "card": smi.stdout.strip(), "ms": times}
+    if args.profile:
+        line["profile_ms"] = profiles
+    print(json.dumps(line), flush=True)
     return 0
 
 
