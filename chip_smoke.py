@@ -18,6 +18,10 @@ Phases (any failure exits non-zero and prints no result line):
               equal lengths the windowed int8 decode must take at most
               0.65 of the full-causal time (its tiles below the window are
               skipped); the K8V4 attention also with a score scale of 0.1;
+              the int8 and K8V4 decodes at Llama-2-7B's shapes (the split
+              design) bitwise equal across two calls and against the plain
+              split spelling with each row's last live split dropped (a
+              planted fault, which must miss);
               the int8 attention over a ring at Mistral-7B's shapes (window
               4096, 4608 columns, and 4640 with 4 StreamingLLM sinks; decode
               at lengths 63 / 4607 / 9000 / 20000, a prefill chunk of 512),
@@ -211,9 +215,9 @@ The line before the last is {"kernels": [...]}, one entry per kernel body
 (21): "launches" is its count summed over the twenty-one engine runs
 (phases 4, 6, 8.1, 8.2, 8.3, 10, 12, 13, 15, 17, 19, 20, the five of 22,
 the three of 24-25 and 28), each driven with the counts at 0 and read just
-after ("launches_by_path"). A wrapper counts calls: a KIVI attention's
-decode call is two CUDA launches (the split kernel and the merge), and its
-entry names every file it runs under "sources".
+after ("launches_by_path"). A wrapper counts calls: a decode call of the
+int8, K8V4, K4V8 or Int4 attention is two CUDA launches (the split kernel
+and the merge), and its entry names every file it runs under "sources".
 wo4_legacy and dequant are on no engine path
 (a caller reaches wo4_legacy through the formulation argument of
 weight_only_int4_matmul, and dequant as ops.dequant; QTensor.dequantize
@@ -470,6 +474,13 @@ def check_scatter(ops, gen, dev):
 
 
 def check_attention(ops, gen, dev):
+    """The int8 attention against its plain version within ATTN_TOL at
+    Llama-2-7B's shapes: decode at lengths 63 / 700 / 1023 / 255 (the split
+    design) and two prefill chunks of 256 (the one-pass kernel). Two calls
+    on the same inputs must give the same bits. Planted fault in the decode
+    case: the plain split spelling with each row's last live split dropped
+    must miss the tolerance. Library: SDPA over the cache dequantized to
+    bf16."""
     import torch.nn.functional as F
 
     S, KV, H, Dh = 1024, HEADS, HEADS, HEAD_DIM
@@ -490,6 +501,12 @@ def check_attention(ops, gen, dev):
         tol = ATTN_TOL * ref.float().abs().max().item()
         if not err <= tol:
             raise AssertionError(f"attention {label}: max abs err {err} > {tol}")
+        if not torch.equal(ops.int8_kv_attention(q, *caches[0], lengths), out):
+            raise AssertionError(f"attention {label}: two calls on the same inputs differ")
+        margins = {}
+        if label == "decode":
+            margins = _margins("int8_kv_attention", label, out, tol, {
+                "last live split dropped": dense_split_dropped(q, caches[0], lengths)})
         # valid keys per (b, t): min(S, len + t + 1)
         t_idx = torch.arange(T, device=dev)
         valid = (lengths.long()[:, None] + t_idx[None, :] + 1).clamp_max(S)
@@ -507,7 +524,7 @@ def check_attention(ops, gen, dev):
         qh = q.transpose(1, 2)
         cases.append({
             "shape": f"{label} B={B} T={T} H={H} S={S} lengths={lens}",
-            "max_abs_err": err,
+            "max_abs_err": err, "fault_margins": margins,
             "ms": bench([lambda c=c: ops.int8_kv_attention(q, *c, lengths) for c in caches]),
             "plain_ms": bench([lambda c=c: ops.int8_kv_attention_ref(q, *c, lengths)
                                for c in caches], iters=5),
@@ -1015,11 +1032,33 @@ def split_dropped(q, cache, lengths, new_lengths, tier):
     span, _ = kivi_split_plan(T, H, KV, S, Dh, KIVI_G)
     acc, m, l = kivi_attention_partials_ref(q, *cache, lengths, new_lengths, group=KIVI_G,
                                             v4=tier == "int4", span=span)
-    packed = l[:, :, :-1] > 0  # [B, KV, n_split - 1, R]
-    idx = torch.arange(packed.shape[2], device=l.device)[None, None, :, None]
-    last = torch.where(packed, idx, -1).amax(dim=2, keepdim=True)
-    l_drop = torch.cat([torch.where(idx == last, 0.0, l[:, :, :-1]), l[:, :, -1:]], dim=2)
+    l_drop = torch.cat([_last_live_dropped(l[:, :, :-1]), l[:, :, -1:]], dim=2)
     return merge_partials_ref(acc, m, l_drop, q.shape[2], dtype=q.dtype)
+
+
+def _last_live_dropped(l):
+    """The denominators l [B, KV, n_split, R] with each row's last live split
+    emptied (l = 0: the merge then reads nothing of it)."""
+    idx = torch.arange(l.shape[2], device=l.device)[None, None, :, None]
+    last = torch.where(l > 0, idx, -1).amax(dim=2, keepdim=True)
+    return torch.where(idx == last, 0.0, l)
+
+
+def dense_split_dropped(q, cache, lengths, v4=False, **variants):
+    """A planted fault: the plain split spelling of the int8 (or, with
+    ``v4``, K8V4) attention (``dense_attention_partials_ref``, merged) with
+    each row's last live split dropped, as a kernel that lost a split would
+    compute."""
+    from protoquant_tpu_torch.ops.attention import (attn_split_plan,
+                                                    dense_attention_partials_ref,
+                                                    merge_partials_ref)
+
+    B, T, H, Dh = q.shape
+    KV, S = cache[0].shape[1], cache[0].shape[2]
+    span, _ = attn_split_plan(T, H, KV, S, Dh)
+    sink = variants.pop("sink_logits", None)
+    acc, m, l = dense_attention_partials_ref(q, *cache, lengths, v4=v4, span=span, **variants)
+    return merge_partials_ref(acc, m, _last_live_dropped(l), H, sink, dtype=q.dtype)
 
 
 def check_kivi_attention(ops, gen, dev, tier):
@@ -1154,7 +1193,11 @@ def check_mixed_attention(ops, gen, dev):
     """The K8V4 attention against its plain version within ATTN_TOL: decode
     at lengths 63 / 700 / 1023 / 255 and a prefill chunk of 256 from 300,
     then the decode again with a score scale of 0.1 (its only variant).
-    Library: SDPA over the cache dequantized to bf16 (V unpacked)."""
+    Two calls on the same inputs must give the same bits. Planted faults,
+    which must miss: in the decode cases the plain split spelling with each
+    row's last live split dropped, in the scaled one the plain version
+    without its scale. Library: SDPA over the cache dequantized to bf16 (V
+    unpacked)."""
     import torch.nn.functional as F
 
     from protoquant_tpu_torch.ops.attention import unpack_v4
@@ -1176,13 +1219,16 @@ def check_mixed_attention(ops, gen, dev):
         tol = ATTN_TOL * ref.float().abs().max().item()
         if not err <= tol:
             raise AssertionError(f"mixed_kv_attention {label}: max abs err {err} > {tol}")
+        if not torch.equal(ops.mixed_kv_attention(q, *caches[0], lengths, **kw), out):
+            raise AssertionError(f"mixed_kv_attention {label}: two calls on the same inputs "
+                                 "differ")
         faults = {}
         if scale:  # planted fault: the plain version without the scale must miss
-            bad = ops.mixed_kv_attention_ref(q, *caches[0], lengths)
-            faults["scale ignored"] = (out.float() - bad.float()).abs().max().item() / tol
-            if faults["scale ignored"] <= 1:
-                raise AssertionError(f"mixed_kv_attention {label}: the tolerance passes "
-                                     f"the plain version without its scale {faults}")
+            faults["scale ignored"] = ops.mixed_kv_attention_ref(q, *caches[0], lengths)
+        if label.startswith("decode"):
+            faults["last live split dropped"] = dense_split_dropped(q, caches[0], lengths,
+                                                                    v4=True, **kw)
+        faults = _margins("mixed_kv_attention", label, out, tol, faults)
         t_idx = torch.arange(T, device=dev)
         valid = (lengths.long()[:, None] + t_idx[None, :] + 1).clamp_max(S)
         bnd, kind = bound_ms(mixed_attention_bytes(lens, B, KV, T, H, Dh),
@@ -3210,7 +3256,7 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
                 "protoquant_tpu/ops/qmatmul.py:38", "M=4 K=4096 N=11008 bf16 out"),
     "kv_scatter_decode": ("protoquant_tpu_torch/csrc/kv_scatter.cu",
                           "protoquant_tpu/ops/kv_scatter.py:37", None),
-    "int8_kv_attention": ("protoquant_tpu_torch/csrc/attention.cu",
+    "int8_kv_attention": ("protoquant_tpu_torch/csrc/attn_split.cuh",
                           "protoquant_tpu/ops/attention.py:68", "decode"),
     "weight_only_matmul": ("protoquant_tpu_torch/csrc/wo_matmul.cu",
                            "protoquant_tpu/ops/wo_matmul.py:24", "M=4 K=4096 N=11008 bf16 out"),
@@ -3243,22 +3289,29 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
                           "protoquant_tpu/ops/attention.py:495", "decode"),
     "kv_mixed_scatter_decode": ("protoquant_tpu_torch/csrc/kv_scatter.cu",
                                 "protoquant_tpu/ops/kv_scatter.py:362", None),
-    "mixed_kv_attention": ("protoquant_tpu_torch/csrc/attention.cu",
+    "mixed_kv_attention": ("protoquant_tpu_torch/csrc/attn_split.cuh",
                            "protoquant_tpu/ops/attention.py:854", "decode"),
     "qmatmul_reduce_scatter_dma": ("protoquant_tpu_torch/csrc/collective_matmul.cu",
                                    "protoquant_tpu/ops/collective_matmul.py:48",
                                    f"tp=2 M=4 K={HIDDEN} N={HIDDEN}"),
 }
 # Every file of a kernel whose wrapper runs more than one source, by the
-# calls that run each: a KIVI decode is the split kernel and then the merge,
-# two CUDA launches that the wrapper counts as one call; a prefill chunk is
-# the one-pass kernel. The "decode" row's times are those of the pair.
-_KIVI_CSRC = "protoquant_tpu_torch/csrc/"
+# calls that run each: a decode is the split kernel and then the merge, two
+# CUDA launches that the wrapper counts as one call; a prefill chunk is the
+# one-pass kernel. The "decode" row's times are those of the pair.
+_CSRC = "protoquant_tpu_torch/csrc/"
+_MERGE = [_CSRC + "split_common.cuh", _CSRC + "split_merge.cu"]
 KERNEL_SOURCES = {
-    name: {"decode": [_KIVI_CSRC + "kivi_split.cuh", _KIVI_CSRC + f"kivi_split_{tier}.cu",
-                      _KIVI_CSRC + "kivi_combine.cu"],
-           "prefill": [_KIVI_CSRC + "kivi_attention.cu"]}
-    for name, tier in (("k4v8_attention", "k4v8"), ("int4_kv_attention", "int4"))}
+    **{name: {"decode": [_CSRC + "kivi_split.cuh", _CSRC + f"kivi_split_{tier}.cu",
+                         _CSRC + "kivi_combine.cu", *_MERGE],
+              "prefill": [_CSRC + "kivi_attention.cu"]}
+       for name, tier in (("k4v8_attention", "k4v8"), ("int4_kv_attention", "int4"))},
+    "int8_kv_attention": {"decode": [_CSRC + f for f in (
+        "attn_split.cuh", "attn_split.cu", "attn_split_int8.cu", "attn_split_ext.cu")] + _MERGE,
+                          "prefill": [_CSRC + "attention.cu"]},
+    "mixed_kv_attention": {"decode": [_CSRC + f for f in (
+        "attn_split.cuh", "attn_split.cu", "attn_split_k8v4.cu")] + _MERGE,
+                           "prefill": [_CSRC + "attention.cu"]}}
 
 
 def timed(name: str, fn, *args, **kwargs):

@@ -54,8 +54,11 @@
 // instance, the window and softcap alone cost Llama-2-7B's decode 2.5-8 %
 // on an H100, and the positions and slopes Gemma-2's sliding decode 4.5 %:
 // tools/attention_timing.py). Each row's ALiBi slope sits in a register.
-// Decode (one row per block) leaves three warps idle after loading and
-// runs one block per (b, kv head); splitting S across blocks is later work.
+// At decode (one row per block) three warps would only load and one block
+// would walk each (b, kv head): a call whose rows fit a split block (every
+// decode) takes the split-S design of attn_split.cuh instead (as_plan
+// decides; ops/attention.py asks pq_attn_split_plan), and this kernel keeps
+// the calls with more rows (prefill chunks).
 // V4 (K8V4): vq [B, KV, S/2, Dh] int8 holds token pairs (row r: token 2r in
 // the low nibble, 2r + 1 in the high one) and vs [B, KV, 2, S/2] f32 their
 // per-token scales (plane 0 even tokens, plane 1 odd). Each tile's 32 byte

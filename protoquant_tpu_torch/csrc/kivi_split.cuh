@@ -10,7 +10,7 @@
 // four busy, a synchronous load and two barriers per tile: latency, not
 // bytes, holds it back. A call takes this design, whatever its batch, when
 // its rows fit one block, its G (>= 8) divides or is divided by the tile,
-// and it needs at most KS_MAX_SPLITS splits: ks_plan decides, and
+// and it needs at most SP_MAX_SPLITS splits: ks_plan decides, and
 // pq_kivi_split_plan (kivi_combine.cu) tells the wrapper, which sizes the
 // partials' workspace by it. This design:
 // - Grid (n_split, KV, B). Split sp < n_split - 1 covers the packed keys
@@ -49,7 +49,8 @@
 //   blocks' work). Only the rows that hold live keys are copied.
 // - f32 on the CUDA cores: at decode M = group <= 8 rows a kv head; the work
 //   is bytes.
-// - kivi_combine_kernel merges each row's partials in split order: the
+// - split_merge (split_common.cuh, shared with the int8 and K8V4 split
+//   decode of attn_split.cuh) merges each row's partials in split order: the
 //   learned sink joins once, as the initial state m = sink, l = 1, acc = 0;
 //   m = max m_i, l = sum l_i e^(m_i - m), out = sum acc_i e^(m_i - m) / l.
 //   The partials live in a workspace the wrapper takes from PyTorch's
@@ -66,7 +67,7 @@
 
 #include <numeric>
 
-#include "kivi.cuh"
+#include "split_common.cuh"
 
 struct KiviSplitArgs {
   const void* q;
@@ -96,9 +97,7 @@ struct KiviSplitArgs {
 constexpr int KS_THREADS = 128;
 constexpr int KS_WARPS = KS_THREADS / 32;
 constexpr int KS_STAGES = 2;
-constexpr float KS_NEG_INF = -1e30f;
 constexpr int KS_MIN_G = 8;
-constexpr int KS_MAX_SPLITS = 2048;  // the merge keeps (m, l, w) of each in shared memory
 
 // Tile geometry at head dim DH.
 template <int DH>
@@ -124,7 +123,7 @@ inline int ks_plan_dh(int R, int S, int G, int* span) {
   if (R > Gm::MAX_RB || G < KS_MIN_G || (Gm::KT % G != 0 && G % Gm::KT != 0)) return 0;
   const int sp = std::lcm(Gm::SPAN, G);
   const int n = (S + sp - 1) / sp + 1;
-  if (n > KS_MAX_SPLITS) return 0;
+  if (n > SP_MAX_SPLITS) return 0;
   *span = sp;
   return n;
 }
@@ -158,56 +157,6 @@ __host__ __device__ constexpr int ks_smem_bytes(int G) {
   return (stages > merge ? stages : merge) + 4 * (RB * DH + KS_WARPS * RB * Gm::KW);
 }
 
-__device__ __forceinline__ void ks_cp16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void ks_cp4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void ks_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void ks_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The signed nibble at bit ``sh`` of a word given as x = word ^ 0x88888888
-// (every nibble biased by 8), as an f32: 2^23 + (nib + 8) - (2^23 + 8), exact.
-__device__ __forceinline__ float ks_nib(unsigned x, int sh) {
-  return __fsub_rn(__uint_as_float(0x4B000000u | ((x >> sh) & 0xFu)), 8388616.0f);
-}
-
-// The signed byte e of a word given as x = word ^ 0x80808080, as an f32, exact.
-__device__ __forceinline__ float ks_byte(unsigned x, int e) {
-  return __fsub_rn(__uint_as_float(__byte_perm(x, 0x4B000000u, 0x7650 + e)), 8388736.0f);
-}
-
-__device__ __forceinline__ float ks_load_q(const void* q, int dtype, size_t i) {
-  if (dtype == PQ_BF16) return __bfloat162float(((const __nv_bfloat16*)q)[i]);
-  if (dtype == PQ_F16) return __half2float(((const __half*)q)[i]);
-  return ((const float*)q)[i];
-}
-
-// N (1, 2, 4 or 8) bytes at p as words (the rest zero).
-template <int N>
-__device__ __forceinline__ void ks_load_bytes(const int8_t* p, unsigned (&w)[(N + 3) / 4]) {
-  if constexpr (N == 8) {
-    const uint2 v = *(const uint2*)p;
-    w[0] = v.x;
-    w[1] = v.y;
-  } else if constexpr (N == 4) {
-    w[0] = *(const unsigned*)p;
-  } else if constexpr (N == 2) {
-    w[0] = *(const unsigned short*)p;
-  } else {
-    w[0] = *(const unsigned char*)p;
-  }
-}
-
 template <int DH, bool V4, int VAR, int RB>
 __global__ void __launch_bounds__(KS_THREADS) kivi_split_kernel(const KiviSplitArgs a) {
   using Gm = KsGeom<DH>;
@@ -238,7 +187,7 @@ __global__ void __launch_bounds__(KS_THREADS) kivi_split_kernel(const KiviSplitA
   const size_t pbase = (bh * a.n_split + sp) * R;
   if (k_lo >= k_hi) {  // an empty partial
     for (int r = threadIdx.x; r < R; r += KS_THREADS)
-      a.part_ml[pbase + r] = make_float2(KS_NEG_INF, 0.0f);
+      a.part_ml[pbase + r] = make_float2(SP_NEG_INF, 0.0f);
     return;
   }
 
@@ -275,59 +224,59 @@ __global__ void __launch_bounds__(KS_THREADS) kivi_split_kernel(const KiviSplitA
       const int8_t* vt = vg + (size_t)(V4 ? k0 / 2 : k0) * DH;
       for (int idx = threadIdx.x; idx < (r1 - r0) * C16; idx += KS_THREADS) {
         const int row = r0 + idx / C16, c = 16 * (idx % C16);
-        ks_cp16(Ks + row * KSTR + c, kt + row * DH + c);
-        if (V4) ks_cp16(Vs + row * DH + c, vt + row * DH + c);
+        sp_cp16(Ks + row * KSTR + c, kt + row * DH + c);
+        if (V4) sp_cp16(Vs + row * DH + c, vt + row * DH + c);
       }
       if (!V4) {
         const int j0 = a0 - k0;
         for (int idx = threadIdx.x; idx < (a1 - a0) * C16; idx += KS_THREADS) {
           const int row = j0 + idx / C16, c = 16 * (idx % C16);
-          ks_cp16(Vs + row * DH + c, vt + (size_t)row * DH + c);
+          sp_cp16(Vs + row * DH + c, vt + (size_t)row * DH + c);
         }
       }
       const int c0 = k0 / G, ncl = min(nch, S / G - c0);
       for (int idx = threadIdx.x; idx < ncl * (DH / 4); idx += KS_THREADS)
-        ks_cp16(Cs + 4 * idx, csg + (size_t)c0 * DH + 4 * idx);
+        sp_cp16(Cs + 4 * idx, csg + (size_t)c0 * DH + 4 * idx);
       if (V4) {  // the two parity planes of the tile's PT packed rows
         const int n4 = min(PT, S2 - k0 / 2) / 4;
         for (int idx = threadIdx.x; idx < 2 * n4; idx += KS_THREADS) {
           const int plane = idx / n4, c = 4 * (idx % n4);
-          ks_cp16(Ss + plane * PT + c, vsg + plane * S2 + k0 / 2 + c);
+          sp_cp16(Ss + plane * PT + c, vsg + plane * S2 + k0 / 2 + c);
         }
       } else {
         const int n4 = min(KT, S - k0) / 4;
         for (int idx = threadIdx.x; idx < n4; idx += KS_THREADS)
-          ks_cp16(Ss + 4 * idx, vsg + k0 + 4 * idx);
+          sp_cp16(Ss + 4 * idx, vsg + k0 + 4 * idx);
       }
     } else {  // positions [a0, a1) = [k0, a1), row j of the tile from tail row (k0 + j) mod 2G
       for (int idx = threadIdx.x; idx < (a1 - a0) * C16; idx += KS_THREADS) {
         const int j = idx / C16, c = 16 * (idx % C16);
         const int col = (k0 + j) % TC;
-        ks_cp16(Ks + j * KSTR + c, ktg + (size_t)col * DH + c);
-        ks_cp16(Vs + j * DH + c, vtg + (size_t)col * DH + c);
+        sp_cp16(Ks + j * KSTR + c, ktg + (size_t)col * DH + c);
+        sp_cp16(Vs + j * DH + c, vtg + (size_t)col * DH + c);
       }
       for (int j = threadIdx.x; j < a1 - a0; j += KS_THREADS) {
         const int col = (k0 + j) % TC;
-        ks_cp4(Ss + j, ktsg + col);
-        ks_cp4(Ss + PT + j, vtsg + col);
+        sp_cp4(Ss + j, ktsg + col);
+        sp_cp4(Ss + PT + j, vtsg + col);
       }
     }
   };
 
   issue(0);
-  ks_commit();
+  sp_commit();
   if (n_tiles > 1) issue(1);
-  ks_commit();
+  sp_commit();
 
   for (int i = threadIdx.x; i < R * DH; i += KS_THREADS) {
     const int r = i / DH, d = i % DH;
     const int t = r / group, gi = r % group;
-    Qs[i] = ks_load_q(a.q, a.q_dtype, (((size_t)b * a.T + t) * a.H + h * group + gi) * DH + d);
+    Qs[i] = sp_load_q(a.q, a.q_dtype, (((size_t)b * a.T + t) * a.H + h * group + gi) * DH + d);
   }
   float m[RB], l[RB], acc[RB][DPL], slope[RB];
 #pragma unroll
   for (int r = 0; r < RB; ++r) {
-    m[r] = KS_NEG_INF;
+    m[r] = SP_NEG_INF;
     l[r] = 0.0f;
     slope[r] = VAR == 2 && a.alibi != nullptr && r < R ? a.alibi[h * group + r % group] : 0.0f;
 #pragma unroll
@@ -337,7 +286,7 @@ __global__ void __launch_bounds__(KS_THREADS) kivi_split_kernel(const KiviSplitA
   const int prow = lane % PRW, jp = lane / PRW;  // the lane's row in the warp's slice, dim part
 
   for (int i = 0; i < n_tiles; ++i) {
-    ks_wait<KS_STAGES - 1>();
+    sp_wait<KS_STAGES - 1>();
     __syncthreads();  // tile i landed; Q staged
     const unsigned char* Ks = smem + (i % KS_STAGES) * stage_bytes;
     const int8_t* Vs = reinterpret_cast<const int8_t*>(Ks + PT * KSTR);
@@ -366,8 +315,8 @@ __global__ void __launch_bounds__(KS_THREADS) kivi_split_kernel(const KiviSplitA
             const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              klo[4 * wi + e] = __fmul_rn(ks_nib(x[wi], 8 * e), sc[e]);
-              khi[4 * wi + e] = __fmul_rn(ks_nib(x[wi], 8 * e + 4), sc[e]);
+              klo[4 * wi + e] = __fmul_rn(sp_nib(x[wi], 8 * e), sc[e]);
+              khi[4 * wi + e] = __fmul_rn(sp_nib(x[wi], 8 * e + 4), sc[e]);
             }
           }
 #pragma unroll
@@ -395,7 +344,7 @@ __global__ void __launch_bounds__(KS_THREADS) kivi_split_kernel(const KiviSplitA
 #pragma unroll
           for (int wi = 0; wi < 4; ++wi)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) kf[4 * wi + e] = __fmul_rn(ks_byte(x[wi], e), ksc);
+            for (int e = 0; e < 4; ++e) kf[4 * wi + e] = __fmul_rn(sp_byte(x[wi], e), ksc);
 #pragma unroll
           for (int r = 0; r < RB; ++r) {
             if (r >= R) break;
@@ -435,11 +384,11 @@ __global__ void __launch_bounds__(KS_THREADS) kivi_split_kernel(const KiviSplitA
           if (VAR > 0 && a.softcap > 0.0f) v = a.softcap * tanhf(v * inv_cap);
           if (VAR == 2) v -= slope[r] * (float)(hz - p);
           ok[tk] = v_ok;
-          sc[tk] = v_ok ? v : KS_NEG_INF;
+          sc[tk] = v_ok ? v : SP_NEG_INF;
         }
         const float tmax = pq_warp_max(fmaxf(sc[0], sc[1]));
         float p0 = 0.0f, p1 = 0.0f;
-        if (tmax > KS_NEG_INF) {  // warp-uniform: the row sees a key of the slice
+        if (tmax > SP_NEG_INF) {  // warp-uniform: the row sees a key of the slice
           any = true;
           const float m_new = fmaxf(m[r], tmax);
           const float corr = expf(m[r] - m_new);
@@ -470,13 +419,13 @@ __global__ void __launch_bounds__(KS_THREADS) kivi_split_kernel(const KiviSplitA
           for (int j = 0; j < KW; j += 2) {
             const int8_t* v0 = Vs + (warp * KW + j) * DH + lane * DPL;
             unsigned w0w[NW], w1w[NW];
-            ks_load_bytes<DPL>(v0, w0w);
-            ks_load_bytes<DPL>(v0 + DH, w1w);
+            sp_load_bytes<DPL>(v0, w0w);
+            sp_load_bytes<DPL>(v0 + DH, w1w);
             float f0[DPL], f1[DPL];
 #pragma unroll
             for (int e = 0; e < DPL; ++e) {
-              f0[e] = ks_byte(w0w[e / 4] ^ 0x80808080u, e % 4);
-              f1[e] = ks_byte(w1w[e / 4] ^ 0x80808080u, e % 4);
+              f0[e] = sp_byte(w0w[e / 4] ^ 0x80808080u, e % 4);
+              f1[e] = sp_byte(w1w[e / 4] ^ 0x80808080u, e % 4);
             }
 #pragma unroll
             for (int r = 0; r < RB; ++r) {
@@ -490,13 +439,13 @@ __global__ void __launch_bounds__(KS_THREADS) kivi_split_kernel(const KiviSplitA
 #pragma unroll 4
           for (int jj = 0; jj < PRW; ++jj) {
             unsigned ww[NW];
-            ks_load_bytes<DPL>(Vs + (warp * PRW + jj) * DH + lane * DPL, ww);
+            sp_load_bytes<DPL>(Vs + (warp * PRW + jj) * DH + lane * DPL, ww);
             float f0[DPL], f1[DPL];
 #pragma unroll
             for (int e = 0; e < DPL; ++e) {
               const unsigned x = ww[e / 4] ^ 0x88888888u;
-              f0[e] = ks_nib(x, 8 * (e % 4));
-              f1[e] = ks_nib(x, 8 * (e % 4) + 4);
+              f0[e] = sp_nib(x, 8 * (e % 4));
+              f1[e] = sp_nib(x, 8 * (e % 4) + 4);
             }
 #pragma unroll
             for (int r = 0; r < RB; ++r) {
@@ -510,14 +459,14 @@ __global__ void __launch_bounds__(KS_THREADS) kivi_split_kernel(const KiviSplitA
 #pragma unroll 4
           for (int jj = 0; jj < PRW; ++jj) {
             unsigned ww[NW];
-            ks_load_bytes<DPL>(Vs + (warp * PRW + jj) * DH + lane * DPL, ww);
+            sp_load_bytes<DPL>(Vs + (warp * PRW + jj) * DH + lane * DPL, ww);
 #pragma unroll
             for (int r = 0; r < RB; ++r) {
               if (r >= R) break;
               const float p = Pw[r * KW + jj];
 #pragma unroll
               for (int e = 0; e < DPL; ++e)
-                acc[r][e] += p * ks_byte(ww[e / 4] ^ 0x80808080u, e % 4);
+                acc[r][e] += p * sp_byte(ww[e / 4] ^ 0x80808080u, e % 4);
             }
           }
         }
@@ -525,13 +474,13 @@ __global__ void __launch_bounds__(KS_THREADS) kivi_split_kernel(const KiviSplitA
     }
     __syncthreads();  // stage i % KS_STAGES consumed
     if (i + KS_STAGES < n_tiles) issue(i + KS_STAGES);
-    ks_commit();
+    sp_commit();
   }
 
   // merge the warps' states in warp order; write the split's partial
 #pragma unroll
   for (int r = 0; r < RB; ++r) l[r] = pq_warp_sum(l[r]);
-  ks_wait<0>();
+  sp_wait<0>();
   __syncthreads();
   float* Mw = reinterpret_cast<float*>(smem);  // [warps][RB]
   float* Lw = Mw + KS_WARPS * RB;
@@ -549,7 +498,7 @@ __global__ void __launch_bounds__(KS_THREADS) kivi_split_kernel(const KiviSplitA
   __syncthreads();
   for (int idx = threadIdx.x; idx < R * DH; idx += KS_THREADS) {
     const int r = idx / DH, d = idx % DH;
-    float M = KS_NEG_INF;
+    float M = SP_NEG_INF;
 #pragma unroll
     for (int w = 0; w < KS_WARPS; ++w) M = fmaxf(M, Mw[w * RB + r]);
     float L = 0.0f, A = 0.0f;

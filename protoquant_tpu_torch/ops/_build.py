@@ -36,7 +36,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _PP = ctypes.POINTER(ctypes.c_void_p)
 # C signatures of the entry points in csrc/*.cu (every one returns an int,
-# a cudaError_t, and takes the stream last, but pq_kivi_split_plan).
+# a cudaError_t, and takes the stream last, but the split plans).
 SIGNATURES = {
     # x, x_dtype, xq, sx, M, K, stream
     "pq_rowquant": [_P, _I, _P, _P, _I, _I, _P],
@@ -91,6 +91,13 @@ SIGNATURES = {
     # T, H, KV, S, Dh, G, out span; returns n_split (0: the one-pass kernel),
     # launches nothing and takes no stream
     "pq_kivi_split_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
+    # the split-S int8 and K8V4 decode: as their one-pass entries, with the
+    # partials' workspace (acc, (m, l)) after out and n_split before the stream
+    "pq_int8_kv_attention_split": [_P, _I] + [_P] * 11 + [_I] * 6 + [_F, _I, _F, _I, _I, _P],
+    "pq_mixed_kv_attention_split": [_P, _I] + [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    # T, H, KV, S, Dh, window, sinks, ring (0 or 1), out span; as
+    # pq_kivi_split_plan
+    "pq_attn_split_plan": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)],
     # pointer arrays xq, sx, wq, sw, out (by local rank), comm, data, credit
     # (by ring rank); tp, rank_base, tp_local, M, N, K, epoch, stream
     "pq_ring_qmatmul_rs": [_PP] * 8 + [_I] * 6 + [ctypes.c_uint, _P],

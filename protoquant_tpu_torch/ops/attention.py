@@ -1,16 +1,24 @@
 """Attention over the dense KV caches: kernels and plain versions.
 
-The int8 kernel (``csrc/attention.cu``) replaces the Pallas kernel
-``protoquant_tpu/ops/attention.py:_attn_kernel`` for causal GQA with its
-sliding window (tiles wholly below it skipped), score scale and softcap;
-its plain version mirrors ``int8_kv_attention_xla`` of the JAX package.
-The same source, with its V layout switched to packed int4 token pairs,
-replaces ``_attn_mixed_kernel`` (the K8V4 cache); its plain version
-unpacks V and runs the int8 one, as the JAX test holds the Pallas kernel.
+The int8 kernels replace the Pallas kernel
+``protoquant_tpu/ops/attention.py:_attn_kernel`` for causal GQA with all
+its variants; its plain version mirrors ``int8_kv_attention_xla`` of the
+JAX package. The same sources, with their V layout switched to packed int4
+token pairs, replace ``_attn_mixed_kernel`` (the K8V4 cache); its plain
+version unpacks V and runs the int8 one, as the JAX test holds the Pallas
+kernel. A call whose query rows a kv head fit one split block (every
+decode), at any batch, takes the split-S design (``csrc/attn_split.cuh``,
+merged by ``split_merge.cu``: blocks over fixed column ranges sized from
+the capacity, dead ones exiting at once; :func:`attn_split_plan` asks the
+library's plan; a windowed call's grid covers its window alone), any
+other call the one-pass kernel (``csrc/attention.cu``: tiles wholly below
+the window skipped).
+:func:`dense_attention_partials_ref` spells the split out in plain
+PyTorch, for the tests.
 The KIVI kernels replace ``_attn_k4v8_kernel`` and ``_attn4_kernel``: a
 call whose query rows a kv head fit one split block (every decode), at any
 batch, takes the split-S design (``csrc/kivi_split.cuh``,
-``kivi_combine.cu``: blocks over fixed key ranges and the tail, partials
+``split_merge.cu``: blocks over fixed key ranges and the tail, partials
 merged in split order; :func:`kivi_split_plan` asks the library's plan),
 any other call the one-pass kernel (``csrc/kivi_attention.cu``); their
 plain versions dequantize the cache to f32 (``dequant_fp(lane=f32)`` of
@@ -188,23 +196,95 @@ def _dense_attention_launch(name, fn, v4, q, kq, ks, vq, vs, lengths, scale=0.0,
     dev = _build.same_device_contiguous(name, q, kq, ks, vq, vs, lengths, *extra)
     out = torch.empty_like(q)
     ptr = lambda t: None if t is None else t.data_ptr()
-    lib = _build.lib()
-    if v4:
-        err = lib.pq_mixed_kv_attention(
-            q.data_ptr(), _build.DTYPE_CODES[q.dtype], kq.data_ptr(), ks.data_ptr(),
-            vq.data_ptr(), vs.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, T, H, KV, S, Dh, score_scale(Dh, scale), _build.stream_ptr(dev))
-        _build.check(err, "pq_mixed_kv_attention")
-    else:
-        err = lib.pq_int8_kv_attention(
-            q.data_ptr(), _build.DTYPE_CODES[q.dtype], kq.data_ptr(), ks.data_ptr(),
-            vq.data_ptr(), vs.data_ptr(), lengths.data_ptr(), ptr(k_positions),
-            ptr(alibi_slopes), ptr(sink_logits), out.data_ptr(), B, T, H, KV, S, Dh,
-            score_scale(Dh, scale),
-            window, float(softcap), int(sinks), _build.stream_ptr(dev))
-        _build.check(err, "pq_int8_kv_attention")
+    c_name = "pq_mixed_kv_attention" if v4 else "pq_int8_kv_attention"
+    head = (q.data_ptr(), _build.DTYPE_CODES[q.dtype], kq.data_ptr(), ks.data_ptr(),
+            vq.data_ptr(), vs.data_ptr(), lengths.data_ptr())
+    shape = (B, T, H, KV, S, Dh, score_scale(Dh, scale))
+    if not v4:  # the variants the K8V4 entries do not take
+        head += (ptr(k_positions), ptr(alibi_slopes), ptr(sink_logits))
+        shape += (window, float(softcap), int(sinks))
+    plan = attn_split_plan(T, H, KV, S, Dh, window, sinks, k_positions is not None)
+    if plan is None:
+        err = getattr(_build.lib(), c_name)(*head, out.data_ptr(), *shape,
+                                            _build.stream_ptr(dev))
+    else:  # the partials' workspace, from PyTorch's allocator: nothing kept between calls
+        c_name += "_split"
+        n_split = plan[1]
+        R = T * (H // KV)
+        part_acc = torch.empty(B, KV, n_split, R, Dh, dtype=torch.float32, device=dev)
+        part_ml = torch.empty(B, KV, n_split, R, 2, dtype=torch.float32, device=dev)
+        err = getattr(_build.lib(), c_name)(*head, out.data_ptr(), part_acc.data_ptr(),
+                                            part_ml.data_ptr(), *shape, n_split,
+                                            _build.stream_ptr(dev))
+    _build.check(err, c_name)
     fn.launches += 1
     return out
+
+
+def attn_split_plan(T, H, KV, S, head_dim, window=0, sinks=0, ring=False):
+    """(span, n_split) of the split-S decode for an int8 or K8V4 attention
+    call, or None where the one-pass kernel takes it, as ``as_plan`` in
+    ``csrc/attn_split.cuh`` decides (asked through the built library): the
+    columns of a split and the number of splits (over the capacity S, or
+    over the window of a windowed call without ring positions (``ring``)
+    and StreamingLLM ``sinks``; there the kernel may take a longer span
+    when the batch's rows keep more splits live than one wave of the card
+    holds, so that the partials fill fewer of the n_split slots)."""
+    span = ctypes.c_int(0)
+    n_split = _build.lib().pq_attn_split_plan(T, H, KV, S, head_dim, int(window), int(sinks),
+                                              int(ring), ctypes.byref(span))
+    return (span.value, n_split) if n_split else None
+
+
+def dense_attention_partials_ref(q, kq, ks, vq, vs, lengths, *, span, v4=False, window=0,
+                                 scale=0.0, softcap=0.0, k_positions=None, sinks=0,
+                                 alibi_slopes=None):
+    """The split design of the int8 and K8V4 attentions in plain PyTorch:
+    for each (b, kv head), split i holds the columns [i span, (i + 1) span)
+    of the capacity S (the kernel's span is :func:`attn_split_plan`'s),
+    n_split = ceil(S / span); with ``v4`` the cache is K8V4's (V unpacked by
+    :func:`unpack_v4`). Every variant applies per column as in
+    :func:`int8_kv_attention_ref`: the window, the score scale, the softcap,
+    the ring positions ``k_positions``, the StreamingLLM ``sinks`` and ALiBi
+    after the softcap. Per split and query row r = t group + g: m = the
+    largest visible score, l = sum e^(score - m), acc = sum e^(score - m)
+    vs v; a split with no visible key is empty (m = NEG_INF, l = 0, acc =
+    0). Returns acc [B, KV, n_split, R, Dh], m and l [B, KV, n_split, R],
+    f32. The learned sinks join in :func:`merge_partials_ref`."""
+    if v4:
+        vq, vs = unpack_v4(vq, vs)
+    window = _window("dense_attention_partials_ref", window)
+    B, T, H, Dh = q.shape
+    KV, S = kq.shape[1], kq.shape[2]
+    grp, R = H // KV, T * (H // KV)
+    n_split = -(-S // span)
+    qh = (q.float() * score_scale(Dh, scale)).reshape(B, T, KV, grp, Dh)
+    scores = torch.einsum("btkgd,bksd->bktgs", qh, kq.float()).reshape(B, KV, R, S)
+    scores = scores * ks[:, :, None, :]
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
+    t_pos = (lengths.long()[:, None] + torch.arange(T, device=q.device))[:, None, :, None]
+    t_pos = t_pos.expand(B, 1, T, grp).reshape(B, 1, R, 1)
+    if k_positions is None:
+        kp = torch.arange(S, device=q.device)[None, None, None, :]
+    else:
+        kp = k_positions.long()[:, None, None, :]  # [B, 1, 1, S]
+    if alibi_slopes is not None:
+        sl = alibi_slopes.float().reshape(KV, grp).repeat(1, T)  # [KV, R]
+        scores = scores - sl[None, :, :, None] * (t_pos - kp).float()
+    valid = (kp <= t_pos) & (kp >= 0)
+    if window > 0:
+        in_window = kp > t_pos - window
+        if sinks > 0:
+            in_window |= kp < sinks
+        valid &= in_window
+    cols = torch.arange(S, device=q.device)
+    member = (cols[:, None] // span) == torch.arange(n_split, device=q.device)  # [S, n_split]
+    live = valid[..., None] & member  # [B, KV, R, S, n_split]
+    m = torch.where(live, scores[..., None], NEG_INF).amax(dim=3)  # [B, KV, R, n_split]
+    p = torch.where(live, torch.exp(scores[..., None] - m[:, :, :, None]), 0.0)
+    acc = torch.einsum("bkrsn,bksd->bknrd", p * vs[:, :, None, :, None], vq.float())
+    return acc, m.transpose(2, 3), p.sum(dim=3).transpose(2, 3)
 
 
 def int8_kv_attention(q, kq, ks, vq, vs, lengths, window=0, scale=0.0, softcap=0.0,
@@ -398,11 +478,12 @@ def kivi_attention_partials_ref(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, len
 
 
 def merge_partials_ref(acc, m, l, heads, sink_logits=None, dtype=torch.float32):
-    """The merge of :func:`kivi_attention_partials_ref`'s partials in split
-    order, the learned sink (``sink_logits`` [heads]) joining once as the
-    state m = sink, l = 1, acc = 0: M = max(sink, m_i over the splits with l_i
-    > 0), out = sum_i acc_i e^(m_i - M) / (e^(sink - M) + sum_i l_i e^(m_i -
-    M)). Returns [B, T, heads, Dh] in ``dtype``."""
+    """The merge of :func:`kivi_attention_partials_ref`'s or
+    :func:`dense_attention_partials_ref`'s partials in split order, the
+    learned sink (``sink_logits`` [heads]) joining once as the state m =
+    sink, l = 1, acc = 0: M = max(sink, m_i over the splits with l_i > 0),
+    out = sum_i acc_i e^(m_i - M) / (e^(sink - M) + sum_i l_i e^(m_i - M)).
+    Returns [B, T, heads, Dh] in ``dtype``."""
     B, KV, _, R, Dh = acc.shape
     grp = heads // KV
     live = l > 0

@@ -19,7 +19,9 @@ largest output in bf16. The mixed K8V4 writer: exact on all four cache
 tensors; the mixed attention as the KIVI ones. The split-S KIVI decode:
 the same tolerances at split boundaries, with dead splits below a window and
 with only the tail live, and bit for bit across two calls and in a CUDA
-graph. The learned-sink variants
+graph; the split-S int8 and K8V4 decode likewise, with ring positions,
+StreamingLLM sinks, ALiBi and learned sinks, at batch 9 and 32, prefill
+chunks still on the one-pass kernel. The learned-sink variants
 (GPT-OSS) as their attentions; a tiny GPT-OSS on the card against the same
 model on the CPU: logits within 2^-7 of their scale, at least 0.9 of the
 engine's greedy tokens equal (an int8 activation code on a rounding
@@ -821,6 +823,199 @@ def test_mixed_wrappers_reject_and_count(cuda):
     counts = ops.launch_counts()
     assert (counts["mixed_kv_attention"], counts["kv_mixed_scatter_decode"]) == (1, 1)
     assert counts["int8_kv_attention"] == counts["kv_scatter_decode"] == 0
+
+
+# -- the split-S int8 and K8V4 decode (csrc/attn_split.cuh): against the plain versions --
+
+# head dim -> GQA group of the decode rows (4 at 32, GPT-OSS's 8 at 64,
+# Llama's 1 at 128, Gemma-2's 2 at 256)
+DENSE_GROUPS = {32: 4, 64: 8, 128: 1, 256: 2}
+DENSE_S = 1024
+
+
+def _dense_case(g, dev, kind, Dh, lens, T=1, KV=2, group=None, S=DENSE_S):
+    """q (f32), an int8 or K8V4 cache and the lengths before the step, for a
+    call that takes the split design."""
+    from protoquant_tpu_torch.ops.attention import attn_split_plan
+
+    group = DENSE_GROUPS[Dh] if group is None else group
+    B = len(lens)
+    if kind == "int8":
+        kq = torch.randint(-127, 128, (B, KV, S, Dh), generator=g, device=dev, dtype=torch.int8)
+        vq = torch.randint_like(kq, -127, 128)
+        ks = torch.rand(B, KV, S, generator=g, device=dev) * 1e-2 + 1e-3
+        vs = torch.rand(B, KV, S, generator=g, device=dev) * 1e-2 + 1e-3
+        cache = [kq, ks, vq, vs]
+    else:
+        cache = _mixed_cache(g, dev, B, KV, S, Dh)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn(B, T, KV * group, Dh, generator=g, device=dev)
+    assert attn_split_plan(T, KV * group, KV, S, Dh) is not None
+    return q, cache, lengths
+
+
+DENSE = {"int8": "int8_kv_attention", "k8v4": "mixed_kv_attention"}
+
+
+def _dense_check(kind, q, cache, lengths, **kw):
+    name = DENSE[kind]
+    out = getattr(ops, name)(q, *cache, lengths, **kw)
+    ref = getattr(ops, name + "_ref")(q, *cache, lengths, **kw)
+    torch.cuda.synchronize()
+    atol = ATOL if q.dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    return out, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
+@pytest.mark.parametrize("kind", ["int8", "k8v4"])
+def test_attn_split_boundaries_vs_plain(cuda, kind, head_dim, dtype):
+    """Lengths 0, a split - 1, a split, twice a split - 1, S - 1 and S (the
+    last row's position past the capacity: it sees every key)."""
+    from protoquant_tpu_torch.ops.attention import attn_split_plan
+
+    span, _ = attn_split_plan(1, DENSE_GROUPS[head_dim], 1, DENSE_S, head_dim)
+    lens = [0, span - 1, span, 2 * span - 1, DENSE_S - 1, DENSE_S]
+    g = torch.Generator(device=cuda).manual_seed(head_dim + 7)
+    q, cache, lengths = _dense_case(g, cuda, kind, head_dim, lens)
+    _dense_check(kind, q.to(dtype), cache, lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2])
+def test_attn_split_window_dead_splits_vs_plain(cuda, T):
+    """A window of 100 at lengths 900 to 1020: the splits below 768 are wholly
+    below every row's window; with softcap and scale (Gemma-2's variants).
+    The grid covers the window alone (2 splits of 128, not 8), but not
+    where StreamingLLM sinks or ring positions come with the window."""
+    from protoquant_tpu_torch.ops.attention import attn_split_plan
+
+    assert attn_split_plan(T, 4, 2, DENSE_S, 128, window=100) == (128, 2)
+    assert attn_split_plan(T, 4, 2, DENSE_S, 128, window=100, sinks=4) == (128, 8)
+    assert attn_split_plan(T, 4, 2, DENSE_S, 128, window=100, ring=True) == (128, 8)
+    assert attn_split_plan(T, 4, 2, DENSE_S, 128, window=5000) == (128, 8)
+    g = torch.Generator(device=cuda).manual_seed(T + 51)
+    q, cache, lengths = _dense_case(g, cuda, "int8", 128, [900, 1000, 1020 - T], T=T, group=2)
+    _dense_check("int8", q * 4, cache, lengths, window=100, scale=0.1, softcap=5.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [700, 4096])
+def test_attn_split_window_grid_in_one_wave_vs_plain(cuda, window):
+    """Rows that have filled their windows, so many that their splits of 128
+    would not fit one wave of the card: the kernel takes a longer span (at
+    7B's KV = 32 with B = 8, window 700 over S 1024, and at Gemma-2's B = 4,
+    KV = 8, Dh 256, window 4096 over S 8192), also with one short row among
+    them."""
+    B, KV, Dh, group, S = (8, 32, 128, 1, DENSE_S) if window < 1000 else (4, 8, 256, 2, 8192)
+    full = [window, window + 191, S - 300, S - 1, window + 5, window + 64, S - 2, S - 128][:B]
+    for lens in (full, [full[0], 3] + full[2:]):
+        g = torch.Generator(device=cuda).manual_seed(121 + window + lens[1])
+        q, cache, lengths = _dense_case(g, cuda, "int8", Dh, lens, KV=KV, group=group, S=S)
+        _dense_check("int8", q.to(torch.bfloat16), cache, lengths, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("sinks", [0, 4])
+def test_attn_split_ring_vs_plain(cuda, sinks, alibi):
+    """A ring of 544 columns (window 256, chunk 256 and 32 of rounding):
+    rows inside it (columns never written), at its wrap and wrapped many
+    times, with StreamingLLM sinks and ALiBi, 4 rows a kv head (Mistral)."""
+    from protoquant_tpu_torch.models import ring_positions
+    from protoquant_tpu_torch.models.llama import alibi_slopes
+
+    C, W = 544, 256
+    lens = [30, C - sinks - 1, C - sinks, 5000]
+    g = torch.Generator(device=cuda).manual_seed(61 + sinks + alibi)
+    q, cache, lengths = _dense_case(g, cuda, "int8", 128, lens, group=4, S=C)
+    cache[1][:, :, :sinks] *= 10.0  # the sinks draw attention
+    kw = dict(window=W, k_positions=ring_positions(lengths + 1, C, sinks), sinks=sinks)
+    if alibi:
+        kw["alibi_slopes"] = alibi_slopes(q.shape[2]).to(cuda)
+    _dense_check("int8", q, cache, lengths, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [40, 300])
+def test_attn_split_sinks_on_contiguous_cache_vs_plain(cuda, window):
+    """StreamingLLM sinks over a contiguous cache stay visible (as the XLA
+    formulation keeps them): the split holding them is walked though the
+    window lies splits above it; 70 sinks and the window's first keys share
+    a split at the short lengths."""
+    g = torch.Generator(device=cuda).manual_seed(71 + window)
+    q, cache, lengths = _dense_case(g, cuda, "int8", 64, [0, 100, 300, 700, 1023])
+    cache[1][:, :, :70] *= 10.0
+    out, ref = _dense_check("int8", q, cache, lengths, window=window, sinks=70)
+    dropped = ops.int8_kv_attention_ref(q, *cache, lengths, window=window)
+    assert (dropped - ref).abs().max() > 10 * ATOL  # the sinks bite
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "k8v4"])
+def test_attn_split_learned_sinks_one_split_live_vs_plain(cuda, kind):
+    """GPT-OSS's learned sinks (int8) where a window of 8 leaves one split
+    live a row; K8V4 (no sinks) with a score scale over the same lengths."""
+    g = torch.Generator(device=cuda).manual_seed(81)
+    q, cache, lengths = _dense_case(g, cuda, kind, 64, [3, 255, 260, 700, 1023])
+    if kind == "int8":
+        kw = dict(window=8, sink_logits=torch.randn(q.shape[2], generator=g, device=cuda) * 2)
+    else:
+        kw = dict(scale=0.1)
+    _dense_check(kind, q, cache, lengths, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [9, 32])
+@pytest.mark.parametrize("kind", ["int8", "k8v4"])
+def test_attn_split_large_batch_vs_plain(cuda, kind, B):
+    """A 7B decode at batch 9 and 32 (B KV more than twice the SMs): the
+    split design at any batch."""
+    g = torch.Generator(device=cuda).manual_seed(91 + B)
+    lens = ([63, 700, 1023, 255, 0, 128, 511, 900, DENSE_S - 1] * 4)[:B]
+    q, cache, lengths = _dense_case(g, cuda, kind, 128, lens, KV=32)
+    _dense_check(kind, q.to(torch.bfloat16), cache, lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "k8v4"])
+def test_attn_split_bitwise_and_cuda_graph(cuda, kind):
+    """Two calls give the same bits; the call captured in a CUDA graph and
+    replayed gives the eager call's bits, and counts one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(101)
+    q, cache, lengths = _dense_case(g, cuda, kind, 128, [63, 700, 1023, 255], KV=32)
+    q = q.to(torch.bfloat16)
+    fn = getattr(ops, DENSE[kind])
+    kw = {"window": 300, "sink_logits": torch.randn(q.shape[2], generator=g, device=cuda)
+          } if kind == "int8" else {"scale": 0.1}
+    call = lambda: fn(q, *cache, lengths, **kw)
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    ops.reset_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+    assert ops.launch_counts()[DENSE[kind]] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "k8v4"])
+def test_attn_prefill_takes_the_one_pass_kernel(cuda, kind):
+    """A prefill chunk of 256 (more rows a kv head than a split block holds)
+    goes to the one-pass kernel; the plan says so."""
+    from protoquant_tpu_torch.ops.attention import attn_split_plan
+
+    g = torch.Generator(device=cuda).manual_seed(111)
+    assert attn_split_plan(256, 2, 2, DENSE_S, 128) is None
+    q, cache, lengths = _dense_case(g, cuda, kind, 128, [300, 700], T=1)
+    q = torch.randn(2, 256, 2, 128, generator=g, device=cuda)
+    _dense_check(kind, q, cache, lengths)
 
 
 # -- the sliding-window, score-scale and softcap variants (Gemma-2 heads) --------

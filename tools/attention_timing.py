@@ -1,4 +1,4 @@
-"""Time the full-causal attention kernels of one checkout on the card.
+"""Time the attention kernels of one checkout on the card.
 
     python3 tools/attention_timing.py [--tree DIR] [--label NAME] [--profile]
 
@@ -6,22 +6,27 @@ Imports protoquant_tpu_torch from DIR (default: the checkout holding this
 script), builds its kernels there, and prints one JSON line: the card, and
 the device time per call in ms (``chip_smoke.bench``: a CUDA graph of 20
 calls over input copies larger than the L2) of the cases every version of
-the kernels takes: with no attention variant, the int8 decode and prefill at
-Llama-2-7B's shapes, the int8 decode at Gemma-2-9B's (Dh 256, S 8192,
-lengths 8000), and the K8V4 decode at Llama-2-7B's shapes; then the int8
-decode of a Gemma-2 sliding layer (window, scale, softcap: the variant
-instance); and for K4V8 and Int4 the decode (lengths 63/700/1023/255) and
-the prefill (T = 256 from 300) at Llama-2-7B's shapes, the decode of a
-Gemma-2 global layer (scale, softcap) and of a GPT-OSS-20B global layer
-(learned sinks), both at S 8192 and lengths 63/4500/8191/1000, and the
-7B decode at B 9, 16 and 32 and the GPT-OSS one at B 32 and 64 (the lengths
-repeated). To compare
-two checkouts, run it on each in turns (A, B, B, A) within one call on one
+the kernels takes. The int8 attention: decode and prefill at Llama-2-7B's
+shapes (lengths 63/700/1023/255; T = 256 from 256), decode at Gemma-2-9B's
+(Dh 256, S 8192) at lengths 8000, full causal and sliding (window, scale,
+softcap), and, as ``chip_smoke.py`` phase 3, the decode of Gemma-2's
+sliding and global layers (lengths 63/4500/8191/1000), of Mistral-7B's
+ring (4608 columns, and 4640 with 4 StreamingLLM sinks; lengths
+63/4607/9000/20000), of BLOOM-560m with ALiBi (S 2048, lengths
+63/700/2047/1000) and of GPT-OSS-20B's global and sliding layers (learned
+sinks; S 8192, lengths 63/4500/8191/1000), and the 7B decode at B 9 and
+32. The K8V4 attention: the 7B decode, prefill (T = 256 from 300) and
+decode at B 9 and 32. K4V8 and Int4: the decode and the prefill (T = 256
+from 300) at Llama-2-7B's shapes, the decode of a Gemma-2 global layer
+(scale, softcap) and of a GPT-OSS-20B global layer (learned sinks), both at
+S 8192 and lengths 63/4500/8191/1000, and the 7B decode at B 9, 16 and 32
+and the GPT-OSS one at B 32 and 64 (the lengths repeated). To compare two
+checkouts, run it on each in turns (A, B, B, A) within one call on one
 card:
 
     python3 tools/attention_timing.py --tree scratch_tree/parent --label parent
 
-With ``--profile`` it also prints, for each KIVI decode, the device time of
+With ``--profile`` it also prints, for each decode, the device time of
 every CUDA kernel one call launches (``torch.profiler``, ms a launch, the
 mean of 20 calls on one cache copy, so L2-warm where the cache fits).
 """
@@ -81,17 +86,54 @@ def main() -> int:
         q = torch.randn(B, T, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
         times[label] = cs.bench([lambda c=c: ops.int8_kv_attention(q, *c, ln, **kw)
                                  for c in caches])
+        if args.profile and T == 1:
+            profiles[label] = profile_kernels(
+                lambda: ops.int8_kv_attention(q, *caches[0], ln, **kw))
 
     time_int8("int8 decode 7B", 4, 1, 32, 32, 1024, 128, decode)
     time_int8("int8 prefill 7B T=256 from 256", 1, 256, 32, 32, 1024, 128, [256])
     time_int8("int8 decode gemma2 full-causal lengths 8000", 4, 1, 16, 8, 8192, 256, [8000] * 4)
     time_int8("int8 decode gemma2 sliding lengths 8000", 4, 1, 16, 8, 8192, 256, [8000] * 4,
               window=4096, scale=0.0625, softcap=50.0)
-    q = torch.randn(4, 1, 32, 128, generator=gen, device=dev).to(torch.bfloat16)
-    caches = [cs._mixed_cache(gen, dev, 4, 32, 1024, 128) for _ in range(cs.copies_for(
-        4 * 32 * 1024 * (3 * 128 // 2 + 8)))]
-    times["k8v4 decode 7B"] = cs.bench(
-        [lambda c=c: ops.mixed_kv_attention(q, *c, lengths) for c in caches])
+
+    def time_k8v4(label, B, T, lens, **kw):
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn(B, T, 32, 128, generator=gen, device=dev).to(torch.bfloat16)
+        caches = [cs._mixed_cache(gen, dev, B, 32, 1024, 128) for _ in range(cs.copies_for(
+            B * 32 * 1024 * (3 * 128 // 2 + 8)))]
+        times[label] = cs.bench(
+            [lambda c=c: ops.mixed_kv_attention(q, *c, ln, **kw) for c in caches])
+        if args.profile and T == 1:
+            profiles[label] = profile_kernels(
+                lambda: ops.mixed_kv_attention(q, *caches[0], ln, **kw))
+
+    time_k8v4("k8v4 decode 7B", 4, 1, decode)
+    time_k8v4("k8v4 prefill 7B T=256 from 300", 1, 256, [300])
+    ragged = [63, 4500, 8191, 1000]
+    g2 = (4, 1, cs.G2_HEADS, cs.G2_KV, cs.G2_SEQ, cs.G2_HEAD_DIM, ragged)
+    time_int8("int8 decode gemma2 sliding", *g2, window=cs.G2_WINDOW, scale=cs.G2_SCALE,
+              softcap=cs.G2_SOFTCAP)
+    time_int8("int8 decode gemma2 global", *g2, scale=cs.G2_SCALE, softcap=cs.G2_SOFTCAP)
+    from protoquant_tpu_torch.models import ring_positions
+    from protoquant_tpu_torch.models.llama import alibi_slopes
+
+    ring_ln = torch.tensor(cs.RING_LENGTHS, dtype=torch.int32, device=dev)
+    for sinks in (0, 4):
+        C = cs.ring_capacity(cs.M7_WINDOW, cs.M7_CHUNK, sinks)
+        time_int8(f"int8 decode mistral ring sinks={sinks}", 4, 1, 32, cs.M7_KV, C, 128,
+                  cs.RING_LENGTHS, window=cs.M7_WINDOW, sinks=sinks,
+                  k_positions=ring_positions(ring_ln + 1, C, sinks))
+    time_int8("int8 decode bloom alibi", 4, 1, cs.BL_HEADS, cs.BL_HEADS, cs.BL_SEQ,
+              cs.BL_HEAD_DIM, cs.BL_LENGTHS, alibi_slopes=alibi_slopes(cs.BL_HEADS).to(dev))
+    time_int8("int8 decode gpt_oss global", 4, 1, cs.GO_HEADS, cs.GO_KV, cs.GO_SEQ,
+              cs.GO_HEAD_DIM, ragged,
+              sink_logits=torch.randn(cs.GO_HEADS, generator=gen, device=dev))
+    time_int8("int8 decode gpt_oss sliding", 4, 1, cs.GO_HEADS, cs.GO_KV, cs.GO_SEQ,
+              cs.GO_HEAD_DIM, ragged, window=cs.GO_WINDOW,
+              sink_logits=torch.randn(cs.GO_HEADS, generator=gen, device=dev))
+    for B in (9, 32):  # B KV at and past twice the SM count
+        time_int8(f"int8 decode 7B B={B}", B, 1, 32, 32, 1024, 128, (decode * B)[:B])
+        time_k8v4(f"k8v4 decode 7B B={B}", B, 1, (decode * B)[:B])
 
     def time_kivi(label, tier, B, T, H, KV, S, Dh, lens, **kw):
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -109,7 +151,6 @@ def main() -> int:
             profiles[label] = profile_kernels(
                 lambda: fn(q, *caches[0], ln, nl, group=cs.KIVI_G, **kw))
 
-    ragged = [63, 4500, 8191, 1000]
     for tier in cs.KIVI_KERNELS:
         time_kivi(f"{tier} decode 7B", tier, 4, 1, 32, 32, 1024, 128, decode)
         time_kivi(f"{tier} prefill 7B T=256 from 300", tier, 1, 256, 32, 32, 1024, 128, [300])
