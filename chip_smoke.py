@@ -39,7 +39,16 @@ Phases (any failure exits non-zero and prints no result line):
               (planted faults, which must miss); the int8 global decode
               with sinks timed against the full-causal instance (a reading);
               the GEMM, rowquant and decode write also at GPT-OSS-20B's
-              shapes (its experts' products at M = 1)
+              shapes (its experts' products at M = 1); the GEMM also at
+              M = 1, 8, 16, 32 and 64 (the decode kernel's threshold), each
+              through the kernel its M routes to, the decode cases against
+              the plain split-K spelling with its last K slice dropped (a
+              planted fault, which must differ); the paged attention at
+              Llama-2-7B's shapes, G = 1 and 4 at B = 4 and G = 1 at B = 9
+              and 32 through the split kernel (its plan printed), bitwise
+              equal across two calls, against the plain split spelling with
+              each row's last live split dropped (a planted fault, which
+              must miss), and G = 8 at Dh 256 through the page walk
   4. slice    LlamaModel(llama2_7b, "dynamic") at full width and depth,
               random int8 weights from --seed, serving 6 greedy requests
               through Engine(max_batch_size=4, max_seq_len=1024,
@@ -212,13 +221,20 @@ Timings with ranks sharing one card measure the kernel and its protocol,
 not a link between cards.
 Each phase prints its seconds, and the run its total.
 The line before the last is {"kernels": [...]}, one entry per kernel body
-(21): "launches" is its count summed over the twenty-one engine runs
+(23): "launches" is its count summed over the twenty-one engine runs
 (phases 4, 6, 8.1, 8.2, 8.3, 10, 12, 13, 15, 17, 19, 20, the five of 22,
 the three of 24-25 and 28), each driven with the counts at 0 and read just
 after ("launches_by_path"). A wrapper counts calls: a decode call of the
-int8, K8V4, K4V8 or Int4 attention is two CUDA launches (the split kernel
-and the merge), and its entry names every file it runs under "sources".
-wo4_legacy and dequant are on no engine path
+int8, K8V4, K4V8, Int4 or paged attention is two CUDA launches (the split
+kernel and the merge), and its entry names every file it runs under
+"sources". Two wrappers route between two kernels by shape before launch
+and count each apart (ops.route_counts): qmatmul ("qmatmul_decode", the
+split-K kernel at M <= 64: every decode step; "qmatmul", the tile kernel:
+prefill chunks) and paged_int8_attention ("paged_int8_attention_split",
+every call whose rows fit a split block; "paged_int8_attention", the page
+walk, for the rest: G 8 at Dh 256, on no engine path); every served path
+must have launched the decode kernel of each routed wrapper it calls.
+wo4_legacy and dequant are on no engine path either
 (a caller reaches wo4_legacy through the formulation argument of
 weight_only_int4_matmul, and dequant as ops.dequant; QTensor.dequantize
 stays on core.numerics, as in the JAX package), so their counts there are
@@ -387,29 +403,61 @@ GO_LINEAR_SHAPES = ((GO_HIDDEN, GO_HEADS * GO_HEAD_DIM), (GO_HIDDEN, GO_KV * GO_
 GO_EXPERT_SHAPES = ((GO_HIDDEN, 2 * GO_INTER), (GO_INTER, GO_HIDDEN))
 
 
-def check_qmatmul(ops, gen, dev):
-    """Llama-2-7B's projections at M = 4 and 256, Gemma-2-9B's, the three
-    other Mistral-7B ones and GPT-OSS-20B's at M = 4, and GPT-OSS-20B's
-    expert products at M = 1."""
-    cases = []
+def qmatmul_shapes(decode_max_m: int = 64) -> list:
+    """(M, K, N) of the GEMM cases: Llama-2-7B's projections at M = 4 and
+    256, Gemma-2-9B's, the three other Mistral-7B ones and GPT-OSS-20B's at
+    M = 4, GPT-OSS-20B's expert products at M = 1, and the 7B gate/up at M
+    = 1, 8, 16, 32 and ``decode_max_m`` (the decode kernel's threshold)."""
     shapes = [(m, k, n) for m in (4, 256)
               for k, n in ((HIDDEN, HIDDEN), (HIDDEN, INTER), (INTER, HIDDEN), (HIDDEN, VOCAB))]
-    for m, k, n in (shapes + [(4, k, n) for k, n in G2_LINEAR_SHAPES + M7_LINEAR_SHAPES
-                              + GO_LINEAR_SHAPES]
-                    + [(1, k, n) for k, n in GO_EXPERT_SHAPES]):
+    return (shapes + [(4, k, n) for k, n in G2_LINEAR_SHAPES + M7_LINEAR_SHAPES
+                      + GO_LINEAR_SHAPES]
+            + [(1, k, n) for k, n in GO_EXPERT_SHAPES]
+            + [(m, HIDDEN, INTER) for m in (1, 8, 16, 32, decode_max_m)])
+
+
+def check_qmatmul(ops, gen, dev, route):
+    """The GEMM cases (``qmatmul_shapes``) that ``route`` takes: "decode"
+    (M <= DECODE_MAX_M, csrc/qmatmul_decode.cu) or "tile" (larger M,
+    csrc/qmatmul.cu); each call must have gone through that kernel. The
+    decode cases also hold a planted fault: the plain split spelling with
+    its last K slice dropped, which must differ."""
+    from protoquant_tpu_torch.ops.qmatmul import DECODE_MAX_M, k_slices, qmatmul_decode_plan
+
+    cases = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m, k, n in qmatmul_shapes(DECODE_MAX_M):
+        splits = qmatmul_decode_plan(m, n, k, sms)
+        if (splits is None) != (route == "tile"):
+            continue
         xq, sx = ops.rowquant_ref(torch.randn(m, k, generator=gen, device=dev))
         ws = [torch.randint(-127, 128, (n, k), generator=gen, device=dev,
                             dtype=torch.int8) for _ in range(copies_for(n * k))]
         sw = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
         for out in (torch.float32, torch.bfloat16):
+            before = ops.qmatmul.routes[route]
             y = ops.qmatmul(xq, ws[0], sx, sw, out_dtype=out)
             ref = ops.qmatmul_ref(xq, ws[0], sx, sw, out_dtype=out)
             torch.cuda.synchronize()
+            if ops.qmatmul.routes[route] != before + 1:
+                raise AssertionError(f"qmatmul M={m} K={k} N={n}: not the {route} kernel")
             if not torch.equal(y, ref):
                 err = (y.float() - ref.float()).abs().max().item()
                 raise AssertionError(f"qmatmul M={m} K={k} N={n} {out}: "
                                      f"max abs err {err}")
-            del y, ref
+            del ref
+        faults = {}
+        if splits is not None:  # a planted fault: the last K slice dropped
+            k0, k1 = k_slices(k, splits)[-1]
+            dropped = xq.clone()
+            dropped[:, k0:k1] = 0
+            bad = ops.qmatmul_splitk_ref(dropped, ws[0], sx, sw, out_dtype=torch.bfloat16,
+                                         k_splits=splits)
+            faults["last K slice dropped"] = int((bad != y).sum().item())
+            if faults["last K slice dropped"] == 0:
+                raise AssertionError(f"qmatmul M={m} K={k} N={n}: the check passes a "
+                                     f"dropped K slice")
+        del y
         b, kind = bound_ms(m * k + n * k + 2 * m * n + 4 * (m + n),
                            2 * m * n * k, INT8_OPS_PER_S)
         # library yardstick: the int32 GEMM alone (cuBLASLt), M padded
@@ -419,6 +467,7 @@ def check_qmatmul(ops, gen, dev):
         bf = torch.bfloat16
         cases.append({
             "shape": f"M={m} K={k} N={n} bf16 out", "max_abs_err": 0.0,
+            **({"k_splits": splits, "faults_differing_elements": faults} if faults else {}),
             "ms": bench([lambda w=w: ops.qmatmul(xq, w, sx, sw, out_dtype=bf) for w in ws]),
             "plain_ms": bench([lambda w=w: ops.qmatmul_ref(xq, w, sx, sw, out_dtype=bf)
                                for w in ws], iters=5),
@@ -843,30 +892,67 @@ def check_paged_scatter(ops, gen, dev):
         "bound_ms": bnd, "bound_by": kind, "library_ms": None}]
 
 
-def check_paged_attention(ops, gen, dev):
+def paged_split_dropped(q, pools, pt, lengths, alibi_slopes=None):
+    """A planted fault: the plain split spelling of the paged attention
+    (``paged_attention_partials_ref``, merged) with each row's last live
+    split dropped, as a kernel that lost a split would compute."""
+    from protoquant_tpu_torch.ops.attention import merge_partials_ref
+    from protoquant_tpu_torch.ops.paged_attention import (SPLIT_SPAN,
+                                                          paged_attention_partials_ref)
+
+    acc, m, l = paged_attention_partials_ref(q, *pools, pt, lengths, span=SPLIT_SPAN,
+                                             alibi_slopes=alibi_slopes)
+    return merge_partials_ref(acc, m, _last_live_dropped(l), q.shape[2], dtype=q.dtype)
+
+
+def check_paged_attention(ops, gen, dev, route="split"):
+    """The paged decode at Llama-2-7B's shapes (128-key pages, 1024
+    positions, a shuffled table): for ``route`` "split" G = 1 and 4 at B = 4
+    (lengths 63 / 700 / 1023 / 255) and G = 1 at B = 9 and 32, each through
+    the split kernel (the plan reported), within ATTN_TOL, with each row's
+    last live split dropped as a planted fault; for "walk" G = 8 at Dh 256,
+    which the split plan refuses (csrc/paged_attention.cu). Library: SDPA
+    over each row's gathered, dequantized bf16 window."""
     import torch.nn.functional as F
 
-    from protoquant_tpu_torch.ops.paged_attention import gather_window
+    from protoquant_tpu_torch.ops.paged_attention import gather_window, paged_split_plan
 
-    B, Dh, max_pages = 4, HEAD_DIM, 1024 // PAGE
-    P = B * max_pages + 1
+    max_pages = 1024 // PAGE
     lens = [63, 700, 1023, 255]
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    shapes = ([(4, 1, HEAD_DIM), (4, 4, HEAD_DIM), (9, 1, HEAD_DIM), (32, 1, HEAD_DIM)]
+              if route == "split" else [(4, 8, 256)])
     cases = []
-    for group in (1, 4):
-        KV = HEADS // group
+    for B, group, Dh in shapes:
+        P = B * max_pages + 1
+        lb = (lens * B)[:B] if B > 4 else lens
+        lengths = torch.tensor(lb, dtype=torch.int32, device=dev)
+        KV = HEADS // group if Dh == HEAD_DIM else 8
         H = KV * group
+        plan = paged_split_plan(H, KV, max_pages, PAGE, Dh)
+        if (plan is None) != (route == "walk"):
+            raise AssertionError(f"paged attention B={B} G={group} Dh={Dh}: plan {plan}")
         pt = _shuffled_table(gen, B, max_pages, P, dev)
         pools = [_pools(gen, dev, P, KV, PAGE, Dh)
                  for _ in range(copies_for(P * KV * PAGE * (2 * Dh + 8)))]
         q = torch.randn(B, 1, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
+        before = ops.paged_int8_attention.routes[route]
         out = ops.paged_int8_attention(q, *pools[0], pt, lengths)
         ref = ops.paged_int8_attention_ref(q, *pools[0], pt, lengths)
         torch.cuda.synchronize()
+        if ops.paged_int8_attention.routes[route] != before + 1:
+            raise AssertionError(f"paged attention B={B} G={group}: not the {route} kernel")
         err = (out.float() - ref.float()).abs().max().item()
         tol = ATTN_TOL * ref.float().abs().max().item()
         if not err <= tol:
             raise AssertionError(f"paged attention G={group}: max abs err {err} > {tol}")
+        label = f"decode B={B} H={H} KV={KV} G={group} Dh={Dh}"
+        margins = (_margins("paged_int8_attention", label, out, tol, {
+            "last live split dropped": paged_split_dropped(q, pools[0], pt, lengths)})
+                   if route == "split" else {})
+        again = ops.paged_int8_attention(q, *pools[0], pt, lengths)
+        torch.cuda.synchronize()
+        if not torch.equal(again, out):
+            raise AssertionError(f"paged attention {label}: two calls differ")
         keys = (lengths.long() + 1).sum().item()  # keys each (b, kv head) reads
         nbytes = KV * keys * (2 * Dh + 8) + 2 * q.numel() * 2 + 4 * B * (1 + max_pages)
         bnd, kind = bound_ms(nbytes, 4 * Dh * H * keys, BF16_FLOPS_PER_S)
@@ -881,8 +967,10 @@ def check_paged_attention(ops, gen, dev):
                         (gv.float() * gvs[..., None]).to(torch.bfloat16)))
         qh = q.transpose(1, 2)
         cases.append({
-            "shape": f"decode B={B} H={H} KV={KV} G={group} ps={PAGE} lengths={lens}",
-            "max_abs_err": err,
+            "shape": f"{label} ps={PAGE} lengths={lb}", "max_abs_err": err,
+            "plan": ({"route": "split", "span": plan[0], "n_split": plan[1]} if plan
+                     else {"route": "walk"}),
+            **({"fault_margins": margins} if margins else {}),
             "ms": bench([lambda c=c: ops.paged_int8_attention(q, *c, pt, lengths)
                          for c in pools]),
             "plain_ms": bench([lambda c=c: ops.paged_int8_attention_ref(q, *c, pt, lengths)
@@ -1668,14 +1756,22 @@ def check_alibi_attention(ops, gen, dev, kernel):
         kw = {"group": G} if kernel in KIVI_KERNELS else {}
         q = torch.randn(B, T, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
         call = lambda fn, c, **k: fn(q, *c, *after, **k)
+        split_before = ops.route_counts()["paged_int8_attention_split"]
         out = call(attn, caches[0], alibi_slopes=slopes, **kw)
         ref = call(plain, caches[0], alibi_slopes=slopes, **kw)
         torch.cuda.synchronize()
+        if kernel == "paged" and (ops.route_counts()["paged_int8_attention_split"]
+                                  != split_before + 1):
+            raise AssertionError(f"{name} {label}: not the split kernel")
         err = (out.float() - ref.float()).abs().max().item()
         tol = ATTN_TOL * ref.float().abs().max().item()
         if not err <= tol:
             raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
-        margins = _margins(name, label, out, tol, {"ALiBi dropped": call(plain, caches[0], **kw)})
+        faults = {"ALiBi dropped": call(plain, caches[0], **kw)}
+        if kernel == "paged":
+            faults["last live split dropped"] = paged_split_dropped(q, caches[0], pt, lengths,
+                                                                    slopes)
+        margins = _margins(name, label, out, tol, faults)
         qpos = lengths.long()[:, None] + torch.arange(T, device=dev)
         span = max_pages * PAGE if kernel == "paged" else S
         kpos = torch.arange(span, device=dev)
@@ -1752,6 +1848,22 @@ def path_kernels(ops, mode: str, kv_dtype: str = "int8") -> tuple:
         return (("rowquant", gemm, *CACHE_KERNELS[kv_dtype])
                 + (("rms_norm_quant", "swiglu_quant") if fused(mode) else ()))
     return (gemm, "paged_kv_scatter_decode", "paged_int8_attention", "int8_kv_attention")
+
+
+# A path that calls a routed wrapper must have launched the kernel its
+# decode steps take: the wrapper -> that kernel's route count (ops.ROUTED)
+DECODE_ROUTE = {"qmatmul": "qmatmul_decode",
+                "paged_int8_attention": "paged_int8_attention_split"}
+
+
+def routed(path) -> tuple:
+    """``path`` with the decode kernel of each routed wrapper in it."""
+    return tuple(path) + tuple(DECODE_ROUTE[k] for k in path if k in DECODE_ROUTE)
+
+
+def path_counts(ops) -> dict:
+    """The wrappers' counts and the routed kernels' (ops.route_counts)."""
+    return {**ops.launch_counts(), **ops.route_counts()}
 
 
 def decode_step_launches(ops, mode: str, layers: int, kv_dtype: str = "int8") -> dict:
@@ -1900,7 +2012,7 @@ def _run_slice(ops, seed: int, dev, mode: str, kv_dtype: str, preset: str,
     t_run = time.perf_counter()
     outs, prefill_ms, decode_ms, bad_steps, crossed = serve(engine, prompts, ops, per_step)
     wall = time.perf_counter() - t_run
-    launches = ops.launch_counts()
+    launches = path_counts(ops)
     peak = torch.cuda.max_memory_allocated()
 
     generated = sum(len(o or []) for o in outs)
@@ -1921,7 +2033,7 @@ def _run_slice(ops, seed: int, dev, mode: str, kv_dtype: str, preset: str,
         f"decode writes: {crossed}")
     if kv_dtype in KIVI_KERNELS and crossed < 1:
         raise AssertionError(f"slice {label}: no decode step flushed a chunk")
-    if any(launches[k] <= 0 for k in path):
+    if any(launches[k] <= 0 for k in routed(path)):
         raise AssertionError(f"a kernel of the {label} path never launched: {launches}")
     if bad_steps or not decode_ms:
         raise AssertionError(f"decode-step launches {bad_steps[:3]} != {per_step}")
@@ -2020,7 +2132,7 @@ def run_paged_slice(ops, seed: int, dev, mode: str = "weight_only"):
     outs, prefill_ms, decode_ms, bad_steps, _ = serve(eng, prompts, ops, per_step,
                                                       first_alone=True)
     wall = time.perf_counter() - t_run
-    launches = ops.launch_counts()
+    launches = path_counts(ops)
     peak = torch.cuda.max_memory_allocated()
     m = eng.metrics()
 
@@ -2037,7 +2149,7 @@ def run_paged_slice(ops, seed: int, dev, mode: str = "weight_only"):
     want_hits = (len(prompts) - 1) * SYSTEM_TOKENS
     if m["prefix_hit_tokens"] != want_hits:
         raise AssertionError(f"prefix_hit_tokens {m['prefix_hit_tokens']} != {want_hits}")
-    if any(launches[k] <= 0 for k in path_kernels(ops, mode)):
+    if any(launches[k] <= 0 for k in routed(path_kernels(ops, mode))):
         raise AssertionError(f"a kernel of the {mode} paged path never launched: {launches}")
     if bad_steps or not decode_ms:
         raise AssertionError(f"paged decode-step launches {bad_steps[:3]} != {per_step}")
@@ -2088,7 +2200,7 @@ def _layer_bytes(B: int, KV: int, S: int, Dh: int) -> int:
 
 
 def _check_served(label, cfg, launches, path, per_step, bad_steps, decode_ms, prompts, outs):
-    if any(launches[k] <= 0 for k in path):
+    if any(launches[k] <= 0 for k in routed(path)):
         raise AssertionError(f"a kernel of the {label} path never launched: {launches}")
     if bad_steps or not decode_ms:
         raise AssertionError(f"{label}: decode-step launches {bad_steps[:3]} != {per_step}")
@@ -2156,7 +2268,7 @@ def run_ring_slice(ops, seed: int, dev, preset: str = "mistral_7b", model=None):
     t_run = time.perf_counter()
     outs, prefill_ms, decode_ms, bad_steps, _ = serve(engine, prompts, ops, per_step)
     wall = time.perf_counter() - t_run
-    launches = ops.launch_counts()
+    launches = path_counts(ops)
     peak = torch.cuda.max_memory_allocated()
     label = f"ring slice {preset} dynamic"
     stats = _log_served(label, prompts, outs, wall, prefill_ms, decode_ms, peak)
@@ -2242,7 +2354,7 @@ def run_bloom(ops, seed: int, dev) -> dict:
         outs, prefill_ms, decode_ms, bad_steps, crossed = serve(
             engine, prompts, ops, per_step, first_alone=layout == "paged")
         wall = time.perf_counter() - t_run
-        launches = ops.launch_counts()
+        launches = path_counts(ops)
         peak = torch.cuda.max_memory_allocated()
         label = f"bloom slice {layout} {kv_dtype}"
         stats = _log_served(label, prompts, outs, wall, prefill_ms, decode_ms, peak)
@@ -2258,6 +2370,8 @@ def run_bloom(ops, seed: int, dev) -> dict:
                 raise AssertionError(f"{label}: prefix_hit_tokens {m['prefix_hit_tokens']}")
         out[path] = (launches, stats)
         del engine
+        if layout == "paged":  # device busy of the paged decode (a reading)
+            profile_decode(model, prompts, kv_layout="paged")
     del model
     torch.cuda.empty_cache()
     return out
@@ -2330,7 +2444,7 @@ def run_gpt_oss(ops, seed: int, dev) -> dict:
         t_run = time.perf_counter()
         outs, prefill_ms, decode_ms, bad_steps, crossed = serve(engine, prompts, ops, per_step)
         wall = time.perf_counter() - t_run
-        launches = ops.launch_counts()
+        launches = path_counts(ops)
         peak = torch.cuda.max_memory_allocated()
         label = f"gpt_oss slice {kv_dtype}"
         stats = _log_served(label, prompts, outs, wall, prefill_ms, decode_ms, peak)
@@ -2589,7 +2703,7 @@ def run_tp_slice(ops, seed: int, dev, single_outputs):
         t_run = time.perf_counter()
         outs, prefill_ms, decode_ms, bad_steps, _ = serve(engine, prompts, ops, per_step)
         wall = time.perf_counter() - t_run
-        launches = ops.launch_counts()
+        launches = path_counts(ops)
     peak = torch.cuda.max_memory_allocated()
     label = f"tp slice dynamic tp={TP} (ring dma, int8 KV)"
     stats = _log_served(label, prompts, outs, wall, prefill_ms, decode_ms, peak)
@@ -3253,7 +3367,9 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
     "rowquant": ("protoquant_tpu_torch/csrc/rowquant.cu",
                  "protoquant_tpu/ops/rowquant.py:23", "M=4 K=4096 bf16"),
     "qmatmul": ("protoquant_tpu_torch/csrc/qmatmul.cu",
-                "protoquant_tpu/ops/qmatmul.py:38", "M=4 K=4096 N=11008 bf16 out"),
+                "protoquant_tpu/ops/qmatmul.py:38", "M=256 K=4096 N=11008 bf16 out"),
+    "qmatmul_decode": ("protoquant_tpu_torch/csrc/qmatmul_decode.cu",
+                       "protoquant_tpu/ops/qmatmul.py:38", "M=4 K=4096 N=11008 bf16 out"),
     "kv_scatter_decode": ("protoquant_tpu_torch/csrc/kv_scatter.cu",
                           "protoquant_tpu/ops/kv_scatter.py:37", None),
     "int8_kv_attention": ("protoquant_tpu_torch/csrc/attn_split.cuh",
@@ -3263,8 +3379,10 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
     "paged_kv_scatter_decode": ("protoquant_tpu_torch/csrc/kv_scatter.cu",
                                 "protoquant_tpu/ops/kv_scatter.py:118", None),
     "paged_int8_attention": ("protoquant_tpu_torch/csrc/paged_attention.cu",
-                             "protoquant_tpu/ops/paged_attention.py:28",
-                             "decode B=4 H=32 KV=32 G=1"),
+                             "protoquant_tpu/ops/paged_attention.py:28", None),
+    "paged_int8_attention_split": ("protoquant_tpu_torch/csrc/attn_split.cuh",
+                                   "protoquant_tpu/ops/paged_attention.py:28",
+                                   "decode B=4 H=32 KV=32 G=1"),
     "wo4_split": ("protoquant_tpu_torch/csrc/wo4_matmul.cu",
                   "protoquant_tpu/ops/wo4_matmul.py:64", "M=4 K=4096 N=11008 bf16 out"),
     "wo4_legacy": ("protoquant_tpu_torch/csrc/wo4_matmul.cu",
@@ -3311,7 +3429,13 @@ KERNEL_SOURCES = {
                           "prefill": [_CSRC + "attention.cu"]},
     "mixed_kv_attention": {"decode": [_CSRC + f for f in (
         "attn_split.cuh", "attn_split.cu", "attn_split_k8v4.cu")] + _MERGE,
-                           "prefill": [_CSRC + "attention.cu"]}}
+                           "prefill": [_CSRC + "attention.cu"]},
+    "paged_int8_attention_split": {"decode": [_CSRC + f for f in (
+        "attn_split.cuh", "attn_split.cu", "attn_split_paged.cu")] + _MERGE}}
+# The entries whose launches are a route count of their wrapper under
+# another name (ops.ROUTED; "qmatmul_decode" and "paged_int8_attention_split"
+# are counted under their own): the wrapper's own count is the routes' sum.
+ROUTE_COUNT = {"qmatmul": "qmatmul_tile", "paged_int8_attention": "paged_int8_attention_walk"}
 
 
 def timed(name: str, fn, *args, **kwargs):
@@ -3325,7 +3449,9 @@ def timed(name: str, fn, *args, **kwargs):
 def check_kernels(ops, gen, dev) -> dict:
     """Phase 3: every kernel body against its plain version, timed."""
     results = {}
-    checks = (("rowquant", check_rowquant), ("qmatmul", check_qmatmul),
+    checks = (("rowquant", check_rowquant),
+              ("qmatmul_decode", lambda *a: check_qmatmul(*a, "decode")),
+              ("qmatmul", lambda *a: check_qmatmul(*a, "tile")),
               ("kv_scatter_decode", check_scatter),
               ("int8_kv_attention",
                lambda *a: check_attention(*a) + check_gemma2_attention(*a, "int8")
@@ -3333,8 +3459,9 @@ def check_kernels(ops, gen, dev) -> dict:
                + check_gpt_oss_attention(*a, "int8")),
               ("weight_only_matmul", check_weight_only),
               ("paged_kv_scatter_decode", check_paged_scatter),
-              ("paged_int8_attention",
+              ("paged_int8_attention_split",
                lambda *a: check_paged_attention(*a) + check_alibi_attention(*a, "paged")),
+              ("paged_int8_attention", lambda *a: check_paged_attention(*a, "walk")),
               ("wo4_split", lambda *a: check_wo4(*a, "split")),
               ("wo4_legacy", lambda *a: check_wo4(*a, "legacy")),
               ("w4a8_two_level", lambda *a: check_w4a8(*a, "two_level")),
@@ -3359,6 +3486,11 @@ def check_kernels(ops, gen, dev) -> dict:
                      f"{c['scale_max_rel_err']}" if "flip_share" in c else "")
             if c.get("fault_margins"):
                 flips += f", planted faults' errors over the tolerance {c['fault_margins']}"
+            if c.get("faults_differing_elements"):
+                flips += (f", {c['k_splits']} K splits, planted faults' differing elements "
+                          f"{c['faults_differing_elements']}")
+            if c.get("plan"):
+                flips += f", plan {c['plan']}"
             log(f"kernel {name} {c['shape']}: {c['ms']:.4f} ms, plain "
                 f"{c['plain_ms']:.4f} ms, library {c['library_ms']}, bound "
                 f"{c['bound_ms']:.4f} ms ({c['bound_by']}), err {c['max_abs_err']}{flips}")
@@ -3474,10 +3606,11 @@ def run_all(ops, seed: int, dev) -> list:
         source, replaces, main_shape = KERNEL_META[name]
         head = next((c for c in cases if main_shape is None
                      or c["shape"].startswith(main_shape)), cases[0])
+        key = ROUTE_COUNT.get(name, name)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(counts[name] for counts in by_path.values()),
-            "launches_by_path": {p: counts[name] for p, counts in by_path.items()},
+            "launches": sum(counts[key] for counts in by_path.values()),
+            "launches_by_path": {p: counts[key] for p, counts in by_path.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -3486,8 +3619,10 @@ def run_all(ops, seed: int, dev) -> list:
                if name in KERNEL_SOURCES else {}),
             "cases": cases})
 
-    # kernel time of one decode step at the measured decode shapes
-    by = {(n, c["shape"]): c["ms"] for n, cs in results.items() for c in cs}
+    # kernel time of one decode step at the measured decode shapes (a
+    # qmatmul call at decode M runs the decode kernel)
+    by = {("qmatmul" if n == "qmatmul_decode" else n, c["shape"]): c["ms"]
+          for n, cs in results.items() for c in cs}
     L = LAYERS
 
     def linears(name):
@@ -3506,7 +3641,7 @@ def run_all(ops, seed: int, dev) -> list:
 
     dense = cache_ms(*CACHE_KERNELS["int8"])
     paged = (results["paged_kv_scatter_decode"][0]["ms"] * L
-             + results["paged_int8_attention"][0]["ms"] * L)
+             + results["paged_int8_attention_split"][0]["ms"] * L)
     for label, est in (("dense dynamic", rowquant + linears("qmatmul") + dense),
                        ("paged weight_only", linears("weight_only_matmul") + paged),
                        ("dense dynamic_int4",

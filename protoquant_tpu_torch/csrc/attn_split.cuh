@@ -1,10 +1,13 @@
-// Split-S decode attention over the dense int8 cache and the K8V4 cache
-// (flash-decoding), the design that ops/attention.py routes every decode-
-// sized call of int8_kv_attention and mixed_kv_attention to; the one-pass
-// kernel of csrc/attention.cu keeps the calls with many query rows
-// (prefill). The contract is attention.cu's, variant for variant (window,
-// score scale, softcap, ring positions, StreamingLLM sinks, ALiBi, learned
-// sinks; K8V4 the scale alone; Dh 32, 64, 128, 256; q in f32, bf16, f16).
+// Split-S decode attention over the dense int8 cache, the K8V4 cache and
+// the paged int8 pool (flash-decoding), the design that ops/attention.py
+// routes every decode-sized call of int8_kv_attention and
+// mixed_kv_attention to, and ops/paged_attention.py every paged decode whose
+// rows fit a block; the one-pass kernel of csrc/attention.cu keeps the
+// calls with many query rows (prefill), csrc/paged_attention.cu the paged
+// calls the plan refuses. The contract is attention.cu's, variant for
+// variant (window, score scale, softcap, ring positions, StreamingLLM sinks,
+// ALiBi, learned sinks; K8V4 the scale alone; Dh 32, 64, 128, 256; q in
+// f32, bf16, f16), and paged_attention.cu's for the paged pool.
 //
 // Bound on the H100: bytes, the keys some row of the step sees (Dh + 4 of K
 // and its scale, Dh + 4 of V and its scale, or Dh / 2 + 4 for K8V4's packed
@@ -68,6 +71,17 @@
 // - split_merge (split_common.cuh) merges each row's partials in split
 //   order; the learned sinks join there once, as the initial state m = sink,
 //   l = 1. No atomics: two calls on the same inputs give the same bits.
+// - The paged pool (template flag PAGED, replacing
+//   protoquant_tpu/ops/paged_attention.py:_kernel): only where column c
+//   lives changes. The columns are the table's maxP * ps virtual positions
+//   (key slot s of entry j at j ps + s), the grid is sized from that width
+//   (never from the lengths on the card, so the pair of launches stays
+//   capturable), and column c is row pool[max(page_table[b, c / ps], 0), h,
+//   c % ps] of the K and V pools and of their scales: the block reads its
+//   split's table entries once into shared memory (the ring positions' slot,
+//   unused there) and every copy takes its row from there, at any page size
+//   (a tile may span pages). Decode only, VAR 0, or VAR 2 for ALiBi (no ring
+//   positions, no sinks, no window).
 // Rows per block R = T group is bounded by the register budget of the
 // per-row state: at most 16 at Dh <= 64, 8 at 128, 4 at 256 (template RB,
 // the least power of two >= R; rows past R are never computed). The window
@@ -102,6 +116,10 @@ struct AttnSplitArgs {
   // a window's grid (as_launch): the blocks one wave of the card holds, and
   // the longer span a batch takes whose live splits would overflow it
   int wave, span_big;
+  // the paged pool (PAGED instances): the table [B, maxP] and the page size;
+  // S is then the table's maxP * ps virtual columns
+  const int* page_table;
+  int maxP, ps;
 };
 
 constexpr int AS_THREADS = 128;
@@ -190,16 +208,17 @@ __host__ __device__ constexpr int as_stages_bytes() {
 }
 
 // Dynamic shared memory: the stages, q, the warps' p rows and, at VAR = 2,
-// the split's ring positions.
-template <int DH, bool V4, int VAR, int RB>
+// the split's ring positions (paged: the pool rows of its columns, there).
+template <int DH, bool V4, int VAR, int RB, bool PAGED = false>
 __host__ __device__ constexpr int as_smem_bytes() {
   using Gm = AsGeom<DH>;
   return as_stages_bytes<DH, V4, RB>() + 4 * (RB * DH + AS_WARPS * RB * Gm::KW) +
-         (VAR == 2 ? 4 * Gm::SPAN : 0);
+         (VAR == 2 || PAGED ? 4 * Gm::SPAN : 0);
 }
 
-template <int DH, bool V4, int VAR, int RB>
+template <int DH, bool V4, int VAR, int RB, bool PAGED = false>
 __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(const AttnSplitArgs a) {
+  static_assert(!(PAGED && V4), "the paged pool holds int8 V");
   using Gm = AsGeom<DH>;
   constexpr int KW = Gm::KW, KT = Gm::KT, KSTR = Gm::KSTR, DK = Gm::DK, DPL = Gm::DPL;
   constexpr int SPAN = Gm::SPAN;
@@ -241,6 +260,22 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(const AttnSplitA
   int* Pos = reinterpret_cast<int*>(Qs + RB * DH + AS_WARPS * RB * KW);
   const size_t bh = (size_t)b * a.KV + h;
   const size_t pbase = (bh * a.n_split + blockIdx.x) * R;
+  // paged: the pool row [page][h][slot] of each of the split's columns, read
+  // through the table (an unmapped entry, -1, reads page 0), so that every
+  // copy below takes its address from shared memory
+  unsigned* Rows = reinterpret_cast<unsigned*>(Pos);
+  if constexpr (PAGED) {
+    for (int c = s0 + threadIdx.x; c < s1; c += AS_THREADS) {
+      const int page = max(a.page_table[(size_t)b * a.maxP + c / a.ps], 0);
+      Rows[c - s0] = ((unsigned)page * a.KV + h) * a.ps + c % a.ps;
+    }
+    __syncthreads();
+  }
+  // the row of column c in the K and V payloads and scales below
+  auto pool_row = [&](int c) -> size_t {
+    if constexpr (PAGED) return Rows[c - s0];
+    else return (size_t)c;
+  };
 
   int k_lo, k_hi;  // the block's columns holding live keys
   if (ring) {
@@ -285,10 +320,11 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(const AttnSplitA
   const int t0 = (k_lo - s0) / KT;
   const int n_tiles = (k_hi - 1 - s0) / KT + 1 - t0;
   const int S2 = S / 2;
-  const int8_t* kg = a.kq + bh * S * DH;
-  const int8_t* vg = a.vq + bh * (size_t)(V4 ? S2 : S) * DH;
-  const float* ksg = a.ks + bh * S;
-  const float* vsg = a.vs + bh * S;  // [2, S/2] or [S]: S floats either way
+  const size_t cache = PAGED ? 0 : bh * S;  // the (b, kv head)'s first row (paged: the pool's)
+  const int8_t* kg = a.kq + cache * DH;
+  const int8_t* vg = a.vq + (V4 ? cache / 2 : cache) * DH;
+  const float* ksg = a.ks + cache;
+  const float* vsg = a.vs + cache;  // [2, S/2] or [S]: S floats either way
 
   // copies of tile t0 + i into stage i % AS_STAGES
   auto issue = [&](int i) {
@@ -300,8 +336,9 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(const AttnSplitA
     constexpr int C16 = DH / 16;  // 16-byte pieces of a row
     for (int idx = threadIdx.x; idx < (j1 - j0) * C16; idx += AS_THREADS) {
       const int j = j0 + idx / C16, c = 16 * (idx % C16);
-      sp_cp16(Ks + j * KSTR + c, kg + (size_t)(k0 + j) * DH + c);
-      if (!V4) sp_cp16(Vs + j * DH + c, vg + (size_t)(k0 + j) * DH + c);
+      const size_t r = pool_row(k0 + j);
+      sp_cp16(Ks + j * KSTR + c, kg + r * DH + c);
+      if (!V4) sp_cp16(Vs + j * DH + c, vg + r * DH + c);
     }
     if (V4) {  // the packed rows holding live keys: row r has tokens k0 + 2r, k0 + 2r + 1
       const int r0 = j0 / 2, r1 = (j1 + 1) / 2;
@@ -312,8 +349,8 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(const AttnSplitA
     }
     for (int j = j0 + threadIdx.x; j < j1; j += AS_THREADS) {
       const int c = k0 + j;
-      sp_cp4(Ss + j, ksg + c);
-      sp_cp4(Ss + KT + j, V4 ? vsg + (c & 1) * S2 + c / 2 : vsg + c);
+      sp_cp4(Ss + j, ksg + pool_row(c));
+      sp_cp4(Ss + KT + j, V4 ? vsg + (c & 1) * S2 + c / 2 : vsg + pool_row(c));
     }
   };
 
@@ -499,11 +536,11 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(const AttnSplitA
   }
 }
 
-template <int DH, bool V4, int VAR, int RB>
+template <int DH, bool V4, int VAR, int RB, bool PAGED = false>
 static cudaError_t as_launch(AttnSplitArgs a, cudaStream_t st) {
   using Gm = AsGeom<DH>;
-  constexpr int smem = as_smem_bytes<DH, V4, VAR, RB>();
-  auto kernel = attn_split_kernel<DH, V4, VAR, RB>;
+  constexpr int smem = as_smem_bytes<DH, V4, VAR, RB, PAGED>();
+  auto kernel = attn_split_kernel<DH, V4, VAR, RB, PAGED>;
   static bool configured = false;
   static int per_sm = 0;  // blocks of this instance an SM holds
   cudaError_t err = pq_allow_smem(kernel, smem, configured);
@@ -529,15 +566,16 @@ static cudaError_t as_launch(AttnSplitArgs a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <int DH, bool V4, int VAR>
+// PAGED: decode rows (T = 1) of a group of at most 8, the paged wrapper's.
+template <int DH, bool V4, int VAR, bool PAGED = false>
 static cudaError_t as_rows(const AttnSplitArgs& a, cudaStream_t st) {
   const int R = a.T * (a.H / a.KV);
-  if (R <= 1) return as_launch<DH, V4, VAR, 1>(a, st);
-  if (R <= 2) return as_launch<DH, V4, VAR, 2>(a, st);
-  if (R <= 4) return as_launch<DH, V4, VAR, 4>(a, st);
+  if (R <= 1) return as_launch<DH, V4, VAR, 1, PAGED>(a, st);
+  if (R <= 2) return as_launch<DH, V4, VAR, 2, PAGED>(a, st);
+  if (R <= 4) return as_launch<DH, V4, VAR, 4, PAGED>(a, st);
   if constexpr (AsGeom<DH>::MAX_RB >= 8)
-    if (R <= 8) return as_launch<DH, V4, VAR, 8>(a, st);
-  if constexpr (AsGeom<DH>::MAX_RB >= 16)
+    if (R <= 8) return as_launch<DH, V4, VAR, 8, PAGED>(a, st);
+  if constexpr (AsGeom<DH>::MAX_RB >= 16 && !PAGED)
     if (R <= 16) return as_launch<DH, V4, VAR, 16>(a, st);
   return cudaErrorInvalidValue;
 }
@@ -555,7 +593,9 @@ static cudaError_t as_dispatch(const AttnSplitArgs& a, cudaStream_t st) {
 }
 
 // The instance families, one nvcc each: attn_split_int8.cu (int8 V, VAR 0
-// and 1), attn_split_ext.cu (int8 V, VAR 2), attn_split_k8v4.cu (packed V).
+// and 1), attn_split_ext.cu (int8 V, VAR 2), attn_split_k8v4.cu (packed V),
+// attn_split_paged.cu (the paged pool: VAR 0, and VAR 2 for ALiBi).
 cudaError_t attn_split_int8(const AttnSplitArgs& a, int var, cudaStream_t st);
 cudaError_t attn_split_ext(const AttnSplitArgs& a, cudaStream_t st);
 cudaError_t attn_split_k8v4(const AttnSplitArgs& a, cudaStream_t st);
+cudaError_t attn_split_paged(const AttnSplitArgs& a, cudaStream_t st);

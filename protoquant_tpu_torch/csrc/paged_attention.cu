@@ -25,8 +25,10 @@
 // then thread d accumulates output dim d over the page's keys with p * vs.
 // The output is acc / max(l, 1e-30). ALiBi is a template switch, so the
 // plain instance is the kernel as it was. At B = 4 and KV = 32 that is 128
-// blocks, and the longest row sets the time: splitting a row's pages over
-// blocks (flash-decoding) is later work.
+// blocks, and the longest row sets the time: ops/paged_attention.py sends
+// every call whose rows fit a split block to the split-S design over the
+// page table (attn_split.cuh, PAGED), and this kernel keeps the calls its
+// plan refuses (G 8 at Dh 256).
 
 #include "common.cuh"
 

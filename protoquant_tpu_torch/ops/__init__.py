@@ -4,7 +4,11 @@ Every wrapper dispatches by the device of its tensors: a CPU tensor takes
 the plain version, a CUDA tensor launches the hand-written kernel from
 ``csrc/`` (built on first use by ``_build``) or raises. There is no
 fallback and no switch beyond the formulation arguments and knobs the JAX
-package itself has. Each kernel body counts its launches in ``.launches``.
+package itself has. Each kernel body counts its launches in ``.launches``;
+a wrapper that routes between two kernels by shape before launch (qmatmul:
+the decode or the tile kernel, by M; paged_int8_attention: the split or the
+walk, by the split plan) counts every call in ``.launches`` and each
+kernel's in ``.routes`` (:data:`ROUTED`, :func:`route_counts`).
 """
 
 import os as _os
@@ -22,7 +26,7 @@ from .kv_scatter import (k4v8_decode_update, k4v8_decode_update_ref, kivi4_decod
                          kv_mixed_scatter_decode_ref, kv_scatter_decode, kv_scatter_decode_ref,
                          paged_kv_scatter_decode, paged_kv_scatter_decode_ref)
 from .paged_attention import paged_int8_attention, paged_int8_attention_ref
-from .qmatmul import dynamic_qlinear, qmatmul, qmatmul_ref
+from .qmatmul import dynamic_qlinear, qmatmul, qmatmul_ref, qmatmul_splitk_ref
 from .rowquant import rowquant, rowquant_ref
 from .w4a8_matmul import (two_level_scales, w4a8_group, w4a8_matmul, w4a8_matmul_ref,
                           w4a8_two_level)
@@ -85,17 +89,33 @@ def shared_rowquant(x):
     return rowquant(x)
 
 
+# The kernels of a wrapper that routes by shape: name -> (wrapper, route).
+# The wrapper's count in KERNELS is the sum of its routes'.
+ROUTED = {
+    "qmatmul_decode": (qmatmul, "decode"),
+    "qmatmul_tile": (qmatmul, "tile"),
+    "paged_int8_attention_split": (paged_int8_attention, "split"),
+    "paged_int8_attention_walk": (paged_int8_attention, "walk"),
+}
+
+
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def route_counts() -> dict:
+    return {name: fn.routes[route] for name, (fn, route) in ROUTED.items()}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for fn, route in ROUTED.values():
+        fn.routes[route] = 0
 
 
 __all__ = [
-    "FUSED_QUANT", "KERNELS", "W4A8_FORMULATION", "dequant", "dequant_ref",
+    "FUSED_QUANT", "KERNELS", "ROUTED", "W4A8_FORMULATION", "dequant", "dequant_ref",
     "dynamic_qlinear", "int4_kv_attention", "int4_kv_attention_ref", "int8_kv_attention",
     "int8_kv_attention_ref", "k4v8_attention", "k4v8_attention_ref", "k4v8_decode_update",
     "k4v8_decode_update_ref", "kivi4_decode_update", "kivi4_decode_update_ref",
@@ -105,7 +125,7 @@ __all__ = [
     "paged_int8_attention_ref", "paged_kv_scatter_decode", "paged_kv_scatter_decode_ref",
     "qmatmul", "qmatmul_reduce_scatter_dma", "qmatmul_reduce_scatter_dma_all",
     "qmatmul_reduce_scatter_dma_all_ref", "qmatmul_reduce_scatter_dma_ref", "qmatmul_ref",
-    "reset_launch_counts", "resolve_fused_quant",
+    "qmatmul_splitk_ref", "reset_launch_counts", "route_counts", "resolve_fused_quant",
     "resolve_w4a8_formulation", "rms_norm_quant", "rms_norm_quant_ref", "rowquant",
     "rowquant_ref", "shared_rowquant", "swiglu_quant", "swiglu_quant_ref",
     "two_level_scales", "w4a8_group", "w4a8_matmul", "w4a8_matmul_ref", "w4a8_two_level",

@@ -98,6 +98,13 @@ SIGNATURES = {
     # T, H, KV, S, Dh, window, sinks, ring (0 or 1), out span; as
     # pq_kivi_split_plan
     "pq_attn_split_plan": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)],
+    # H, KV, maxP, ps, Dh, out span; as pq_attn_split_plan
+    "pq_paged_split_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
+    # the split-S paged decode: as pq_paged_int8_attention, with the partials'
+    # workspace (acc, (m, l)) after out and n_split before the stream
+    "pq_paged_int8_attention_split": [_P, _I] + [_P] * 10 + [_I] * 6 + [_F, _I, _P],
+    # xq, wq, sx, sw, bias, out, out_dtype, M, N, K, k_splits, stream
+    "pq_qmatmul_decode": [_P] * 6 + [_I] * 5 + [_P],
     # pointer arrays xq, sx, wq, sw, out (by local rank), comm, data, credit
     # (by ring rank); tp, rank_base, tp_local, M, N, K, epoch, stream
     "pq_ring_qmatmul_rs": [_PP] * 8 + [_I] * 6 + [ctypes.c_uint, _P],

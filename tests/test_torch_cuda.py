@@ -5,6 +5,9 @@ This file imports nothing of JAX, so it also runs where JAX is not
 installed: ``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
 Exact: rowquant, qmatmul, the dense and paged decode scatters. Attention,
 dense and paged: ATOL (f32 q and output; the two sum in different orders).
+The decode GEMM (split K over a cluster) exact at M 1 to 64 and at every
+split; the paged split decode as the paged attention, at page and split
+edges, at batch 9 and 32, bit for bit across two calls and in a CUDA graph.
 The weight-only product: ``ops.weight_only_tolerance`` (exact products, an
 f32 sum in another order, then one ulp of the output type). The int4
 products, split and legacy: ``ops.weight_only_int4_tolerance`` (the same
@@ -77,6 +80,83 @@ def test_qmatmul_ragged_edges_exact(cuda, m, k, n):
     torch.cuda.synchronize()
     assert torch.equal(y, ops.qmatmul_ref(xq, wq, sx, sw))
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 7, 8, 9, 16, 17, 31, 32, 33, 63, 64, 65, 128])
+def test_qmatmul_decode_exact_around_the_threshold(cuda, m, out_dtype):
+    """M from 1 to 128 around DECODE_MAX_M, ragged N (1000) and K (4096 +
+    16: a ragged last step), with and without a bias: equal to the plain
+    version bit for bit, through the kernel the route names."""
+    from protoquant_tpu_torch.ops.qmatmul import DECODE_MAX_M
+
+    g = torch.Generator(device=cuda).manual_seed(m)
+    k, n = 4096 + 16, 1000
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=cuda, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8)
+    sx = torch.rand(m, generator=g, device=cuda) * 1e-2 + 1e-4
+    sw = torch.rand(n, generator=g, device=cuda) * 1e-2 + 1e-4
+    bias = torch.randn(n, generator=g, device=cuda)
+    for b in (None, bias):
+        ops.reset_launch_counts()
+        y = ops.qmatmul(xq, wq, sx, sw, b, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(y, ops.qmatmul_ref(xq, wq, sx, sw, b, out_dtype=out_dtype))
+        route = "decode" if m <= DECODE_MAX_M else "tile"
+        assert ops.qmatmul.routes == {"decode": int(route == "decode"),
+                                      "tile": int(route == "tile")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 16, 8), (4, 80, 130), (5, 2880, 5760), (8, 11008, 72),
+                                   (64, 4096, 4096), (3, 256, 4097)])
+def test_qmatmul_decode_every_split_exact(cuda, m, k, n):
+    """The decode kernel at every cluster size the K steps allow (1, 2, 4,
+    8), ragged N and K: every split gives the plain version's bits; a
+    split count the kernel does not take raises."""
+    from protoquant_tpu_torch.ops.qmatmul import DECODE_STEP, qmatmul_launch
+
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=cuda, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8)
+    sx = torch.rand(m, generator=g, device=cuda)
+    sw = torch.rand(n, generator=g, device=cuda)
+    bias = torch.randn(n, generator=g, device=cuda)
+    want = ops.qmatmul_ref(xq, wq, sx, sw, bias, out_dtype=torch.bfloat16)
+    steps = -(-k // DECODE_STEP)
+    for splits in (1, 2, 4, 8):
+        if splits > steps:
+            with pytest.raises(RuntimeError, match="pq_qmatmul_decode"):
+                qmatmul_launch(xq, wq, sx, sw, bias, torch.bfloat16, splits)
+            continue
+        y = qmatmul_launch(xq, wq, sx, sw, bias, torch.bfloat16, splits)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want), splits
+    with pytest.raises(RuntimeError, match="pq_qmatmul_decode"):
+        qmatmul_launch(xq, wq, sx, sw, bias, torch.bfloat16, 3)
+
+
+@pytest.mark.cuda
+def test_qmatmul_decode_bitwise_and_cuda_graph(cuda):
+    """Two calls give the same bits; the call captured in a CUDA graph and
+    replayed gives the eager call's bits (no state kept between calls)."""
+    g = torch.Generator(device=cuda).manual_seed(151)
+    xq = torch.randint(-127, 128, (4, 4096), generator=g, device=cuda, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (11008, 4096), generator=g, device=cuda, dtype=torch.int8)
+    sx, sw = torch.rand(4, generator=g, device=cuda), torch.rand(11008, generator=g, device=cuda)
+    call = lambda: ops.qmatmul(xq, wq, sx, sw, out_dtype=torch.bfloat16)
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    ops.reset_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+    assert ops.route_counts()["qmatmul_decode"] == 1
 
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -213,6 +293,104 @@ def test_paged_attention_vs_plain(cuda, group, ps, head_dim, dtype):
     atol = ATOL if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
 
+
+
+def _paged_case(g, dev, B, KV, group, ps, Dh, lens, maxP):
+    P = B * maxP + 2
+    pools = _pools(g, dev, P, KV, ps, Dh)
+    pt = _table(g, B, maxP, P).to(dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn(B, 1, KV * group, Dh, generator=g, device=dev)
+    return q, pools, pt, lengths
+
+
+def _paged_check(q, pools, pt, lengths, route, **kw):
+    """The wrapper against its plain version; ``route`` the kernel it must
+    have taken ("split" or "walk")."""
+    ops.reset_launch_counts()
+    out = ops.paged_int8_attention(q, *pools, pt, lengths, **kw)
+    ref = ops.paged_int8_attention_ref(q, *pools, pt, lengths, **kw)
+    torch.cuda.synchronize()
+    assert ops.paged_int8_attention.routes == {"split": int(route == "split"),
+                                               "walk": int(route == "walk")}
+    atol = ATOL if q.dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("group,ps,head_dim,dtype", [
+    (1, 128, 128, torch.float32), (4, 16, 128, torch.float32),
+    (2, 8, 64, torch.float32), (8, 32, 256, torch.float32),
+    (1, 128, 128, torch.bfloat16), (8, 16, 64, torch.bfloat16), (4, 256, 256, torch.float32)])
+def test_paged_split_vs_plain(cuda, group, ps, head_dim, dtype, alibi):
+    """test_paged_attention_vs_plain's grid and two more, lengths at page and
+    split edges (the last key of a page, the first of the next, a split's
+    last and first, a full table): every call whose rows fit a split block
+    takes the split kernel through the table, G 8 at Dh 256 the page walk."""
+    from protoquant_tpu_torch.models.llama import alibi_slopes
+    from protoquant_tpu_torch.ops.paged_attention import paged_split_plan
+
+    maxP = max(6, 384 // ps)
+    lens = [ps - 1, 0, ps, 127, 128, maxP * ps - 1]
+    g = torch.Generator(device=cuda).manual_seed(group * 37 + ps + head_dim)
+    q, pools, pt, lengths = _paged_case(g, cuda, 6, 2, group, ps, head_dim, lens, maxP)
+    kw = {"alibi_slopes": alibi_slopes(2 * group).to(cuda)} if alibi else {}
+    route = "walk" if paged_split_plan(2 * group, 2, maxP, ps, head_dim) is None else "split"
+    assert (route == "walk") == (group == 8 and head_dim == 256)
+    _paged_check(q.to(dtype), pools, pt, lengths, route, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [9, 32])
+def test_paged_split_large_batch_vs_plain(cuda, B):
+    """A 7B paged decode (KV 32, Dh 128, 128-key pages over 1024 positions)
+    at batch 9 and 32, bf16."""
+    lens = ([63, 700, 1023, 255, 0, 128, 511, 900, 1000] * 4)[:B]
+    g = torch.Generator(device=cuda).manual_seed(131 + B)
+    q, pools, pt, lengths = _paged_case(g, cuda, B, 32, 1, 128, 128, lens, 8)
+    _paged_check(q.to(torch.bfloat16), pools, pt, lengths, "split")
+
+
+@pytest.mark.cuda
+def test_paged_split_plan_matches_the_library(cuda):
+    """The wrapper's plan in Python is the library's (pq_paged_split_plan)."""
+    import ctypes
+
+    from protoquant_tpu_torch.ops import _build
+    from protoquant_tpu_torch.ops.paged_attention import paged_split_plan
+
+    for Dh in (64, 128, 256):
+        for group in (1, 2, 4, 8, 16):
+            for maxP, ps in ((8, 128), (3, 8), (40, 16), (2, 256), (4096, 128)):
+                span = ctypes.c_int(0)
+                n = _build.lib().pq_paged_split_plan(2 * group, 2, maxP, ps, Dh,
+                                                     ctypes.byref(span))
+                want = (span.value, n) if n else None
+                assert paged_split_plan(2 * group, 2, maxP, ps, Dh) == want
+
+
+@pytest.mark.cuda
+def test_paged_split_bitwise_and_cuda_graph(cuda):
+    """Two calls give the same bits; the call captured in a CUDA graph and
+    replayed gives the eager call's bits, and counts one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(141)
+    q, pools, pt, lengths = _paged_case(g, cuda, 4, 32, 1, 128, 128, [63, 700, 1023, 255], 8)
+    q = q.to(torch.bfloat16)
+    call = lambda: ops.paged_int8_attention(q, *pools, pt, lengths)
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    ops.reset_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+    assert ops.launch_counts()["paged_int8_attention"] == 1
+    assert ops.route_counts()["paged_int8_attention_split"] == 1
 
 @pytest.mark.cuda
 def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -20,7 +20,9 @@ decode at B 9 and 32. K4V8 and Int4: the decode and the prefill (T = 256
 from 300) at Llama-2-7B's shapes, the decode of a Gemma-2 global layer
 (scale, softcap) and of a GPT-OSS-20B global layer (learned sinks), both at
 S 8192 and lengths 63/4500/8191/1000, and the 7B decode at B 9, 16 and 32
-and the GPT-OSS one at B 32 and 64 (the lengths repeated). To compare two
+and the GPT-OSS one at B 32 and 64 (the lengths repeated). The paged
+int8 attention (128-key pages, a shuffled table): the 7B decode at G 1
+and 4 and at B 9 and 32, and BLOOM-560m's with ALiBi (S 2048). To compare two
 checkouts, run it on each in turns (A, B, B, A) within one call on one
 card:
 
@@ -134,6 +136,27 @@ def main() -> int:
     for B in (9, 32):  # B KV at and past twice the SM count
         time_int8(f"int8 decode 7B B={B}", B, 1, 32, 32, 1024, 128, (decode * B)[:B])
         time_k8v4(f"k8v4 decode 7B B={B}", B, 1, (decode * B)[:B])
+
+    def time_paged(label, B, H, KV, Dh, lens, pages=1024 // cs.PAGE, **kw):
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        P = B * pages + 1
+        pt = cs._shuffled_table(gen, B, pages, P, dev)
+        pools = [cs._pools(gen, dev, P, KV, cs.PAGE, Dh)
+                 for _ in range(cs.copies_for(P * KV * cs.PAGE * (2 * Dh + 8)))]
+        q = torch.randn(B, 1, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
+        times[label] = cs.bench([lambda c=c: ops.paged_int8_attention(q, *c, pt, ln, **kw)
+                                 for c in pools])
+        if args.profile:
+            profiles[label] = profile_kernels(
+                lambda: ops.paged_int8_attention(q, *pools[0], pt, ln, **kw))
+
+    time_paged("paged decode 7B G=1", 4, 32, 32, 128, decode)
+    time_paged("paged decode 7B G=4", 4, 32, 8, 128, decode)
+    time_paged("paged decode bloom alibi", 4, cs.BL_HEADS, cs.BL_HEADS, cs.BL_HEAD_DIM,
+               cs.BL_LENGTHS, pages=cs.BL_SEQ // cs.PAGE,
+               alibi_slopes=alibi_slopes(cs.BL_HEADS).to(dev))
+    for B in (9, 32):
+        time_paged(f"paged decode 7B B={B}", B, 32, 32, 128, (decode * B)[:B])
 
     def time_kivi(label, tier, B, T, H, KV, S, Dh, lens, **kw):
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
