@@ -221,19 +221,27 @@ Timings with ranks sharing one card measure the kernel and its protocol,
 not a link between cards.
 Each phase prints its seconds, and the run its total.
 The line before the last is {"kernels": [...]}, one entry per kernel body
-(23): "launches" is its count summed over the twenty-one engine runs
+(25): "launches" is its count summed over the twenty-one engine runs
 (phases 4, 6, 8.1, 8.2, 8.3, 10, 12, 13, 15, 17, 19, 20, the five of 22,
 the three of 24-25 and 28), each driven with the counts at 0 and read just
 after ("launches_by_path"). A wrapper counts calls: a decode call of the
 int8, K8V4, K4V8, Int4 or paged attention is two CUDA launches (the split
 kernel and the merge), and its entry names every file it runs under
-"sources". Two wrappers route between two kernels by shape before launch
+"sources". Four wrappers route between two kernels by shape before launch
 and count each apart (ops.route_counts): qmatmul ("qmatmul_decode", the
 split-K kernel at M <= 64: every decode step; "qmatmul", the tile kernel:
-prefill chunks) and paged_int8_attention ("paged_int8_attention_split",
+prefill chunks), paged_int8_attention ("paged_int8_attention_split",
 every call whose rows fit a split block; "paged_int8_attention", the page
-walk, for the rest: G 8 at Dh 256, on no engine path); every served path
-must have launched the decode kernel of each routed wrapper it calls.
+walk, for the rest: G 8 at Dh 256, on no engine path), and
+int8_kv_attention and mixed_kv_attention ("int8_kv_attention" /
+"mixed_kv_attention", the split decode: every call whose rows fit a split
+block; "int8_kv_attention_prefill" / "mixed_kv_attention_prefill", the
+prefill kernel on bf16 tensor cores: every prefill chunk, dense, ring and
+the paged cache's gathered window); every served path must have launched
+the decode kernel of each routed wrapper it calls and the prefill kernel
+of each dense attention, and each case of phase 3 the kernel its label
+names. The KIVI attentions count their routes too (ops.route_counts, in
+each slice's launches), under one entry each.
 wo4_legacy and dequant are on no engine path either
 (a caller reaches wo4_legacy through the formulation argument of
 weight_only_int4_matmul, and dequant as ops.dequant; QTensor.dequantize
@@ -251,7 +259,10 @@ rounding boundary) in under FLIP_SHARE of the elements, scales within
 SCALE_RTOL; their "max_abs_err" is in code steps. Attention, dense, paged,
 KIVI and K8V4 (bf16 q and output, f32
 arithmetic inside), is held to ATTN_TOL times the largest output: both
-round their f32 result to bf16 once, after summing in different orders.
+round their f32 result to bf16 once, after summing in different orders;
+the int8 and K8V4 prefill kernel also rounds p * vs to bf16 before its
+product with V, as the TPU kernel's bf16 lanes do (at most 2^-9 of each
+term; tests/test_torch_attn_prefill.py).
 The weight-only products, int8 and int4 (split, legacy), are held to
 ``ops.weight_only_tolerance`` / ``ops.weight_only_int4_tolerance``: every
 product is the same in the two versions, which differ only by the order of
@@ -522,10 +533,29 @@ def check_scatter(ops, gen, dev):
     return cases
 
 
+# The wrappers that route between the split decode and the prefill kernel by
+# the split plan (ops.ROUTED): phase 3's cases name the route they take
+DENSE_ATTENTIONS = ("int8_kv_attention", "mixed_kv_attention")
+
+
+def routed_call(ops, name, label, call):
+    """call() once; an int8 or K8V4 attention must launch the kernel its
+    case's label names: "prefill" the prefill kernel, any other the split
+    decode."""
+    if name not in DENSE_ATTENTIONS:
+        return call()
+    route = "prefill" if "prefill" in label else "split"
+    before = getattr(ops, name).routes[route]
+    out = call()
+    if getattr(ops, name).routes[route] != before + 1:
+        raise AssertionError(f"{name} {label}: not the {route} kernel")
+    return out
+
+
 def check_attention(ops, gen, dev):
     """The int8 attention against its plain version within ATTN_TOL at
     Llama-2-7B's shapes: decode at lengths 63 / 700 / 1023 / 255 (the split
-    design) and two prefill chunks of 256 (the one-pass kernel). Two calls
+    design) and two prefill chunks of 256 (the prefill kernel). Two calls
     on the same inputs must give the same bits. Planted fault in the decode
     case: the plain split spelling with each row's last live split dropped
     must miss the tolerance. Library: SDPA over the cache dequantized to
@@ -543,7 +573,8 @@ def check_attention(ops, gen, dev):
         caches = [_cache(gen, dev, B, KV, S, Dh)
                   for _ in range(copies_for(B * KV * S * (2 * Dh + 8)))]
         q = torch.randn(B, T, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
-        out = ops.int8_kv_attention(q, *caches[0], lengths)
+        out = routed_call(ops, "int8_kv_attention", label,
+                          lambda: ops.int8_kv_attention(q, *caches[0], lengths))
         ref = ops.int8_kv_attention_ref(q, *caches[0], lengths)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
@@ -1300,7 +1331,8 @@ def check_mixed_attention(ops, gen, dev):
                   for _ in range(copies_for(B * KV * S * (3 * Dh // 2 + 8)))]
         q = torch.randn(B, T, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
         kw = {"scale": scale}
-        out = ops.mixed_kv_attention(q, *caches[0], lengths, **kw)
+        out = routed_call(ops, "mixed_kv_attention", label,
+                          lambda: ops.mixed_kv_attention(q, *caches[0], lengths, **kw))
         ref = ops.mixed_kv_attention_ref(q, *caches[0], lengths, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
@@ -1441,7 +1473,7 @@ def check_gemma2_attention(ops, gen, dev, kv_dtype):
             max_score = CAP_REACH * softcap
             del k0, raw
         q = q.to(torch.bfloat16)
-        out = attn(q, *caches[0], lengths, *extra, **kw)
+        out = routed_call(ops, name, label, lambda: attn(q, *caches[0], lengths, *extra, **kw))
         ref = plain(q, *caches[0], lengths, *extra, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
@@ -1567,7 +1599,7 @@ def check_gpt_oss_attention(ops, gen, dev, kv_dtype):
             kw["sink_logits"] = torch.randn(H, generator=gen, device=dev) + offset
             variants["sinks"] = f"N(0, 1) + ln {sorted(counts)[len(counts) // 2]}"
         q = torch.randn(B, T, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
-        out = attn(q, *caches[0], lengths, *extra, **kw)
+        out = routed_call(ops, name, label, lambda: attn(q, *caches[0], lengths, *extra, **kw))
         ref = plain(q, *caches[0], lengths, *extra, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
@@ -1664,7 +1696,8 @@ def check_ring_attention(ops, gen, dev):
                 c[1][:, :, :sinks] *= SINK_SCALE
             q = torch.randn(B, T, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
             kw = dict(window=W, k_positions=k_pos, sinks=sinks)
-            out = ops.int8_kv_attention(q, *caches[0], lengths, **kw)
+            out = routed_call(ops, "int8_kv_attention", label,
+                              lambda: ops.int8_kv_attention(q, *caches[0], lengths, **kw))
             ref = ops.int8_kv_attention_ref(q, *caches[0], lengths, **kw)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
@@ -1757,7 +1790,8 @@ def check_alibi_attention(ops, gen, dev, kernel):
         q = torch.randn(B, T, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
         call = lambda fn, c, **k: fn(q, *c, *after, **k)
         split_before = ops.route_counts()["paged_int8_attention_split"]
-        out = call(attn, caches[0], alibi_slopes=slopes, **kw)
+        out = routed_call(ops, name, label,
+                          lambda: call(attn, caches[0], alibi_slopes=slopes, **kw))
         ref = call(plain, caches[0], alibi_slopes=slopes, **kw)
         torch.cuda.synchronize()
         if kernel == "paged" and (ops.route_counts()["paged_int8_attention_split"]
@@ -1851,14 +1885,25 @@ def path_kernels(ops, mode: str, kv_dtype: str = "int8") -> tuple:
 
 
 # A path that calls a routed wrapper must have launched the kernel its
-# decode steps take: the wrapper -> that kernel's route count (ops.ROUTED)
+# decode steps take, and a dense attention also its prefill kernel: the
+# wrapper -> that kernel's route count (ops.ROUTED)
 DECODE_ROUTE = {"qmatmul": "qmatmul_decode",
-                "paged_int8_attention": "paged_int8_attention_split"}
+                "paged_int8_attention": "paged_int8_attention_split",
+                "int8_kv_attention": "int8_kv_attention_split",
+                "mixed_kv_attention": "mixed_kv_attention_split"}
+PREFILL_ROUTE = {"int8_kv_attention": "int8_kv_attention_prefill",
+                 "mixed_kv_attention": "mixed_kv_attention_prefill"}
 
 
 def routed(path) -> tuple:
-    """``path`` with the decode kernel of each routed wrapper in it."""
-    return tuple(path) + tuple(DECODE_ROUTE[k] for k in path if k in DECODE_ROUTE)
+    """``path`` with the decode kernel of each routed wrapper in it and the
+    prefill kernel of each dense attention (a paged path runs the int8
+    attention over its gathered window for prefill chunks alone)."""
+    paged = "paged_int8_attention" in path
+    decode = [DECODE_ROUTE[k] for k in path
+              if k in DECODE_ROUTE and not (paged and k == "int8_kv_attention")]
+    return tuple(path) + tuple(decode) + tuple(PREFILL_ROUTE[k] for k in path
+                                               if k in PREFILL_ROUTE)
 
 
 def path_counts(ops) -> dict:
@@ -3374,6 +3419,9 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
                           "protoquant_tpu/ops/kv_scatter.py:37", None),
     "int8_kv_attention": ("protoquant_tpu_torch/csrc/attn_split.cuh",
                           "protoquant_tpu/ops/attention.py:68", "decode"),
+    "int8_kv_attention_prefill": ("protoquant_tpu_torch/csrc/attn_prefill.cuh",
+                                  "protoquant_tpu/ops/attention.py:68",
+                                  "prefill B=1 T=256 H=32 S=1024 lengths=[256]"),
     "weight_only_matmul": ("protoquant_tpu_torch/csrc/wo_matmul.cu",
                            "protoquant_tpu/ops/wo_matmul.py:24", "M=4 K=4096 N=11008 bf16 out"),
     "paged_kv_scatter_decode": ("protoquant_tpu_torch/csrc/kv_scatter.cu",
@@ -3409,14 +3457,17 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
                                 "protoquant_tpu/ops/kv_scatter.py:362", None),
     "mixed_kv_attention": ("protoquant_tpu_torch/csrc/attn_split.cuh",
                            "protoquant_tpu/ops/attention.py:854", "decode"),
+    "mixed_kv_attention_prefill": ("protoquant_tpu_torch/csrc/attn_prefill.cuh",
+                                   "protoquant_tpu/ops/attention.py:854", "prefill"),
     "qmatmul_reduce_scatter_dma": ("protoquant_tpu_torch/csrc/collective_matmul.cu",
                                    "protoquant_tpu/ops/collective_matmul.py:48",
                                    f"tp=2 M=4 K={HIDDEN} N={HIDDEN}"),
 }
 # Every file of a kernel whose wrapper runs more than one source, by the
 # calls that run each: a decode is the split kernel and then the merge, two
-# CUDA launches that the wrapper counts as one call; a prefill chunk is the
-# one-pass kernel. The "decode" row's times are those of the pair.
+# CUDA launches that the wrapper counts as one call; a prefill chunk is one
+# launch of the KIVI one-pass kernel or of the int8 / K8V4 prefill kernel
+# (entries of their own). The "decode" row's times are those of the pair.
 _CSRC = "protoquant_tpu_torch/csrc/"
 _MERGE = [_CSRC + "split_common.cuh", _CSRC + "split_merge.cu"]
 KERNEL_SOURCES = {
@@ -3425,17 +3476,23 @@ KERNEL_SOURCES = {
               "prefill": [_CSRC + "kivi_attention.cu"]}
        for name, tier in (("k4v8_attention", "k4v8"), ("int4_kv_attention", "int4"))},
     "int8_kv_attention": {"decode": [_CSRC + f for f in (
-        "attn_split.cuh", "attn_split.cu", "attn_split_int8.cu", "attn_split_ext.cu")] + _MERGE,
-                          "prefill": [_CSRC + "attention.cu"]},
+        "attn_split.cuh", "attn_split.cu", "attn_split_int8.cu", "attn_split_ext.cu")] + _MERGE},
+    "int8_kv_attention_prefill": {"prefill": [_CSRC + f for f in (
+        "attn_prefill.cuh", "attn_prefill.cu", "attn_prefill_int8.cu", "attn_prefill_var.cu",
+        "attn_prefill_ext.cu")]},
     "mixed_kv_attention": {"decode": [_CSRC + f for f in (
-        "attn_split.cuh", "attn_split.cu", "attn_split_k8v4.cu")] + _MERGE,
-                           "prefill": [_CSRC + "attention.cu"]},
+        "attn_split.cuh", "attn_split.cu", "attn_split_k8v4.cu")] + _MERGE},
+    "mixed_kv_attention_prefill": {"prefill": [_CSRC + f for f in (
+        "attn_prefill.cuh", "attn_prefill.cu", "attn_prefill_k8v4.cu")]},
     "paged_int8_attention_split": {"decode": [_CSRC + f for f in (
         "attn_split.cuh", "attn_split.cu", "attn_split_paged.cu")] + _MERGE}}
 # The entries whose launches are a route count of their wrapper under
-# another name (ops.ROUTED; "qmatmul_decode" and "paged_int8_attention_split"
-# are counted under their own): the wrapper's own count is the routes' sum.
-ROUTE_COUNT = {"qmatmul": "qmatmul_tile", "paged_int8_attention": "paged_int8_attention_walk"}
+# another name (ops.ROUTED; "qmatmul_decode", "paged_int8_attention_split"
+# and the two "_prefill" entries are counted under their own): the
+# wrapper's own count is the routes' sum.
+ROUTE_COUNT = {"qmatmul": "qmatmul_tile", "paged_int8_attention": "paged_int8_attention_walk",
+               "int8_kv_attention": "int8_kv_attention_split",
+               "mixed_kv_attention": "mixed_kv_attention_split"}
 
 
 def timed(name: str, fn, *args, **kwargs):
@@ -3480,20 +3537,26 @@ def check_kernels(ops, gen, dev) -> dict:
               ("kv_mixed_scatter_decode", check_mixed_scatter),
               ("mixed_kv_attention", check_mixed_attention))
     for name, fn in checks:
-        results[name] = fn(ops, gen, dev)
-        for c in results[name]:
-            flips = (f", flip share {c['flip_share']}, scales max rel err "
-                     f"{c['scale_max_rel_err']}" if "flip_share" in c else "")
-            if c.get("fault_margins"):
-                flips += f", planted faults' errors over the tolerance {c['fault_margins']}"
-            if c.get("faults_differing_elements"):
-                flips += (f", {c['k_splits']} K splits, planted faults' differing elements "
-                          f"{c['faults_differing_elements']}")
-            if c.get("plan"):
-                flips += f", plan {c['plan']}"
-            log(f"kernel {name} {c['shape']}: {c['ms']:.4f} ms, plain "
-                f"{c['plain_ms']:.4f} ms, library {c['library_ms']}, bound "
-                f"{c['bound_ms']:.4f} ms ({c['bound_by']}), err {c['max_abs_err']}{flips}")
+        cases = fn(ops, gen, dev)
+        groups = {name: cases}
+        if name in DENSE_ATTENTIONS:  # the prefill kernel's cases under its own entry
+            groups = {name: [c for c in cases if "prefill" not in c["shape"]],
+                      name + "_prefill": [c for c in cases if "prefill" in c["shape"]]}
+        for key, group in groups.items():
+            results[key] = group
+            for c in group:
+                flips = (f", flip share {c['flip_share']}, scales max rel err "
+                         f"{c['scale_max_rel_err']}" if "flip_share" in c else "")
+                if c.get("fault_margins"):
+                    flips += f", planted faults' errors over the tolerance {c['fault_margins']}"
+                if c.get("faults_differing_elements"):
+                    flips += (f", {c['k_splits']} K splits, planted faults' differing "
+                              f"elements {c['faults_differing_elements']}")
+                if c.get("plan"):
+                    flips += f", plan {c['plan']}"
+                log(f"kernel {key} {c['shape']}: {c['ms']:.4f} ms, plain "
+                    f"{c['plain_ms']:.4f} ms, library {c['library_ms']}, bound "
+                    f"{c['bound_ms']:.4f} ms ({c['bound_by']}), err {c['max_abs_err']}{flips}")
         torch.cuda.empty_cache()
     return results
 
@@ -3615,8 +3678,9 @@ def run_all(ops, seed: int, dev) -> list:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
-            **({"sources": KERNEL_SOURCES[name], "cuda_launches_per_decode_call": 2}
-               if name in KERNEL_SOURCES else {}),
+            **({"sources": KERNEL_SOURCES[name]} if name in KERNEL_SOURCES else {}),
+            **({"cuda_launches_per_decode_call": 2}
+               if "decode" in KERNEL_SOURCES.get(name, {}) else {}),
             "cases": cases})
 
     # kernel time of one decode step at the measured decode shapes (a

@@ -35,8 +35,8 @@ static int split_entry(bool v4, const void* q, int q_dtype, const void* kq, cons
 }
 
 // The split plan of an int8 or K8V4 attention call (as_plan): the number of
-// splits, the span in *span; 0 where the one-pass kernel (attention.cu) takes
-// it. ``ring``: the call passes ring positions.
+// splits, the span in *span; 0 where the prefill kernel (attn_prefill.cu)
+// takes it. ``ring``: the call passes ring positions.
 PQ_EXPORT int pq_attn_split_plan(int T, int H, int KV, int S, int Dh, int window, int sinks,
                                  int ring, int* span) {
   return as_plan(T, H, KV, S, Dh, window, sinks, ring != 0, span);

@@ -2,18 +2,18 @@
 // the paged int8 pool (flash-decoding), the design that ops/attention.py
 // routes every decode-sized call of int8_kv_attention and
 // mixed_kv_attention to, and ops/paged_attention.py every paged decode whose
-// rows fit a block; the one-pass kernel of csrc/attention.cu keeps the
-// calls with many query rows (prefill), csrc/paged_attention.cu the paged
-// calls the plan refuses. The contract is attention.cu's, variant for
+// rows fit a block; the prefill kernel of csrc/attn_prefill.cuh keeps the
+// calls with many query rows, csrc/paged_attention.cu the paged
+// calls the plan refuses. The contract is attn_prefill.cuh's, variant for
 // variant (window, score scale, softcap, ring positions, StreamingLLM sinks,
 // ALiBi, learned sinks; K8V4 the scale alone; Dh 32, 64, 128, 256; q in
 // f32, bf16, f16), and paged_attention.cu's for the paged pool.
 //
 // Bound on the H100: bytes, the keys some row of the step sees (Dh + 4 of K
 // and its scale, Dh + 4 of V and its scale, or Dh / 2 + 4 for K8V4's packed
-// V), q and out. The one-pass kernel puts one block on each (b, kv head) at
-// decode, one warp of four busy, a synchronous load and two barriers per
-// tile: latency, not bytes, holds it back. A call takes this design,
+// V), q and out. A one-pass kernel puts one block on each (b, kv head) at
+// decode, with a single query row to feed each tile it loads: latency, not
+// bytes, holds it back. A call takes this design,
 // whatever its batch, when its rows fit one block and it needs at most
 // SP_MAX_SPLITS splits: as_plan decides, and pq_attn_split_plan
 // (attn_split.cu) tells the wrapper, which sizes the partials' workspace by
@@ -153,7 +153,7 @@ inline int as_sms() {
 }
 
 // The split plan of a call at head dim DH with R query rows a kv head: the
-// number of splits, the span in *span; 0 where the one-pass kernel takes
+// number of splits, the span in *span; 0 where the prefill kernel takes
 // the call. The splits cover the capacity S, SPAN columns each; for a
 // window over a contiguous cache without StreamingLLM sinks (window_grid >
 // 0) they cover the window alone: its window + T - 1 columns touch at most

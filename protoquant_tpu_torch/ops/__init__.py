@@ -7,8 +7,11 @@ fallback and no switch beyond the formulation arguments and knobs the JAX
 package itself has. Each kernel body counts its launches in ``.launches``;
 a wrapper that routes between two kernels by shape before launch (qmatmul:
 the decode or the tile kernel, by M; paged_int8_attention: the split or the
-walk, by the split plan) counts every call in ``.launches`` and each
-kernel's in ``.routes`` (:data:`ROUTED`, :func:`route_counts`).
+walk, by the split plan; int8_kv_attention, mixed_kv_attention and the
+two KIVI attentions: the split decode or the prefill kernel, by the split
+plan) counts every call in
+``.launches`` and each kernel's in ``.routes`` (:data:`ROUTED`,
+:func:`route_counts`).
 """
 
 import os as _os
@@ -96,6 +99,14 @@ ROUTED = {
     "qmatmul_tile": (qmatmul, "tile"),
     "paged_int8_attention_split": (paged_int8_attention, "split"),
     "paged_int8_attention_walk": (paged_int8_attention, "walk"),
+    "int8_kv_attention_split": (int8_kv_attention, "split"),
+    "int8_kv_attention_prefill": (int8_kv_attention, "prefill"),
+    "mixed_kv_attention_split": (mixed_kv_attention, "split"),
+    "mixed_kv_attention_prefill": (mixed_kv_attention, "prefill"),
+    "k4v8_attention_split": (k4v8_attention, "split"),
+    "k4v8_attention_prefill": (k4v8_attention, "prefill"),
+    "int4_kv_attention_split": (int4_kv_attention, "split"),
+    "int4_kv_attention_prefill": (int4_kv_attention, "prefill"),
 }
 
 

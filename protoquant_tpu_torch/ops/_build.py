@@ -91,7 +91,7 @@ SIGNATURES = {
     # T, H, KV, S, Dh, G, out span; returns n_split (0: the one-pass kernel),
     # launches nothing and takes no stream
     "pq_kivi_split_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
-    # the split-S int8 and K8V4 decode: as their one-pass entries, with the
+    # the split-S int8 and K8V4 decode: as their prefill entries, with the
     # partials' workspace (acc, (m, l)) after out and n_split before the stream
     "pq_int8_kv_attention_split": [_P, _I] + [_P] * 11 + [_I] * 6 + [_F, _I, _F, _I, _I, _P],
     "pq_mixed_kv_attention_split": [_P, _I] + [_P] * 8 + [_I] * 6 + [_F, _I, _P],

@@ -10,11 +10,15 @@ kernel. A call whose query rows a kv head fit one split block (every
 decode), at any batch, takes the split-S design (``csrc/attn_split.cuh``,
 merged by ``split_merge.cu``: blocks over fixed column ranges sized from
 the capacity, dead ones exiting at once; :func:`attn_split_plan` asks the
-library's plan; a windowed call's grid covers its window alone), any
-other call the one-pass kernel (``csrc/attention.cu``: tiles wholly below
-the window skipped).
+library's plan; a windowed call's grid covers its window alone), any other
+call (every prefill chunk) the flash prefill on bf16 tensor cores
+(``csrc/attn_prefill.cuh``: 64 query rows a block, tiles of 64 keys (128
+at Dh 128, 32 at Dh 256) wholly outside the rows' windows skipped, the TPU
+kernel's bf16 lanes, with q in 1, 2 or 3 bf16 terms for bf16, f16 and f32
+q (exact, exact, within 2^-25) and p * vs in 3 (within 2^-25)). The
+wrappers count each route apart in ``.routes`` ("split", "prefill").
 :func:`dense_attention_partials_ref` spells the split out in plain
-PyTorch, for the tests.
+PyTorch, :func:`dense_attention_tiles_ref` the prefill, for the tests.
 The KIVI kernels replace ``_attn_k4v8_kernel`` and ``_attn4_kernel``: a
 call whose query rows a kv head fit one split block (every decode), at any
 batch, takes the split-S design (``csrc/kivi_split.cuh``,
@@ -50,8 +54,9 @@ sinks without positions).
 
 The kernels and the plain versions place the score scale differently, as
 in the JAX package: a kernel multiplies ``(q . k) * ks * sm`` (sm the
-scale, or Dh^-0.5) after the dot, the plain version scales q before it. The outputs differ by a few
-f32 ulps.
+scale, or Dh^-0.5) after the dot, the plain version scales q before it. The
+split kernels' outputs differ from the plain versions' by a few f32 ulps;
+the prefill kernel's by its bf16 lanes (:func:`dense_attention_tiles_ref`).
 """
 
 from __future__ import annotations
@@ -161,9 +166,11 @@ def int8_kv_attention_ref(q, kq, ks, vq, vs, lengths, window=0, scale=0.0, softc
 def _dense_attention_launch(name, fn, v4, q, kq, ks, vq, vs, lengths, scale=0.0, window=0,
                             softcap=0.0, k_positions=None, sinks=0, alibi_slopes=None,
                             sink_logits=None):
-    """Check the operands of ``csrc/attention.cu`` (V int8 per token, or
-    with ``v4`` packed token pairs and parity-split scales, which take the
-    score scale alone), launch it and count the launch on ``fn``."""
+    """Check the operands of the dense attention kernels (V int8 per token,
+    or with ``v4`` packed token pairs and parity-split scales, which take
+    the score scale alone), launch the split decode or the prefill kernel as
+    :func:`attn_split_plan` decides and count the call on ``fn`` and its
+    route."""
     B, T, H, Dh = q.shape
     KV, S = kq.shape[1], kq.shape[2]
     v_shape = ((B, KV, S // 2, Dh), (B, KV, 2, S // 2)) if v4 else ((B, KV, S, Dh), (B, KV, S))
@@ -194,6 +201,8 @@ def _dense_attention_launch(name, fn, v4, q, kq, ks, vq, vs, lengths, scale=0.0,
     extra += _per_head(name, "sink_logits", sink_logits, H)
     q = q.contiguous()
     dev = _build.same_device_contiguous(name, q, kq, ks, vq, vs, lengths, *extra)
+    if kq.data_ptr() % 16 or vq.data_ptr() % 16:  # the kernels copy 16-byte rows
+        raise ValueError(f"{name}: cache payloads must be 16-byte aligned")
     out = torch.empty_like(q)
     ptr = lambda t: None if t is None else t.data_ptr()
     c_name = "pq_mixed_kv_attention" if v4 else "pq_int8_kv_attention"
@@ -205,10 +214,11 @@ def _dense_attention_launch(name, fn, v4, q, kq, ks, vq, vs, lengths, scale=0.0,
         shape += (window, float(softcap), int(sinks))
     plan = attn_split_plan(T, H, KV, S, Dh, window, sinks, k_positions is not None)
     if plan is None:
+        route = "prefill"
         err = getattr(_build.lib(), c_name)(*head, out.data_ptr(), *shape,
                                             _build.stream_ptr(dev))
     else:  # the partials' workspace, from PyTorch's allocator: nothing kept between calls
-        c_name += "_split"
+        route, c_name = "split", c_name + "_split"
         n_split = plan[1]
         R = T * (H // KV)
         part_acc = torch.empty(B, KV, n_split, R, Dh, dtype=torch.float32, device=dev)
@@ -218,12 +228,13 @@ def _dense_attention_launch(name, fn, v4, q, kq, ks, vq, vs, lengths, scale=0.0,
                                             _build.stream_ptr(dev))
     _build.check(err, c_name)
     fn.launches += 1
+    fn.routes[route] += 1
     return out
 
 
 def attn_split_plan(T, H, KV, S, head_dim, window=0, sinks=0, ring=False):
     """(span, n_split) of the split-S decode for an int8 or K8V4 attention
-    call, or None where the one-pass kernel takes it, as ``as_plan`` in
+    call, or None where the prefill kernel takes it, as ``as_plan`` in
     ``csrc/attn_split.cuh`` decides (asked through the built library): the
     columns of a split and the number of splits (over the capacity S, or
     over the window of a windowed call without ring positions (``ring``)
@@ -287,6 +298,122 @@ def dense_attention_partials_ref(q, kq, ks, vq, vs, lengths, *, span, v4=False, 
     return acc, m.transpose(2, 3), p.sum(dim=3).transpose(2, 3)
 
 
+PREFILL_ROWS = 64  # query rows of a prefill block (AP_ROWS in csrc/attn_prefill.cuh)
+
+
+def prefill_key_tile(head_dim: int) -> int:
+    """Keys of a prefill tile (``ApGeom::KT`` in ``csrc/attn_prefill.cuh``)."""
+    return {128: 128, 256: 32}.get(head_dim, 64)
+
+
+def prefill_terms(dtype) -> tuple:
+    """(q, p * vs) bf16 terms the prefill kernel splits its operands into for
+    q of ``dtype`` (``ApTerms``): (1, 3) for bf16, (2, 3) for f16, (3, 3)
+    for f32."""
+    return {torch.bfloat16: (1, 3), torch.float16: (2, 3)}.get(dtype, (3, 3))
+
+
+def _bf16_terms(x, n: int) -> list:
+    """f32 x as n bf16 values (in f32), each the rounded remainder of x
+    after the ones before it."""
+    terms = []
+    for _ in range(n):
+        terms.append(x.to(torch.bfloat16).float())
+        x = x - terms[-1]
+    return terms
+
+
+def dense_attention_tiles_ref(q, kq, ks, vq, vs, lengths, *, v4=False, lane=torch.bfloat16,
+                              terms=None, window=0, scale=0.0, softcap=0.0, k_positions=None,
+                              sinks=0, alibi_slopes=None, sink_logits=None):
+    """The prefill kernel of the int8 and K8V4 attentions
+    (``csrc/attn_prefill.cuh``) in plain PyTorch, with its walk, its tiles
+    and its lanes; the contract is :func:`int8_kv_attention_ref`'s (with
+    ``v4`` the cache is K8V4's, V unpacked by :func:`unpack_v4`).
+    Query rows r = t group + g of a kv head go in blocks of
+    :data:`PREFILL_ROWS`; a block walks the tiles of
+    :func:`prefill_key_tile` keys from the one holding its first row's
+    earliest visible key (with a window over a contiguous cache; else 0) to
+    its last row's horizon min(S, lengths + t_last + 1), and, with
+    StreamingLLM sinks, the tiles holding columns < sinks; a ring
+    (``k_positions``) walks every tile. A key outside the walk is dropped.
+    Per tile, in column order, each row's online softmax: m' = max(m, the
+    tile's largest visible score), l = l e^(m - m') + sum p, acc = acc e^(m -
+    m') + (p vs) . v with p = e^(score - m') where visible, else 0; m starts
+    at the learned sink (``sink_logits``) with l = 1, else at NEG_INF with l
+    = 0; out = acc / max(l, 1e-30). ``lane``: torch.float32 computes the
+    dots in f32; torch.bfloat16 takes them as the kernel does, q and p * vs
+    as bf16 terms against the exact bf16 k and v, summed in f32: ``terms``
+    (q's, p * vs's), or one count for both (1: the TPU kernel's lanes);
+    None: the kernel's, :func:`prefill_terms` of q's dtype. Returns [B, T,
+    H, Dh] in q.dtype."""
+    if v4:
+        vq, vs = unpack_v4(vq, vs)
+    window = _window("dense_attention_tiles_ref", window)
+    B, T, H, Dh = q.shape
+    KV, S = kq.shape[1], kq.shape[2]
+    grp, R = H // KV, T * (H // KV)
+    KT, dev = prefill_key_tile(Dh), q.device
+    nq, np_ = prefill_terms(q.dtype) if terms is None else (
+        (terms, terms) if isinstance(terms, int) else terms)
+    if lane == torch.float32:
+        nq = np_ = 0
+    split = lambda x, n: _bf16_terms(x, n) if n else [x]
+    q_terms = split(q.float().reshape(B, T, KV, grp, Dh).transpose(1, 2).reshape(B, KV, R, Dh),
+                    nq)
+    k, v = kq.float(), vq.float()
+    ln = lengths.long()[:, None]
+    limit = ln + torch.arange(R, device=dev) // grp  # [B, R]: each row's position
+    # each row block's walk over the tiles [B, blocks, tiles], as the kernel's
+    first = torch.arange(0, R, PREFILL_ROWS, device=dev)
+    last = (first + PREFILL_ROWS).clamp_max(R) - 1
+    ring = k_positions is not None
+    zero = torch.zeros(B, first.numel(), dtype=torch.long, device=dev)
+    n_keys = zero + S if ring else (ln + last // grp + 1).clamp(0, S)
+    skip = window > 0 and not ring
+    c_start = ((ln + first // grp - window + 1).clamp_min(0) // KT) * KT if skip else zero
+    c_sink = n_keys.clamp_max(sinks) if skip else zero
+    c0 = torch.arange(0, S, KT, device=dev)
+    walked = (c0 < n_keys[..., None]) & ((c0 >= c_start[..., None]) | (c0 < c_sink[..., None]))
+    walked = walked.repeat_interleave(KT, dim=2)[:, torch.arange(R, device=dev) // PREFILL_ROWS,
+                                                 :S]  # [B, R, S]
+    pos = (k_positions.long() if ring else torch.arange(S, device=dev).expand(B, S))[:, None]
+    lim = limit[:, :, None]
+    valid = (pos >= 0) & (pos <= lim) & walked
+    if window > 0:
+        valid &= (pos > lim - window) | (pos < sinks)
+    valid = valid[:, None]  # [B, 1, R, S]
+    dist = (lim - pos).float()[:, None]
+    per_row = lambda x: x.float().reshape(KV, grp).repeat(1, T)[None]  # [H] -> [1, KV, R]
+    if sink_logits is None:
+        m = torch.full((B, KV, R), NEG_INF, device=dev)
+        l = torch.zeros(B, KV, R, device=dev)
+    else:
+        m = per_row(sink_logits).expand(B, KV, R).clone()
+        l = torch.ones(B, KV, R, device=dev)
+    acc = torch.zeros(B, KV, R, Dh, device=dev)
+    sm = score_scale(Dh, scale)
+    for c in range(0, S, KT):
+        cols = slice(c, min(c + KT, S))
+        s = sum(torch.einsum("bkrd,bksd->bkrs", qt, k[:, :, cols]) for qt in q_terms)
+        s = s * ks[:, :, None, cols] * sm
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s * (1.0 / softcap))
+        if alibi_slopes is not None:
+            s = s - per_row(alibi_slopes)[..., None] * dist[..., cols]
+        vis = valid[..., cols]
+        m_new = torch.maximum(m, torch.where(vis, s, NEG_INF).amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.where(vis, torch.exp(s - m_new[..., None]), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        pvs = torch.where(vis, p * vs[:, :, None, cols], 0.0)
+        acc = acc * corr[..., None] + sum(torch.einsum("bkrs,bksd->bkrd", pt, v[:, :, cols])
+                                          for pt in split(pvs, np_))
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, KV, T, grp, Dh).transpose(1, 2).reshape(B, T, H, Dh).to(q.dtype)
+
+
 def int8_kv_attention(q, kq, ks, vq, vs, lengths, window=0, scale=0.0, softcap=0.0,
                       k_positions=None, sinks=0, alibi_slopes=None, sink_logits=None,
                       **variants):
@@ -305,6 +432,9 @@ def int8_kv_attention(q, kq, ks, vq, vs, lengths, window=0, scale=0.0, softcap=0
 
 
 int8_kv_attention.launches = 0
+# launches by kernel: "split" (attn_split.cuh and the merge), "prefill"
+# (attn_prefill.cuh)
+int8_kv_attention.routes = {"split": 0, "prefill": 0}
 
 
 # -- mixed K8V4 cache: int8 K per token, packed int4 V per token -----------------
@@ -345,6 +475,7 @@ def mixed_kv_attention(q, kq, ks, vq, vs, lengths, scale=0.0, **variants):
 
 
 mixed_kv_attention.launches = 0
+mixed_kv_attention.routes = {"split": 0, "prefill": 0}
 
 
 # -- KIVI caches: K4V8 (int4 K, int8 V) and Int4 (int4 K and V) ----------------
@@ -546,9 +677,10 @@ def _kivi_attention_launch(name, fn, v4, q, kq, kchs, vq, vs, ktail, kts, vtail,
     shape = (B, T, H, KV, S, Dh, G, score_scale(Dh, scale), window, float(softcap))
     plan = kivi_split_plan(T, H, KV, S, Dh, G)
     if plan is None:
+        route = "prefill"
         err = getattr(_build.lib(), c_name)(*args, *shape, _build.stream_ptr(dev))
     else:  # the partials' workspace, from PyTorch's allocator: nothing kept between calls
-        c_name += "_split"
+        route, c_name = "split", c_name + "_split"
         n_split = plan[1]
         R = T * (H // KV)
         part_acc = torch.empty(B, KV, n_split, R, Dh, dtype=torch.float32, device=dev)
@@ -557,6 +689,7 @@ def _kivi_attention_launch(name, fn, v4, q, kq, kchs, vq, vs, ktail, kts, vtail,
                                             *shape, n_split, _build.stream_ptr(dev))
     _build.check(err, c_name)
     fn.launches += 1
+    fn.routes[route] += 1
     return out
 
 
@@ -585,6 +718,9 @@ def k4v8_attention(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
 
 
 k4v8_attention.launches = 0
+# launches by kernel: "split" (kivi_split.cuh, kivi_combine.cu and the
+# merge), "prefill" (kivi_attention.cu, the one-pass kernel)
+k4v8_attention.routes = {"split": 0, "prefill": 0}
 
 
 def int4_kv_attention(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
@@ -606,3 +742,4 @@ def int4_kv_attention(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
 
 
 int4_kv_attention.launches = 0
+int4_kv_attention.routes = {"split": 0, "prefill": 0}

@@ -23,8 +23,11 @@ tensors; the mixed attention as the KIVI ones. The split-S KIVI decode:
 the same tolerances at split boundaries, with dead splits below a window and
 with only the tail live, and bit for bit across two calls and in a CUDA
 graph; the split-S int8 and K8V4 decode likewise, with ring positions,
-StreamingLLM sinks, ALiBi and learned sinks, at batch 9 and 32, prefill
-chunks still on the one-pass kernel. The learned-sink variants
+StreamingLLM sinks, ALiBi and learned sinks, at batch 9 and 32. The
+prefill kernel (bf16 tensor cores) at every q dtype and variant: against
+its bf16-lane spelling (``dense_attention_tiles_ref``) within TIGHT, against
+the plain version within ATOL (f32 q: three bf16 terms) or 2^-7 of the
+largest output, bit for bit across two calls and in a CUDA graph. The learned-sink variants
 (GPT-OSS) as their attentions; a tiny GPT-OSS on the card against the same
 model on the CPU: logits within 2^-7 of their scale, at least 0.9 of the
 engine's greedy tokens equal (an int8 activation code on a rounding
@@ -1186,14 +1189,139 @@ def test_attn_split_bitwise_and_cuda_graph(cuda, kind):
 @pytest.mark.parametrize("kind", ["int8", "k8v4"])
 def test_attn_prefill_takes_the_one_pass_kernel(cuda, kind):
     """A prefill chunk of 256 (more rows a kv head than a split block holds)
-    goes to the one-pass kernel; the plan says so."""
+    goes to the prefill kernel (csrc/attn_prefill.cuh) in one launch; the
+    plan says so, and the wrapper counts it under its "prefill" route."""
     from protoquant_tpu_torch.ops.attention import attn_split_plan
 
     g = torch.Generator(device=cuda).manual_seed(111)
     assert attn_split_plan(256, 2, 2, DENSE_S, 128) is None
     q, cache, lengths = _dense_case(g, cuda, kind, 128, [300, 700], T=1)
     q = torch.randn(2, 256, 2, 128, generator=g, device=cuda)
+    ops.reset_launch_counts()
     _dense_check(kind, q, cache, lengths)
+    assert getattr(ops, DENSE[kind]).routes == {"split": 0, "prefill": 1}
+    assert ops.route_counts()[DENSE[kind] + "_prefill"] == 1
+
+
+# -- the prefill kernel (csrc/attn_prefill.cuh): bf16 tensor cores ---------------
+
+# (label, kind, T, group, S, Dh, lengths, variants): full causal at Llama's
+# group 1 and GPT-OSS's 8, a window whose edge falls inside a block with
+# Gemma-2's scale and softcap at Dh 256 (q drawn large so the cap bites),
+# Mistral's ring with StreamingLLM sinks and ALiBi, sinks over a contiguous
+# cache (two tiles of them), learned sinks with a window of 8, K8V4 with its
+# score scale, and padded chunks whose last rows reach past S (Dh 32, and
+# K8V4 at Dh 256 with an odd length)
+PREFILL_CASES = [
+    ("full", "int8", 130, 1, 512, 128, [0, 300], {}),
+    ("gqa8", "int8", 70, 8, 512, 64, [20, 400], {}),
+    ("window softcap", "int8", 100, 2, 512, 256, [0, 300],
+     {"window": 40, "scale": 0.0625, "softcap": 8.0}),
+    ("ring", "int8", 70, 4, 256, 128, [30, 3000],
+     {"window": 128, "sinks": 4, "alibi": True, "ring": True}),
+    ("streaming sinks", "int8", 70, 2, 320, 64, [200, 250],
+     {"window": 40, "sinks": 70, "alibi": True}),
+    ("learned sinks", "int8", 70, 8, 256, 64, [20, 150], {"window": 8, "learned": True}),
+    ("k8v4 scale", "k8v4", 70, 2, 512, 128, [3, 255], {"scale": 0.1}),
+    ("past S", "int8", 100, 2, 256, 32, [246, 100], {}),
+    ("k8v4 past S", "k8v4", 40, 2, 256, 256, [249, 30], {}),
+]
+# the kernel against its bf16-lane spelling (dense_attention_tiles_ref at the
+# kernel's terms: p * vs in 3 bf16 terms, q in 1 to 3): the two differ by
+# f32 sums in another order, and the output may take the other neighbour
+# in bf16 (one ulp: at most 2^-7 of it) or f16 (2^-10). mass: sum_c |p vs
+# v| / l, the plain version over |v|.
+TIGHT = {torch.bfloat16: (2.0**-7, 2.0**-16), torch.float16: (2.0**-10, 2.0**-16),
+         torch.float32: (0.0, 2.0**-16)}
+
+
+def _prefill_case(g, dev, kind, T, group, S, Dh, lens, variants, dtype):
+    """q (``dtype``), the cache (sinks' scales x10), the lengths and the
+    wrapper's keywords of one PREFILL_CASES row."""
+    from protoquant_tpu_torch.models import ring_positions
+    from protoquant_tpu_torch.models.llama import alibi_slopes
+
+    B, KV, H = len(lens), 2, 2 * group
+    if kind == "int8":
+        kq = torch.randint(-127, 128, (B, KV, S, Dh), generator=g, device=dev, dtype=torch.int8)
+        vq = torch.randint_like(kq, -127, 128)
+        ks = torch.rand(B, KV, S, generator=g, device=dev) * 1e-2 + 1e-3
+        vs = torch.rand(B, KV, S, generator=g, device=dev) * 1e-2 + 1e-3
+        cache = [kq, ks, vq, vs]
+    else:
+        cache = _mixed_cache(g, dev, B, KV, S, Dh)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = {k: v for k, v in variants.items() if k not in ("alibi", "learned", "ring")}
+    cache[1][:, :, :kw.get("sinks", 0)] *= 10.0
+    gain = 8.0 if kw.get("softcap") else 1.0
+    q = (torch.randn(B, T, H, Dh, generator=g, device=dev) * gain).to(dtype)
+    if variants.get("alibi"):
+        kw["alibi_slopes"] = alibi_slopes(H).to(dev)
+    if variants.get("learned"):
+        kw["sink_logits"] = torch.randn(H, generator=g, device=dev) * 2
+    if variants.get("ring"):
+        kw["k_positions"] = ring_positions(lengths + T, S, kw["sinks"])
+    return q, cache, lengths, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", PREFILL_CASES, ids=[c[0] for c in PREFILL_CASES])
+def test_attn_prefill_vs_tiles_and_plain(cuda, case, dtype):
+    """Every variant at every q dtype: the kernel against its bf16-lane
+    spelling within TIGHT, against the plain version within ATOL (f32) or
+    2^-7 of the largest output; two calls give the same bits; the call is
+    counted under the "prefill" route."""
+    from protoquant_tpu_torch.ops import attention as A
+
+    label, kind, T, group, S, Dh, lens, variants = case
+    g = torch.Generator(device=cuda).manual_seed(131 + T + Dh)
+    q, cache, lengths, kw = _prefill_case(g, cuda, kind, T, group, S, Dh, lens, variants, dtype)
+    assert A.attn_split_plan(T, q.shape[2], 2, S, Dh, kw.get("window", 0), kw.get("sinks", 0),
+                             "k_positions" in kw) is None
+    fn = getattr(ops, DENSE[kind])
+    ops.reset_launch_counts()
+    out = fn(q, *cache, lengths, **kw)
+    again = fn(q, *cache, lengths, **kw)
+    ref = getattr(ops, DENSE[kind] + "_ref")(q, *cache, lengths, **kw)
+    tiles = A.dense_attention_tiles_ref(q, *cache, lengths, v4=kind == "k8v4", **kw)
+    kq, ks, vq, vs = cache
+    if kind == "k8v4":
+        vq, vs = A.unpack_v4(vq, vs)
+    mass = A.int8_kv_attention_ref(q.float(), kq, ks, vq.abs(), vs, lengths, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert fn.routes == {"split": 0, "prefill": 2}
+    out, ref, tiles = out.float(), ref.float(), tiles.float()
+    ulp, share = TIGHT[dtype]
+    tight = ulp * tiles.abs() + share * mass + 1e-6
+    assert ((out - tiles).abs() <= tight).all(), ((out - tiles).abs() - tight).max().item()
+    atol = ATOL if dtype == torch.float32 else 2.0**-7 * ref.abs().max().item()
+    torch.testing.assert_close(out, ref, atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "k8v4"])
+def test_attn_prefill_cuda_graph_and_alignment(cuda, kind):
+    """A prefill call captured in a CUDA graph and replayed gives the eager
+    call's bits (no workspace, no host sync); a cache whose payload is not
+    16-byte aligned is refused before launch."""
+    g = torch.Generator(device=cuda).manual_seed(141)
+    q, cache, lengths, kw = _prefill_case(g, cuda, kind, 130, 4, 512, 128, [10, 300],
+                                          {"scale": 0.1}, torch.bfloat16)
+    fn = getattr(ops, DENSE[kind])
+    eager = fn(q, *cache, lengths, **kw)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn(q, *cache, lengths, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    kq = cache[0]
+    shifted = torch.empty(kq.numel() + 1, dtype=torch.int8, device=cuda)[1:].view(kq.shape)
+    shifted.copy_(kq)
+    with pytest.raises(ValueError, match="16-byte"):
+        fn(q, shifted, *cache[1:], lengths, **kw)
 
 
 # -- the sliding-window, score-scale and softcap variants (Gemma-2 heads) --------
