@@ -21,7 +21,12 @@ Phases (any failure exits non-zero and prints no result line):
               the int8 and K8V4 decodes at Llama-2-7B's shapes (the split
               design) bitwise equal across two calls and against the plain
               split spelling with each row's last live split dropped (a
-              planted fault, which must miss);
+              planted fault, which must miss); every K4V8 and Int4 prefill
+              chunk (Llama-2-7B's 256 from 300, Gemma-2's, GPT-OSS's and
+              BLOOM's) through the prefill kernel, also against its
+              bf16-lane spelling (kivi_attention_tiles_ref), the 7B one
+              also against the spelling with each tail column read one row
+              off (a planted fault, which must miss);
               the int8 attention over a ring at Mistral-7B's shapes (window
               4096, 4608 columns, and 4640 with 4 StreamingLLM sinks; decode
               at lengths 63 / 4607 / 9000 / 20000, a prefill chunk of 512),
@@ -232,16 +237,14 @@ and count each apart (ops.route_counts): qmatmul ("qmatmul_decode", the
 split-K kernel at M <= 64: every decode step; "qmatmul", the tile kernel:
 prefill chunks), paged_int8_attention ("paged_int8_attention_split",
 every call whose rows fit a split block; "paged_int8_attention", the page
-walk, for the rest: G 8 at Dh 256, on no engine path), and
-int8_kv_attention and mixed_kv_attention ("int8_kv_attention" /
-"mixed_kv_attention", the split decode: every call whose rows fit a split
-block; "int8_kv_attention_prefill" / "mixed_kv_attention_prefill", the
-prefill kernel on bf16 tensor cores: every prefill chunk, dense, ring and
-the paged cache's gathered window); every served path must have launched
-the decode kernel of each routed wrapper it calls and the prefill kernel
-of each dense attention, and each case of phase 3 the kernel its label
-names. The KIVI attentions count their routes too (ops.route_counts, in
-each slice's launches), under one entry each.
+walk, for the rest: G 8 at Dh 256, on no engine path), and the int8,
+K8V4, K4V8 and Int4 attentions ("int8_kv_attention", ..., the split
+decode: every call whose rows fit a split block; "int8_kv_attention_prefill",
+..., the prefill kernel on bf16 tensor cores: every prefill chunk, dense,
+ring and the paged cache's gathered window, and the KIVI decodes the split
+does not take); every served path must have launched the decode kernel of
+each routed wrapper it calls and the prefill kernel of each dense and KIVI
+attention, and each case of phase 3 the kernel its label names.
 wo4_legacy and dequant are on no engine path either
 (a caller reaches wo4_legacy through the formulation argument of
 weight_only_int4_matmul, and dequant as ops.dequant; QTensor.dequantize
@@ -536,13 +539,15 @@ def check_scatter(ops, gen, dev):
 # The wrappers that route between the split decode and the prefill kernel by
 # the split plan (ops.ROUTED): phase 3's cases name the route they take
 DENSE_ATTENTIONS = ("int8_kv_attention", "mixed_kv_attention")
+# the attentions whose calls take the split decode or the prefill kernel
+ROUTED_ATTENTIONS = DENSE_ATTENTIONS + ("k4v8_attention", "int4_kv_attention")
 
 
 def routed_call(ops, name, label, call):
-    """call() once; an int8 or K8V4 attention must launch the kernel its
-    case's label names: "prefill" the prefill kernel, any other the split
-    decode."""
-    if name not in DENSE_ATTENTIONS:
+    """call() once; an int8, K8V4, K4V8 or Int4 attention must launch the
+    kernel its case's label names: "prefill" the prefill kernel, any other
+    the split decode."""
+    if name not in ROUTED_ATTENTIONS:
         return call()
     route = "prefill" if "prefill" in label else "split"
     before = getattr(ops, name).routes[route]
@@ -1180,6 +1185,55 @@ def dense_split_dropped(q, cache, lengths, v4=False, **variants):
     return merge_partials_ref(acc, m, _last_live_dropped(l), H, sink, dtype=q.dtype)
 
 
+# the KIVI prefill kernel against its bf16-lane spelling
+# (kivi_attention_tiles_ref): the two differ by f32 sums in another order and
+# the bf16 output's last bit (2^-7 of it); mass: sum_c |p v| / l, the plain
+# version over |v|
+TILES_ULP, TILES_SHARE = 2.0**-7, 2.0**-16
+
+
+def kivi_tiles_check(name, label, tier, q, cache, lengths, new_lengths, out, **kw):
+    """The KIVI prefill kernel's output ``out`` against its bf16-lane
+    spelling: returns the largest error over the tolerance TILES_ULP
+    |spelling| + TILES_SHARE mass + 1e-6, which must be at most 1."""
+    from protoquant_tpu_torch.ops.attention import (int8_kv_attention_ref, kivi_attention_tiles_ref,
+                                                    kivi_dequant_k, kivi_dequant_v4)
+
+    G = kw["group"]
+    tiles = kivi_attention_tiles_ref(q, *cache, lengths, new_lengths, v4=tier == "int4",
+                                     **kw).float()
+    kq, kchs, vq, vs, kt, kts, vt, vts = cache
+    k = kivi_dequant_k(kq, kchs, kt, kts, new_lengths, G)
+    v = (kivi_dequant_v4(vq, vs, vt, vts, new_lengths, G) if tier == "int4"
+         else vq.float() * vs[..., None])
+    ones = torch.ones(k.shape[:3], device=k.device)
+    variants = {key: val for key, val in kw.items() if key != "group"}
+    mass = int8_kv_attention_ref(q.float(), k, ones, v.abs(), ones, lengths, **variants)
+    del k, v
+    tight = TILES_ULP * tiles.abs() + TILES_SHARE * mass + 1e-6
+    over = ((out.float() - tiles).abs() / tight).max().item()
+    if not over <= 1.0:
+        raise AssertionError(f"{name} {label}: {over} times the tolerance from its bf16-lane "
+                             "spelling")
+    return over
+
+
+def kivi_prefill_fault(tier, q, cache, lengths, new_lengths, **kw):
+    """A planted fault on the KIVI prefill route, spelled by
+    kivi_attention_tiles_ref: every tail column read one row off (K, V and
+    their scales of its position's neighbour). (A K-side fault of the packed
+    tiles, the next chunk's scale row, moves these nearly flat softmaxes of
+    random q by less than ATTN_TOL; tests/test_torch_kivi_prefill.py holds it
+    at a tighter tolerance.)"""
+    from protoquant_tpu_torch.ops.attention import kivi_attention_tiles_ref
+
+    roll = lambda x: torch.roll(x, -1, dims=2)
+    kq, kchs, vq, vs, kt, kts, vt, vts = cache
+    return {"tail position one off": kivi_attention_tiles_ref(
+        q, kq, kchs, vq, vs, roll(kt), roll(kts), roll(vt), roll(vts), lengths, new_lengths,
+        v4=tier == "int4", **kw)}
+
+
 def check_kivi_attention(ops, gen, dev, tier):
     """The tier's attention against its plain version within ATTN_TOL:
     decode at lengths 63 / 700 / 1023 / 255 (63's step completes chunk 0),
@@ -1188,8 +1242,10 @@ def check_kivi_attention(ops, gen, dev, tier):
     design's boundaries (128 keys a split at Dh 128). Two calls on the same inputs
     must give the same bits. Planted fault in the split case: the plain
     split formulation with each row's last live packed split dropped must
-    miss the tolerance. Library: SDPA over the cache dequantized to bf16
-    (the plain version's f32 dequant, rounded)."""
+    miss the tolerance; in the prefill case (the prefill kernel, held also
+    to its bf16-lane spelling by kivi_tiles_check) kivi_prefill_fault's.
+    Library: SDPA over the cache dequantized to bf16 (the plain version's
+    f32 dequant, rounded)."""
     import torch.nn.functional as F
 
     from protoquant_tpu_torch.ops.attention import kivi_dequant_k, kivi_dequant_v4
@@ -1209,7 +1265,8 @@ def check_kivi_attention(ops, gen, dev, tier):
             caches = [_mirror_v(c, new_lengths) for c in caches]
         q = torch.randn(B, T, H, Dh, generator=gen, device=dev).to(torch.bfloat16)
         kw = {"group": G}
-        out = attn(q, *caches[0], lengths, new_lengths, **kw)
+        out = routed_call(ops, name, label, lambda: attn(q, *caches[0], lengths, new_lengths,
+                                                         **kw))
         ref = plain(q, *caches[0], lengths, new_lengths, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
@@ -1218,10 +1275,15 @@ def check_kivi_attention(ops, gen, dev, tier):
             raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
         if not torch.equal(attn(q, *caches[0], lengths, new_lengths, **kw), out):
             raise AssertionError(f"{name} {label}: two calls on the same inputs differ")
-        margins = {}
+        margins, tiles = {}, None
         if label.startswith("decode split"):
             margins = _margins(name, label, out, tol, {"last live packed split dropped":
                                split_dropped(q, caches[0], lengths, new_lengths, tier)})
+        if label == "prefill":
+            tiles = kivi_tiles_check(name, label, tier, q, caches[0], lengths, new_lengths, out,
+                                     **kw)
+            margins = _margins(name, label, out, tol, kivi_prefill_fault(
+                tier, q, caches[0], lengths, new_lengths, **kw))
         t_idx = torch.arange(T, device=dev)
         valid = (lengths.long()[:, None] + t_idx[None, :] + 1).clamp_max(S)
         nbytes = kivi_attention_bytes(tier, lens, new_lengths.tolist(), B, KV, T, H, Dh)
@@ -1237,7 +1299,7 @@ def check_kivi_attention(ops, gen, dev, tier):
         qh = q.transpose(1, 2)
         cases.append({
             "shape": f"{label} B={B} T={T} H={H} S={S} G={G} lengths={lens}",
-            "max_abs_err": err, "fault_margins": margins,
+            "max_abs_err": err, "fault_margins": margins, "tiles_err_over_tol": tiles,
             "ms": bench([lambda c=c: attn(q, *c, lengths, new_lengths, **kw) for c in caches]),
             "plain_ms": bench([lambda c=c: plain(q, *c, lengths, new_lengths, **kw)
                                for c in caches], iters=5),
@@ -1480,6 +1542,10 @@ def check_gemma2_attention(ops, gen, dev, kv_dtype):
         tol = ATTN_TOL * ref.float().abs().max().item()
         if not err <= tol:
             raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
+        tiles = None
+        if kv_dtype in KIVI_KERNELS and "prefill" in label:
+            tiles = kivi_tiles_check(name, label, kv_dtype, q, caches[0], lengths, new_lengths,
+                                     out, **kw)
         faults = {}
         for fault, key in (("window ignored", "window"), ("softcap ignored", "softcap")):
             if variants.get(key):
@@ -1508,6 +1574,7 @@ def check_gemma2_attention(ops, gen, dev, kv_dtype):
             "shape": f"{label} B={B} T={T} H={H} KV={KV} Dh={Dh} S={S} lengths={lens} "
                      f"{json.dumps(variants)}",
             "max_abs_err": err, "fault_margins": faults, "max_score": max_score,
+            "tiles_err_over_tol": tiles,
             "ms": bench([lambda c=c: attn(q, *c, lengths, *extra, **kw) for c in caches]),
             "plain_ms": bench([lambda c=c: plain(q, *c, lengths, *extra, **kw)
                                for c in caches], iters=5),
@@ -1606,6 +1673,10 @@ def check_gpt_oss_attention(ops, gen, dev, kv_dtype):
         tol = ATTN_TOL * ref.float().abs().max().item()
         if not err <= tol:
             raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
+        tiles = None
+        if kv_dtype in KIVI_KERNELS and "prefill" in label:
+            tiles = kivi_tiles_check(name, label, kv_dtype, q, caches[0], lengths, new_lengths,
+                                     out, **kw)
         faults = {}
         if with_sinks:
             dropped = plain(q, *caches[0], lengths, *extra, **dict(kw, sink_logits=None))
@@ -1640,7 +1711,7 @@ def check_gpt_oss_attention(ops, gen, dev, kv_dtype):
         cases.append({
             "shape": f"{label} B={B} T={T} H={H} KV={KV} Dh={Dh} S={S} lengths={lens} "
                      f"{json.dumps(variants)}",
-            "max_abs_err": err, "fault_margins": faults,
+            "max_abs_err": err, "fault_margins": faults, "tiles_err_over_tol": tiles,
             "ms": bench([lambda c=c: attn(q, *c, lengths, *extra, **kw) for c in caches]),
             "plain_ms": bench([lambda c=c: plain(q, *c, lengths, *extra, **kw)
                                for c in caches], iters=5),
@@ -1801,6 +1872,10 @@ def check_alibi_attention(ops, gen, dev, kernel):
         tol = ATTN_TOL * ref.float().abs().max().item()
         if not err <= tol:
             raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
+        tiles = None
+        if kernel in KIVI_KERNELS and "prefill" in label:
+            tiles = kivi_tiles_check(name, label, kernel, q, caches[0], lengths, new_lengths, out,
+                                     alibi_slopes=slopes, **kw)
         faults = {"ALiBi dropped": call(plain, caches[0], **kw)}
         if kernel == "paged":
             faults["last live split dropped"] = paged_split_dropped(q, caches[0], pt, lengths,
@@ -1842,7 +1917,7 @@ def check_alibi_attention(ops, gen, dev, kernel):
             "shape": f"{label} B={B} T={T} H={H} Dh={Dh} S={S}"
                      f"{f' ps={PAGE}' if kernel == 'paged' else ''}"
                      f"{f' G={G}' if kw else ''} lengths={lens}",
-            "max_abs_err": err, "fault_margins": margins,
+            "max_abs_err": err, "fault_margins": margins, "tiles_err_over_tol": tiles,
             "ms": bench([lambda c=c: call(attn, c, alibi_slopes=slopes, **kw) for c in caches]),
             "plain_ms": bench([lambda c=c: call(plain, c, alibi_slopes=slopes, **kw)
                                for c in caches], iters=5),
@@ -1889,16 +1964,14 @@ def path_kernels(ops, mode: str, kv_dtype: str = "int8") -> tuple:
 # wrapper -> that kernel's route count (ops.ROUTED)
 DECODE_ROUTE = {"qmatmul": "qmatmul_decode",
                 "paged_int8_attention": "paged_int8_attention_split",
-                "int8_kv_attention": "int8_kv_attention_split",
-                "mixed_kv_attention": "mixed_kv_attention_split"}
-PREFILL_ROUTE = {"int8_kv_attention": "int8_kv_attention_prefill",
-                 "mixed_kv_attention": "mixed_kv_attention_prefill"}
+                **{name: name + "_split" for name in ROUTED_ATTENTIONS}}
+PREFILL_ROUTE = {name: name + "_prefill" for name in ROUTED_ATTENTIONS}
 
 
 def routed(path) -> tuple:
     """``path`` with the decode kernel of each routed wrapper in it and the
-    prefill kernel of each dense attention (a paged path runs the int8
-    attention over its gathered window for prefill chunks alone)."""
+    prefill kernel of each dense and KIVI attention (a paged path runs the
+    int8 attention over its gathered window for prefill chunks alone)."""
     paged = "paged_int8_attention" in path
     decode = [DECODE_ROUTE[k] for k in path
               if k in DECODE_ROUTE and not (paged and k == "int8_kv_attention")]
@@ -3449,10 +3522,14 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
                            "protoquant_tpu/ops/kv_scatter.py:472", None),
     "k4v8_attention": ("protoquant_tpu_torch/csrc/kivi_split.cuh",
                        "protoquant_tpu/ops/attention.py:1037", "decode"),
+    "k4v8_attention_prefill": ("protoquant_tpu_torch/csrc/attn_prefill.cuh",
+                               "protoquant_tpu/ops/attention.py:1037", "prefill"),
     "kivi4_decode_update": ("protoquant_tpu_torch/csrc/kivi_update.cu",
                             "protoquant_tpu/ops/kv_scatter.py:205", None),
     "int4_kv_attention": ("protoquant_tpu_torch/csrc/kivi_split.cuh",
                           "protoquant_tpu/ops/attention.py:495", "decode"),
+    "int4_kv_attention_prefill": ("protoquant_tpu_torch/csrc/attn_prefill.cuh",
+                                  "protoquant_tpu/ops/attention.py:495", "prefill"),
     "kv_mixed_scatter_decode": ("protoquant_tpu_torch/csrc/kv_scatter.cu",
                                 "protoquant_tpu/ops/kv_scatter.py:362", None),
     "mixed_kv_attention": ("protoquant_tpu_torch/csrc/attn_split.cuh",
@@ -3466,14 +3543,16 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
 # Every file of a kernel whose wrapper runs more than one source, by the
 # calls that run each: a decode is the split kernel and then the merge, two
 # CUDA launches that the wrapper counts as one call; a prefill chunk is one
-# launch of the KIVI one-pass kernel or of the int8 / K8V4 prefill kernel
-# (entries of their own). The "decode" row's times are those of the pair.
+# launch of the prefill kernel (entries of their own). The "decode" row's
+# times are those of the pair.
 _CSRC = "protoquant_tpu_torch/csrc/"
 _MERGE = [_CSRC + "split_common.cuh", _CSRC + "split_merge.cu"]
 KERNEL_SOURCES = {
     **{name: {"decode": [_CSRC + "kivi_split.cuh", _CSRC + f"kivi_split_{tier}.cu",
-                         _CSRC + "kivi_combine.cu", *_MERGE],
-              "prefill": [_CSRC + "kivi_attention.cu"]}
+                         _CSRC + "kivi_combine.cu", *_MERGE]}
+       for name, tier in (("k4v8_attention", "k4v8"), ("int4_kv_attention", "int4"))},
+    **{name + "_prefill": {"prefill": [_CSRC + "attn_prefill.cuh", _CSRC + "attn_prefill.cu",
+                                       _CSRC + f"attn_prefill_kivi_{tier}.cu"]}
        for name, tier in (("k4v8_attention", "k4v8"), ("int4_kv_attention", "int4"))},
     "int8_kv_attention": {"decode": [_CSRC + f for f in (
         "attn_split.cuh", "attn_split.cu", "attn_split_int8.cu", "attn_split_ext.cu")] + _MERGE},
@@ -3488,11 +3567,10 @@ KERNEL_SOURCES = {
         "attn_split.cuh", "attn_split.cu", "attn_split_paged.cu")] + _MERGE}}
 # The entries whose launches are a route count of their wrapper under
 # another name (ops.ROUTED; "qmatmul_decode", "paged_int8_attention_split"
-# and the two "_prefill" entries are counted under their own): the
-# wrapper's own count is the routes' sum.
+# and the "_prefill" entries are counted under their own): the wrapper's own
+# count is the routes' sum.
 ROUTE_COUNT = {"qmatmul": "qmatmul_tile", "paged_int8_attention": "paged_int8_attention_walk",
-               "int8_kv_attention": "int8_kv_attention_split",
-               "mixed_kv_attention": "mixed_kv_attention_split"}
+               **{name: name + "_split" for name in ROUTED_ATTENTIONS}}
 
 
 def timed(name: str, fn, *args, **kwargs):
@@ -3539,7 +3617,7 @@ def check_kernels(ops, gen, dev) -> dict:
     for name, fn in checks:
         cases = fn(ops, gen, dev)
         groups = {name: cases}
-        if name in DENSE_ATTENTIONS:  # the prefill kernel's cases under its own entry
+        if name in ROUTED_ATTENTIONS:  # the prefill kernel's cases under its own entry
             groups = {name: [c for c in cases if "prefill" not in c["shape"]],
                       name + "_prefill": [c for c in cases if "prefill" in c["shape"]]}
         for key, group in groups.items():
@@ -3554,6 +3632,9 @@ def check_kernels(ops, gen, dev) -> dict:
                               f"elements {c['faults_differing_elements']}")
                 if c.get("plan"):
                     flips += f", plan {c['plan']}"
+                if c.get("tiles_err_over_tol") is not None:
+                    flips += (f", {c['tiles_err_over_tol']:.4f} of the tolerance from its "
+                              "bf16-lane spelling")
                 log(f"kernel {key} {c['shape']}: {c['ms']:.4f} ms, plain "
                     f"{c['plain_ms']:.4f} ms, library {c['library_ms']}, bound "
                     f"{c['bound_ms']:.4f} ms ({c['bound_by']}), err {c['max_abs_err']}{flips}")

@@ -43,7 +43,7 @@ static int split_entry(bool v4, const void* q, int q_dtype, const void* kq, cons
       out, part_acc, part_ml, B, T, H, KV, S, Dh, G, sm, window, softcap, n_split, stream
 
 // The split plan of a KIVI attention call (ks_plan): the number of splits,
-// the span in *span; 0 where the one-pass kernel (kivi_attention.cu) takes it.
+// the span in *span; 0 where the prefill kernel (attn_prefill.cuh) takes it.
 PQ_EXPORT int pq_kivi_split_plan(int T, int H, int KV, int S, int Dh, int G, int* span) {
   return ks_plan(T, H, KV, S, Dh, G, span);
 }

@@ -1,14 +1,16 @@
 // Split-S decode attention over the KIVI caches (flash-decoding), the
 // design that ops/attention.py routes every decode-sized call to; the
-// one-pass kernel of csrc/kivi_attention.cu keeps the calls with many query
-// rows (prefill). The contract is kivi_attention.cu's, variant for variant
-// (window, score scale, softcap, ALiBi, learned sinks; frontier and tail
-// rule; K4V8's V tail mirror; Dh 32, 64, 128, 256; q in f32, bf16, f16).
+// prefill kernel of csrc/attn_prefill.cuh (KIVI) keeps the calls with many
+// query rows (prefill). The contract is the one attn_prefill.cuh states for
+// the KIVI caches, variant for variant (window, score scale, softcap, ALiBi,
+// learned sinks; frontier and tail rule; K4V8's V tail mirror; Dh 32, 64,
+// 128, 256; q in f32, bf16, f16).
 //
-// Bound on the H100: bytes, as kivi_attention.cu says. At decode the
-// one-pass kernel puts one block on each (b, kv head) and keeps one warp of
-// four busy, a synchronous load and two barriers per tile: latency, not
-// bytes, holds it back. A call takes this design, whatever its batch, when
+// Bound on the H100: bytes, the visible part of the packed store (Dh / 2 per
+// key for K, Dh (K4V8) or Dh / 2 (Int4) for V, plus scales), the live tail
+// rows, q and out. At decode a one-pass kernel (one block on each (b, kv
+// head), one warp of four busy, a synchronous load and two barriers per
+// tile) is held back by latency, not bytes. A call takes this design, whatever its batch, when
 // its rows fit one block, its G (>= 8) divides or is divided by the tile,
 // and it needs at most SP_MAX_SPLITS splits: ks_plan decides, and
 // pq_kivi_split_plan (kivi_combine.cu) tells the wrapper, which sizes the
@@ -116,7 +118,7 @@ struct KsGeom {
 
 // The split plan of a call at head dim DH with R query rows a kv head: the
 // number of splits (the packed ones over the capacity S, and the tail's),
-// with the span in *span; 0 where the one-pass kernel takes the call.
+// with the span in *span; 0 where the prefill kernel takes the call.
 template <int DH>
 inline int ks_plan_dh(int R, int S, int G, int* span) {
   using Gm = KsGeom<DH>;

@@ -88,7 +88,7 @@ SIGNATURES = {
     # after out and its n_split before the stream
     "pq_k4v8_attention_split": [_P, _I] + [_P] * 15 + [_I] * 7 + [_F, _I, _F, _I, _P],
     "pq_int4_kv_attention_split": [_P, _I] + [_P] * 15 + [_I] * 7 + [_F, _I, _F, _I, _P],
-    # T, H, KV, S, Dh, G, out span; returns n_split (0: the one-pass kernel),
+    # T, H, KV, S, Dh, G, out span; returns n_split (0: the prefill kernel),
     # launches nothing and takes no stream
     "pq_kivi_split_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
     # the split-S int8 and K8V4 decode: as their prefill entries, with the

@@ -20,16 +20,20 @@ wrappers count each route apart in ``.routes`` ("split", "prefill").
 :func:`dense_attention_partials_ref` spells the split out in plain
 PyTorch, :func:`dense_attention_tiles_ref` the prefill, for the tests.
 The KIVI kernels replace ``_attn_k4v8_kernel`` and ``_attn4_kernel``: a
-call whose query rows a kv head fit one split block (every decode), at any
-batch, takes the split-S design (``csrc/kivi_split.cuh``,
-``split_merge.cu``: blocks over fixed key ranges and the tail, partials
-merged in split order; :func:`kivi_split_plan` asks the library's plan),
-any other call the one-pass kernel (``csrc/kivi_attention.cu``); their
-plain versions dequantize the cache to f32 (``dequant_fp(lane=f32)`` of
-the JAX caches) and run the int8 plain version with unit scales, as the
-JAX tests hold the Pallas kernels.
+call whose query rows a kv head fit one split block and whose chunk G the
+split tiles (every decode at G >= 8), at any batch, takes the split-S design
+(``csrc/kivi_split.cuh``, ``split_merge.cu``: blocks over fixed key ranges
+and the tail, partials merged in split order; :func:`kivi_split_plan` asks
+the library's plan), any other call (every prefill chunk) the same flash
+prefill on bf16 tensor cores as the int8 cache (``csrc/attn_prefill.cuh``
+with ``KIVI``: the packed tiles up to the frontier, each K element the
+nibble times its chunk-channel scale in 2 bf16 terms, then the tails' int8
+tiles); their plain versions dequantize the cache to f32
+(``dequant_fp(lane=f32)`` of the JAX caches) and run the int8 plain version
+with unit scales, as the JAX tests hold the Pallas kernels.
 :func:`kivi_attention_partials_ref` and :func:`merge_partials_ref` spell
-out the split design's decomposition in plain PyTorch, for the tests.
+out the split design's decomposition in plain PyTorch,
+:func:`kivi_attention_tiles_ref` the prefill's, for the tests.
 Variants, as the JAX functions take them: ``window`` > 0 hides keys more
 than window - 1 positions behind each query, ``scale`` > 0 replaces the
 score scale Dh^-0.5, ``softcap`` > 0 caps the scaled score to softcap *
@@ -299,6 +303,7 @@ def dense_attention_partials_ref(q, kq, ks, vq, vs, lengths, *, span, v4=False, 
 
 
 PREFILL_ROWS = 64  # query rows of a prefill block (AP_ROWS in csrc/attn_prefill.cuh)
+KIVI_K_TERMS = 2  # bf16 terms of a KIVI packed K element (ApGeom::NK in csrc/attn_prefill.cuh)
 
 
 def prefill_key_tile(head_dim: int) -> int:
@@ -324,8 +329,8 @@ def _bf16_terms(x, n: int) -> list:
 
 
 def dense_attention_tiles_ref(q, kq, ks, vq, vs, lengths, *, v4=False, lane=torch.bfloat16,
-                              terms=None, window=0, scale=0.0, softcap=0.0, k_positions=None,
-                              sinks=0, alibi_slopes=None, sink_logits=None):
+                              terms=None, k_terms=0, window=0, scale=0.0, softcap=0.0,
+                              k_positions=None, sinks=0, alibi_slopes=None, sink_logits=None):
     """The prefill kernel of the int8 and K8V4 attentions
     (``csrc/attn_prefill.cuh``) in plain PyTorch, with its walk, its tiles
     and its lanes; the contract is :func:`int8_kv_attention_ref`'s (with
@@ -345,8 +350,10 @@ def dense_attention_tiles_ref(q, kq, ks, vq, vs, lengths, *, v4=False, lane=torc
     dots in f32; torch.bfloat16 takes them as the kernel does, q and p * vs
     as bf16 terms against the exact bf16 k and v, summed in f32: ``terms``
     (q's, p * vs's), or one count for both (1: the TPU kernel's lanes);
-    None: the kernel's, :func:`prefill_terms` of q's dtype. Returns [B, T,
-    H, Dh] in q.dtype."""
+    None: the kernel's, :func:`prefill_terms` of q's dtype. ``k_terms`` > 0
+    splits k (f32 values, as :func:`kivi_attention_tiles_ref` passes) into
+    that many bf16 terms too, each q term meeting each k term; 0 takes k as
+    given (int8 codes: exact). Returns [B, T, H, Dh] in q.dtype."""
     if v4:
         vq, vs = unpack_v4(vq, vs)
     window = _window("dense_attention_tiles_ref", window)
@@ -357,11 +364,11 @@ def dense_attention_tiles_ref(q, kq, ks, vq, vs, lengths, *, v4=False, lane=torc
     nq, np_ = prefill_terms(q.dtype) if terms is None else (
         (terms, terms) if isinstance(terms, int) else terms)
     if lane == torch.float32:
-        nq = np_ = 0
+        nq = np_ = k_terms = 0
     split = lambda x, n: _bf16_terms(x, n) if n else [x]
     q_terms = split(q.float().reshape(B, T, KV, grp, Dh).transpose(1, 2).reshape(B, KV, R, Dh),
                     nq)
-    k, v = kq.float(), vq.float()
+    k_parts, v = split(kq.float(), k_terms), vq.float()
     ln = lengths.long()[:, None]
     limit = ln + torch.arange(R, device=dev) // grp  # [B, R]: each row's position
     # each row block's walk over the tiles [B, blocks, tiles], as the kernel's
@@ -395,7 +402,8 @@ def dense_attention_tiles_ref(q, kq, ks, vq, vs, lengths, *, v4=False, lane=torc
     sm = score_scale(Dh, scale)
     for c in range(0, S, KT):
         cols = slice(c, min(c + KT, S))
-        s = sum(torch.einsum("bkrd,bksd->bkrs", qt, k[:, :, cols]) for qt in q_terms)
+        s = sum(torch.einsum("bkrd,bksd->bkrs", qt, kt[:, :, cols])
+                for qt in q_terms for kt in k_parts)
         s = s * ks[:, :, None, cols] * sm
         if softcap > 0.0:
             s = softcap * torch.tanh(s * (1.0 / softcap))
@@ -553,9 +561,53 @@ def int4_kv_attention_ref(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
                      alibi_slopes, sink_logits, variants)
 
 
+def kivi_attention_tiles_ref(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
+                             new_lengths, *, group, v4, lane=torch.bfloat16, terms=None,
+                             window=0, scale=0.0, softcap=0.0, alibi_slopes=None,
+                             sink_logits=None):
+    """The prefill kernel of the KIVI attentions (``csrc/attn_prefill.cuh``
+    with ``KIVI``; V4: Int4) in plain PyTorch: its walk laid out as the
+    columns of a dense cache for :func:`dense_attention_tiles_ref`, whose
+    blocks, tiles, online softmax and lanes it takes. Columns [0, S) hold the
+    packed store, K = nib * kchs[p // G] (the plain version's f32 products),
+    V int8 (K4V8) or the nibbles (Int4) with their per-token scales, visible
+    below the frontier F = (min(new_lengths, S) // G) G; from S rounded up to
+    the key tile follow the tails' 2G rows (K and V int8 with their scales),
+    tail column c holding the one position = c mod 2G in [F, F + 2G),
+    visible below S; every column then as the contract says (causal, the
+    window, ALiBi after the softcap, the learned sinks). A walk over every
+    tile drops no key the kernel's walk keeps and adds only tiles a row
+    sees nothing of, which leave its state as it was. ``lane`` and
+    ``terms`` as :func:`dense_attention_tiles_ref`; at ``lane`` bf16 a K
+    element is split into :data:`KIVI_K_TERMS` bf16 terms (the tails' int8
+    codes are exact in the first). Returns [B, T, H, Dh] in q.dtype."""
+    B, T, H, Dh = q.shape
+    KV, S = kq.shape[1], 2 * kq.shape[2]
+    TC, KT, dev = 2 * group, prefill_key_tile(Dh), q.device
+    Sp, TCp = -(-S // KT) * KT, -(-TC // KT) * KT
+    cols = lambda x, n: torch.nn.functional.pad(x, (0, 0, 0, n - x.shape[2]) if x.dim() == 4
+                                                else (0, n - x.shape[2]))
+    k_packed = _unpack_tokens(kq).float() * kchs[:, :, torch.arange(S, device=dev) // group]
+    v_packed, vs_packed = unpack_v4(vq, vs) if v4 else (vq, vs)
+    k = torch.cat([cols(k_packed, Sp), cols(ktail.float(), TCp)], dim=2)
+    ks = torch.cat([torch.ones(B, KV, Sp, device=dev), cols(kts, TCp)], dim=2)
+    v = torch.cat([cols(v_packed.float(), Sp), cols(vtail.float(), TCp)], dim=2)
+    vsc = torch.cat([cols(vs_packed, Sp), cols(vts, TCp)], dim=2)
+    F = ((new_lengths.long().clamp(0, S) // group) * group)[:, None]  # [B, 1]
+    c, j = torch.arange(Sp, device=dev), torch.arange(TCp, device=dev)
+    f_mod = F % TC
+    p = F - f_mod + j + torch.where(j < f_mod, TC, 0)
+    k_positions = torch.cat([torch.where(c < F, c, -1),
+                             torch.where((j < TC) & (p < S), p, -1)], dim=1).int()
+    return dense_attention_tiles_ref(
+        q, k, ks, v, vsc, lengths, lane=lane, terms=terms, k_terms=KIVI_K_TERMS, window=window,
+        scale=scale, softcap=softcap, k_positions=k_positions, alibi_slopes=alibi_slopes,
+        sink_logits=sink_logits)
+
+
 def kivi_split_plan(T, H, KV, S, head_dim, group):
     """(span, n_split) of the split-S decode for a KIVI attention call, or
-    None where the one-pass kernel takes it, as ``ks_plan`` in
+    None where the prefill kernel takes it, as ``ks_plan`` in
     ``csrc/kivi_split.cuh`` decides (asked through the built library): the
     packed keys of a split and the number of splits, the packed ones over
     the capacity S and the tail's."""
@@ -667,6 +719,8 @@ def _kivi_attention_launch(name, fn, v4, q, kq, kchs, vq, vs, ktail, kts, vtail,
     q = q.contiguous()
     dev = _build.same_device_contiguous(name, q, kq, kchs, vq, vs, ktail, kts, vtail,
                                         vts, lengths, new_lengths, *extra)
+    if any(t.data_ptr() % 16 for t in (kq, kchs, vq, ktail, vtail)):  # 16-byte copies
+        raise ValueError(f"{name}: cache payloads and K scales must be 16-byte aligned")
     out = torch.empty_like(q)
     c_name = "pq_int4_kv_attention" if v4 else "pq_k4v8_attention"
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -719,7 +773,7 @@ def k4v8_attention(q, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
 
 k4v8_attention.launches = 0
 # launches by kernel: "split" (kivi_split.cuh, kivi_combine.cu and the
-# merge), "prefill" (kivi_attention.cu, the one-pass kernel)
+# merge), "prefill" (attn_prefill.cuh, the KIVI instances)
 k4v8_attention.routes = {"split": 0, "prefill": 0}
 
 

@@ -27,7 +27,9 @@ StreamingLLM sinks, ALiBi and learned sinks, at batch 9 and 32. The
 prefill kernel (bf16 tensor cores) at every q dtype and variant: against
 its bf16-lane spelling (``dense_attention_tiles_ref``) within TIGHT, against
 the plain version within ATOL (f32 q: three bf16 terms) or 2^-7 of the
-largest output, bit for bit across two calls and in a CUDA graph. The learned-sink variants
+largest output, bit for bit across two calls and in a CUDA graph; its KIVI
+instances (the K4V8 and Int4 prefill chunks and the decodes the split
+design does not take) the same, against ``kivi_attention_tiles_ref``. The learned-sink variants
 (GPT-OSS) as their attentions; a tiny GPT-OSS on the card against the same
 model on the CPU: logits within 2^-7 of their scale, at least 0.9 of the
 engine's greedy tokens equal (an int8 activation code on a rounding
@@ -707,6 +709,12 @@ def test_kivi_decode_update_exact(cuda, tier, G, head_dim):
     (1, 33, 128, torch.float32), (2, 3, 256, torch.float32), (1, 1, 128, torch.bfloat16)])
 @pytest.mark.parametrize("tier", ["k4v8", "int4"])
 def test_kivi_attention_vs_plain(cuda, tier, group, T, head_dim, dtype):
+    """Against the plain version; a call the split design does not take
+    (more rows a kv head than a split block holds: T 33 at Dh 128, T 3 at
+    Dh 256) goes to the prefill kernel and is also held to its bf16-lane
+    spelling within TIGHT, two calls giving the same bits."""
+    from protoquant_tpu_torch.ops import attention as A
+
     g = torch.Generator(device=cuda).manual_seed(group * 7 + T)
     G, S, KV = 16, 128, 2
     lens = [0, 15, 40, S - T]
@@ -718,11 +726,129 @@ def test_kivi_attention_vs_plain(cuda, tier, group, T, head_dim, dtype):
         _mirror_v(cache, new_lengths, G)
     q = torch.randn(B, T, KV * group, head_dim, generator=g, device=cuda).to(dtype)
     _, attn = KIVI[tier]
-    out = getattr(ops, attn)(q, *cache, lengths, new_lengths, group=G)
+    fn = getattr(ops, attn)
+    prefill = A.kivi_split_plan(T, KV * group, KV, S, head_dim, G) is None
+    ops.reset_launch_counts()
+    out = fn(q, *cache, lengths, new_lengths, group=G)
     ref = getattr(ops, attn + "_ref")(q, *cache, lengths, new_lengths, group=G)
     torch.cuda.synchronize()
+    assert fn.routes["prefill" if prefill else "split"] == 1
     atol = ATOL if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    if prefill:
+        _kivi_tiles_check(tier, q, cache, lengths, new_lengths, out, dict(group=G))
+        assert torch.equal(fn(q, *cache, lengths, new_lengths, group=G), out)
+
+
+def _kivi_tiles_check(tier, q, cache, lengths, new_lengths, out, kw):
+    """The KIVI prefill kernel's output ``out`` against its bf16-lane
+    spelling (``kivi_attention_tiles_ref``) within TIGHT; mass: the plain
+    version over |v|."""
+    from protoquant_tpu_torch.ops import attention as A
+
+    tiles = A.kivi_attention_tiles_ref(q, *cache, lengths, new_lengths, v4=tier == "int4", **kw)
+    G = kw["group"]
+    kq, kchs, vq, vs, kt, kts, vt, vts = cache
+    k = A.kivi_dequant_k(kq, kchs, kt, kts, new_lengths, G)
+    v = (A.kivi_dequant_v4(vq, vs, vt, vts, new_lengths, G) if tier == "int4"
+         else vq.float() * vs[..., None])
+    ones = torch.ones(k.shape[:3], device=k.device)
+    variants = {key: val for key, val in kw.items() if key != "group"}
+    mass = A.int8_kv_attention_ref(q.float(), k, ones, v.abs(), ones, lengths, **variants)
+    out, tiles = out.float(), tiles.float()
+    ulp, share = TIGHT[q.dtype]
+    tight = ulp * tiles.abs() + share * mass + 1e-6
+    assert ((out - tiles).abs() <= tight).all(), ((out - tiles).abs() - tight).max().item()
+
+
+# (label, T, group, S, Dh, G, lengths, variants): prefill chunks over the KIVI
+# caches crossing chunk boundaries and the frontier at Llama's group 1 and
+# G 16, GPT-OSS's group 8 with learned sinks and a window, Gemma-2's window,
+# scale and softcap at Dh 256 with G 8 (q drawn large so the cap bites),
+# BLOOM's ALiBi with G 4 (scale rows read from global memory), a G of 96
+# that does not tile, and a padded chunk reaching past S (Dh 32)
+KIVI_PREFILL_CASES = [
+    ("full", 130, 1, 512, 128, 16, [0, 300], {}),
+    ("gqa8 sinks window", 70, 8, 512, 64, 64, [20, 400], {"window": 100, "learned": True}),
+    ("window softcap", 100, 2, 512, 256, 8, [0, 300],
+     {"window": 40, "scale": 0.0625, "softcap": 8.0}),
+    ("alibi small G", 70, 1, 512, 64, 4, [37, 290], {"alibi": True}),
+    ("G 96", 70, 2, 768, 64, 96, [100, 500], {}),
+    ("past S", 100, 2, 256, 32, 16, [246, 100], {}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("tier", ["k4v8", "int4"])
+@pytest.mark.parametrize("case", KIVI_PREFILL_CASES, ids=[c[0] for c in KIVI_PREFILL_CASES])
+def test_kivi_prefill_vs_tiles_and_plain(cuda, case, tier, dtype):
+    """Every KIVI variant at every q dtype on the prefill kernel: against
+    the bf16-lane spelling within TIGHT, against the plain version within
+    ATOL (f32) or 2^-7 of the largest output; two calls give the same bits;
+    the calls are counted under the "prefill" route."""
+    from protoquant_tpu_torch.models.llama import alibi_slopes
+    from protoquant_tpu_torch.ops import attention as A
+
+    label, T, group, S, Dh, G, lens, variants = case
+    g = torch.Generator(device=cuda).manual_seed(151 + T + Dh + G)
+    B, KV, H = len(lens), 2, 2 * group
+    cache = _kivi_cache(g, cuda, tier, B, KV, S, Dh, G)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    new_lengths = lengths + T
+    if tier == "k4v8":
+        _mirror_v(cache, new_lengths, G)
+    kw = {k: v for k, v in variants.items() if k not in ("alibi", "learned")}
+    gain = 8.0 if kw.get("softcap") else 1.0
+    q = (torch.randn(B, T, H, Dh, generator=g, device=cuda) * gain).to(dtype)
+    if variants.get("alibi"):
+        kw["alibi_slopes"] = alibi_slopes(H).to(cuda)
+    if variants.get("learned"):
+        kw["sink_logits"] = torch.randn(H, generator=g, device=cuda) * 2
+    kw["group"] = G
+    assert A.kivi_split_plan(T, H, KV, S, Dh, G) is None
+    _, attn = KIVI[tier]
+    fn = getattr(ops, attn)
+    ops.reset_launch_counts()
+    out = fn(q, *cache, lengths, new_lengths, **kw)
+    again = fn(q, *cache, lengths, new_lengths, **kw)
+    ref = getattr(ops, attn + "_ref")(q, *cache, lengths, new_lengths, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert fn.routes == {"split": 0, "prefill": 2}
+    assert ops.route_counts()[attn + "_prefill"] == 2
+    _kivi_tiles_check(tier, q, cache, lengths, new_lengths, out, kw)
+    atol = ATOL if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["k4v8", "int4"])
+def test_kivi_prefill_cuda_graph_and_alignment(cuda, tier):
+    """A KIVI prefill call captured in a CUDA graph and replayed gives the
+    eager call's bits; a packed K whose address is not 16-byte aligned is
+    refused before launch."""
+    g = torch.Generator(device=cuda).manual_seed(161)
+    G, S, KV, T = 64, 1024, 4, 256
+    cache = _kivi_cache(g, cuda, tier, 2, KV, S, 128, G)
+    lengths = torch.tensor([10, 300], dtype=torch.int32, device=cuda)
+    new_lengths = lengths + T
+    if tier == "k4v8":
+        _mirror_v(cache, new_lengths, G)
+    q = torch.randn(2, T, KV, 128, generator=g, device=cuda).to(torch.bfloat16)
+    fn = getattr(ops, KIVI[tier][1])
+    eager = fn(q, *cache, lengths, new_lengths, group=G)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn(q, *cache, lengths, new_lengths, group=G)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    kq = cache[0]
+    shifted = torch.empty(kq.numel() + 1, dtype=torch.int8, device=cuda)[1:].view(kq.shape)
+    shifted.copy_(kq)
+    with pytest.raises(ValueError, match="16-byte"):
+        fn(q, shifted, *cache[1:], lengths, new_lengths, group=G)
 
 
 @pytest.mark.cuda
@@ -858,7 +984,7 @@ def test_kivi_split_large_batch_vs_plain(cuda, tier):
 @pytest.mark.parametrize("Dh,group,G", [(128, 1, 4), (256, 8, 64), (64, 1, 96)])
 @pytest.mark.parametrize("tier", ["k4v8", "int4"])
 def test_kivi_one_pass_decode_vs_plain(cuda, tier, Dh, group, G):
-    """The decodes the split design cannot take go to the one-pass kernel: a
+    """The decodes the split design cannot take go to the prefill kernel: a
     chunk G below 8, more rows a kv head than a split block holds (8 at Dh
     256), a G that neither divides nor is divided by the tile (96 at Dh 64);
     with a window and learned sinks, at batch 9."""

@@ -23,8 +23,11 @@ learned sinks (T = 512 from 4500) and BLOOM-560m with ALiBi (T = 256 from
 decode at B 9 and 32. K4V8 and Int4: the decode and the prefill (T = 256
 from 300) at Llama-2-7B's shapes, the decode of a Gemma-2 global layer
 (scale, softcap) and of a GPT-OSS-20B global layer (learned sinks), both at
-S 8192 and lengths 63/4500/8191/1000, and the 7B decode at B 9, 16 and 32
-and the GPT-OSS one at B 32 and 64 (the lengths repeated). The paged
+S 8192 and lengths 63/4500/8191/1000, the 7B decode at B 9, 16 and 32
+and the GPT-OSS one at B 32 and 64 (the lengths repeated), and the prefill
+chunks of phase 3: Gemma-2's sliding and global layers and GPT-OSS-20B's
+with learned sinks (T = 512 from 4500), BLOOM-560m with ALiBi (T = 256
+from 700). The paged
 int8 attention (128-key pages, a shuffled table): the 7B decode at G 1
 and 4 and at B 9 and 32, and BLOOM-560m's with ALiBi (S 2048). To compare two
 checkouts, run it on each in turns (A, B, B, A) within one call on one
@@ -223,6 +226,18 @@ def main() -> int:
             time_kivi(f"{tier} decode gpt_oss global B={B}", tier, B, 1, cs.GO_HEADS, cs.GO_KV,
                       cs.GO_SEQ, cs.GO_HEAD_DIM, (ragged * B)[:B],
                       sink_logits=torch.randn(cs.GO_HEADS, generator=gen, device=dev))
+        g2_kivi = (tier, *g2_prefill)
+        time_kivi(f"{tier} prefill gemma2 sliding T=512 from 4500", *g2_kivi,
+                  window=cs.G2_WINDOW, scale=cs.G2_SCALE, softcap=cs.G2_SOFTCAP)
+        time_kivi(f"{tier} prefill gemma2 global T=512 from 4500", *g2_kivi, scale=cs.G2_SCALE,
+                  softcap=cs.G2_SOFTCAP)
+        for label, window in (("sliding", cs.GO_WINDOW), ("global", 0)):
+            time_kivi(f"{tier} prefill gpt_oss {label} T=512 from 4500", tier, 1, 512,
+                      cs.GO_HEADS, cs.GO_KV, cs.GO_SEQ, cs.GO_HEAD_DIM, [4500], window=window,
+                      sink_logits=torch.randn(cs.GO_HEADS, generator=gen, device=dev))
+        time_kivi(f"{tier} prefill bloom alibi T=256 from 700", tier, 1, 256, cs.BL_HEADS,
+                  cs.BL_HEADS, cs.BL_SEQ, cs.BL_HEAD_DIM, [700],
+                  alibi_slopes=alibi_slopes(cs.BL_HEADS).to(dev))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     line = {"label": args.label, "tree": args.tree, "card": smi.stdout.strip(), "ms": times}
