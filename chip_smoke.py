@@ -234,9 +234,10 @@ int8, K8V4, K4V8, Int4 or paged attention is two CUDA launches (the split
 kernel and the merge), and its entry names every file it runs under
 "sources". Four wrappers route between two kernels by shape before launch
 and count each apart (ops.route_counts): qmatmul ("qmatmul_decode", the
-split-K kernel at M <= 64: every decode step; "qmatmul", the tile kernel:
-prefill chunks), paged_int8_attention ("paged_int8_attention_split",
-every call whose rows fit a split block; "paged_int8_attention", the page
+split-K kernel at M <= DECODE_MAX_M: every decode step; "qmatmul", the TMA
+and wgmma tile kernel: prefill chunks, the MoE experts at prefill),
+paged_int8_attention ("paged_int8_attention_split", every call whose rows
+fit a split block; "paged_int8_attention", the page
 walk, for the rest: G 8 at Dh 256, on no engine path), and the int8,
 K8V4, K4V8 and Int4 attentions ("int8_kv_attention", ..., the split
 decode: every call whose rows fit a split block; "int8_kv_attention_prefill",
@@ -333,6 +334,9 @@ SINK_SCALE = 10.0
 GO_HIDDEN, GO_INTER, GO_VOCAB, GO_HEADS, GO_KV, GO_HEAD_DIM, GO_LAYERS, GO_EXPERTS = (
     2880, 2880, 201088, 64, 8, 64, 24, 32)
 GO_SEQ, GO_WINDOW = 8192, 128
+# A 512-token prefill chunk gives each expert ceil(4 * 512 / 32 * 1.25) = 80
+# tokens: the experts' products at prefill run at M = 80.
+GO_PREFILL_M = 80
 
 
 def log(msg: str) -> None:
@@ -420,23 +424,31 @@ GO_EXPERT_SHAPES = ((GO_HIDDEN, 2 * GO_INTER), (GO_INTER, GO_HIDDEN))
 def qmatmul_shapes(decode_max_m: int = 64) -> list:
     """(M, K, N) of the GEMM cases: Llama-2-7B's projections at M = 4 and
     256, Gemma-2-9B's, the three other Mistral-7B ones and GPT-OSS-20B's at
-    M = 4, GPT-OSS-20B's expert products at M = 1, and the 7B gate/up at M
-    = 1, 8, 16, 32 and ``decode_max_m`` (the decode kernel's threshold)."""
+    M = 4, GPT-OSS-20B's expert products at M = 1, the 7B gate/up at M = 1,
+    8, 16, 32, ``decode_max_m`` (the decode kernel's threshold) and 64; then the
+    prefill products the tile kernel takes beyond the 7B ones at M = 256:
+    GPT-OSS-20B's experts at M = 80 (``GO_PREFILL_M``), Gemma-2-9B's
+    gate/up and down at M = 512 and the 7B gate/up at M = 128."""
     shapes = [(m, k, n) for m in (4, 256)
               for k, n in ((HIDDEN, HIDDEN), (HIDDEN, INTER), (INTER, HIDDEN), (HIDDEN, VOCAB))]
     return (shapes + [(4, k, n) for k, n in G2_LINEAR_SHAPES + M7_LINEAR_SHAPES
                       + GO_LINEAR_SHAPES]
             + [(1, k, n) for k, n in GO_EXPERT_SHAPES]
-            + [(m, HIDDEN, INTER) for m in (1, 8, 16, 32, decode_max_m)])
+            + [(m, HIDDEN, INTER) for m in dict.fromkeys((1, 8, 16, 32, decode_max_m, 64))]
+            + [(GO_PREFILL_M, k, n) for k, n in GO_EXPERT_SHAPES]
+            + [(512, G2_HIDDEN, G2_INTER), (512, G2_INTER, G2_HIDDEN), (128, HIDDEN, INTER)])
 
 
 def check_qmatmul(ops, gen, dev, route):
     """The GEMM cases (``qmatmul_shapes``) that ``route`` takes: "decode"
     (M <= DECODE_MAX_M, csrc/qmatmul_decode.cu) or "tile" (larger M,
-    csrc/qmatmul.cu); each call must have gone through that kernel. The
-    decode cases also hold a planted fault: the plain split spelling with
-    its last K slice dropped, which must differ."""
-    from protoquant_tpu_torch.ops.qmatmul import DECODE_MAX_M, k_slices, qmatmul_decode_plan
+    csrc/qmatmul.cu, whose plan each case prints); each call must have gone
+    through that kernel, bit for bit with the plain version. Each case also
+    holds a planted fault, which must differ: the decode cases the plain
+    split spelling with its last K slice dropped, the tile cases the plain
+    product with the last 128-byte K step of xq zeroed."""
+    from protoquant_tpu_torch.ops.qmatmul import (DECODE_MAX_M, TILE_STEP, k_slices,
+                                                  qmatmul_decode_plan, qmatmul_tile_plan)
 
     cases = []
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -444,6 +456,7 @@ def check_qmatmul(ops, gen, dev, route):
         splits = qmatmul_decode_plan(m, n, k, sms)
         if (splits is None) != (route == "tile"):
             continue
+        plan = qmatmul_tile_plan(m, n, k, sms) if splits is None else None
         xq, sx = ops.rowquant_ref(torch.randn(m, k, generator=gen, device=dev))
         ws = [torch.randint(-127, 128, (n, k), generator=gen, device=dev,
                             dtype=torch.int8) for _ in range(copies_for(n * k))]
@@ -460,18 +473,20 @@ def check_qmatmul(ops, gen, dev, route):
                 raise AssertionError(f"qmatmul M={m} K={k} N={n} {out}: "
                                      f"max abs err {err}")
             del ref
-        faults = {}
-        if splits is not None:  # a planted fault: the last K slice dropped
-            k0, k1 = k_slices(k, splits)[-1]
-            dropped = xq.clone()
-            dropped[:, k0:k1] = 0
-            bad = ops.qmatmul_splitk_ref(dropped, ws[0], sx, sw, out_dtype=torch.bfloat16,
-                                         k_splits=splits)
-            faults["last K slice dropped"] = int((bad != y).sum().item())
-            if faults["last K slice dropped"] == 0:
-                raise AssertionError(f"qmatmul M={m} K={k} N={n}: the check passes a "
-                                     f"dropped K slice")
-        del y
+        # a planted fault: the decode kernel's last K slice dropped, or the
+        # tile kernel's last 128-byte K step
+        k0, k1 = (k_slices(k, splits)[-1] if splits is not None
+                  else (TILE_STEP * ((k - 1) // TILE_STEP), k))
+        dropped = xq.clone()
+        dropped[:, k0:k1] = 0
+        fault = "last K slice dropped" if splits is not None else "last K step zeroed"
+        bad = ops.qmatmul_splitk_ref(dropped, ws[0], sx, sw, out_dtype=torch.bfloat16,
+                                     k_splits=splits or 1)
+        faults = {fault: int((bad != y).sum().item())}
+        if faults[fault] == 0:
+            raise AssertionError(f"qmatmul M={m} K={k} N={n}: the check passes a fault "
+                                 f"({fault})")
+        del y, bad
         b, kind = bound_ms(m * k + n * k + 2 * m * n + 4 * (m + n),
                            2 * m * n * k, INT8_OPS_PER_S)
         # library yardstick: the int32 GEMM alone (cuBLASLt), M padded
@@ -481,7 +496,8 @@ def check_qmatmul(ops, gen, dev, route):
         bf = torch.bfloat16
         cases.append({
             "shape": f"M={m} K={k} N={n} bf16 out", "max_abs_err": 0.0,
-            **({"k_splits": splits, "faults_differing_elements": faults} if faults else {}),
+            "k_splits": splits if plan is None else plan[1], "faults_differing_elements": faults,
+            **({"plan": {"tile_rows": plan[0], "k_splits": plan[1]}} if plan else {}),
             "ms": bench([lambda w=w: ops.qmatmul(xq, w, sx, sw, out_dtype=bf) for w in ws]),
             "plain_ms": bench([lambda w=w: ops.qmatmul_ref(xq, w, sx, sw, out_dtype=bf)
                                for w in ws], iters=5),
@@ -3564,7 +3580,8 @@ KERNEL_SOURCES = {
     "mixed_kv_attention_prefill": {"prefill": [_CSRC + f for f in (
         "attn_prefill.cuh", "attn_prefill.cu", "attn_prefill_k8v4.cu")]},
     "paged_int8_attention_split": {"decode": [_CSRC + f for f in (
-        "attn_split.cuh", "attn_split.cu", "attn_split_paged.cu")] + _MERGE}}
+        "attn_split.cuh", "attn_split.cu", "attn_split_paged.cu")] + _MERGE},
+    "qmatmul": {"prefill": [_CSRC + "qmatmul.cu", _CSRC + "sm90_gemm.cuh"]}}
 # The entries whose launches are a route count of their wrapper under
 # another name (ops.ROUTED; "qmatmul_decode", "paged_int8_attention_split"
 # and the "_prefill" entries are counted under their own): the wrapper's own

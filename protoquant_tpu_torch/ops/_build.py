@@ -40,8 +40,8 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 SIGNATURES = {
     # x, x_dtype, xq, sx, M, K, stream
     "pq_rowquant": [_P, _I, _P, _P, _I, _I, _P],
-    # xq, wq, sx, sw, bias, out, out_dtype, M, N, K, stream
-    "pq_qmatmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xq, wq, sx, sw, bias, out, out_dtype, M, N, K, tile rows, k_splits, stream
+    "pq_qmatmul": [_P] * 6 + [_I] * 6 + [_P],
     # kq, ks, vq, vs, lengths, k8, ks_new, v8, vs_new, B, KV, S, Dh, stream
     "pq_kv_scatter_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _P],
@@ -170,7 +170,7 @@ def build(verbose: bool = False) -> Path:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     link = subprocess.run(
-        [nvcc, ARCH, "-shared", "-o", str(tmp), *objs],
+        [nvcc, ARCH, "-shared", "-o", str(tmp), *objs, "-ldl"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     if link.returncode != 0:
         raise RuntimeError("nvcc link failed:\n"

@@ -7,11 +7,13 @@ decoding MoE expert's few tokens) takes the split-K decode kernel
 (``csrc/qmatmul_decode.cu``: weight rows on the MMA's 16-row side, K split
 across the blocks of a thread block cluster as :func:`qmatmul_decode_plan`
 says, the int32 partials reduced in shared memory), larger M (prefill
-chunks, MoE prefill) the 64 x 64 tile kernel (``csrc/qmatmul.cu``).
+chunks, MoE prefill) the tile kernel (``csrc/qmatmul.cu``: TMA and wgmma,
+128- or 256-row tiles of 128 columns, K split over a cluster where the
+tiles are fewer than the SMs, as :func:`qmatmul_tile_plan` says).
 Weights are [N, K] int8 (the ``nn.Linear`` layout, K contiguous) with
 per-output-channel scales [N]. A CPU tensor takes the plain version; a CUDA
-tensor launches a kernel or raises. :func:`qmatmul_splitk_ref` spells the
-decode kernel's split out in plain PyTorch, for the tests.
+tensor launches a kernel or raises. :func:`qmatmul_splitk_ref` spells
+either kernel's split out in plain PyTorch, for the tests.
 """
 
 from __future__ import annotations
@@ -24,15 +26,27 @@ from ..core import numerics
 from . import _build
 from .rowquant import rowquant
 
-# The largest M the decode kernel takes and the blocks an SM its plan aims
-# for (both from the sweep in PERF.md, tools/gemm_timing.py --sweep), and its
-# geometry (csrc/qmatmul_decode.cu): weight rows a block, K bytes a step,
-# the most blocks a cluster splits K over.
-DECODE_MAX_M = 64
+# The largest M the decode kernel takes (above it the tile kernel is the
+# faster at the 7B, Gemma-2 and GPT-OSS widths) and the blocks an SM its plan
+# aims for (both from the sweeps in PERF.md, tools/gemm_timing.py --sweep),
+# and its geometry (csrc/qmatmul_decode.cu, which takes up to 64 rows):
+# weight rows a block, K bytes a step, the most blocks a cluster splits K
+# over.
+DECODE_MAX_M = 32
 DECODE_BLOCKS_PER_SM = 2.25
 DECODE_ROWS = 64
 DECODE_STEP = 64
 DECODE_MAX_SPLITS = 8
+# The tile kernel's geometry (csrc/qmatmul.cu): output columns a tile, K
+# bytes a step, the most blocks a cluster splits K over, the fewest steps a
+# split keeps (the ring's depth), and the clusters of 4 that an H100 holds at
+# once (cudaOccupancyMaxActiveClusters: 30, not 132 / 4, as its GPCs' SM
+# counts are not all multiples of 4).
+TILE_N = 128
+TILE_STEP = 128
+TILE_MAX_SPLITS = 4
+TILE_MIN_STEPS = 4
+TILE_QUAD_CLUSTERS = 30
 
 _sms: dict = {}
 
@@ -61,24 +75,49 @@ def qmatmul_decode_plan(m: int, n: int, k: int, sms: int):
     return best
 
 
-def k_slices(k: int, k_splits: int) -> list:
-    """The K ranges [k0, k1) of the decode kernel's splits, as its blocks
-    take them: split r holds the 64-byte steps [r steps / k_splits, (r + 1)
-    steps / k_splits) of the ceil(k / 64), the last cut at k."""
-    steps = -(-k // DECODE_STEP)
-    ends = [min(k, DECODE_STEP * (r * steps // k_splits)) for r in range(k_splits + 1)]
+def qmatmul_tile_plan(m: int, n: int, k: int, sms: int):
+    """The tile kernel's (rows a tile, K splits) for an [m, k] x [n, k]^T
+    product on a card of ``sms`` SMs (from the plan sweep in PERF.md): of
+    the tiles of 128 rows (and of 256 where m > 128) and the splits of K
+    over 1, 2 or 4 blocks of a cluster that leave each split at least
+    ``TILE_MIN_STEPS`` 128-byte steps, the plan with the most blocks that
+    still run in one wave (one block an SM; clusters of 4 at most
+    ``TILE_QUAD_CLUSTERS``), the taller tile and then the fewer splits on a
+    tie; where none fits one wave, the tallest tile unsplit."""
+    steps = -(-k // TILE_STEP)
+    heights = (256, 128) if m > 128 else (128,)
+    best, most = (heights[0], 1), 0
+    for bm in heights:
+        tiles = -(-m // bm) * -(-n // TILE_N)
+        splits = 1
+        while splits <= TILE_MAX_SPLITS and (splits == 1 or steps >= splits * TILE_MIN_STEPS):
+            wave = 4 * min(sms // 4, TILE_QUAD_CLUSTERS) if splits == 4 else sms
+            if most < tiles * splits <= wave:
+                best, most = (bm, splits), tiles * splits
+            splits *= 2
+    return best
+
+
+def k_slices(k: int, k_splits: int, step: int = DECODE_STEP) -> list:
+    """The K ranges [k0, k1) of a kernel's splits, as its blocks take them:
+    split r holds the ``step``-byte steps [r steps / k_splits, (r + 1)
+    steps / k_splits) of the ceil(k / step), the last cut at k (``step``:
+    64 for the decode kernel, ``TILE_STEP`` for the tile kernel)."""
+    steps = -(-k // step)
+    ends = [min(k, step * (r * steps // k_splits)) for r in range(k_splits + 1)]
     return list(zip(ends[:-1], ends[1:]))
 
 
-def qmatmul_splitk_ref(xq, wq, s_x, s_w, bias=None, out_dtype=torch.float32, k_splits=1):
-    """The decode kernel's split in plain PyTorch: the exact int32 product of
-    each K slice (:func:`k_slices`), the slices' partials summed, then the
-    epilogue (acc * s_x) * s_w + bias, cast to ``out_dtype``. Equal to
-    :func:`qmatmul_ref` bit for bit at any ``k_splits``."""
+def qmatmul_splitk_ref(xq, wq, s_x, s_w, bias=None, out_dtype=torch.float32, k_splits=1,
+                       step=DECODE_STEP):
+    """A kernel's K split in plain PyTorch: the exact int32 product of each
+    K slice (:func:`k_slices` with ``step``), the slices' partials summed,
+    then the epilogue (acc * s_x) * s_w + bias, cast to ``out_dtype``.
+    Equal to :func:`qmatmul_ref` bit for bit at any ``k_splits``."""
     k = xq.shape[-1]
     x2 = xq.reshape(-1, k)
     acc = torch.zeros(x2.shape[0], wq.shape[0], dtype=torch.int32, device=xq.device)
-    for k0, k1 in k_slices(k, k_splits):
+    for k0, k1 in k_slices(k, k_splits, step):
         acc += numerics.int_matmul_nk(x2[:, k0:k1], wq[:, k0:k1])
     y = acc.float() * s_x.reshape(-1, 1).float() * s_w.float()[None, :]
     if bias is not None:
@@ -121,9 +160,11 @@ def _sm_count(dev) -> int:
     return _sms[index]
 
 
-def qmatmul_launch(xq, wq, s_x, s_w, bias=None, out_dtype=torch.float32, k_splits=None):
+def qmatmul_launch(xq, wq, s_x, s_w, bias=None, out_dtype=torch.float32, k_splits=None,
+                   tile=None):
     """Launch one kernel on CUDA operands: the decode kernel with
-    ``k_splits`` (1, 2, 4 or 8) K splits, or the tile kernel for None.
+    ``k_splits`` (1, 2, 4 or 8) K splits, or for None the tile kernel with
+    ``tile`` = (rows a tile, K splits) (None: :func:`qmatmul_tile_plan`'s).
     Returns the output; counts nothing (:func:`qmatmul` routes and counts)."""
     xq, s_x, bias, dev = _check(xq, wq, s_x, s_w, bias, out_dtype)
     n, k = wq.shape
@@ -133,7 +174,9 @@ def qmatmul_launch(xq, wq, s_x, s_w, bias=None, out_dtype=torch.float32, k_split
             bias.data_ptr() if bias is not None else None, out.data_ptr(),
             _build.DTYPE_CODES[out_dtype], m, n, k)
     if k_splits is None:
-        err, name = _build.lib().pq_qmatmul(*head, _build.stream_ptr(dev)), "pq_qmatmul"
+        bm, splits = tile or qmatmul_tile_plan(m, n, k, _sm_count(dev))
+        err = _build.lib().pq_qmatmul(*head, bm, splits, _build.stream_ptr(dev))
+        name = "pq_qmatmul"
     else:
         err = _build.lib().pq_qmatmul_decode(*head, k_splits, _build.stream_ptr(dev))
         name = "pq_qmatmul_decode"

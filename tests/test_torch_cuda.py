@@ -6,7 +6,10 @@ installed: ``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
 Exact: rowquant, qmatmul, the dense and paged decode scatters. Attention,
 dense and paged: ATOL (f32 q and output; the two sum in different orders).
 The decode GEMM (split K over a cluster) exact at M 1 to 64 and at every
-split; the paged split decode as the paged attention, at page and split
+split; the tile GEMM (TMA and wgmma, every M past DECODE_MAX_M) exact at
+the model shapes, at 65 to 1024 rows, ragged N and K, every tile height and
+split, with and without a bias in every output type, bit for bit across two
+calls and in a CUDA graph; the paged split decode as the paged attention, at page and split
 edges, at batch 9 and 32, bit for bit across two calls and in a CUDA graph.
 The weight-only product: ``ops.weight_only_tolerance`` (exact products, an
 f32 sum in another order, then one ulp of the output type). The int4
@@ -89,11 +92,13 @@ def test_qmatmul_ragged_edges_exact(cuda, m, k, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("m", [1, 2, 3, 4, 7, 8, 9, 16, 17, 31, 32, 33, 63, 64, 65, 128])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 7, 8, 9, 16, 17, 31, 32, 33, 47, 48, 63, 64, 65,
+                               128])
 def test_qmatmul_decode_exact_around_the_threshold(cuda, m, out_dtype):
-    """M from 1 to 128 around DECODE_MAX_M, ragged N (1000) and K (4096 +
-    16: a ragged last step), with and without a bias: equal to the plain
-    version bit for bit, through the kernel the route names."""
+    """M from 1 to 128 around DECODE_MAX_M (32: the decode kernel up to 32
+    rows, the tile kernel from 33), ragged N (1000) and K (4096 + 16: a
+    ragged last step), with and without a bias: equal to the plain version
+    bit for bit, through the kernel the route names."""
     from protoquant_tpu_torch.ops.qmatmul import DECODE_MAX_M
 
     g = torch.Generator(device=cuda).manual_seed(m)
@@ -162,6 +167,120 @@ def test_qmatmul_decode_bitwise_and_cuda_graph(cuda):
     torch.cuda.synchronize()
     assert torch.equal(captured, first)
     assert ops.route_counts()["qmatmul_decode"] == 1
+
+
+def _tile_operands(cuda, seed, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=cuda, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8)
+    sx = torch.rand(m, generator=g, device=cuda) * 1e-2 + 1e-4
+    sw = torch.rand(n, generator=g, device=cuda) * 1e-2 + 1e-4
+    bias = torch.randn(n, generator=g, device=cuda)
+    return xq, wq, sx, sw, bias
+
+
+def _tile_exact(xq, wq, sx, sw, bias, dtypes):
+    """Every call through the tile route, bit for bit with the plain version,
+    with and without the bias."""
+    for out_dtype in dtypes:
+        for b in (None, bias):
+            before = ops.qmatmul.routes["tile"]
+            y = ops.qmatmul(xq, wq, sx, sw, b, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            assert ops.qmatmul.routes["tile"] == before + 1
+            want = ops.qmatmul_ref(xq, wq, sx, sw, b, out_dtype=out_dtype)
+            assert torch.equal(y, want), (out_dtype, b is None)
+
+
+ALL_OUT = (torch.float32, torch.bfloat16, torch.float16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(256, 4096, 11008), (256, 4096, 4096), (256, 11008, 4096),
+                                   (256, 4096, 32000), (80, 2880, 5760), (80, 2880, 2880),
+                                   (512, 3584, 14336), (512, 14336, 3584), (128, 4096, 11008)])
+def test_qmatmul_tile_exact_at_model_shapes(cuda, m, k, n):
+    """The tile kernel (TMA + wgmma) at the prefill shapes of Llama-2-7B,
+    GPT-OSS-20B's experts and Gemma-2-9B, every output type, with and
+    without a bias: the plain version's bits."""
+    _tile_exact(*_tile_operands(cuda, m + k + n, m, k, n), ALL_OUT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [65, 80, 128, 129, 200, 257, 512, 1024])
+def test_qmatmul_tile_exact_by_rows(cuda, m):
+    """Row counts at and across the 128- and 256-row tiles (65 and 257: a
+    nearly empty last tile), ragged N (1000) and K (4096 + 16)."""
+    _tile_exact(*_tile_operands(cuda, m, m, 4096 + 16, 1000), ALL_OUT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 80, 4112])
+@pytest.mark.parametrize("m,n", [(65, 130), (200, 131), (300, 8)])
+def test_qmatmul_tile_ragged_edges_exact(cuda, m, k, n):
+    """K of one partial 128-byte step (16, 80) and a ragged last step
+    (4112), N not a multiple of 128 (odd too), M across the tile edges."""
+    _tile_exact(*_tile_operands(cuda, k * n, m, k, n), ALL_OUT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(80, 2880, 1000), (256, 4112, 4096), (300, 1024, 130)])
+def test_qmatmul_tile_every_plan_exact(cuda, m, k, n):
+    """Both tile heights and every K split the steps allow (1, 2, 4) give
+    the plain version's bits; a plan the kernel does not take raises."""
+    from protoquant_tpu_torch.ops.qmatmul import TILE_STEP, qmatmul_launch
+
+    xq, wq, sx, sw, bias = _tile_operands(cuda, 7 * m + k, m, k, n)
+    want = ops.qmatmul_ref(xq, wq, sx, sw, bias, out_dtype=torch.bfloat16)
+    steps = -(-k // TILE_STEP)
+    for bm in (128, 256):
+        for splits in (1, 2, 4):
+            if splits > steps:
+                continue
+            y = qmatmul_launch(xq, wq, sx, sw, bias, torch.bfloat16, tile=(bm, splits))
+            torch.cuda.synchronize()
+            assert torch.equal(y, want), (bm, splits)
+    for bad in ((64, 1), (128, 3), (256, 8)):
+        with pytest.raises(RuntimeError, match="pq_qmatmul"):
+            qmatmul_launch(xq, wq, sx, sw, bias, torch.bfloat16, tile=bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(256, 4096, 11008), (256, 4096, 4096)])
+def test_qmatmul_tile_bitwise_and_cuda_graph(cuda, m, k, n):
+    """Two calls give the same bits; the call captured in a CUDA graph and
+    replayed gives the eager call's bits (one launch, with and without a K
+    split, nothing kept between calls)."""
+    xq, wq, sx, sw, _ = _tile_operands(cuda, 152, m, k, n)
+    call = lambda: ops.qmatmul(xq, wq, sx, sw, out_dtype=torch.bfloat16)
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    ops.reset_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+    assert ops.route_counts()["qmatmul_tile"] == 1
+
+
+@pytest.mark.cuda
+def test_qmatmul_tile_rejects_misaligned_operands(cuda):
+    """TMA reads from 16-byte aligned addresses: an operand that starts off
+    that alignment raises before any launch."""
+    m, k, n = 128, 256, 256
+    xq, wq, sx, sw, _ = _tile_operands(cuda, 3, m, k, n)
+    for which in ("x", "w"):
+        rows = m if which == "x" else n
+        buf = torch.zeros(rows * k + 8, dtype=torch.int8, device=cuda)
+        off = buf[8:].view(rows, k)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            if which == "x":
+                ops.qmatmul(off, wq, sx, sw)
+            else:
+                ops.qmatmul(xq, off, sx, sw)
 
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -7,19 +7,20 @@ script), builds its kernels there, and prints one JSON line: the card, and
 the device time per call in ms (``chip_smoke.bench``: a CUDA graph of 20
 calls over weight copies larger than the L2) of ``ops.qmatmul`` at every
 shape ``chip_smoke.py``'s ``check_qmatmul`` takes (Llama-2-7B's projections
-at M = 1, 4, 8, 16, 32, 64 and 256, Gemma-2-9B's, Mistral-7B's and
-GPT-OSS-20B's at M = 4, GPT-OSS-20B's experts at M = 1), bf16 out, each
-beside ``torch._int_mm`` (the int32 product alone, M padded to 32) and the
-bytes bound. To compare two checkouts, run it on each in turns (A, B, B, A)
-within one call on one card:
+at M = 1, 4, 8, 16, 32, 64, 128 and 256, Gemma-2-9B's at M = 4 and 512,
+Mistral-7B's at M = 4, GPT-OSS-20B's at M = 4, its experts at M = 1 and
+80), bf16 out, each beside ``torch._int_mm`` (the int32 product alone, M
+padded to 32) and the bound. To compare two checkouts, run it on each in
+turns (A, B, B, A) within one call on one card:
 
     python3 tools/gemm_timing.py --tree scratch_tree/parent --label parent
 
 With ``--sweep`` (a checkout that has the decode kernel) it also times,
-at M = 1, 2, 4, 8, 16, 32, 64 and N x K = 4096 x 4096, 11008 x 4096,
-32000 x 4096 and the experts' 5760 x 2880 and 2880 x 2880, the decode
-kernel at the plan's splits and at every other split count, and the tile
-kernel: the data the routing threshold and the plan are set from.
+at M = 1, 2, 4, 8, 16, 32, 48, 64, 80, 96 and 128 and N x K = 4096 x
+4096, 11008 x 4096, 32000 x 4096 and the experts' 5760 x 2880 and 2880 x
+2880, the tile kernel at its plan and, up to the decode kernel's 64 rows,
+the decode kernel at the plan's splits and at every other split count: the
+data the routing threshold and the plans are set from.
 """
 
 import argparse
@@ -77,14 +78,16 @@ def main() -> int:
         Q = importlib.import_module("protoquant_tpu_torch.ops.qmatmul")
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for n, k in ((4096, 4096), (11008, 4096), (32000, 4096), (5760, 2880), (2880, 2880)):
-            for m in (1, 2, 4, 8, 16, 32, 64):
+            for m in (1, 2, 4, 8, 16, 32, 48, 64, 80, 96, 128):
                 xq, sx, ws, sw = operands(m, k, n)
                 row = {"plan_splits": Q.qmatmul_decode_plan(m, n, k, sms),
                        "tile": cs.bench([lambda w=w: Q.qmatmul_launch(xq, w, sx, sw, None, bf)
                                          for w in ws])}
+                if hasattr(Q, "qmatmul_tile_plan"):
+                    row["tile_plan"] = Q.qmatmul_tile_plan(m, n, k, sms)
                 steps = -(-k // Q.DECODE_STEP)
                 for splits in (1, 2, 4, 8):
-                    if splits <= steps:
+                    if splits <= steps and m <= 64:  # the decode kernel takes up to 64 rows
                         row[f"decode_{splits}"] = cs.bench(
                             [lambda w=w: Q.qmatmul_launch(xq, w, sx, sw, None, bf, splits)
                              for w in ws])
