@@ -678,6 +678,11 @@ def check_weight_only(ops, gen, dev):
 
 GROUP4 = 128  # int4 group of every Llama-2-7B projection (pick_int4_group)
 F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
+# the int4 GEMM cases' token rows: decode steps (1, 4, 16: the decode kernel
+# of a routed body) and a prefill chunk (the tile kernel)
+INT4_MS = (1, 4, 16, 256)
+# the int4 bodies that route by M (ops.ROUTED), by formulation
+ROUTED_INT4 = {"split": "wo4_split", "two_level": "w4a8_two_level"}
 
 
 def _int4_weights(gen, dev, n, k, copies):
@@ -688,40 +693,89 @@ def _int4_weights(gen, dev, n, k, copies):
             for _ in range(copies)]
 
 
+def _int4_route(ops, formulation, m, n, k, dev):
+    """(the wrapper, the route it must take, its decode plan) of an int4
+    case: a routed body takes the decode kernel up to INT4_DECODE_MAX_M
+    rows, at ``int4_decode_plan``'s K splits; the other bodies have one
+    kernel (None)."""
+    from protoquant_tpu_torch.ops.wo4_matmul import (INT4_DECODE_MAX_M, int4_decode_held,
+                                                     int4_decode_plan)
+
+    if formulation not in ROUTED_INT4:
+        return None, None, None
+    name = ROUTED_INT4[formulation]
+    plan = (int4_decode_plan(m, n, k, GROUP4, int4_decode_held(f"pq_{name}_decode", dev, m,
+                                                               GROUP4))
+            if m <= INT4_DECODE_MAX_M else None)
+    return getattr(ops, name), "tile" if plan is None else "decode", plan
+
+
+def _int4_case_keys(route, plan, faults) -> dict:
+    """The keys an int4 case adds to its entry: its route and plan (a routed
+    body), K splits, the planted fault's differing elements."""
+    if faults["last group zeroed"] == 0:
+        raise AssertionError("an int4 check passes a fault (last group zeroed)")
+    keys = {"k_splits": plan or 1, "faults_differing_elements": faults}
+    if route is not None:
+        keys["plan"] = {"route": route, **({"k_splits": plan} if plan else {})}
+    return keys
+
+
+def _last_group_zeroed(packed):
+    """The planted fault of the int4 cases: the weight's last group of
+    codes set to 0 (its g / 2 packed bytes)."""
+    dropped = packed.clone()
+    dropped[:, -GROUP4 // 2:] = 0
+    return dropped
+
+
 def check_wo4(ops, gen, dev, formulation):
     """The wo4 body against its plain version, within
-    ``ops.weight_only_int4_tolerance``. Library yardstick: ``torch.matmul``
-    over a dequantized copy of W made beforehand (bf16 for split, whose x is
-    bf16; f32 for legacy, the same function)."""
+    ``ops.weight_only_int4_tolerance``, at M 1, 4, 16 and 256; the split
+    body through the route its wrapper names for M (the decode kernel at
+    its plan, or the tile kernel). Each case holds a planted fault, which
+    must differ: the plain product with the weight's last group zeroed.
+    Library yardstick: ``torch.matmul`` over a dequantized copy of W made
+    beforehand (bf16 for split, whose x is bf16; f32 for legacy, the same
+    function)."""
     from protoquant_tpu_torch.core import numerics
 
     bf = torch.bfloat16
     split = formulation == "split"
     lib_dtype = bf if split else torch.float32
     cases = []
-    for m in (4, 256):
+    for m in INT4_MS:
         for k, n in LINEAR_SHAPES:
             wbytes = n * k // 2 + 4 * n * (k // GROUP4)
             ws = _int4_weights(gen, dev, n, k, copies_for(wbytes))
             x = torch.randn(m, k, generator=gen, device=dev)
             x = x.to(bf) if split else x
+            wrapper, route, plan = _int4_route(ops, formulation, m, n, k, dev)
             err = 0.0
             for out in (torch.float32, bf):
+                before = dict(wrapper.routes) if wrapper else None
                 y = ops.weight_only_int4_matmul(x, *ws[0], GROUP4, None, out, formulation)
                 ref = ops.weight_only_int4_matmul_ref(x, *ws[0], GROUP4, None, out, formulation)
                 torch.cuda.synchronize()
+                if wrapper and wrapper.routes[route] != before[route] + 1:
+                    raise AssertionError(f"wo4 {formulation} M={m} K={k} N={n}: not the "
+                                         f"{route} kernel")
                 diff = (y.float() - ref.float()).abs()
                 tol = ops.weight_only_int4_tolerance(x, *ws[0], GROUP4, ref, formulation)
                 if not bool((diff <= tol).all()):
                     raise AssertionError(f"wo4 {formulation} M={m} K={k} N={n} {out}: "
                                          f"max excess {(diff - tol).max().item()}")
                 err = max(err, diff.max().item())
+            bad = ops.weight_only_int4_matmul_ref(x, _last_group_zeroed(ws[0][0]), ws[0][1],
+                                                  GROUP4, None, bf, formulation)
+            keys = _int4_case_keys(route, plan, {"last group zeroed": int((bad != y).sum())})
+            del y, ref, bad
             b, kind = bound_ms(x.numel() * x.element_size() + wbytes + 2 * m * n,
                                2 * m * n * k, BF16_FLOPS_PER_S if split else F32_FLOPS_PER_S)
             wd = [numerics.dequantize_int4(p, sc, GROUP4).to(lib_dtype)
                   for p, sc in ws[:copies_for(n * k * (2 if split else 4))]]
             cases.append({
-                "shape": f"M={m} K={k} N={n} bf16 out", "max_abs_err": err,
+                "shape": f"M={m} K={k} N={n} bf16 out", "max_abs_err": err, **keys,
                 "ms": bench([lambda w=w: ops.weight_only_int4_matmul(
                     x, *w, GROUP4, None, bf, formulation) for w in ws]),
                 "plain_ms": bench([lambda w=w: ops.weight_only_int4_matmul_ref(
@@ -733,29 +787,42 @@ def check_wo4(ops, gen, dev, formulation):
 
 
 def check_w4a8(ops, gen, dev, formulation):
-    """The w4a8 body against its plain version, exactly. Library yardstick
-    for two_level: ``torch._int_mm`` (M padded to 32 rows) over the int8
-    requantized copy of W made beforehand, with the same epilogue, the same
-    function; group has none (no one PyTorch call scales per group)."""
+    """The w4a8 body against its plain version, exactly, at M 1, 4, 16 and
+    256; two_level through the route its wrapper names for M (the decode
+    kernel at its plan, or the tile kernel). Each case holds a planted
+    fault, which must differ: the plain product with the weight's last
+    group zeroed. Library yardstick for two_level: ``torch._int_mm`` (M
+    padded to 32 rows) over the int8 requantized copy of W made beforehand,
+    with the same epilogue, the same function; group has none (no one
+    PyTorch call scales per group)."""
     from protoquant_tpu_torch.core import numerics
 
     bf = torch.bfloat16
     two_level = formulation == "two_level"
     cases = []
-    for m in (4, 256):
+    for m in INT4_MS:
         for k, n in LINEAR_SHAPES:
             wbytes = n * k // 2 + 4 * n * (k // GROUP4) + (4 * n if two_level else 0)
             ws = _int4_weights(gen, dev, n, k, copies_for(wbytes))
             tls = [ops.two_level_scales(sc) if two_level else None for _, sc in ws]
             xq, sx = ops.rowquant_ref(torch.randn(m, k, generator=gen, device=dev))
+            wrapper, route, plan = _int4_route(ops, formulation, m, n, k, dev)
             for out in (torch.float32, bf):
+                before = dict(wrapper.routes) if wrapper else None
                 y = ops.w4a8_matmul(xq, sx, *ws[0], GROUP4, None, out, formulation, tls[0])
                 ref = ops.w4a8_matmul_ref(xq, sx, *ws[0], GROUP4, None, out, formulation, tls[0])
                 torch.cuda.synchronize()
+                if wrapper and wrapper.routes[route] != before[route] + 1:
+                    raise AssertionError(f"w4a8 {formulation} M={m} K={k} N={n}: not the "
+                                         f"{route} kernel")
                 if not torch.equal(y, ref):
                     err = (y.float() - ref.float()).abs().max().item()
                     raise AssertionError(f"w4a8 {formulation} M={m} K={k} N={n} {out}: "
                                          f"max abs err {err}")
+            bad = ops.w4a8_matmul_ref(xq, sx, _last_group_zeroed(ws[0][0]), ws[0][1], GROUP4,
+                                      None, bf, formulation, tls[0])
+            keys = _int4_case_keys(route, plan, {"last group zeroed": int((bad != y).sum())})
+            del y, ref, bad
             b, kind = bound_ms(m * k + 4 * m + wbytes + 2 * m * n, 2 * m * n * k,
                                INT8_OPS_PER_S)
             library = None
@@ -773,7 +840,7 @@ def check_w4a8(ops, gen, dev, formulation):
                                  for w8, scol in w8s])
                 del w8s
             cases.append({
-                "shape": f"M={m} K={k} N={n} bf16 out", "max_abs_err": 0.0,
+                "shape": f"M={m} K={k} N={n} bf16 out", "max_abs_err": 0.0, **keys,
                 "ms": bench([lambda w=w, tl=tl: ops.w4a8_matmul(
                     xq, sx, *w, GROUP4, None, bf, formulation, tl) for w, tl in zip(ws, tls)]),
                 "plain_ms": bench([lambda w=w, tl=tl: ops.w4a8_matmul_ref(
@@ -1980,14 +2047,17 @@ def path_kernels(ops, mode: str, kv_dtype: str = "int8") -> tuple:
 # wrapper -> that kernel's route count (ops.ROUTED)
 DECODE_ROUTE = {"qmatmul": "qmatmul_decode",
                 "paged_int8_attention": "paged_int8_attention_split",
-                **{name: name + "_split" for name in ROUTED_ATTENTIONS}}
-PREFILL_ROUTE = {name: name + "_prefill" for name in ROUTED_ATTENTIONS}
+                **{name: name + "_split" for name in ROUTED_ATTENTIONS},
+                **{name: name + "_decode" for name in ROUTED_INT4.values()}}
+PREFILL_ROUTE = {**{name: name + "_prefill" for name in ROUTED_ATTENTIONS},
+                 **{name: name + "_tile" for name in ROUTED_INT4.values()}}
 
 
 def routed(path) -> tuple:
     """``path`` with the decode kernel of each routed wrapper in it and the
-    prefill kernel of each dense and KIVI attention (a paged path runs the
-    int8 attention over its gathered window for prefill chunks alone)."""
+    prefill kernel of each dense and KIVI attention and int4 GEMM (a paged
+    path runs the int8 attention over its gathered window for prefill chunks
+    alone)."""
     paged = "paged_int8_attention" in path
     decode = [DECODE_ROUTE[k] for k in path
               if k in DECODE_ROUTE and not (paged and k == "int8_kv_attention")]
@@ -2016,6 +2086,9 @@ def decode_step_launches(ops, mode: str, layers: int, kv_dtype: str = "int8") ->
     else:
         per_step.update({kernels[0]: 7 * layers + 1, "paged_kv_scatter_decode": layers,
                          "paged_int8_attention": layers})
+    gemm = kernels[1] if kernels[0] == "rowquant" else kernels[0]
+    if gemm in ROUTED_INT4.values():  # every int4 GEMM of a decode step on its decode kernel
+        per_step.update({gemm + "_decode": 7 * layers + 1, gemm + "_tile": 0})
     return per_step
 
 
@@ -2024,9 +2097,10 @@ def serve(engine, prompts, ops, per_step, first_alone: bool = False):
     ``first_alone``: request 0 alone until its prefill ends (its prompt is
     then published), then the others. Returns the outputs in request order,
     the step times with and without a prefill chunk, and the decode steps
-    whose launches differ from ``per_step``, and the chunk boundaries that
-    decode writes crossed (a KIVI cache flushes one chunk per crossing; 0
-    for the other caches)."""
+    whose launches (``path_counts``, over the keys of ``per_step``) differ
+    from ``per_step``, and the chunk boundaries that decode writes crossed
+    (a KIVI cache flushes one chunk per crossing; 0 for the other
+    caches)."""
     rids = [engine.add_request(p) for p in (prompts[:1] if first_alone else prompts)]
     prefill_ms, decode_ms, bad_steps = [], [], []
     group = getattr(engine.caches[0], "group", None)
@@ -2035,14 +2109,14 @@ def serve(engine, prompts, ops, per_step, first_alone: bool = False):
     def step():
         with_prefill = bool(engine.prefilling) or (
             bool(engine.waiting) and any(r is None for r in engine.slot_req))
-        before = ops.launch_counts()
+        before = path_counts(ops)
         lengths = engine.caches[0].lengths.clone()
         decoding = torch.tensor(engine.active, device=lengths.device)
         t = time.perf_counter()
         engine.step()
         torch.cuda.synchronize()
         dt = 1e3 * (time.perf_counter() - t)
-        after = ops.launch_counts()
+        after = path_counts(ops)
         if group:  # slots that decoded this step moved by one position
             now = engine.caches[0].lengths
             crossed[0] += int((decoding & (now == lengths + 1)
@@ -2051,7 +2125,7 @@ def serve(engine, prompts, ops, per_step, first_alone: bool = False):
             prefill_ms.append(dt)
         else:
             decode_ms.append(dt)
-            delta = {k: after[k] - before[k] for k in after}
+            delta = {k: after[k] - before[k] for k in per_step}
             if delta != per_step:
                 bad_steps.append(delta)
 
@@ -3521,11 +3595,16 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
                                    "protoquant_tpu/ops/paged_attention.py:28",
                                    "decode B=4 H=32 KV=32 G=1"),
     "wo4_split": ("protoquant_tpu_torch/csrc/wo4_matmul.cu",
-                  "protoquant_tpu/ops/wo4_matmul.py:64", "M=4 K=4096 N=11008 bf16 out"),
+                  "protoquant_tpu/ops/wo4_matmul.py:64", "M=256 K=4096 N=11008 bf16 out"),
+    "wo4_split_decode": ("protoquant_tpu_torch/csrc/wo4_decode.cu",
+                         "protoquant_tpu/ops/wo4_matmul.py:64", "M=4 K=4096 N=11008 bf16 out"),
     "wo4_legacy": ("protoquant_tpu_torch/csrc/wo4_matmul.cu",
                    "protoquant_tpu/ops/wo4_matmul.py:41", "M=4 K=4096 N=11008 bf16 out"),
     "w4a8_two_level": ("protoquant_tpu_torch/csrc/w4a8_matmul.cu",
-                       "protoquant_tpu/ops/w4a8_matmul.py:70", "M=4 K=4096 N=11008 bf16 out"),
+                       "protoquant_tpu/ops/w4a8_matmul.py:70", "M=256 K=4096 N=11008 bf16 out"),
+    "w4a8_two_level_decode": ("protoquant_tpu_torch/csrc/w4a8_decode.cu",
+                              "protoquant_tpu/ops/w4a8_matmul.py:70",
+                              "M=4 K=4096 N=11008 bf16 out"),
     "w4a8_group": ("protoquant_tpu_torch/csrc/w4a8_matmul.cu",
                    "protoquant_tpu/ops/w4a8_matmul.py:38", "M=4 K=4096 N=11008 bf16 out"),
     "rms_norm_quant": ("protoquant_tpu_torch/csrc/fused_quant.cu",
@@ -3581,13 +3660,20 @@ KERNEL_SOURCES = {
         "attn_prefill.cuh", "attn_prefill.cu", "attn_prefill_k8v4.cu")]},
     "paged_int8_attention_split": {"decode": [_CSRC + f for f in (
         "attn_split.cuh", "attn_split.cu", "attn_split_paged.cu")] + _MERGE},
-    "qmatmul": {"prefill": [_CSRC + "qmatmul.cu", _CSRC + "sm90_gemm.cuh"]}}
+    "qmatmul": {"prefill": [_CSRC + "qmatmul.cu", _CSRC + "sm90_gemm.cuh"]},
+    **{name + "_decode": {"decode_gemm": [_CSRC + "int4_decode.cuh", _CSRC + f"{src}_decode.cu"]}
+       for name, src in (("wo4_split", "wo4"), ("w4a8_two_level", "w4a8"))}}
 # The entries whose launches are a route count of their wrapper under
 # another name (ops.ROUTED; "qmatmul_decode", "paged_int8_attention_split"
 # and the "_prefill" entries are counted under their own): the wrapper's own
 # count is the routes' sum.
 ROUTE_COUNT = {"qmatmul": "qmatmul_tile", "paged_int8_attention": "paged_int8_attention_walk",
-               **{name: name + "_split" for name in ROUTED_ATTENTIONS}}
+               **{name: name + "_split" for name in ROUTED_ATTENTIONS},
+               **{name: name + "_tile" for name in ROUTED_INT4.values()}}
+# the decode-route entries of a routed GEMM, by the wrapper whose cases they
+# are in the kernel sums of a decode step
+DECODE_GEMMS = {"qmatmul_decode": "qmatmul",
+                **{name + "_decode": name for name in ROUTED_INT4.values()}}
 
 
 def timed(name: str, fn, *args, **kwargs):
@@ -3637,6 +3723,9 @@ def check_kernels(ops, gen, dev) -> dict:
         if name in ROUTED_ATTENTIONS:  # the prefill kernel's cases under its own entry
             groups = {name: [c for c in cases if "prefill" not in c["shape"]],
                       name + "_prefill": [c for c in cases if "prefill" in c["shape"]]}
+        elif name in ROUTED_INT4.values():  # the decode kernel's cases under their own
+            decode = [c for c in cases if c["plan"]["route"] == "decode"]
+            groups = {name + "_decode": decode, name: [c for c in cases if c not in decode]}
         for key, group in groups.items():
             results[key] = group
             for c in group:
@@ -3783,8 +3872,7 @@ def run_all(ops, seed: int, dev) -> list:
 
     # kernel time of one decode step at the measured decode shapes (a
     # qmatmul call at decode M runs the decode kernel)
-    by = {("qmatmul" if n == "qmatmul_decode" else n, c["shape"]): c["ms"]
-          for n, cs in results.items() for c in cs}
+    by = {(DECODE_GEMMS.get(n, n), c["shape"]): c["ms"] for n, cs in results.items() for c in cs}
     L = LAYERS
 
     def linears(name):

@@ -5,8 +5,9 @@ the plain version, a CUDA tensor launches the hand-written kernel from
 ``csrc/`` (built on first use by ``_build``) or raises. There is no
 fallback and no switch beyond the formulation arguments and knobs the JAX
 package itself has. Each kernel body counts its launches in ``.launches``;
-a wrapper that routes between two kernels by shape before launch (qmatmul:
-the decode or the tile kernel, by M; paged_int8_attention: the split or the
+a wrapper that routes between two kernels by shape before launch (qmatmul,
+wo4_split and w4a8_two_level: the decode or the tile kernel, by M;
+paged_int8_attention: the split or the
 walk, by the split plan; int8_kv_attention, mixed_kv_attention and the
 two KIVI attentions: the split decode or the prefill kernel, by the split
 plan) counts every call in
@@ -32,9 +33,10 @@ from .paged_attention import paged_int8_attention, paged_int8_attention_ref
 from .qmatmul import dynamic_qlinear, qmatmul, qmatmul_ref, qmatmul_splitk_ref
 from .rowquant import rowquant, rowquant_ref
 from .w4a8_matmul import (two_level_scales, w4a8_group, w4a8_matmul, w4a8_matmul_ref,
-                          w4a8_two_level)
+                          w4a8_two_level, w4a8_two_level_splitk_ref)
 from .wo4_matmul import (weight_only_int4_matmul, weight_only_int4_matmul_ref,
-                         weight_only_int4_tolerance, wo4_legacy, wo4_split)
+                         weight_only_int4_tolerance, wo4_legacy, wo4_split,
+                         wo4_split_splitk_ref)
 from .wo_matmul import weight_only_matmul, weight_only_matmul_ref, weight_only_tolerance
 
 # The kernel bodies whose launches a run can read and reset (an op with two
@@ -97,6 +99,10 @@ def shared_rowquant(x):
 ROUTED = {
     "qmatmul_decode": (qmatmul, "decode"),
     "qmatmul_tile": (qmatmul, "tile"),
+    "wo4_split_decode": (wo4_split, "decode"),
+    "wo4_split_tile": (wo4_split, "tile"),
+    "w4a8_two_level_decode": (w4a8_two_level, "decode"),
+    "w4a8_two_level_tile": (w4a8_two_level, "tile"),
     "paged_int8_attention_split": (paged_int8_attention, "split"),
     "paged_int8_attention_walk": (paged_int8_attention, "walk"),
     "int8_kv_attention_split": (int8_kv_attention, "split"),
@@ -140,7 +146,8 @@ __all__ = [
     "resolve_w4a8_formulation", "rms_norm_quant", "rms_norm_quant_ref", "rowquant",
     "rowquant_ref", "shared_rowquant", "swiglu_quant", "swiglu_quant_ref",
     "two_level_scales", "w4a8_group", "w4a8_matmul", "w4a8_matmul_ref", "w4a8_two_level",
+    "w4a8_two_level_splitk_ref",
     "weight_only_int4_matmul", "weight_only_int4_matmul_ref", "weight_only_int4_tolerance",
     "weight_only_matmul", "weight_only_matmul_ref", "weight_only_tolerance", "wo4_legacy",
-    "wo4_split",
+    "wo4_split", "wo4_split_splitk_ref",
 ]

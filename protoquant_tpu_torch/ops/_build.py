@@ -67,6 +67,12 @@ SIGNATURES = {
     "pq_wo4_legacy": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # xq, sx, packed, r16, scol, bias, out, out_dtype, M, N, K, group, stream
     "pq_w4a8_two_level": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the decode kernels: as above, with k_splits before the stream
+    "pq_wo4_split_decode": [_P] * 5 + [_I] * 6 + [_P],
+    "pq_w4a8_two_level_decode": [_P] * 7 + [_I] * 6 + [_P],
+    # M, group, k_splits, out clusters; launches nothing and takes no stream
+    "pq_wo4_split_decode_clusters": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
+    "pq_w4a8_two_level_decode_clusters": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
     # xq, sx, packed, scales, bias, out, out_dtype, M, N, K, group, stream
     "pq_w4a8_group": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, x_dtype, w, xq, sx, M, K, eps, cast_dtype, stream

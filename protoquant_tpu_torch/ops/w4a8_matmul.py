@@ -19,6 +19,17 @@ does. The weight is the port's [N, K] layout packed along K (``packed`` int8
 [N, K/2], ``scales`` f32 [N, K/group]). A CPU tensor takes the plain
 version; a CUDA tensor launches the body's kernel or raises. Each body
 counts its own launches.
+
+``two_level`` takes one of two kernels, chosen by the number of token rows
+M before launch: M <= ``wo4_matmul.INT4_DECODE_MAX_M`` (every decode step)
+the split-K decode kernel (``csrc/w4a8_decode.cu``: weight rows on the
+MMA's 16-row side, each (row, group)'s 16 requantized codes built once as
+a table and looked up by ``prmt``, K split at group boundaries over a
+thread block cluster as ``wo4_matmul.int4_decode_plan`` says, the int32
+partials summed in shared memory), larger M the tile kernel.
+``w4a8_two_level.routes`` counts each. :func:`requant_table`,
+:func:`table_lookup` and :func:`w4a8_two_level_splitk_ref` spell the
+decode kernel out.
 """
 
 from __future__ import annotations
@@ -27,7 +38,8 @@ import torch
 
 from ..core import numerics
 from . import _build
-from .wo4_matmul import check_int4_weight
+from .wo4_matmul import (check_int4_weight, decodes, int4_decode_held, int4_decode_plan,
+                         int4_k_slices)
 
 FORMULATIONS = ("two_level", "group")
 
@@ -75,7 +87,82 @@ def w4a8_matmul_ref(xq, s_x, packed, scales, group=128, bias=None,
     return y.to(out_dtype).reshape(*xq.shape[:-1], n)
 
 
-def _launch(fn_name, xq, s_x, packed, table, scol, group, bias, out_dtype):
+def requant_table(r16: torch.Tensor) -> torch.Tensor:
+    """The decode kernel's table: int8 [N, G, 16], entry u the code c = u -
+    8 requantized as the kernel does it, the low byte of the f32 sum
+    ``c * r16 + 1.5 * 2**23`` (an f32 multiply, then an add that rounds to
+    an integer, half to even), so ``rint(c * r16)``."""
+    c = torch.arange(-8, 8, dtype=torch.float32, device=r16.device)
+    y = r16.float()[:, :, None] * c + 12582912.0
+    return (y.view(torch.int32) & 0xFF).to(torch.uint8).view(torch.int8)
+
+
+def prmt(a: torch.Tensor, b: torch.Tensor, s) -> torch.Tensor:
+    """PTX ``prmt.b32`` in its default mode on unsigned 32-bit words held
+    in int64 tensors: byte i of the result is byte (s_i & 7) of {a, b}
+    (a's bytes 0-3, b's 4-7), or, where bit 3 of s's nibble i is set, that
+    byte's bit 7 replicated over the byte. Only s's low 16 bits count."""
+    s = torch.as_tensor(s, dtype=torch.int64, device=a.device)
+    src = torch.stack([(a >> (8 * j)) & 0xFF for j in range(4)]
+                      + [(b >> (8 * j)) & 0xFF for j in range(4)])
+    out = torch.zeros_like(a)
+    for i in range(4):
+        nib = (s >> (4 * i)) & 0xF
+        byte = torch.gather(src, 0, (nib & 7).expand_as(a)[None])[0]
+        byte = torch.where((nib & 8) != 0, ((byte >> 7) & 1) * 0xFF, byte)
+        out = out | (byte << (8 * i))
+    return out
+
+
+def table_words(table: torch.Tensor) -> list:
+    """A table's 16 int8 entries (last dim) as the kernel's 4 words,
+    entries 4q .. 4q + 3 in word q, lowest byte first (int64 tensors)."""
+    u = table.to(torch.int64) & 0xFF
+    return [u[..., 4 * q] | (u[..., 4 * q + 1] << 8) | (u[..., 4 * q + 2] << 16)
+            | (u[..., 4 * q + 3] << 24) for q in range(4)]
+
+
+def table_lookup(words: list, w: torch.Tensor):
+    """The decode kernel's lookup of one weight word w (4 packed bytes,
+    int64 0 .. 2**32 - 1): (lo, hi), the requantized codes of the nibbles
+    lo0, hi0, lo1, hi1 and lo2, hi2, lo3, hi3 (lo_j, hi_j the low and high
+    nibble of byte j), one byte each. The raw nibble picks among the
+    entries of c >= 0, the nibble with bit 3 flipped among those of c < 0,
+    and bit 3 of each nibble, replicated into a byte mask, picks one."""
+    wx, sh = w ^ 0x88888888, (w << 4) & 0xFFFFFFFF
+    out = []
+    for half, mask_sel in ((0, 0xD9C8), (16, 0xFBEA)):
+        pos = prmt(words[2], words[3], w >> half)
+        neg = prmt(words[0], words[1], wx >> half)
+        m = prmt(sh, w, mask_sel)
+        out.append((pos & ~m & 0xFFFFFFFF) | (neg & m))
+    return tuple(out)
+
+
+def w4a8_two_level_splitk_ref(xq, s_x, packed, r16, scol, group=128, bias=None,
+                              out_dtype=torch.bfloat16, k_splits=1):
+    """The decode kernel in plain PyTorch: codes through
+    :func:`requant_table`, the exact int32 product of each K slice
+    (``wo4_matmul.int4_k_slices``), the slices' partials summed, then the
+    epilogue (f32(acc) * (s_x * 0.0625)) * scol + bias. Equal to
+    ``w4a8_matmul_ref(..., formulation="two_level")`` bit for bit at any
+    ``k_splits``."""
+    k = xq.shape[-1]
+    n = packed.shape[0]
+    ng = k // group
+    xs = xq.reshape(-1, k)
+    u = (numerics.unpack_int4(packed, group).to(torch.int64) + 8).reshape(n, ng, group)
+    w8 = torch.gather(requant_table(r16), 2, u).reshape(n, k)
+    acc = torch.zeros(xs.shape[0], n, dtype=torch.int32, device=xq.device)
+    for k0, k1 in int4_k_slices(k, group, k_splits):
+        acc += numerics.int_matmul_nk(xs[:, k0:k1], w8[:, k0:k1])
+    y = (acc.float() * (s_x.reshape(-1, 1).float() * 0.0625)) * scol[None, :]
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype).reshape(*xq.shape[:-1], n)
+
+
+def _launch(fn_name, xq, s_x, packed, table, scol, group, bias, out_dtype, k_splits=None):
     k = xq.shape[-1]
     n, bias = check_int4_weight(fn_name, k, packed, table, group, bias)
     if xq.dtype != torch.int8 or s_x.dtype != torch.float32:
@@ -96,22 +183,42 @@ def _launch(fn_name, xq, s_x, packed, table, scol, group, bias, out_dtype):
     ptrs = [xq.data_ptr(), s_x.data_ptr(), packed.data_ptr(), table.data_ptr()]
     if scol is not None:
         ptrs.append(scol.data_ptr())
-    err = getattr(_build.lib(), fn_name)(
-        *ptrs, bias.data_ptr() if bias is not None else None, out.data_ptr(),
-        _build.DTYPE_CODES[out_dtype], m, n, k, group, _build.stream_ptr(dev))
+    args = [*ptrs, bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            _build.DTYPE_CODES[out_dtype], m, n, k, group]
+    if k_splits is not None:
+        fn_name += "_decode"
+        args.append(k_splits)
+    err = getattr(_build.lib(), fn_name)(*args, _build.stream_ptr(dev))
     _build.check(err, fn_name)
     return out
 
 
-def w4a8_two_level(xq, s_x, packed, r16, scol, group, bias=None, out_dtype=torch.bfloat16):
-    """Launch the two-level body on CUDA tensors, with (r16, scol) from
-    :func:`two_level_scales`."""
+def w4a8_two_level_launch(xq, s_x, packed, r16, scol, group, bias=None,
+                          out_dtype=torch.bfloat16, k_splits=None):
+    """Launch one two-level kernel on CUDA operands: the decode kernel with
+    ``k_splits`` (1 to 8) K splits, or for None the tile kernel.
+    Returns the output; counts nothing (:func:`w4a8_two_level` routes and
+    counts)."""
     if r16.dtype != torch.float32 or scol.dtype != torch.float32:
         raise TypeError("w4a8 two_level: r16 and scol must be float32")
     if scol.shape != (packed.shape[0],):
         raise ValueError(f"w4a8 two_level: scol shape {tuple(scol.shape)}")
-    out = _launch("pq_w4a8_two_level", xq, s_x, packed, r16, scol, group, bias, out_dtype)
+    return _launch("pq_w4a8_two_level", xq, s_x, packed, r16, scol, group, bias, out_dtype,
+                   k_splits)
+
+
+def w4a8_two_level(xq, s_x, packed, r16, scol, group, bias=None, out_dtype=torch.bfloat16):
+    """Launch the two-level body on CUDA tensors, with (r16, scol) from
+    :func:`two_level_scales`. M up to ``wo4_matmul.INT4_DECODE_MAX_M``
+    takes the decode kernel, larger M the tile kernel."""
+    k = xq.shape[-1]
+    m = xq.numel() // k if k else 0
+    splits = (int4_decode_plan(m, packed.shape[0], k, group,
+                               int4_decode_held("pq_w4a8_two_level_decode", xq.device, m, group))
+              if decodes(xq, m, group) else None)
+    out = w4a8_two_level_launch(xq, s_x, packed, r16, scol, group, bias, out_dtype, splits)
     w4a8_two_level.launches += 1
+    w4a8_two_level.routes["tile" if splits is None else "decode"] += 1
     return out
 
 
@@ -123,6 +230,8 @@ def w4a8_group(xq, s_x, packed, scales, group, bias=None, out_dtype=torch.bfloat
 
 
 w4a8_two_level.launches = 0
+# launches by kernel: "decode" (w4a8_decode.cu), "tile" (w4a8_matmul.cu)
+w4a8_two_level.routes = {"decode": 0, "tile": 0}
 w4a8_group.launches = 0
 
 

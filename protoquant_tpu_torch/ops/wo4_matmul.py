@@ -16,9 +16,20 @@ The weight is the port's [N, K] layout packed along K: ``packed`` int8
 tensor takes the plain version; a CUDA tensor launches the body's kernel or
 raises. Each body counts its own launches (``wo4_split.launches``,
 ``wo4_legacy.launches``).
+
+``split`` takes one of two kernels, chosen by the number of token rows M
+before launch, as ``w4a8_matmul``'s two-level body does: M <=
+``INT4_DECODE_MAX_M`` (every decode step) the split-K decode kernel
+(``csrc/wo4_decode.cu``: weight rows on the MMA's 16-row side, K split at
+group boundaries over the blocks of a thread block cluster as
+:func:`int4_decode_plan` says, the partials summed in split order in
+shared memory), larger M the tile kernel. ``wo4_split.routes`` counts each.
+:func:`wo4_split_splitk_ref` spells the decode kernel's split out.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,6 +40,86 @@ FORMULATIONS = ("split", "legacy")
 # Groups the CUDA kernels take (pick_int4_group gives 128 for every
 # Llama-2-7B projection).
 CUDA_GROUPS = (32, 64, 128, 256)
+# The int4 decode kernels (csrc/int4_decode.cuh, the W4A8 two-level and the
+# split bodies): the largest M they take, from the sweep in PERF.md
+# (tools/gemm_timing.py --int4 --sweep); their geometry: weight rows a
+# block, packed bytes of a weight row a step, the most blocks a cluster
+# splits K over.
+INT4_DECODE_MAX_M = 32
+INT4_DECODE_ROWS = 64
+INT4_DECODE_STEP = 64
+INT4_DECODE_MAX_SPLITS = 8
+# cudaOccupancyMaxActiveClusters of each kernel instance, by (card, entry,
+# token fragments, group): {cluster size: clusters the card holds at once}
+_held: dict = {}
+
+
+def int4_decode_units(k: int, group: int) -> tuple:
+    """(units, codes a unit) of K for the int4 decode kernels: a unit is
+    max(64, group / 2) packed bytes, whole steps and whole groups; the last
+    may be cut at K."""
+    unit = 2 * max(INT4_DECODE_STEP, group // 2)
+    return -(-k // unit), unit
+
+
+def int4_decode_plan(m: int, n: int, k: int, group: int, held: dict):
+    """The int4 decode kernels' K splits (1 to 8: the blocks of a cluster)
+    for an [m, k] x [n, k]^T product of group ``group``, or None where the
+    tile kernel takes it (m > ``INT4_DECODE_MAX_M``): of the splits that
+    leave each at least two units of K, the one with the most blocks (64
+    weight rows a tile, times the splits) whose clusters, one a tile, the
+    card holds at once (``held[splits]``, :func:`int4_decode_held`), the
+    fewer splits on a tie; where none fits one wave, 1."""
+    if m > INT4_DECODE_MAX_M:
+        return None
+    tiles, (units, _) = -(-n // INT4_DECODE_ROWS), int4_decode_units(k, group)
+    fits = [s for s in range(1, INT4_DECODE_MAX_SPLITS + 1)
+            if (s == 1 or 2 * s <= units) and tiles <= held[s]]
+    return max(fits, default=1)
+
+
+def int4_decode_held(entry: str, dev, m: int, group: int) -> dict:
+    """{splits: clusters of that many blocks the card holds at once} of the
+    decode kernel instance that ``entry`` (``"pq_wo4_split_decode"`` or
+    ``"pq_w4a8_two_level_decode"``) launches for ``m`` rows of group
+    ``group``, asked of the built library once per card and instance."""
+    mf = 1 if m <= 8 else 2 if m <= 16 else 4
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (index, entry, mf, group)
+    if key not in _held:
+        lib, held = _build.lib(), {}
+        with torch.cuda.device(index):
+            for s in range(1, INT4_DECODE_MAX_SPLITS + 1):
+                count = ctypes.c_int(0)
+                _build.check(getattr(lib, entry + "_clusters")(mf * 8, group, s,
+                                                               ctypes.byref(count)), entry)
+                held[s] = count.value
+        _held[key] = held
+    return _held[key]
+
+
+def decodes(x: torch.Tensor, m: int, group: int) -> bool:
+    """Whether a call of ``m`` token rows on ``x``'s device takes a decode
+    kernel; a group the kernels lack takes the tile route, whose checks
+    raise."""
+    return x.is_cuda and m <= INT4_DECODE_MAX_M and group in CUDA_GROUPS
+
+
+def int4_k_slices(k: int, group: int, k_splits: int) -> list:
+    """The K ranges [k0, k1) of the decode kernels' splits, as their blocks
+    take them: split r holds the units [r units / k_splits, (r + 1) units /
+    k_splits) (:func:`int4_decode_units`), whole groups, the last cut at
+    k."""
+    units, unit = int4_decode_units(k, group)
+    ends = [min(k, unit * (r * units // k_splits)) for r in range(k_splits + 1)]
+    return list(zip(ends[:-1], ends[1:]))
+
+
+def int4_decode_blocks(n: int, k: int, group: int, k_splits: int) -> list:
+    """The (weight rows, K range) of each block of a decode launch, in grid
+    order: 64-row tiles of [0, n), each split over k_splits K slices."""
+    return [((r0, min(n, r0 + INT4_DECODE_ROWS)), ks)
+            for r0 in range(0, n, INT4_DECODE_ROWS) for ks in int4_k_slices(k, group, k_splits)]
 
 
 def check_int4_weight(name: str, k: int, packed: torch.Tensor, scales: torch.Tensor,
@@ -99,7 +190,32 @@ def weight_only_int4_matmul_ref(x, packed, scales, group=128, bias=None, out_dty
     return y.to(out_dtype).reshape(*x.shape[:-1], n)
 
 
-def _launch(fn_name: str, x, packed, scales, group, bias, out_dtype):
+def wo4_split_splitk_ref(x, packed, scales, group=128, bias=None, out_dtype=None,
+                         k_splits=1):
+    """The decode kernel's split in plain PyTorch: x rounded to bf16; each
+    K slice (:func:`int4_k_slices`) sums its groups' ``p * s`` in f32 in
+    ascending order from 0, the slices' sums are added in split order, then
+    the bias; cast to ``out_dtype`` (default x.dtype). Within
+    :func:`weight_only_int4_tolerance` of the plain version at any
+    ``k_splits``."""
+    out_dtype = out_dtype or x.dtype
+    k = x.shape[-1]
+    n = packed.shape[0]
+    xs = x.reshape(-1, k).to(torch.bfloat16).float()
+    q = numerics.unpack_int4(packed, group).float()
+    y = torch.zeros(xs.shape[0], n, dtype=torch.float32, device=x.device)
+    for k0, k1 in int4_k_slices(k, group, k_splits):
+        part = torch.zeros_like(y)
+        for g0 in range(k0, k1, group):
+            p = xs[:, g0:g0 + group] @ q[:, g0:g0 + group].t()
+            part = part + p * scales[:, g0 // group]
+        y = y + part
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype).reshape(*x.shape[:-1], n)
+
+
+def _launch(fn_name: str, x, packed, scales, group, bias, out_dtype, k_splits=None):
     out_dtype = out_dtype or x.dtype
     k = x.shape[-1]
     n, bias = check_int4_weight(fn_name, k, packed, scales, group, bias)
@@ -114,20 +230,39 @@ def _launch(fn_name: str, x, packed, scales, group, bias, out_dtype):
         raise ValueError(f"{fn_name}: x and packed must be 16-byte aligned")
     m = x.numel() // k
     out = torch.empty(*x.shape[:-1], n, dtype=out_dtype, device=dev)
-    err = getattr(_build.lib(), fn_name)(
-        x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-        bias.data_ptr() if bias is not None else None, out.data_ptr(),
-        _build.DTYPE_CODES[out_dtype], m, n, k, group, _build.stream_ptr(dev))
+    args = [x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+            bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            _build.DTYPE_CODES[out_dtype], m, n, k, group]
+    if k_splits is not None:
+        fn_name += "_decode"
+        args.append(k_splits)
+    err = getattr(_build.lib(), fn_name)(*args, _build.stream_ptr(dev))
     _build.check(err, fn_name)
     return out
 
 
-def wo4_split(x, packed, scales, group, bias=None, out_dtype=None):
-    """Launch the split body on CUDA tensors; x must be bfloat16."""
+def wo4_split_launch(x, packed, scales, group, bias=None, out_dtype=None, k_splits=None):
+    """Launch one split kernel on CUDA operands: the decode kernel with
+    ``k_splits`` (1 to 8) K splits, or for None the tile kernel.
+    Returns the output; counts nothing (:func:`wo4_split` routes and
+    counts)."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"wo4 split: x must be bfloat16, got {x.dtype}")
-    out = _launch("pq_wo4_split", x, packed, scales, group, bias, out_dtype)
+    return _launch("pq_wo4_split", x, packed, scales, group, bias, out_dtype, k_splits)
+
+
+def wo4_split(x, packed, scales, group, bias=None, out_dtype=None):
+    """Launch the split body on CUDA tensors; x must be bfloat16. M up to
+    ``INT4_DECODE_MAX_M`` takes the decode kernel, larger M the tile
+    kernel."""
+    k = x.shape[-1]
+    m = x.numel() // k if k else 0
+    splits = (int4_decode_plan(m, packed.shape[0], k, group,
+                               int4_decode_held("pq_wo4_split_decode", x.device, m, group))
+              if decodes(x, m, group) else None)
+    out = wo4_split_launch(x, packed, scales, group, bias, out_dtype, splits)
     wo4_split.launches += 1
+    wo4_split.routes["tile" if splits is None else "decode"] += 1
     return out
 
 
@@ -143,6 +278,8 @@ def wo4_legacy(x, packed, scales, group, bias=None, out_dtype=None):
 
 
 wo4_split.launches = 0
+# launches by kernel: "decode" (wo4_decode.cu), "tile" (wo4_matmul.cu)
+wo4_split.routes = {"decode": 0, "tile": 0}
 wo4_legacy.launches = 0
 
 

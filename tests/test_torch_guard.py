@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``protoquant_tpu_torch``, and not
-``chip_smoke.py``, imports ``jax`` or the JAX package, and an entry point
-asked for CUDA without a card raises instead of falling back to the CPU."""
+``chip_smoke.py``, the card tests or the timing tools, imports ``jax`` or
+the JAX package, and an entry point asked for CUDA without a card raises
+instead of falling back to the CPU."""
 
 import ast
 import subprocess
@@ -23,7 +24,8 @@ from protoquant_tpu_torch.utils import MeshConfig, resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "protoquant_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+    ROOT / "tests" / "test_torch_int4_decode_cuda.py"] + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "flax", "protoquant_tpu")
 
 

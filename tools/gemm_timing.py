@@ -1,6 +1,8 @@
-"""Time the int8 GEMM (qmatmul) of one checkout on the card.
+"""Time the int8 GEMM (qmatmul), or the int4-weight GEMMs, of one checkout
+on the card.
 
     python3 tools/gemm_timing.py [--tree DIR] [--label NAME] [--sweep]
+    python3 tools/gemm_timing.py --int4 [--tree DIR] [--label NAME] [--sweep] [--ablate]
 
 Imports protoquant_tpu_torch from DIR (default: the checkout holding this
 script), builds its kernels there, and prints one JSON line: the card, and
@@ -21,9 +23,26 @@ at M = 1, 2, 4, 8, 16, 32, 48, 64, 80, 96 and 128 and N x K = 4096 x
 2880, the tile kernel at its plan and, up to the decode kernel's 64 rows,
 the decode kernel at the plan's splits and at every other split count: the
 data the routing threshold and the plans are set from.
+
+With ``--int4`` it times the int4-weight GEMMs instead, through the
+wrappers a model calls (so each checkout takes its own route):
+``w4a8_two_level``, ``wo4_split`` and, for reference, ``w4a8_group``, at
+Llama-2-7B's four projections (group 128) and M = 1, 4 and 16, each beside
+its bound and a library yardstick (two_level: ``torch._int_mm`` over the
+requantized int8 copy of W with the same epilogue, M padded to 32; split:
+``torch.matmul`` over a bf16 copy of the dequantized W; group: none).
+``--sweep`` (a checkout that has the int4 decode kernels) adds, at M = 1,
+2, 4, 8, 16, 32, 48 and 64, the tile kernel and, up to 32 rows, the decode
+kernel at every split count (1 to 8), with the clusters of each size the
+card holds at once: the data ``INT4_DECODE_MAX_M`` and the plan come from.
+``--ablate`` builds variants of the two decode sources alone
+(``-DPQ_I4D_ABLATE``: 1 the per-code requant instead of the table, 2 no
+conversion of the codes, 3 loads alone) and times them beside the built
+kernel at M = 4 at the plan's splits.
 """
 
 import argparse
+import ctypes
 import importlib
 import json
 import os
@@ -33,6 +52,158 @@ import sys
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+INT4_MS = (1, 4, 16)
+INT4_SWEEP_MS = (1, 2, 4, 8, 16, 32, 48, 64)
+ABLATIONS = {1: "per-code requant, no table", 2: "no code conversion", 3: "loads alone"}
+
+
+def int4_operands(cs, ops, gen, dev, m, k, n, group, copies):
+    """Token rows (int8 with scales, and bf16) and ``copies`` int4 weights
+    with their two-level (r16, scol)."""
+    xq, sx = ops.rowquant_ref(torch.randn(m, k, generator=gen, device=dev))
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    ws = [(torch.randint(-128, 128, (n, k // 2), generator=gen, device=dev, dtype=torch.int8),
+           torch.rand(n, k // group, generator=gen, device=dev) * 2e-3 + 1e-4)
+          for _ in range(copies)]
+    return xq, sx, x, ws, [ops.two_level_scales(sc) for _, sc in ws]
+
+
+def int4_times(cs, ops, gen, dev):
+    """ms of the three bodies through their wrappers, bounds and library
+    yardsticks, by "M= K= N=" label."""
+    from protoquant_tpu_torch.core import numerics
+
+    bf, group = torch.bfloat16, cs.GROUP4
+    rows = {}
+    for m in INT4_MS:
+        for k, n in cs.LINEAR_SHAPES:
+            wbytes = n * k // 2 + 4 * n * (k // group)
+            xq, sx, x, ws, tls = int4_operands(cs, ops, gen, dev, m, k, n, group,
+                                               cs.copies_for(wbytes))
+            row = {
+                "two_level": cs.bench([lambda w=w, tl=tl: ops.w4a8_matmul(
+                    xq, sx, *w, group, None, bf, "two_level", tl) for w, tl in zip(ws, tls)]),
+                "split": cs.bench([lambda w=w: ops.weight_only_int4_matmul(
+                    x, *w, group, None, bf) for w in ws]),
+                "group": cs.bench([lambda w=w: ops.w4a8_matmul(
+                    xq, sx, *w, group, None, bf, "group") for w in ws]),
+                "bound_two_level": cs.bound_ms(m * k + 4 * m + wbytes + 4 * n + 2 * m * n,
+                                               2 * m * n * k, cs.INT8_OPS_PER_S)[0],
+                "bound_split": cs.bound_ms(2 * m * k + wbytes + 2 * m * n, 2 * m * n * k,
+                                           cs.BF16_FLOPS_PER_S)[0],
+                "bound_group": cs.bound_ms(m * k + 4 * m + wbytes + 2 * m * n, 2 * m * n * k,
+                                           cs.INT8_OPS_PER_S)[0]}
+            # library yardsticks over copies of W made beforehand
+            xpad = torch.zeros(max(m, 32), k, dtype=torch.int8, device=dev)
+            xpad[:m] = xq
+            sx16 = (sx * 0.0625)[:, None]
+            w8s = []
+            for (p, _), (r16, scol) in list(zip(ws, tls))[:cs.copies_for(n * k)]:
+                q = numerics.unpack_int4(p, group).float().reshape(n, -1, group)
+                w8s.append((torch.round(q * r16[:, :, None]).reshape(n, k).to(torch.int8), scol))
+            row["library_two_level"] = cs.bench([
+                lambda w8=w8, scol=scol: ((torch._int_mm(xpad, w8.t())[:m].float() * sx16)
+                                          * scol).to(bf) for w8, scol in w8s])
+            del w8s
+            wd = [numerics.dequantize_int4(p, sc, group).to(bf)
+                  for p, sc in ws[:cs.copies_for(2 * n * k)]]
+            row["library_split"] = cs.bench([lambda w=w: torch.matmul(x, w.t()) for w in wd])
+            del wd, ws, tls
+            rows[f"M={m} K={k} N={n}"] = row
+    return rows
+
+
+def int4_sweep(cs, ops, gen, dev):
+    """The tile kernel and the decode kernel at every split count, by M,
+    at the 7B shapes; with the plan and the clusters the card holds."""
+    W = importlib.import_module("protoquant_tpu_torch.ops.wo4_matmul")
+    A = importlib.import_module("protoquant_tpu_torch.ops.w4a8_matmul")
+
+    bf, group = torch.bfloat16, cs.GROUP4
+    out = {}
+    for k, n in cs.LINEAR_SHAPES:
+        wbytes = n * k // 2 + 4 * n * (k // group)
+        for m in INT4_SWEEP_MS:
+            xq, sx, x, ws, tls = int4_operands(cs, ops, gen, dev, m, k, n, group,
+                                               cs.copies_for(wbytes))
+            held = {body: W.int4_decode_held(f"pq_{body}_decode", dev, min(m, 32), group)
+                    for body in ("w4a8_two_level", "wo4_split")}
+            plan = W.int4_decode_plan(m, n, k, group, held["w4a8_two_level"])
+            row = {"plan_splits": plan,
+                   "plan_splits_wo4_split": W.int4_decode_plan(m, n, k, group, held["wo4_split"]),
+                   "clusters_held": held, "clusters_launched": -(-n // W.INT4_DECODE_ROWS),
+                   "tile_two_level": cs.bench([lambda w=w, tl=tl: A.w4a8_two_level_launch(
+                       xq, sx, w[0], *tl, group, None, bf) for w, tl in zip(ws, tls)]),
+                   "tile_split": cs.bench([lambda w=w: W.wo4_split_launch(
+                       x, *w, group, None, bf) for w in ws])}
+            units, _ = W.int4_decode_units(k, group)
+            for splits in range(1, 9):
+                if m > 32 or splits > units:  # the decode kernels take up to 32 rows
+                    continue
+                row[f"decode_two_level_{splits}"] = cs.bench([
+                    lambda w=w, tl=tl: A.w4a8_two_level_launch(
+                        xq, sx, w[0], *tl, group, None, bf, splits) for w, tl in zip(ws, tls)])
+                row[f"decode_split_{splits}"] = cs.bench([
+                    lambda w=w: W.wo4_split_launch(x, *w, group, None, bf, splits) for w in ws])
+            out[f"M={m} K={k} N={n}"] = row
+            del ws, tls
+    return out
+
+
+def int4_ablate(cs, ops, gen, dev, tree):
+    """The decode kernels built with one part left out, against the built
+    kernel, at M = 4 and the plan's splits (ms)."""
+    W = importlib.import_module("protoquant_tpu_torch.ops.wo4_matmul")
+    from protoquant_tpu_torch.ops import _build
+
+    bf, group, m = torch.bfloat16, cs.GROUP4, 4
+    build = os.path.join(os.path.abspath(tree), "protoquant_tpu_torch", "_build", "ablate")
+    os.makedirs(build, exist_ok=True)
+    libs, procs = {0: _build.lib()}, {}
+    for v in ABLATIONS:
+        so = os.path.join(build, f"libpq_ablate_{v}.so")
+        procs[v] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, f"-DPQ_I4D_ABLATE={v}", "-shared", "-I",
+             str(_build.CSRC), str(_build.CSRC / "w4a8_decode.cu"),
+             str(_build.CSRC / "wo4_decode.cu"), "-o", so],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    for v, (so, proc) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc of ablation {v} failed:\n{log}")
+        libs[v] = ctypes.CDLL(so)
+        for name in ("pq_w4a8_two_level_decode", "pq_wo4_split_decode"):
+            getattr(libs[v], name).argtypes = _build.SIGNATURES[name]
+    out = {}
+    code = _build.DTYPE_CODES[bf]
+    for k, n in cs.LINEAR_SHAPES:
+        wbytes = n * k // 2 + 4 * n * (k // group)
+        xq, sx, x, ws, tls = int4_operands(cs, ops, gen, dev, m, k, n, group,
+                                           cs.copies_for(wbytes))
+        plans = {body: W.int4_decode_plan(m, n, k, group, W.int4_decode_held(
+            f"pq_{body}_decode", dev, m, group)) for body in ("w4a8_two_level", "wo4_split")}
+        y = torch.empty(m, n, dtype=bf, device=dev)
+        row = {"plan_splits": plans}
+        for v, lib in libs.items():
+            def two_level(w, tl, lib=lib):
+                _build.check(lib.pq_w4a8_two_level_decode(
+                    xq.data_ptr(), sx.data_ptr(), w[0].data_ptr(), tl[0].data_ptr(),
+                    tl[1].data_ptr(), None, y.data_ptr(), code, m, n, k, group,
+                    plans["w4a8_two_level"], _build.stream_ptr(dev)), "two_level")
+
+            def split(w, lib=lib):
+                _build.check(lib.pq_wo4_split_decode(
+                    x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), None, y.data_ptr(), code,
+                    m, n, k, group, plans["wo4_split"], _build.stream_ptr(dev)), "split")
+
+            label = "kernel" if v == 0 else ABLATIONS[v]
+            row[f"two_level {label}"] = cs.bench([lambda w=w, tl=tl: two_level(w, tl)
+                                                  for w, tl in zip(ws, tls)])
+            if v != 1:  # the split body has no table
+                row[f"split {label}"] = cs.bench([lambda w=w: split(w) for w in ws])
+        out[f"M={m} K={k} N={n}"] = row
+        del ws, tls
+    return out
 
 
 def main() -> int:
@@ -40,6 +211,8 @@ def main() -> int:
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--label", default="")
     parser.add_argument("--sweep", action="store_true")
+    parser.add_argument("--int4", action="store_true")
+    parser.add_argument("--ablate", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("gemm_timing: needs an NVIDIA card", file=sys.stderr)
@@ -54,6 +227,17 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
     times, library, bounds, sweep = {}, {}, {}, {}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    if args.int4:
+        line = {"label": args.label, "tree": args.tree, "card": smi.stdout.strip(),
+                "int4_ms": int4_times(cs, ops, gen, dev)}
+        if args.sweep:
+            line["int4_sweep_ms"] = int4_sweep(cs, ops, gen, dev)
+        if args.ablate:
+            line["int4_ablate_ms"] = int4_ablate(cs, ops, gen, dev, args.tree)
+        print(json.dumps(line), flush=True)
+        return 0
 
     def operands(m, k, n):
         xq, sx = ops.rowquant_ref(torch.randn(m, k, generator=gen, device=dev))
@@ -93,8 +277,6 @@ def main() -> int:
                              for w in ws])
                 sweep[f"M={m} K={k} N={n}"] = row
                 del ws
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
     line = {"label": args.label, "tree": args.tree, "card": smi.stdout.strip(), "ms": times,
             "int_mm_ms": library, "bound_ms": bounds}
     if sweep:
