@@ -679,8 +679,8 @@ def check_weight_only(ops, gen, dev):
 GROUP4 = 128  # int4 group of every Llama-2-7B projection (pick_int4_group)
 F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
 # the int4 GEMM cases' token rows: decode steps (1, 4, 16: the decode kernel
-# of a routed body) and a prefill chunk (the tile kernel)
-INT4_MS = (1, 4, 16, 256)
+# of a routed body) and prefill chunks (48, 256, 512: the tile kernel)
+INT4_MS = (1, 4, 16, 48, 256, 512)
 # the int4 bodies that route by M (ops.ROUTED), by formulation
 ROUTED_INT4 = {"split": "wo4_split", "two_level": "w4a8_two_level"}
 
@@ -694,30 +694,39 @@ def _int4_weights(gen, dev, n, k, copies):
 
 
 def _int4_route(ops, formulation, m, n, k, dev):
-    """(the wrapper, the route it must take, its decode plan) of an int4
-    case: a routed body takes the decode kernel up to INT4_DECODE_MAX_M
-    rows, at ``int4_decode_plan``'s K splits; the other bodies have one
-    kernel (None)."""
-    from protoquant_tpu_torch.ops.wo4_matmul import (INT4_DECODE_MAX_M, int4_decode_held,
-                                                     int4_decode_plan)
+    """(the wrapper, the route it must take, its plan) of an int4 case: a
+    routed body takes the decode kernel up to its threshold (split
+    SPLIT_DECODE_MAX_M rows, two_level INT4_DECODE_MAX_M), at
+    ``int4_decode_plan``'s K splits, and the tile kernel above, at
+    ``int4_tile_plan``'s (tokens a tile, K splits); the other bodies have
+    one kernel (None)."""
+    from protoquant_tpu_torch.ops.qmatmul import _sm_count
+    from protoquant_tpu_torch.ops.wo4_matmul import (INT4_DECODE_MAX_M, SPLIT_DECODE_MAX_M,
+                                                     int4_decode_held, int4_decode_plan,
+                                                     int4_tile_plan)
 
     if formulation not in ROUTED_INT4:
         return None, None, None
     name = ROUTED_INT4[formulation]
-    plan = (int4_decode_plan(m, n, k, GROUP4, int4_decode_held(f"pq_{name}_decode", dev, m,
-                                                               GROUP4))
-            if m <= INT4_DECODE_MAX_M else None)
-    return getattr(ops, name), "tile" if plan is None else "decode", plan
+    if m > (SPLIT_DECODE_MAX_M if formulation == "split" else INT4_DECODE_MAX_M):
+        return (getattr(ops, name), "tile",
+                int4_tile_plan(m, n, k, GROUP4, _sm_count(dev), formulation))
+    plan = int4_decode_plan(m, n, k, GROUP4, int4_decode_held(f"pq_{name}_decode", dev, m,
+                                                              GROUP4))
+    return getattr(ops, name), "decode", plan
 
 
 def _int4_case_keys(route, plan, faults) -> dict:
     """The keys an int4 case adds to its entry: its route and plan (a routed
-    body), K splits, the planted fault's differing elements."""
+    body: the decode kernel's K splits, or the tile kernel's tokens a tile
+    and K splits), K splits, the planted fault's differing elements."""
     if faults["last group zeroed"] == 0:
         raise AssertionError("an int4 check passes a fault (last group zeroed)")
-    keys = {"k_splits": plan or 1, "faults_differing_elements": faults}
+    tokens, splits = plan if route == "tile" else (None, plan or 1)
+    keys = {"k_splits": splits, "faults_differing_elements": faults}
     if route is not None:
-        keys["plan"] = {"route": route, **({"k_splits": plan} if plan else {})}
+        keys["plan"] = {"route": route, "k_splits": splits,
+                        **({"tokens": tokens} if tokens else {})}
     return keys
 
 
@@ -731,9 +740,9 @@ def _last_group_zeroed(packed):
 
 def check_wo4(ops, gen, dev, formulation):
     """The wo4 body against its plain version, within
-    ``ops.weight_only_int4_tolerance``, at M 1, 4, 16 and 256; the split
-    body through the route its wrapper names for M (the decode kernel at
-    its plan, or the tile kernel). Each case holds a planted fault, which
+    ``ops.weight_only_int4_tolerance``, at each M of ``INT4_MS``; the split
+    body through the route its wrapper names for M (the decode kernel or
+    the tile kernel, at its plan). Each case holds a planted fault, which
     must differ: the plain product with the weight's last group zeroed.
     Library yardstick: ``torch.matmul`` over a dequantized copy of W made
     beforehand (bf16 for split, whose x is bf16; f32 for legacy, the same
@@ -787,9 +796,9 @@ def check_wo4(ops, gen, dev, formulation):
 
 
 def check_w4a8(ops, gen, dev, formulation):
-    """The w4a8 body against its plain version, exactly, at M 1, 4, 16 and
-    256; two_level through the route its wrapper names for M (the decode
-    kernel at its plan, or the tile kernel). Each case holds a planted
+    """The w4a8 body against its plain version, exactly, at each M of
+    ``INT4_MS``; two_level through the route its wrapper names for M (the
+    decode kernel or the tile kernel, at its plan). Each case holds a planted
     fault, which must differ: the plain product with the weight's last
     group zeroed. Library yardstick for two_level: ``torch._int_mm`` (M
     padded to 32 rows) over the int8 requantized copy of W made beforehand,
@@ -3594,13 +3603,13 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
     "paged_int8_attention_split": ("protoquant_tpu_torch/csrc/attn_split.cuh",
                                    "protoquant_tpu/ops/paged_attention.py:28",
                                    "decode B=4 H=32 KV=32 G=1"),
-    "wo4_split": ("protoquant_tpu_torch/csrc/wo4_matmul.cu",
+    "wo4_split": ("protoquant_tpu_torch/csrc/wo4_tile.cu",
                   "protoquant_tpu/ops/wo4_matmul.py:64", "M=256 K=4096 N=11008 bf16 out"),
     "wo4_split_decode": ("protoquant_tpu_torch/csrc/wo4_decode.cu",
                          "protoquant_tpu/ops/wo4_matmul.py:64", "M=4 K=4096 N=11008 bf16 out"),
     "wo4_legacy": ("protoquant_tpu_torch/csrc/wo4_matmul.cu",
                    "protoquant_tpu/ops/wo4_matmul.py:41", "M=4 K=4096 N=11008 bf16 out"),
-    "w4a8_two_level": ("protoquant_tpu_torch/csrc/w4a8_matmul.cu",
+    "w4a8_two_level": ("protoquant_tpu_torch/csrc/w4a8_tile.cu",
                        "protoquant_tpu/ops/w4a8_matmul.py:70", "M=256 K=4096 N=11008 bf16 out"),
     "w4a8_two_level_decode": ("protoquant_tpu_torch/csrc/w4a8_decode.cu",
                               "protoquant_tpu/ops/w4a8_matmul.py:70",
@@ -3662,6 +3671,9 @@ KERNEL_SOURCES = {
         "attn_split.cuh", "attn_split.cu", "attn_split_paged.cu")] + _MERGE},
     "qmatmul": {"prefill": [_CSRC + "qmatmul.cu", _CSRC + "sm90_gemm.cuh"]},
     **{name + "_decode": {"decode_gemm": [_CSRC + "int4_decode.cuh", _CSRC + f"{src}_decode.cu"]}
+       for name, src in (("wo4_split", "wo4"), ("w4a8_two_level", "w4a8"))},
+    **{name: {"prefill": [_CSRC + f"{src}_tile.cu", _CSRC + "int4_tile_sm90.cuh",
+                          _CSRC + "sm90_gemm.cuh"]}
        for name, src in (("wo4_split", "wo4"), ("w4a8_two_level", "w4a8"))}}
 # The entries whose launches are a route count of their wrapper under
 # another name (ops.ROUTED; "qmatmul_decode", "paged_int8_attention_split"

@@ -1,5 +1,6 @@
-// Shared tile machinery of the int4-weight GEMMs (wo4_matmul.cu,
-// w4a8_matmul.cu): activations A [M, K] (bf16 or int8, row-major) times a
+// Shared tile machinery of the mma.sync int4-weight GEMMs (w4a8_matmul.cu's
+// group body; int4_decode.cuh and int4_tile_sm90.cuh take its nibble and
+// MMA helpers): activations A [M, K] (bf16 or int8, row-major) times a
 // weight packed two codes per byte along K, B [N, K/2] int8, with one f32
 // value per (output channel, K-group) in a table T [N, G] (the group scales,
 // or the two-level r16).

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for GEMM kernels: TMA tile loads with the
 // 128-byte swizzle, mbarrier waits and arrivals, wgmma on operands in shared
-// memory, and the host-side tensor map for a row-major int8 [rows, K]
-// matrix. qmatmul.cu (B2's tile route) is built from them.
+// memory, and the host-side tensor maps. qmatmul.cu (B2's tile route) and
+// int4_tile_sm90.cuh (B11 and B12's) are built from them.
 //
 // Layout contract between TMA and wgmma: a tile of R rows x 128 bytes of K,
 // loaded by one cp.async.bulk.tensor with CU_TENSOR_MAP_SWIZZLE_128B into
@@ -79,6 +79,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
 }
 
 // -- wgmma ----------------------------------------------------------------------
+
+// The same for the 64-byte swizzle (rows of 64 bytes, 16-byte chunk c of row r
+// at c ^ ((r >> 1) & 3); the tile 512-aligned).
+__device__ __forceinline__ uint64_t wgmma_desc_sw64(uint32_t addr) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)1 << 16;
+  d |= (uint64_t)(512 >> 4) << 32;  // SBO: 8 rows of 64 bytes
+  d |= (uint64_t)2 << 62;           // layout: 64-byte swizzle
+  return d;
+}
 
 // Descriptor of a K-major operand tile with the 128-byte swizzle at shared
 // address ``addr`` (the tile 1024-aligned; addr may sit 32 k bytes into it).
@@ -182,20 +192,31 @@ static Sm90EncodeTiled sm90_encode_tiled() {
   return fn;
 }
 
+// The map of a row-major [rows, cols] matrix of ``type`` (elements of
+// ``elem`` bytes) at ``ptr`` (16-byte aligned, cols * elem a multiple of 16),
+// read in boxes of ``box_rows`` rows x ``box_cols`` elements with
+// ``swizzle`` (box_cols * elem at most the swizzle's span); out-of-bounds
+// elements read as zeros.
+static cudaError_t sm90_map_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                               int elem, int rows, int cols, int box_cols, int box_rows,
+                               CUtensorMapSwizzle swizzle) {
+  Sm90EncodeTiled encode = sm90_encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elems[2] = {1, 1};
+  CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elems,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // The map of a row-major int8 [rows, k] matrix at ``ptr`` (16-byte aligned,
 // k a multiple of 16), read in boxes of ``box_rows`` rows x 128 bytes with
 // the 128-byte swizzle; out-of-bounds elements read as zeros.
 static cudaError_t sm90_int8_map(CUtensorMap* map, const void* ptr, int rows, int k,
                                  int box_rows) {
-  Sm90EncodeTiled encode = sm90_encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)k};
-  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
-                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return sm90_map_2d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rows, k, 128, box_rows,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
 }

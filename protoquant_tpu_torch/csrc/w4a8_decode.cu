@@ -1,10 +1,10 @@
 // W4A8 two_level at decode sizes: the split-K kernel that
 // ops/w4a8_matmul.py routes every two-level product of at most
 // ops.wo4_matmul.INT4_DECODE_MAX_M token rows to; larger M (prefill chunks)
-// keeps w4a8_matmul.cu's tile kernel.
+// takes w4a8_tile.cu's tile kernel.
 //
 // Replaces protoquant_tpu/ops/w4a8_matmul.py:_w4a8_2l_kernel (Pallas) at
-// decode M, with w4a8_matmul.cu's contract, bit for bit:
+// decode M, with w4a8_tile.cu's contract, bit for bit:
 //   w8[n, k] = rint(code * r16[n, g])     (f32 multiply, half to even)
 //   acc[m, n] = sum_k xq[m, k] * w8[n, k] (one exact int32 sum over K)
 //   out = cast((f32(acc) * (s_x[m] * 0.0625)) * scol[n] + bias[n])
@@ -65,7 +65,7 @@ __device__ __forceinline__ void w4d_table(float r, int t, int lane, uint32_t (&T
     const int c0 = 4 * (p * W + v) - 8;
     uint32_t y[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e)  // rint(c * r) in the low byte, as w4a8_matmul.cu's w4_requant
+    for (int e = 0; e < 4; ++e)  // rint(c * r) in the low byte, as int4_tile_sm90.cuh's i4t_requant
       y[e] = __float_as_uint(__fadd_rn(__fmul_rn(__int2float_rn(c0 + e), r), 12582912.0f));
     mine[v] = i4d_prmt(i4d_prmt(y[0], y[1], 0x0040), i4d_prmt(y[2], y[3], 0x0040), 0x5410);
   }

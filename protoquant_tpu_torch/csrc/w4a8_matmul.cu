@@ -1,49 +1,23 @@
 // W4A8: int8 activations times a group-wise int4 weight on the int8 tensor
-// cores, two bodies.
+// cores, the "group" body (the "two_level" body runs on w4a8_decode.cu and
+// w4a8_tile.cu).
 //
-// Replaces protoquant_tpu/ops/w4a8_matmul.py (Pallas):
-//   two_level (_w4a8_2l_kernel): each code is requantized to int8 against
-//          its column's largest group scale, w8 = rint(q * r16[n, g]) with
-//          r16 = s * (16 / scol) (|w8| <= 112 for codes in [-7, 7]); one
-//          exact int32 sum over all of K (127 * 112 * 11008 < 2^31);
-//          out = cast((f32(acc) * (s_x * 0.0625)) * scol[n] + bias).
-//   group  (_w4a8_kernel): an exact int32 dot per K-group,
-//          acc = acc + f32(p) * s[n, g] over the groups in ascending order;
-//          out = cast(acc * s_x + bias).
-// r16 [N, G] and scol [N] come from the wrapper (ops.two_level_scales, made
-// once per weight). Both bodies equal their plain versions bit for bit: the
-// integer sums are exact, the requant is one f32 multiply and a
-// round-half-even (the 1.5 * 2^23 trick, as rintf), and every epilogue
-// multiply and add is __fmul_rn / __fadd_rn, never contracted into an FMA.
+// Replaces protoquant_tpu/ops/w4a8_matmul.py:_w4a8_kernel (Pallas): an exact
+// int32 dot per K-group, acc = acc + f32(p) * s[n, g] over the groups in
+// ascending order; out = cast(acc * s_x + bias). It equals its plain version
+// bit for bit: the integer sums are exact, and every epilogue multiply and
+// add is __fmul_rn / __fadd_rn, never contracted into an FMA.
 // Bound on the H100: bytes at decode (M = 4), the packed weight and its
-// table read once, K * N / 2 + 4 * N * K / 128 bytes (2.66 us at
-// K = N = 4096); at M = 256 still bytes at these widths. Design: the tiles
-// of wo4_matmul.cu (int4_tile.cuh), with mma.sync m16n8k32 s8: the 4 bytes
-// a thread reads from a weight row hold the 4 low-nibble codes of its B
-// fragment's first register and the 4 high-nibble codes of its second, and
-// its A registers read the same offsets of the lo and hi activation
-// segments, so one 16-byte chunk of a weight row is one k32 step. group
-// turns nibbles into int8 codes with a per-byte subtract; two_level
-// multiplies each code by r16 from the shared-memory table and rounds it.
-// One instance per group size (32, 64, 128, 256).
+// scales read once, K * N / 2 + 4 * N * K / 128 bytes (2.66 us at
+// K = N = 4096). Design: the tiles of int4_tile.cuh, with mma.sync m16n8k32
+// s8: the 4 bytes a thread reads from a weight row hold the 4 low-nibble
+// codes of its B fragment's first register and the 4 high-nibble codes of
+// its second, and its A registers read the same offsets of the lo and hi
+// activation segments, so one 16-byte chunk of a weight row is one k32 step;
+// nibbles become int8 codes by a per-byte subtract. One instance per group
+// size (32, 64, 128, 256).
 
 #include "int4_tile.cuh"
-
-// Four biased nibbles (code + 8) -> four int8 bytes rint(code * r).
-__device__ __forceinline__ uint32_t w4_requant(uint32_t u, float r) {
-  uint32_t w8 = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    // 2^23 + u as a float is exact; subtracting 2^23 + 8 leaves the code
-    const float code =
-        __fadd_rn(__int_as_float(0x4B000000 | ((u >> (8 * i)) & 0xFFu)), -8388616.0f);
-    // adding 1.5 * 2^23 rounds to an integer, half to even, held in the low
-    // bits of the sum's representation (|code * r| <= 128)
-    const float y = __fadd_rn(__fmul_rn(code, r), 12582912.0f);
-    w8 |= ((uint32_t)__float_as_int(y) & 0xFFu) << (8 * i);
-  }
-  return w8;
-}
 
 // A fragments of one k32 step at chunk c: lo offsets in a[0..1] of the
 // m16n8k32 layout's k 0..15 half, hi offsets in its k 16..31 half.
@@ -61,11 +35,11 @@ __device__ __forceinline__ void w4a8_a_frags(const unsigned char* As, int c, int
   }
 }
 
-template <int MT, int NT, int BB, int STAGES, int HALF, bool TWO_LEVEL, typename OutT>
+template <int MT, int NT, int BB, int STAGES, int HALF, typename OutT>
 __global__ void __launch_bounds__(W4_THREADS)
 w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
             const int8_t* __restrict__ packed, const float* __restrict__ table,
-            const float* __restrict__ scol, const float* __restrict__ bias,
+            const float* __restrict__ bias,
             OutT* __restrict__ out, int M, int N, int K) {
   using T = W4Tile<1, MT, NT, BB, STAGES, HALF>;
   const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
@@ -73,8 +47,8 @@ w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
   const int g = lane >> 2, t = lane & 3;
   const int wn = warp * 8 * NT;
 
-  int p[MT][NT][4];      // two_level: the whole sum; group: the group's sum
-  float acc[MT][NT][4];  // group: the scaled sum over groups
+  int p[MT][NT][4];      // the group's sum
+  float acc[MT][NT][4];  // the scaled sum over groups
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -97,18 +71,12 @@ w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
           const uint32_t w = *(const uint32_t*)(Bs + col * T::BS + 16 * c + 4 * t);
           uint32_t ulo, uhi, b[2];
           w4_biased_nibbles(w, ulo, uhi);
-          if (TWO_LEVEL) {
-            const float r = Ts[slot * T::BN + col];
-            b[0] = w4_requant(ulo, r);
-            b[1] = w4_requant(uhi, r);
-          } else {
-            b[0] = w4_codes_s8(ulo);
-            b[1] = w4_codes_s8(uhi);
-          }
+          b[0] = w4_codes_s8(ulo);
+          b[1] = w4_codes_s8(uhi);
 #pragma unroll
           for (int i = 0; i < MT; ++i) w4_mma_s8(p[i][j], a[i], b);
         }
-        if (!TWO_LEVEL && group_end) {
+        if (group_end) {
 #pragma unroll
           for (int j = 0; j < NT; ++j) {
             const float s0 = Ts[slot * T::BN + wn + j * 8 + 2 * t];
@@ -132,92 +100,66 @@ w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
     for (int hh = 0; hh < 2; ++hh) {
       const int row = m0 + i * 16 + g + 8 * hh;
       if (row >= M) continue;
-      const float sxr = TWO_LEVEL ? __fmul_rn(sx[row], 0.0625f) : sx[row];
+      const float sxr = sx[row];
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = n0 + wn + j * 8 + 2 * t + e;
           if (col >= N) continue;
-          float y;
-          if (TWO_LEVEL)
-            y = __fmul_rn(__fmul_rn(__int2float_rn(p[i][j][2 * hh + e]), sxr), scol[col]);
-          else
-            y = __fmul_rn(acc[i][j][2 * hh + e], sxr);
+          float y = __fmul_rn(acc[i][j][2 * hh + e], sxr);
           if (bias != nullptr) y = __fadd_rn(y, bias[col]);
           out[(size_t)row * N + col] = pq_from_float<OutT>(y);
         }
     }
 }
 
-template <int MT, int NT, int BB, int STAGES, int HALF, bool TWO_LEVEL, typename OutT>
+template <int MT, int NT, int BB, int STAGES, int HALF, typename OutT>
 static cudaError_t launch_t(const void* xq, const void* sx, const void* packed,
-                            const void* table, const void* scol, const void* bias, void* out,
-                            int M, int N, int K, cudaStream_t stream) {
+                            const void* scales, const void* bias, void* out, int M, int N, int K,
+                            cudaStream_t stream) {
   static bool smem_set = false;
   return w4_launch<W4Tile<1, MT, NT, BB, STAGES, HALF>>(
-      w4a8_kernel<MT, NT, BB, STAGES, HALF, TWO_LEVEL, OutT>, smem_set, M, N, stream,
-      (const int8_t*)xq, (const float*)sx, (const int8_t*)packed, (const float*)table,
-      (const float*)scol, (const float*)bias, (OutT*)out, M, N, K);
+      w4a8_kernel<MT, NT, BB, STAGES, HALF, OutT>, smem_set, M, N, stream, (const int8_t*)xq,
+      (const float*)sx, (const int8_t*)packed, (const float*)scales, (const float*)bias,
+      (OutT*)out, M, N, K);
 }
 
-template <int HALF, bool TWO_LEVEL, typename OutT>
+template <int HALF, typename OutT>
 static cudaError_t launch_m(const void* xq, const void* sx, const void* packed,
-                            const void* table, const void* scol, const void* bias, void* out,
-                            int M, int N, int K, cudaStream_t stream) {
+                            const void* scales, const void* bias, void* out, int M, int N, int K,
+                            cudaStream_t stream) {
   if (M <= 16)
-    return launch_t<1, 1, 128, 4, HALF, TWO_LEVEL, OutT>(xq, sx, packed, table, scol, bias, out, M,
-                                                   N, K, stream);
-  return launch_t<4, 2, 64, 4, HALF, TWO_LEVEL, OutT>(xq, sx, packed, table, scol, bias, out, M, N,
-                                                 K, stream);
+    return launch_t<1, 1, 128, 4, HALF, OutT>(xq, sx, packed, scales, bias, out, M, N, K, stream);
+  return launch_t<4, 2, 64, 4, HALF, OutT>(xq, sx, packed, scales, bias, out, M, N, K, stream);
 }
 
-template <bool TWO_LEVEL, typename OutT>
+template <typename OutT>
 static cudaError_t launch_g(const void* xq, const void* sx, const void* packed,
-                            const void* table, const void* scol, const void* bias, void* out,
-                            int M, int N, int K, int group, cudaStream_t stream) {
+                            const void* scales, const void* bias, void* out, int M, int N, int K,
+                            int group, cudaStream_t stream) {
   switch (group) {
-    case 32:
-      return launch_m<16, TWO_LEVEL, OutT>(xq, sx, packed, table, scol, bias, out, M, N, K, stream);
-    case 64:
-      return launch_m<32, TWO_LEVEL, OutT>(xq, sx, packed, table, scol, bias, out, M, N, K, stream);
-    case 128:
-      return launch_m<64, TWO_LEVEL, OutT>(xq, sx, packed, table, scol, bias, out, M, N, K, stream);
-    case 256:
-      return launch_m<128, TWO_LEVEL, OutT>(xq, sx, packed, table, scol, bias, out, M, N, K,
-                                            stream);
+    case 32: return launch_m<16, OutT>(xq, sx, packed, scales, bias, out, M, N, K, stream);
+    case 64: return launch_m<32, OutT>(xq, sx, packed, scales, bias, out, M, N, K, stream);
+    case 128: return launch_m<64, OutT>(xq, sx, packed, scales, bias, out, M, N, K, stream);
+    case 256: return launch_m<128, OutT>(xq, sx, packed, scales, bias, out, M, N, K, stream);
     default: return cudaErrorInvalidValue;
   }
-}
-
-template <bool TWO_LEVEL>
-static int w4a8_entry(const void* xq, const void* sx, const void* packed, const void* table,
-                      const void* scol, const void* bias, void* out, int out_dtype, int M,
-                      int N, int K, int group, void* stream) {
-  if (M == 0 || N == 0) return cudaSuccess;
-  if (K % group != 0) return cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (out_dtype) {
-    case PQ_F32:
-      return launch_g<TWO_LEVEL, float>(xq, sx, packed, table, scol, bias, out, M, N, K, group, s);
-    case PQ_BF16:
-      return launch_g<TWO_LEVEL, __nv_bfloat16>(xq, sx, packed, table, scol, bias, out, M, N, K,
-                                                group, s);
-    case PQ_F16:
-      return launch_g<TWO_LEVEL, __half>(xq, sx, packed, table, scol, bias, out, M, N, K, group, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-PQ_EXPORT int pq_w4a8_two_level(const void* xq, const void* sx, const void* packed,
-                                const void* r16, const void* scol, const void* bias, void* out,
-                                int out_dtype, int M, int N, int K, int group, void* stream) {
-  return w4a8_entry<true>(xq, sx, packed, r16, scol, bias, out, out_dtype, M, N, K, group, stream);
 }
 
 PQ_EXPORT int pq_w4a8_group(const void* xq, const void* sx, const void* packed,
                             const void* scales, const void* bias, void* out, int out_dtype,
                             int M, int N, int K, int group, void* stream) {
-  return w4a8_entry<false>(xq, sx, packed, scales, nullptr, bias, out, out_dtype, M, N, K, group,
-                           stream);
+  if (M == 0 || N == 0) return cudaSuccess;
+  if (K % group != 0) return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (out_dtype) {
+    case PQ_F32:
+      return launch_g<float>(xq, sx, packed, scales, bias, out, M, N, K, group, s);
+    case PQ_BF16:
+      return launch_g<__nv_bfloat16>(xq, sx, packed, scales, bias, out, M, N, K, group, s);
+    case PQ_F16:
+      return launch_g<__half>(xq, sx, packed, scales, bias, out, M, N, K, group, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -1,10 +1,10 @@
 // Weight-only int4 split at decode sizes: the split-K kernel that
-// ops/wo4_matmul.py routes every split product of at most INT4_DECODE_MAX_M
-// token rows to; larger M (prefill chunks) keeps wo4_matmul.cu's tile
+// ops/wo4_matmul.py routes every split product of at most SPLIT_DECODE_MAX_M
+// token rows to; larger M (prefill chunks) takes wo4_tile.cu's tile
 // kernel.
 //
 // Replaces protoquant_tpu/ops/wo4_matmul.py:_wo4_split_kernel (Pallas) at
-// decode M, with wo4_matmul.cu's contract: x rounded to bf16; for each
+// decode M, with wo4_tile.cu's contract: x rounded to bf16; for each
 // K-group g, p = x_g . q_g, summed in f32 from products exact in f32, then
 // acc = acc + p * s[n, g] (__fmul_rn, __fadd_rn) over the groups in
 // ascending order; out = cast(acc + bias). Here each split of K sums its
@@ -27,7 +27,7 @@
 //   the step's two groups, at g = 32 4 bytes at 4 t of each of four. So a
 //   thread's 4 words come in pieces, each inside one group, and the MMAs of
 //   a piece sum one group (ld.global.cs, whole sectors a quad).
-// - Codes as today (wo4_matmul.cu): a word's low and high nibbles become
+// - Codes as in int4_tile.cuh: a word's low and high nibbles become
 //   two bf16 pairs each by a byte permute and one bf16x2 subtract, exact;
 //   its low codes make one MMA with the tokens at the lo offsets, its high
 //   codes another with the hi offsets (ld.global.nc).

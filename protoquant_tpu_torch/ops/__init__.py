@@ -33,10 +33,10 @@ from .paged_attention import paged_int8_attention, paged_int8_attention_ref
 from .qmatmul import dynamic_qlinear, qmatmul, qmatmul_ref, qmatmul_splitk_ref
 from .rowquant import rowquant, rowquant_ref
 from .w4a8_matmul import (two_level_scales, w4a8_group, w4a8_matmul, w4a8_matmul_ref,
-                          w4a8_two_level, w4a8_two_level_splitk_ref)
+                          w4a8_two_level, w4a8_two_level_splitk_ref, w4a8_two_level_tile_ref)
 from .wo4_matmul import (weight_only_int4_matmul, weight_only_int4_matmul_ref,
                          weight_only_int4_tolerance, wo4_legacy, wo4_split,
-                         wo4_split_splitk_ref)
+                         wo4_split_splitk_ref, wo4_split_tile_ref)
 from .wo_matmul import weight_only_matmul, weight_only_matmul_ref, weight_only_tolerance
 
 # The kernel bodies whose launches a run can read and reset (an op with two
@@ -146,8 +146,8 @@ __all__ = [
     "resolve_w4a8_formulation", "rms_norm_quant", "rms_norm_quant_ref", "rowquant",
     "rowquant_ref", "shared_rowquant", "swiglu_quant", "swiglu_quant_ref",
     "two_level_scales", "w4a8_group", "w4a8_matmul", "w4a8_matmul_ref", "w4a8_two_level",
-    "w4a8_two_level_splitk_ref",
+    "w4a8_two_level_splitk_ref", "w4a8_two_level_tile_ref",
     "weight_only_int4_matmul", "weight_only_int4_matmul_ref", "weight_only_int4_tolerance",
     "weight_only_matmul", "weight_only_matmul_ref", "weight_only_tolerance", "wo4_legacy",
-    "wo4_split", "wo4_split_splitk_ref",
+    "wo4_split", "wo4_split_splitk_ref", "wo4_split_tile_ref",
 ]

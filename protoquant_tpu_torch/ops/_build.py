@@ -63,10 +63,14 @@ SIGNATURES = {
     # B, H, KV, maxP, ps, Dh, sm, stream
     "pq_paged_int8_attention": [_P, _I] + [_P] * 8 + [_I] * 6 + [_F, _P],
     # x, packed, scales, bias, out, out_dtype, M, N, K, group, stream
-    "pq_wo4_split": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pq_wo4_legacy": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # xq, sx, packed, r16, scol, bias, out, out_dtype, M, N, K, group, stream
-    "pq_w4a8_two_level": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the tile kernels: x, packed, scales, bias, out, out_dtype, M, N, K,
+    # group, tokens a tile, k_splits, stream; xq, sx, packed, r16, scol, bias,
+    # out, out_dtype, M, N, K, group, tokens a tile, k_splits, stream
+    "pq_wo4_split": [_P] * 5 + [_I] * 7 + [_P],
+    "pq_w4a8_two_level": [_P] * 7 + [_I] * 7 + [_P],
+    # k_splits, out clusters; launches nothing and takes no stream
+    "pq_int4_tile_clusters": [_I, ctypes.POINTER(ctypes.c_int)],
     # the decode kernels: as above, with k_splits before the stream
     "pq_wo4_split_decode": [_P] * 5 + [_I] * 6 + [_P],
     "pq_w4a8_two_level_decode": [_P] * 7 + [_I] * 6 + [_P],

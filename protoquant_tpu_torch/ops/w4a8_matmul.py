@@ -1,8 +1,8 @@
 """W4A8: dynamic int8 activations times group-wise int4 weights on the int8
 tensor cores. Kernels and plain versions.
 
-The kernels (``csrc/w4a8_matmul.cu``) replace the two bodies of the Pallas
-kernel ``protoquant_tpu/ops/w4a8_matmul.py``:
+The kernels replace the two bodies of the Pallas kernel
+``protoquant_tpu/ops/w4a8_matmul.py``:
 
 * ``two_level`` (``_w4a8_2l_kernel``, what the model runs by default):
   ``scol[n] = max_g s[n, g]``, ``r16 = s * where(scol > 0, 16 / scol, 0)``;
@@ -26,10 +26,14 @@ the split-K decode kernel (``csrc/w4a8_decode.cu``: weight rows on the
 MMA's 16-row side, each (row, group)'s 16 requantized codes built once as
 a table and looked up by ``prmt``, K split at group boundaries over a
 thread block cluster as ``wo4_matmul.int4_decode_plan`` says, the int32
-partials summed in shared memory), larger M the tile kernel.
-``w4a8_two_level.routes`` counts each. :func:`requant_table`,
+partials summed in shared memory), larger M the tile kernel
+(``csrc/w4a8_tile.cu`` on ``csrc/int4_tile_sm90.cuh``: TMA and wgmma, 128
+weight rows by 64, 128 or 256 tokens a block, the codes requantized by a
+table a (row, group) at g >= 128, one by one below, K split over a cluster
+as ``wo4_matmul.int4_tile_plan`` says). ``group`` has one kernel
+(``csrc/w4a8_matmul.cu``). ``w4a8_two_level.routes`` counts each route. :func:`requant_table`,
 :func:`table_lookup` and :func:`w4a8_two_level_splitk_ref` spell the
-decode kernel out.
+decode kernel out, :func:`w4a8_two_level_tile_ref` the tile kernel.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import torch
 from ..core import numerics
 from . import _build
 from .wo4_matmul import (check_int4_weight, decodes, int4_decode_held, int4_decode_plan,
-                         int4_k_slices)
+                         int4_k_slices, int4_tile_blocks, tile_args)
 
 FORMULATIONS = ("two_level", "group")
 
@@ -162,7 +166,32 @@ def w4a8_two_level_splitk_ref(xq, s_x, packed, r16, scol, group=128, bias=None,
     return y.to(out_dtype).reshape(*xq.shape[:-1], n)
 
 
-def _launch(fn_name, xq, s_x, packed, table, scol, group, bias, out_dtype, k_splits=None):
+def w4a8_two_level_tile_ref(xq, s_x, packed, r16, scol, group=128, bias=None,
+                            out_dtype=torch.bfloat16, plan=(256, 1)):
+    """The tile kernel in plain PyTorch: each code requantized on its own,
+    the low byte of the f32 sum ``fl(c * r16) + 1.5 * 2**23``; each block
+    of ``wo4_matmul.int4_tile_blocks`` the exact int32 product over its K
+    slice, a tile's slices summed; then the epilogue (f32(acc) * (s_x *
+    0.0625)) * scol + bias. Equal to ``w4a8_matmul_ref(...,
+    formulation="two_level")`` bit for bit at any plan."""
+    k = xq.shape[-1]
+    n = packed.shape[0]
+    xs = xq.reshape(-1, k)
+    q = numerics.unpack_int4(packed, group).float().reshape(n, k // group, group)
+    y = q * r16.float()[:, :, None] + 12582912.0
+    w8 = (y.view(torch.int32) & 0xFF).to(torch.uint8).view(torch.int8).reshape(n, k)
+    acc = torch.zeros(xs.shape[0], n, dtype=torch.int32, device=xq.device)
+    for (m0, m1), (n0, n1), (k0, k1) in int4_tile_blocks(xs.shape[0], n, k, group, plan):
+        acc[m0:m1, n0:n1] += numerics.int_matmul_nk(xs[m0:m1, k0:k1], w8[n0:n1, k0:k1])
+    y = (acc.float() * (s_x.reshape(-1, 1).float() * 0.0625)) * scol[None, :]
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype).reshape(*xq.shape[:-1], n)
+
+
+def _launch(fn_name, xq, s_x, packed, table, scol, group, bias, out_dtype, tail=None):
+    """Check the operands and launch ``fn_name``; ``tail(m, n, k, dev)``
+    gives the arguments after ``group`` (as ``wo4_matmul``'s)."""
     k = xq.shape[-1]
     n, bias = check_int4_weight(fn_name, k, packed, table, group, bias)
     if xq.dtype != torch.int8 or s_x.dtype != torch.float32:
@@ -185,26 +214,29 @@ def _launch(fn_name, xq, s_x, packed, table, scol, group, bias, out_dtype, k_spl
         ptrs.append(scol.data_ptr())
     args = [*ptrs, bias.data_ptr() if bias is not None else None, out.data_ptr(),
             _build.DTYPE_CODES[out_dtype], m, n, k, group]
-    if k_splits is not None:
-        fn_name += "_decode"
-        args.append(k_splits)
+    if tail is not None:
+        args += tail(m, n, k, dev)
     err = getattr(_build.lib(), fn_name)(*args, _build.stream_ptr(dev))
     _build.check(err, fn_name)
     return out
 
 
 def w4a8_two_level_launch(xq, s_x, packed, r16, scol, group, bias=None,
-                          out_dtype=torch.bfloat16, k_splits=None):
+                          out_dtype=torch.bfloat16, k_splits=None, tile=None):
     """Launch one two-level kernel on CUDA operands: the decode kernel with
-    ``k_splits`` (1 to 8) K splits, or for None the tile kernel.
-    Returns the output; counts nothing (:func:`w4a8_two_level` routes and
-    counts)."""
+    ``k_splits`` (1 to 8) K splits, or for None the tile kernel with
+    ``tile`` = (tokens a tile, K splits) (None:
+    ``wo4_matmul.int4_tile_plan``'s). Returns the output; counts nothing
+    (:func:`w4a8_two_level` routes and counts)."""
     if r16.dtype != torch.float32 or scol.dtype != torch.float32:
         raise TypeError("w4a8 two_level: r16 and scol must be float32")
     if scol.shape != (packed.shape[0],):
         raise ValueError(f"w4a8 two_level: scol shape {tuple(scol.shape)}")
+    if k_splits is not None:
+        return _launch("pq_w4a8_two_level_decode", xq, s_x, packed, r16, scol, group, bias,
+                       out_dtype, lambda *_: [k_splits])
     return _launch("pq_w4a8_two_level", xq, s_x, packed, r16, scol, group, bias, out_dtype,
-                   k_splits)
+                   tile_args(tile, "two_level", group))
 
 
 def w4a8_two_level(xq, s_x, packed, r16, scol, group, bias=None, out_dtype=torch.bfloat16):
@@ -230,7 +262,7 @@ def w4a8_group(xq, s_x, packed, scales, group, bias=None, out_dtype=torch.bfloat
 
 
 w4a8_two_level.launches = 0
-# launches by kernel: "decode" (w4a8_decode.cu), "tile" (w4a8_matmul.cu)
+# launches by kernel: "decode" (w4a8_decode.cu), "tile" (w4a8_tile.cu)
 w4a8_two_level.routes = {"decode": 0, "tile": 0}
 w4a8_group.launches = 0
 

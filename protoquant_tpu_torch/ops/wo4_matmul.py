@@ -1,8 +1,8 @@
 """Weight-only int4 matmul: activations times group-wise int4 weights.
 Kernels and plain versions.
 
-The kernels (``csrc/wo4_matmul.cu``) replace the two bodies of the Pallas
-kernel ``protoquant_tpu/ops/wo4_matmul.py``:
+The kernels replace the two bodies of the Pallas kernel
+``protoquant_tpu/ops/wo4_matmul.py``:
 
 * ``split`` (``_wo4_split_kernel``, the default): x is rounded to bf16;
   for each K-group g, ``p = x_g . q_g`` (exact products bf16 x nibble,
@@ -19,12 +19,18 @@ raises. Each body counts its own launches (``wo4_split.launches``,
 
 ``split`` takes one of two kernels, chosen by the number of token rows M
 before launch, as ``w4a8_matmul``'s two-level body does: M <=
-``INT4_DECODE_MAX_M`` (every decode step) the split-K decode kernel
+``SPLIT_DECODE_MAX_M`` (every decode step of up to 16 slots) the split-K
+decode kernel
 (``csrc/wo4_decode.cu``: weight rows on the MMA's 16-row side, K split at
 group boundaries over the blocks of a thread block cluster as
 :func:`int4_decode_plan` says, the partials summed in split order in
-shared memory), larger M the tile kernel. ``wo4_split.routes`` counts each.
-:func:`wo4_split_splitk_ref` spells the decode kernel's split out.
+shared memory), larger M the tile kernel (``csrc/wo4_tile.cu`` on
+``csrc/int4_tile_sm90.cuh``: TMA and wgmma, 128 weight rows by 64 or 128
+tokens a block, K split over a cluster as :func:`int4_tile_plan` says).
+``legacy`` has one kernel (``csrc/wo4_matmul.cu``). ``wo4_split.routes``
+counts each route.
+:func:`wo4_split_splitk_ref` spells the decode kernel's split out,
+:func:`wo4_split_tile_ref` the tile kernel's blocks.
 """
 
 from __future__ import annotations
@@ -41,14 +47,34 @@ FORMULATIONS = ("split", "legacy")
 # Llama-2-7B projection).
 CUDA_GROUPS = (32, 64, 128, 256)
 # The int4 decode kernels (csrc/int4_decode.cuh, the W4A8 two-level and the
-# split bodies): the largest M they take, from the sweep in PERF.md
-# (tools/gemm_timing.py --int4 --sweep); their geometry: weight rows a
+# split bodies): the largest M each body routes to them, its crossover with
+# the tile kernel in the sweep in PERF.md (tools/gemm_timing.py --int4
+# --sweep; 32 is also the kernels' limit); their geometry: weight rows a
 # block, packed bytes of a weight row a step, the most blocks a cluster
 # splits K over.
 INT4_DECODE_MAX_M = 32
+SPLIT_DECODE_MAX_M = 16
 INT4_DECODE_ROWS = 64
 INT4_DECODE_STEP = 64
 INT4_DECODE_MAX_SPLITS = 8
+# The int4 tile kernels (csrc/int4_tile_sm90.cuh): weight rows a block, the
+# token tiles each body takes (the split body holds two accumulators, so at
+# most 128), the cluster sizes K splits over, the fewest units (of
+# int4_decode_units) a split keeps, the clusters of each size an H100 holds
+# at once (cudaOccupancyMaxActiveClusters of a one-block-an-SM kernel; its
+# GPCs' SM counts are not all multiples of the size), and the plan's cost
+# model, fitted to the plan sweep in PERF.md: a block's K stage of 128 codes
+# costs INT4_TILE_STAGE_US[body][tokens] microseconds, a block f0 + f1 x
+# splits more, (f0, f1) = INT4_TILE_FIXED_US[body] (a block of a larger
+# cluster stores a smaller share of its tile).
+INT4_TILE_ROWS = 128
+INT4_TILE_TOKENS = {"split": (64, 128), "two_level": (64, 128, 256)}
+INT4_TILE_SPLITS = (1, 2, 3, 4, 6, 8)
+INT4_TILE_MIN_UNITS = 4
+INT4_TILE_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 6: 17, 8: 15}
+INT4_TILE_STAGE_US = {"split": {64: 0.679, 128: 1.228},
+                      "two_level": {64: 0.534, 128: 0.803, 256: 1.386}}
+INT4_TILE_FIXED_US = {"split": (5.936, -0.076), "two_level": (6.367, -0.102)}
 # cudaOccupancyMaxActiveClusters of each kernel instance, by (card, entry,
 # token fragments, group): {cluster size: clusters the card holds at once}
 _held: dict = {}
@@ -62,15 +88,16 @@ def int4_decode_units(k: int, group: int) -> tuple:
     return -(-k // unit), unit
 
 
-def int4_decode_plan(m: int, n: int, k: int, group: int, held: dict):
+def int4_decode_plan(m: int, n: int, k: int, group: int, held: dict,
+                     max_m: int = INT4_DECODE_MAX_M):
     """The int4 decode kernels' K splits (1 to 8: the blocks of a cluster)
     for an [m, k] x [n, k]^T product of group ``group``, or None where the
-    tile kernel takes it (m > ``INT4_DECODE_MAX_M``): of the splits that
-    leave each at least two units of K, the one with the most blocks (64
+    tile kernel takes it (m > ``max_m``, the body's threshold): of the
+    splits that leave each at least two units of K, the one with the most blocks (64
     weight rows a tile, times the splits) whose clusters, one a tile, the
     card holds at once (``held[splits]``, :func:`int4_decode_held`), the
     fewer splits on a tie; where none fits one wave, 1."""
-    if m > INT4_DECODE_MAX_M:
+    if m > max_m:
         return None
     tiles, (units, _) = -(-n // INT4_DECODE_ROWS), int4_decode_units(k, group)
     fits = [s for s in range(1, INT4_DECODE_MAX_SPLITS + 1)
@@ -98,11 +125,11 @@ def int4_decode_held(entry: str, dev, m: int, group: int) -> dict:
     return _held[key]
 
 
-def decodes(x: torch.Tensor, m: int, group: int) -> bool:
+def decodes(x: torch.Tensor, m: int, group: int, max_m: int = INT4_DECODE_MAX_M) -> bool:
     """Whether a call of ``m`` token rows on ``x``'s device takes a decode
-    kernel; a group the kernels lack takes the tile route, whose checks
-    raise."""
-    return x.is_cuda and m <= INT4_DECODE_MAX_M and group in CUDA_GROUPS
+    kernel (up to the body's threshold ``max_m``); a group the kernels lack
+    takes the tile route, whose checks raise."""
+    return x.is_cuda and m <= max_m and group in CUDA_GROUPS
 
 
 def int4_k_slices(k: int, group: int, k_splits: int) -> list:
@@ -113,6 +140,46 @@ def int4_k_slices(k: int, group: int, k_splits: int) -> list:
     units, unit = int4_decode_units(k, group)
     ends = [min(k, unit * (r * units // k_splits)) for r in range(k_splits + 1)]
     return list(zip(ends[:-1], ends[1:]))
+
+
+def int4_tile_plan(m: int, n: int, k: int, group: int, sms: int, formulation: str = "split"):
+    """The tile kernel's (tokens a tile, K splits) for an [m, k] x [n, k]^T
+    product of group ``group`` on a card of ``sms`` SMs: of the token tiles
+    of ``formulation``'s body and the splits of K over the blocks of a
+    cluster that leave each split at least ``INT4_TILE_MIN_UNITS`` units,
+    the plan of least cost, waves times a block's cost (one block an SM, at
+    most ``INT4_TILE_CLUSTERS`` clusters of a size; a block's stages times
+    ``INT4_TILE_STAGE_US`` plus ``INT4_TILE_FIXED_US``'s), the fewer splits
+    and then the taller tile on a tie."""
+    units, _ = int4_decode_units(k, group)
+    stages = -(-k // (2 * INT4_DECODE_STEP))
+    tiles_n = -(-n // INT4_TILE_ROWS)
+    f0, f1 = INT4_TILE_FIXED_US[formulation]
+    best = None
+    for tokens in INT4_TILE_TOKENS[formulation]:
+        tiles = -(-m // tokens) * tiles_n
+        for splits in INT4_TILE_SPLITS:
+            if splits > 1 and units < splits * INT4_TILE_MIN_UNITS:
+                continue
+            wave = splits * min(sms // splits, INT4_TILE_CLUSTERS[splits])
+            cost = (-(-tiles * splits // wave)
+                    * (stages / splits * INT4_TILE_STAGE_US[formulation][tokens]
+                       + f0 + f1 * splits))
+            key = (round(cost, 6), splits, -tokens)
+            if best is None or key < best[0]:
+                best = (key, (tokens, splits))
+    return best[1]
+
+
+def int4_tile_blocks(m: int, n: int, k: int, group: int, plan) -> list:
+    """The (tokens, weight rows, K range) of each block of a tile launch of
+    ``plan`` = (tokens a tile, K splits), in grid order: 128-row weight tiles
+    of [0, n), each over the token tiles of [0, m), each split over K
+    (:func:`int4_k_slices`)."""
+    tokens, splits = plan
+    return [((m0, min(m, m0 + tokens)), (n0, min(n, n0 + INT4_TILE_ROWS)), ks)
+            for n0 in range(0, n, INT4_TILE_ROWS) for m0 in range(0, m, tokens)
+            for ks in int4_k_slices(k, group, splits)]
 
 
 def int4_decode_blocks(n: int, k: int, group: int, k_splits: int) -> list:
@@ -215,7 +282,44 @@ def wo4_split_splitk_ref(x, packed, scales, group=128, bias=None, out_dtype=None
     return y.to(out_dtype).reshape(*x.shape[:-1], n)
 
 
-def _launch(fn_name: str, x, packed, scales, group, bias, out_dtype, k_splits=None):
+def wo4_split_tile_ref(x, packed, scales, group=128, bias=None, out_dtype=None,
+                       plan=(128, 1)):
+    """The tile kernel's blocks in plain PyTorch: x rounded to bf16; each
+    block of :func:`int4_tile_blocks` sums its groups' ``p * s`` in f32 in
+    ascending order from 0 over its K slice; a tile's slices are added in
+    split order, then the bias; cast to ``out_dtype`` (default x.dtype).
+    Within :func:`weight_only_int4_tolerance` of the plain version."""
+    out_dtype = out_dtype or x.dtype
+    k = x.shape[-1]
+    n = packed.shape[0]
+    xs = x.reshape(-1, k).to(torch.bfloat16).float()
+    q = numerics.unpack_int4(packed, group).float()
+    y = torch.zeros(xs.shape[0], n, dtype=torch.float32, device=x.device)
+    for (m0, m1), (n0, n1), (k0, k1) in int4_tile_blocks(xs.shape[0], n, k, group, plan):
+        part = torch.zeros(m1 - m0, n1 - n0, dtype=torch.float32, device=x.device)
+        for g0 in range(k0, k1, group):
+            p = xs[m0:m1, g0:g0 + group] @ q[n0:n1, g0:g0 + group].t()
+            part = part + p * scales[n0:n1, g0 // group]
+        y[m0:m1, n0:n1] = part if k0 == 0 else y[m0:m1, n0:n1] + part
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype).reshape(*x.shape[:-1], n)
+
+
+def tile_args(tile, formulation: str, group: int):
+    """The tile entries' last arguments, (tokens a tile, K splits), as a
+    ``tail`` of the launchers: ``tile``, or :func:`int4_tile_plan`'s for the
+    card's SMs."""
+    from .qmatmul import _sm_count
+
+    return lambda m, n, k, dev: list(tile or int4_tile_plan(m, n, k, group, _sm_count(dev),
+                                                            formulation))
+
+
+def _launch(fn_name: str, x, packed, scales, group, bias, out_dtype, tail=None):
+    """Check the operands and launch ``fn_name``; ``tail(m, n, k, dev)``
+    gives the arguments after ``group`` (a decode kernel's K splits, a tile
+    kernel's plan)."""
     out_dtype = out_dtype or x.dtype
     k = x.shape[-1]
     n, bias = check_int4_weight(fn_name, k, packed, scales, group, bias)
@@ -233,33 +337,39 @@ def _launch(fn_name: str, x, packed, scales, group, bias, out_dtype, k_splits=No
     args = [x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr(),
             _build.DTYPE_CODES[out_dtype], m, n, k, group]
-    if k_splits is not None:
-        fn_name += "_decode"
-        args.append(k_splits)
+    if tail is not None:
+        args += tail(m, n, k, dev)
     err = getattr(_build.lib(), fn_name)(*args, _build.stream_ptr(dev))
     _build.check(err, fn_name)
     return out
 
 
-def wo4_split_launch(x, packed, scales, group, bias=None, out_dtype=None, k_splits=None):
+def wo4_split_launch(x, packed, scales, group, bias=None, out_dtype=None, k_splits=None,
+                     tile=None):
     """Launch one split kernel on CUDA operands: the decode kernel with
-    ``k_splits`` (1 to 8) K splits, or for None the tile kernel.
+    ``k_splits`` (1 to 8) K splits, or for None the tile kernel with
+    ``tile`` = (tokens a tile, K splits) (None: :func:`int4_tile_plan`'s).
     Returns the output; counts nothing (:func:`wo4_split` routes and
     counts)."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"wo4 split: x must be bfloat16, got {x.dtype}")
-    return _launch("pq_wo4_split", x, packed, scales, group, bias, out_dtype, k_splits)
+    if k_splits is not None:
+        return _launch("pq_wo4_split_decode", x, packed, scales, group, bias, out_dtype,
+                       lambda *_: [k_splits])
+    return _launch("pq_wo4_split", x, packed, scales, group, bias, out_dtype,
+                   tile_args(tile, "split", group))
 
 
 def wo4_split(x, packed, scales, group, bias=None, out_dtype=None):
     """Launch the split body on CUDA tensors; x must be bfloat16. M up to
-    ``INT4_DECODE_MAX_M`` takes the decode kernel, larger M the tile
+    ``SPLIT_DECODE_MAX_M`` takes the decode kernel, larger M the tile
     kernel."""
     k = x.shape[-1]
     m = x.numel() // k if k else 0
     splits = (int4_decode_plan(m, packed.shape[0], k, group,
-                               int4_decode_held("pq_wo4_split_decode", x.device, m, group))
-              if decodes(x, m, group) else None)
+                               int4_decode_held("pq_wo4_split_decode", x.device, m, group),
+                               SPLIT_DECODE_MAX_M)
+              if decodes(x, m, group, SPLIT_DECODE_MAX_M) else None)
     out = wo4_split_launch(x, packed, scales, group, bias, out_dtype, splits)
     wo4_split.launches += 1
     wo4_split.routes["tile" if splits is None else "decode"] += 1
@@ -278,7 +388,7 @@ def wo4_legacy(x, packed, scales, group, bias=None, out_dtype=None):
 
 
 wo4_split.launches = 0
-# launches by kernel: "decode" (wo4_decode.cu), "tile" (wo4_matmul.cu)
+# launches by kernel: "decode" (wo4_decode.cu), "tile" (wo4_tile.cu)
 wo4_split.routes = {"decode": 0, "tile": 0}
 wo4_legacy.launches = 0
 

@@ -148,7 +148,7 @@ def test_decode_plan_by_shape():
 
 
 def _tile_requant(codes, r):
-    """The tile kernel's per-code requant (w4a8_matmul.cu, w4_requant), op
+    """The tile kernel's per-code requant (int4_tile_sm90.cuh, i4t_requant), op
     by op in f32: the code from 2**23 + (code + 8) less 2**23 + 8, times r,
     plus 1.5 * 2**23, the low byte of the sum's bits."""
     biased = (codes + 8).to(torch.int32)

@@ -9,7 +9,7 @@ W4A8 two_level: equal to ``w4a8_matmul_ref(..., "two_level")`` bit for bit
 whole sum). The split body: within ``ops.weight_only_int4_tolerance`` of its
 plain version (the same products, f32 sums in another order). Both at the
 Llama-2-7B shapes, ragged N and K, every group, with and without a bias, f32
-and bf16 out, at M 1, 4, 16 and the threshold, through the route the
+and bf16 out, at M 1, 4, 16 and the body's threshold, through the route the
 wrapper names; every split count the kernel takes; two calls and a CUDA
 graph replay bit for bit.
 """
@@ -61,14 +61,19 @@ def _split_case(cuda, m, k, n, group):
     return x, packed, scales, torch.randn(n, generator=g, device=cuda)
 
 
-def _decode_ms():
-    return (1, 4, 16, W.INT4_DECODE_MAX_M)
+def _threshold(formulation):
+    """The largest M the body's wrapper routes to its decode kernel."""
+    return W.SPLIT_DECODE_MAX_M if formulation == "split" else W.INT4_DECODE_MAX_M
+
+
+def _decode_ms(formulation):
+    return tuple(sorted({1, 4, 16, _threshold(formulation)}))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n,group", MODEL_SHAPES + RAGGED_SHAPES)
 def test_two_level_decode_exact(cuda, k, n, group):
-    for m in _decode_ms():
+    for m in _decode_ms("two_level"):
         xq, sx, packed, scales, bias = _two_level_case(cuda, m, k, n, group)
         for out_dtype in (torch.float32, torch.bfloat16):
             for b in (None, bias):
@@ -85,7 +90,7 @@ def test_two_level_decode_exact(cuda, k, n, group):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n,group", MODEL_SHAPES + RAGGED_SHAPES)
 def test_split_decode_within_tolerance(cuda, k, n, group):
-    for m in _decode_ms():
+    for m in _decode_ms("split"):
         x, packed, scales, bias = _split_case(cuda, m, k, n, group)
         for out_dtype in (torch.float32, torch.bfloat16):
             for b in (None, bias):
@@ -102,10 +107,10 @@ def test_split_decode_within_tolerance(cuda, k, n, group):
 @pytest.mark.cuda
 @pytest.mark.parametrize("formulation", ["two_level", "split"])
 def test_routes_around_the_threshold(cuda, formulation):
-    """M up to INT4_DECODE_MAX_M takes the decode kernel, one row more the
-    tile kernel; both right."""
+    """M up to the body's threshold takes the decode kernel, one row more
+    the tile kernel; both right."""
     k, n, group = 4096, 1000, 128
-    for m in (W.INT4_DECODE_MAX_M, W.INT4_DECODE_MAX_M + 1):
+    for m in (_threshold(formulation), _threshold(formulation) + 1):
         ops.reset_launch_counts()
         if formulation == "two_level":
             xq, sx, packed, scales, bias = _two_level_case(cuda, m, k, n, group)
@@ -120,7 +125,7 @@ def test_routes_around_the_threshold(cuda, formulation):
             tol = ops.weight_only_int4_tolerance(x, packed, scales, group, ref)
             assert ((y.float() - ref.float()).abs() <= tol).all()
             routes = ops.wo4_split.routes
-        route = "decode" if m <= W.INT4_DECODE_MAX_M else "tile"
+        route = "decode" if m <= _threshold(formulation) else "tile"
         assert routes == {"decode": int(route == "decode"), "tile": int(route == "tile")}
 
 

@@ -2,7 +2,8 @@
 on the card.
 
     python3 tools/gemm_timing.py [--tree DIR] [--label NAME] [--sweep]
-    python3 tools/gemm_timing.py --int4 [--tree DIR] [--label NAME] [--sweep] [--ablate]
+    python3 tools/gemm_timing.py --int4 [--tree DIR] [--label NAME] [--ms 48,64,256,512]
+                                 [--sweep] [--plans] [--ablate]
 
 Imports protoquant_tpu_torch from DIR (default: the checkout holding this
 script), builds its kernels there, and prints one JSON line: the card, and
@@ -27,18 +28,26 @@ data the routing threshold and the plans are set from.
 With ``--int4`` it times the int4-weight GEMMs instead, through the
 wrappers a model calls (so each checkout takes its own route):
 ``w4a8_two_level``, ``wo4_split`` and, for reference, ``w4a8_group``, at
-Llama-2-7B's four projections (group 128) and M = 1, 4 and 16, each beside
-its bound and a library yardstick (two_level: ``torch._int_mm`` over the
-requantized int8 copy of W with the same epilogue, M padded to 32; split:
+Llama-2-7B's four projections (group 128) and M = 48, 64, 256 and 512 (or
+``--ms``), each beside its bound and a library yardstick (two_level:
+``torch._int_mm`` over the requantized int8 copy of W with the same
+epilogue, M padded to 32, and ``torch._int_mm`` alone; split:
 ``torch.matmul`` over a bf16 copy of the dequantized W; group: none).
 ``--sweep`` (a checkout that has the int4 decode kernels) adds, at M = 1,
-2, 4, 8, 16, 32, 48 and 64, the tile kernel and, up to 32 rows, the decode
-kernel at every split count (1 to 8), with the clusters of each size the
-card holds at once: the data ``INT4_DECODE_MAX_M`` and the plan come from.
-``--ablate`` builds variants of the two decode sources alone
-(``-DPQ_I4D_ABLATE``: 1 the per-code requant instead of the table, 2 no
-conversion of the codes, 3 loads alone) and times them beside the built
-kernel at M = 4 at the plan's splits.
+2, 4, 8, 16, 24, 32, 48 and 64, the tile kernel and, up to 32 rows, the
+decode kernel at every split count (1 to 8), with the clusters of each size
+the card holds at once: the data ``INT4_DECODE_MAX_M`` and the decode plan
+come from. ``--plans`` (a checkout with the TMA tile kernels) times the
+tile kernels at every (tokens a tile, K splits) they take, at M = 48,
+64, 128, 256 and 512, with the clusters of each size the card holds: the
+data ``int4_tile_plan`` is set from. ``--ablate``
+builds variants of the two tile sources alone (``-DPQ_I4T_ABLATE``: 1 no
+conversion of the codes, 2 loads alone, 3 split without its group
+epilogue, 4 no loads, 5 two_level's per-code requant instead of the table)
+and times them beside the built kernel at M = 48 and 256 at the
+plan; and variants of the two decode sources (``-DPQ_I4D_ABLATE``: 1 the
+per-code requant instead of the table, 2 no conversion of the codes, 3
+loads alone), timed beside the built kernel at M = 4 at the plan's splits.
 """
 
 import argparse
@@ -52,9 +61,12 @@ import sys
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-INT4_MS = (1, 4, 16)
-INT4_SWEEP_MS = (1, 2, 4, 8, 16, 32, 48, 64)
-ABLATIONS = {1: "per-code requant, no table", 2: "no code conversion", 3: "loads alone"}
+INT4_MS = (48, 64, 256, 512)
+INT4_SWEEP_MS = (1, 2, 4, 8, 16, 24, 32, 48, 64)
+INT4_PLAN_MS = (48, 64, 128, 256, 512)
+ABLATIONS = {1: "no code conversion", 2: "loads alone", 3: "no group epilogue",
+             4: "no loads", 5: "per-code requant, no table"}
+DECODE_ABLATIONS = {1: "per-code requant, no table", 2: "no code conversion", 3: "loads alone"}
 
 
 def int4_operands(cs, ops, gen, dev, m, k, n, group, copies):
@@ -68,14 +80,14 @@ def int4_operands(cs, ops, gen, dev, m, k, n, group, copies):
     return xq, sx, x, ws, [ops.two_level_scales(sc) for _, sc in ws]
 
 
-def int4_times(cs, ops, gen, dev):
+def int4_times(cs, ops, gen, dev, ms):
     """ms of the three bodies through their wrappers, bounds and library
     yardsticks, by "M= K= N=" label."""
     from protoquant_tpu_torch.core import numerics
 
     bf, group = torch.bfloat16, cs.GROUP4
     rows = {}
-    for m in INT4_MS:
+    for m in ms:
         for k, n in cs.LINEAR_SHAPES:
             wbytes = n * k // 2 + 4 * n * (k // group)
             xq, sx, x, ws, tls = int4_operands(cs, ops, gen, dev, m, k, n, group,
@@ -104,6 +116,8 @@ def int4_times(cs, ops, gen, dev):
             row["library_two_level"] = cs.bench([
                 lambda w8=w8, scol=scol: ((torch._int_mm(xpad, w8.t())[:m].float() * sx16)
                                           * scol).to(bf) for w8, scol in w8s])
+            row["int_mm_two_level"] = cs.bench([lambda w8=w8: torch._int_mm(xpad, w8.t())
+                                                for w8, _ in w8s])
             del w8s
             wd = [numerics.dequantize_int4(p, sc, group).to(bf)
                   for p, sc in ws[:cs.copies_for(2 * n * k)]]
@@ -150,7 +164,49 @@ def int4_sweep(cs, ops, gen, dev):
     return out
 
 
-def int4_ablate(cs, ops, gen, dev, tree):
+def int4_plans(cs, ops, gen, dev):
+    """The tile kernels at every (tokens a tile, K splits) they take,
+    by M, at the 7B shapes, beside the plan's choice; and the clusters of
+    each size the card holds (ms)."""
+    W = importlib.import_module("protoquant_tpu_torch.ops.wo4_matmul")
+    A = importlib.import_module("protoquant_tpu_torch.ops.w4a8_matmul")
+    from protoquant_tpu_torch.ops import _build
+    from protoquant_tpu_torch.ops.qmatmul import _sm_count
+
+    bf, group, sms = torch.bfloat16, cs.GROUP4, _sm_count(dev)
+    held = {}
+    for splits in W.INT4_TILE_SPLITS:
+        count = ctypes.c_int(0)
+        _build.check(_build.lib().pq_int4_tile_clusters(splits, ctypes.byref(count)), "clusters")
+        held[splits] = count.value
+    out = {"clusters_held": held}
+    for k, n in cs.LINEAR_SHAPES:
+        wbytes = n * k // 2 + 4 * n * (k // group)
+        units, _ = W.int4_decode_units(k, group)
+        for m in INT4_PLAN_MS:
+            xq, sx, x, ws, tls = int4_operands(cs, ops, gen, dev, m, k, n, group,
+                                               cs.copies_for(wbytes))
+            row = {"plan_split": W.int4_tile_plan(m, n, k, group, sms, "split"),
+                   "plan_two_level": W.int4_tile_plan(m, n, k, group, sms, "two_level")}
+            for tokens in W.INT4_TILE_TOKENS["two_level"]:
+                for splits in W.INT4_TILE_SPLITS:
+                    if splits > units:
+                        continue
+                    plan = (tokens, splits)
+                    row[f"two_level {tokens}x{splits}"] = cs.bench([
+                        lambda w=w, tl=tl, plan=plan: A.w4a8_two_level_launch(
+                            xq, sx, w[0], *tl, group, None, bf, tile=plan)
+                        for w, tl in zip(ws, tls)])
+                    if tokens in W.INT4_TILE_TOKENS["split"]:
+                        row[f"split {tokens}x{splits}"] = cs.bench([
+                            lambda w=w, plan=plan: W.wo4_split_launch(x, *w, group, None, bf,
+                                                                      tile=plan) for w in ws])
+            out[f"M={m} K={k} N={n}"] = row
+            del ws, tls
+    return out
+
+
+def int4_ablate_decode(cs, ops, gen, dev, tree):
     """The decode kernels built with one part left out, against the built
     kernel, at M = 4 and the plan's splits (ms)."""
     W = importlib.import_module("protoquant_tpu_torch.ops.wo4_matmul")
@@ -160,8 +216,8 @@ def int4_ablate(cs, ops, gen, dev, tree):
     build = os.path.join(os.path.abspath(tree), "protoquant_tpu_torch", "_build", "ablate")
     os.makedirs(build, exist_ok=True)
     libs, procs = {0: _build.lib()}, {}
-    for v in ABLATIONS:
-        so = os.path.join(build, f"libpq_ablate_{v}.so")
+    for v in DECODE_ABLATIONS:
+        so = os.path.join(build, f"libpq_ablate_decode_{v}.so")
         procs[v] = (so, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, f"-DPQ_I4D_ABLATE={v}", "-shared", "-I",
              str(_build.CSRC), str(_build.CSRC / "w4a8_decode.cu"),
@@ -196,13 +252,72 @@ def int4_ablate(cs, ops, gen, dev, tree):
                     x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), None, y.data_ptr(), code,
                     m, n, k, group, plans["wo4_split"], _build.stream_ptr(dev)), "split")
 
-            label = "kernel" if v == 0 else ABLATIONS[v]
+            label = "kernel" if v == 0 else DECODE_ABLATIONS[v]
             row[f"two_level {label}"] = cs.bench([lambda w=w, tl=tl: two_level(w, tl)
                                                   for w, tl in zip(ws, tls)])
             if v != 1:  # the split body has no table
                 row[f"split {label}"] = cs.bench([lambda w=w: split(w) for w in ws])
         out[f"M={m} K={k} N={n}"] = row
         del ws, tls
+    return out
+
+
+def int4_ablate(cs, ops, gen, dev, tree):
+    """The tile kernels built with one part left out, against the built
+    kernel, at M = 48 and 256 and the plan (ms)."""
+    W = importlib.import_module("protoquant_tpu_torch.ops.wo4_matmul")
+    from protoquant_tpu_torch.ops import _build
+    from protoquant_tpu_torch.ops.qmatmul import _sm_count
+
+    bf, group = torch.bfloat16, cs.GROUP4
+    build = os.path.join(os.path.abspath(tree), "protoquant_tpu_torch", "_build", "ablate")
+    os.makedirs(build, exist_ok=True)
+    libs, procs = {0: _build.lib()}, {}
+    for v in ABLATIONS:
+        so = os.path.join(build, f"libpq_ablate_{v}.so")
+        procs[v] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, f"-DPQ_I4T_ABLATE={v}", "-shared", "-I",
+             str(_build.CSRC), str(_build.CSRC / "w4a8_tile.cu"),
+             str(_build.CSRC / "wo4_tile.cu"), "-o", so, "-ldl"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    for v, (so, proc) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc of ablation {v} failed:\n{log}")
+        libs[v] = ctypes.CDLL(so)
+        for name in ("pq_w4a8_two_level", "pq_wo4_split"):
+            getattr(libs[v], name).argtypes = _build.SIGNATURES[name]
+    out = {}
+    code = _build.DTYPE_CODES[bf]
+    for m in (48, 256):
+        for k, n in cs.LINEAR_SHAPES:
+            wbytes = n * k // 2 + 4 * n * (k // group)
+            xq, sx, x, ws, tls = int4_operands(cs, ops, gen, dev, m, k, n, group,
+                                               cs.copies_for(wbytes))
+            plans = {body: W.int4_tile_plan(m, n, k, group, _sm_count(dev), body)
+                     for body in ("two_level", "split")}
+            y = torch.empty(m, n, dtype=bf, device=dev)
+            row = {"plans": plans}
+            for v, lib in libs.items():
+                def two_level(w, tl, lib=lib):
+                    _build.check(lib.pq_w4a8_two_level(
+                        xq.data_ptr(), sx.data_ptr(), w[0].data_ptr(), tl[0].data_ptr(),
+                        tl[1].data_ptr(), None, y.data_ptr(), code, m, n, k, group,
+                        *plans["two_level"], _build.stream_ptr(dev)), "two_level")
+
+                def split(w, lib=lib):
+                    _build.check(lib.pq_wo4_split(
+                        x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), None, y.data_ptr(),
+                        code, m, n, k, group, *plans["split"], _build.stream_ptr(dev)), "split")
+
+                label = "kernel" if v == 0 else ABLATIONS[v]
+                if v != 3:  # two_level has no group epilogue
+                    row[f"two_level {label}"] = cs.bench([lambda w=w, tl=tl: two_level(w, tl)
+                                                          for w, tl in zip(ws, tls)])
+                if v != 5:  # split has no table
+                    row[f"split {label}"] = cs.bench([lambda w=w: split(w) for w in ws])
+            out[f"M={m} K={k} N={n}"] = row
+            del ws, tls
     return out
 
 
@@ -213,6 +328,8 @@ def main() -> int:
     parser.add_argument("--sweep", action="store_true")
     parser.add_argument("--int4", action="store_true")
     parser.add_argument("--ablate", action="store_true")
+    parser.add_argument("--plans", action="store_true")
+    parser.add_argument("--ms", default=",".join(map(str, INT4_MS)))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("gemm_timing: needs an NVIDIA card", file=sys.stderr)
@@ -231,11 +348,14 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True)
     if args.int4:
         line = {"label": args.label, "tree": args.tree, "card": smi.stdout.strip(),
-                "int4_ms": int4_times(cs, ops, gen, dev)}
+                "int4_ms": int4_times(cs, ops, gen, dev, [int(v) for v in args.ms.split(",")])}
         if args.sweep:
             line["int4_sweep_ms"] = int4_sweep(cs, ops, gen, dev)
+        if args.plans:
+            line["int4_plans_ms"] = int4_plans(cs, ops, gen, dev)
         if args.ablate:
             line["int4_ablate_ms"] = int4_ablate(cs, ops, gen, dev, args.tree)
+            line["int4_decode_ablate_ms"] = int4_ablate_decode(cs, ops, gen, dev, args.tree)
         print(json.dumps(line), flush=True)
         return 0
 
