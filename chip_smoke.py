@@ -48,7 +48,13 @@ Phases (any failure exits non-zero and prints no result line):
               M = 1, 8, 16, 32 and 64 (the decode kernel's threshold), each
               through the kernel its M routes to, the decode cases against
               the plain split-K spelling with its last K slice dropped (a
-              planted fault, which must differ); the paged attention at
+              planted fault, which must differ); the weight-only int8 GEMM
+              at the 7B shapes and M = 1, 4, 16, 32, 48, 256 and 512, each
+              through the kernel its M routes to (the split-K decode kernel
+              up to WO_DECODE_MAX_M, the TMA + wgmma tile kernel above; the
+              plan printed), bitwise equal across two calls, against the
+              plain product with the plan's last K slice dropped (a planted
+              fault, which must miss); the paged attention at
               Llama-2-7B's shapes, G = 1 and 4 at B = 4 and G = 1 at B = 9
               and 32 through the split kernel (its plan printed), bitwise
               equal across two calls, against the plain split spelling with
@@ -71,11 +77,17 @@ Phases (any failure exits non-zero and prints no result line):
               system prompt; every request after the first must adopt its 4
               pages, each decode step must launch exactly 225 / 32 / 32 of
               the weight-only, paged-scatter and paged-attention kernels and
-              none of the dense ones, and every page must be free or cached
-              after the drain
+              none of the dense ones (the 225 GEMMs on the decode route),
+              each prefill chunk padded past the GEMM's decode threshold
+              must take its 225 GEMMs on the tile route and every other
+              forward on the decode route, and every page must be free or
+              cached after the drain
   7. paged agreement  phase 5 for a 2-layer full-width weight_only model
               over a paged pool of 16-token pages, with a planted fault for
-              each new kernel; its kernels act on the 8 decode positions
+              each new kernel (the GEMM's two routes each: the last K slice
+              of its plan dropped); the kernel run's prefill (M = 96) must
+              take the GEMM's tile route and its decode steps its decode
+              route; its kernels act on the 8 decode positions
               (the two attention faults move only those), so its runs must
               also pass the limit on the decode positions alone
   8. int4     phase 4 for LlamaModel(llama2_7b, "dynamic_int4") (W4A8, the
@@ -226,7 +238,7 @@ Timings with ranks sharing one card measure the kernel and its protocol,
 not a link between cards.
 Each phase prints its seconds, and the run its total.
 The line before the last is {"kernels": [...]}, one entry per kernel body
-(25): "launches" is its count summed over the twenty-one engine runs
+(30): "launches" is its count summed over the twenty-one engine runs
 (phases 4, 6, 8.1, 8.2, 8.3, 10, 12, 13, 15, 17, 19, 20, the five of 22,
 the three of 24-25 and 28), each driven with the counts at 0 and read just
 after ("launches_by_path"). A wrapper counts calls: a decode call of the
@@ -236,6 +248,9 @@ kernel and the merge), and its entry names every file it runs under
 and count each apart (ops.route_counts): qmatmul ("qmatmul_decode", the
 split-K kernel at M <= DECODE_MAX_M: every decode step; "qmatmul", the TMA
 and wgmma tile kernel: prefill chunks, the MoE experts at prefill),
+weight_only_matmul ("weight_only_matmul_decode", the split-K kernel at M <=
+WO_DECODE_MAX_M: every decode step; "weight_only_matmul", the TMA and wgmma
+tile kernel: prefill chunks longer than that),
 paged_int8_attention ("paged_int8_attention_split", every call whose rows
 fit a split block; "paged_int8_attention", the page
 walk, for the rest: G 8 at Dh 256, on no engine path), and the int8,
@@ -639,33 +654,78 @@ def check_attention(ops, gen, dev):
 LINEAR_SHAPES = ((HIDDEN, HIDDEN), (HIDDEN, INTER), (INTER, HIDDEN), (HIDDEN, VOCAB))  # (K, N)
 
 
+# the weight-only int8 GEMM cases' token rows: decode steps (1, 4, 16: the
+# decode kernel up to WO_DECODE_MAX_M) and prefill chunks (the tile kernel
+# above it)
+WO_MS = (1, 4, 16, 32, 48, 256, 512)
+
+
+def _wo_route(m, n, k, dev):
+    """(route, plan, the plan's last K slice) of a weight-only case: the
+    decode kernel up to WO_DECODE_MAX_M at wo_decode_plan's K splits, the
+    tile kernel above at wo_tile_plan's (tokens a tile, K splits)."""
+    from protoquant_tpu_torch.ops.qmatmul import _sm_count, k_slices
+    from protoquant_tpu_torch.ops.wo_matmul import (WO_DECODE_MAX_M, WO_DECODE_STEP,
+                                                    WO_TILE_STEP, wo_decode_held,
+                                                    wo_decode_plan, wo_tile_plan)
+
+    if m <= WO_DECODE_MAX_M:
+        splits = wo_decode_plan(m, n, k, wo_decode_held(dev, m))
+        return "decode", splits, k_slices(k, splits, WO_DECODE_STEP)[-1]
+    plan = wo_tile_plan(m, n, k, _sm_count(dev))
+    return "tile", plan, k_slices(k, plan[1], WO_TILE_STEP)[-1]
+
+
 def check_weight_only(ops, gen, dev):
+    """The weight-only int8 GEMM against its plain version, within
+    ``ops.weight_only_tolerance``, at the 7B shapes and each M of ``WO_MS``,
+    through the route its wrapper names for M (the decode kernel or the
+    tile kernel, at its plan), bitwise equal across two calls. Each case
+    holds a planted fault, which must miss: the plain product with the
+    plan's last K slice dropped. Library yardstick: ``torch.matmul`` over a
+    bf16 copy of W made beforehand."""
     bf = torch.bfloat16
     cases = []
-    for m in (4, 256):
+    for m in WO_MS:
         for k, n in LINEAR_SHAPES:
             x = torch.randn(m, k, generator=gen, device=dev).to(bf)
             ws = [torch.randint(-127, 128, (n, k), generator=gen, device=dev,
                                 dtype=torch.int8) for _ in range(copies_for(n * k))]
             sw = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+            route, plan, (k0, k1) = _wo_route(m, n, k, dev)
             err = 0.0
             for out in (torch.float32, bf):
+                before = ops.weight_only_matmul.routes[route]
                 y = ops.weight_only_matmul(x, ws[0], sw, out_dtype=out)
+                again = ops.weight_only_matmul(x, ws[0], sw, out_dtype=out)
                 ref = ops.weight_only_matmul_ref(x, ws[0], sw, out_dtype=out)
                 torch.cuda.synchronize()
+                if ops.weight_only_matmul.routes[route] != before + 2:
+                    raise AssertionError(f"weight_only_matmul M={m} K={k} N={n}: not the "
+                                         f"{route} kernel")
+                if not torch.equal(y, again):
+                    raise AssertionError(f"weight_only_matmul M={m} K={k} N={n} {out}: two "
+                                         "calls differ")
                 diff = (y.float() - ref.float()).abs()
                 tol = ops.weight_only_tolerance(x, ws[0], sw, ref)
                 if not bool((diff <= tol).all()):
                     raise AssertionError(f"weight_only_matmul M={m} K={k} N={n} {out}: "
                                          f"max excess {(diff - tol).max().item()}")
                 err = max(err, diff.max().item())
+            # a planted fault: the plan's last K slice dropped
+            dropped = x.clone()
+            dropped[:, k0:k1] = 0
+            bad = ops.weight_only_matmul_ref(dropped, ws[0], sw, out_dtype=bf)
+            keys = _gemm_case_keys(route, plan, {"last K slice dropped": int(
+                ((bad.float() - y.float()).abs() > tol).sum())})
+            del y, again, ref, bad, dropped
             b, kind = bound_ms(m * k * 2 + n * k + 4 * n + 2 * m * n, 2 * m * n * k,
                                BF16_FLOPS_PER_S)
             # library yardstick: a bf16 GEMM over a bf16 copy of W made
             # beforehand (cuBLAS); the port never calls it
             wb = [w.to(bf) for w in ws[:copies_for(2 * n * k)]]
             cases.append({
-                "shape": f"M={m} K={k} N={n} bf16 out", "max_abs_err": err,
+                "shape": f"M={m} K={k} N={n} bf16 out", "max_abs_err": err, **keys,
                 "ms": bench([lambda w=w: ops.weight_only_matmul(x, w, sw, out_dtype=bf)
                              for w in ws]),
                 "plain_ms": bench([lambda w=w: ops.weight_only_matmul_ref(x, w, sw, out_dtype=bf)
@@ -683,6 +743,9 @@ F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
 INT4_MS = (1, 4, 16, 48, 256, 512)
 # the int4 bodies that route by M (ops.ROUTED), by formulation
 ROUTED_INT4 = {"split": "wo4_split", "two_level": "w4a8_two_level"}
+# the GEMM wrappers whose entries name their tile kernel, the decode kernel's
+# under name + "_decode"
+ROUTED_GEMMS = ("weight_only_matmul", *ROUTED_INT4.values())
 
 
 def _int4_weights(gen, dev, n, k, copies):
@@ -716,12 +779,14 @@ def _int4_route(ops, formulation, m, n, k, dev):
     return getattr(ops, name), "decode", plan
 
 
-def _int4_case_keys(route, plan, faults) -> dict:
-    """The keys an int4 case adds to its entry: its route and plan (a routed
-    body: the decode kernel's K splits, or the tile kernel's tokens a tile
-    and K splits), K splits, the planted fault's differing elements."""
-    if faults["last group zeroed"] == 0:
-        raise AssertionError("an int4 check passes a fault (last group zeroed)")
+def _gemm_case_keys(route, plan, faults) -> dict:
+    """The keys a weight-only or int4 GEMM case adds to its entry: its route
+    and plan (a routed body: the decode kernel's K splits, or the tile
+    kernel's tokens a tile and K splits), K splits, the elements each
+    planted fault moves (none: the check passes it, an error)."""
+    missed = [name for name, count in faults.items() if count == 0]
+    if missed:
+        raise AssertionError(f"a GEMM check passes a fault {missed}")
     tokens, splits = plan if route == "tile" else (None, plan or 1)
     keys = {"k_splits": splits, "faults_differing_elements": faults}
     if route is not None:
@@ -777,7 +842,7 @@ def check_wo4(ops, gen, dev, formulation):
                 err = max(err, diff.max().item())
             bad = ops.weight_only_int4_matmul_ref(x, _last_group_zeroed(ws[0][0]), ws[0][1],
                                                   GROUP4, None, bf, formulation)
-            keys = _int4_case_keys(route, plan, {"last group zeroed": int((bad != y).sum())})
+            keys = _gemm_case_keys(route, plan, {"last group zeroed": int((bad != y).sum())})
             del y, ref, bad
             b, kind = bound_ms(x.numel() * x.element_size() + wbytes + 2 * m * n,
                                2 * m * n * k, BF16_FLOPS_PER_S if split else F32_FLOPS_PER_S)
@@ -830,7 +895,7 @@ def check_w4a8(ops, gen, dev, formulation):
                                          f"max abs err {err}")
             bad = ops.w4a8_matmul_ref(xq, sx, _last_group_zeroed(ws[0][0]), ws[0][1], GROUP4,
                                       None, bf, formulation, tls[0])
-            keys = _int4_case_keys(route, plan, {"last group zeroed": int((bad != y).sum())})
+            keys = _gemm_case_keys(route, plan, {"last group zeroed": int((bad != y).sum())})
             del y, ref, bad
             b, kind = bound_ms(m * k + 4 * m + wbytes + 2 * m * n, 2 * m * n * k,
                                INT8_OPS_PER_S)
@@ -2057,9 +2122,9 @@ def path_kernels(ops, mode: str, kv_dtype: str = "int8") -> tuple:
 DECODE_ROUTE = {"qmatmul": "qmatmul_decode",
                 "paged_int8_attention": "paged_int8_attention_split",
                 **{name: name + "_split" for name in ROUTED_ATTENTIONS},
-                **{name: name + "_decode" for name in ROUTED_INT4.values()}}
+                **{name: name + "_decode" for name in ROUTED_GEMMS}}
 PREFILL_ROUTE = {**{name: name + "_prefill" for name in ROUTED_ATTENTIONS},
-                 **{name: name + "_tile" for name in ROUTED_INT4.values()}}
+                 **{name: name + "_tile" for name in ROUTED_GEMMS}}
 
 
 def routed(path) -> tuple:
@@ -2096,7 +2161,7 @@ def decode_step_launches(ops, mode: str, layers: int, kv_dtype: str = "int8") ->
         per_step.update({kernels[0]: 7 * layers + 1, "paged_kv_scatter_decode": layers,
                          "paged_int8_attention": layers})
     gemm = kernels[1] if kernels[0] == "rowquant" else kernels[0]
-    if gemm in ROUTED_INT4.values():  # every int4 GEMM of a decode step on its decode kernel
+    if gemm in ROUTED_GEMMS:  # every GEMM of a decode step on its decode kernel
         per_step.update({gemm + "_decode": 7 * layers + 1, gemm + "_tile": 0})
     return per_step
 
@@ -2342,6 +2407,8 @@ def run_paged_slice(ops, seed: int, dev, mode: str = "weight_only"):
 
     per_step = decode_step_launches(ops, mode, cfg.num_hidden_layers)
     eng = engine(True)
+    # every forward's token rows: the GEMM routes by them
+    chunks, decodes = forward_rows(eng)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -2350,6 +2417,13 @@ def run_paged_slice(ops, seed: int, dev, mode: str = "weight_only"):
                                                       first_alone=True)
     wall = time.perf_counter() - t_run
     launches = path_counts(ops)
+    gemm = path_kernels(ops, mode)[0]
+    want = gemm_routes(gemm, cfg.num_hidden_layers, chunks, decodes)
+    got = {route: launches[f"{gemm}_{route}"] for route in want}
+    log(f"paged slice {mode}: {len(chunks)} prefill forwards of {sorted(set(chunks))} rows, "
+        f"{len(decodes)} decode forwards; {gemm} launches by route {json.dumps(got)}")
+    if got != want:
+        raise AssertionError(f"paged slice {mode}: {gemm} routes {got} != {want}")
     peak = torch.cuda.max_memory_allocated()
     m = eng.metrics()
 
@@ -2388,6 +2462,39 @@ def run_paged_slice(ops, seed: int, dev, mode: str = "weight_only"):
     del eng, model
     torch.cuda.empty_cache()
     return launches, stats
+
+
+def forward_rows(engine):
+    """Record the token rows of every forward ``engine`` runs: its prefill
+    chunks' padded lengths and its batched decodes' slots, in two lists
+    (filled as it serves)."""
+    chunks, decodes = [], []
+    extend, decode = engine._extend_slot, engine._decode_step
+
+    def extend_slot(tokens, *a, **k):
+        chunks.append(tokens.numel())
+        return extend(tokens, *a, **k)
+
+    def decode_step():
+        decodes.append(len(engine.active))
+        return decode()
+
+    engine._extend_slot, engine._decode_step = extend_slot, decode_step
+    return chunks, decodes
+
+
+def gemm_routes(gemm: str, layers: int, chunks: list, decodes: list) -> dict:
+    """The launches of a routed GEMM ``gemm`` by route over forwards of
+    ``chunks`` and ``decodes`` token rows: 7 a layer and lm_head each, on
+    the decode route up to the wrapper's threshold and the tile route
+    above it."""
+    from protoquant_tpu_torch.ops.wo4_matmul import SPLIT_DECODE_MAX_M
+    from protoquant_tpu_torch.ops.wo_matmul import WO_DECODE_MAX_M
+
+    per = 7 * layers + 1
+    top = {"weight_only_matmul": WO_DECODE_MAX_M, "wo4_split": SPLIT_DECODE_MAX_M}[gemm]
+    rows = chunks + decodes
+    return {"decode": per * sum(r <= top for r in rows), "tile": per * sum(r > top for r in rows)}
 
 
 def step_launches(ops, cfg, writer: str | None, n_writes: int, attention: str) -> dict:
@@ -3240,6 +3347,9 @@ def planted_faults(ops, mode: str = "dynamic", kv_dtype: str = "int8",
             "weight_only_matmul epilogue reads s_w[n-1]": {
                 "weight_only_matmul": lambda x, w, sw, *a, **k: ops.weight_only_matmul_ref(
                     x, w, sw.roll(1), *a, **k)},
+            **{f"weight_only_matmul {route} route drops its last K slice": {
+                "weight_only_matmul": _wo_slice_dropped(ops, route)}
+               for route in ("decode", "tile")},
             "paged attention one key short": {
                 "paged_int8_attention": lambda q, kq, ks, vq, vs, pt, lengths, **k:
                     ops.paged_int8_attention_ref(q, kq, ks, vq, vs, pt, lengths - 1, **k)},
@@ -3259,6 +3369,19 @@ def planted_faults(ops, mode: str = "dynamic", kv_dtype: str = "int8",
             "weight_only_int4_matmul": lambda x, p, *a, **k: ops.weight_only_int4_matmul_ref(
                 x, _swap_nibbles(p), *a, **k)},
     }
+
+
+def _wo_slice_dropped(ops, route: str):
+    """The plain weight-only product, but on ``route``'s calls (the decode
+    or the tile kernel's M) with the last K slice of the kernel's plan
+    dropped: a fault of that route alone."""
+    def faulty(x, wq, s_w, bias=None, out_dtype=None):
+        here, _, (k0, k1) = _wo_route(x.numel() // x.shape[-1], *wq.shape, x.device)
+        if here == route:
+            x = x.clone()
+            x[..., k0:k1] = 0
+        return ops.weight_only_matmul_ref(x, wq, s_w, bias, out_dtype)
+    return faulty
 
 
 # Gemma-2's agreement prompt: 1.5 times the window and more, so that layer
@@ -3521,7 +3644,7 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
         ops.reset_launch_counts()
         with routing(False):
             kern, toks = run()
-        launched = ops.launch_counts()
+        launched, routes_run = ops.launch_counts(), ops.route_counts()
         readings, must_pass = {}, ["kernels"]
         if ring and not bloom:  # the same kernels over the dense windowed cache
             readings["ring vs dense windowed cache"] = compare(kern, run(toks, "dense")[0])
@@ -3559,6 +3682,11 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
         raise AssertionError(f"agreement: kernel run launched {launched}, plain runs "
                              f"{ops.launch_counts()}")
     gemm = path[1] if path[0] == "rowquant" else path[0]
+    if mode == "weight_only" and not gpt:  # the prefill (2 x n_prompt rows) and 4 decodes (2)
+        want = gemm_routes(gemm, 2, [2 * n_prompt], [2] * 4)
+        got = {route: routes_run[f"{gemm}_{route}"] for route in want}
+        if got != want:
+            raise AssertionError(f"agreement {mode}: {gemm} routes {got} != {want}")
     for name, got in readings.items():
         vs = "" if " vs " in name else " vs plain"
         log(f"{label} {str(dtype).replace('torch.', '')} (2 layers, full width, {mode}, {gemm}, "
@@ -3594,8 +3722,11 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
     "int8_kv_attention_prefill": ("protoquant_tpu_torch/csrc/attn_prefill.cuh",
                                   "protoquant_tpu/ops/attention.py:68",
                                   "prefill B=1 T=256 H=32 S=1024 lengths=[256]"),
-    "weight_only_matmul": ("protoquant_tpu_torch/csrc/wo_matmul.cu",
-                           "protoquant_tpu/ops/wo_matmul.py:24", "M=4 K=4096 N=11008 bf16 out"),
+    "weight_only_matmul": ("protoquant_tpu_torch/csrc/wo_tile.cu",
+                           "protoquant_tpu/ops/wo_matmul.py:24", "M=256 K=4096 N=11008 bf16 out"),
+    "weight_only_matmul_decode": ("protoquant_tpu_torch/csrc/wo_decode.cu",
+                                  "protoquant_tpu/ops/wo_matmul.py:24",
+                                  "M=4 K=4096 N=11008 bf16 out"),
     "paged_kv_scatter_decode": ("protoquant_tpu_torch/csrc/kv_scatter.cu",
                                 "protoquant_tpu/ops/kv_scatter.py:118", None),
     "paged_int8_attention": ("protoquant_tpu_torch/csrc/paged_attention.cu",
@@ -3671,21 +3802,22 @@ KERNEL_SOURCES = {
         "attn_split.cuh", "attn_split.cu", "attn_split_paged.cu")] + _MERGE},
     "qmatmul": {"prefill": [_CSRC + "qmatmul.cu", _CSRC + "sm90_gemm.cuh"]},
     **{name + "_decode": {"decode_gemm": [_CSRC + "int4_decode.cuh", _CSRC + f"{src}_decode.cu"]}
-       for name, src in (("wo4_split", "wo4"), ("w4a8_two_level", "w4a8"))},
+       for name, src in (("wo4_split", "wo4"), ("w4a8_two_level", "w4a8"),
+                         ("weight_only_matmul", "wo"))},
     **{name: {"prefill": [_CSRC + f"{src}_tile.cu", _CSRC + "int4_tile_sm90.cuh",
                           _CSRC + "sm90_gemm.cuh"]}
-       for name, src in (("wo4_split", "wo4"), ("w4a8_two_level", "w4a8"))}}
+       for name, src in (("wo4_split", "wo4"), ("w4a8_two_level", "w4a8"),
+                         ("weight_only_matmul", "wo"))}}
 # The entries whose launches are a route count of their wrapper under
 # another name (ops.ROUTED; "qmatmul_decode", "paged_int8_attention_split"
 # and the "_prefill" entries are counted under their own): the wrapper's own
 # count is the routes' sum.
 ROUTE_COUNT = {"qmatmul": "qmatmul_tile", "paged_int8_attention": "paged_int8_attention_walk",
                **{name: name + "_split" for name in ROUTED_ATTENTIONS},
-               **{name: name + "_tile" for name in ROUTED_INT4.values()}}
+               **{name: name + "_tile" for name in ROUTED_GEMMS}}
 # the decode-route entries of a routed GEMM, by the wrapper whose cases they
 # are in the kernel sums of a decode step
-DECODE_GEMMS = {"qmatmul_decode": "qmatmul",
-                **{name + "_decode": name for name in ROUTED_INT4.values()}}
+DECODE_GEMMS = {"qmatmul_decode": "qmatmul", **{name + "_decode": name for name in ROUTED_GEMMS}}
 
 
 def timed(name: str, fn, *args, **kwargs):
@@ -3735,7 +3867,7 @@ def check_kernels(ops, gen, dev) -> dict:
         if name in ROUTED_ATTENTIONS:  # the prefill kernel's cases under its own entry
             groups = {name: [c for c in cases if "prefill" not in c["shape"]],
                       name + "_prefill": [c for c in cases if "prefill" in c["shape"]]}
-        elif name in ROUTED_INT4.values():  # the decode kernel's cases under their own
+        elif name in ROUTED_GEMMS:  # the decode kernel's cases under their own
             decode = [c for c in cases if c["plan"]["route"] == "decode"]
             groups = {name + "_decode": decode, name: [c for c in cases if c not in decode]}
         for key, group in groups.items():

@@ -99,6 +99,20 @@ __device__ __forceinline__ void pq_quantize_row(const float* row, int K, float a
   if (threadIdx.x == 0) *s_out = s;
 }
 
+// Two int8 codes of ``w`` as a bf16 pair, exactly: ``sel`` 0x4140 takes
+// bytes 0 and 1 (byte 0 in the low half), 0x4342 bytes 2 and 3. The byte
+// permute puts each code under 0x43 (0x43cc); with the code's sign bit
+// cleared that is the bf16 128 + (code & 127), with only the sign bit kept
+// 128 or 256, and their difference is the code (a bf16x2 subtract of small
+// integers, exact). A prmt and two ANDs a pair, and one subtract.
+__device__ __forceinline__ uint32_t pq_int8_pair_bf16(uint32_t w, uint32_t sel) {
+  const uint32_t p = __byte_perm(w, 0x43u, sel);
+  uint32_t x = p & 0xFF7FFF7Fu, y = p & 0xFF80FF80u;
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&x),
+                             *reinterpret_cast<__nv_bfloat162*>(&y));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
 // Let ``kernel`` take up to ``bytes`` of dynamic shared memory. Called once
 // per kernel at its first launch (not per launch, so launches can be
 // captured in a CUDA graph); ``done`` is that kernel's own flag.

@@ -16,13 +16,13 @@ PQ_EXPORT int pq_w4a8_two_level(const void* xq, const void* sx, const void* pack
   if (!i4t_args_ok(xq, packed, out_dtype, K, group, k_splits)) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bt == 64)
-    return i4t_launch_g<false, 64>(xq, packed, r16, sx, scol, bias, out, out_dtype, M, N, K,
-                                   group, k_splits, s);
+    return i4t_launch_g<I4T_TWO_LEVEL, 64>(xq, packed, r16, sx, scol, bias, out,
+                                            out_dtype, M, N, K, group, k_splits, s);
   if (bt == 128)
-    return i4t_launch_g<false, 128>(xq, packed, r16, sx, scol, bias, out, out_dtype, M, N, K,
-                                    group, k_splits, s);
+    return i4t_launch_g<I4T_TWO_LEVEL, 128>(xq, packed, r16, sx, scol, bias, out,
+                                             out_dtype, M, N, K, group, k_splits, s);
   if (bt == 256)
-    return i4t_launch_g<false, 256>(xq, packed, r16, sx, scol, bias, out, out_dtype, M, N, K,
-                                    group, k_splits, s);
+    return i4t_launch_g<I4T_TWO_LEVEL, 256>(xq, packed, r16, sx, scol, bias, out,
+                                             out_dtype, M, N, K, group, k_splits, s);
   return cudaErrorInvalidValue;
 }

@@ -13,11 +13,11 @@ PQ_EXPORT int pq_wo4_split(const void* x, const void* packed, const void* scales
   if (!i4t_args_ok(x, packed, out_dtype, K, group, k_splits)) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bt == 64)
-    return i4t_launch_g<true, 64>(x, packed, scales, nullptr, nullptr, bias, out, out_dtype, M, N,
-                                  K, group, k_splits, s);
+    return i4t_launch_g<I4T_SPLIT, 64>(x, packed, scales, nullptr, nullptr, bias, out,
+                                        out_dtype, M, N, K, group, k_splits, s);
   if (bt == 128)
-    return i4t_launch_g<true, 128>(x, packed, scales, nullptr, nullptr, bias, out, out_dtype, M,
-                                   N, K, group, k_splits, s);
+    return i4t_launch_g<I4T_SPLIT, 128>(x, packed, scales, nullptr, nullptr, bias, out,
+                                         out_dtype, M, N, K, group, k_splits, s);
   return cudaErrorInvalidValue;
 }
 
@@ -25,8 +25,8 @@ PQ_EXPORT int pq_wo4_split(const void* x, const void* packed, const void* scales
 // (cudaOccupancyMaxActiveClusters) for the tile kernels, every instance of
 // which takes a whole SM: what the plan's INT4_TILE_CLUSTERS is read from.
 PQ_EXPORT int pq_int4_tile_clusters(int k_splits, int* clusters) {
-  using S = I4tShape<true, 64>;
-  auto kernel = int4_tile_kernel<true, 64, 2>;
+  using S = I4tShape<I4T_SPLIT, 64>;
+  auto kernel = int4_tile_kernel<I4T_SPLIT, 64, 2>;
   static bool smem_set = false;
   cudaError_t err = pq_allow_smem(kernel, S::SMEM, smem_set);
   if (err != cudaSuccess) return err;

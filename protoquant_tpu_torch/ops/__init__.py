@@ -6,7 +6,8 @@ the plain version, a CUDA tensor launches the hand-written kernel from
 fallback and no switch beyond the formulation arguments and knobs the JAX
 package itself has. Each kernel body counts its launches in ``.launches``;
 a wrapper that routes between two kernels by shape before launch (qmatmul,
-wo4_split and w4a8_two_level: the decode or the tile kernel, by M;
+weight_only_matmul, wo4_split and w4a8_two_level: the decode or the tile
+kernel, by M;
 paged_int8_attention: the split or the
 walk, by the split plan; int8_kv_attention, mixed_kv_attention and the
 two KIVI attentions: the split decode or the prefill kernel, by the split
@@ -37,7 +38,8 @@ from .w4a8_matmul import (two_level_scales, w4a8_group, w4a8_matmul, w4a8_matmul
 from .wo4_matmul import (weight_only_int4_matmul, weight_only_int4_matmul_ref,
                          weight_only_int4_tolerance, wo4_legacy, wo4_split,
                          wo4_split_splitk_ref, wo4_split_tile_ref)
-from .wo_matmul import weight_only_matmul, weight_only_matmul_ref, weight_only_tolerance
+from .wo_matmul import (weight_only_matmul, weight_only_matmul_ref, weight_only_splitk_ref,
+                        weight_only_tile_ref, weight_only_tolerance)
 
 # The kernel bodies whose launches a run can read and reset (an op with two
 # formulations has one entry per body).
@@ -99,6 +101,8 @@ def shared_rowquant(x):
 ROUTED = {
     "qmatmul_decode": (qmatmul, "decode"),
     "qmatmul_tile": (qmatmul, "tile"),
+    "weight_only_matmul_decode": (weight_only_matmul, "decode"),
+    "weight_only_matmul_tile": (weight_only_matmul, "tile"),
     "wo4_split_decode": (wo4_split, "decode"),
     "wo4_split_tile": (wo4_split, "tile"),
     "w4a8_two_level_decode": (w4a8_two_level, "decode"),
@@ -148,6 +152,7 @@ __all__ = [
     "two_level_scales", "w4a8_group", "w4a8_matmul", "w4a8_matmul_ref", "w4a8_two_level",
     "w4a8_two_level_splitk_ref", "w4a8_two_level_tile_ref",
     "weight_only_int4_matmul", "weight_only_int4_matmul_ref", "weight_only_int4_tolerance",
-    "weight_only_matmul", "weight_only_matmul_ref", "weight_only_tolerance", "wo4_legacy",
+    "weight_only_matmul", "weight_only_matmul_ref", "weight_only_splitk_ref",
+    "weight_only_tile_ref", "weight_only_tolerance", "wo4_legacy",
     "wo4_split", "wo4_split_splitk_ref", "wo4_split_tile_ref",
 ]

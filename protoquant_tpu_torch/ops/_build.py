@@ -53,8 +53,12 @@ SIGNATURES = {
     "pq_int8_kv_attention": [_P, _I] + [_P] * 9 + [_I] * 6 + [_F, _I, _F, _I, _P],
     # q, q_dtype, kq, ks, vq, vs, lengths, out, B, T, H, KV, S, Dh, sm, stream
     "pq_mixed_kv_attention": [_P, _I] + [_P] * 6 + [_I] * 6 + [_F, _P],
-    # x, wq, sw, bias, out, out_dtype, M, N, K, stream
-    "pq_weight_only_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the weight-only int8 kernels: x, wq, sw, bias, out, out_dtype, M, N, K,
+    # then k_splits (decode) or tokens a tile and k_splits (tile), stream
+    "pq_weight_only_decode": [_P] * 5 + [_I] * 5 + [_P],
+    "pq_weight_only_tile": [_P] * 5 + [_I] * 6 + [_P],
+    # M, k_splits, out clusters; launches nothing and takes no stream
+    "pq_weight_only_decode_clusters": [_I, _I, ctypes.POINTER(ctypes.c_int)],
     # kq, ks, vq, vs, page_table, lengths, k8, ks_new, v8, vs_new,
     # B, maxP, P, KV, ps, Dh, stream
     "pq_paged_kv_scatter_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -35,49 +35,37 @@ counts each route.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..core import numerics
 from . import _build
+from .gemm_plan import DECODE_ROWS, decode_held, decode_plan, tile_blocks, tile_plan
 
 FORMULATIONS = ("split", "legacy")
 # Groups the CUDA kernels take (pick_int4_group gives 128 for every
 # Llama-2-7B projection).
 CUDA_GROUPS = (32, 64, 128, 256)
 # The int4 decode kernels (csrc/int4_decode.cuh, the W4A8 two-level and the
-# split bodies): the largest M each body routes to them, its crossover with
-# the tile kernel in the sweep in PERF.md (tools/gemm_timing.py --int4
-# --sweep; 32 is also the kernels' limit); their geometry: weight rows a
-# block, packed bytes of a weight row a step, the most blocks a cluster
-# splits K over.
+# split bodies; the rest of their geometry in gemm_plan): the largest M each
+# body routes to them, its crossover with the tile kernel in the sweep in
+# PERF.md (tools/gemm_timing.py --int4 --sweep; 32 is also the kernels'
+# limit); packed bytes of a weight row a step.
 INT4_DECODE_MAX_M = 32
 SPLIT_DECODE_MAX_M = 16
-INT4_DECODE_ROWS = 64
 INT4_DECODE_STEP = 64
-INT4_DECODE_MAX_SPLITS = 8
-# The int4 tile kernels (csrc/int4_tile_sm90.cuh): weight rows a block, the
-# token tiles each body takes (the split body holds two accumulators, so at
-# most 128), the cluster sizes K splits over, the fewest units (of
-# int4_decode_units) a split keeps, the clusters of each size an H100 holds
-# at once (cudaOccupancyMaxActiveClusters of a one-block-an-SM kernel; its
-# GPCs' SM counts are not all multiples of the size), and the plan's cost
-# model, fitted to the plan sweep in PERF.md: a block's K stage of 128 codes
-# costs INT4_TILE_STAGE_US[body][tokens] microseconds, a block f0 + f1 x
-# splits more, (f0, f1) = INT4_TILE_FIXED_US[body] (a block of a larger
-# cluster stores a smaller share of its tile).
-INT4_TILE_ROWS = 128
+# The int4 tile kernels (csrc/int4_tile_sm90.cuh; their geometry in
+# gemm_plan): the token tiles each body takes (the split body holds two
+# accumulators, so at most 128), the fewest units (of int4_decode_units) a
+# split keeps, and the plan's cost model, fitted to the plan sweep in
+# PERF.md: a block's K stage of 128 codes costs
+# INT4_TILE_STAGE_US[body][tokens] microseconds, a block f0 + f1 x splits
+# more, (f0, f1) = INT4_TILE_FIXED_US[body] (a block of a larger cluster
+# stores a smaller share of its tile).
 INT4_TILE_TOKENS = {"split": (64, 128), "two_level": (64, 128, 256)}
-INT4_TILE_SPLITS = (1, 2, 3, 4, 6, 8)
 INT4_TILE_MIN_UNITS = 4
-INT4_TILE_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 6: 17, 8: 15}
 INT4_TILE_STAGE_US = {"split": {64: 0.679, 128: 1.228},
                       "two_level": {64: 0.534, 128: 0.803, 256: 1.386}}
 INT4_TILE_FIXED_US = {"split": (5.936, -0.076), "two_level": (6.367, -0.102)}
-# cudaOccupancyMaxActiveClusters of each kernel instance, by (card, entry,
-# token fragments, group): {cluster size: clusters the card holds at once}
-_held: dict = {}
 
 
 def int4_decode_units(k: int, group: int) -> tuple:
@@ -92,37 +80,20 @@ def int4_decode_plan(m: int, n: int, k: int, group: int, held: dict,
                      max_m: int = INT4_DECODE_MAX_M):
     """The int4 decode kernels' K splits (1 to 8: the blocks of a cluster)
     for an [m, k] x [n, k]^T product of group ``group``, or None where the
-    tile kernel takes it (m > ``max_m``, the body's threshold): of the
-    splits that leave each at least two units of K, the one with the most blocks (64
-    weight rows a tile, times the splits) whose clusters, one a tile, the
-    card holds at once (``held[splits]``, :func:`int4_decode_held`), the
-    fewer splits on a tie; where none fits one wave, 1."""
+    tile kernel takes it (m > ``max_m``, the body's threshold):
+    ``gemm_plan.decode_plan`` over the units of :func:`int4_decode_units`
+    (``held``: :func:`int4_decode_held`)."""
     if m > max_m:
         return None
-    tiles, (units, _) = -(-n // INT4_DECODE_ROWS), int4_decode_units(k, group)
-    fits = [s for s in range(1, INT4_DECODE_MAX_SPLITS + 1)
-            if (s == 1 or 2 * s <= units) and tiles <= held[s]]
-    return max(fits, default=1)
+    return decode_plan(n, int4_decode_units(k, group)[0], held)
 
 
 def int4_decode_held(entry: str, dev, m: int, group: int) -> dict:
     """{splits: clusters of that many blocks the card holds at once} of the
     decode kernel instance that ``entry`` (``"pq_wo4_split_decode"`` or
     ``"pq_w4a8_two_level_decode"``) launches for ``m`` rows of group
-    ``group``, asked of the built library once per card and instance."""
-    mf = 1 if m <= 8 else 2 if m <= 16 else 4
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    key = (index, entry, mf, group)
-    if key not in _held:
-        lib, held = _build.lib(), {}
-        with torch.cuda.device(index):
-            for s in range(1, INT4_DECODE_MAX_SPLITS + 1):
-                count = ctypes.c_int(0)
-                _build.check(getattr(lib, entry + "_clusters")(mf * 8, group, s,
-                                                               ctypes.byref(count)), entry)
-                held[s] = count.value
-        _held[key] = held
-    return _held[key]
+    ``group`` (``gemm_plan.decode_held``)."""
+    return decode_held(entry, dev, m, group)
 
 
 def decodes(x: torch.Tensor, m: int, group: int, max_m: int = INT4_DECODE_MAX_M) -> bool:
@@ -147,46 +118,27 @@ def int4_tile_plan(m: int, n: int, k: int, group: int, sms: int, formulation: st
     product of group ``group`` on a card of ``sms`` SMs: of the token tiles
     of ``formulation``'s body and the splits of K over the blocks of a
     cluster that leave each split at least ``INT4_TILE_MIN_UNITS`` units,
-    the plan of least cost, waves times a block's cost (one block an SM, at
-    most ``INT4_TILE_CLUSTERS`` clusters of a size; a block's stages times
-    ``INT4_TILE_STAGE_US`` plus ``INT4_TILE_FIXED_US``'s), the fewer splits
-    and then the taller tile on a tie."""
+    the plan of least cost, ``gemm_plan.tile_plan`` with the body's
+    ``INT4_TILE_STAGE_US`` and ``INT4_TILE_FIXED_US``."""
     units, _ = int4_decode_units(k, group)
-    stages = -(-k // (2 * INT4_DECODE_STEP))
-    tiles_n = -(-n // INT4_TILE_ROWS)
-    f0, f1 = INT4_TILE_FIXED_US[formulation]
-    best = None
-    for tokens in INT4_TILE_TOKENS[formulation]:
-        tiles = -(-m // tokens) * tiles_n
-        for splits in INT4_TILE_SPLITS:
-            if splits > 1 and units < splits * INT4_TILE_MIN_UNITS:
-                continue
-            wave = splits * min(sms // splits, INT4_TILE_CLUSTERS[splits])
-            cost = (-(-tiles * splits // wave)
-                    * (stages / splits * INT4_TILE_STAGE_US[formulation][tokens]
-                       + f0 + f1 * splits))
-            key = (round(cost, 6), splits, -tokens)
-            if best is None or key < best[0]:
-                best = (key, (tokens, splits))
-    return best[1]
+    return tile_plan(m, n, -(-k // (2 * INT4_DECODE_STEP)), units, sms,
+                     INT4_TILE_STAGE_US[formulation], INT4_TILE_FIXED_US[formulation],
+                     INT4_TILE_MIN_UNITS)
 
 
 def int4_tile_blocks(m: int, n: int, k: int, group: int, plan) -> list:
     """The (tokens, weight rows, K range) of each block of a tile launch of
-    ``plan`` = (tokens a tile, K splits), in grid order: 128-row weight tiles
-    of [0, n), each over the token tiles of [0, m), each split over K
-    (:func:`int4_k_slices`)."""
+    ``plan`` = (tokens a tile, K splits) (``gemm_plan.tile_blocks``), each
+    split over K as :func:`int4_k_slices` says."""
     tokens, splits = plan
-    return [((m0, min(m, m0 + tokens)), (n0, min(n, n0 + INT4_TILE_ROWS)), ks)
-            for n0 in range(0, n, INT4_TILE_ROWS) for m0 in range(0, m, tokens)
-            for ks in int4_k_slices(k, group, splits)]
+    return tile_blocks(m, n, tokens, int4_k_slices(k, group, splits))
 
 
 def int4_decode_blocks(n: int, k: int, group: int, k_splits: int) -> list:
     """The (weight rows, K range) of each block of a decode launch, in grid
     order: 64-row tiles of [0, n), each split over k_splits K slices."""
-    return [((r0, min(n, r0 + INT4_DECODE_ROWS)), ks)
-            for r0 in range(0, n, INT4_DECODE_ROWS) for ks in int4_k_slices(k, group, k_splits)]
+    return [((r0, min(n, r0 + DECODE_ROWS)), ks)
+            for r0 in range(0, n, DECODE_ROWS) for ks in int4_k_slices(k, group, k_splits)]
 
 
 def check_int4_weight(name: str, k: int, packed: torch.Tensor, scales: torch.Tensor,

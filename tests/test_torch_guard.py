@@ -26,7 +26,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "protoquant_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
     ROOT / "tests" / "test_torch_int4_decode_cuda.py",
-    ROOT / "tests" / "test_torch_int4_tile_cuda.py"] + sorted((ROOT / "tools").glob("*.py"))
+    ROOT / "tests" / "test_torch_int4_tile_cuda.py",
+    ROOT / "tests" / "test_torch_weight_only_cuda.py"] + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "flax", "protoquant_tpu")
 
 

@@ -36,6 +36,7 @@ from protoquant_tpu_torch.core import numerics
 
 W = importlib.import_module("protoquant_tpu_torch.ops.wo4_matmul")
 A = importlib.import_module("protoquant_tpu_torch.ops.w4a8_matmul")
+P = importlib.import_module("protoquant_tpu_torch.ops.gemm_plan")
 
 SPLITS = tuple(range(1, 9))
 # (M, K, N, group): M 1, 4, 16, 32; a ragged N (130); K whose units split
@@ -99,7 +100,7 @@ def test_blocks_cover_rows_once(n, k, group):
     for splits in SPLITS:
         covered = np.zeros((n, k), np.int32)
         for (r0, r1), (k0, k1) in W.int4_decode_blocks(n, k, group, splits):
-            assert r1 - r0 <= W.INT4_DECODE_ROWS and r0 % W.INT4_DECODE_ROWS == 0
+            assert r1 - r0 <= P.DECODE_ROWS and r0 % P.DECODE_ROWS == 0
             covered[r0:r1, k0:k1] += 1
         assert (covered == 1).all()
 
@@ -139,7 +140,7 @@ def test_decode_plan_by_shape():
                     continue
                 s = plan(4, n, k, group, H100_HELD)
                 units, _ = W.int4_decode_units(k, group)
-                tiles = -(-n // W.INT4_DECODE_ROWS)
+                tiles = -(-n // P.DECODE_ROWS)
                 assert 1 <= s <= 8 and (s == 1 or units // s >= 2)
                 assert s == 1 or tiles <= H100_HELD[s]
 

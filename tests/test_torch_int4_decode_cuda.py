@@ -22,6 +22,7 @@ import torch
 from protoquant_tpu_torch import ops
 
 W = importlib.import_module("protoquant_tpu_torch.ops.wo4_matmul")
+P = importlib.import_module("protoquant_tpu_torch.ops.gemm_plan")
 A = importlib.import_module("protoquant_tpu_torch.ops.w4a8_matmul")
 
 # (K, N, group): Llama-2-7B's q/k/v/o, gate/up, down and lm_head at group
@@ -205,4 +206,4 @@ def test_decode_cluster_occupancy(cuda):
             assert all(1 <= held[s] and s * held[s] <= 8 * sms for s in held), held
             for k, n, group in MODEL_SHAPES:
                 splits = W.int4_decode_plan(m, n, k, group, held)
-                assert splits == 1 or -(-n // W.INT4_DECODE_ROWS) <= held[splits]
+                assert splits == 1 or -(-n // P.DECODE_ROWS) <= held[splits]

@@ -33,6 +33,7 @@ from protoquant_tpu.ops.wo4_matmul import weight_only_int4_matmul as j_wo4
 from protoquant_tpu_torch import ops
 
 W = importlib.import_module("protoquant_tpu_torch.ops.wo4_matmul")
+P = importlib.import_module("protoquant_tpu_torch.ops.gemm_plan")
 A = importlib.import_module("protoquant_tpu_torch.ops.w4a8_matmul")
 Q = importlib.import_module("protoquant_tpu_torch.ops.qmatmul")
 
@@ -81,7 +82,7 @@ def test_blocks_cover_every_output_once(m, k, n, group):
     """A launch's blocks: 128 weight rows by a token tile, each split over
     K; every (token, row) pair in the blocks of exactly one tile, whose K
     slices run from 0 to K in order, each starting on a group boundary."""
-    rows = W.INT4_TILE_ROWS
+    rows = P.TILE_ROWS
     for formulation in ("split", "two_level"):
         for plan in _plans(k, group, formulation):
             tokens, splits = plan

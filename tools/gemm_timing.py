@@ -1,8 +1,10 @@
-"""Time the int8 GEMM (qmatmul), or the int4-weight GEMMs, of one checkout
-on the card.
+"""Time the int8 GEMM (qmatmul), the int4-weight GEMMs or the weight-only
+int8 GEMM of one checkout on the card.
 
     python3 tools/gemm_timing.py [--tree DIR] [--label NAME] [--sweep]
     python3 tools/gemm_timing.py --int4 [--tree DIR] [--label NAME] [--ms 48,64,256,512]
+                                 [--sweep] [--plans] [--ablate]
+    python3 tools/gemm_timing.py --wo [--tree DIR] [--label NAME] [--ms 1,4,16,32,48,256,512]
                                  [--sweep] [--plans] [--ablate]
 
 Imports protoquant_tpu_torch from DIR (default: the checkout holding this
@@ -48,6 +50,22 @@ and times them beside the built kernel at M = 48 and 256 at the
 plan; and variants of the two decode sources (``-DPQ_I4D_ABLATE``: 1 the
 per-code requant instead of the table, 2 no conversion of the codes, 3
 loads alone), timed beside the built kernel at M = 4 at the plan's splits.
+
+With ``--wo`` it times ``ops.weight_only_matmul`` instead, through the
+wrapper (so each checkout takes its own route), at Llama-2-7B's four
+projections and M = 1, 4, 16, 32, 48, 256 and 512 (or ``--ms``), each beside
+its bound and ``torch.matmul`` over a bf16 copy of W. ``--sweep`` (a
+checkout with the split-K decode kernel, ``ops.wo_matmul.weight_only_launch``)
+adds, at M = 16, 24, 32, 48 and 64, the tile kernel at its plan and, up to
+32 rows, the decode kernel at every split count with the clusters each
+size the card holds: the data ``WO_DECODE_MAX_M`` comes from. ``--plans``
+times the tile kernel at every (tokens a tile, K splits) it takes at M =
+48, 64, 128, 256 and 512: the data ``WO_TILE_STAGE_US`` is fitted to.
+``--ablate`` builds ``wo_tile.cu`` alone with ``-DPQ_I4T_ABLATE`` (1 no code
+conversion, 2 loads alone, 4 no loads), timed at M = 48 and 256 at the
+plan, and ``wo_decode.cu``
+with ``-DPQ_WOD_ABLATE`` (1 no conversion, 2 loads alone, 3 no loads), timed
+at M = 4 at the plan's splits.
 """
 
 import argparse
@@ -67,6 +85,14 @@ INT4_PLAN_MS = (48, 64, 128, 256, 512)
 ABLATIONS = {1: "no code conversion", 2: "loads alone", 3: "no group epilogue",
              4: "no loads", 5: "per-code requant, no table"}
 DECODE_ABLATIONS = {1: "per-code requant, no table", 2: "no code conversion", 3: "loads alone"}
+WO_MS = (1, 4, 16, 32, 48, 256, 512)
+WO_SWEEP_MS = (16, 24, 32, 48, 64)
+WO_PLAN_MS = (48, 64, 128, 256, 512)
+# the tile source's variants (-D flags) and the decode source's
+WO_TILE_ABLATIONS = {"no code conversion": "-DPQ_I4T_ABLATE=1", "loads alone": "-DPQ_I4T_ABLATE=2",
+                     "no loads": "-DPQ_I4T_ABLATE=4"}
+WO_DECODE_ABLATIONS = {"no code conversion": "-DPQ_WOD_ABLATE=1",
+                       "loads alone": "-DPQ_WOD_ABLATE=2", "no loads": "-DPQ_WOD_ABLATE=3"}
 
 
 def int4_operands(cs, ops, gen, dev, m, k, n, group, copies):
@@ -132,6 +158,7 @@ def int4_sweep(cs, ops, gen, dev):
     at the 7B shapes; with the plan and the clusters the card holds."""
     W = importlib.import_module("protoquant_tpu_torch.ops.wo4_matmul")
     A = importlib.import_module("protoquant_tpu_torch.ops.w4a8_matmul")
+    P = importlib.import_module("protoquant_tpu_torch.ops.gemm_plan")
 
     bf, group = torch.bfloat16, cs.GROUP4
     out = {}
@@ -145,7 +172,7 @@ def int4_sweep(cs, ops, gen, dev):
             plan = W.int4_decode_plan(m, n, k, group, held["w4a8_two_level"])
             row = {"plan_splits": plan,
                    "plan_splits_wo4_split": W.int4_decode_plan(m, n, k, group, held["wo4_split"]),
-                   "clusters_held": held, "clusters_launched": -(-n // W.INT4_DECODE_ROWS),
+                   "clusters_held": held, "clusters_launched": -(-n // P.DECODE_ROWS),
                    "tile_two_level": cs.bench([lambda w=w, tl=tl: A.w4a8_two_level_launch(
                        xq, sx, w[0], *tl, group, None, bf) for w, tl in zip(ws, tls)]),
                    "tile_split": cs.bench([lambda w=w: W.wo4_split_launch(
@@ -169,13 +196,14 @@ def int4_plans(cs, ops, gen, dev):
     by M, at the 7B shapes, beside the plan's choice; and the clusters of
     each size the card holds (ms)."""
     W = importlib.import_module("protoquant_tpu_torch.ops.wo4_matmul")
+    P = importlib.import_module("protoquant_tpu_torch.ops.gemm_plan")
     A = importlib.import_module("protoquant_tpu_torch.ops.w4a8_matmul")
     from protoquant_tpu_torch.ops import _build
     from protoquant_tpu_torch.ops.qmatmul import _sm_count
 
     bf, group, sms = torch.bfloat16, cs.GROUP4, _sm_count(dev)
     held = {}
-    for splits in W.INT4_TILE_SPLITS:
+    for splits in P.TILE_SPLITS:
         count = ctypes.c_int(0)
         _build.check(_build.lib().pq_int4_tile_clusters(splits, ctypes.byref(count)), "clusters")
         held[splits] = count.value
@@ -189,7 +217,7 @@ def int4_plans(cs, ops, gen, dev):
             row = {"plan_split": W.int4_tile_plan(m, n, k, group, sms, "split"),
                    "plan_two_level": W.int4_tile_plan(m, n, k, group, sms, "two_level")}
             for tokens in W.INT4_TILE_TOKENS["two_level"]:
-                for splits in W.INT4_TILE_SPLITS:
+                for splits in P.TILE_SPLITS:
                     if splits > units:
                         continue
                     plan = (tokens, splits)
@@ -321,6 +349,139 @@ def int4_ablate(cs, ops, gen, dev, tree):
     return out
 
 
+def wo_operands(cs, gen, dev, m, k, n):
+    """bf16 token rows, int8 weight copies larger than the L2 together, and
+    scales."""
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    ws = [torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+          for _ in range(cs.copies_for(n * k))]
+    return x, ws, torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+
+
+def wo_times(cs, ops, gen, dev, ms):
+    """ms of ops.weight_only_matmul, its bound and torch.matmul over a bf16
+    copy of W, by "M= K= N=" label."""
+    bf = torch.bfloat16
+    rows = {}
+    for m in ms:
+        for k, n in cs.LINEAR_SHAPES:
+            x, ws, sw = wo_operands(cs, gen, dev, m, k, n)
+            row = {"ms": cs.bench([lambda w=w: ops.weight_only_matmul(x, w, sw, out_dtype=bf)
+                                   for w in ws]),
+                   "bound": cs.bound_ms(2 * m * k + n * k + 4 * n + 2 * m * n, 2 * m * n * k,
+                                        cs.BF16_FLOPS_PER_S)[0]}
+            if hasattr(ops.weight_only_matmul, "routes"):
+                before = dict(ops.weight_only_matmul.routes)
+                ops.weight_only_matmul(x, ws[0], sw, out_dtype=bf)
+                row["route"] = next(r for r, c in ops.weight_only_matmul.routes.items()
+                                    if c != before[r])
+            wb = [w.to(bf) for w in ws[:cs.copies_for(2 * n * k)]]
+            row["library"] = cs.bench([lambda w=w: torch.matmul(x, w.t()) for w in wb])
+            del ws, wb
+            rows[f"M={m} K={k} N={n}"] = row
+    return rows
+
+
+def wo_sweep(cs, gen, dev):
+    """The tile kernel at its plan and the decode kernel at every split
+    count, by M, at the 7B shapes; with the plans and the clusters held."""
+    W = importlib.import_module("protoquant_tpu_torch.ops.wo_matmul")
+    from protoquant_tpu_torch.ops.qmatmul import _sm_count
+
+    bf, out = torch.bfloat16, {}
+    for k, n in cs.LINEAR_SHAPES:
+        for m in WO_SWEEP_MS:
+            x, ws, sw = wo_operands(cs, gen, dev, m, k, n)
+            plan = W.wo_tile_plan(m, n, k, _sm_count(dev))
+            row = {"tile_plan": plan,
+                   "tile": cs.bench([lambda w=w: W.weight_only_launch(x, w, sw, None, bf, tile=plan)
+                                     for w in ws])}
+            if m <= 32:  # the decode kernel takes up to 32 rows
+                held = W.wo_decode_held(dev, m)
+                row["held"], row["decode_plan"] = held, W.wo_decode_plan(1, n, k, held)
+                for splits in range(1, 9):
+                    row[f"decode_{splits}"] = cs.bench([
+                        lambda w=w: W.weight_only_launch(x, w, sw, None, bf, splits) for w in ws])
+            out[f"M={m} K={k} N={n}"] = row
+            del ws
+    return out
+
+
+def wo_plans(cs, gen, dev):
+    """The tile kernel at every (tokens a tile, K splits), by M, at the 7B
+    shapes, beside the plan's choice (ms)."""
+    W = importlib.import_module("protoquant_tpu_torch.ops.wo_matmul")
+    from protoquant_tpu_torch.ops.qmatmul import _sm_count
+
+    bf, out = torch.bfloat16, {}
+    for k, n in cs.LINEAR_SHAPES:
+        stages = -(-k // W.WO_TILE_STEP)
+        for m in WO_PLAN_MS:
+            x, ws, sw = wo_operands(cs, gen, dev, m, k, n)
+            row = {"plan": W.wo_tile_plan(m, n, k, _sm_count(dev))}
+            for tokens in W.WO_TILE_STAGE_US:
+                for splits in (1, 2, 3, 4, 6, 8):
+                    if splits <= stages:
+                        row[f"{tokens}x{splits}"] = cs.bench([
+                            lambda w=w, plan=(tokens, splits): W.weight_only_launch(
+                                x, w, sw, None, bf, tile=plan) for w in ws])
+            out[f"M={m} K={k} N={n}"] = row
+            del ws
+    return out
+
+
+def wo_ablate(cs, gen, dev, tree):
+    """The two kernels built with one part left out, against the built
+    kernel: the decode kernel at M = 4 at the plan's splits, the tile kernel
+    at M = 48 and 256 at the plan (ms)."""
+    W = importlib.import_module("protoquant_tpu_torch.ops.wo_matmul")
+    from protoquant_tpu_torch.ops import _build
+    from protoquant_tpu_torch.ops.qmatmul import _sm_count
+
+    build = os.path.join(os.path.abspath(tree), "protoquant_tpu_torch", "_build", "ablate")
+    os.makedirs(build, exist_ok=True)
+    procs = {}
+    for kind, src, variants in (("tile", "wo_tile.cu", WO_TILE_ABLATIONS),
+                                ("decode", "wo_decode.cu", WO_DECODE_ABLATIONS)):
+        for label, flag in variants.items():
+            so = os.path.join(build, f"libpq_wo_{kind}_{flag[2:].replace('=', '_')}.so")
+            procs[(kind, label)] = (so, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, flag, "-shared", "-I", str(_build.CSRC),
+                 str(_build.CSRC / src), "-o", so, "-ldl"],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    libs = {("tile", "kernel"): _build.lib(), ("decode", "kernel"): _build.lib()}
+    for key, (so, proc) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc of ablation {key} failed:\n{log}")
+        libs[key] = ctypes.CDLL(so)
+        name = f"pq_weight_only_{key[0]}"
+        getattr(libs[key], name).argtypes = _build.SIGNATURES[name]
+    bf = torch.bfloat16
+    code, out = _build.DTYPE_CODES[bf], {}
+    for m in (4, 48, 256):
+        kind = "decode" if m == 4 else "tile"
+        for k, n in cs.LINEAR_SHAPES:
+            x, ws, sw = wo_operands(cs, gen, dev, m, k, n)
+            tail = ([W.wo_decode_plan(m, n, k, W.wo_decode_held(dev, m))] if kind == "decode"
+                    else list(W.wo_tile_plan(m, n, k, _sm_count(dev))))
+            y = torch.empty(m, n, dtype=bf, device=dev)
+            row = {"plan": tail}
+            for (kd, label), lib in libs.items():
+                if kd != kind:
+                    continue
+                fn = getattr(lib, f"pq_weight_only_{kind}")
+
+                def call(w, fn=fn):
+                    _build.check(fn(x.data_ptr(), w.data_ptr(), sw.data_ptr(), None, y.data_ptr(),
+                                    code, m, n, k, *tail, _build.stream_ptr(dev)), "ablation")
+
+                row[label] = cs.bench([lambda w=w, call=call: call(w) for w in ws])
+            out[f"M={m} K={k} N={n}"] = row
+            del ws
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=HERE)
@@ -329,7 +490,8 @@ def main() -> int:
     parser.add_argument("--int4", action="store_true")
     parser.add_argument("--ablate", action="store_true")
     parser.add_argument("--plans", action="store_true")
-    parser.add_argument("--ms", default=",".join(map(str, INT4_MS)))
+    parser.add_argument("--wo", action="store_true")
+    parser.add_argument("--ms", default=None)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("gemm_timing: needs an NVIDIA card", file=sys.stderr)
@@ -346,9 +508,22 @@ def main() -> int:
     times, library, bounds, sweep = {}, {}, {}, {}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    if args.int4:
+    if args.wo:
+        ms = [int(v) for v in args.ms.split(",")] if args.ms else WO_MS
         line = {"label": args.label, "tree": args.tree, "card": smi.stdout.strip(),
-                "int4_ms": int4_times(cs, ops, gen, dev, [int(v) for v in args.ms.split(",")])}
+                "wo_ms": wo_times(cs, ops, gen, dev, ms)}
+        if args.sweep:
+            line["wo_sweep_ms"] = wo_sweep(cs, gen, dev)
+        if args.plans:
+            line["wo_plans_ms"] = wo_plans(cs, gen, dev)
+        if args.ablate:
+            line["wo_ablate_ms"] = wo_ablate(cs, gen, dev, args.tree)
+        print(json.dumps(line), flush=True)
+        return 0
+    if args.int4:
+        ms = [int(v) for v in args.ms.split(",")] if args.ms else INT4_MS
+        line = {"label": args.label, "tree": args.tree, "card": smi.stdout.strip(),
+                "int4_ms": int4_times(cs, ops, gen, dev, ms)}
         if args.sweep:
             line["int4_sweep_ms"] = int4_sweep(cs, ops, gen, dev)
         if args.plans:

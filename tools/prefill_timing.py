@@ -1,17 +1,21 @@
-"""Device time of the prefill steps of the int4 engine paths of one checkout
-on the card.
+"""Device time of the prefill steps of the int4 and weight-only engine paths
+of one checkout on the card.
 
     python3 tools/prefill_timing.py [--tree DIR] [--label NAME] [--layers N]
+                                    [--paths weight_only:paged,...]
 
 Imports protoquant_tpu_torch from DIR (default: the checkout holding this
 script) and builds Llama-2-7B at its widths and N layers (default 32) with
-random weights from a seed, in "dynamic_int4" (W4A8, the dense int8 cache)
-and in "weight_only_int4" (the paged int8 cache). For each it serves 4
+random weights from a seed, in "dynamic_int4" (W4A8, the dense int8 cache),
+"weight_only_int4" and "weight_only" (int8 weights; both over the paged
+int8 cache), or the paths ``--paths`` names. For each it serves 4
 prompts of 512 tokens in prefill chunks of 256 once to warm up, then again
 under torch.profiler until every prompt has been prefilled, and prints one
 JSON line: the card, and for each path the prefill steps' mean wall time
 (host clock around each step and a synchronize), device busy time (the sum
-of the kernels' device time) and the largest kernels' device time, per step.
+of the kernels' device time) and the largest kernels' device time, per step;
+and the same for the DECODE_STEPS decode steps that follow (4 slots at
+contexts of ~513 tokens).
 To compare two checkouts, run it on each in turns (A, B, B, A) within one
 call on one card.
 """
@@ -27,8 +31,11 @@ import time
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PATHS = (("dynamic_int4", "dense"), ("weight_only_int4", "paged"))
+PATHS = (("dynamic_int4", "dense"), ("weight_only_int4", "paged"), ("weight_only", "paged"))
 PROMPTS, PROMPT_LEN, CHUNK = 4, 512, 256
+DECODE_STEPS = 5  # decode steps profiled after the prefill
+# tokens a request: every slot still decodes after the last prefill chunk
+NEW_TOKENS = PROMPTS * PROMPT_LEN // CHUNK + DECODE_STEPS + 1
 
 
 def prefill_steps(mode: str, layout: str, layers: int, dev, seed: int = 0) -> dict:
@@ -43,8 +50,29 @@ def prefill_steps(mode: str, layout: str, layers: int, dev, seed: int = 0) -> di
 
     def engine():
         return Engine(model, EngineConfig(max_batch_size=PROMPTS, max_seq_len=1024,
-                                          prefill_chunk=CHUNK, max_new_tokens=2),
+                                          prefill_chunk=CHUNK, max_new_tokens=NEW_TOKENS),
                       kv_layout=layout)
+
+    def profiled(more):
+        """Steps while ``more()``, under the profiler: the wall times and
+        the device's kernel rows."""
+        walls = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            while more():
+                t0 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+        return walls, [e for e in prof.key_averages() if e.device_type
+                       == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+
+    def summary(walls, rows):
+        steps = len(walls)
+        top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+        return {"steps": steps, "wall_ms_per_step": sum(walls) / steps,
+                "busy_ms_per_step": sum(e.self_device_time_total for e in rows) / 1e3 / steps,
+                "top_kernels_ms_per_step": {e.key[:70]: e.self_device_time_total / 1e3 / steps
+                                            for e in top}}
 
     warm = engine()
     for p in prompts[0]:
@@ -54,21 +82,15 @@ def prefill_steps(mode: str, layout: str, layers: int, dev, seed: int = 0) -> di
     eng = engine()
     for p in prompts[1]:
         eng.add_request(p.tolist())
-    walls = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        while eng.prefilling or eng.waiting:
-            t0 = time.perf_counter()
-            eng.step()
-            torch.cuda.synchronize()
-            walls.append(1e3 * (time.perf_counter() - t0))
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    steps = len(walls)
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
-    out = {"layers": layers, "steps": steps, "wall_ms_per_step": sum(walls) / steps,
-           "busy_ms_per_step": sum(e.self_device_time_total for e in rows) / 1e3 / steps,
-           "top_kernels_ms_per_step": {e.key[:70]: e.self_device_time_total / 1e3 / steps
-                                       for e in top}}
+    out = {"layers": layers,
+           **summary(*profiled(lambda: bool(eng.prefilling or eng.waiting)))}
+    left = [DECODE_STEPS]
+
+    def decoding():  # the next DECODE_STEPS steps: every slot decodes
+        left[0] -= 1
+        return left[0] >= 0 and eng.has_work()
+
+    out["decode"] = summary(*profiled(decoding))
     del model, warm, eng
     torch.cuda.empty_cache()
     return out
@@ -79,6 +101,7 @@ def main() -> int:
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--label", default="")
     parser.add_argument("--layers", type=int, default=32)
+    parser.add_argument("--paths", default=",".join(f"{m}:{l}" for m, l in PATHS))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("prefill_timing: needs an NVIDIA card", file=sys.stderr)
@@ -88,7 +111,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     line = {"label": args.label, "tree": args.tree, "card": smi.stdout.strip()}
-    for mode, layout in PATHS:
+    for mode, layout in (path.split(":") for path in args.paths.split(",")):
         line[f"{mode} {layout}"] = prefill_steps(mode, layout, args.layers, dev)
     print(json.dumps(line), flush=True)
     return 0
