@@ -97,7 +97,8 @@ Phases (any failure exits non-zero and prints no result line):
               formulation): 225 wo4, 32 / 32 paged scatter and attention,
               no rowquant, 3,584 prefix-hit tokens, no leaked page; then
               phase 4 again for "dynamic_int4" with W4A8_FORMULATION=group
-              (225 w4a8_group per decode step)
+              (225 w4a8_group per decode step, every one on its decode
+              route; every prefill chunk's on its tile route)
   9. int4 agreement  phases 5 and 7 for 2-layer full-width dynamic_int4
               (dense; also once with the group formulation) and
               weight_only_int4 (paged) models, each with a planted fault for
@@ -238,19 +239,23 @@ Timings with ranks sharing one card measure the kernel and its protocol,
 not a link between cards.
 Each phase prints its seconds, and the run its total.
 The line before the last is {"kernels": [...]}, one entry per kernel body
-(30): "launches" is its count summed over the twenty-one engine runs
+(31): "launches" is its count summed over the twenty-one engine runs
 (phases 4, 6, 8.1, 8.2, 8.3, 10, 12, 13, 15, 17, 19, 20, the five of 22,
 the three of 24-25 and 28), each driven with the counts at 0 and read just
 after ("launches_by_path"). A wrapper counts calls: a decode call of the
 int8, K8V4, K4V8, Int4 or paged attention is two CUDA launches (the split
 kernel and the merge), and its entry names every file it runs under
-"sources". Four wrappers route between two kernels by shape before launch
+"sources". Seven wrappers route between two kernels by shape before launch
 and count each apart (ops.route_counts): qmatmul ("qmatmul_decode", the
 split-K kernel at M <= DECODE_MAX_M: every decode step; "qmatmul", the TMA
 and wgmma tile kernel: prefill chunks, the MoE experts at prefill),
 weight_only_matmul ("weight_only_matmul_decode", the split-K kernel at M <=
 WO_DECODE_MAX_M: every decode step; "weight_only_matmul", the TMA and wgmma
-tile kernel: prefill chunks longer than that),
+tile kernel: prefill chunks longer than that), the int4 GEMMs wo4_split,
+w4a8_two_level and w4a8_group in the same two ways ("wo4_split_decode",
+"wo4_split", ...; w4a8_group's decode kernel keeps every group's int32 sum
+for one f32 chain over all of K, its tile kernel one K split: both bit for
+bit),
 paged_int8_attention ("paged_int8_attention_split", every call whose rows
 fit a split block; "paged_int8_attention", the page
 walk, for the rest: G 8 at Dh 256, on no engine path), and the int8,
@@ -742,7 +747,7 @@ F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
 # of a routed body) and prefill chunks (48, 256, 512: the tile kernel)
 INT4_MS = (1, 4, 16, 48, 256, 512)
 # the int4 bodies that route by M (ops.ROUTED), by formulation
-ROUTED_INT4 = {"split": "wo4_split", "two_level": "w4a8_two_level"}
+ROUTED_INT4 = {"split": "wo4_split", "two_level": "w4a8_two_level", "group": "w4a8_group"}
 # the GEMM wrappers whose entries name their tile kernel, the decode kernel's
 # under name + "_decode"
 ROUTED_GEMMS = ("weight_only_matmul", *ROUTED_INT4.values())
@@ -759,10 +764,13 @@ def _int4_weights(gen, dev, n, k, copies):
 def _int4_route(ops, formulation, m, n, k, dev):
     """(the wrapper, the route it must take, its plan) of an int4 case: a
     routed body takes the decode kernel up to its threshold (split
-    SPLIT_DECODE_MAX_M rows, two_level INT4_DECODE_MAX_M), at
-    ``int4_decode_plan``'s K splits, and the tile kernel above, at
-    ``int4_tile_plan``'s (tokens a tile, K splits); the other bodies have
-    one kernel (None)."""
+    SPLIT_DECODE_MAX_M rows, two_level INT4_DECODE_MAX_M, group
+    GROUP_DECODE_MAX_M), at ``int4_decode_plan``'s K splits (group:
+    ``group_decode_plan``'s, whose group sums fit a block), and the tile
+    kernel above, at ``int4_tile_plan``'s (tokens a tile, K splits); the
+    other bodies have one kernel (None)."""
+    import importlib
+
     from protoquant_tpu_torch.ops.qmatmul import _sm_count
     from protoquant_tpu_torch.ops.wo4_matmul import (INT4_DECODE_MAX_M, SPLIT_DECODE_MAX_M,
                                                      int4_decode_held, int4_decode_plan,
@@ -771,11 +779,18 @@ def _int4_route(ops, formulation, m, n, k, dev):
     if formulation not in ROUTED_INT4:
         return None, None, None
     name = ROUTED_INT4[formulation]
-    if m > (SPLIT_DECODE_MAX_M if formulation == "split" else INT4_DECODE_MAX_M):
+    A = importlib.import_module("protoquant_tpu_torch.ops.w4a8_matmul")
+    top = {"split": SPLIT_DECODE_MAX_M, "two_level": INT4_DECODE_MAX_M,
+           "group": A.GROUP_DECODE_MAX_M}[formulation]
+    plan = None
+    if m <= top:
+        plan = (A.group_decode_plan(m, n, k, GROUP4, A.group_decode_held(dev, m, k, GROUP4))
+                if formulation == "group" else
+                int4_decode_plan(m, n, k, GROUP4, int4_decode_held(f"pq_{name}_decode", dev, m,
+                                                                   GROUP4)))
+    if plan is None:
         return (getattr(ops, name), "tile",
                 int4_tile_plan(m, n, k, GROUP4, _sm_count(dev), formulation))
-    plan = int4_decode_plan(m, n, k, GROUP4, int4_decode_held(f"pq_{name}_decode", dev, m,
-                                                              GROUP4))
     return getattr(ops, name), "decode", plan
 
 
@@ -860,15 +875,31 @@ def check_wo4(ops, gen, dev, formulation):
     return cases
 
 
+def _last_k_slice_dropped(ops, xq, sx, w, k, k_splits):
+    """The planted fault of the group decode cases: the decode kernel's
+    spelling (``w4a8_group_splitk_ref``) at its plan's K splits with the
+    last split's K slice dropped (its packed bytes zeroed: its group sums
+    0)."""
+    import importlib
+
+    W = importlib.import_module("protoquant_tpu_torch.ops.wo4_matmul")
+    k0, _ = W.int4_k_slices(k, GROUP4, k_splits)[-1]
+    dropped = w[0].clone()
+    dropped[:, k0 // 2:] = 0
+    return ops.w4a8_group_splitk_ref(xq, sx, dropped, w[1], GROUP4, None, torch.bfloat16,
+                                     k_splits)
+
+
 def check_w4a8(ops, gen, dev, formulation):
-    """The w4a8 body against its plain version, exactly, at each M of
-    ``INT4_MS``; two_level through the route its wrapper names for M (the
+    """The w4a8 body against its plain version, exactly (``torch.equal``), at
+    each M of ``INT4_MS``, through the route its wrapper names for M (the
     decode kernel or the tile kernel, at its plan). Each case holds a planted
     fault, which must differ: the plain product with the weight's last
-    group zeroed. Library yardstick for two_level: ``torch._int_mm`` (M
-    padded to 32 rows) over the int8 requantized copy of W made beforehand,
-    with the same epilogue, the same function; group has none (no one
-    PyTorch call scales per group)."""
+    group zeroed; and each group decode case a second: its spelling with
+    the plan's last K slice dropped. Library yardstick for two_level:
+    ``torch._int_mm`` (M padded to 32 rows) over the int8 requantized copy
+    of W made beforehand, with the same epilogue, the same function; group
+    has none (no one PyTorch call scales per group)."""
     from protoquant_tpu_torch.core import numerics
 
     bf = torch.bfloat16
@@ -895,7 +926,11 @@ def check_w4a8(ops, gen, dev, formulation):
                                          f"max abs err {err}")
             bad = ops.w4a8_matmul_ref(xq, sx, _last_group_zeroed(ws[0][0]), ws[0][1], GROUP4,
                                       None, bf, formulation, tls[0])
-            keys = _gemm_case_keys(route, plan, {"last group zeroed": int((bad != y).sum())})
+            faults = {"last group zeroed": int((bad != y).sum())}
+            if formulation == "group" and route == "decode":
+                bad = _last_k_slice_dropped(ops, xq, sx, ws[0], k, plan)
+                faults["last K slice dropped"] = int((bad != y).sum())
+            keys = _gemm_case_keys(route, plan, faults)
             del y, ref, bad
             b, kind = bound_ms(m * k + 4 * m + wbytes + 2 * m * n, 2 * m * n * k,
                                INT8_OPS_PER_S)
@@ -2288,6 +2323,8 @@ def _run_slice(ops, seed: int, dev, mode: str, kv_dtype: str, preset: str,
                for n in prompt_lens]
 
     per_step = decode_step_launches(ops, mode, cfg.num_hidden_layers, kv_dtype)
+    # every forward's token rows: a routed int4 GEMM routes by them
+    chunks, decodes = forward_rows(engine)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -2296,6 +2333,14 @@ def _run_slice(ops, seed: int, dev, mode: str, kv_dtype: str, preset: str,
     wall = time.perf_counter() - t_run
     launches = path_counts(ops)
     peak = torch.cuda.max_memory_allocated()
+    gemm = path_kernels(ops, mode, kv_dtype)[1]
+    if mode == "dynamic_int4" and gemm in ROUTED_GEMMS:
+        want = gemm_routes(gemm, cfg.num_hidden_layers, chunks, decodes)
+        got = {route: launches[f"{gemm}_{route}"] for route in want}
+        log(f"slice {mode}: {len(chunks)} prefill forwards of {sorted(set(chunks))} rows, "
+            f"{len(decodes)} decode forwards; {gemm} launches by route {json.dumps(got)}")
+        if got != want:
+            raise AssertionError(f"slice {mode}: {gemm} routes {got} != {want}")
 
     generated = sum(len(o or []) for o in outs)
     path = path_kernels(ops, mode, kv_dtype)
@@ -2488,11 +2533,15 @@ def gemm_routes(gemm: str, layers: int, chunks: list, decodes: list) -> dict:
     ``chunks`` and ``decodes`` token rows: 7 a layer and lm_head each, on
     the decode route up to the wrapper's threshold and the tile route
     above it."""
-    from protoquant_tpu_torch.ops.wo4_matmul import SPLIT_DECODE_MAX_M
+    import importlib
+
+    from protoquant_tpu_torch.ops.wo4_matmul import INT4_DECODE_MAX_M, SPLIT_DECODE_MAX_M
     from protoquant_tpu_torch.ops.wo_matmul import WO_DECODE_MAX_M
 
+    A = importlib.import_module("protoquant_tpu_torch.ops.w4a8_matmul")
     per = 7 * layers + 1
-    top = {"weight_only_matmul": WO_DECODE_MAX_M, "wo4_split": SPLIT_DECODE_MAX_M}[gemm]
+    top = {"weight_only_matmul": WO_DECODE_MAX_M, "wo4_split": SPLIT_DECODE_MAX_M,
+           "w4a8_two_level": INT4_DECODE_MAX_M, "w4a8_group": A.GROUP_DECODE_MAX_M}[gemm]
     rows = chunks + decodes
     return {"decode": per * sum(r <= top for r in rows), "tile": per * sum(r > top for r in rows)}
 
@@ -3745,8 +3794,10 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
     "w4a8_two_level_decode": ("protoquant_tpu_torch/csrc/w4a8_decode.cu",
                               "protoquant_tpu/ops/w4a8_matmul.py:70",
                               "M=4 K=4096 N=11008 bf16 out"),
-    "w4a8_group": ("protoquant_tpu_torch/csrc/w4a8_matmul.cu",
-                   "protoquant_tpu/ops/w4a8_matmul.py:38", "M=4 K=4096 N=11008 bf16 out"),
+    "w4a8_group": ("protoquant_tpu_torch/csrc/w4a8_group_tile.cu",
+                   "protoquant_tpu/ops/w4a8_matmul.py:38", "M=256 K=4096 N=11008 bf16 out"),
+    "w4a8_group_decode": ("protoquant_tpu_torch/csrc/w4a8_group_decode.cu",
+                          "protoquant_tpu/ops/w4a8_matmul.py:38", "M=4 K=4096 N=11008 bf16 out"),
     "rms_norm_quant": ("protoquant_tpu_torch/csrc/fused_quant.cu",
                        "protoquant_tpu/ops/fused_quant.py:44", "M=4 K=4096 bf16"),
     "swiglu_quant": ("protoquant_tpu_torch/csrc/fused_quant.cu",
@@ -3803,11 +3854,11 @@ KERNEL_SOURCES = {
     "qmatmul": {"prefill": [_CSRC + "qmatmul.cu", _CSRC + "sm90_gemm.cuh"]},
     **{name + "_decode": {"decode_gemm": [_CSRC + "int4_decode.cuh", _CSRC + f"{src}_decode.cu"]}
        for name, src in (("wo4_split", "wo4"), ("w4a8_two_level", "w4a8"),
-                         ("weight_only_matmul", "wo"))},
+                         ("w4a8_group", "w4a8_group"), ("weight_only_matmul", "wo"))},
     **{name: {"prefill": [_CSRC + f"{src}_tile.cu", _CSRC + "int4_tile_sm90.cuh",
                           _CSRC + "sm90_gemm.cuh"]}
        for name, src in (("wo4_split", "wo4"), ("w4a8_two_level", "w4a8"),
-                         ("weight_only_matmul", "wo"))}}
+                         ("w4a8_group", "w4a8_group"), ("weight_only_matmul", "wo"))}}
 # The entries whose launches are a route count of their wrapper under
 # another name (ops.ROUTED; "qmatmul_decode", "paged_int8_attention_split"
 # and the "_prefill" entries are counted under their own): the wrapper's own

@@ -1,8 +1,9 @@
 // Shared machinery of the int4-weight decode GEMMs (w4a8_decode.cu,
-// wo4_decode.cu): out^T = W x^T for M <= 32 token rows, the packed weight
-// [N, K/2] (int4_tile.cuh's layout: within each group of g codes, byte j of
-// the group's g/2 bytes holds k = j in its low nibble, k = j + g/2 in its
-// high nibble) loaded straight into registers, K split over the blocks of a
+// w4a8_group_decode.cu, wo4_decode.cu; wo_decode.cu takes its geometry):
+// out^T = W x^T for M <= 32 token rows, the packed weight [N, K/2]
+// (int4_tile.cuh's layout: within each group of g codes, byte j of the
+// group's g/2 bytes holds k = j in its low nibble, k = j + g/2 in its high
+// nibble) loaded straight into registers, K split over the blocks of a
 // thread block cluster at group boundaries and the partials summed through
 // distributed shared memory.
 //
@@ -129,14 +130,14 @@ __device__ __forceinline__ void i4d_reduce(T (*Part)[I4D_ROWS], int tile, int M,
 }
 
 // Launch ``kernel`` over ceil(N / 64) tiles times ``splits`` blocks, in
-// clusters of ``splits``.
+// clusters of ``splits``, with ``smem`` bytes of dynamic shared memory.
 template <typename Kernel, typename... Args>
-static cudaError_t i4d_launch(Kernel kernel, int N, int splits, cudaStream_t stream,
-                              Args... args) {
+static cudaError_t i4d_launch_smem(Kernel kernel, int N, int splits, int smem,
+                                   cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((N + I4D_ROWS - 1) / I4D_ROWS) * splits);
   cfg.blockDim = dim3(I4D_THREADS);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -149,13 +150,21 @@ static cudaError_t i4d_launch(Kernel kernel, int N, int splits, cudaStream_t str
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// The clusters of ``splits`` blocks of ``kernel`` the card holds at once
+template <typename Kernel, typename... Args>
+static cudaError_t i4d_launch(Kernel kernel, int N, int splits, cudaStream_t stream,
+                              Args... args) {
+  return i4d_launch_smem(kernel, N, splits, 0, stream, args...);
+}
+
+// The clusters of ``splits`` blocks of ``kernel``, each with ``smem`` bytes
+// of dynamic shared memory, that the card holds at once
 // (cudaOccupancyMaxActiveClusters), for the plan's tools.
 template <typename Kernel>
-static cudaError_t i4d_max_clusters(Kernel kernel, int splits, int* clusters) {
+static cudaError_t i4d_max_clusters(Kernel kernel, int splits, int* clusters, int smem = 0) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(splits * 64));
   cfg.blockDim = dim3(I4D_THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = splits;

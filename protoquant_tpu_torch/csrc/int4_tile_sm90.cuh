@@ -2,8 +2,9 @@
 // the tile kernel that ops/wo4_matmul.py, ops/w4a8_matmul.py and
 // ops/wo_matmul.py route every product of more token rows than the body's
 // decode threshold to (SPLIT_DECODE_MAX_M, INT4_DECODE_MAX_M,
-// WO_DECODE_MAX_M: prefill chunks, the experts at prefill), for three
-// bodies (instanced in wo4_tile.cu, w4a8_tile.cu and wo_tile.cu):
+// GROUP_DECODE_MAX_M, WO_DECODE_MAX_M: prefill chunks, the experts at
+// prefill), for four bodies (instanced in wo4_tile.cu, w4a8_tile.cu,
+// w4a8_group_tile.cu and wo_tile.cu):
 //   SPLIT (B11, weight-only int4 "split"; replaces
 //          protoquant_tpu/ops/wo4_matmul.py:_wo4_split_kernel): x in bf16; for
 //          each K-group in ascending order p = x_g . q_g (exact bf16 x code
@@ -14,6 +15,11 @@
 //          requantized to int8, w8 = rint(q * r16[n, g]) (an f32 multiply, then
 //          an add of 1.5 * 2^23 that rounds half to even); one exact int32 sum
 //          over all of K; out = cast((f32(acc) * (s_x * 0.0625)) * scol[n] + bias).
+//   GROUP (B12, W4A8 "group"; replaces
+//          protoquant_tpu/ops/w4a8_matmul.py:_w4a8_kernel): for each K-group
+//          in ascending order an exact int32 sum p of int8 x code products,
+//          acc = acc + f32(p) * s[n, g], a separate f32 multiply and add;
+//          out = cast(acc * s_x + bias), bit for bit the plain version's.
 //   WO8 (B5, weight-only int8; replaces protoquant_tpu/ops/wo_matmul.py:_wo_kernel):
 //          x in bf16; one f32 sum over all of K of exact bf16 x int8 products;
 //          out = cast(acc * s_w[n] + bias), a separate f32 multiply and add.
@@ -78,23 +84,26 @@
 //   registers, so BT <= 128); the other consumer group's products run
 //   meanwhile. (Two partials, each group's scale pass delayed until its
 //   buffer came round again, at BT 64, ran slower; PERF.md has the times.)
-//   TWO_LEVEL chains one int32 sum over its whole K range.
+//   GROUP does the same with TWO_LEVEL's int8 operands: the codes by the
+//   biased-nibble subtract (no table), an exact int32 p, then acc +=
+//   f32(p) * s. TWO_LEVEL chains one int32 sum over its whole K range.
 // - K split over a thread block cluster of 1 to 8 blocks (ops/wo4_matmul.py
 //   int4_tile_plan), at units of max(64, g / 2) packed bytes: every split
-//   starts on a group boundary.
+//   starts on a group boundary. GROUP takes 1: its f32 chain runs over the
+//   groups in order, and partials summed afterwards would move its bits.
 // - Epilogue as qmatmul.cu: each consumer stages its sums as a [token][weight
 //   row] tile in the drained stages, block r of the cluster sums the
 //   partials of its 1 / CS of the tokens in rank order over distributed
 //   shared memory and stores whole output rows, 4 columns a thread. s_x,
 //   scol and the bias are staged in shared memory before the main loop; the
 //   group tables (s or r16) are read from device memory, a stage ahead for
-//   TWO_LEVEL. One launch, no workspace, capturable in a CUDA graph. The
+//   TWO_LEVEL and GROUP. One launch, no workspace, capturable in a CUDA graph. The
 //   arithmetic is the plain version's: __fmul_rn / __fadd_rn, never an FMA.
 // PQ_I4T_ABLATE (tools/gemm_timing.py --int4 --ablate builds it): 1 no code
 // conversion (the raw words are the fragments), 2 the loads alone (no
-// conversion, no product), 3 SPLIT without the group epilogue (one chain), 4
-// the conversion and products alone (no loads), 5 TWO_LEVEL's per-code
-// requant at every group (no table).
+// conversion, no product), 3 SPLIT and GROUP without the group epilogue (one
+// chain), 4 the conversion and products alone (no loads), 5 TWO_LEVEL's
+// per-code requant at every group (no table).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -118,12 +127,13 @@ constexpr int I4T_NBUF = 4;           // A fragment buffers: k steps in flight a
 constexpr int I4T_SMEM = 200 * 1024;  // the ring's budget
 constexpr int I4T_LDP = I4T_BW + 4;   // word stride of a staged tile row: no bank conflict
 
-// The bodies: SPLIT and TWO_LEVEL (int4, packed), WO8 (int8).
-enum I4tBody { I4T_SPLIT = 0, I4T_TWO_LEVEL = 1, I4T_WO8 = 2 };
+// The bodies: SPLIT, TWO_LEVEL and GROUP (int4, packed), WO8 (int8).
+enum I4tBody { I4T_SPLIT = 0, I4T_TWO_LEVEL = 1, I4T_WO8 = 2, I4T_GROUP = 3 };
 
 template <int BODY, int BT>
 struct I4tShape {
-  static constexpr int EA = BODY == I4T_TWO_LEVEL ? 1 : 2;  // bytes of an activation
+  // bytes of an activation: int8 (W4A8) or bf16
+  static constexpr int EA = BODY == I4T_TWO_LEVEL || BODY == I4T_GROUP ? 1 : 2;
   static constexpr int HALVES = BODY == I4T_WO8 ? 1 : 2;  // activation halves a stage
   static constexpr int HALF = BT * 64 * EA;            // one 64-code half of the activations
   static constexpr int W = I4T_BW * I4T_SB;            // the (packed) weight tile
@@ -135,7 +145,8 @@ struct I4tShape {
   static constexpr int NBUF = BODY == I4T_WO8 && BT == 256 ? 2 : I4T_NBUF;
   static_assert(HALF % 1024 == 0 && W % 1024 == 0, "swizzled tiles stay 1024-aligned");
   static_assert(BT * I4T_LDP * 4 <= STAGES * STAGE, "the staged tile fits the stages");
-  static_assert(BODY != I4T_SPLIT || BT <= 128, "SPLIT holds two accumulators");
+  static_assert((BODY != I4T_SPLIT && BODY != I4T_GROUP) || BT <= 128,
+                "SPLIT and GROUP hold two accumulators");
 };
 
 // -- wgmma with A from registers ------------------------------------------------
@@ -434,8 +445,11 @@ int4_tile_kernel(const __grid_constant__ CUtensorMap map_x,
                  const float* __restrict__ bias, void* __restrict__ out, int out_dtype, int M,
                  int N, int K, int group) {
   using S = I4tShape<BODY, BT>;
-  constexpr bool SPLIT = BODY == I4T_SPLIT, WO8 = BODY == I4T_WO8;
+  constexpr bool SPLIT = BODY == I4T_SPLIT, WO8 = BODY == I4T_WO8, GROUP = BODY == I4T_GROUP;
+  constexpr bool INT8X = BODY == I4T_TWO_LEVEL || GROUP;  // int8 activations with s_x
   using Acc = typename std::conditional<BODY == I4T_TWO_LEVEL, int, float>::type;
+  // the group's partial (SPLIT f32, GROUP int32)
+  using Part = typename std::conditional<GROUP, int, float>::type;
   constexpr int NB = S::NBUF;
   constexpr int GPS = GK == 0 ? 4 : GK == 1 ? 2 : 1;  // groups a stage touches
   constexpr int NA = BT / 2;                          // accumulators a thread
@@ -509,9 +523,9 @@ int4_tile_kernel(const __grid_constant__ CUtensorMap map_x,
     const int t = threadIdx.x;
     const int l = t & 31, q4 = l & 3;
     const int r0 = 64 * wg + 16 * ((t >> 5) & 3) + (l >> 2);
-    if (t < BT) sx_s[t] = BODY == I4T_TWO_LEVEL && m0 + t < M ? sx[m0 + t] : 0.0f;
+    if (t < BT) sx_s[t] = INT8X && m0 + t < M ? sx[m0 + t] : 0.0f;
     if (t < I4T_BW) {
-      scol_s[t] = !SPLIT && n0 + t < N ? scol[n0 + t] : 0.0f;
+      scol_s[t] = !SPLIT && !GROUP && n0 + t < N ? scol[n0 + t] : 0.0f;
       bias_s[t] = bias != nullptr && n0 + t < N ? bias[n0 + t] : 0.0f;
     }
     // the thread's table entries (s or r16) of stage st's groups, zeros past
@@ -529,11 +543,11 @@ int4_tile_kernel(const __grid_constant__ CUtensorMap map_x,
     };
 
     Acc acc[NA];
-    float p[SPLIT ? NA : 1];  // SPLIT: the group's partial
+    Part p[SPLIT || GROUP ? NA : 1];  // SPLIT, GROUP: the group's partial
 #pragma unroll
     for (int e = 0; e < NA; ++e) acc[e] = 0;
 #pragma unroll
-    for (int e = 0; e < (SPLIT ? NA : 1); ++e) p[e] = 0.0f;
+    for (int e = 0; e < (SPLIT || GROUP ? NA : 1); ++e) p[e] = 0;
     uint32_t ab[NB][4];  // the A fragments of NB k steps
     float tab[2][GPS], tab_next[2][GPS];
     if (!WO8) load_tab(st_lo, tab);
@@ -541,8 +555,9 @@ int4_tile_kernel(const __grid_constant__ CUtensorMap map_x,
     int s = 0, prev = 0;
     uint32_t ph = 0;
     for (int st = st_lo; st < st_hi; ++st) {
-      // TWO_LEVEL: a stage ahead, the requant needs it first
-      if (BODY == I4T_TWO_LEVEL) load_tab(st + 1, tab_next);
+      // TWO_LEVEL, GROUP: a stage ahead (the requant needs it first; GROUP's
+      // first group may end after one product)
+      if (INT8X) load_tab(st + 1, tab_next);
       mbar_wait(&full[s], ph);
       const uint8_t* const ws = smem + s * S::STAGE + S::HALVES * S::HALF;
       const uint32_t xa = sm90_smem_addr(smem + s * S::STAGE);  // half 0; half h at + h HALF
@@ -645,6 +660,58 @@ int4_tile_kernel(const __grid_constant__ CUtensorMap map_x,
           }
           if ((t & 127) == 0) mbar_arrive(&empty[s]);  // every product of the stage is done
           if (st + 1 < st_hi) load_tab(st + 1, tab);
+        } else if constexpr (GROUP) {
+          // 4 k32 steps, TWO_LEVEL's map of chunks, nibbles and activations;
+          // the codes by the biased-nibble subtract. A group's first product
+          // starts p at zero; after its last the consumer waits for its
+          // products and adds f32(p) * s to acc. Every stage ends with a
+          // group's end or, at g = 256, half of one: drained either way.
+          const bool opens = group != 256 || (st & 1) == 0;   // the stage opens a group
+          const bool closes = group != 256 || (st & 1) == 1;  // the stage closes one
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int sj = j >> 1, n = j & 1;
+            const int cx = GK == 0 ? j : 2 * sj, cy = GK == 0 ? j : 2 * sj + 1;
+            const int nx = GK == 0 ? 0 : n, ny = GK == 0 ? 1 : n;
+            uint32_t (&a)[4] = ab[j % I4T_NBUF];  // a stage starts drained
+#if PQ_I4T_ABLATE == 1
+            a[0] = wv[0][cx] >> nx; a[1] = wv[1][cx] >> nx;
+            a[2] = wv[0][cy] >> ny; a[3] = wv[1][cy] >> ny;
+#else
+            a[0] = w4_codes_s8(i4t_nibbles(wv[0][cx], nx));
+            a[1] = w4_codes_s8(i4t_nibbles(wv[1][cx], nx));
+            a[2] = w4_codes_s8(i4t_nibbles(wv[0][cy], ny));
+            a[3] = w4_codes_s8(i4t_nibbles(wv[1][cy], ny));
+#endif
+            const int hb = GK == 2 ? n : GK == 1 ? sj : j >> 1;
+            const int ob = GK == 2 ? 32 * sj : GK == 1 ? 32 * n : 32 * (j & 1);
+            const bool first = PQ_I4T_ABLATE == 3 ? j == 0 && st == st_lo
+                               : GK == 0          ? true
+                               : GK == 1          ? n == 0
+                                                  : j == 0 && opens;
+            wgmma_fence();
+            i4t_mma(p, a, wgmma_desc_sw64(xa + hb * S::HALF + ob), first ? 0 : 1);
+            wgmma_commit();
+            const bool ends = GK == 0 ? true : GK == 1 ? n == 1 : j == 3;
+            if (ends) {
+              wgmma_wait<0>();
+              i4t_fence(p);
+#if PQ_I4T_ABLATE != 3
+              if (GK != 2 || closes) {
+                const int q = GK == 0 ? j : GK == 1 ? sj : 0;
+#pragma unroll
+                for (int e = 0; e < NA; ++e)
+                  acc[e] = __fadd_rn(acc[e],
+                                     __fmul_rn(__int2float_rn(p[e]), tab[(e >> 1) & 1][q]));
+              }
+#endif
+            }
+          }
+          if ((t & 127) == 0) mbar_arrive(&empty[s]);  // every product of the stage is done
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int q = 0; q < GPS; ++q) tab[h][q] = tab_next[h][q];
         } else {
           // GK 2 (the stage inside one group): each row's 16 requantized codes
           // as a table of 4 words, entry n the raw nibble n's code; thread t of
@@ -712,9 +779,9 @@ int4_tile_kernel(const __grid_constant__ CUtensorMap map_x,
     wgmma_wait<0>();
     i4t_fence(acc);
 #if PQ_I4T_ABLATE == 3
-    if constexpr (SPLIT) {
+    if constexpr (SPLIT || GROUP) {
 #pragma unroll
-      for (int e = 0; e < NA; ++e) acc[e] = st_hi > st_lo ? p[e] : 0.0f;
+      for (int e = 0; e < NA; ++e) acc[e] = st_hi > st_lo ? (float)p[e] : 0.0f;
     }
 #endif
 
@@ -764,12 +831,13 @@ int4_tile_kernel(const __grid_constant__ CUtensorMap map_x,
           }
         }
         float y[4];
-        const float sxr = BODY == I4T_TWO_LEVEL ? __fmul_rn(sx_s[rl], 0.0625f) : 0.0f;
+        const float sxr = BODY == I4T_TWO_LEVEL ? __fmul_rn(sx_s[rl], 0.0625f) : sx_s[rl];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          y[e] = SPLIT ? (float)v[e]
-                 : WO8 ? __fmul_rn((float)v[e], scol_s[cl + e])
-                       : __fmul_rn(__fmul_rn(__int2float_rn((int)v[e]), sxr), scol_s[cl + e]);
+          y[e] = SPLIT   ? (float)v[e]
+                 : GROUP ? __fmul_rn((float)v[e], sxr)
+                 : WO8   ? __fmul_rn((float)v[e], scol_s[cl + e])
+                         : __fmul_rn(__fmul_rn(__int2float_rn((int)v[e]), sxr), scol_s[cl + e]);
           if (bias != nullptr) y[e] = __fadd_rn(y[e], bias_s[cl + e]);
         }
         if (out_dtype == PQ_F32)
@@ -794,7 +862,7 @@ static cudaError_t i4t_launch(const void* x, const void* packed, const void* tab
   using S = I4tShape<BODY, BT>;
   CUtensorMap map_x, map_w;
   cudaError_t err =
-      BODY != I4T_TWO_LEVEL
+      S::EA == 2
           ? sm90_map_2d(&map_x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, 64, BT,
                         CU_TENSOR_MAP_SWIZZLE_128B)
           : sm90_map_2d(&map_x, x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, M, K, 64, BT,

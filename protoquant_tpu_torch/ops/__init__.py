@@ -6,8 +6,8 @@ the plain version, a CUDA tensor launches the hand-written kernel from
 fallback and no switch beyond the formulation arguments and knobs the JAX
 package itself has. Each kernel body counts its launches in ``.launches``;
 a wrapper that routes between two kernels by shape before launch (qmatmul,
-weight_only_matmul, wo4_split and w4a8_two_level: the decode or the tile
-kernel, by M;
+weight_only_matmul, wo4_split, w4a8_two_level and w4a8_group: the decode or
+the tile kernel, by M;
 paged_int8_attention: the split or the
 walk, by the split plan; int8_kv_attention, mixed_kv_attention and the
 two KIVI attentions: the split decode or the prefill kernel, by the split
@@ -33,8 +33,9 @@ from .kv_scatter import (k4v8_decode_update, k4v8_decode_update_ref, kivi4_decod
 from .paged_attention import paged_int8_attention, paged_int8_attention_ref
 from .qmatmul import dynamic_qlinear, qmatmul, qmatmul_ref, qmatmul_splitk_ref
 from .rowquant import rowquant, rowquant_ref
-from .w4a8_matmul import (two_level_scales, w4a8_group, w4a8_matmul, w4a8_matmul_ref,
-                          w4a8_two_level, w4a8_two_level_splitk_ref, w4a8_two_level_tile_ref)
+from .w4a8_matmul import (two_level_scales, w4a8_group, w4a8_group_splitk_ref,
+                          w4a8_group_tile_ref, w4a8_matmul, w4a8_matmul_ref, w4a8_two_level,
+                          w4a8_two_level_splitk_ref, w4a8_two_level_tile_ref)
 from .wo4_matmul import (weight_only_int4_matmul, weight_only_int4_matmul_ref,
                          weight_only_int4_tolerance, wo4_legacy, wo4_split,
                          wo4_split_splitk_ref, wo4_split_tile_ref)
@@ -107,6 +108,8 @@ ROUTED = {
     "wo4_split_tile": (wo4_split, "tile"),
     "w4a8_two_level_decode": (w4a8_two_level, "decode"),
     "w4a8_two_level_tile": (w4a8_two_level, "tile"),
+    "w4a8_group_decode": (w4a8_group, "decode"),
+    "w4a8_group_tile": (w4a8_group, "tile"),
     "paged_int8_attention_split": (paged_int8_attention, "split"),
     "paged_int8_attention_walk": (paged_int8_attention, "walk"),
     "int8_kv_attention_split": (int8_kv_attention, "split"),
@@ -149,7 +152,8 @@ __all__ = [
     "qmatmul_splitk_ref", "reset_launch_counts", "route_counts", "resolve_fused_quant",
     "resolve_w4a8_formulation", "rms_norm_quant", "rms_norm_quant_ref", "rowquant",
     "rowquant_ref", "shared_rowquant", "swiglu_quant", "swiglu_quant_ref",
-    "two_level_scales", "w4a8_group", "w4a8_matmul", "w4a8_matmul_ref", "w4a8_two_level",
+    "two_level_scales", "w4a8_group", "w4a8_group_splitk_ref", "w4a8_group_tile_ref",
+    "w4a8_matmul", "w4a8_matmul_ref", "w4a8_two_level",
     "w4a8_two_level_splitk_ref", "w4a8_two_level_tile_ref",
     "weight_only_int4_matmul", "weight_only_int4_matmul_ref", "weight_only_int4_tolerance",
     "weight_only_matmul", "weight_only_matmul_ref", "weight_only_splitk_ref",

@@ -81,8 +81,12 @@ SIGNATURES = {
     # M, group, k_splits, out clusters; launches nothing and takes no stream
     "pq_wo4_split_decode_clusters": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
     "pq_w4a8_two_level_decode_clusters": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
-    # xq, sx, packed, scales, bias, out, out_dtype, M, N, K, group, stream
-    "pq_w4a8_group": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # W4A8 group: xq, sx, packed, scales, bias, out, out_dtype, M, N, K,
+    # group, then k_splits (decode) or tokens a tile and k_splits (tile), stream
+    "pq_w4a8_group_decode": [_P] * 6 + [_I] * 6 + [_P],
+    "pq_w4a8_group_tile": [_P] * 6 + [_I] * 7 + [_P],
+    # M, K, group, k_splits, out clusters; launches nothing and takes no stream
+    "pq_w4a8_group_decode_clusters": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
     # x, x_dtype, w, xq, sx, M, K, eps, cast_dtype, stream
     "pq_rms_norm_quant": [_P, _I, _P, _P, _P, _I, _I, _F, _I, _P],
     # gate, up, dtype, hq, sh, M, K, act, cast_dtype, stream

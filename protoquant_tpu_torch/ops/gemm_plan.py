@@ -66,14 +66,15 @@ def decode_held(entry: str, dev, m: int, *args) -> dict:
 
 
 def tile_plan(m: int, n: int, stages: int, units: int, sms: int, stage_us: dict,
-              fixed_us: tuple, min_units: int, share: float = 1.0):
+              fixed_us: tuple, min_units: int, share: float = 1.0,
+              splits_taken: tuple = TILE_SPLITS):
     """The (tokens a tile, K splits) of least cost of a tile kernel (one
     block of ``TILE_ROWS`` weight rows an SM) for an [m, k] x [n, k]^T
     product of ``stages`` K stages in ``units`` units: of the token tiles
     (``stage_us``'s keys, microseconds a block's stage with every SM busy)
-    and the splits of K over a cluster (``TILE_SPLITS``, at most
-    ``TILE_CLUSTERS`` clusters of a size) that leave each split at least
-    ``min_units`` units, the least waves times a block's cost (stages /
+    and the splits of K over a cluster (``splits_taken``, by default every
+    one of ``TILE_SPLITS``, at most ``TILE_CLUSTERS`` clusters of a size)
+    that leave each split at least ``min_units`` units, the least waves times a block's cost (stages /
     splits x the stage's cost + f0 + f1 x splits, (f0, f1) = ``fixed_us``),
     the fewer splits and then the taller tile on a tie. ``share`` of a
     stage's cost holds however few SMs a wave fills, the rest scales with
@@ -83,7 +84,7 @@ def tile_plan(m: int, n: int, stages: int, units: int, sms: int, stage_us: dict,
     best = None
     for tokens, stage in stage_us.items():
         tiles = -(-m // tokens) * tiles_n
-        for splits in TILE_SPLITS:
+        for splits in splits_taken:
             if splits > 1 and units < splits * min_units:
                 continue
             wave = splits * min(sms // splits, TILE_CLUSTERS[splits])

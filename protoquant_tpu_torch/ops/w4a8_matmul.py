@@ -30,10 +30,23 @@ partials summed in shared memory), larger M the tile kernel
 (``csrc/w4a8_tile.cu`` on ``csrc/int4_tile_sm90.cuh``: TMA and wgmma, 128
 weight rows by 64, 128 or 256 tokens a block, the codes requantized by a
 table a (row, group) at g >= 128, one by one below, K split over a cluster
-as ``wo4_matmul.int4_tile_plan`` says). ``group`` has one kernel
-(``csrc/w4a8_matmul.cu``). ``w4a8_two_level.routes`` counts each route. :func:`requant_table`,
+as ``wo4_matmul.int4_tile_plan`` says). :func:`requant_table`,
 :func:`table_lookup` and :func:`w4a8_two_level_splitk_ref` spell the
 decode kernel out, :func:`w4a8_two_level_tile_ref` the tile kernel.
+
+``group`` routes the same way, by M <= ``GROUP_DECODE_MAX_M``, and keeps
+its bits at both: the decode kernel (``csrc/w4a8_group_decode.cu``) splits
+K at group boundaries over a cluster as :func:`group_decode_plan` says,
+each block keeping the exact int32 sum of each of its groups in shared
+memory (:func:`group_decode_smem` bytes); then each output's chain runs
+over all of K's groups in order, reading each sum from the block that owns
+it through distributed shared memory. The tile kernel
+(``csrc/w4a8_group_tile.cu`` on ``csrc/int4_tile_sm90.cuh``: TMA and
+wgmma, 128 weight rows by 64 or 128 tokens a block) keeps a group's int32
+sum beside the f32 chain and takes one K split. Both make the codes by the
+biased-nibble subtract (:func:`biased_nibble_codes`).
+:func:`w4a8_group_splitk_ref` and :func:`w4a8_group_tile_ref` spell them
+out. Each wrapper's ``.routes`` counts its kernels.
 """
 
 from __future__ import annotations
@@ -42,10 +55,17 @@ import torch
 
 from ..core import numerics
 from . import _build
+from .gemm_plan import DECODE_MAX_SPLITS, DECODE_ROWS, decode_held, decode_plan
 from .wo4_matmul import (check_int4_weight, decodes, int4_decode_held, int4_decode_plan,
-                         int4_k_slices, int4_tile_blocks, tile_args)
+                         int4_decode_units, int4_k_slices, int4_tile_blocks, tile_args)
 
 FORMULATIONS = ("two_level", "group")
+# The group body's decode kernel (csrc/w4a8_group_decode.cu): the largest M
+# routed to it, from the sweep in PERF.md (tools/gemm_timing.py --int4
+# --sweep; 32 is also the kernel's limit), and the most shared memory a
+# block of it takes (W4G_SMEM, an H100's most a block).
+GROUP_DECODE_MAX_M = 16
+GROUP_DECODE_SMEM = 227 * 1024
 
 
 def two_level_scales(scales: torch.Tensor):
@@ -189,6 +209,114 @@ def w4a8_two_level_tile_ref(xq, s_x, packed, r16, scol, group=128, bias=None,
     return y.to(out_dtype).reshape(*xq.shape[:-1], n)
 
 
+def biased_nibble_codes(packed: torch.Tensor, group: int) -> torch.Tensor:
+    """The group kernels' codes, int8 [N, K] in K order: each nibble u of
+    the packed bytes biased, ``u ^ 8``, then less 8 as the kernels take it
+    in its byte, ``((u ^ 8) + 0x78) ^ 0x80`` (no byte carries out:
+    ``u ^ 8 <= 15``). Equal to ``numerics.unpack_int4``."""
+    n, kb = packed.shape
+    u = packed.to(torch.int64) & 0xFF
+    codes = [((((u >> shift) & 0xF) ^ 8) + 0x78) ^ 0x80 for shift in (0, 4)]
+    lo, hi = (c.to(torch.uint8).view(torch.int8).reshape(n, -1, group // 2) for c in codes)
+    return torch.cat([lo, hi], dim=2).reshape(n, 2 * kb)
+
+
+def group_decode_smem(m: int, k: int, group: int, splits: int) -> int:
+    """Bytes of shared memory a block of the group decode kernel keeps for
+    ``splits`` K splits: the most units of K a split holds
+    (``wo4_matmul.int4_decode_units``), times the groups a unit, times a
+    group's int32 sums, 8 tokens a fragment (1, 2 or 4 for m <= 8, 16, 32)
+    by 64 weight rows padded to 68 (``w4g_smem``)."""
+    units, unit = int4_decode_units(k, group)
+    mf = 1 if m <= 8 else 2 if m <= 16 else 4
+    return -(-units // splits) * (unit // group) * 8 * mf * (DECODE_ROWS + 4) * 4
+
+
+def group_decode_plan(m: int, n: int, k: int, group: int, held: dict):
+    """The group decode kernel's K splits for an [m, k] x [n, k]^T product,
+    or None where the tile kernel takes it (m > ``GROUP_DECODE_MAX_M``, or
+    no split's group terms fit ``GROUP_DECODE_SMEM``): of the splits whose
+    terms fit, ``gemm_plan.decode_plan``'s where its clusters fit one wave
+    (``held``: :func:`group_decode_held`, which counts the terms); where
+    none does, the least waves a split (waves x 1 / splits; the fewer
+    splits on a tie), each split keeping two units where it can (the sweep
+    in PERF.md: at lm_head 2 splits in 2 waves beat 1 in 2 by 1.4x)."""
+    if m > GROUP_DECODE_MAX_M:
+        return None
+    units, _ = int4_decode_units(k, group)
+    room = [s for s in range(1, DECODE_MAX_SPLITS + 1)
+            if s <= units and group_decode_smem(m, k, group, s) <= GROUP_DECODE_SMEM]
+    if not room:
+        return None
+    fit = {s: held[s] if s in room else 0 for s in held}
+    tiles = -(-n // DECODE_ROWS)
+    splits = decode_plan(n, units, fit)
+    if tiles <= fit[splits]:
+        return splits
+    pick = [s for s in room if s == 1 or 2 * s <= units] or room
+    return min(pick, key=lambda s: (-(-tiles // max(1, fit[s])) / s, s))
+
+
+def group_decode_held(dev, m: int, k: int, group: int) -> dict:
+    """{splits: clusters of that many blocks the card holds at once} of the
+    group decode kernel instance for ``m`` rows at (k, group), each block
+    with its group sums in shared memory (``gemm_plan.decode_held``; 0
+    where the sums do not fit)."""
+    return decode_held("pq_w4a8_group_decode", dev, m, k, group)
+
+
+def w4a8_group_splitk_ref(xq, s_x, packed, scales, group=128, bias=None,
+                          out_dtype=torch.bfloat16, k_splits=1):
+    """The group decode kernel in plain PyTorch: each K slice
+    (``wo4_matmul.int4_k_slices``) keeps the exact int32 sum of each of its
+    groups; then one chain over the slices in order and each slice's groups
+    in order, ``acc = acc + f32(p) * s[n, g]``; then ``acc * s_x + bias``.
+    Equal to ``w4a8_matmul_ref(..., formulation="group")`` bit for bit at
+    any ``k_splits``."""
+    k = xq.shape[-1]
+    n = packed.shape[0]
+    xs = xq.reshape(-1, k)
+    q = biased_nibble_codes(packed, group)
+    sums = [[(g0 // group, numerics.int_matmul_nk(xs[:, g0:g0 + group], q[:, g0:g0 + group]))
+             for g0 in range(k0, k1, group)]
+            for k0, k1 in int4_k_slices(k, group, k_splits)]
+    acc = torch.zeros(xs.shape[0], n, dtype=torch.float32, device=xq.device)
+    for part in sums:
+        for gi, p in part:
+            acc = acc + p.float() * scales[:, gi]
+    y = acc * s_x.reshape(-1, 1).float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype).reshape(*xq.shape[:-1], n)
+
+
+def w4a8_group_tile_ref(xq, s_x, packed, scales, group=128, bias=None,
+                        out_dtype=torch.bfloat16, plan=(128, 1)):
+    """The group tile kernel in plain PyTorch: each block of
+    ``wo4_matmul.int4_tile_blocks`` runs the chain over its groups in
+    order, ``acc = acc + f32(p) * s[n, g]`` with p the group's exact int32
+    sum; then ``acc * s_x + bias``. The kernel takes one K split, so
+    ``plan`` = (tokens a tile, 1); equal to ``w4a8_matmul_ref(...,
+    formulation="group")`` bit for bit at any such plan."""
+    if plan[1] != 1:
+        raise ValueError(f"w4a8 group tile: plan {plan}: one K split (the chain runs in order)")
+    k = xq.shape[-1]
+    n = packed.shape[0]
+    xs = xq.reshape(-1, k)
+    q = biased_nibble_codes(packed, group)
+    y = torch.zeros(xs.shape[0], n, dtype=torch.float32, device=xq.device)
+    for (m0, m1), (n0, n1), (k0, k1) in int4_tile_blocks(xs.shape[0], n, k, group, plan):
+        acc = torch.zeros(m1 - m0, n1 - n0, dtype=torch.float32, device=xq.device)
+        for g0 in range(k0, k1, group):
+            p = numerics.int_matmul_nk(xs[m0:m1, g0:g0 + group], q[n0:n1, g0:g0 + group])
+            acc = acc + p.float() * scales[n0:n1, g0 // group]
+        y[m0:m1, n0:n1] = acc
+    y = y * s_x.reshape(-1, 1).float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype).reshape(*xq.shape[:-1], n)
+
+
 def _launch(fn_name, xq, s_x, packed, table, scol, group, bias, out_dtype, tail=None):
     """Check the operands and launch ``fn_name``; ``tail(m, n, k, dev)``
     gives the arguments after ``group`` (as ``wo4_matmul``'s)."""
@@ -254,10 +382,33 @@ def w4a8_two_level(xq, s_x, packed, r16, scol, group, bias=None, out_dtype=torch
     return out
 
 
+def w4a8_group_launch(xq, s_x, packed, scales, group, bias=None, out_dtype=torch.bfloat16,
+                      k_splits=None, tile=None):
+    """Launch one group kernel on CUDA operands: the decode kernel with
+    ``k_splits`` (1 to 8) K splits, or for None the tile kernel with
+    ``tile`` = (tokens a tile, 1) (None: ``wo4_matmul.int4_tile_plan``'s).
+    Returns the output; counts nothing (:func:`w4a8_group` routes and
+    counts)."""
+    if k_splits is not None:
+        return _launch("pq_w4a8_group_decode", xq, s_x, packed, scales, None, group, bias,
+                       out_dtype, lambda *_: [k_splits])
+    return _launch("pq_w4a8_group_tile", xq, s_x, packed, scales, None, group, bias,
+                   out_dtype, tile_args(tile, "group", group))
+
+
 def w4a8_group(xq, s_x, packed, scales, group, bias=None, out_dtype=torch.bfloat16):
-    """Launch the per-group body on CUDA tensors."""
-    out = _launch("pq_w4a8_group", xq, s_x, packed, scales, None, group, bias, out_dtype)
+    """Launch the per-group body on CUDA tensors. M up to
+    ``GROUP_DECODE_MAX_M`` takes the decode kernel at
+    :func:`group_decode_plan`'s splits (where its group sums fit a block),
+    larger M the tile kernel."""
+    k = xq.shape[-1]
+    m = xq.numel() // k if k else 0
+    splits = (group_decode_plan(m, packed.shape[0], k, group,
+                                group_decode_held(xq.device, m, k, group))
+              if decodes(xq, m, group, GROUP_DECODE_MAX_M) and k % group == 0 else None)
+    out = w4a8_group_launch(xq, s_x, packed, scales, group, bias, out_dtype, splits)
     w4a8_group.launches += 1
+    w4a8_group.routes["tile" if splits is None else "decode"] += 1
     return out
 
 
@@ -265,6 +416,8 @@ w4a8_two_level.launches = 0
 # launches by kernel: "decode" (w4a8_decode.cu), "tile" (w4a8_tile.cu)
 w4a8_two_level.routes = {"decode": 0, "tile": 0}
 w4a8_group.launches = 0
+# launches by kernel: "decode" (w4a8_group_decode.cu), "tile" (w4a8_group_tile.cu)
+w4a8_group.routes = {"decode": 0, "tile": 0}
 
 
 def w4a8_matmul(xq: torch.Tensor, s_x: torch.Tensor, packed: torch.Tensor,

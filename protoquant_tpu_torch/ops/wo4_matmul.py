@@ -39,7 +39,8 @@ import torch
 
 from ..core import numerics
 from . import _build
-from .gemm_plan import DECODE_ROWS, decode_held, decode_plan, tile_blocks, tile_plan
+from .gemm_plan import (DECODE_ROWS, TILE_SPLITS, decode_held, decode_plan, tile_blocks,
+                        tile_plan)
 
 FORMULATIONS = ("split", "legacy")
 # Groups the CUDA kernels take (pick_int4_group gives 128 for every
@@ -54,18 +55,22 @@ INT4_DECODE_MAX_M = 32
 SPLIT_DECODE_MAX_M = 16
 INT4_DECODE_STEP = 64
 # The int4 tile kernels (csrc/int4_tile_sm90.cuh; their geometry in
-# gemm_plan): the token tiles each body takes (the split body holds two
-# accumulators, so at most 128), the fewest units (of int4_decode_units) a
-# split keeps, and the plan's cost model, fitted to the plan sweep in
-# PERF.md: a block's K stage of 128 codes costs
+# gemm_plan): the token tiles each body takes (split and W4A8 group hold two
+# accumulators, so at most 128), the K splits each takes (group 1: its f32
+# chain runs over the groups in order), the fewest units (of
+# int4_decode_units) a split keeps, and the plan's cost model, fitted to the
+# plan sweep in PERF.md: a block's K stage of 128 codes costs
 # INT4_TILE_STAGE_US[body][tokens] microseconds, a block f0 + f1 x splits
 # more, (f0, f1) = INT4_TILE_FIXED_US[body] (a block of a larger cluster
 # stores a smaller share of its tile).
-INT4_TILE_TOKENS = {"split": (64, 128), "two_level": (64, 128, 256)}
+INT4_TILE_TOKENS = {"split": (64, 128), "two_level": (64, 128, 256), "group": (64, 128)}
+INT4_TILE_SPLITS = {"split": TILE_SPLITS, "two_level": TILE_SPLITS, "group": (1,)}
 INT4_TILE_MIN_UNITS = 4
 INT4_TILE_STAGE_US = {"split": {64: 0.679, 128: 1.228},
-                      "two_level": {64: 0.534, 128: 0.803, 256: 1.386}}
-INT4_TILE_FIXED_US = {"split": (5.936, -0.076), "two_level": (6.367, -0.102)}
+                      "two_level": {64: 0.534, 128: 0.803, 256: 1.386},
+                      "group": {64: 0.661, 128: 0.888}}
+INT4_TILE_FIXED_US = {"split": (5.936, -0.076), "two_level": (6.367, -0.102),
+                      "group": (5.306, 0.0)}
 
 
 def int4_decode_units(k: int, group: int) -> tuple:
@@ -116,14 +121,16 @@ def int4_k_slices(k: int, group: int, k_splits: int) -> list:
 def int4_tile_plan(m: int, n: int, k: int, group: int, sms: int, formulation: str = "split"):
     """The tile kernel's (tokens a tile, K splits) for an [m, k] x [n, k]^T
     product of group ``group`` on a card of ``sms`` SMs: of the token tiles
-    of ``formulation``'s body and the splits of K over the blocks of a
-    cluster that leave each split at least ``INT4_TILE_MIN_UNITS`` units,
-    the plan of least cost, ``gemm_plan.tile_plan`` with the body's
-    ``INT4_TILE_STAGE_US`` and ``INT4_TILE_FIXED_US``."""
+    of ``formulation``'s body (``"split"``, ``"two_level"`` or the W4A8
+    ``"group"``) and the splits of K it takes over the blocks of a cluster
+    (``INT4_TILE_SPLITS``) that leave each split at least
+    ``INT4_TILE_MIN_UNITS`` units, the plan of least cost,
+    ``gemm_plan.tile_plan`` with the body's ``INT4_TILE_STAGE_US`` and
+    ``INT4_TILE_FIXED_US``."""
     units, _ = int4_decode_units(k, group)
     return tile_plan(m, n, -(-k // (2 * INT4_DECODE_STEP)), units, sms,
                      INT4_TILE_STAGE_US[formulation], INT4_TILE_FIXED_US[formulation],
-                     INT4_TILE_MIN_UNITS)
+                     INT4_TILE_MIN_UNITS, splits_taken=INT4_TILE_SPLITS[formulation])
 
 
 def int4_tile_blocks(m: int, n: int, k: int, group: int, plan) -> list:

@@ -43,6 +43,8 @@ ranks share the card, also over back-to-back calls of changing M (the
 flags' epochs).
 """
 
+import importlib
+
 import pytest
 import torch
 
@@ -607,15 +609,22 @@ def test_wo4_vs_plain(cuda, m, k, n, group, formulation):
 @pytest.mark.parametrize("formulation", ["two_level", "group"])
 @pytest.mark.parametrize("m,k,n,group", INT4_SHAPES)
 def test_w4a8_exact(cuda, m, k, n, group, formulation):
+    """Each body through the route its wrapper names for M (group: the
+    decode kernel up to GROUP_DECODE_MAX_M rows, the tile kernel above)."""
     g = torch.Generator(device=cuda).manual_seed(m * 17 + n)
     xq, sx = ops.rowquant(torch.randn(m, k, generator=g, device=cuda))
     packed, scales = _int4_weight(g, cuda, n, k, group)
     bias = torch.randn(n, generator=g, device=cuda)
+    wrapper = getattr(ops, f"w4a8_{formulation}")
+    top = 32 if formulation == "two_level" else importlib.import_module(
+        "protoquant_tpu_torch.ops.w4a8_matmul").GROUP_DECODE_MAX_M
     for out_dtype in (torch.float32, torch.bfloat16):
         for b in (None, bias):
+            ops.reset_launch_counts()
             y = ops.w4a8_matmul(xq, sx, packed, scales, group, b, out_dtype, formulation)
             ref = ops.w4a8_matmul_ref(xq, sx, packed, scales, group, b, out_dtype, formulation)
             torch.cuda.synchronize()
+            assert wrapper.routes["decode" if m <= top else "tile"] == 1
             assert y.dtype == out_dtype and y.shape == (m, n)
             assert torch.equal(y, ref)
 

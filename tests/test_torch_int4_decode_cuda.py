@@ -1,12 +1,14 @@
-"""The int4-weight decode GEMMs (``csrc/w4a8_decode.cu``, ``csrc/wo4_decode.cu``)
-against their plain versions, on the card. Every test here skips without
-one.
+"""The int4-weight decode GEMMs (``csrc/w4a8_decode.cu``,
+``csrc/w4a8_group_decode.cu``, ``csrc/wo4_decode.cu``) against their plain
+versions, on the card. Every test here skips without one.
 
 This file imports nothing of JAX:
 ``python -m pytest tests/test_torch_int4_decode_cuda.py --noconftest -q``.
 W4A8 two_level: equal to ``w4a8_matmul_ref(..., "two_level")`` bit for bit
 (the int32 sums are exact in any order and the epilogue runs once, on the
-whole sum). The split body: within ``ops.weight_only_int4_tolerance`` of its
+whole sum). W4A8 group: equal to ``w4a8_matmul_ref(..., "group")`` and to
+its split-K spelling bit for bit (each split's exact int32 group sums, one
+chain over all of them in order). The split body: within ``ops.weight_only_int4_tolerance`` of its
 plain version (the same products, f32 sums in another order). Both at the
 Llama-2-7B shapes, ragged N and K, every group, with and without a bias, f32
 and bf16 out, at M 1, 4, 16 and the body's threshold, through the route the
@@ -64,7 +66,8 @@ def _split_case(cuda, m, k, n, group):
 
 def _threshold(formulation):
     """The largest M the body's wrapper routes to its decode kernel."""
-    return W.SPLIT_DECODE_MAX_M if formulation == "split" else W.INT4_DECODE_MAX_M
+    return {"split": W.SPLIT_DECODE_MAX_M, "two_level": W.INT4_DECODE_MAX_M,
+            "group": A.GROUP_DECODE_MAX_M}[formulation]
 
 
 def _decode_ms(formulation):
@@ -90,6 +93,28 @@ def test_two_level_decode_exact(cuda, k, n, group):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n,group", MODEL_SHAPES + RAGGED_SHAPES)
+def test_group_decode_exact(cuda, k, n, group):
+    """The group body through its decode route: the plain version's bits
+    and its split-K spelling's at the plan's splits, codes -8 and 7 among
+    the random bytes."""
+    for m in _decode_ms("group"):
+        xq, sx, packed, scales, bias = _two_level_case(cuda, m, k, n, group)
+        splits = A.group_decode_plan(m, n, k, group, A.group_decode_held(cuda, m, k, group))
+        for out_dtype in (torch.float32, torch.bfloat16):
+            for b in (None, bias):
+                ops.reset_launch_counts()
+                y = ops.w4a8_matmul(xq, sx, packed, scales, group, b, out_dtype, "group")
+                ref = ops.w4a8_matmul_ref(xq, sx, packed, scales, group, b, out_dtype, "group")
+                spelled = ops.w4a8_group_splitk_ref(xq, sx, packed, scales, group, b, out_dtype,
+                                                    splits)
+                torch.cuda.synchronize()
+                assert ops.w4a8_group.routes == {"decode": 1, "tile": 0}
+                assert y.dtype == out_dtype and y.shape == (m, n)
+                assert torch.equal(y, ref) and torch.equal(y, spelled), (m, out_dtype, splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,group", MODEL_SHAPES + RAGGED_SHAPES)
 def test_split_decode_within_tolerance(cuda, k, n, group):
     for m in _decode_ms("split"):
         x, packed, scales, bias = _split_case(cuda, m, k, n, group)
@@ -106,19 +131,19 @@ def test_split_decode_within_tolerance(cuda, k, n, group):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("formulation", ["two_level", "split"])
+@pytest.mark.parametrize("formulation", ["two_level", "split", "group"])
 def test_routes_around_the_threshold(cuda, formulation):
     """M up to the body's threshold takes the decode kernel, one row more
     the tile kernel; both right."""
     k, n, group = 4096, 1000, 128
     for m in (_threshold(formulation), _threshold(formulation) + 1):
         ops.reset_launch_counts()
-        if formulation == "two_level":
+        if formulation != "split":
             xq, sx, packed, scales, bias = _two_level_case(cuda, m, k, n, group)
             y = ops.w4a8_matmul(xq, sx, packed, scales, group, bias, torch.bfloat16, formulation)
             assert torch.equal(y, ops.w4a8_matmul_ref(xq, sx, packed, scales, group, bias,
                                                       torch.bfloat16, formulation))
-            routes = ops.w4a8_two_level.routes
+            routes = getattr(ops, f"w4a8_{formulation}").routes
         else:
             x, packed, scales, bias = _split_case(cuda, m, k, n, group)
             y = ops.weight_only_int4_matmul(x, packed, scales, group, bias)
@@ -136,12 +161,13 @@ def test_routes_around_the_threshold(cuda, formulation):
                                          (32, 4096 + 256, 200, 128)])
 def test_decode_every_split(cuda, m, k, n, group):
     """The decode kernels at every cluster size the units of K allow (1 to
-    8): two_level gives the plain version's bits at each, split lies within
-    the tolerance and equals its own spelling's sums within it; a split
-    count the kernels do not take raises."""
+    8): two_level and group give the plain version's bits at each, split
+    lies within the tolerance and equals its own spelling's sums within it;
+    a split count the kernels do not take raises."""
     xq, sx, packed, scales, bias = _two_level_case(cuda, m, k, n, group)
     r16, scol = ops.two_level_scales(scales)
     want = ops.w4a8_matmul_ref(xq, sx, packed, scales, group, bias, torch.float32, "two_level")
+    want_group = ops.w4a8_matmul_ref(xq, sx, packed, scales, group, bias, torch.float32)
     x, xp, xs, xb = _split_case(cuda, m, k, n, group)
     ref = ops.weight_only_int4_matmul_ref(x, xp, xs, group, xb, torch.float32)
     tol = ops.weight_only_int4_tolerance(x, xp, xs, group, ref)
@@ -153,7 +179,16 @@ def test_decode_every_split(cuda, m, k, n, group):
                                         torch.float32, splits)
             with pytest.raises(RuntimeError, match="pq_wo4_split_decode"):
                 W.wo4_split_launch(x, xp, xs, group, xb, torch.float32, splits)
+            with pytest.raises(RuntimeError, match="pq_w4a8_group_decode"):
+                A.w4a8_group_launch(xq, sx, packed, scales, group, bias, torch.float32, splits)
             continue
+        if A.group_decode_smem(m, k, group, splits) > A.GROUP_DECODE_SMEM:
+            with pytest.raises(RuntimeError, match="pq_w4a8_group_decode"):
+                A.w4a8_group_launch(xq, sx, packed, scales, group, bias, torch.float32, splits)
+        else:
+            yg = A.w4a8_group_launch(xq, sx, packed, scales, group, bias, torch.float32, splits)
+            torch.cuda.synchronize()
+            assert torch.equal(yg, want_group), splits
         y = A.w4a8_two_level_launch(xq, sx, packed, r16, scol, group, bias, torch.float32, splits)
         z = W.wo4_split_launch(x, xp, xs, group, xb, torch.float32, splits)
         spelled = ops.wo4_split_splitk_ref(x, xp, xs, group, xb, torch.float32, splits)
@@ -165,19 +200,22 @@ def test_decode_every_split(cuda, m, k, n, group):
         with pytest.raises(RuntimeError, match="pq_w4a8_two_level_decode"):
             A.w4a8_two_level_launch(xq, sx, packed, r16, scol, group, bias, torch.float32,
                                     splits)
+        with pytest.raises(RuntimeError, match="pq_w4a8_group_decode"):
+            A.w4a8_group_launch(xq, sx, packed, scales, group, bias, torch.float32, splits)
 
 
 @pytest.mark.cuda
 def test_decode_bitwise_and_cuda_graph(cuda):
     """Two calls give the same bits, and a call captured in a CUDA graph
     and replayed gives the eager call's bits (nothing kept between calls),
-    for both bodies, through the decode route."""
+    for the three bodies, through the decode route."""
     m, k, n, group = 4, 4096, 11008, 128
     xq, sx, packed, scales, bias = _two_level_case(cuda, m, k, n, group)
     tl = ops.two_level_scales(scales)
     x = torch.randn(m, k, device=cuda).to(torch.bfloat16)
     calls = (lambda: ops.w4a8_matmul(xq, sx, packed, scales, group, bias, torch.bfloat16,
                                      "two_level", tl),
+             lambda: ops.w4a8_matmul(xq, sx, packed, scales, group, bias, torch.bfloat16),
              lambda: ops.weight_only_int4_matmul(x, packed, scales, group, bias))
     for call in calls:
         first, second = call(), call()
@@ -191,7 +229,8 @@ def test_decode_bitwise_and_cuda_graph(cuda):
         torch.cuda.synchronize()
         assert torch.equal(captured, first)
         counts = ops.route_counts()
-        assert counts["w4a8_two_level_decode"] + counts["wo4_split_decode"] == 1
+        assert (counts["w4a8_two_level_decode"] + counts["w4a8_group_decode"]
+                + counts["wo4_split_decode"]) == 1
 
 
 @pytest.mark.cuda
@@ -207,3 +246,25 @@ def test_decode_cluster_occupancy(cuda):
             for k, n, group in MODEL_SHAPES:
                 splits = W.int4_decode_plan(m, n, k, group, held)
                 assert splits == 1 or -(-n // P.DECODE_ROWS) <= held[splits]
+
+
+@pytest.mark.cuda
+def test_group_decode_shared_memory_budget(cuda):
+    """The group kernel's cluster query counts its group sums: a split
+    count holds no cluster exactly where the sums pass the budget or the
+    count passes the units of K, and one launched there raises; the plan
+    picks a split whose sums fit, at a K too long for one split."""
+    for m, k in ((4, 4096), (16, 11008), (32, 11008), (32, 32768)):
+        held = A.group_decode_held(cuda, m, k, 128)
+        units, _ = W.int4_decode_units(k, 128)
+        for splits, clusters in held.items():
+            fits = splits <= units and A.group_decode_smem(m, k, 128, splits) <= A.GROUP_DECODE_SMEM
+            assert (clusters > 0) == fits, (m, k, splits, clusters)
+        splits = A.group_decode_plan(m, 4096, k, 128, held)
+        assert splits is None or A.group_decode_smem(m, k, 128, splits) <= A.GROUP_DECODE_SMEM
+    xq, sx, packed, scales, bias = _two_level_case(cuda, 32, 11008, 64, 128)
+    with pytest.raises(RuntimeError, match="pq_w4a8_group_decode"):
+        A.w4a8_group_launch(xq, sx, packed, scales, 128, bias, torch.float32, 1)
+    y = A.w4a8_group_launch(xq, sx, packed, scales, 128, bias, torch.float32, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(y, ops.w4a8_matmul_ref(xq, sx, packed, scales, 128, bias, torch.float32))

@@ -1,12 +1,15 @@
-"""The int4-weight tile GEMMs (``csrc/w4a8_tile.cu``, ``csrc/wo4_tile.cu``
-on ``csrc/int4_tile_sm90.cuh``) against their plain versions, on the card.
+"""The int4-weight tile GEMMs (``csrc/w4a8_tile.cu``, ``csrc/w4a8_group_tile.cu``,
+``csrc/wo4_tile.cu`` on ``csrc/int4_tile_sm90.cuh``) against their plain
+versions, on the card.
 Every test here skips without one.
 
 This file imports nothing of JAX:
 ``python -m pytest tests/test_torch_int4_tile_cuda.py --noconftest -q``.
 W4A8 two_level: equal to ``w4a8_matmul_ref(..., "two_level")`` bit for bit
 (the int32 sums are exact in any order and the epilogue runs once, on the
-whole sum). The split body: within ``ops.weight_only_int4_tolerance`` of its
+whole sum). W4A8 group: equal to ``w4a8_matmul_ref(..., "group")`` and to
+its tile spelling bit for bit (one K split, the chain over the groups in
+order). The split body: within ``ops.weight_only_int4_tolerance`` of its
 plain version (the same products, f32 sums in another order). Both at M 33,
 48, 64, 80, 256, 257 and 512 through the route the wrapper names, every
 group, ragged N and K, with and without a bias, f32, bf16 and f16 out; every
@@ -80,6 +83,22 @@ def test_two_level_tile_exact(cuda, k, n, group):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n,group", SHAPES)
+def test_group_tile_exact(cuda, k, n, group):
+    for m in TILE_MS:
+        xq, sx, packed, scales, bias = _two_level_case(cuda, m, k, n, group)
+        for out_dtype in OUT_DTYPES:
+            for b in (None, bias):
+                ops.reset_launch_counts()
+                y = ops.w4a8_matmul(xq, sx, packed, scales, group, b, out_dtype, "group")
+                ref = ops.w4a8_matmul_ref(xq, sx, packed, scales, group, b, out_dtype, "group")
+                torch.cuda.synchronize()
+                assert ops.w4a8_group.routes == {"decode": 0, "tile": 1}
+                assert y.dtype == out_dtype and y.shape == (m, n)
+                assert torch.equal(y, ref), (m, out_dtype, b is None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,group", SHAPES)
 def test_split_tile_within_tolerance(cuda, k, n, group):
     for m in TILE_MS:
         x, packed, scales, bias = _split_case(cuda, m, k, n, group)
@@ -101,12 +120,27 @@ def test_split_tile_within_tolerance(cuda, k, n, group):
                                          (512, 11008, 128, 128)])
 def test_tile_every_plan(cuda, m, k, n, group):
     """Every tile and split count the kernels take, at small M too (the
-    tile kernel takes any M): two_level the plain version's bits, split
-    within the tolerance of the plain version and of its own spelling; a
-    plan the kernels do not take raises."""
+    tile kernel takes any M): two_level and group the plain version's bits
+    (group its spelling's too, at its one split), split within the
+    tolerance of the plain version and of its own spelling; a plan the
+    kernels do not take raises."""
     xq, sx, packed, scales, bias = _two_level_case(cuda, m, k, n, group)
     r16, scol = ops.two_level_scales(scales)
     want = ops.w4a8_matmul_ref(xq, sx, packed, scales, group, bias, torch.float32, "two_level")
+    want_group = ops.w4a8_matmul_ref(xq, sx, packed, scales, group, bias, torch.float32)
+    for tokens in (64, 128, 256):
+        for splits in (1, 2, 4):
+            plan = (tokens, splits)
+            if tokens not in W.INT4_TILE_TOKENS["group"] or splits != 1:
+                with pytest.raises(RuntimeError, match="pq_w4a8_group_tile"):
+                    A.w4a8_group_launch(xq, sx, packed, scales, group, bias, torch.float32,
+                                        tile=plan)
+                continue
+            y = A.w4a8_group_launch(xq, sx, packed, scales, group, bias, torch.float32, tile=plan)
+            spelled = A.w4a8_group_tile_ref(xq, sx, packed, scales, group, bias, torch.float32,
+                                            plan)
+            torch.cuda.synchronize()
+            assert torch.equal(y, want_group) and torch.equal(spelled, want_group), plan
     x, xp, xs, xb = _split_case(cuda, m, k, n, group)
     ref = ops.weight_only_int4_matmul_ref(x, xp, xs, group, xb, torch.float32)
     tol = ops.weight_only_int4_tolerance(x, xp, xs, group, ref)
@@ -144,8 +178,8 @@ def test_tile_every_plan(cuda, m, k, n, group):
 def test_tile_bitwise_and_cuda_graph(cuda):
     """Two calls give the same bits, and a call captured in a CUDA graph
     and replayed gives the eager call's bits (nothing kept between calls),
-    for both bodies, through the tile route at a split plan and an unsplit
-    one."""
+    for the three bodies, through the tile route at a split plan and an
+    unsplit one."""
     k, n, group = 4096, 11008, 128
     for m in (48, 256):
         xq, sx, packed, scales, bias = _two_level_case(cuda, m, k, n, group)
@@ -153,6 +187,7 @@ def test_tile_bitwise_and_cuda_graph(cuda):
         x = torch.randn(m, k, device=cuda).to(torch.bfloat16)
         calls = (lambda: ops.w4a8_matmul(xq, sx, packed, scales, group, bias, torch.bfloat16,
                                          "two_level", tl),
+                 lambda: ops.w4a8_matmul(xq, sx, packed, scales, group, bias, torch.bfloat16),
                  lambda: ops.weight_only_int4_matmul(x, packed, scales, group, bias))
         for call in calls:
             first, second = call(), call()
@@ -166,4 +201,5 @@ def test_tile_bitwise_and_cuda_graph(cuda):
             torch.cuda.synchronize()
             assert torch.equal(captured, first)
             counts = ops.route_counts()
-            assert counts["w4a8_two_level_tile"] + counts["wo4_split_tile"] == 1
+            assert (counts["w4a8_two_level_tile"] + counts["w4a8_group_tile"]
+                    + counts["wo4_split_tile"]) == 1

@@ -2,8 +2,9 @@
 int8 GEMM of one checkout on the card.
 
     python3 tools/gemm_timing.py [--tree DIR] [--label NAME] [--sweep]
-    python3 tools/gemm_timing.py --int4 [--tree DIR] [--label NAME] [--ms 48,64,256,512]
-                                 [--sweep] [--plans] [--ablate]
+    python3 tools/gemm_timing.py --int4 [--tree DIR] [--label NAME] [--ms 1,4,16,48,64,256,512]
+                                 [--bodies two_level,split,group] [--sweep] [--plans]
+                                 [--ablate]
     python3 tools/gemm_timing.py --wo [--tree DIR] [--label NAME] [--ms 1,4,16,32,48,256,512]
                                  [--sweep] [--plans] [--ablate]
 
@@ -29,27 +30,30 @@ data the routing threshold and the plans are set from.
 
 With ``--int4`` it times the int4-weight GEMMs instead, through the
 wrappers a model calls (so each checkout takes its own route):
-``w4a8_two_level``, ``wo4_split`` and, for reference, ``w4a8_group``, at
-Llama-2-7B's four projections (group 128) and M = 48, 64, 256 and 512 (or
-``--ms``), each beside its bound and a library yardstick (two_level:
-``torch._int_mm`` over the requantized int8 copy of W with the same
-epilogue, M padded to 32, and ``torch._int_mm`` alone; split:
-``torch.matmul`` over a bf16 copy of the dequantized W; group: none).
-``--sweep`` (a checkout that has the int4 decode kernels) adds, at M = 1,
-2, 4, 8, 16, 24, 32, 48 and 64, the tile kernel and, up to 32 rows, the
-decode kernel at every split count (1 to 8), with the clusters of each size
-the card holds at once: the data ``INT4_DECODE_MAX_M`` and the decode plan
-come from. ``--plans`` (a checkout with the TMA tile kernels) times the
-tile kernels at every (tokens a tile, K splits) they take, at M = 48,
-64, 128, 256 and 512, with the clusters of each size the card holds: the
-data ``int4_tile_plan`` is set from. ``--ablate``
-builds variants of the two tile sources alone (``-DPQ_I4T_ABLATE``: 1 no
-conversion of the codes, 2 loads alone, 3 split without its group
-epilogue, 4 no loads, 5 two_level's per-code requant instead of the table)
-and times them beside the built kernel at M = 48 and 256 at the
-plan; and variants of the two decode sources (``-DPQ_I4D_ABLATE``: 1 the
-per-code requant instead of the table, 2 no conversion of the codes, 3
-loads alone), timed beside the built kernel at M = 4 at the plan's splits.
+``w4a8_two_level``, ``wo4_split`` and ``w4a8_group`` (or the bodies
+``--bodies`` names), at Llama-2-7B's four projections (group 128) and M =
+1, 4, 16, 48, 64, 256 and 512 (or ``--ms``), each beside its bound and a
+library yardstick (two_level: ``torch._int_mm`` over the requantized int8
+copy of W with the same epilogue, M padded to 32, and ``torch._int_mm``
+alone; split: ``torch.matmul`` over a bf16 copy of the dequantized W;
+group: none, no one call scales per group). ``--sweep`` (a checkout that
+has the bodies' decode kernels) adds, at M = 1, 2, 4, 8, 16, 24, 32, 48 and
+64, the tile kernel at its plan and, up to 32 rows, the decode kernel at
+every split count (1 to 8; group's where its group sums fit a block), with
+the clusters of each size the card holds at once: the data the thresholds
+(``INT4_DECODE_MAX_M``, ``SPLIT_DECODE_MAX_M``, ``GROUP_DECODE_MAX_M``) and
+the decode plans come from. ``--plans`` (a checkout with the TMA tile
+kernels) times the tile kernels at every (tokens a tile, K splits) they
+take, at M = 48, 64, 128, 256 and 512, with the clusters of each size the
+card holds: the data ``int4_tile_plan``'s constants are fitted to.
+``--ablate`` builds variants of the bodies' tile sources alone
+(``-DPQ_I4T_ABLATE``: 1 no conversion of the codes, 2 loads alone, 3 split
+and group without their group epilogue, 4 no loads, 5 two_level's per-code
+requant instead of the table) and times them beside the built kernel at M =
+48 and 256 at the plan; and variants of their decode sources
+(``-DPQ_I4D_ABLATE``: two_level 1 the per-code requant instead of the
+table, group 1 no group chain; 2 no conversion of the codes, 3 loads
+alone), timed beside the built kernel at M = 4 at the plan's splits.
 
 With ``--wo`` it times ``ops.weight_only_matmul`` instead, through the
 wrapper (so each checkout takes its own route), at Llama-2-7B's four
@@ -79,12 +83,26 @@ import sys
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-INT4_MS = (48, 64, 256, 512)
+INT4_MS = (1, 4, 16, 48, 64, 256, 512)
+INT4_BODIES = ("two_level", "split", "group")
 INT4_SWEEP_MS = (1, 2, 4, 8, 16, 24, 32, 48, 64)
 INT4_PLAN_MS = (48, 64, 128, 256, 512)
-ABLATIONS = {1: "no code conversion", 2: "loads alone", 3: "no group epilogue",
-             4: "no loads", 5: "per-code requant, no table"}
-DECODE_ABLATIONS = {1: "per-code requant, no table", 2: "no code conversion", 3: "loads alone"}
+# the tile sources' variants, by -DPQ_I4T_ABLATE value, and the bodies each
+# applies to
+ABLATIONS = {1: ("no code conversion", INT4_BODIES), 2: ("loads alone", INT4_BODIES),
+             3: ("no group epilogue", ("split", "group")), 4: ("no loads", INT4_BODIES),
+             5: ("per-code requant, no table", ("two_level",))}
+# the decode sources' variants, by -DPQ_I4D_ABLATE value: {body: label}
+DECODE_ABLATIONS = {1: {"two_level": "per-code requant, no table", "group": "no group chain"},
+                    2: dict.fromkeys(INT4_BODIES, "no code conversion"),
+                    3: dict.fromkeys(INT4_BODIES, "loads alone")}
+# each body's tile and decode sources, entries and wrapper
+INT4_SOURCES = {"two_level": ("w4a8_tile.cu", "w4a8_decode.cu"),
+                "split": ("wo4_tile.cu", "wo4_decode.cu"),
+                "group": ("w4a8_group_tile.cu", "w4a8_group_decode.cu")}
+INT4_ENTRIES = {"two_level": ("pq_w4a8_two_level", "pq_w4a8_two_level_decode"),
+                "split": ("pq_wo4_split", "pq_wo4_split_decode"),
+                "group": ("pq_w4a8_group_tile", "pq_w4a8_group_decode")}
 WO_MS = (1, 4, 16, 32, 48, 256, 512)
 WO_SWEEP_MS = (16, 24, 32, 48, 64)
 WO_PLAN_MS = (48, 64, 128, 256, 512)
@@ -106,31 +124,47 @@ def int4_operands(cs, ops, gen, dev, m, k, n, group, copies):
     return xq, sx, x, ws, [ops.two_level_scales(sc) for _, sc in ws]
 
 
-def int4_times(cs, ops, gen, dev, ms):
-    """ms of the three bodies through their wrappers, bounds and library
-    yardsticks, by "M= K= N=" label."""
+def int4_times(cs, ops, gen, dev, ms, bodies=INT4_BODIES):
+    """ms of the bodies through their wrappers (and the route each took,
+    where the wrapper counts routes), bounds and library yardsticks, by
+    "M= K= N=" label."""
     from protoquant_tpu_torch.core import numerics
 
     bf, group = torch.bfloat16, cs.GROUP4
+    wrappers = {"two_level": ops.w4a8_two_level, "split": ops.wo4_split,
+                "group": ops.w4a8_group}
     rows = {}
     for m in ms:
         for k, n in cs.LINEAR_SHAPES:
             wbytes = n * k // 2 + 4 * n * (k // group)
             xq, sx, x, ws, tls = int4_operands(cs, ops, gen, dev, m, k, n, group,
                                                cs.copies_for(wbytes))
-            row = {
-                "two_level": cs.bench([lambda w=w, tl=tl: ops.w4a8_matmul(
-                    xq, sx, *w, group, None, bf, "two_level", tl) for w, tl in zip(ws, tls)]),
-                "split": cs.bench([lambda w=w: ops.weight_only_int4_matmul(
-                    x, *w, group, None, bf) for w in ws]),
-                "group": cs.bench([lambda w=w: ops.w4a8_matmul(
-                    xq, sx, *w, group, None, bf, "group") for w in ws]),
+            calls = {
+                "two_level": [lambda w=w, tl=tl: ops.w4a8_matmul(
+                    xq, sx, *w, group, None, bf, "two_level", tl) for w, tl in zip(ws, tls)],
+                "split": [lambda w=w: ops.weight_only_int4_matmul(
+                    x, *w, group, None, bf) for w in ws],
+                "group": [lambda w=w: ops.w4a8_matmul(
+                    xq, sx, *w, group, None, bf, "group") for w in ws]}
+            row = {}
+            for body in bodies:
+                row[body] = cs.bench(calls[body])
+                routes = getattr(wrappers[body], "routes", None)
+                if routes is not None:
+                    before = dict(routes)
+                    calls[body][0]()
+                    row["route_" + body] = next(r for r, c in routes.items() if c != before[r])
+            row.update({
                 "bound_two_level": cs.bound_ms(m * k + 4 * m + wbytes + 4 * n + 2 * m * n,
                                                2 * m * n * k, cs.INT8_OPS_PER_S)[0],
                 "bound_split": cs.bound_ms(2 * m * k + wbytes + 2 * m * n, 2 * m * n * k,
                                            cs.BF16_FLOPS_PER_S)[0],
                 "bound_group": cs.bound_ms(m * k + 4 * m + wbytes + 2 * m * n, 2 * m * n * k,
-                                           cs.INT8_OPS_PER_S)[0]}
+                                           cs.INT8_OPS_PER_S)[0]})
+            if not {"two_level", "split"} & set(bodies):
+                rows[f"M={m} K={k} N={n}"] = row
+                del ws, tls
+                continue
             # library yardsticks over copies of W made beforehand
             xpad = torch.zeros(max(m, 32), k, dtype=torch.int8, device=dev)
             xpad[:m] = xq
@@ -153,7 +187,7 @@ def int4_times(cs, ops, gen, dev, ms):
     return rows
 
 
-def int4_sweep(cs, ops, gen, dev):
+def int4_sweep(cs, ops, gen, dev, bodies=INT4_BODIES):
     """The tile kernel and the decode kernel at every split count, by M,
     at the 7B shapes; with the plan and the clusters the card holds."""
     W = importlib.import_module("protoquant_tpu_torch.ops.wo4_matmul")
@@ -167,16 +201,35 @@ def int4_sweep(cs, ops, gen, dev):
         for m in INT4_SWEEP_MS:
             xq, sx, x, ws, tls = int4_operands(cs, ops, gen, dev, m, k, n, group,
                                                cs.copies_for(wbytes))
+            row = {}
+            if "group" in bodies:
+                held = A.group_decode_held(dev, min(m, 32), k, group)
+                row.update({
+                    "plan_splits_group": A.group_decode_plan(min(m, 32), n, k, group, held),
+                    "clusters_held_group": held,
+                    "tile_plan_group": W.int4_tile_plan(m, n, k, group, sms_of(dev), "group"),
+                    "tile_group": cs.bench([lambda w=w: A.w4a8_group_launch(
+                        xq, sx, *w, group, None, bf) for w in ws])})
+                for splits in range(1, 9):
+                    if m <= 32 and held[splits] > 0:  # the decode kernel takes up to 32 rows
+                        row[f"decode_group_{splits}"] = cs.bench([
+                            lambda w=w: A.w4a8_group_launch(xq, sx, *w, group, None, bf, splits)
+                            for w in ws])
+            if not {"two_level", "split"} & set(bodies):
+                out[f"M={m} K={k} N={n}"] = row
+                del ws, tls
+                continue
             held = {body: W.int4_decode_held(f"pq_{body}_decode", dev, min(m, 32), group)
                     for body in ("w4a8_two_level", "wo4_split")}
             plan = W.int4_decode_plan(m, n, k, group, held["w4a8_two_level"])
-            row = {"plan_splits": plan,
-                   "plan_splits_wo4_split": W.int4_decode_plan(m, n, k, group, held["wo4_split"]),
-                   "clusters_held": held, "clusters_launched": -(-n // P.DECODE_ROWS),
-                   "tile_two_level": cs.bench([lambda w=w, tl=tl: A.w4a8_two_level_launch(
-                       xq, sx, w[0], *tl, group, None, bf) for w, tl in zip(ws, tls)]),
-                   "tile_split": cs.bench([lambda w=w: W.wo4_split_launch(
-                       x, *w, group, None, bf) for w in ws])}
+            row.update({
+                "plan_splits": plan,
+                "plan_splits_wo4_split": W.int4_decode_plan(m, n, k, group, held["wo4_split"]),
+                "clusters_held": held, "clusters_launched": -(-n // P.DECODE_ROWS),
+                "tile_two_level": cs.bench([lambda w=w, tl=tl: A.w4a8_two_level_launch(
+                    xq, sx, w[0], *tl, group, None, bf) for w, tl in zip(ws, tls)]),
+                "tile_split": cs.bench([lambda w=w: W.wo4_split_launch(
+                    x, *w, group, None, bf) for w in ws])})
             units, _ = W.int4_decode_units(k, group)
             for splits in range(1, 9):
                 if m > 32 or splits > units:  # the decode kernels take up to 32 rows
@@ -191,7 +244,13 @@ def int4_sweep(cs, ops, gen, dev):
     return out
 
 
-def int4_plans(cs, ops, gen, dev):
+def sms_of(dev) -> int:
+    from protoquant_tpu_torch.ops.qmatmul import _sm_count
+
+    return _sm_count(dev)
+
+
+def int4_plans(cs, ops, gen, dev, bodies=INT4_BODIES):
     """The tile kernels at every (tokens a tile, K splits) they take,
     by M, at the 7B shapes, beside the plan's choice; and the clusters of
     each size the card holds (ms)."""
@@ -214,107 +273,116 @@ def int4_plans(cs, ops, gen, dev):
         for m in INT4_PLAN_MS:
             xq, sx, x, ws, tls = int4_operands(cs, ops, gen, dev, m, k, n, group,
                                                cs.copies_for(wbytes))
-            row = {"plan_split": W.int4_tile_plan(m, n, k, group, sms, "split"),
-                   "plan_two_level": W.int4_tile_plan(m, n, k, group, sms, "two_level")}
-            for tokens in W.INT4_TILE_TOKENS["two_level"]:
-                for splits in P.TILE_SPLITS:
-                    if splits > units:
-                        continue
-                    plan = (tokens, splits)
-                    row[f"two_level {tokens}x{splits}"] = cs.bench([
-                        lambda w=w, tl=tl, plan=plan: A.w4a8_two_level_launch(
-                            xq, sx, w[0], *tl, group, None, bf, tile=plan)
-                        for w, tl in zip(ws, tls)])
-                    if tokens in W.INT4_TILE_TOKENS["split"]:
-                        row[f"split {tokens}x{splits}"] = cs.bench([
-                            lambda w=w, plan=plan: W.wo4_split_launch(x, *w, group, None, bf,
-                                                                      tile=plan) for w in ws])
+            launch = {
+                "two_level": lambda w, tl, plan: A.w4a8_two_level_launch(
+                    xq, sx, w[0], *tl, group, None, bf, tile=plan),
+                "split": lambda w, tl, plan: W.wo4_split_launch(x, *w, group, None, bf,
+                                                                tile=plan),
+                "group": lambda w, tl, plan: A.w4a8_group_launch(xq, sx, *w, group, None, bf,
+                                                                 tile=plan)}
+            row = {}
+            for body in bodies:
+                row["plan_" + body] = W.int4_tile_plan(m, n, k, group, sms, body)
+                for tokens in W.INT4_TILE_TOKENS[body]:
+                    for splits in W.INT4_TILE_SPLITS[body]:
+                        if splits > units:
+                            continue
+                        plan = (tokens, splits)
+                        row[f"{body} {tokens}x{splits}"] = cs.bench([
+                            lambda w=w, tl=tl, plan=plan, body=body: launch[body](w, tl, plan)
+                            for w, tl in zip(ws, tls)])
             out[f"M={m} K={k} N={n}"] = row
             del ws, tls
     return out
 
 
-def int4_ablate_decode(cs, ops, gen, dev, tree):
+def _ablation_libs(tree, kind, variants, bodies):
+    """Build each body's ``kind`` source ("tile" or "decode") alone with
+    ``-DPQ_I4T_ABLATE`` / ``-DPQ_I4D_ABLATE`` = each variant into the
+    checkout's ``_build/ablate/``: {(variant, body): library}, variant 0
+    the built library."""
+    from protoquant_tpu_torch.ops import _build
+
+    build = os.path.join(os.path.abspath(tree), "protoquant_tpu_torch", "_build", "ablate")
+    os.makedirs(build, exist_ok=True)
+    flag = "-DPQ_I4T_ABLATE" if kind == "tile" else "-DPQ_I4D_ABLATE"
+    slot = 0 if kind == "tile" else 1
+    libs, procs = {}, {}
+    for body in bodies:
+        libs[(0, body)] = _build.lib()
+        for v, applies in variants.items():
+            if body not in applies:
+                continue
+            so = os.path.join(build, f"libpq_ablate_{kind}_{body}_{v}.so")
+            procs[(v, body)] = (so, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, f"{flag}={v}", "-shared", "-I",
+                 str(_build.CSRC), str(_build.CSRC / INT4_SOURCES[body][slot]), "-o", so, "-ldl"],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    for key, (so, proc) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc of ablation {key} failed:\n{log}")
+        libs[key] = ctypes.CDLL(so)
+        name = INT4_ENTRIES[key[1]][slot]
+        getattr(libs[key], name).argtypes = _build.SIGNATURES[name]
+    return libs
+
+
+def _int4_entry_args(body, xq, sx, x, w, tl, y, code, m, n, k, group):
+    """The pointers and sizes of a body's entry, before its plan."""
+    if body == "two_level":
+        ptrs = [xq.data_ptr(), sx.data_ptr(), w[0].data_ptr(), tl[0].data_ptr(), tl[1].data_ptr()]
+    elif body == "group":
+        ptrs = [xq.data_ptr(), sx.data_ptr(), w[0].data_ptr(), w[1].data_ptr()]
+    else:
+        ptrs = [x.data_ptr(), w[0].data_ptr(), w[1].data_ptr()]
+    return ptrs + [None, y.data_ptr(), code, m, n, k, group]
+
+
+def int4_ablate_decode(cs, ops, gen, dev, tree, bodies=INT4_BODIES):
     """The decode kernels built with one part left out, against the built
     kernel, at M = 4 and the plan's splits (ms)."""
     W = importlib.import_module("protoquant_tpu_torch.ops.wo4_matmul")
+    A = importlib.import_module("protoquant_tpu_torch.ops.w4a8_matmul")
     from protoquant_tpu_torch.ops import _build
 
     bf, group, m = torch.bfloat16, cs.GROUP4, 4
-    build = os.path.join(os.path.abspath(tree), "protoquant_tpu_torch", "_build", "ablate")
-    os.makedirs(build, exist_ok=True)
-    libs, procs = {0: _build.lib()}, {}
-    for v in DECODE_ABLATIONS:
-        so = os.path.join(build, f"libpq_ablate_decode_{v}.so")
-        procs[v] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, f"-DPQ_I4D_ABLATE={v}", "-shared", "-I",
-             str(_build.CSRC), str(_build.CSRC / "w4a8_decode.cu"),
-             str(_build.CSRC / "wo4_decode.cu"), "-o", so],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    for v, (so, proc) in procs.items():
-        log = proc.communicate()[0].decode(errors="replace")
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc of ablation {v} failed:\n{log}")
-        libs[v] = ctypes.CDLL(so)
-        for name in ("pq_w4a8_two_level_decode", "pq_wo4_split_decode"):
-            getattr(libs[v], name).argtypes = _build.SIGNATURES[name]
+    libs = _ablation_libs(tree, "decode", DECODE_ABLATIONS, bodies)
     out = {}
     code = _build.DTYPE_CODES[bf]
     for k, n in cs.LINEAR_SHAPES:
         wbytes = n * k // 2 + 4 * n * (k // group)
         xq, sx, x, ws, tls = int4_operands(cs, ops, gen, dev, m, k, n, group,
                                            cs.copies_for(wbytes))
-        plans = {body: W.int4_decode_plan(m, n, k, group, W.int4_decode_held(
-            f"pq_{body}_decode", dev, m, group)) for body in ("w4a8_two_level", "wo4_split")}
+        plans = {body: (A.group_decode_plan(m, n, k, group, A.group_decode_held(dev, m, k, group))
+                        if body == "group" else W.int4_decode_plan(m, n, k, group, W.int4_decode_held(
+                            INT4_ENTRIES[body][1], dev, m, group))) for body in bodies}
         y = torch.empty(m, n, dtype=bf, device=dev)
         row = {"plan_splits": plans}
-        for v, lib in libs.items():
-            def two_level(w, tl, lib=lib):
-                _build.check(lib.pq_w4a8_two_level_decode(
-                    xq.data_ptr(), sx.data_ptr(), w[0].data_ptr(), tl[0].data_ptr(),
-                    tl[1].data_ptr(), None, y.data_ptr(), code, m, n, k, group,
-                    plans["w4a8_two_level"], _build.stream_ptr(dev)), "two_level")
+        for (v, body), lib in libs.items():
+            fn = getattr(lib, INT4_ENTRIES[body][1])
 
-            def split(w, lib=lib):
-                _build.check(lib.pq_wo4_split_decode(
-                    x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), None, y.data_ptr(), code,
-                    m, n, k, group, plans["wo4_split"], _build.stream_ptr(dev)), "split")
+            def call(w, tl, fn=fn, body=body):
+                _build.check(fn(*_int4_entry_args(body, xq, sx, x, w, tl, y, code, m, n, k, group),
+                                plans[body], _build.stream_ptr(dev)), body)
 
-            label = "kernel" if v == 0 else DECODE_ABLATIONS[v]
-            row[f"two_level {label}"] = cs.bench([lambda w=w, tl=tl: two_level(w, tl)
-                                                  for w, tl in zip(ws, tls)])
-            if v != 1:  # the split body has no table
-                row[f"split {label}"] = cs.bench([lambda w=w: split(w) for w in ws])
+            label = "kernel" if v == 0 else DECODE_ABLATIONS[v][body]
+            row[f"{body} {label}"] = cs.bench([lambda w=w, tl=tl, call=call: call(w, tl)
+                                               for w, tl in zip(ws, tls)])
         out[f"M={m} K={k} N={n}"] = row
         del ws, tls
     return out
 
 
-def int4_ablate(cs, ops, gen, dev, tree):
+def int4_ablate(cs, ops, gen, dev, tree, bodies=INT4_BODIES):
     """The tile kernels built with one part left out, against the built
     kernel, at M = 48 and 256 and the plan (ms)."""
     W = importlib.import_module("protoquant_tpu_torch.ops.wo4_matmul")
     from protoquant_tpu_torch.ops import _build
-    from protoquant_tpu_torch.ops.qmatmul import _sm_count
 
     bf, group = torch.bfloat16, cs.GROUP4
-    build = os.path.join(os.path.abspath(tree), "protoquant_tpu_torch", "_build", "ablate")
-    os.makedirs(build, exist_ok=True)
-    libs, procs = {0: _build.lib()}, {}
-    for v in ABLATIONS:
-        so = os.path.join(build, f"libpq_ablate_{v}.so")
-        procs[v] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, f"-DPQ_I4T_ABLATE={v}", "-shared", "-I",
-             str(_build.CSRC), str(_build.CSRC / "w4a8_tile.cu"),
-             str(_build.CSRC / "wo4_tile.cu"), "-o", so, "-ldl"],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    for v, (so, proc) in procs.items():
-        log = proc.communicate()[0].decode(errors="replace")
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc of ablation {v} failed:\n{log}")
-        libs[v] = ctypes.CDLL(so)
-        for name in ("pq_w4a8_two_level", "pq_wo4_split"):
-            getattr(libs[v], name).argtypes = _build.SIGNATURES[name]
+    libs = _ablation_libs(tree, "tile", {v: applies for v, (_, applies) in ABLATIONS.items()},
+                          bodies)
     out = {}
     code = _build.DTYPE_CODES[bf]
     for m in (48, 256):
@@ -322,28 +390,20 @@ def int4_ablate(cs, ops, gen, dev, tree):
             wbytes = n * k // 2 + 4 * n * (k // group)
             xq, sx, x, ws, tls = int4_operands(cs, ops, gen, dev, m, k, n, group,
                                                cs.copies_for(wbytes))
-            plans = {body: W.int4_tile_plan(m, n, k, group, _sm_count(dev), body)
-                     for body in ("two_level", "split")}
+            plans = {body: W.int4_tile_plan(m, n, k, group, sms_of(dev), body) for body in bodies}
             y = torch.empty(m, n, dtype=bf, device=dev)
             row = {"plans": plans}
-            for v, lib in libs.items():
-                def two_level(w, tl, lib=lib):
-                    _build.check(lib.pq_w4a8_two_level(
-                        xq.data_ptr(), sx.data_ptr(), w[0].data_ptr(), tl[0].data_ptr(),
-                        tl[1].data_ptr(), None, y.data_ptr(), code, m, n, k, group,
-                        *plans["two_level"], _build.stream_ptr(dev)), "two_level")
+            for (v, body), lib in libs.items():
+                fn = getattr(lib, INT4_ENTRIES[body][0])
 
-                def split(w, lib=lib):
-                    _build.check(lib.pq_wo4_split(
-                        x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), None, y.data_ptr(),
-                        code, m, n, k, group, *plans["split"], _build.stream_ptr(dev)), "split")
+                def call(w, tl, fn=fn, body=body):
+                    _build.check(fn(*_int4_entry_args(body, xq, sx, x, w, tl, y, code, m, n, k,
+                                                      group),
+                                    *plans[body], _build.stream_ptr(dev)), body)
 
-                label = "kernel" if v == 0 else ABLATIONS[v]
-                if v != 3:  # two_level has no group epilogue
-                    row[f"two_level {label}"] = cs.bench([lambda w=w, tl=tl: two_level(w, tl)
-                                                          for w, tl in zip(ws, tls)])
-                if v != 5:  # split has no table
-                    row[f"split {label}"] = cs.bench([lambda w=w: split(w) for w in ws])
+                label = "kernel" if v == 0 else ABLATIONS[v][0]
+                row[f"{body} {label}"] = cs.bench([lambda w=w, tl=tl, call=call: call(w, tl)
+                                                   for w, tl in zip(ws, tls)])
             out[f"M={m} K={k} N={n}"] = row
             del ws, tls
     return out
@@ -492,6 +552,7 @@ def main() -> int:
     parser.add_argument("--plans", action="store_true")
     parser.add_argument("--wo", action="store_true")
     parser.add_argument("--ms", default=None)
+    parser.add_argument("--bodies", default=",".join(INT4_BODIES))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("gemm_timing: needs an NVIDIA card", file=sys.stderr)
@@ -522,15 +583,17 @@ def main() -> int:
         return 0
     if args.int4:
         ms = [int(v) for v in args.ms.split(",")] if args.ms else INT4_MS
+        bodies = tuple(args.bodies.split(","))
         line = {"label": args.label, "tree": args.tree, "card": smi.stdout.strip(),
-                "int4_ms": int4_times(cs, ops, gen, dev, ms)}
+                "int4_ms": int4_times(cs, ops, gen, dev, ms, bodies)}
         if args.sweep:
-            line["int4_sweep_ms"] = int4_sweep(cs, ops, gen, dev)
+            line["int4_sweep_ms"] = int4_sweep(cs, ops, gen, dev, bodies)
         if args.plans:
-            line["int4_plans_ms"] = int4_plans(cs, ops, gen, dev)
+            line["int4_plans_ms"] = int4_plans(cs, ops, gen, dev, bodies)
         if args.ablate:
-            line["int4_ablate_ms"] = int4_ablate(cs, ops, gen, dev, args.tree)
-            line["int4_decode_ablate_ms"] = int4_ablate_decode(cs, ops, gen, dev, args.tree)
+            line["int4_ablate_ms"] = int4_ablate(cs, ops, gen, dev, args.tree, bodies)
+            line["int4_decode_ablate_ms"] = int4_ablate_decode(cs, ops, gen, dev, args.tree,
+                                                               bodies)
         print(json.dumps(line), flush=True)
         return 0
 

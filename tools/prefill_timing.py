@@ -15,7 +15,8 @@ JSON line: the card, and for each path the prefill steps' mean wall time
 (host clock around each step and a synchronize), device busy time (the sum
 of the kernels' device time) and the largest kernels' device time, per step;
 and the same for the DECODE_STEPS decode steps that follow (4 slots at
-contexts of ~513 tokens).
+contexts of ~513 tokens). ``dynamic_int4`` runs the W4A8 formulation that
+``W4A8_FORMULATION`` names (default two_level; the line records it).
 To compare two checkouts, run it on each in turns (A, B, B, A) within one
 call on one card.
 """
@@ -110,7 +111,10 @@ def main() -> int:
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    line = {"label": args.label, "tree": args.tree, "card": smi.stdout.strip()}
+    from protoquant_tpu_torch import ops
+
+    line = {"label": args.label, "tree": args.tree, "card": smi.stdout.strip(),
+            "w4a8_formulation": ops.resolve_w4a8_formulation()}
     for mode, layout in (path.split(":") for path in args.paths.split(",")):
         line[f"{mode} {layout}"] = prefill_steps(mode, layout, args.layers, dev)
     print(json.dumps(line), flush=True)
