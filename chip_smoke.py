@@ -220,17 +220,21 @@ Phases (any failure exits non-zero and prints no result line):
               with real scales; planted faults in the plain version (a hop
               dropped, the chunk one off, at tp = 4 the ring's order
               reversed) must differ; 1000 back-to-back calls of M from 1 to
-              256 (tp 2 and 4 in turn) all equal; timed with CUDA events
-              beside its bound (the weight's bytes, every rank reading the
-              one card), its plain version and torch._int_mm of the
-              unsharded product (a reading)
+              256 (tp 2 and 4 in turn) all equal; each case on the route
+              of its M (decode up to 32 rows, prefill above), printed with
+              its plan (K splits a cluster, clusters, blocks); timed with
+              CUDA events beside its bound (the weight's bytes, every rank
+              reading the one card), its plain version and torch._int_mm of
+              the unsharded product (a reading)
  28. tp       phase 4's model split over tp = 2 ranks sharing the card
               (threads of this process, make_mesh(devices=["cuda:0"] * 2)),
               collective=True under RING_BACKEND="dma", serving phase 4's
               6 requests through Engine(..., mesh=mesh); each decode step
-              must launch 2 x 32 ring kernels and per rank the rowquant,
-              qmatmul, scatter and attention the model implies; the share
-              of tokens equal to phase 4's is a reading
+              must launch 2 x 32 ring kernels (decode route) and per rank
+              the rowquant, qmatmul, scatter and attention the model
+              implies; the ring's launches by route over every forward's
+              token rows asserted; the share of tokens equal to phase 4's
+              is a reading
  29. tp agreement  phase 5 for a 2-layer full-width TP model, tp = 2 and 4,
               f32 and bf16, kernels against plain versions on the card;
               planted faults: the ring dropping a hop, adding the chunk
@@ -2156,9 +2160,11 @@ def path_kernels(ops, mode: str, kv_dtype: str = "int8") -> tuple:
 # wrapper -> that kernel's route count (ops.ROUTED)
 DECODE_ROUTE = {"qmatmul": "qmatmul_decode",
                 "paged_int8_attention": "paged_int8_attention_split",
+                "qmatmul_reduce_scatter_dma": "qmatmul_reduce_scatter_dma_decode",
                 **{name: name + "_split" for name in ROUTED_ATTENTIONS},
                 **{name: name + "_decode" for name in ROUTED_GEMMS}}
-PREFILL_ROUTE = {**{name: name + "_prefill" for name in ROUTED_ATTENTIONS},
+PREFILL_ROUTE = {"qmatmul_reduce_scatter_dma": "qmatmul_reduce_scatter_dma_prefill",
+                 **{name: name + "_prefill" for name in ROUTED_ATTENTIONS},
                  **{name: name + "_tile" for name in ROUTED_GEMMS}}
 
 
@@ -2927,15 +2933,26 @@ def check_ring(ops, gen, dev):
     256, all equal. Timed (``bench_eager``) beside its bound (the weight's
     bytes: all ranks read from the one card), its plain version and, as a
     reading, ``torch._int_mm`` of the unsharded product with M padded to
-    32 (no one PyTorch call computes a ring reduce-scatter)."""
+    32 (no one PyTorch call computes a ring reduce-scatter). Each case
+    asserts its route (M <= RING_DECODE_MAX_M decode, else prefill) and
+    keeps its plan (the K splits of a cluster, the clusters and blocks)."""
+    from protoquant_tpu_torch.ops.collective_matmul import ring_plan_of, ring_route, ring_tiles
+
     cases = []
     for tp in (2, 4):
         for k, n in TP_SHAPES:
             for m in (4, 256):
                 faults = {}
+                route = ring_route(m)
                 for real in (False, True):
                     args = _ring_operands(gen, dev, tp, m, k, n, real)
+                    before = dict(ops.qmatmul_reduce_scatter_dma.routes)
                     got = ops.qmatmul_reduce_scatter_dma_all(*args)
+                    after = ops.qmatmul_reduce_scatter_dma.routes
+                    if after[route] != before[route] + 1 or sum(after.values()) != sum(
+                            before.values()) + 1:
+                        raise AssertionError(f"ring tp={tp} M={m}: not the {route} route "
+                                             f"({before} -> {after})")
                     want = ops.qmatmul_reduce_scatter_dma_all_ref(*args)
                     torch.cuda.synchronize()
                     if not all(torch.equal(a, b) for a, b in zip(got, want)):
@@ -2962,8 +2979,11 @@ def check_ring(ops, gen, dev):
                 b, kind = bound_ms(n * k + m * k + 4 * tp * (m + n) + 4 * m * n,
                                    2 * m * n * k, INT8_OPS_PER_S)
                 full = [torch.cat(c[2], 1) for c in copies]
+                splits, clusters = ring_plan_of(args[0], args[2]), ring_tiles(n // tp) * tp
                 cases.append({
                     "shape": f"tp={tp} M={m} K={k} N={n}", "max_abs_err": 0.0,
+                    "plan": {"route": route, "k_splits": splits, "clusters": clusters,
+                             "blocks": clusters * splits},
                     "ms": bench_eager([lambda c=c: ops.qmatmul_reduce_scatter_dma_all(*c)
                                        for c in copies]),
                     "plain_ms": bench_eager([lambda c=c: ops.qmatmul_reduce_scatter_dma_all_ref(
@@ -3005,8 +3025,20 @@ def tp_step_launches(ops, layers: int, tp: int) -> dict:
     per_step = dict.fromkeys(ops.KERNELS, 0)
     per_step.update({"rowquant": tp * (4 * layers + 1), "qmatmul": tp * (5 * layers + 1),
                      "kv_scatter_decode": tp * layers, "int8_kv_attention": tp * layers,
-                     "qmatmul_reduce_scatter_dma": 2 * layers})
+                     "qmatmul_reduce_scatter_dma": 2 * layers,
+                     "qmatmul_reduce_scatter_dma_decode": 2 * layers,
+                     "qmatmul_reduce_scatter_dma_prefill": 0})
     return per_step
+
+
+def ring_routes(layers: int, chunks: list, decodes: list) -> dict:
+    """The ring's launches by route over forwards of ``chunks`` and
+    ``decodes`` token rows: o_proj and down_proj of each layer, on the
+    decode route up to RING_DECODE_MAX_M rows and the prefill route above."""
+    from protoquant_tpu_torch.ops.collective_matmul import ring_route
+
+    routes = [ring_route(r) for r in chunks + decodes]
+    return {route: 2 * layers * routes.count(route) for route in ("decode", "prefill")}
 
 
 TP_KERNELS = ("rowquant", "qmatmul", "kv_scatter_decode", "int8_kv_attention",
@@ -3069,6 +3101,8 @@ def run_tp_slice(ops, seed: int, dev, single_outputs):
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in prompt_lens]
     per_step = tp_step_launches(ops, cfg.num_hidden_layers, TP)
+    # every forward's token rows: the ring routes by them
+    chunks, decodes = forward_rows(engine)
     with ring_backend("dma"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3079,6 +3113,13 @@ def run_tp_slice(ops, seed: int, dev, single_outputs):
         launches = path_counts(ops)
     peak = torch.cuda.max_memory_allocated()
     label = f"tp slice dynamic tp={TP} (ring dma, int8 KV)"
+    want = ring_routes(cfg.num_hidden_layers, chunks, decodes)
+    got = {route: launches[f"qmatmul_reduce_scatter_dma_{route}"] for route in want}
+    log(f"{label}: {len(chunks)} prefill forwards of {sorted(set(chunks))} rows, "
+        f"{len(decodes)} decode forwards; qmatmul_reduce_scatter_dma launches by route "
+        f"{json.dumps(got)}")
+    if got != want:
+        raise AssertionError(f"{label}: ring routes {got} != {want}")
     stats = _log_served(label, prompts, outs, wall, prefill_ms, decode_ms, peak)
     log(f"{label} launches: {json.dumps(launches)}; per decode step {json.dumps(per_step)}; "
         f"KV cache {cache_bytes} bytes = {cache_bytes / 2**20:.4f} MiB over {TP} ranks")
@@ -3822,9 +3863,12 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
                            "protoquant_tpu/ops/attention.py:854", "decode"),
     "mixed_kv_attention_prefill": ("protoquant_tpu_torch/csrc/attn_prefill.cuh",
                                    "protoquant_tpu/ops/attention.py:854", "prefill"),
+    "qmatmul_reduce_scatter_dma_decode": ("protoquant_tpu_torch/csrc/collective_matmul.cu",
+                                          "protoquant_tpu/ops/collective_matmul.py:48",
+                                          f"tp=2 M=4 K={HIDDEN} N={HIDDEN}"),
     "qmatmul_reduce_scatter_dma": ("protoquant_tpu_torch/csrc/collective_matmul.cu",
                                    "protoquant_tpu/ops/collective_matmul.py:48",
-                                   f"tp=2 M=4 K={HIDDEN} N={HIDDEN}"),
+                                   f"tp=2 M=256 K={HIDDEN} N={HIDDEN}"),
 }
 # Every file of a kernel whose wrapper runs more than one source, by the
 # calls that run each: a decode is the split kernel and then the merge, two
@@ -3852,6 +3896,9 @@ KERNEL_SOURCES = {
     "paged_int8_attention_split": {"decode": [_CSRC + f for f in (
         "attn_split.cuh", "attn_split.cu", "attn_split_paged.cu")] + _MERGE},
     "qmatmul": {"prefill": [_CSRC + "qmatmul.cu", _CSRC + "sm90_gemm.cuh"]},
+    "qmatmul_decode": {"decode_gemm": [_CSRC + "qmatmul_decode.cu", _CSRC + "int8_mma.cuh"]},
+    **{name: {"ring": [_CSRC + "collective_matmul.cu", _CSRC + "int8_mma.cuh"]}
+       for name in ("qmatmul_reduce_scatter_dma", "qmatmul_reduce_scatter_dma_decode")},
     **{name + "_decode": {"decode_gemm": [_CSRC + "int4_decode.cuh", _CSRC + f"{src}_decode.cu"]}
        for name, src in (("wo4_split", "wo4"), ("w4a8_two_level", "w4a8"),
                          ("w4a8_group", "w4a8_group"), ("weight_only_matmul", "wo"))},
@@ -3864,6 +3911,7 @@ KERNEL_SOURCES = {
 # and the "_prefill" entries are counted under their own): the wrapper's own
 # count is the routes' sum.
 ROUTE_COUNT = {"qmatmul": "qmatmul_tile", "paged_int8_attention": "paged_int8_attention_walk",
+               "qmatmul_reduce_scatter_dma": "qmatmul_reduce_scatter_dma_prefill",
                **{name: name + "_split" for name in ROUTED_ATTENTIONS},
                **{name: name + "_tile" for name in ROUTED_GEMMS}}
 # the decode-route entries of a routed GEMM, by the wrapper whose cases they
@@ -4024,20 +4072,25 @@ def run_all(ops, seed: int, dev) -> list:
             for dtype in (torch.float32, torch.bfloat16):
                 timed(f"26 gpt_oss agreement {mode} {kv_dtype} {dtype}", run_agreement, ops,
                       seed, dev, dtype, mode, None, None, kv_dtype, "gpt_oss_20b", "dense")
-    results["qmatmul_reduce_scatter_dma"] = timed("27 ring kernel", check_ring, ops, gen, dev)
-    for c in results["qmatmul_reduce_scatter_dma"]:
+    ring_cases = timed("27 ring kernel", check_ring, ops, gen, dev)
+    # each route's cases under its own entry, as the routed GEMMs'
+    results["qmatmul_reduce_scatter_dma_decode"] = [c for c in ring_cases
+                                                    if c["plan"]["route"] == "decode"]
+    results["qmatmul_reduce_scatter_dma"] = [c for c in ring_cases
+                                             if c["plan"]["route"] == "prefill"]
+    for c in ring_cases:
         log(f"kernel qmatmul_reduce_scatter_dma {c['shape']}: {c['ms']:.4f} ms, plain "
             f"{c['plain_ms']:.4f} ms, library (torch._int_mm, unsharded, a reading) "
             f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}), err "
-            f"{c['max_abs_err']}, planted faults' differing elements "
-            f"{c['faults_differing_elements']}")
+            f"{c['max_abs_err']}, plan {json.dumps(c['plan'])}, planted faults' differing "
+            f"elements {c['faults_differing_elements']}")
     by_path["tp"], stats["tp dynamic"] = timed(
         "28 tp slice", run_tp_slice, ops, seed, dev, stats["dense dynamic"]["outputs"])
     for tp in (2, 4):
         for dtype in (torch.float32, torch.bfloat16):
             timed(f"29 tp agreement tp={tp} {dtype}", run_tp_agreement, ops, seed, dev, dtype,
                   tp)
-    ring = {c["shape"]: c["ms"] for c in results["qmatmul_reduce_scatter_dma"]}
+    ring = {c["shape"]: c["ms"] for c in ring_cases}
     steps = sorted(stats["tp dynamic"]["decode_step_ms"])
     single = sorted(stats["dense dynamic"]["decode_step_ms"])
     ring_ms = LAYERS * (ring[f"tp={TP} M=4 K={HIDDEN} N={HIDDEN}"]

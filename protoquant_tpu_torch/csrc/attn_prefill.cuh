@@ -218,20 +218,6 @@ struct ApGeom {
   static constexpr int MINB = DH <= 64 ? 2 : 1;
 };
 
-__device__ __forceinline__ void ap_cp16(void* dst, const void* src, bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void ap_cp4(void* dst, const void* src, bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(pred ? 4 : 0)
-               : "memory");
-}
-
 // ldmatrix and mma are volatile asm: never moved across the block's barriers.
 __device__ __forceinline__ void ap_ldsm4(uint32_t (&r)[4], const __nv_bfloat16* p) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(p);
@@ -429,26 +415,26 @@ __global__ void __launch_bounds__(AP_THREADS, (ApGeom<DH, V4, VAR, QT, KIVI>::MI
     const int8_t* vsrc = vb + (size_t)(V4 ? c0 / 2 : c0) * DH;
     for (int u = threadIdx.x; u < KT * DH / 16; u += AP_THREADS) {
       const bool p = u / (DH / 16) < keys;
-      ap_cp16(st + 16 * u, p ? ksrc + 16 * u : kb, p);
-      if constexpr (!V4) ap_cp16(st + Gm::OFF_V + 16 * u, p ? vsrc + 16 * u : vb, p);
+      pq_cp_async16(st + 16 * u, p ? ksrc + 16 * u : kb, p);
+      if constexpr (!V4) pq_cp_async16(st + Gm::OFF_V + 16 * u, p ? vsrc + 16 * u : vb, p);
     }
     if constexpr (V4) {  // packed row pr holds tokens c0 + 2 pr and c0 + 2 pr + 1
       for (int u = threadIdx.x; u < (KT / 2) * DH / 16; u += AP_THREADS) {
         const bool p = 2 * (u / (DH / 16)) < keys;
-        ap_cp16(st + Gm::OFF_V + 16 * u, p ? vsrc + 16 * u : vb, p);
+        pq_cp_async16(st + Gm::OFF_V + 16 * u, p ? vsrc + 16 * u : vb, p);
       }
     }
     for (int j = threadIdx.x; j < KT; j += AP_THREADS) {
       const bool p = j < keys;
-      ap_cp4(st + Gm::OFF_KS + 4 * j, p ? ksb + c0 + j : ksb, p);
+      pq_cp_async4(st + Gm::OFF_KS + 4 * j, p ? ksb + c0 + j : ksb, p);
       // K8V4: token c0 + j's scale in the plane of its parity (c0 is even)
       const float* vsj = V4 ? vsb + (j & 1) * (S / 2) + (c0 + j) / 2 : vsb + c0 + j;
-      ap_cp4(st + Gm::OFF_VS + 4 * j, p ? vsj : vsb, p);
+      pq_cp_async4(st + Gm::OFF_VS + 4 * j, p ? vsj : vsb, p);
       if constexpr (EXT) {
         if (ring) {
           int* pos = reinterpret_cast<int*>(st + Gm::OFF_POS) + j;
           if (p)
-            ap_cp4(pos, a.kpos + (size_t)b * S + c0 + j, true);
+            pq_cp_async4(pos, a.kpos + (size_t)b * S + c0 + j, true);
           else
             *pos = -1;  // past the ring's columns
         }
@@ -491,13 +477,13 @@ __global__ void __launch_bounds__(AP_THREADS, (ApGeom<DH, V4, VAR, QT, KIVI>::MI
       const int keys = min(KT, TC - c0);
       for (int u = threadIdx.x; u < KT * DH / 16; u += AP_THREADS) {
         const bool p = u / (DH / 16) < keys;
-        ap_cp16(st + 16 * u, p ? ktb + (size_t)c0 * DH + 16 * u : ktb, p);
-        ap_cp16(st + Gm::OFF_V + 16 * u, p ? vtb + (size_t)c0 * DH + 16 * u : vtb, p);
+        pq_cp_async16(st + 16 * u, p ? ktb + (size_t)c0 * DH + 16 * u : ktb, p);
+        pq_cp_async16(st + Gm::OFF_V + 16 * u, p ? vtb + (size_t)c0 * DH + 16 * u : vtb, p);
       }
       for (int j = threadIdx.x; j < KT; j += AP_THREADS) {
         const bool p = j < keys;
-        ap_cp4(st + Gm::OFF_KS + 4 * j, p ? ktsb + c0 + j : ktsb, p);
-        ap_cp4(st + Gm::OFF_VS + 4 * j, p ? vtsb + c0 + j : vtsb, p);
+        pq_cp_async4(st + Gm::OFF_KS + 4 * j, p ? ktsb + c0 + j : ktsb, p);
+        pq_cp_async4(st + Gm::OFF_VS + 4 * j, p ? vtsb + c0 + j : vtsb, p);
       }
       return;
     }
@@ -506,13 +492,13 @@ __global__ void __launch_bounds__(AP_THREADS, (ApGeom<DH, V4, VAR, QT, KIVI>::MI
     const int8_t* vsrc = vb + (size_t)(V4 ? c0 / 2 : c0) * DH;
     for (int u = threadIdx.x; u < (KT / 2) * DH / 16; u += AP_THREADS) {
       const bool p = 2 * (u / (DH / 16)) < keys;  // packed row: tokens c0 + 2 pr, + 1
-      ap_cp16(st + 16 * u, p ? ksrc + 16 * u : kb, p);
-      if constexpr (V4) ap_cp16(st + Gm::OFF_V + 16 * u, p ? vsrc + 16 * u : vb, p);
+      pq_cp_async16(st + 16 * u, p ? ksrc + 16 * u : kb, p);
+      if constexpr (V4) pq_cp_async16(st + Gm::OFF_V + 16 * u, p ? vsrc + 16 * u : vb, p);
     }
     if constexpr (!V4) {
       for (int u = threadIdx.x; u < KT * DH / 16; u += AP_THREADS) {
         const bool p = u / (DH / 16) < keys;
-        ap_cp16(st + Gm::OFF_V + 16 * u, p ? vsrc + 16 * u : vb, p);
+        pq_cp_async16(st + Gm::OFF_V + 16 * u, p ? vsrc + 16 * u : vb, p);
       }
     }
     int ch0;
@@ -520,12 +506,12 @@ __global__ void __launch_bounds__(AP_THREADS, (ApGeom<DH, V4, VAR, QT, KIVI>::MI
     if (n_sr <= Gm::SR) {
       const float* src = chb + (size_t)ch0 * DH;
       for (int u = threadIdx.x; u < n_sr * DH / 4; u += AP_THREADS)
-        ap_cp16(st + Gm::OFF_SC + 16 * u, src + 4 * u, true);
+        pq_cp_async16(st + Gm::OFF_SC + 16 * u, src + 4 * u, true);
     }
     for (int j = threadIdx.x; j < KT; j += AP_THREADS) {
       const bool p = j < keys;
       const float* vsj = V4 ? vsb + (j & 1) * (S / 2) + (c0 + j) / 2 : vsb + c0 + j;
-      ap_cp4(st + Gm::OFF_VS + 4 * j, p ? vsj : vsb, p);
+      pq_cp_async4(st + Gm::OFF_VS + 4 * j, p ? vsj : vsb, p);
     }
   };
 
@@ -607,7 +593,7 @@ __global__ void __launch_bounds__(AP_THREADS, (ApGeom<DH, V4, VAR, QT, KIVI>::MI
       load(s, c_load);
       c_load = next_tile(c_load);
     }
-    sp_commit();
+    pq_cp_async_commit();
   }
   // Q rows r0 .. r0 + 63 as NQ bf16 terms, while the first tiles are in
   // flight; rows past R are 0
@@ -630,13 +616,13 @@ __global__ void __launch_bounds__(AP_THREADS, (ApGeom<DH, V4, VAR, QT, KIVI>::MI
   int it = 0;
 #pragma unroll 1
   for (int v = c_first; v < v_end; v = next_tile(v), ++it) {
-    sp_wait<NS - 2>();  // this thread's copies of tile it have landed
+    pq_cp_async_wait<NS - 2>();  // this thread's copies of tile it have landed
     __syncthreads();    // everyone's have; tile it - 1 is consumed
     if (c_load < v_end) {
       load((it + NS - 1) % NS, c_load);
       c_load = next_tile(c_load);
     }
-    sp_commit();
+    pq_cp_async_commit();
     const bool tail = KIVI && v >= pk_end;  // block-uniform
     const int c0 = tail ? v - pk_end : v;
     const unsigned char* st = raw + (it % NS) * Gm::STAGE;
@@ -811,7 +797,7 @@ __global__ void __launch_bounds__(AP_THREADS, (ApGeom<DH, V4, VAR, QT, KIVI>::MI
       }
     }
   }
-  sp_wait<0>();
+  pq_cp_async_wait<0>();
 
   // the key parts of a row group meet in shared memory, lane by lane (the
   // same rows and dims), in part order: m = max, l and O scaled to it

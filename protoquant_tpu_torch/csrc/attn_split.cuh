@@ -337,27 +337,27 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(const AttnSplitA
     for (int idx = threadIdx.x; idx < (j1 - j0) * C16; idx += AS_THREADS) {
       const int j = j0 + idx / C16, c = 16 * (idx % C16);
       const size_t r = pool_row(k0 + j);
-      sp_cp16(Ks + j * KSTR + c, kg + r * DH + c);
-      if (!V4) sp_cp16(Vs + j * DH + c, vg + r * DH + c);
+      pq_cp_async16(Ks + j * KSTR + c, kg + r * DH + c);
+      if (!V4) pq_cp_async16(Vs + j * DH + c, vg + r * DH + c);
     }
     if (V4) {  // the packed rows holding live keys: row r has tokens k0 + 2r, k0 + 2r + 1
       const int r0 = j0 / 2, r1 = (j1 + 1) / 2;
       for (int idx = threadIdx.x; idx < (r1 - r0) * C16; idx += AS_THREADS) {
         const int row = r0 + idx / C16, c = 16 * (idx % C16);
-        sp_cp16(Vs + row * DH + c, vg + (size_t)(k0 / 2 + row) * DH + c);
+        pq_cp_async16(Vs + row * DH + c, vg + (size_t)(k0 / 2 + row) * DH + c);
       }
     }
     for (int j = j0 + threadIdx.x; j < j1; j += AS_THREADS) {
       const int c = k0 + j;
-      sp_cp4(Ss + j, ksg + pool_row(c));
-      sp_cp4(Ss + KT + j, V4 ? vsg + (c & 1) * S2 + c / 2 : vsg + pool_row(c));
+      pq_cp_async4(Ss + j, ksg + pool_row(c));
+      pq_cp_async4(Ss + KT + j, V4 ? vsg + (c & 1) * S2 + c / 2 : vsg + pool_row(c));
     }
   };
 
 #pragma unroll
   for (int i = 0; i < AS_STAGES; ++i) {
     if (i < n_tiles) issue(i);
-    sp_commit();
+    pq_cp_async_commit();
   }
 
   for (int i = threadIdx.x; i < R * DH; i += AS_THREADS) {
@@ -378,7 +378,7 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(const AttnSplitA
   const int prow = lane % KW, jp = lane / KW;  // the lane's key in the warp's slice, dim part
 
   for (int i = 0; i < n_tiles; ++i) {
-    sp_wait<AS_STAGES - 1>();
+    pq_cp_async_wait<AS_STAGES - 1>();
     __syncthreads();  // tile i landed; Q staged
     const unsigned char* Ks = smem + (i % AS_STAGES) * STAGE;
     const int8_t* Vs = reinterpret_cast<const int8_t*>(Ks + KT * KSTR);
@@ -497,13 +497,13 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(const AttnSplitA
     }
     __syncthreads();  // stage i % AS_STAGES consumed
     if (i + AS_STAGES < n_tiles) issue(i + AS_STAGES);
-    sp_commit();
+    pq_cp_async_commit();
   }
 
   // merge the warps' states in warp order; write the split's partial
 #pragma unroll
   for (int r = 0; r < RB; ++r) l[r] = pq_warp_sum(l[r]);
-  sp_wait<0>();
+  pq_cp_async_wait<0>();
   __syncthreads();
   float* Mw = reinterpret_cast<float*>(smem);  // [warps][RB]
   float* Lw = Mw + AS_WARPS * RB;

@@ -113,6 +113,44 @@ __device__ __forceinline__ uint32_t pq_int8_pair_bf16(uint32_t w, uint32_t sel) 
   return *reinterpret_cast<uint32_t*>(&r);
 }
 
+// cp.async from global into shared memory: 16 bytes through L2 alone
+// (.cg) or 4 bytes through L1 (.ca); with ``pred`` false the copy reads
+// nothing and zero-fills its bytes (src-size 0; ``src`` must still be a
+// valid address). commit closes the thread's group of copies issued so far;
+// wait<N> returns once at most N of its groups are in flight.
+__device__ __forceinline__ void pq_cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void pq_cp_async16(void* dst, const void* src, bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void pq_cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void pq_cp_async4(void* dst, const void* src, bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void pq_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void pq_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Let ``kernel`` take up to ``bytes`` of dynamic shared memory. Called once
 // per kernel at its first launch (not per launch, so launches can be
 // captured in a CUDA graph); ``done`` is that kernel's own flag.

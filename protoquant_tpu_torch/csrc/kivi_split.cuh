@@ -226,49 +226,49 @@ __global__ void __launch_bounds__(KS_THREADS) kivi_split_kernel(const KiviSplitA
       const int8_t* vt = vg + (size_t)(V4 ? k0 / 2 : k0) * DH;
       for (int idx = threadIdx.x; idx < (r1 - r0) * C16; idx += KS_THREADS) {
         const int row = r0 + idx / C16, c = 16 * (idx % C16);
-        sp_cp16(Ks + row * KSTR + c, kt + row * DH + c);
-        if (V4) sp_cp16(Vs + row * DH + c, vt + row * DH + c);
+        pq_cp_async16(Ks + row * KSTR + c, kt + row * DH + c);
+        if (V4) pq_cp_async16(Vs + row * DH + c, vt + row * DH + c);
       }
       if (!V4) {
         const int j0 = a0 - k0;
         for (int idx = threadIdx.x; idx < (a1 - a0) * C16; idx += KS_THREADS) {
           const int row = j0 + idx / C16, c = 16 * (idx % C16);
-          sp_cp16(Vs + row * DH + c, vt + (size_t)row * DH + c);
+          pq_cp_async16(Vs + row * DH + c, vt + (size_t)row * DH + c);
         }
       }
       const int c0 = k0 / G, ncl = min(nch, S / G - c0);
       for (int idx = threadIdx.x; idx < ncl * (DH / 4); idx += KS_THREADS)
-        sp_cp16(Cs + 4 * idx, csg + (size_t)c0 * DH + 4 * idx);
+        pq_cp_async16(Cs + 4 * idx, csg + (size_t)c0 * DH + 4 * idx);
       if (V4) {  // the two parity planes of the tile's PT packed rows
         const int n4 = min(PT, S2 - k0 / 2) / 4;
         for (int idx = threadIdx.x; idx < 2 * n4; idx += KS_THREADS) {
           const int plane = idx / n4, c = 4 * (idx % n4);
-          sp_cp16(Ss + plane * PT + c, vsg + plane * S2 + k0 / 2 + c);
+          pq_cp_async16(Ss + plane * PT + c, vsg + plane * S2 + k0 / 2 + c);
         }
       } else {
         const int n4 = min(KT, S - k0) / 4;
         for (int idx = threadIdx.x; idx < n4; idx += KS_THREADS)
-          sp_cp16(Ss + 4 * idx, vsg + k0 + 4 * idx);
+          pq_cp_async16(Ss + 4 * idx, vsg + k0 + 4 * idx);
       }
     } else {  // positions [a0, a1) = [k0, a1), row j of the tile from tail row (k0 + j) mod 2G
       for (int idx = threadIdx.x; idx < (a1 - a0) * C16; idx += KS_THREADS) {
         const int j = idx / C16, c = 16 * (idx % C16);
         const int col = (k0 + j) % TC;
-        sp_cp16(Ks + j * KSTR + c, ktg + (size_t)col * DH + c);
-        sp_cp16(Vs + j * DH + c, vtg + (size_t)col * DH + c);
+        pq_cp_async16(Ks + j * KSTR + c, ktg + (size_t)col * DH + c);
+        pq_cp_async16(Vs + j * DH + c, vtg + (size_t)col * DH + c);
       }
       for (int j = threadIdx.x; j < a1 - a0; j += KS_THREADS) {
         const int col = (k0 + j) % TC;
-        sp_cp4(Ss + j, ktsg + col);
-        sp_cp4(Ss + PT + j, vtsg + col);
+        pq_cp_async4(Ss + j, ktsg + col);
+        pq_cp_async4(Ss + PT + j, vtsg + col);
       }
     }
   };
 
   issue(0);
-  sp_commit();
+  pq_cp_async_commit();
   if (n_tiles > 1) issue(1);
-  sp_commit();
+  pq_cp_async_commit();
 
   for (int i = threadIdx.x; i < R * DH; i += KS_THREADS) {
     const int r = i / DH, d = i % DH;
@@ -288,7 +288,7 @@ __global__ void __launch_bounds__(KS_THREADS) kivi_split_kernel(const KiviSplitA
   const int prow = lane % PRW, jp = lane / PRW;  // the lane's row in the warp's slice, dim part
 
   for (int i = 0; i < n_tiles; ++i) {
-    sp_wait<KS_STAGES - 1>();
+    pq_cp_async_wait<KS_STAGES - 1>();
     __syncthreads();  // tile i landed; Q staged
     const unsigned char* Ks = smem + (i % KS_STAGES) * stage_bytes;
     const int8_t* Vs = reinterpret_cast<const int8_t*>(Ks + PT * KSTR);
@@ -476,13 +476,13 @@ __global__ void __launch_bounds__(KS_THREADS) kivi_split_kernel(const KiviSplitA
     }
     __syncthreads();  // stage i % KS_STAGES consumed
     if (i + KS_STAGES < n_tiles) issue(i + KS_STAGES);
-    sp_commit();
+    pq_cp_async_commit();
   }
 
   // merge the warps' states in warp order; write the split's partial
 #pragma unroll
   for (int r = 0; r < RB; ++r) l[r] = pq_warp_sum(l[r]);
-  sp_wait<0>();
+  pq_cp_async_wait<0>();
   __syncthreads();
   float* Mw = reinterpret_cast<float*>(smem);  // [warps][RB]
   float* Lw = Mw + KS_WARPS * RB;

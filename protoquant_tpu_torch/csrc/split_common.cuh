@@ -38,23 +38,6 @@ struct SplitMergeArgs {
 // Launches the merge on ``st``; defined in split_merge.cu.
 cudaError_t split_merge(const SplitMergeArgs& a, cudaStream_t st);
 
-__device__ __forceinline__ void sp_cp16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void sp_cp4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void sp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void sp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // The signed nibble at bit ``sh`` of a word given as x = word ^ 0x88888888
 // (every nibble biased by 8), as an f32: 2^23 + (nib + 8) - (2^23 + 8), exact.
 __device__ __forceinline__ float sp_nib(unsigned x, int sh) {

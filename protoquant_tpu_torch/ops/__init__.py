@@ -22,7 +22,8 @@ from .attention import (int4_kv_attention, int4_kv_attention_ref, int8_kv_attent
                         int8_kv_attention_ref, k4v8_attention, k4v8_attention_ref,
                         mixed_kv_attention, mixed_kv_attention_ref)
 from .collective_matmul import (qmatmul_reduce_scatter_dma, qmatmul_reduce_scatter_dma_all,
-                                qmatmul_reduce_scatter_dma_all_ref, qmatmul_reduce_scatter_dma_ref)
+                                qmatmul_reduce_scatter_dma_all_ref, qmatmul_reduce_scatter_dma_ref,
+                                qmatmul_reduce_scatter_dma_splitk_ref)
 from .dequant import dequant, dequant_ref
 from .fused_quant import (rms_norm_quant, rms_norm_quant_ref, swiglu_quant,
                           swiglu_quant_ref)
@@ -120,6 +121,8 @@ ROUTED = {
     "k4v8_attention_prefill": (k4v8_attention, "prefill"),
     "int4_kv_attention_split": (int4_kv_attention, "split"),
     "int4_kv_attention_prefill": (int4_kv_attention, "prefill"),
+    "qmatmul_reduce_scatter_dma_decode": (qmatmul_reduce_scatter_dma, "decode"),
+    "qmatmul_reduce_scatter_dma_prefill": (qmatmul_reduce_scatter_dma, "prefill"),
 }
 
 
@@ -148,7 +151,8 @@ __all__ = [
     "paged_int8_attention",
     "paged_int8_attention_ref", "paged_kv_scatter_decode", "paged_kv_scatter_decode_ref",
     "qmatmul", "qmatmul_reduce_scatter_dma", "qmatmul_reduce_scatter_dma_all",
-    "qmatmul_reduce_scatter_dma_all_ref", "qmatmul_reduce_scatter_dma_ref", "qmatmul_ref",
+    "qmatmul_reduce_scatter_dma_all_ref", "qmatmul_reduce_scatter_dma_ref",
+    "qmatmul_reduce_scatter_dma_splitk_ref", "qmatmul_ref",
     "qmatmul_splitk_ref", "reset_launch_counts", "route_counts", "resolve_fused_quant",
     "resolve_w4a8_formulation", "rms_norm_quant", "rms_norm_quant_ref", "rowquant",
     "rowquant_ref", "shared_rowquant", "swiglu_quant", "swiglu_quant_ref",

@@ -124,8 +124,10 @@ SIGNATURES = {
     # xq, wq, sx, sw, bias, out, out_dtype, M, N, K, k_splits, stream
     "pq_qmatmul_decode": [_P] * 6 + [_I] * 5 + [_P],
     # pointer arrays xq, sx, wq, sw, out (by local rank), comm, data, credit
-    # (by ring rank); tp, rank_base, tp_local, M, N, K, epoch, stream
-    "pq_ring_qmatmul_rs": [_PP] * 8 + [_I] * 6 + [ctypes.c_uint, _P],
+    # (by ring rank); tp, rank_base, tp_local, M, N, K, k_splits, epoch, stream
+    "pq_ring_qmatmul_rs": [_PP] * 8 + [_I] * 8 + [ctypes.c_uint, _P],
+    # M, tp, k_splits, out clusters; launches nothing and takes no stream
+    "pq_ring_qmatmul_rs_clusters": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
 }
 
 # dtype codes shared with csrc/common.cuh

@@ -23,6 +23,18 @@ ported yet (they need peer memory). The kernel reads the flags of a
 persistent set kept per (card, tp, N) and tagged by a per-call epoch; a
 call may not be captured in a CUDA graph, whose replays would repeat the
 epoch (the kernel then traps rather than hangs).
+
+Each ring step's product is split over K between the blocks of a thread
+block cluster, their int32 partials summed over distributed shared memory,
+as ``gemm_plan.ring_plan`` says. :func:`ring_fragments` picks the kernel
+instance and so the route (this module owns the threshold; the C entry
+launches the instance it is given and refuses an M that does not fit it):
+M <= ``RING_DECODE_MAX_M`` the decode route (a step's tokens read from
+global memory), larger M the prefill route (64 token rows at a time, staged
+in shared memory). The wrapper counts the route it launched in
+``.routes``.
+:func:`qmatmul_reduce_scatter_dma_splitk_ref` spells the split out in plain
+PyTorch, for the tests.
 """
 
 from __future__ import annotations
@@ -34,9 +46,26 @@ import torch
 
 from ..core import numerics
 from . import _build
+from .gemm_plan import DECODE_ROWS, RING_BLOCKS_PER_SM, held_clusters, ring_plan
+from .qmatmul import DECODE_STEP, _sm_count, qmatmul_splitk_ref
 
 _RING_MAX = 8  # csrc/collective_matmul.cu RING_MAX
-_TILE = 64  # columns of a chunk per block
+# The largest M the decode route takes (1, 2 or 4 fragments of 8 tokens;
+# above it the prefill instance's 8, 64 token rows at a time).
+RING_DECODE_MAX_M = 32
+RING_PREFILL_MF = 8  # csrc/collective_matmul.cu RING_PREFILL_MF
+
+
+def _ring(tp: int, part) -> list:
+    """Each rank's reduced chunk from ``part(d, e)``, rank d's product for
+    chunk e: chunk e adds rank e + 1's first and rank e's last."""
+    outs = []
+    for e in range(tp):
+        acc = part((e + 1) % tp, e)
+        for hop in range(2, tp + 1):
+            acc = acc + part((e + hop) % tp, e)
+        outs.append(acc)
+    return outs
 
 
 def qmatmul_reduce_scatter_dma_all_ref(xqs, sxs, wqs, sws) -> list:
@@ -45,17 +74,61 @@ def qmatmul_reduce_scatter_dma_all_ref(xqs, sxs, wqs, sws) -> list:
     tp = len(xqs)
     nc = wqs[0].shape[0] // tp
 
-    def part(d, e):  # rank d's product for chunk e
+    def part(d, e):
         rows = slice(e * nc, (e + 1) * nc)
         return numerics.qmatmul_ref(xqs[d], wqs[d][rows], sxs[d], sws[d][rows])
 
-    outs = []
-    for e in range(tp):
-        acc = part((e + 1) % tp, e)
-        for hop in range(2, tp + 1):
-            acc = acc + part((e + hop) % tp, e)
-        outs.append(acc)
-    return outs
+    return _ring(tp, part)
+
+
+def qmatmul_reduce_scatter_dma_splitk_ref(xqs, sxs, wqs, sws, splits: int = 1) -> list:
+    """The kernel's order in plain PyTorch: each rank's product of each
+    chunk as the exact int32 partials of ``splits`` K slices (whole 64-byte
+    steps, ``qmatmul.k_slices``) summed, then the epilogue (acc * s_x) *
+    s_w, then the ring's adds. Equal to the plain version bit for bit at
+    any ``splits``."""
+    tp = len(xqs)
+    nc = wqs[0].shape[0] // tp
+
+    def part(d, e):
+        rows = slice(e * nc, (e + 1) * nc)
+        return qmatmul_splitk_ref(xqs[d], wqs[d][rows], sxs[d], sws[d][rows],
+                                  k_splits=splits, step=DECODE_STEP)
+
+    return _ring(tp, part)
+
+
+def ring_fragments(m: int) -> int:
+    """The kernel instance for ``m`` token rows, named by its fragments of 8
+    tokens a unit: 1, 2 or 4 (the decode route, a step one unit) up to
+    ``RING_DECODE_MAX_M`` rows, ``RING_PREFILL_MF`` (the prefill route)
+    above. The C entry launches the instance it is given."""
+    if m > RING_DECODE_MAX_M:
+        return RING_PREFILL_MF
+    return 1 if m <= 8 else 2 if m <= 16 else 4
+
+
+def fragments_route(mf: int) -> str:
+    """The route of the kernel instance of ``mf`` fragments."""
+    return "prefill" if mf == RING_PREFILL_MF else "decode"
+
+
+def ring_route(m: int) -> str:
+    """The kernel's route for ``m`` token rows."""
+    return fragments_route(ring_fragments(m))
+
+
+def ring_held(dev, mf: int, tp: int) -> dict:
+    """{splits: clusters of that many blocks the card holds at once} of the
+    kernel instance of ``mf`` fragments for a ring of ``tp``
+    (``gemm_plan.held_clusters``)."""
+    return held_clusters("pq_ring_qmatmul_rs", dev, mf, tp)
+
+
+def ring_tiles(nc: int) -> int:
+    """Tiles of a chunk of ``nc`` columns: the clusters of a rank, each with
+    its data and credit flags."""
+    return -(-nc // DECODE_ROWS)
 
 
 class _RingState:
@@ -75,8 +148,9 @@ class _RingState:
         return self.comm[:tp * 2 * M * nc].view(tp, 2, M, nc)
 
     def next_epoch(self) -> int:
-        self.epoch = self.epoch % 0xFFFFFFFF + 1  # 1, 2, ..., never 0
-        return self.epoch
+        """The next call's epoch (1, 2, ..., never 0), kept only once that
+        call has launched: a refused launch moves no flag."""
+        return self.epoch % 0xFFFFFFFF + 1
 
 
 _states: dict = {}
@@ -87,15 +161,9 @@ def _ptrs(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def qmatmul_reduce_scatter_dma_all(xqs, sxs, wqs, sws) -> list:
-    """Every rank's reduced chunk from every rank's operands (lists in rank
-    order, as ``qmatmul_reduce_scatter_dma`` takes them): one kernel launch
-    for ranks on one card, the plain version on the CPU."""
+def _check(xqs, sxs, wqs, sws):
+    """Check every rank's operands for the kernel; returns (M, N, K, device)."""
     tp = len(xqs)
-    if not (len(sxs) == len(wqs) == len(sws) == tp):
-        raise ValueError("qmatmul_reduce_scatter_dma: one operand of each kind per rank")
-    if xqs[0].device.type == "cpu":
-        return qmatmul_reduce_scatter_dma_all_ref(xqs, sxs, wqs, sws)
     M, K = xqs[0].shape
     N = wqs[0].shape[0]
     for xq, sx, wq, sw in zip(xqs, sxs, wqs, sws):
@@ -120,25 +188,75 @@ def qmatmul_reduce_scatter_dma_all(xqs, sxs, wqs, sws) -> list:
         raise ValueError(f"qmatmul_reduce_scatter_dma: K={K} must be a multiple of 16")
     if any(t.data_ptr() % 16 for t in (*xqs, *wqs)):
         raise ValueError("qmatmul_reduce_scatter_dma: int8 operands must be 16-byte aligned")
+    return M, N, K, dev
+
+
+def ring_plan_of(xqs, wqs, mf: int | None = None) -> int | None:
+    """``gemm_plan.ring_plan``'s K splits for these CUDA operands on the
+    instance of ``mf`` fragments (None: :func:`ring_fragments`'s; one
+    cluster a tile a rank), or None where the launch cannot be resident."""
+    tp = len(xqs)
+    (M, K), N, dev = xqs[0].shape, wqs[0].shape[0], xqs[0].device
+    mf = ring_fragments(M) if mf is None else mf
+    return ring_plan(ring_tiles(N // tp) * tp, -(-K // DECODE_STEP), ring_held(dev, mf, tp),
+                     _sm_count(dev), RING_BLOCKS_PER_SM[fragments_route(mf)])
+
+
+def ring_launch(xqs, sxs, wqs, sws, k_splits: int | None = None,
+                mf: int | None = None) -> list:
+    """Launch the kernel instance of ``mf`` fragments (None:
+    :func:`ring_fragments`'s) on every rank's CUDA operands with
+    ``k_splits`` blocks a cluster (None: :func:`ring_plan_of`'s); returns
+    each rank's chunk. Counts nothing (:func:`qmatmul_reduce_scatter_dma_all`
+    routes and counts). Raises before launch where the plan finds no grid
+    that the card holds whole; CUDA refuses a forced one, and a decode
+    instance too small for M."""
+    tp = len(xqs)
+    M, N, K, dev = _check(xqs, sxs, wqs, sws)
     nc = N // tp
     out = torch.empty(tp, M, nc, dtype=torch.float32, device=dev)
     if M == 0:
         return list(out.unbind(0))
+    mf = ring_fragments(M) if mf is None else mf
+    if k_splits is None:
+        k_splits = ring_plan_of(xqs, wqs, mf)
+        if k_splits is None:
+            raise ValueError(f"qmatmul_reduce_scatter_dma: {ring_tiles(nc) * tp} clusters "
+                             f"(tp={tp}, N={N}, M={M}) cannot all be resident on the card")
     key = (dev, tp, N)
     with _states_lock:
         state = _states.get(key)
         if state is None:
-            state = _states[key] = _RingState(dev, tp, -(-nc // _TILE))
+            state = _states[key] = _RingState(dev, tp, ring_tiles(nc))
         comm = state.slots(tp, M, nc)
         epoch = state.next_epoch()
         err = _build.lib().pq_ring_qmatmul_rs(
             _ptrs(xqs), _ptrs(sxs), _ptrs(wqs), _ptrs(sws), _ptrs(out.unbind(0)),
             _ptrs(comm.unbind(0)), _ptrs(state.data.unbind(0)),
-            _ptrs(state.credit.unbind(0)), tp, 0, tp, M, N, K, epoch,
+            _ptrs(state.credit.unbind(0)), tp, 0, tp, M, N, K, mf, k_splits, epoch,
             _build.stream_ptr(dev))
+        if err == 0:
+            state.epoch = epoch
     _build.check(err, "pq_ring_qmatmul_rs")
-    qmatmul_reduce_scatter_dma.launches += 1
     return list(out.unbind(0))
+
+
+def qmatmul_reduce_scatter_dma_all(xqs, sxs, wqs, sws) -> list:
+    """Every rank's reduced chunk from every rank's operands (lists in rank
+    order, as ``qmatmul_reduce_scatter_dma`` takes them): one kernel launch
+    for ranks on one card, on the instance :func:`ring_fragments` picks for
+    its M (counted by its route), the plain version on the CPU."""
+    tp = len(xqs)
+    if not (len(sxs) == len(wqs) == len(sws) == tp):
+        raise ValueError("qmatmul_reduce_scatter_dma: one operand of each kind per rank")
+    if xqs[0].device.type == "cpu":
+        return qmatmul_reduce_scatter_dma_all_ref(xqs, sxs, wqs, sws)
+    mf = ring_fragments(xqs[0].shape[0])
+    outs = ring_launch(xqs, sxs, wqs, sws, mf=mf)
+    if xqs[0].shape[0]:
+        qmatmul_reduce_scatter_dma.launches += 1
+        qmatmul_reduce_scatter_dma.routes[fragments_route(mf)] += 1
+    return outs
 
 
 def qmatmul_reduce_scatter_dma(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor,
@@ -153,6 +271,9 @@ def qmatmul_reduce_scatter_dma(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Te
 
 
 qmatmul_reduce_scatter_dma.launches = 0
+# launches by route, as launched (the instance ring_fragments gave the C
+# entry): "decode" (M <= RING_DECODE_MAX_M), "prefill"
+qmatmul_reduce_scatter_dma.routes = {"decode": 0, "prefill": 0}
 
 
 def qmatmul_reduce_scatter_dma_ref(xq, s_x, wq, s_w, group) -> torch.Tensor:

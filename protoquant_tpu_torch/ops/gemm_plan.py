@@ -1,10 +1,11 @@
 """Launch plans shared by the weight GEMMs' kernels: the split-K decode
 kernels on ``csrc/int4_decode.cuh`` (the int4 bodies' and
-``csrc/wo_decode.cu``) and the register-A tile kernels of
-``csrc/int4_tile_sm90.cuh`` (the int4 bodies' and the weight-only int8
-body's). Each body's module gives its own unit of K and its cost constants;
-this one holds the geometry the kernels share and the rules that pick a
-plan.
+``csrc/wo_decode.cu``), the ring reduce-scatter matmul
+(``csrc/collective_matmul.cu``, on ``csrc/int8_mma.cuh``) and the register-A
+tile kernels of ``csrc/int4_tile_sm90.cuh`` (the int4 bodies' and the
+weight-only int8 body's). Each body's module gives its own unit of K and its
+cost constants; this one holds the geometry the kernels share and the rules
+that pick a plan.
 """
 
 from __future__ import annotations
@@ -19,6 +20,11 @@ from . import _build
 # cluster splits K over.
 DECODE_ROWS = 64
 DECODE_MAX_SPLITS = 8
+# The ring kernel: the blocks an SM its plan aims for, by route (from the
+# split sweep of tools/gemm_timing.py --ring: at decode the ring's flags and
+# cluster barriers cost more a block than the loads gain past ~1 block an
+# SM; the prefill route's products want ~2 blocks an SM).
+RING_BLOCKS_PER_SM = {"decode": 1.0, "prefill": 2.25}
 # The tile kernels: weight rows a block, the cluster sizes K splits over, and
 # the clusters of each size an H100 holds at once
 # (cudaOccupancyMaxActiveClusters of a one-block-an-SM kernel; its GPCs' SM
@@ -45,21 +51,45 @@ def decode_plan(n: int, units: int, held: dict) -> int:
     return max(fits, default=1)
 
 
+def ring_plan(clusters: int, units: int, held: dict, sms: int, per_sm: float):
+    """The ring kernel's K splits (1 to 8: the blocks of a cluster) for a
+    launch of ``clusters`` clusters (a cluster a tile of ``DECODE_ROWS``
+    columns of a chunk and a rank) over ``units`` 64-byte steps of a rank's
+    K: :func:`decode_plan`'s rule (the most blocks whose clusters the card
+    holds at once, ``held``, each split at least two units) over the splits
+    whose blocks stay within ``per_sm`` (``RING_BLOCKS_PER_SM`` of the
+    route) of each of ``sms`` SMs, and one split where even that is more.
+    None where not even clusters of one block all fit at once: every block
+    of the ring spins on others, so the launch must be resident whole (CUDA
+    refuses it)."""
+    if clusters > held[1]:
+        return None
+    target = per_sm * sms
+    within = {s: held[s] if s == 1 or clusters * s <= target else 0 for s in held}
+    return decode_plan(DECODE_ROWS * clusters, units, within)
+
+
 def decode_held(entry: str, dev, m: int, *args) -> dict:
     """{splits: clusters of that many blocks the card holds at once} of the
     decode kernel instance that ``entry`` launches for ``m`` rows (1, 2 or
-    4 fragments of 8 tokens), asked of the built library's ``entry +
-    "_clusters"`` (rows, ``args``, splits, the count's address) once per
-    card and instance."""
+    4 fragments of 8 tokens): :func:`held_clusters` with the instance's
+    rows and ``args``."""
     mf = 1 if m <= 8 else 2 if m <= 16 else 4
+    return held_clusters(entry, dev, mf * 8, *args)
+
+
+def held_clusters(entry: str, dev, *args) -> dict:
+    """{splits: clusters of that many blocks the card holds at once} as the
+    built library's ``entry + "_clusters"`` (``args``, splits, the count's
+    address) answers it, asked once per card, entry and ``args``."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    key = (index, entry, mf, args)
+    key = (index, entry, args)
     if key not in _held:
         query, held = getattr(_build.lib(), entry + "_clusters"), {}
         with torch.cuda.device(index):
             for s in range(1, DECODE_MAX_SPLITS + 1):
                 count = ctypes.c_int(0)
-                _build.check(query(mf * 8, *args, s, ctypes.byref(count)), entry + "_clusters")
+                _build.check(query(*args, s, ctypes.byref(count)), entry + "_clusters")
                 held[s] = count.value
         _held[key] = held
     return _held[key]

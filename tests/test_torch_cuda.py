@@ -40,7 +40,8 @@ boundary may move a step, and a near-tied token with it). The ring
 reduce-scatter matmul (B19): exact, with unit scales and with real ones,
 over one launch for all ranks and over the per-rank call on a mesh whose
 ranks share the card, also over back-to-back calls of changing M (the
-flags' epochs).
+flags' epochs); every route and K split the card holds, at the 7B and
+ragged shapes; a grid the card cannot hold whole raises; routes counted.
 """
 
 import importlib
@@ -1895,19 +1896,134 @@ def _ring_operands(g, dev, tp, M, K, N, real):
             [wq[:, r * ks:(r + 1) * ks].contiguous() for r in range(tp)], [sw] * tp)
 
 
+def _ring_splits(dev, tp, m, k, n):
+    """Every K split (1 to 8 blocks a cluster) whose grid the card holds
+    whole for these operands, each split at least one 64-byte step."""
+    from protoquant_tpu_torch.ops import collective_matmul as C
+
+    held = C.ring_held(dev, C.ring_fragments(m), tp)
+    clusters = C.ring_tiles(n // tp) * tp
+    steps = -(-(k // tp) // 64)
+    return [s for s in range(1, 9) if (s == 1 or s <= steps) and clusters <= held[s]]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tp", [2, 4])
 @pytest.mark.parametrize("real", [False, True])
 @pytest.mark.parametrize("m,k,n", [(4, 4096, 4096), (256, 11008, 4096), (3, 128, 192)])
 def test_ring_reduce_scatter_exact(cuda, tp, real, m, k, n):
+    from protoquant_tpu_torch.ops.collective_matmul import ring_route
+
     g = torch.Generator(device=cuda).manual_seed(tp * 7 + m)
     ops_in = _ring_operands(g, cuda, tp, m, k, n, real)
     ops.reset_launch_counts()
     got = ops.qmatmul_reduce_scatter_dma_all(*ops_in)
     torch.cuda.synchronize()
     assert ops.launch_counts()["qmatmul_reduce_scatter_dma"] == 1
+    assert ops.qmatmul_reduce_scatter_dma.routes == {
+        "decode": int(ring_route(m) == "decode"), "prefill": int(ring_route(m) == "prefill")}
     want = ops.qmatmul_reduce_scatter_dma_all_ref(*ops_in)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 4096), (4, 11008, 4096), (256, 4096, 4096),
+                                   (256, 11008, 4096), (3, 128, 192), (40, 128, 192),
+                                   (5, 128, 36), (40, 128, 36)])
+def test_ring_every_split_exact(cuda, tp, m, k, n):
+    """Both routes at every K split the card holds, with unit and real
+    scales: bit for bit the plain version (int32 sums are exact in any
+    split), and the plan's split among them. N = 36 gives chunks of 18 and
+    9 columns, whose partials move 4 bytes at a time."""
+    from protoquant_tpu_torch.ops import collective_matmul as C
+
+    g = torch.Generator(device=cuda).manual_seed(tp * 11 + m)
+    splits = _ring_splits(cuda, tp, m, k, n)
+    for real in (False, True):
+        ops_in = _ring_operands(g, cuda, tp, m, k, n, real)
+        assert C.ring_plan_of(ops_in[0], ops_in[2]) in splits
+        want = ops.qmatmul_reduce_scatter_dma_all_ref(*ops_in)
+        for s in splits:
+            got = C.ring_launch(*ops_in, k_splits=s)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (real, s)
+
+
+@pytest.mark.cuda
+def test_ring_grid_the_card_cannot_hold_raises(cuda):
+    """One cluster more than the card holds at once: the planned call
+    raises before launch, a forced split is refused by CUDA (a
+    cooperative launch), and the next call is served."""
+    from protoquant_tpu_torch.ops import collective_matmul as C
+
+    tp, m, k = 2, 1, 32
+    tiles = C.ring_held(cuda, C.ring_fragments(m), tp)[1] // tp + 1
+    n = tp * 64 * tiles
+    g = torch.Generator(device=cuda).manual_seed(5)
+    ops_in = _ring_operands(g, cuda, tp, m, k, n, True)
+    assert C.ring_plan_of(ops_in[0], ops_in[2]) is None
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="cannot all be resident"):
+        ops.qmatmul_reduce_scatter_dma_all(*ops_in)
+    with pytest.raises(RuntimeError, match="pq_ring_qmatmul_rs"):
+        C.ring_launch(*ops_in, k_splits=1)
+    assert ops.launch_counts()["qmatmul_reduce_scatter_dma"] == 0
+    ok = _ring_operands(g, cuda, tp, 4, 1024, 2048, True)
+    got = ops.qmatmul_reduce_scatter_dma_all(*ok)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, ops.qmatmul_reduce_scatter_dma_all_ref(*ok)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 9, 17, 33])
+def test_ring_launches_the_instance_it_is_given(cuda, m):
+    """The C entry launches the instance the wrapper names (mf fragments
+    of 8 tokens) and refuses a decode instance too small for M: every
+    instance that holds M is exact, the prefill one at any M; the
+    wrapper's count is that of the instance it passed."""
+    from protoquant_tpu_torch.ops import collective_matmul as C
+
+    tp, k, n = 2, 1024, 2048
+    g = torch.Generator(device=cuda).manual_seed(m)
+    ops_in = _ring_operands(g, cuda, tp, m, k, n, True)
+    want = ops.qmatmul_reduce_scatter_dma_all_ref(*ops_in)
+    for mf in (1, 2, 4, 8):
+        if mf < 8 and m > 8 * mf:
+            with pytest.raises(RuntimeError, match="pq_ring_qmatmul_rs"):
+                C.ring_launch(*ops_in, mf=mf)
+            continue
+        got = C.ring_launch(*ops_in, mf=mf)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), mf
+    ops.reset_launch_counts()
+    ops.qmatmul_reduce_scatter_dma_all(*ops_in)
+    route = C.fragments_route(C.ring_fragments(m))
+    assert ops.qmatmul_reduce_scatter_dma.routes == {
+        "decode": int(route == "decode"), "prefill": int(route == "prefill")}
+
+
+@pytest.mark.cuda
+def test_ring_back_to_back_mixed_tp_and_routes(cuda):
+    """300 calls enqueued without a synchronize, tp 2 and 4 in turn, M
+    from 1 to 256 (both routes), each exact and counted once on its route."""
+    from protoquant_tpu_torch.ops.collective_matmul import ring_route
+
+    g = torch.Generator(device=cuda).manual_seed(17)
+    ms = torch.randint(1, 257, (300,), generator=torch.Generator().manual_seed(17)).tolist()
+    cases = [_ring_operands(g, cuda, (2, 4)[i % 2], m, 1024, 2048, True)
+             for i, m in enumerate(ms)]
+    ops.reset_launch_counts()
+    outs = [ops.qmatmul_reduce_scatter_dma_all(*c) for c in cases]
+    torch.cuda.synchronize()
+    for c, out in zip(cases, outs):
+        assert all(torch.equal(a, b)
+                   for a, b in zip(out, ops.qmatmul_reduce_scatter_dma_all_ref(*c)))
+    routes = [ring_route(m) for m in ms]
+    assert ops.qmatmul_reduce_scatter_dma.routes == {
+        "decode": routes.count("decode"), "prefill": routes.count("prefill")}
+    assert routes.count("decode") > 0 and routes.count("prefill") > 0
 
 
 @pytest.mark.cuda

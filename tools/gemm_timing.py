@@ -8,6 +8,8 @@ int8 GEMM of one checkout on the card.
     python3 tools/gemm_timing.py --wo [--tree DIR] [--label NAME] [--ms 1,4,16,32,48,256,512]
                                  [--sweep] [--plans] [--ablate]
 
+    python3 tools/gemm_timing.py --ring [--tree DIR] [--label NAME] [--sweep] [--ablate]
+
 Imports protoquant_tpu_torch from DIR (default: the checkout holding this
 script), builds its kernels there, and prints one JSON line: the card, and
 the device time per call in ms (``chip_smoke.bench``: a CUDA graph of 20
@@ -70,6 +72,22 @@ conversion, 2 loads alone, 4 no loads), timed at M = 48 and 256 at the
 plan, and ``wo_decode.cu``
 with ``-DPQ_WOD_ABLATE`` (1 no conversion, 2 loads alone, 3 no loads), timed
 at M = 4 at the plan's splits.
+
+With ``--ring`` it times the ring reduce-scatter matmul instead
+(``ops.qmatmul_reduce_scatter_dma_all``, all ranks sharing the card, one
+launch a call) at the eight shapes of ``chip_smoke.py``'s phase 27 (tp 2 and
+4, Llama-2-7B's o_proj and down_proj, M 4 and 256), each beside its bound,
+and, as a reading, ``torch._int_mm`` of the unsharded product (M padded to
+32), through ``chip_smoke.bench_eager`` (launches behind a sleep: a call
+cannot be captured in a CUDA graph). It builds ``collective_matmul.cu``
+alone (into the checkout's ``_build/ring/``), so an A/B of two checkouts in
+one call takes seconds of ``nvcc``, not minutes. A checkout with the split-K
+ring (``ops.collective_matmul.ring_launch``) also reports each shape's plan;
+``--sweep`` times it at every K split the card holds; ``--ablate`` builds
+``collective_matmul.cu`` with ``-DPQ_RING_ABLATE`` (1 the prefill route's
+tokens read from global memory, not staged; 2 no flags; 3 no hop; 4 loads
+alone) into ``_build/ablate/`` and times each at the plan's split (or the
+most splits its grid holds whole).
 """
 
 import argparse
@@ -111,6 +129,140 @@ WO_TILE_ABLATIONS = {"no code conversion": "-DPQ_I4T_ABLATE=1", "loads alone": "
                      "no loads": "-DPQ_I4T_ABLATE=4"}
 WO_DECODE_ABLATIONS = {"no code conversion": "-DPQ_WOD_ABLATE=1",
                        "loads alone": "-DPQ_WOD_ABLATE=2", "no loads": "-DPQ_WOD_ABLATE=3"}
+# the ring source's variants, by -DPQ_RING_ABLATE value
+RING_ABLATIONS = {1: "prefill tokens from global, no staging", 2: "no flags", 3: "no hop",
+                  4: "loads alone"}
+RING_ENTRIES = ("pq_ring_qmatmul_rs", "pq_ring_qmatmul_rs_clusters")
+
+
+def ring_build_alone():
+    """Build and load only ``collective_matmul.cu`` of the imported
+    checkout, into its ``_build/ring/``: the ring's entries, nothing else."""
+    from protoquant_tpu_torch.ops import _build
+
+    _build.BUILD_DIR = _build.BUILD_DIR / "ring"
+    _build._sources = lambda: [_build.CSRC / "collective_matmul.cu"]
+    _build.SIGNATURES = {k: v for k, v in _build.SIGNATURES.items() if k in RING_ENTRIES}
+    return _build.lib()
+
+
+def ring_shapes(cs):
+    """Phase 27's shapes: (tp, M, K, N)."""
+    return [(tp, m, k, n) for tp in (2, 4) for k, n in cs.TP_SHAPES for m in (4, 256)]
+
+
+def ring_times(cs, ops, gen, dev, sweep=False, ablate_tree=None):
+    """{shape: ms} of the wrapper, with its bound, the ``torch._int_mm``
+    reading and, for a split-K checkout, the plan, the sweep and the
+    ablations."""
+    from protoquant_tpu_torch.ops import _build
+
+    C = importlib.import_module("protoquant_tpu_torch.ops.collective_matmul")
+    split_k = hasattr(C, "ring_launch")
+    libs = _ring_ablation_libs(ablate_tree) if ablate_tree else {}
+    out = {"ms": {}, "int_mm_ms": {}, "bound_ms": {}, "plan": {}, "sweep_ms": {},
+           "ablate_ms": {}}
+    for tp, m, k, n in ring_shapes(cs):
+        label = f"tp={tp} M={m} K={k} N={n}"
+        copies = [cs._ring_operands(gen, dev, tp, m, k, n, True)
+                  for _ in range(cs.copies_for(n * k))]
+        out["ms"][label] = cs.bench_eager([lambda c=c: ops.qmatmul_reduce_scatter_dma_all(*c)
+                                           for c in copies])
+        xpad = torch.zeros(max(m, 32), k, dtype=torch.int8, device=dev)
+        xpad[:m] = torch.cat(copies[0][0], 1)
+        full = [torch.cat(c[2], 1) for c in copies]
+        out["int_mm_ms"][label] = cs.bench([lambda w=w: torch._int_mm(xpad, w.t())
+                                            for w in full])
+        out["bound_ms"][label] = cs.bound_ms(n * k + m * k + 4 * tp * (m + n) + 4 * m * n,
+                                             2 * m * n * k, cs.INT8_OPS_PER_S)[0]
+        if split_k:
+            plan = C.ring_plan_of(copies[0][0], copies[0][2])
+            clusters = C.ring_tiles(n // tp) * tp
+            out["plan"][label] = {"route": C.ring_route(m), "k_splits": plan,
+                                  "clusters": clusters, "blocks": clusters * plan}
+            if sweep:
+                held = C.ring_held(dev, C.ring_fragments(m), tp)
+                steps = -(-(k // tp) // C.DECODE_STEP)
+                out["sweep_ms"][label] = {
+                    s: cs.bench_eager([lambda c=c, s=s: C.ring_launch(*c, k_splits=s)
+                                       for c in copies])
+                    for s in range(1, 9) if (s == 1 or s <= steps) and clusters <= held[s]}
+            if libs:
+                row = {"kernel": out["ms"][label]}
+                for v, (lib, regs) in libs.items():
+                    # the plan's split, or the most the variant's grid holds whole
+                    held = ctypes.c_int(0)
+                    splits = plan
+                    while splits > 1:
+                        _build.check(lib.pq_ring_qmatmul_rs_clusters(
+                            C.ring_fragments(m), tp, splits, ctypes.byref(held)),
+                            "ring ablation clusters")
+                        if clusters <= held.value:
+                            break
+                        splits -= 1
+                    state = C._RingState(dev, tp, C.ring_tiles(n // tp))
+                    row[RING_ABLATIONS[v]] = cs.bench_eager([
+                        lambda c=c, lib=lib, state=state, s=splits: _ring_call(lib, state, c, s,
+                                                                               dev)
+                        for c in copies])
+                    row[RING_ABLATIONS[v] + " k_splits"] = splits
+                out["ablate_ms"][label] = row
+                out["ablate_registers"] = {RING_ABLATIONS[v]: regs for v, (_, regs) in
+                                           libs.items()}
+        del copies, full
+    return {k: v for k, v in out.items() if v}
+
+
+def _ring_ablation_libs(tree):
+    """``collective_matmul.cu`` built alone with each ``-DPQ_RING_ABLATE``
+    into the checkout's ``_build/ablate/``: {variant: (library, the ring
+    kernels' registers as ptxas reports them)}."""
+    from protoquant_tpu_torch.ops import _build
+
+    build = os.path.join(os.path.abspath(tree), "protoquant_tpu_torch", "_build", "ablate")
+    os.makedirs(build, exist_ok=True)
+    procs = {}
+    for v in RING_ABLATIONS:
+        so = os.path.join(build, f"libpq_ring_ablate_{v}.so")
+        procs[v] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, f"-DPQ_RING_ABLATE={v}", "-Xptxas", "-v",
+             "-shared", "-I", str(_build.CSRC), str(_build.CSRC / "collective_matmul.cu"),
+             "-o", so],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    libs = {}
+    for v, (so, proc) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc of ring ablation {v} failed:\n{log}")
+        lib = ctypes.CDLL(so)
+        for name in RING_ENTRIES:
+            getattr(lib, name).argtypes = _build.SIGNATURES[name]
+        regs, entry = {}, None
+        for line in log.splitlines():
+            if "Compiling entry" in line:
+                entry = line.split("'")[1] if "ring_kernel" in line else None
+            elif entry and "Used " in line:
+                regs[entry] = line.split("Used ")[1].split(",")[0]
+                entry = None
+        libs[v] = (lib, regs)
+    return libs
+
+
+def _ring_call(lib, state, operands, splits, dev):
+    """One launch of an ablation library's ring, its flags in ``state``."""
+    from protoquant_tpu_torch.ops import _build
+
+    C = importlib.import_module("protoquant_tpu_torch.ops.collective_matmul")
+    xqs, sxs, wqs, sws = operands
+    tp, (m, k), n = len(xqs), xqs[0].shape, wqs[0].shape[0]
+    out = torch.empty(tp, m, n // tp, dtype=torch.float32, device=dev)
+    comm, epoch = state.slots(tp, m, n // tp), state.next_epoch()
+    _build.check(lib.pq_ring_qmatmul_rs(
+        C._ptrs(xqs), C._ptrs(sxs), C._ptrs(wqs), C._ptrs(sws), C._ptrs(out.unbind(0)),
+        C._ptrs(comm.unbind(0)), C._ptrs(state.data.unbind(0)), C._ptrs(state.credit.unbind(0)),
+        tp, 0, tp, m, n, k, C.ring_fragments(m), splits, epoch, _build.stream_ptr(dev)),
+        "ring ablation")
+    state.epoch = epoch
 
 
 def int4_operands(cs, ops, gen, dev, m, k, n, group, copies):
@@ -551,6 +703,7 @@ def main() -> int:
     parser.add_argument("--ablate", action="store_true")
     parser.add_argument("--plans", action="store_true")
     parser.add_argument("--wo", action="store_true")
+    parser.add_argument("--ring", action="store_true")
     parser.add_argument("--ms", default=None)
     parser.add_argument("--bodies", default=",".join(INT4_BODIES))
     args = parser.parse_args()
@@ -569,6 +722,13 @@ def main() -> int:
     times, library, bounds, sweep = {}, {}, {}, {}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
+    if args.ring:
+        ring_build_alone()
+        line = {"label": args.label, "tree": args.tree, "card": smi.stdout.strip(),
+                "ring": ring_times(cs, ops, gen, dev, args.sweep,
+                                   args.tree if args.ablate else None)}
+        print(json.dumps(line), flush=True)
+        return 0
     if args.wo:
         ms = [int(v) for v in args.ms.split(",")] if args.ms else WO_MS
         line = {"label": args.label, "tree": args.tree, "card": smi.stdout.strip(),
