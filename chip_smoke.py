@@ -59,7 +59,11 @@ Phases (any failure exits non-zero and prints no result line):
               and 32 through the split kernel (its plan printed), bitwise
               equal across two calls, against the plain split spelling with
               each row's last live split dropped (a planted fault, which
-              must miss), and G = 8 at Dh 256 through the page walk
+              must miss), and G = 8 at Dh 256 through the page walk; the
+              KIVI updates on both routes, all eight tensors bit for bit:
+              decode at the 7B and GPT-OSS shapes (rows flushing, idle, at
+              capacity) and an insert-only step at both, prefill chunks of 256
+              at 7B (B = 4, from 0 and from 300) and at GPT-OSS's shape
   4. slice    LlamaModel(llama2_7b, "dynamic") at full width and depth,
               random int8 weights from --seed, serving 6 greedy requests
               through Engine(max_batch_size=4, max_seq_len=1024,
@@ -115,16 +119,21 @@ Phases (any failure exits non-zero and prints no result line):
               [0.5, 1.5], and a planted fault for each producer
  12. k4v8     phase 4 again over Engine(kv_dtype="k4v8") (same seed, weights,
               prompts and EngineConfig; KIVI group 64): per decode step 129
-              rowquant, 225 qmatmul, 32 k4v8_decode_update and 32
-              k4v8_attention, none of the int8 cache kernels; at least one
-              decode write must cross a chunk boundary (a flush); prints and
-              asserts the cache's bytes (948 MiB against int8's 1056)
+              rowquant, 225 qmatmul, 32 k4v8_decode_update (all on its
+              route "decode") and 32 k4v8_attention, none of the int8 cache
+              kernels; every step with a prefill chunk 32 k4v8_decode_update
+              on its route "prefill"; at least one decode write must cross a
+              chunk boundary (a flush); prints and asserts the cache's bytes
+              (948 MiB against int8's 1056)
  13. int4 KV  phase 12 with kv_dtype="int4" (kivi4_decode_update,
               int4_kv_attention; 692 MiB)
  14. KIVI agreement  phase 5 over each KIVI cache, f32 and bf16, with a
-              62-token prompt so that a decode write flushes chunk 0 and
-              the later steps read it packed; a planted fault for each
-              writer and attention; judged also on the decode positions
+              382-token prompt in two prefill chunks, the second starting
+              63 positions into a chunk and longer than 2G, and a decode
+              write that flushes a chunk the later steps read packed; a
+              planted fault for each writer and attention, and one of the
+              update's prefill route (the tails written before its first
+              chunk reads them); judged also on the decode positions
  15. k8v4     phase 4 again over Engine(kv_dtype="k8v4") (int8 K, packed
               int4 V): per decode step 129 rowquant, 225 qmatmul, 32
               kv_mixed_scatter_decode and 32 mixed_kv_attention, none of
@@ -243,13 +252,13 @@ Timings with ranks sharing one card measure the kernel and its protocol,
 not a link between cards.
 Each phase prints its seconds, and the run its total.
 The line before the last is {"kernels": [...]}, one entry per kernel body
-(31): "launches" is its count summed over the twenty-one engine runs
+(34): "launches" is its count summed over the twenty-one engine runs
 (phases 4, 6, 8.1, 8.2, 8.3, 10, 12, 13, 15, 17, 19, 20, the five of 22,
 the three of 24-25 and 28), each driven with the counts at 0 and read just
 after ("launches_by_path"). A wrapper counts calls: a decode call of the
 int8, K8V4, K4V8, Int4 or paged attention is two CUDA launches (the split
 kernel and the merge), and its entry names every file it runs under
-"sources". Seven wrappers route between two kernels by shape before launch
+"sources". Nine wrappers route between two kernels by shape before launch
 and count each apart (ops.route_counts): qmatmul ("qmatmul_decode", the
 split-K kernel at M <= DECODE_MAX_M: every decode step; "qmatmul", the TMA
 and wgmma tile kernel: prefill chunks, the MoE experts at prefill),
@@ -262,7 +271,10 @@ for one f32 chain over all of K, its tile kernel one K split: both bit for
 bit),
 paged_int8_attention ("paged_int8_attention_split", every call whose rows
 fit a split block; "paged_int8_attention", the page
-walk, for the rest: G 8 at Dh 256, on no engine path), and the int8,
+walk, for the rest: G 8 at Dh 256, on no engine path), the two KIVI
+updates, one kernel on two routes by the new rows a slot
+("k4v8_decode_update", a decode step's write; "k4v8_decode_update_prefill",
+a prefill chunk's; the same for kivi4_decode_update), and the int8,
 K8V4, K4V8 and Int4 attentions ("int8_kv_attention", ..., the split
 decode: every call whose rows fit a split block; "int8_kv_attention_prefill",
 ..., the prefill kernel on bf16 tensor cores: every prefill chunk, dense,
@@ -391,6 +403,24 @@ def bench(calls, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     del graph
+    return start.elapsed_time(end) / iters
+
+
+def bench_synced(calls, iters: int = 5) -> float:
+    """Time per call, in ms, of ``iters`` eager calls cycling through
+    ``calls`` that may wait on the card themselves (a boolean mask's
+    nonzero), so no CUDA graph can hold them: CUDA events around the calls,
+    the host's time between them included."""
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        calls[i % len(calls)]()
+    end.record()
+    torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
@@ -1218,6 +1248,9 @@ KIVI_G = 64  # the KIVI chunk (INT4_KV_GROUP) at the 7B slice
 # kv_dtype -> (decode writer, attention) kernel bodies of the tier
 KIVI_KERNELS = {"k4v8": ("k4v8_decode_update", "k4v8_attention"),
                 "int4": ("kivi4_decode_update", "int4_kv_attention")}
+# the KIVI updates: one kernel, counted by route ("decode" at T = 1,
+# "prefill" above; ops.ROUTED)
+KIVI_WRITERS = tuple(w for w, _ in KIVI_KERNELS.values())
 
 
 def _kivi_cache(gen, dev, tier, B, KV, S, Dh, G=KIVI_G):
@@ -1251,70 +1284,112 @@ def _mirror_v(cache, new_lengths, G=KIVI_G):
     return cache
 
 
+def kivi_update_bytes(tier, lens, advs, T, KV, S, Dh, G=KIVI_G) -> int:
+    """Least bytes of one KIVI update: lengths and adv; per (b, kv head) the
+    new rows read once; the tail rows written (decode: the one row below S;
+    prefill: the latest min(T, 2G), past S too) and K4V8's V rows below S;
+    per flushed chunk and side (K, and V for Int4) the old tail rows it
+    reads (decode: G - 1; prefill's first chunk: those below L), the packed
+    rows and the scales it writes."""
+    row, sides = Dh + 4, 2 if tier == "int4" else 1
+    total = 8 * len(lens) + len(lens) * KV * 2 * T * row
+    for ln, ad in zip(lens, advs):
+        L = max(ln, 0)
+        if T == 1:
+            writes = (2 if tier == "int4" else 3) if L < S else 0
+            nf = int((L // G + 1) * G <= min(max(ln + ad, 0), S))
+            old = G - 1
+        else:
+            writes = 2 * min(T, 2 * G) + (0 if tier == "int4" else max(0, min(T, S - L)))
+            nf = max(0, min(min(L + ad, S) // G - L // G, (G - 1 + T) // G))
+            old = L - L // G * G
+        total += KV * row * writes
+        if nf:
+            total += KV * sides * old * row
+        total += nf * KV * (sides * G // 2 * Dh + 4 * Dh + (4 * G if sides == 2 else 0))
+    return total
+
+
+# phase 3's KIVI update cases: (label, KV, S, Dh, T, lengths, adv, rows
+# that must flush); decode at 7B first (the kernels line's row), then the
+# prefill route's chunks of 256 (the 7B engine's and GPT-OSS's prefill_chunk)
+KIVI_UPDATE_CASES = (
+    ("decode", HEADS, 1024, HEAD_DIM, 1, [62, 63, 64, 1023, 1024, 127], [1, 1, 1, 1, 1, 0],
+     [False, True, False, True, False, False]),
+    ("decode", GO_KV, 2048, GO_HEAD_DIM, 1, [63, 2047, 2048, 1000], [1, 1, 1, 1],
+     [True, True, False, False]),
+    ("decode insert-only", HEADS, 1024, HEAD_DIM, 1, [62, 700, 1022, 254], [1, 1, 1, 1],
+     [False] * 4),
+    ("decode insert-only", GO_KV, 2048, GO_HEAD_DIM, 1, [62, 700, 1022, 254], [1, 1, 1, 1],
+     [False] * 4),
+    ("prefill", HEADS, 1024, HEAD_DIM, 256, [0] * 4, [256] * 4, [True] * 4),
+    ("prefill", HEADS, 1024, HEAD_DIM, 256, [300] * 4, [256] * 4, [True] * 4),
+    ("prefill", GO_KV, 2048, GO_HEAD_DIM, 256, [0, 300, 1900, 1000], [256, 256, 256, 100],
+     [True, True, True, True]))
+
+
 def check_kivi_update(ops, gen, dev, tier):
-    """The tier's decode writer against its plain version, all eight
-    tensors exact, at Llama-2-7B's cache shape (S = 1024) and GPT-OSS-20B's
-    (B = 4, KV = 8, Dh = 64, S = 2048 as in phase 25): rows that flush no
-    chunk, rows that flush chunk 0 and the last chunk, a row at capacity
-    (nothing written) and, at 7B, a row with adv = 0 (inserts, never
-    flushes). Library: none."""
-    writer = getattr(ops, KIVI_KERNELS[tier][0])
-    plain = getattr(ops, KIVI_KERNELS[tier][0] + "_ref")
+    """The tier's update against its plain version, all eight tensors
+    exact, on both routes. Decode (T = 1) at Llama-2-7B's cache shape (S =
+    1024) and GPT-OSS-20B's (B = 4, KV = 8, Dh = 64, S = 2048 as in phase
+    25): rows that flush no chunk, rows that flush chunk 0 and the last
+    chunk, a row at capacity (nothing written) and, at 7B, a row with adv =
+    0 (inserts, never flushes); an insert-only step (no row flushes) at
+    both shapes.
+    Prefill (T = 256, a chunk of the engine's): at 7B, B = 4, from length 0
+    and from 300 (whose first chunk reads old tail rows that its later new
+    rows land on), and at GPT-OSS's shape, a row past S and a padded one.
+    Each case on its route (``ops.route_counts``). Library: none."""
+    name = KIVI_KERNELS[tier][0]
+    writer, plain = getattr(ops, name), getattr(ops, name + "_ref")
     G = KIVI_G
     cases = []
-    # (KV, S, Dh, lengths, adv, rows that must flush)
-    for KV, S, Dh, lens, advs, want in (
-            (HEADS, 1024, HEAD_DIM, [62, 63, 64, 1023, 1024, 127], [1, 1, 1, 1, 1, 0],
-             [False, True, False, True, False, False]),
-            (GO_KV, 2048, GO_HEAD_DIM, [63, 2047, 2048, 1000], [1, 1, 1, 1],
-             [True, True, False, False])):
+    for label, KV, S, Dh, T, lens, advs, want in KIVI_UPDATE_CASES:
         B = len(lens)
+        route = "decode" if T == 1 else "prefill"
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         adv = torch.tensor(advs, dtype=torch.int32, device=dev)
-        k8 = torch.randint(-127, 128, (B, KV, 1, Dh), generator=gen, device=dev,
+        # the new rows as the cache hands them over: [B, T, KV, ...] seen as
+        # [B, KV, T, ...]
+        k8 = torch.randint(-127, 128, (B, T, KV, Dh), generator=gen, device=dev,
                            dtype=torch.int8)
         v8 = torch.randint_like(k8, -127, 128)
-        ksn = torch.rand(B, KV, 1, generator=gen, device=dev) * 0.02 + 1e-3
-        vsn = torch.rand(B, KV, 1, generator=gen, device=dev) * 0.02 + 1e-3
+        ksn = torch.rand(B, T, KV, generator=gen, device=dev) * 0.02 + 1e-3
+        vsn = torch.rand(B, T, KV, generator=gen, device=dev) * 0.02 + 1e-3
+        new = (lengths, *(t.transpose(1, 2) for t in (k8, ksn, v8, vsn)))
         base = _kivi_cache(gen, dev, tier, B, KV, S, Dh)
         a = [t.clone() for t in base]
         b = [t.clone() for t in base]
-        new = (lengths, k8, ksn, v8, vsn)
+        before = ops.route_counts()[f"{name}_{route}"]
         writer(*a, *new, group=G, adv=adv)
+        if ops.route_counts()[f"{name}_{route}"] != before + 1:
+            raise AssertionError(f"{name} {label}: not on route {route}")
         plain(*b, *new, group=G, adv=adv)
         torch.cuda.synchronize()
         names = ("kq", "kchs", "vq", "vs", "ktail", "kts", "vtail", "vts")
         bad = [n for n, x, y in zip(names, a, b) if not torch.equal(x, y)]
         if bad:
-            raise AssertionError(f"{KIVI_KERNELS[tier][0]} differs from its plain version "
-                                 f"in {bad} at KV={KV} S={S} Dh={Dh}")
+            raise AssertionError(f"{name} {label} differs from its plain version "
+                                 f"in {bad} at KV={KV} S={S} Dh={Dh} T={T}")
         flushed = [bool((a[0][r] != base[0][r]).any() or (a[1][r] != base[1][r]).any())
                    for r in range(B)]
         if flushed != want:
-            raise AssertionError(f"{KIVI_KERNELS[tier][0]}: rows flushed {flushed}, "
-                                 f"want {want} at S={S}")
-        full = lens.index(S)
-        if not all(torch.equal(x[full], y[full]) for x, y in zip(a, base)):
-            raise AssertionError(f"{KIVI_KERNELS[tier][0]} wrote into a slot at capacity")
-        # bytes: the new rows in; per row below S the tail rows written (K4V8
-        # also the V row); per flushing row G tail rows read (K, and V for
-        # int4) and the packed rows and scales written
-        row = Dh + 4
-        nbytes = 8 * B + B * KV * 2 * row
-        for ln, ad in zip(lens, advs):
-            if ln < S:
-                nbytes += KV * row * (2 if tier == "int4" else 3)
-            c = ln // G
-            if ad and (c + 1) * G <= min(ln + ad, S):
-                sides = 2 if tier == "int4" else 1
-                nbytes += (KV * sides * (G * row + G // 2 * Dh)
-                           + KV * (4 * Dh + (4 * G if sides == 2 else 0)))
-        bnd, kind = bound_ms(nbytes, 0, INT8_OPS_PER_S)
+            raise AssertionError(f"{name} {label}: rows flushed {flushed}, want {want} "
+                                 f"at S={S}")
+        if S in lens and T == 1:
+            full = lens.index(S)
+            if not all(torch.equal(x[full], y[full]) for x, y in zip(a, base)):
+                raise AssertionError(f"{name} wrote into a slot at capacity")
+        bnd, kind = bound_ms(kivi_update_bytes(tier, lens, advs, T, KV, S, Dh), 0,
+                             INT8_OPS_PER_S)
         cases.append({
-            "shape": f"B={B} KV={KV} S={S} Dh={Dh} G={G} lengths={lens} adv={advs}",
-            "max_abs_err": 0.0,
+            "shape": f"{label} B={B} KV={KV} S={S} Dh={Dh} G={G} T={T} lengths={lens} "
+                     f"adv={advs}",
+            "route": route, "max_abs_err": 0.0,
             "ms": bench([lambda: writer(*a, *new, group=G, adv=adv)]),
-            "plain_ms": bench([lambda: plain(*b, *new, group=G, adv=adv)]),
+            # the prefill route's plain version synchronises (boolean masks)
+            "plain_ms": (bench if T == 1 else bench_synced)(
+                [lambda: plain(*b, *new, group=G, adv=adv)], iters=5),
             "bound_ms": bnd, "bound_by": kind, "library_ms": None})
         del base, a, b
     return cases
@@ -2162,17 +2237,17 @@ DECODE_ROUTE = {"qmatmul": "qmatmul_decode",
                 "paged_int8_attention": "paged_int8_attention_split",
                 "qmatmul_reduce_scatter_dma": "qmatmul_reduce_scatter_dma_decode",
                 **{name: name + "_split" for name in ROUTED_ATTENTIONS},
-                **{name: name + "_decode" for name in ROUTED_GEMMS}}
+                **{name: name + "_decode" for name in ROUTED_GEMMS + KIVI_WRITERS}}
 PREFILL_ROUTE = {"qmatmul_reduce_scatter_dma": "qmatmul_reduce_scatter_dma_prefill",
-                 **{name: name + "_prefill" for name in ROUTED_ATTENTIONS},
+                 **{name: name + "_prefill" for name in ROUTED_ATTENTIONS + KIVI_WRITERS},
                  **{name: name + "_tile" for name in ROUTED_GEMMS}}
 
 
 def routed(path) -> tuple:
     """``path`` with the decode kernel of each routed wrapper in it and the
-    prefill kernel of each dense and KIVI attention and int4 GEMM (a paged
-    path runs the int8 attention over its gathered window for prefill chunks
-    alone)."""
+    prefill kernel of each dense and KIVI attention, KIVI update and int4
+    GEMM (a paged path runs the int8 attention over its gathered window for
+    prefill chunks alone)."""
     paged = "paged_int8_attention" in path
     decode = [DECODE_ROUTE[k] for k in path
               if k in DECODE_ROUTE and not (paged and k == "int8_kv_attention")]
@@ -2204,22 +2279,27 @@ def decode_step_launches(ops, mode: str, layers: int, kv_dtype: str = "int8") ->
     gemm = kernels[1] if kernels[0] == "rowquant" else kernels[0]
     if gemm in ROUTED_GEMMS:  # every GEMM of a decode step on its decode kernel
         per_step.update({gemm + "_decode": 7 * layers + 1, gemm + "_tile": 0})
+    if kernels[2] in KIVI_WRITERS:  # a KIVI cache's writes on the decode route
+        per_step.update({kernels[2] + "_decode": layers, kernels[2] + "_prefill": 0})
     return per_step
 
 
-def serve(engine, prompts, ops, per_step, first_alone: bool = False):
+def serve(engine, prompts, ops, per_step, first_alone: bool = False,
+          per_prefill: dict | None = None):
     """Serve ``prompts`` to the end, each step timed on the host clock.
     ``first_alone``: request 0 alone until its prefill ends (its prompt is
     then published), then the others. Returns the outputs in request order,
     the step times with and without a prefill chunk, and the decode steps
     whose launches (``path_counts``, over the keys of ``per_step``) differ
-    from ``per_step``, and the chunk boundaries that decode writes crossed
-    (a KIVI cache flushes one chunk per crossing; 0 for the other
-    caches)."""
+    from ``per_step`` (and the steps with a prefill chunk whose launches
+    over the keys of ``per_prefill`` differ from it), the chunk boundaries
+    that decode writes crossed (a KIVI cache flushes one chunk per
+    crossing; 0 for the other caches), and the decode forwards in which
+    some write crossed one (a KIVI update's launches that flush)."""
     rids = [engine.add_request(p) for p in (prompts[:1] if first_alone else prompts)]
     prefill_ms, decode_ms, bad_steps = [], [], []
     group = getattr(engine.caches[0], "group", None)
-    crossed = [0]
+    crossed, flushing = [0], [0]
 
     def step():
         with_prefill = bool(engine.prefilling) or (
@@ -2234,10 +2314,15 @@ def serve(engine, prompts, ops, per_step, first_alone: bool = False):
         after = path_counts(ops)
         if group:  # slots that decoded this step moved by one position
             now = engine.caches[0].lengths
-            crossed[0] += int((decoding & (now == lengths + 1)
-                               & (now // group > lengths // group)).sum())
+            crossing = int((decoding & (now == lengths + 1)
+                            & (now // group > lengths // group)).sum())
+            crossed[0] += crossing
+            flushing[0] += crossing > 0
         if with_prefill:
             prefill_ms.append(dt)
+            delta = {k: after[k] - before[k] for k in per_prefill or {}}
+            if delta != (per_prefill or {}):
+                bad_steps.append({"prefill step": delta})
         else:
             decode_ms.append(dt)
             delta = {k: after[k] - before[k] for k in per_step}
@@ -2251,7 +2336,8 @@ def serve(engine, prompts, ops, per_step, first_alone: bool = False):
     while engine.has_work():
         step()
     outs = {r.rid: r.out for r in engine.finished}
-    return [outs.get(r) for r in rids], prefill_ms, decode_ms, bad_steps, crossed[0]
+    return ([outs.get(r) for r in rids], prefill_ms, decode_ms, bad_steps, crossed[0],
+            flushing[0])
 
 
 def _build(preset: str, mode: str, seed: int, dev):
@@ -2335,7 +2421,11 @@ def _run_slice(ops, seed: int, dev, mode: str, kv_dtype: str, preset: str,
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t_run = time.perf_counter()
-    outs, prefill_ms, decode_ms, bad_steps, crossed = serve(engine, prompts, ops, per_step)
+    # a KIVI cache: each prefill chunk's writes on the update's prefill route
+    per_prefill = ({CACHE_KERNELS[kv_dtype][0] + "_prefill": cfg.num_hidden_layers}
+                   if kv_dtype in KIVI_KERNELS else None)
+    outs, prefill_ms, decode_ms, bad_steps, crossed, flushing = serve(
+        engine, prompts, ops, per_step, per_prefill=per_prefill)
     wall = time.perf_counter() - t_run
     launches = path_counts(ops)
     peak = torch.cuda.max_memory_allocated()
@@ -2363,13 +2453,14 @@ def _run_slice(ops, seed: int, dev, mode: str, kv_dtype: str, preset: str,
         f"{json.dumps(per_step)}")
     log(f"slice {label}: KV cache {cache_bytes} bytes = {cache_bytes / 2**20:.1f} MiB "
         f"({cfg.num_hidden_layers} layers, B=4, S={max_seq}); chunk boundaries crossed by "
-        f"decode writes: {crossed}")
+        f"decode writes: {crossed}, in {flushing} of {len(decode_ms)} decode steps")
     if kv_dtype in KIVI_KERNELS and crossed < 1:
         raise AssertionError(f"slice {label}: no decode step flushed a chunk")
     if any(launches[k] <= 0 for k in routed(path)):
         raise AssertionError(f"a kernel of the {label} path never launched: {launches}")
     if bad_steps or not decode_ms:
-        raise AssertionError(f"decode-step launches {bad_steps[:3]} != {per_step}")
+        raise AssertionError(f"step launches {bad_steps[:3]} != {per_step} (decode), "
+                             f"{per_prefill} (prefill)")
     for p, out in zip(prompts, outs):
         if out is None or len(out) != 32 or not all(0 <= t < cfg.vocab_size for t in out):
             raise AssertionError(f"request (prompt {len(p)}): bad output {out}")
@@ -2464,7 +2555,7 @@ def run_paged_slice(ops, seed: int, dev, mode: str = "weight_only"):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t_run = time.perf_counter()
-    outs, prefill_ms, decode_ms, bad_steps, _ = serve(eng, prompts, ops, per_step,
+    outs, prefill_ms, decode_ms, bad_steps, *_ = serve(eng, prompts, ops, per_step,
                                                       first_alone=True)
     wall = time.perf_counter() - t_run
     launches = path_counts(ops)
@@ -2588,6 +2679,13 @@ def _check_served(label, cfg, launches, path, per_step, bad_steps, decode_ms, pr
             raise AssertionError(f"{label} request (prompt {len(p)}): bad output {out}")
 
 
+def _flush_note(crossed: int, flushing: int, decode_ms: list) -> str:
+    """The chunk boundaries decode writes crossed and the decode steps in
+    which any did (a KIVI update's launches that flush), where any did."""
+    return (f"; chunk boundaries crossed by decode writes: {crossed}, in {flushing} of "
+            f"{len(decode_ms)} decode steps" if crossed else "")
+
+
 def _log_served(label, prompts, outs, wall, prefill_ms, decode_ms, peak):
     generated = sum(len(o or []) for o in outs)
     log(f"{label}: {len(prompts)} requests, prompts {[len(p) for p in prompts]}, {generated} "
@@ -2645,7 +2743,7 @@ def run_ring_slice(ops, seed: int, dev, preset: str = "mistral_7b", model=None):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t_run = time.perf_counter()
-    outs, prefill_ms, decode_ms, bad_steps, _ = serve(engine, prompts, ops, per_step)
+    outs, prefill_ms, decode_ms, bad_steps, *_ = serve(engine, prompts, ops, per_step)
     wall = time.perf_counter() - t_run
     launches = path_counts(ops)
     peak = torch.cuda.max_memory_allocated()
@@ -2730,7 +2828,7 @@ def run_bloom(ops, seed: int, dev) -> dict:
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t_run = time.perf_counter()
-        outs, prefill_ms, decode_ms, bad_steps, crossed = serve(
+        outs, prefill_ms, decode_ms, bad_steps, crossed, flushing = serve(
             engine, prompts, ops, per_step, first_alone=layout == "paged")
         wall = time.perf_counter() - t_run
         launches = path_counts(ops)
@@ -2739,7 +2837,7 @@ def run_bloom(ops, seed: int, dev) -> dict:
         stats = _log_served(label, prompts, outs, wall, prefill_ms, decode_ms, peak)
         log(f"{label} launches: {json.dumps(launches)}; per decode step "
             f"{json.dumps(per_step)}; KV cache {cache_bytes} bytes = {cache_bytes / 2**20} MiB"
-            f"{f'; chunk boundaries crossed by decode writes: {crossed}' if crossed else ''}")
+            f"{_flush_note(crossed, flushing, decode_ms)}")
         _check_served(label, cfg, launches, kernels, per_step, bad_steps, decode_ms, prompts,
                       outs)
         if layout == "paged":
@@ -2821,7 +2919,8 @@ def run_gpt_oss(ops, seed: int, dev) -> dict:
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t_run = time.perf_counter()
-        outs, prefill_ms, decode_ms, bad_steps, crossed = serve(engine, prompts, ops, per_step)
+        outs, prefill_ms, decode_ms, bad_steps, crossed, flushing = serve(engine, prompts, ops,
+                                                                          per_step)
         wall = time.perf_counter() - t_run
         launches = path_counts(ops)
         peak = torch.cuda.max_memory_allocated()
@@ -2832,7 +2931,7 @@ def run_gpt_oss(ops, seed: int, dev) -> dict:
         stats["dropped_share"] = dropped / assigned
         log(f"{label} launches: {json.dumps(launches)}; per decode step "
             f"{json.dumps(per_step)}; KV cache {cache_bytes} bytes = {cache_bytes / 2**20} MiB"
-            f"{f'; chunk boundaries crossed by decode writes: {crossed}' if crossed else ''}; "
+            f"{_flush_note(crossed, flushing, decode_ms)}; "
             f"expert assignments dropped by the capacity: {dropped:.0f} of {assigned} "
             f"({dropped / assigned:.4f}), idle slots and padding included")
         _check_served(label, cfg, launches, ("rowquant", "qmatmul", writer, attention),
@@ -3108,7 +3207,7 @@ def run_tp_slice(ops, seed: int, dev, single_outputs):
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t_run = time.perf_counter()
-        outs, prefill_ms, decode_ms, bad_steps, _ = serve(engine, prompts, ops, per_step)
+        outs, prefill_ms, decode_ms, bad_steps, *_ = serve(engine, prompts, ops, per_step)
         wall = time.perf_counter() - t_run
         launches = path_counts(ops)
     peak = torch.cuda.max_memory_allocated()
@@ -3353,6 +3452,22 @@ def _scale_row_shifted(writer):
     return faulty
 
 
+def _tails_first(ops, tier: str):
+    """The KIVI update's plain version with a fault on its prefill route:
+    the new rows go to the tails first (a call that advances no length and
+    so flushes nothing), then the update runs, so its first chunk reads
+    back as old the tail rows that new positions landed on."""
+    writer = getattr(ops, KIVI_KERNELS[tier][0] + "_ref")
+
+    def faulty(*args, group, adv=None):
+        lengths, k8 = args[8], args[9]
+        if k8.shape[2] > 1:
+            ops.kivi_prefill_update_ref(*args, group=group, adv=torch.zeros_like(lengths),
+                                        v4=tier == "int4")
+        return writer(*args, group=group, adv=adv)
+    return faulty
+
+
 def _partner_nibble(ops):
     """The K8V4 writer's plain version with a fault: each token's V nibble
     lands in its pair partner's half of the byte, its own half keeps what
@@ -3413,6 +3528,8 @@ def planted_faults(ops, mode: str = "dynamic", kv_dtype: str = "int8",
         return {
             f"{writer} writes chunk c's scales into row c + 1": {
                 writer: _scale_row_shifted(getattr(ops, writer + "_ref"))},
+            f"{writer} writes the tails before its first chunk reads them": {
+                writer: _tails_first(ops, kv_dtype)},
             f"{attn} swaps the low and high nibbles of K": {
                 attn: lambda q, kq, *a, **k: plain_attn(q, _swap_nibbles(kq), *a, **k)},
         }
@@ -3474,6 +3591,12 @@ def _wo_slice_dropped(ops, route: str):
     return faulty
 
 
+# The KIVI agreement's prompt (phase 14), prefilled in two chunks: the second
+# starts 63 positions into chunk 2 and is longer than 2G, so its first flush
+# reads 63 old tail rows that its own later rows land on; the prompt is 62
+# past a multiple of G = 64, so the second decode step's write completes a
+# chunk and flushes it, and the last three steps read it packed
+KIVI_AGREE_PROMPT, KIVI_AGREE_CHUNK = 382, 191
 # Gemma-2's agreement prompt: 1.5 times the window and more, so that layer
 # 0's window hides keys from every decode position; the second decode write
 # completes a KIVI chunk (G = 64) and flushes it. Prefill in chunks of 1024,
@@ -3589,9 +3712,12 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
     as resolved). On the fused path the norm weights are drawn from
     [0.5, 1.5] (init_random_ sets them to 1, under which a kernel reading
     the wrong weight would pass unseen). Over a KIVI cache (``kv_dtype``
-    "k4v8" or "int4", G = 64) the prompt is 62 tokens, so the second decode
-    step's write completes chunk 0 and flushes it, and the last three steps
-    read it from the packed store; over the K8V4 cache it is 61 tokens, so
+    "k4v8" or "int4", G = 64) the prompt is KIVI_AGREE_PROMPT tokens in two
+    prefill chunks, the second read from old tail rows that it overwrites
+    (the update's prefill route), and the second decode step's write
+    completes a chunk and flushes it, and the last three steps read it from
+    the packed store (BLOOM's: 62 tokens in one chunk); over the K8V4 cache
+    it is 61 tokens, so
     the decode writes land in both nibble parities (61 shares its byte with
     the prompt's last token). These caches' kernels act on the decode
     positions, so their runs must pass the limit there too, as the paged
@@ -3652,6 +3778,9 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
     elif bloom and ring:
         window, sinks = BL_AGREE_RING["window"], BL_AGREE_RING["sinks"]
         n_prompt, chunk, max_seq, stride = BL_AGREE_RING["prompt"], BL_AGREE_RING["chunk"], 128, 1
+    elif kv_dtype in KIVI_KERNELS and not bloom:
+        n_prompt, chunk, stride = KIVI_AGREE_PROMPT, KIVI_AGREE_CHUNK, 1
+        max_seq = -(-(n_prompt + 4) // KIVI_G) * KIVI_G
     else:
         n_prompt, max_seq, stride = {"int8": 48, "k8v4": 61}.get(kv_dtype, 62), 128, 1
         chunk = n_prompt
@@ -3698,7 +3827,7 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
 
     def compare(out, ref):
         """Readings over all positions kept, and the relative L2 error over
-        the decode positions alone (8 of the 104, or of the 132 with a KIVI
+        the decode positions alone (8 of the 104, or of the 772 with a KIVI
         cache, 130 with K8V4), where the decode writer and T = 1 attention
         act. The paged path's two attention kernels, the KIVI flush and the
         K8V4 nibble writes act there only, so their runs must pass the limit
@@ -3798,6 +3927,9 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
 
 # -- main ----------------------------------------------------------------------
 
+# the KIVI updates' prefill row: the 7B chunk from 300, whose first chunk
+# mixes old tail rows and new ones
+KIVI_PREFILL_ROW = f"prefill B=4 KV={HEADS} S=1024 Dh={HEAD_DIM} G={KIVI_G} T=256 lengths=[300"
 KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
     "rowquant": ("protoquant_tpu_torch/csrc/rowquant.cu",
                  "protoquant_tpu/ops/rowquant.py:23", "M=4 K=4096 bf16"),
@@ -3847,12 +3979,16 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
                 "protoquant_tpu/ops/dequant.py:20", "axis=0 f32 out"),
     "k4v8_decode_update": ("protoquant_tpu_torch/csrc/kivi_update.cu",
                            "protoquant_tpu/ops/kv_scatter.py:472", None),
+    "k4v8_decode_update_prefill": ("protoquant_tpu_torch/csrc/kivi_update.cu",
+                                   "protoquant_tpu/ops/kv_scatter.py:472", KIVI_PREFILL_ROW),
     "k4v8_attention": ("protoquant_tpu_torch/csrc/kivi_split.cuh",
                        "protoquant_tpu/ops/attention.py:1037", "decode"),
     "k4v8_attention_prefill": ("protoquant_tpu_torch/csrc/attn_prefill.cuh",
                                "protoquant_tpu/ops/attention.py:1037", "prefill"),
     "kivi4_decode_update": ("protoquant_tpu_torch/csrc/kivi_update.cu",
                             "protoquant_tpu/ops/kv_scatter.py:205", None),
+    "kivi4_decode_update_prefill": ("protoquant_tpu_torch/csrc/kivi_update.cu",
+                                    "protoquant_tpu/ops/kv_scatter.py:205", KIVI_PREFILL_ROW),
     "int4_kv_attention": ("protoquant_tpu_torch/csrc/kivi_split.cuh",
                           "protoquant_tpu/ops/attention.py:495", "decode"),
     "int4_kv_attention_prefill": ("protoquant_tpu_torch/csrc/attn_prefill.cuh",
@@ -3912,6 +4048,7 @@ KERNEL_SOURCES = {
 # count is the routes' sum.
 ROUTE_COUNT = {"qmatmul": "qmatmul_tile", "paged_int8_attention": "paged_int8_attention_walk",
                "qmatmul_reduce_scatter_dma": "qmatmul_reduce_scatter_dma_prefill",
+               **{name: name + "_decode" for name in KIVI_WRITERS},
                **{name: name + "_split" for name in ROUTED_ATTENTIONS},
                **{name: name + "_tile" for name in ROUTED_GEMMS}}
 # the decode-route entries of a routed GEMM, by the wrapper whose cases they
@@ -3966,6 +4103,9 @@ def check_kernels(ops, gen, dev) -> dict:
         if name in ROUTED_ATTENTIONS:  # the prefill kernel's cases under its own entry
             groups = {name: [c for c in cases if "prefill" not in c["shape"]],
                       name + "_prefill": [c for c in cases if "prefill" in c["shape"]]}
+        elif name in KIVI_WRITERS:  # the prefill route's cases under their own entry
+            groups = {name: [c for c in cases if c["route"] == "decode"],
+                      name + "_prefill": [c for c in cases if c["route"] == "prefill"]}
         elif name in ROUTED_GEMMS:  # the decode kernel's cases under their own
             decode = [c for c in cases if c["plan"]["route"] == "decode"]
             groups = {name + "_decode": decode, name: [c for c in cases if c not in decode]}

@@ -36,7 +36,6 @@ import dataclasses
 
 import torch
 
-from ..core import numerics
 # kivi_chunk_quantize and the nibble helpers live in core.numerics; they are
 # named here too, where the JAX package keeps them
 from ..core.numerics import (QMAX4, SCALE_EPS, kivi_chunk_quantize,  # noqa: F401
@@ -44,9 +43,8 @@ from ..core.numerics import (QMAX4, SCALE_EPS, kivi_chunk_quantize,  # noqa: F40
 from ..ops.attention import (int4_kv_attention, int8_kv_attention, k4v8_attention,
                              kivi_dequant_k, kivi_dequant_v4, mixed_kv_attention,
                              reject_variants, score_scale, softmax_with_sinks, unpack_v4)
-from ..ops.kv_scatter import (gather_rows, k4v8_decode_update, kivi4_decode_update,
-                              kv_mixed_scatter_decode, kv_scatter_decode, merge_nibble,
-                              put_chunk, put_v_chunk)
+from ..ops.kv_scatter import (k4v8_decode_update, kivi4_decode_update,
+                              kv_mixed_scatter_decode, kv_scatter_decode, merge_nibble)
 from ..utils.device import resolve_device
 
 
@@ -514,71 +512,12 @@ class _KiviKVCache(_DenseSlots):
 
     def _write(self, k, v, adv) -> None:
         """Quantize k/v [B, T, KV, Dh] to per-token int8 and write them, in
-        place, without advancing ``lengths``: T == 1 through the decode
-        writer, T > 1 through the prefill update."""
-        B, T, KV, Dh = k.shape
+        place, without advancing ``lengths``: one call of the tier's update
+        (route "decode" at T == 1, "prefill" above)."""
         k8, ks8 = quantize_kv(k)
         v8, vs8 = quantize_kv(v)
-        if T == 1:
-            self._decode_write(*self._tensors(), self.lengths,
-                               k8.reshape(B, KV, 1, Dh), ks8.reshape(B, KV, 1),
-                               v8.reshape(B, KV, 1, Dh), vs8.reshape(B, KV, 1),
-                               group=self.group, adv=adv)
-        else:
-            self._prefill(k8, ks8, v8, vs8, adv)
-
-    def _prefill(self, k8, ks8, v8, vs8, adv) -> None:
-        """T > 1 (the JAX caches' ``_xla_update``): up to (G - 1 + T) // G
-        chunk flushes whose token rows come from the old tails (positions
-        below the old length) or from the new tokens; then the tails take
-        the new tokens, anchored at [L_old, L_old + T) (positions past S
-        included, as in the JAX package); a flush past S is dropped.
-        Masked writes only, no host branch on the lengths."""
-        B, T = k8.shape[:2]
-        G, S, dev = self.group, self.max_seq, k8.device
-        L_old = self.lengths.long()
-        L_new = (L_old + adv.long()).clamp_max(S)
-        k8t, ks8t = k8.transpose(1, 2), ks8.transpose(1, 2)  # [B, KV, T, ...]
-        v8t, vs8t = v8.transpose(1, 2), vs8.transpose(1, 2)
-        if not self.V4:  # V: direct int8 writes at [L_old, L_old + T), past S dropped
-            pos = L_old[:, None] + torch.arange(T, device=dev)[None, :]
-            keep = pos < S
-            bi, si = torch.arange(B, device=dev)[:, None].expand(B, T)[keep], pos[keep]
-            self.vq[bi, :, si] = v8[keep]
-            self.vs[bi, :, si] = vs8[keep]
-
-        def chunk_rows(x8t, xs8t, xtail, xts, pos, use_tail):
-            idx = (pos - L_old[:, None]).clamp(0, T - 1)
-            row = pos % (2 * G)
-            c8 = torch.where(use_tail[:, None, :, None], gather_rows(xtail, row),
-                             gather_rows(x8t, idx))
-            cs = torch.where(use_tail[:, None, :], gather_rows(xts, row),
-                             gather_rows(xs8t, idx))
-            return c8, cs
-
-        j = torch.arange(G, device=dev)
-        for f in range((G - 1 + T) // G):
-            c = L_old // G + f
-            flush = (c + 1) * G <= L_new
-            pos = c[:, None] * G + j[None, :]
-            use_tail = pos < L_old[:, None]
-            packed_k, s_ch = numerics.kivi_chunk_quantize_k(
-                *chunk_rows(k8t, ks8t, self.ktail, self.kts, pos, use_tail))
-            rows = put_chunk(self.kq, self.kchs, packed_k, s_ch, c, flush, G)
-            if self.V4:
-                packed_v, s_v = numerics.kivi_chunk_quantize_v(
-                    *chunk_rows(v8t, vs8t, self.vtail, self.vts, pos, use_tail))
-                put_v_chunk(self.vq, self.vs, packed_v, s_v, rows, flush)
-
-        j2 = torch.arange(2 * G, device=dev)[None, :]
-        w_last = L_old[:, None] + T - 1
-        p_j = w_last - (w_last - j2) % (2 * G)  # the latest written position = j mod 2G
-        fresh = p_j >= L_old[:, None]
-        idx = (p_j - L_old[:, None]).clamp(0, T - 1)
-        for tail, ts, x8t, xs8t in ((self.ktail, self.kts, k8t, ks8t),
-                                    (self.vtail, self.vts, v8t, vs8t)):
-            tail.copy_(torch.where(fresh[:, None, :, None], gather_rows(x8t, idx), tail))
-            ts.copy_(torch.where(fresh[:, None, :], gather_rows(xs8t, idx), ts))
+        self._update(*self._tensors(), self.lengths, k8.transpose(1, 2), ks8.transpose(1, 2),
+                     v8.transpose(1, 2), vs8.transpose(1, 2), group=self.group, adv=adv)
 
     def _adv(self, T, advance):
         if advance is None:
@@ -629,7 +568,7 @@ class K4V8KVCache(_KiviKVCache):
     last 2G V rows. Port of ``protoquant_tpu/models/kv_cache.py:K4V8KVCache``
     (the JAX CLI's ``--kv-bits 6``)."""
 
-    def _decode_write(self, *args, **kw):
+    def _update(self, *args, **kw):
         k4v8_decode_update(*args, **kw)
 
     def _attention(self, *args, **kw):
@@ -644,7 +583,7 @@ class Int4KVCache(_KiviKVCache):
 
     V4 = True
 
-    def _decode_write(self, *args, **kw):
+    def _update(self, *args, **kw):
         kivi4_decode_update(*args, **kw)
 
     def _attention(self, *args, **kw):

@@ -11,7 +11,8 @@ the tile kernel, by M;
 paged_int8_attention: the split or the
 walk, by the split plan; int8_kv_attention, mixed_kv_attention and the
 two KIVI attentions: the split decode or the prefill kernel, by the split
-plan) counts every call in
+plan; the two KIVI updates: one kernel on route decode or prefill, by the
+new rows a slot) counts every call in
 ``.launches`` and each kernel's in ``.routes`` (:data:`ROUTED`,
 :func:`route_counts`).
 """
@@ -28,7 +29,8 @@ from .dequant import dequant, dequant_ref
 from .fused_quant import (rms_norm_quant, rms_norm_quant_ref, swiglu_quant,
                           swiglu_quant_ref)
 from .kv_scatter import (k4v8_decode_update, k4v8_decode_update_ref, kivi4_decode_update,
-                         kivi4_decode_update_ref, kv_mixed_scatter_decode,
+                         kivi4_decode_update_ref, kivi_prefill_update_ref,
+                         kv_mixed_scatter_decode,
                          kv_mixed_scatter_decode_ref, kv_scatter_decode, kv_scatter_decode_ref,
                          paged_kv_scatter_decode, paged_kv_scatter_decode_ref)
 from .paged_attention import paged_int8_attention, paged_int8_attention_ref
@@ -121,6 +123,10 @@ ROUTED = {
     "k4v8_attention_prefill": (k4v8_attention, "prefill"),
     "int4_kv_attention_split": (int4_kv_attention, "split"),
     "int4_kv_attention_prefill": (int4_kv_attention, "prefill"),
+    "k4v8_decode_update_decode": (k4v8_decode_update, "decode"),
+    "k4v8_decode_update_prefill": (k4v8_decode_update, "prefill"),
+    "kivi4_decode_update_decode": (kivi4_decode_update, "decode"),
+    "kivi4_decode_update_prefill": (kivi4_decode_update, "prefill"),
     "qmatmul_reduce_scatter_dma_decode": (qmatmul_reduce_scatter_dma, "decode"),
     "qmatmul_reduce_scatter_dma_prefill": (qmatmul_reduce_scatter_dma, "prefill"),
 }
@@ -146,6 +152,7 @@ __all__ = [
     "dynamic_qlinear", "int4_kv_attention", "int4_kv_attention_ref", "int8_kv_attention",
     "int8_kv_attention_ref", "k4v8_attention", "k4v8_attention_ref", "k4v8_decode_update",
     "k4v8_decode_update_ref", "kivi4_decode_update", "kivi4_decode_update_ref",
+    "kivi_prefill_update_ref",
     "kv_mixed_scatter_decode", "kv_mixed_scatter_decode_ref", "kv_scatter_decode",
     "kv_scatter_decode_ref", "launch_counts", "mixed_kv_attention", "mixed_kv_attention_ref",
     "paged_int8_attention",

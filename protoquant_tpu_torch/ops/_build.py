@@ -94,9 +94,13 @@ SIGNATURES = {
     # q, scale, out, out_dtype, M, N, scale_on_last, stream
     "pq_dequant": [_P, _P, _P, _I, _I, _I, _I, _P],
     # kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, adv, k8, ks_new, v8,
-    # vs_new, B, KV, S, Dh, G, stream
-    "pq_k4v8_decode_update": [_P] * 14 + [_I] * 5 + [_P],
-    "pq_kivi4_decode_update": [_P] * 14 + [_I] * 5 + [_P],
+    # vs_new, B, KV, S, Dh, G, T, the new rows' strides (b, h, t), their
+    # scales' (b, h, t), prefill (0: the decode route), stream
+    "pq_k4v8_decode_update": [_P] * 14 + [_I] * 13 + [_P],
+    "pq_kivi4_decode_update": [_P] * 14 + [_I] * 13 + [_P],
+    # xs, nx, out mismatch count (u64), stream: the KIVI update's division
+    # against IEEE division (a check for the card tests)
+    "pq_kivi_div_check": [_P, _I, _P, _P],
     # q, q_dtype, kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths,
     # new_lengths, alibi (or null), sink (or null), out, B, T, H, KV, S, Dh,
     # G, sm, window, softcap, stream

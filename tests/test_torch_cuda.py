@@ -19,8 +19,9 @@ and the two-level (r16, scol) made on the card equal the CPU's. The fused
 producers, ``rms_norm_quant`` and ``swiglu_quant``: codes equal or +-1 (the
 norm's in under 1e-3 of the elements, scales within rtol 1e-6; the gate's in
 under 5 %, scales within rtol 1e-2), what the JAX package demands of its
-kernels. ``dequant``: exact. The KIVI decode writers (K4V8, Int4): exact
-on all eight cache tensors; the KIVI attentions: ATOL in f32, 2^-7 of the
+kernels. ``dequant``: exact. The KIVI updates (K4V8, Int4), both routes
+(decode, prefill) at the 7B, GPT-OSS and BLOOM shapes and in a CUDA graph:
+exact on all eight cache tensors; the KIVI attentions: ATOL in f32, 2^-7 of the
 largest output in bf16. The mixed K8V4 writer: exact on all four cache
 tensors; the mixed attention as the KIVI ones. The split-S KIVI decode:
 the same tolerances at split boundaries, with dead splits below a window and
@@ -830,6 +831,101 @@ def test_kivi_decode_update_exact(cuda, tier, G, head_dim):
     for i, (x, y) in enumerate(zip(a, b)):
         assert torch.equal(x, y), i
     assert not torch.equal(a[0][1], base[0][1]) and torch.equal(a[0][0], base[0][0])
+
+
+
+# (KV, S, Dh) of the models a KIVI cache serves: Llama-2-7B, GPT-OSS-20B
+# (S as in its KIVI runs), BLOOM-560m
+KIVI_SHAPES = {"7b": (32, 1024, 128), "gpt_oss": (8, 2048, 64), "bloom": (16, 2048, 64)}
+
+
+def _kivi_new_rows(g, dev, B, KV, T, Dh):
+    """New rows as the cache hands them over: [B, T, KV, ...] tensors seen
+    as [B, KV, T, ...] views."""
+    k8 = torch.randint(-127, 128, (B, T, KV, Dh), generator=g, device=dev, dtype=torch.int8)
+    v8 = torch.randint_like(k8, -127, 128)
+    ks = torch.rand(B, T, KV, generator=g, device=dev) * 1e-2 + 1e-3
+    vs = torch.rand(B, T, KV, generator=g, device=dev) * 1e-2 + 1e-3
+    return [t.transpose(1, 2) for t in (k8, ks, v8, vs)]
+
+
+def _kivi_update_case(g, dev, tier, shape, T, G=64):
+    """Rows at lengths 0, 10, 63, 300, S - 20, S (at capacity) and 127, the
+    fourth padded (adv < T; 0 at T = 1), the last idle (adv 0); the cache
+    and the new rows random."""
+    KV, S, Dh = KIVI_SHAPES[shape]
+    lens = [0, 10, 63, 300, S - 20, S, 127]
+    advs = [T, T, T, T // 2 if T > 1 else 0, T, T, 0]
+    B = len(lens)
+    cache = _kivi_cache(g, dev, tier, B, KV, S, Dh, G)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    adv = torch.tensor(advs, dtype=torch.int32, device=dev)
+    return cache, lengths, adv, _kivi_new_rows(g, dev, B, KV, T, Dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 16, 256, 300])
+@pytest.mark.parametrize("shape", list(KIVI_SHAPES))
+@pytest.mark.parametrize("tier", ["k4v8", "int4"])
+def test_kivi_update_routes_exact(cuda, tier, shape, T):
+    """Both routes of both KIVI updates (decode at T = 1, prefill above)
+    against their plain versions, all eight tensors bit for bit, at the
+    model shapes: chunks flushed from old tail rows and new rows, T past 2G,
+    an idle row, a padded row, writes past S, a row at capacity; one launch
+    a call, counted on its route."""
+    g = torch.Generator(device=cuda).manual_seed(T + len(shape))
+    cache, lengths, adv, new = _kivi_update_case(g, cuda, tier, shape, T)
+    a = [t.clone() for t in cache]
+    b = [t.clone() for t in cache]
+    name = KIVI[tier][0]
+    ops.reset_launch_counts()
+    getattr(ops, name)(*a, lengths, *new, group=64, adv=adv)
+    getattr(ops, name + "_ref")(*b, lengths, *new, group=64, adv=adv)
+    torch.cuda.synchronize()
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert torch.equal(x, y), i
+    assert not torch.equal(a[0], cache[0])  # some chunk flushed
+    route = "decode" if T == 1 else "prefill"
+    assert ops.route_counts()[f"{name}_{route}"] == 1 and ops.launch_counts()[name] == 1
+
+
+@pytest.mark.cuda
+def test_kivi_update_division_is_ieee(cuda):
+    """The update kernel's branch-free division gives IEEE division's bits
+    (``__fdiv_rn``) over every f32 significand of the divisor in [1, 2) and
+    dividends that are int8 codes times per-token scales of many
+    magnitudes."""
+    from protoquant_tpu_torch.ops.kv_scatter import kivi_div_check
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    codes = torch.arange(-127, 128, device=cuda, dtype=torch.float32)
+    ts = torch.cat([torch.tensor([1e-12, 3.7e-7, 0.013, 1.7, 250.0], device=cuda),
+                    torch.rand(3, generator=g, device=cuda) * 0.05])
+    xs = (codes[:, None] * ts[None, :]).flatten().contiguous()
+    assert kivi_div_check(xs) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 256])
+@pytest.mark.parametrize("tier", ["k4v8", "int4"])
+def test_kivi_update_cuda_graph(cuda, tier, T):
+    """A KIVI update captured in a CUDA graph and replayed on the same
+    cache contents gives the eager call's bits, on either route."""
+    g = torch.Generator(device=cuda).manual_seed(171 + T)
+    cache, lengths, adv, new = _kivi_update_case(g, cuda, tier, "7b", T)
+    fn = getattr(ops, KIVI[tier][0])
+    eager = [t.clone() for t in cache]
+    fn(*eager, lengths, *new, group=64, adv=adv)
+    captured = [t.clone() for t in cache]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn(*captured, lengths, *new, group=64, adv=adv)
+    for t, c in zip(captured, cache):
+        t.copy_(c)
+    graph.replay()
+    torch.cuda.synchronize()
+    for i, (x, y) in enumerate(zip(captured, eager)):
+        assert torch.equal(x, y), i
 
 
 @pytest.mark.cuda

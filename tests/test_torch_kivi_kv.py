@@ -14,6 +14,8 @@ Where a test needs chunk boundaries at small sizes it sets INT4_KV_GROUP
 to 16 in both packages.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -428,3 +430,202 @@ def test_engine_guard_matches_pad_overwrites(G, chunk):
         lost |= not (torch.equal(kp[:, :, :total], ke[:, :, :total])
                      and torch.equal(vp[:, :, :total], ve[:, :, :total]))
     assert lost == kivi_pad_overwrites(chunk, G)
+
+
+# -- the prefill route of the KIVI updates (T > 1 new rows a slot) -----------------
+
+KS = importlib.import_module("protoquant_tpu_torch.ops.kv_scatter")
+WRITERS = {"k4v8": ops.k4v8_decode_update, "int4": ops.kivi4_decode_update}
+# (G, S, lengths before, T, advance or None): a chunk flushed from old tail
+# rows and new rows, T past 2G (new rows land on old tail rows), padded
+# pieces (advance < T), writes past S and from a length at or past S
+PREFILL_CASES = [
+    (8, 64, [0, 0], 2, None), (8, 64, [3, 13], 20, None), (8, 64, [5, 10], 37, [9, 37]),
+    (8, 64, [50, 60], 12, None), (8, 64, [64, 70], 5, [5, 0]), (8, 64, [7, 0], 300, [300, 3]),
+    (64, 512, [0, 0], 2, None), (64, 512, [10, 100], 130, None),
+    (64, 512, [300, 63], 256, [256, 100]), (64, 512, [500, 450], 300, None)]
+
+
+def _filled_jax(jcls, G, S, lens, rng):
+    """A JAX cache of B = 2 rows with random contents up to ``lens``: one
+    update padded to the longest row, so the tails hold rows past each."""
+    jc = jcls.init(2, S, KV, DH, group=G)
+    top = max(lens)
+    if top:
+        x = jnp.asarray(rng.standard_normal((2, top, KV, DH)), jnp.float32)
+        jc = jc.update(x, x * 0.5, jnp.asarray(lens, jnp.int32))
+    return jc
+
+
+def _new_rows(rng, T):
+    """Per-token int8 rows and scales [B, T, KV, ...] as quantize_kv gives."""
+    return [rng.integers(-127, 128, (2, T, KV, DH)).astype(np.int8),
+            rng.uniform(1e-3, 3e-2, (2, T, KV)).astype(np.float32),
+            rng.integers(-127, 128, (2, T, KV, DH)).astype(np.int8),
+            rng.uniform(1e-3, 3e-2, (2, T, KV)).astype(np.float32)]
+
+
+@pytest.mark.parametrize("case", range(len(PREFILL_CASES)))
+@pytest.mark.parametrize("tier", TIERS)
+def test_prefill_route_matches_jax_xla_update(tier, case):
+    """The prefill route's plain version (through the wrapper on the CPU, the
+    new rows as [B, KV, T, ...] views) against the JAX cache's
+    ``_xla_update``: all eight tensors bit for bit, tails included (both
+    write tail rows past S), in place."""
+    G, S, lens, T, advance = PREFILL_CASES[case]
+    jcls = TIERS[tier][1]
+    rng = np.random.default_rng(20 + case)
+    jc = _filled_jax(jcls, G, S, lens, rng)
+    new = _new_rows(rng, T)
+    adv = np.asarray([T, T] if advance is None else advance, np.int32)
+    want = jc._xla_update(*map(jnp.asarray, new), jnp.asarray(adv))
+    tc = _port(jc, tier)
+    t8 = [torch.from_numpy(a).transpose(1, 2) for a in new]  # [B, KV, T, ...] views
+    got = WRITERS[tier](*(getattr(tc, f) for f in FIELDS), *t8, group=G,
+                        adv=None if advance is None else torch.from_numpy(adv))
+    for name, g in zip(FIELDS, got):
+        assert g.data_ptr() == getattr(tc, name).data_ptr()  # in place
+        np.testing.assert_array_equal(g.numpy(), np.asarray(getattr(want, name)),
+                                      err_msg=name)
+
+
+def _old_prefill(cache, k8, ks8, v8, vs8, adv):
+    """The caches' prefill write as it stood before it moved to
+    ``ops.kivi_prefill_update_ref`` (``_KiviKVCache._prefill``, verbatim but
+    for ``self``): k8/v8 [B, T, KV, Dh], ks8/vs8 [B, T, KV]."""
+    self = cache
+    B, T = k8.shape[:2]
+    G, S, dev = self.group, self.max_seq, k8.device
+    L_old = self.lengths.long()
+    L_new = (L_old + adv.long()).clamp_max(S)
+    k8t, ks8t = k8.transpose(1, 2), ks8.transpose(1, 2)
+    v8t, vs8t = v8.transpose(1, 2), vs8.transpose(1, 2)
+    if not self.V4:
+        pos = L_old[:, None] + torch.arange(T, device=dev)[None, :]
+        keep = pos < S
+        bi, si = torch.arange(B, device=dev)[:, None].expand(B, T)[keep], pos[keep]
+        self.vq[bi, :, si] = v8[keep]
+        self.vs[bi, :, si] = vs8[keep]
+
+    def chunk_rows(x8t, xs8t, xtail, xts, pos, use_tail):
+        idx = (pos - L_old[:, None]).clamp(0, T - 1)
+        row = pos % (2 * G)
+        c8 = torch.where(use_tail[:, None, :, None], KS.gather_rows(xtail, row),
+                         KS.gather_rows(x8t, idx))
+        cs = torch.where(use_tail[:, None, :], KS.gather_rows(xts, row),
+                         KS.gather_rows(xs8t, idx))
+        return c8, cs
+
+    j = torch.arange(G, device=dev)
+    for f in range((G - 1 + T) // G):
+        c = L_old // G + f
+        flush = (c + 1) * G <= L_new
+        pos = c[:, None] * G + j[None, :]
+        use_tail = pos < L_old[:, None]
+        packed_k, s_ch = numerics.kivi_chunk_quantize_k(
+            *chunk_rows(k8t, ks8t, self.ktail, self.kts, pos, use_tail))
+        rows = KS.put_chunk(self.kq, self.kchs, packed_k, s_ch, c, flush, G)
+        if self.V4:
+            packed_v, s_v = numerics.kivi_chunk_quantize_v(
+                *chunk_rows(v8t, vs8t, self.vtail, self.vts, pos, use_tail))
+            KS.put_v_chunk(self.vq, self.vs, packed_v, s_v, rows, flush)
+
+    j2 = torch.arange(2 * G, device=dev)[None, :]
+    w_last = L_old[:, None] + T - 1
+    p_j = w_last - (w_last - j2) % (2 * G)
+    fresh = p_j >= L_old[:, None]
+    idx = (p_j - L_old[:, None]).clamp(0, T - 1)
+    for tail, ts, x8t, xs8t in ((self.ktail, self.kts, k8t, ks8t),
+                                (self.vtail, self.vts, v8t, vs8t)):
+        tail.copy_(torch.where(fresh[:, None, :, None], KS.gather_rows(x8t, idx), tail))
+        ts.copy_(torch.where(fresh[:, None, :], KS.gather_rows(xs8t, idx), ts))
+
+
+@pytest.mark.parametrize("steps", [[(37, None), (20, [9, 20]), (16, [16, 2]), (12, None)],
+                                   [(40, None), (40, [40, 33]), (40, None)]])
+@pytest.mark.parametrize("tier", TIERS)
+def test_cache_prefill_equals_old_path(tier, steps):
+    """The cache's T > 1 writes through the wrapper give the eight tensors
+    that its old plain ``_prefill`` gave, step after step (G = 16, S = 64:
+    chunks flushed, a padded piece, pieces past 2G and past S)."""
+    cls = TIERS[tier][0]
+    rng = np.random.default_rng(30 + len(steps))
+    new = cls.init(B, S, KV, DH, group=G, device="cpu")
+    old = cls.init(B, S, KV, DH, group=G, device="cpu")
+    for T, advance in steps:
+        k, v = (torch.from_numpy(rng.standard_normal((B, T, KV, DH)).astype(np.float32))
+                for _ in range(2))
+        adv = torch.tensor([T] * B if advance is None else advance, dtype=torch.int32)
+        new.update(k, v, adv)
+        k8, ks8 = tkv.quantize_kv(k)
+        v8, vs8 = tkv.quantize_kv(v)
+        _old_prefill(old, k8, ks8, v8, vs8, adv)
+        old.lengths += adv
+        for f in FIELDS:
+            assert torch.equal(getattr(new, f), getattr(old, f)), (T, f)
+
+
+def _stub_launcher(monkeypatch):
+    """The kernel library replaced by a recorder of each entry's arguments
+    (operands on the meta device: no card needed)."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(KS._build, "lib", lambda verbose=False: Lib())
+    monkeypatch.setattr(KS._build, "stream_ptr", lambda dev: 0)
+    return calls
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_update_routes_by_rows(monkeypatch, tier):
+    """With the launcher stubbed: one launch a cache update, on route
+    "decode" at T = 1 and "prefill" above (the C entry's last flag), each
+    counted in ``.routes`` and ``ops.route_counts``, with T and the new
+    rows' strides (the [B, T, KV, Dh] rows seen as [B, KV, T, Dh])."""
+    calls = _stub_launcher(monkeypatch)
+    cls, writer = TIERS[tier][0], WRITERS[tier]
+    name = "kivi4_decode_update" if tier == "int4" else "k4v8_decode_update"
+    cache = cls.init(2, 128, 4, 64, group=16, device="meta")
+    for T, route in ((1, "decode"), (2, "prefill"), (16, "prefill"), (33, "prefill")):
+        ops.reset_launch_counts()
+        calls.clear()
+        x = torch.empty(2, T, 4, 64, device="meta")
+        cache.update(x, x)
+        (c_name, args), = calls
+        assert c_name == "pq_" + name
+        B, KV, S, Dh, G, T_, xsb, xsh, xst, ssb, ssh, sst, prefill = args[14:27]
+        assert (B, KV, S, Dh, G, T_, prefill) == (2, 4, 128, 64, 16, T, int(route == "prefill"))
+        assert (xsb, xsh, xst) == (T * 4 * 64, 64, 4 * 64 if T > 1 else 0)
+        assert (ssb, ssh, sst) == (T * 4, 1, 4 if T > 1 else 0)
+        assert writer.routes == {"decode": int(route == "decode"),
+                                 "prefill": int(route == "prefill")}
+        counts = ops.route_counts()
+        assert counts[f"{name}_{route}"] == 1 and ops.launch_counts()[name] == 1
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_update_launch_rejects(monkeypatch, tier):
+    """Refused before launch: a head dim the kernel does not take, new rows
+    whose K and V strides differ, rows not 16-byte aligned; nothing is
+    counted."""
+    calls = _stub_launcher(monkeypatch)
+    cls, writer = TIERS[tier][0], WRITERS[tier]
+    ops.reset_launch_counts()
+    for Dh, match in ((48, "head_dim"),):
+        c = cls.init(1, 32, 2, Dh, group=8, device="meta")
+        x8 = torch.empty(1, 2, 3, Dh, dtype=torch.int8, device="meta")
+        s = torch.empty(1, 2, 3, device="meta")
+        with pytest.raises(ValueError, match=match):
+            writer(*(getattr(c, f) for f in FIELDS), x8, s, x8, s, group=8)
+    c = cls.init(1, 32, 2, 64, group=8, device="meta")
+    x8 = torch.empty(1, 3, 2, 64, dtype=torch.int8, device="meta").transpose(1, 2)
+    s = torch.empty(1, 3, 2, device="meta").transpose(1, 2)
+    with pytest.raises(ValueError, match="share their strides"):
+        writer(*(getattr(c, f) for f in FIELDS), x8, s, x8.contiguous(), s, group=8)
+    odd = torch.empty(1, 2, 3, 72, dtype=torch.int8, device="meta")[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        writer(*(getattr(c, f) for f in FIELDS), odd, s, odd, s, group=8)
+    assert not calls and not any(ops.launch_counts().values())

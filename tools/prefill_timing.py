@@ -2,13 +2,15 @@
 of one checkout on the card.
 
     python3 tools/prefill_timing.py [--tree DIR] [--label NAME] [--layers N]
-                                    [--paths weight_only:paged,...]
+                                    [--paths weight_only:paged,dynamic:dense:int4,...]
 
 Imports protoquant_tpu_torch from DIR (default: the checkout holding this
 script) and builds Llama-2-7B at its widths and N layers (default 32) with
 random weights from a seed, in "dynamic_int4" (W4A8, the dense int8 cache),
 "weight_only_int4" and "weight_only" (int8 weights; both over the paged
-int8 cache), or the paths ``--paths`` names. For each it serves 4
+int8 cache), or the paths ``--paths`` names as mode:layout, or
+mode:layout:kv_dtype for a cache other than int8 (``dynamic:dense:k4v8``,
+``dynamic:dense:int4``: the KIVI tiers). For each it serves 4
 prompts of 512 tokens in prefill chunks of 256 once to warm up, then again
 under torch.profiler until every prompt has been prefilled, and prints one
 JSON line: the card, and for each path the prefill steps' mean wall time
@@ -39,7 +41,8 @@ DECODE_STEPS = 5  # decode steps profiled after the prefill
 NEW_TOKENS = PROMPTS * PROMPT_LEN // CHUNK + DECODE_STEPS + 1
 
 
-def prefill_steps(mode: str, layout: str, layers: int, dev, seed: int = 0) -> dict:
+def prefill_steps(mode: str, layout: str, layers: int, dev, seed: int = 0,
+                  kv_dtype: str = "int8") -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from protoquant_tpu_torch import Engine, EngineConfig, LlamaModel, ModelConfig
@@ -52,7 +55,7 @@ def prefill_steps(mode: str, layout: str, layers: int, dev, seed: int = 0) -> di
     def engine():
         return Engine(model, EngineConfig(max_batch_size=PROMPTS, max_seq_len=1024,
                                           prefill_chunk=CHUNK, max_new_tokens=NEW_TOKENS),
-                      kv_layout=layout)
+                      kv_layout=layout, kv_dtype=kv_dtype)
 
     def profiled(more):
         """Steps while ``more()``, under the profiler: the wall times and
@@ -115,8 +118,10 @@ def main() -> int:
 
     line = {"label": args.label, "tree": args.tree, "card": smi.stdout.strip(),
             "w4a8_formulation": ops.resolve_w4a8_formulation()}
-    for mode, layout in (path.split(":") for path in args.paths.split(",")):
-        line[f"{mode} {layout}"] = prefill_steps(mode, layout, args.layers, dev)
+    for path in args.paths.split(","):
+        mode, layout, *kv = path.split(":")
+        line[" ".join([mode, layout, *kv])] = prefill_steps(mode, layout, args.layers, dev,
+                                                            kv_dtype=(kv or ["int8"])[0])
     print(json.dumps(line), flush=True)
     return 0
 
