@@ -44,7 +44,12 @@ Phases (any failure exits non-zero and prints no result line):
               (planted faults, which must miss); the int8 global decode
               with sinks timed against the full-causal instance (a reading);
               the GEMM, rowquant and decode write also at GPT-OSS-20B's
-              shapes (its experts' products at M = 1); the GEMM also at
+              shapes (its experts' products at M = 1); rowquant and
+              swiglu_quant also at M = 1 and 1024 (K 11008), at the tp = 2
+              shard (5504) and an odd K, each on its row plan's route,
+              against the plain split spelling with the slice holding each
+              row's maximum dropped (a planted fault, which must differ);
+              the GEMM also at
               M = 1, 8, 16, 32 and 64 (the decode kernel's threshold), each
               through the kernel its M routes to, the decode cases against
               the plain split-K spelling with its last K slice dropped (a
@@ -252,14 +257,17 @@ Timings with ranks sharing one card measure the kernel and its protocol,
 not a link between cards.
 Each phase prints its seconds, and the run its total.
 The line before the last is {"kernels": [...]}, one entry per kernel body
-(34): "launches" is its count summed over the twenty-one engine runs
+and route (36): "launches" is its count summed over the twenty-one engine runs
 (phases 4, 6, 8.1, 8.2, 8.3, 10, 12, 13, 15, 17, 19, 20, the five of 22,
 the three of 24-25 and 28), each driven with the counts at 0 and read just
 after ("launches_by_path"). A wrapper counts calls: a decode call of the
 int8, K8V4, K4V8, Int4 or paged attention is two CUDA launches (the split
 kernel and the merge), and its entry names every file it runs under
-"sources". Nine wrappers route between two kernels by shape before launch
-and count each apart (ops.route_counts): qmatmul ("qmatmul_decode", the
+"sources". Eleven wrappers route between two kernels or launch plans by
+shape before launch and count each apart (ops.route_counts): rowquant and
+swiglu_quant ("rowquant_cluster", a row over a thread block cluster where
+rows are few; "rowquant", a block a row: one kernel, two plans; the same
+for swiglu_quant), qmatmul ("qmatmul_decode", the
 split-K kernel at M <= DECODE_MAX_M: every decode step; "qmatmul", the TMA
 and wgmma tile kernel: prefill chunks, the MoE experts at prefill),
 weight_only_matmul ("weight_only_matmul_decode", the split-K kernel at M <=
@@ -296,7 +304,9 @@ to what the JAX package demands of its Pallas kernels against the module
 composition: codes equal or one step apart (they sum and compute the
 activation in other orders, and a code moves where a value sits on a
 rounding boundary) in under FLIP_SHARE of the elements, scales within
-SCALE_RTOL; their "max_abs_err" is in code steps. Attention, dense, paged,
+SCALE_RTOL; their "max_abs_err" is in code steps; swiglu_quant's phase-3
+cases are also held bit for bit, as no code or scale moved there before
+the register-resident design either. Attention, dense, paged,
 KIVI and K8V4 (bf16 q and output, f32
 arithmetic inside), is held to ATTN_TOL times the largest output: both
 round their f32 result to bf16 once, after summing in different orders;
@@ -437,25 +447,75 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
 # -- phase 3: kernels ----------------------------------------------------------
 
 
+# phase 3's rowquant cases (M, K), bf16: Llama-2-7B's activation widths at
+# M = 4 and 256, Gemma-2-9B's other two (3584, 14336; its o_proj input is
+# 4096 wide) at M = 4, GPT-OSS-20B's 2880 at M = 4 and at M = 32 (a decode
+# step's expert slots, one per expert); then the 7B down input at M = 1 and
+# 1024, its tp = 2 shard (5504) and an odd K (every other row starts off a
+# 16-byte boundary)
+ROWQUANT_CASES = ((4, HIDDEN), (4, INTER), (256, HIDDEN), (256, INTER), (4, G2_HIDDEN),
+                  (4, G2_INTER), (4, GO_HIDDEN), (GO_EXPERTS, GO_HIDDEN), (1, INTER),
+                  (1024, INTER), (4, INTER // 2), (4, HIDDEN - 1))
+# phase 3's swiglu_quant cases (M, I, act), bf16 gate and up, bf16 cast:
+# Llama-2-7B's MLP at M = 4 and 256, SiLU and the tanh GELU; then SiLU at
+# M = 1 and 1024, the tp = 2 shard and an odd I
+SWIGLU_CASES = tuple((m, INTER, act) for act in ("silu", "gelu") for m in (4, 256)) + (
+    (1, INTER, "silu"), (1024, INTER, "silu"), (4, INTER // 2, "silu"),
+    (4, INTER - 1, "silu"))
+# the wrappers whose two routes (ops.ROUTED) are the row plan's: "<name>"
+# (a block a row) and "<name>_cluster" (a row over a cluster)
+ROW_ROUTED = ("rowquant", "swiglu_quant")
+
+
+def row_plan_of(m: int, k: int):
+    """The row plan a bf16 [m, k] call takes (ops.rowquant.rowquant_plan)."""
+    from protoquant_tpu_torch.ops.rowquant import rowquant_plan
+
+    return rowquant_plan(m, k, 2)
+
+
+def dropped_maximum(h, plan):
+    """A planted fault of the row kernels: their plain split spelling
+    (ops.rowquant_parts_ref) of the producer's output ``h`` with the slice
+    that holds each row's maximum left out of the maximum."""
+    from protoquant_tpu_torch.ops.rowquant import part_maxima, quantize_parts, row_slices
+
+    slices = row_slices(h.shape[-1], plan.blocks, h.element_size())
+    maxima = part_maxima(h, slices)
+    maxima.scatter_(-1, maxima.argmax(-1, keepdim=True), 0.0)
+    return quantize_parts(h, maxima, slices)
+
+
 def check_rowquant(ops, gen, dev):
-    """Llama-2-7B's activation widths at M = 4 and 256, Gemma-2-9B's other
-    two (3584, 14336; its o_proj input is 4096 wide) at M = 4, and
-    GPT-OSS-20B's 2880 at M = 4 and at M = 32 (a decode step's expert
-    slots, one per expert)."""
+    """ROWQUANT_CASES, each on its plan's route, bit for bit; each also
+    against the plain split spelling with the slice holding each row's
+    maximum dropped (a planted fault, which must differ)."""
+    # the first graph of a cluster launch after the build reads 3-5x slow,
+    # once: each route's graph is replayed once untimed first
+    for k in (HIDDEN, INTER):
+        x = torch.zeros(4, k, dtype=torch.bfloat16, device=dev)
+        bench([lambda x=x: ops.rowquant(x)])
     cases = []
-    shapes = [(m, k) for m in (4, 256) for k in (HIDDEN, INTER)]
-    for m, k in shapes + [(4, G2_HIDDEN), (4, G2_INTER), (4, GO_HIDDEN),
-                          (GO_EXPERTS, GO_HIDDEN)]:
+    for m, k in ROWQUANT_CASES:
         xs = [torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
               for _ in range(copies_for(m * k * 2))]
+        plan = row_plan_of(m, k)
+        before = ops.rowquant.routes[plan.route]
         xq, sx = ops.rowquant(xs[0])
         rq, rs = ops.rowquant_ref(xs[0])
         torch.cuda.synchronize()
+        if ops.rowquant.routes[plan.route] != before + 1:
+            raise AssertionError(f"rowquant M={m} K={k}: not on route {plan.route}")
         if not (torch.equal(xq, rq) and torch.equal(sx, rs)):
             raise AssertionError(f"rowquant M={m} K={k}: codes or scales differ")
+        bq, bs = dropped_maximum(xs[0], plan)
+        faults = {"slice maximum dropped": int((bq != xq).sum() + (bs != sx).sum())}
+        if not all(faults.values()):
+            raise AssertionError(f"rowquant M={m} K={k}: the check passes a fault {faults}")
         b, kind = bound_ms(m * k * 3 + 4 * m, 0, INT8_OPS_PER_S)
         cases.append({
-            "shape": f"M={m} K={k} bf16", "max_abs_err": 0.0,
+            "shape": f"M={m} K={k} bf16", "max_abs_err": 0.0, "route": plan.route,
+            "plan": plan._asdict(), "faults_differing_elements": faults,
             "ms": bench([lambda x=x: ops.rowquant(x) for x in xs]),
             "plain_ms": bench([lambda x=x: ops.rowquant_ref(x) for x in xs]),
             "bound_ms": b, "bound_by": kind, "library_ms": None})
@@ -1045,26 +1105,47 @@ def check_rms_norm_quant(ops, gen, dev):
 
 
 def check_swiglu_quant(ops, gen, dev):
-    """The fused gate at the decode and prefill shapes of Llama-2-7B's MLP
-    (bf16 gate and up, bf16 cast), SiLU and the tanh GELU. Library: none."""
+    """SWIGLU_CASES, each on its plan's route, bit for bit (the JAX limits
+    of FLIP_SHARE and SCALE_RTOL are the producers' contract; at these
+    cases no code or scale moved before this design either); each also
+    against the plain split spelling with the slice holding each row's
+    maximum dropped (a planted fault, which the limits must refuse).
+    Library: none."""
+    from protoquant_tpu_torch.ops.fused_quant import swiglu
+
     bf = torch.bfloat16
     cases = []
-    for act in ("silu", "gelu"):
-        for m in (4, 256):
-            k = INTER
-            pairs = [tuple((torch.randn(m, k, generator=gen, device=dev) * 2).to(bf)
-                           for _ in range(2)) for _ in range(copies_for(4 * m * k))]
-            label = f"M={m} I={k} {act}"
-            read = _fused_readings("swiglu_quant", label,
-                                   ops.swiglu_quant(*pairs[0], act=act),
-                                   ops.swiglu_quant_ref(*pairs[0], act=act))
-            b, kind = bound_ms(4 * m * k + m * k + 4 * m, 0, INT8_OPS_PER_S)
-            cases.append({
-                "shape": label, **read,
-                "ms": bench([lambda p=p: ops.swiglu_quant(*p, act=act) for p in pairs]),
-                "plain_ms": bench([lambda p=p: ops.swiglu_quant_ref(*p, act=act)
-                                   for p in pairs]),
-                "bound_ms": b, "bound_by": kind, "library_ms": None})
+    for m, k, act in SWIGLU_CASES:
+        pairs = [tuple((torch.randn(m, k, generator=gen, device=dev) * 2).to(bf)
+                       for _ in range(2)) for _ in range(copies_for(4 * m * k))]
+        label = f"M={m} I={k} {act}"
+        plan = row_plan_of(m, k)
+        before = ops.swiglu_quant.routes[plan.route]
+        got = ops.swiglu_quant(*pairs[0], act=act)
+        if ops.swiglu_quant.routes[plan.route] != before + 1:
+            raise AssertionError(f"swiglu_quant {label}: not on route {plan.route}")
+        read = _fused_readings("swiglu_quant", label, got,
+                               ops.swiglu_quant_ref(*pairs[0], act=act))
+        # the kernel before the register-resident design read no code and no
+        # scale off the plain version at any of these cases
+        # (tools/rowquant_timing.py's A/B): none may move here either
+        if read["flip_share"] or read["scale_max_rel_err"]:
+            raise AssertionError(f"swiglu_quant {label}: {read} off the plain version")
+        try:
+            _fused_readings("swiglu_quant", label, got,
+                            dropped_maximum(swiglu(*pairs[0], act), plan))
+        except AssertionError:
+            pass
+        else:
+            raise AssertionError(f"swiglu_quant {label}: the limits pass a dropped slice "
+                                 "maximum")
+        b, kind = bound_ms(4 * m * k + m * k + 4 * m, 0, INT8_OPS_PER_S)
+        cases.append({
+            "shape": label, **read, "route": plan.route, "plan": plan._asdict(),
+            "ms": bench([lambda p=p: ops.swiglu_quant(*p, act=act) for p in pairs]),
+            "plain_ms": bench([lambda p=p: ops.swiglu_quant_ref(*p, act=act)
+                               for p in pairs]),
+            "bound_ms": b, "bound_by": kind, "library_ms": None})
     return cases
 
 
@@ -2260,19 +2341,46 @@ def path_counts(ops) -> dict:
     return {**ops.launch_counts(), **ops.route_counts()}
 
 
-def decode_step_launches(ops, mode: str, layers: int, kv_dtype: str = "int8") -> dict:
-    """Exact launches of one decode step: every kernel body of ops.KERNELS,
-    0 for those off the path. The fused path quantizes only o_proj's and
-    lm_head's inputs by rowquant: the norms and the gate emit the rest."""
+def row_route_launches(name: str, widths) -> dict:
+    """The launches of ``name`` (rowquant or swiglu_quant) by route
+    (ops.ROUTED) for one decode call at each width of ``widths``, as the row
+    plan routes them (a decode step's rows, at most 64, all take one
+    plan)."""
+    counts = {f"{name}_cluster": 0, f"{name}_rows": 0}
+    for k in widths:
+        counts[f"{name}_{row_plan_of(4, k).route}"] += 1
+    return counts
+
+
+def rowquant_widths(cfg) -> list:
+    """The width of each rowquant of one unfused decode step of ``cfg``:
+    per layer the input of q/k/v (hidden), of o_proj (heads x head_dim), of
+    the MLP or the experts (hidden) and of down_proj or the experts' second
+    product (intermediate); then lm_head's (hidden)."""
+    L = cfg.num_hidden_layers
+    return ([cfg.hidden_size] * (2 * L + 1) + [cfg.num_attention_heads * cfg.head_dim] * L
+            + [cfg.intermediate_size] * L)
+
+
+def decode_step_launches(ops, mode: str, cfg, kv_dtype: str = "int8") -> dict:
+    """Exact launches of one decode step of ``cfg``: every kernel body of
+    ops.KERNELS, 0 for those off the path, and each route of the row
+    kernels. The fused path quantizes only o_proj's and lm_head's inputs by
+    rowquant: the norms and the gate emit the rest."""
+    layers = cfg.num_hidden_layers
     per_step = dict.fromkeys(ops.KERNELS, 0)
     kernels = path_kernels(ops, mode, kv_dtype)
     if fused(mode):
         per_step.update({"rowquant": layers + 1, "rms_norm_quant": 2 * layers,
                          "swiglu_quant": layers, kernels[1]: 7 * layers + 1,
                          kernels[2]: layers, kernels[3]: layers})
+        per_step.update(row_route_launches(
+            "rowquant", [cfg.num_attention_heads * cfg.head_dim] * layers + [cfg.hidden_size]))
+        per_step.update(row_route_launches("swiglu_quant", [cfg.intermediate_size] * layers))
     elif mode in ("dynamic", "dynamic_int4"):
         per_step.update({"rowquant": 4 * layers + 1, kernels[1]: 7 * layers + 1,
                          kernels[2]: layers, kernels[3]: layers})
+        per_step.update(row_route_launches("rowquant", rowquant_widths(cfg)))
     else:
         per_step.update({kernels[0]: 7 * layers + 1, "paged_kv_scatter_decode": layers,
                          "paged_int8_attention": layers})
@@ -2414,7 +2522,7 @@ def _run_slice(ops, seed: int, dev, mode: str, kv_dtype: str, preset: str,
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in prompt_lens]
 
-    per_step = decode_step_launches(ops, mode, cfg.num_hidden_layers, kv_dtype)
+    per_step = decode_step_launches(ops, mode, cfg, kv_dtype)
     # every forward's token rows: a routed int4 GEMM routes by them
     chunks, decodes = forward_rows(engine)
     torch.cuda.synchronize()
@@ -2521,7 +2629,7 @@ def profile_decode(model, prompts, steps: int = 5, max_seq_len: int = 1024,
         f"{[len(p) for p in prompts]} tokens): wall "
         f"{wall_us / steps:.1f} us/step, device busy {busy / steps:.1f} us/step, "
         f"idle share {1 - busy / wall_us:.3f}")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:16]:
         log(f"  profile kernel {e.key[:60]!r}: {e.self_device_time_total / steps:.1f} "
             f"us/step over {e.count // steps} launches/step")
 
@@ -2547,7 +2655,7 @@ def run_paged_slice(ops, seed: int, dev, mode: str = "weight_only"):
             max_batch_size=4, max_seq_len=1024, page_size=PAGE, prefill_chunk=256,
             max_new_tokens=32, prefix_cache=prefix_cache), kv_layout="paged")
 
-    per_step = decode_step_launches(ops, mode, cfg.num_hidden_layers)
+    per_step = decode_step_launches(ops, mode, cfg)
     eng = engine(True)
     # every forward's token rows: the GEMM routes by them
     chunks, decodes = forward_rows(eng)
@@ -2653,7 +2761,7 @@ def step_launches(ops, cfg, writer: str | None, n_writes: int, attention: str) -
     L = cfg.num_hidden_layers
     per_step = dict.fromkeys(ops.KERNELS, 0)
     per_step.update({"rowquant": 4 * L + 1, "qmatmul": (7 if cfg.mlp_gated else 6) * L + 1,
-                     attention: L})
+                     attention: L, **row_route_launches("rowquant", rowquant_widths(cfg))})
     if writer:
         per_step[writer] = n_writes
     return per_step
@@ -2875,7 +2983,8 @@ def moe_step_launches(ops, cfg, writer: str, attention: str) -> dict:
     per_expert = 2 if cfg.moe_variant == "gpt_oss" else 3
     per_step = dict.fromkeys(ops.KERNELS, 0)
     per_step.update({"rowquant": 4 * L + 1, "qmatmul": (4 + per_expert * E) * L + 1,
-                     writer: L, attention: L})
+                     writer: L, attention: L,
+                     **row_route_launches("rowquant", rowquant_widths(cfg))})
     return per_step
 
 
@@ -3932,7 +4041,9 @@ def run_agreement(ops, seed: int, dev, dtype, mode: str = "dynamic",
 KIVI_PREFILL_ROW = f"prefill B=4 KV={HEADS} S=1024 Dh={HEAD_DIM} G={KIVI_G} T=256 lengths=[300"
 KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
     "rowquant": ("protoquant_tpu_torch/csrc/rowquant.cu",
-                 "protoquant_tpu/ops/rowquant.py:23", "M=4 K=4096 bf16"),
+                 "protoquant_tpu/ops/rowquant.py:23", "M=256 K=11008 bf16"),
+    "rowquant_cluster": ("protoquant_tpu_torch/csrc/rowquant.cu",
+                         "protoquant_tpu/ops/rowquant.py:23", "M=4 K=11008 bf16"),
     "qmatmul": ("protoquant_tpu_torch/csrc/qmatmul.cu",
                 "protoquant_tpu/ops/qmatmul.py:38", "M=256 K=4096 N=11008 bf16 out"),
     "qmatmul_decode": ("protoquant_tpu_torch/csrc/qmatmul_decode.cu",
@@ -3974,7 +4085,9 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
     "rms_norm_quant": ("protoquant_tpu_torch/csrc/fused_quant.cu",
                        "protoquant_tpu/ops/fused_quant.py:44", "M=4 K=4096 bf16"),
     "swiglu_quant": ("protoquant_tpu_torch/csrc/fused_quant.cu",
-                     "protoquant_tpu/ops/fused_quant.py:56", "M=4 I=11008 silu"),
+                     "protoquant_tpu/ops/fused_quant.py:56", "M=256 I=11008 silu"),
+    "swiglu_quant_cluster": ("protoquant_tpu_torch/csrc/fused_quant.cu",
+                             "protoquant_tpu/ops/fused_quant.py:56", "M=4 I=11008 silu"),
     "dequant": ("protoquant_tpu_torch/csrc/dequant.cu",
                 "protoquant_tpu/ops/dequant.py:20", "axis=0 f32 out"),
     "k4v8_decode_update": ("protoquant_tpu_torch/csrc/kivi_update.cu",
@@ -4014,6 +4127,9 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces, shape of the row)
 _CSRC = "protoquant_tpu_torch/csrc/"
 _MERGE = [_CSRC + "split_common.cuh", _CSRC + "split_merge.cu"]
 KERNEL_SOURCES = {
+    **{name + route: {"row": [_CSRC + src, _CSRC + "row_quant.cuh"]}
+       for name, src in (("rowquant", "rowquant.cu"), ("swiglu_quant", "fused_quant.cu"))
+       for route in ("", "_cluster")},
     **{name: {"decode": [_CSRC + "kivi_split.cuh", _CSRC + f"kivi_split_{tier}.cu",
                          _CSRC + "kivi_combine.cu", *_MERGE]}
        for name, tier in (("k4v8_attention", "k4v8"), ("int4_kv_attention", "int4"))},
@@ -4047,13 +4163,16 @@ KERNEL_SOURCES = {
 # and the "_prefill" entries are counted under their own): the wrapper's own
 # count is the routes' sum.
 ROUTE_COUNT = {"qmatmul": "qmatmul_tile", "paged_int8_attention": "paged_int8_attention_walk",
+               **{name: name + "_rows" for name in ROW_ROUTED},
                "qmatmul_reduce_scatter_dma": "qmatmul_reduce_scatter_dma_prefill",
                **{name: name + "_decode" for name in KIVI_WRITERS},
                **{name: name + "_split" for name in ROUTED_ATTENTIONS},
                **{name: name + "_tile" for name in ROUTED_GEMMS}}
-# the decode-route entries of a routed GEMM, by the wrapper whose cases they
-# are in the kernel sums of a decode step
-DECODE_GEMMS = {"qmatmul_decode": "qmatmul", **{name + "_decode": name for name in ROUTED_GEMMS}}
+# the decode-route entries of a routed GEMM and the cluster-route entries of
+# the row kernels, by the wrapper whose cases they are in the kernel sums of
+# a decode step
+DECODE_GEMMS = {"qmatmul_decode": "qmatmul", **{name + "_decode": name for name in ROUTED_GEMMS},
+                **{name + "_cluster": name for name in ROW_ROUTED}}
 
 
 def timed(name: str, fn, *args, **kwargs):
@@ -4106,6 +4225,9 @@ def check_kernels(ops, gen, dev) -> dict:
         elif name in KIVI_WRITERS:  # the prefill route's cases under their own entry
             groups = {name: [c for c in cases if c["route"] == "decode"],
                       name + "_prefill": [c for c in cases if c["route"] == "prefill"]}
+        elif name in ROW_ROUTED:  # the cluster route's cases under their own entry
+            groups = {name + "_cluster": [c for c in cases if c["route"] == "cluster"],
+                      name: [c for c in cases if c["route"] == "rows"]}
         elif name in ROUTED_GEMMS:  # the decode kernel's cases under their own
             decode = [c for c in cases if c["plan"]["route"] == "decode"]
             groups = {name + "_decode": decode, name: [c for c in cases if c not in decode]}
@@ -4117,8 +4239,8 @@ def check_kernels(ops, gen, dev) -> dict:
                 if c.get("fault_margins"):
                     flips += f", planted faults' errors over the tolerance {c['fault_margins']}"
                 if c.get("faults_differing_elements"):
-                    flips += (f", {c['k_splits']} K splits, planted faults' differing "
-                              f"elements {c['faults_differing_elements']}")
+                    flips += (f", {c['k_splits']} K splits" if "k_splits" in c else "") + (
+                        f", planted faults' differing elements {c['faults_differing_elements']}")
                 if c.get("plan"):
                     flips += f", plan {c['plan']}"
                 if c.get("tiles_err_over_tol") is not None:

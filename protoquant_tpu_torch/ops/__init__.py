@@ -12,7 +12,8 @@ paged_int8_attention: the split or the
 walk, by the split plan; int8_kv_attention, mixed_kv_attention and the
 two KIVI attentions: the split decode or the prefill kernel, by the split
 plan; the two KIVI updates: one kernel on route decode or prefill, by the
-new rows a slot) counts every call in
+new rows a slot; rowquant and swiglu_quant: one kernel on route cluster or
+rows, by the row plan) counts every call in
 ``.launches`` and each kernel's in ``.routes`` (:data:`ROUTED`,
 :func:`route_counts`).
 """
@@ -27,7 +28,7 @@ from .collective_matmul import (qmatmul_reduce_scatter_dma, qmatmul_reduce_scatt
                                 qmatmul_reduce_scatter_dma_splitk_ref)
 from .dequant import dequant, dequant_ref
 from .fused_quant import (rms_norm_quant, rms_norm_quant_ref, swiglu_quant,
-                          swiglu_quant_ref)
+                          swiglu_quant_parts_ref, swiglu_quant_ref)
 from .kv_scatter import (k4v8_decode_update, k4v8_decode_update_ref, kivi4_decode_update,
                          kivi4_decode_update_ref, kivi_prefill_update_ref,
                          kv_mixed_scatter_decode,
@@ -35,7 +36,7 @@ from .kv_scatter import (k4v8_decode_update, k4v8_decode_update_ref, kivi4_decod
                          paged_kv_scatter_decode, paged_kv_scatter_decode_ref)
 from .paged_attention import paged_int8_attention, paged_int8_attention_ref
 from .qmatmul import dynamic_qlinear, qmatmul, qmatmul_ref, qmatmul_splitk_ref
-from .rowquant import rowquant, rowquant_ref
+from .rowquant import rowquant, rowquant_parts_ref, rowquant_ref
 from .w4a8_matmul import (two_level_scales, w4a8_group, w4a8_group_splitk_ref,
                           w4a8_group_tile_ref, w4a8_matmul, w4a8_matmul_ref, w4a8_two_level,
                           w4a8_two_level_splitk_ref, w4a8_two_level_tile_ref)
@@ -103,6 +104,10 @@ def shared_rowquant(x):
 # The kernels of a wrapper that routes by shape: name -> (wrapper, route).
 # The wrapper's count in KERNELS is the sum of its routes'.
 ROUTED = {
+    "rowquant_cluster": (rowquant, "cluster"),
+    "rowquant_rows": (rowquant, "rows"),
+    "swiglu_quant_cluster": (swiglu_quant, "cluster"),
+    "swiglu_quant_rows": (swiglu_quant, "rows"),
     "qmatmul_decode": (qmatmul, "decode"),
     "qmatmul_tile": (qmatmul, "tile"),
     "weight_only_matmul_decode": (weight_only_matmul, "decode"),
@@ -162,7 +167,8 @@ __all__ = [
     "qmatmul_reduce_scatter_dma_splitk_ref", "qmatmul_ref",
     "qmatmul_splitk_ref", "reset_launch_counts", "route_counts", "resolve_fused_quant",
     "resolve_w4a8_formulation", "rms_norm_quant", "rms_norm_quant_ref", "rowquant",
-    "rowquant_ref", "shared_rowquant", "swiglu_quant", "swiglu_quant_ref",
+    "rowquant_parts_ref", "rowquant_ref", "shared_rowquant", "swiglu_quant",
+    "swiglu_quant_parts_ref", "swiglu_quant_ref",
     "two_level_scales", "w4a8_group", "w4a8_group_splitk_ref", "w4a8_group_tile_ref",
     "w4a8_matmul", "w4a8_matmul_ref", "w4a8_two_level",
     "w4a8_two_level_splitk_ref", "w4a8_two_level_tile_ref",

@@ -38,8 +38,9 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 # C signatures of the entry points in csrc/*.cu (every one returns an int,
 # a cudaError_t, and takes the stream last, but the split plans).
 SIGNATURES = {
-    # x, x_dtype, xq, sx, M, K, stream
-    "pq_rowquant": [_P, _I, _P, _P, _I, _I, _P],
+    # x, x_dtype, xq, sx, M, K, the plan (blocks a row, threads a block,
+    # vectors a thread), stream
+    "pq_rowquant": [_P, _I, _P, _P] + [_I] * 5 + [_P],
     # xq, wq, sx, sw, bias, out, out_dtype, M, N, K, tile rows, k_splits, stream
     "pq_qmatmul": [_P] * 6 + [_I] * 6 + [_P],
     # kq, ks, vq, vs, lengths, k8, ks_new, v8, vs_new, B, KV, S, Dh, stream
@@ -89,8 +90,9 @@ SIGNATURES = {
     "pq_w4a8_group_decode_clusters": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
     # x, x_dtype, w, xq, sx, M, K, eps, cast_dtype, stream
     "pq_rms_norm_quant": [_P, _I, _P, _P, _P, _I, _I, _F, _I, _P],
-    # gate, up, dtype, hq, sh, M, K, act, cast_dtype, stream
-    "pq_swiglu_quant": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    # gate, up, dtype, hq, sh, M, K, the plan (as pq_rowquant's), act,
+    # cast_dtype, stream
+    "pq_swiglu_quant": [_P, _P, _I, _P, _P] + [_I] * 7 + [_P],
     # q, scale, out, out_dtype, M, N, scale_on_last, stream
     "pq_dequant": [_P, _P, _P, _I, _I, _I, _I, _P],
     # kq, kchs, vq, vs, ktail, kts, vtail, vts, lengths, adv, k8, ks_new, v8,

@@ -22,7 +22,11 @@ package demands of its kernels: codes equal or +-1, the norm's in under
 with scales within rtol 1e-2 (``protoquant_tpu/ops/fused_quant.py``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. There is no tiling argument: the kernels take one row per block.
+raises. rms_norm_quant takes one row per block. swiglu_quant holds each row
+in registers and takes ``ops.rowquant``'s plan: a row over
+a thread block cluster where rows are few (route "cluster"), a block a row
+where they are many (route "rows"), counted in ``swiglu_quant.routes``;
+:func:`swiglu_quant_parts_ref` spells its cut of a row out.
 """
 
 from __future__ import annotations
@@ -32,8 +36,10 @@ import torch.nn.functional as F
 
 from ..core import numerics
 from . import _build
+from .rowquant import (RowPlan, check_width, part_maxima, quantize_parts, row_slices,
+                       rowquant_plan)
 
-# The kernels keep one f32 row in shared memory (226 KB of a block's 227).
+# rms_norm_quant keeps one f32 row in shared memory (226 KB of a block's 227).
 _MAX_K = 226 * 1024 // 4
 _ACT_CODES = {"silu": 0, "gelu": 1}
 
@@ -70,6 +76,18 @@ def rms_norm_quant_ref(x, w, *, eps: float, cast_dtype=torch.bfloat16):
 def swiglu_quant_ref(gate, up, *, act: str = "silu", cast_dtype=torch.bfloat16):
     """Plain version: ``quantize_rowwise(swiglu(gate, up, act, cast_dtype))``."""
     return numerics.quantize_rowwise(swiglu(gate, up, act, cast_dtype))
+
+
+def swiglu_quant_parts_ref(gate, up, plan: RowPlan, *, act: str = "silu",
+                           cast_dtype=torch.bfloat16, head: int = 0):
+    """The kernel's cut of each row in plain PyTorch: the producer's h
+    (:func:`swiglu`), then each slice's maximum (``ops.rowquant.row_slices``
+    of ``plan.blocks`` and ``head``, by gate's dtype), the maximum of those,
+    each slice quantized. Equal to :func:`swiglu_quant_ref` bit for bit at
+    any plan."""
+    h = swiglu(gate, up, act, cast_dtype)
+    slices = row_slices(gate.shape[-1], plan.blocks, gate.element_size(), head)
+    return quantize_parts(h, part_maxima(h, slices), slices)
 
 
 def _check_cast(name: str, cast_dtype) -> int:
@@ -113,14 +131,10 @@ def rms_norm_quant(x: torch.Tensor, w: torch.Tensor, *, eps: float,
     return xq, sx
 
 
-def swiglu_quant(gate: torch.Tensor, up: torch.Tensor, *, act: str = "silu",
-                 cast_dtype=torch.bfloat16):
-    """``act(gate) * up`` fused with per-token int8 quantization.
-
-    gate, up [..., I] of one dtype (f32, bf16 or f16); act "silu" or "gelu"
-    (tanh approximation). Returns (hq int8 [..., I], s_h f32 [...])."""
-    if gate.device.type == "cpu":
-        return swiglu_quant_ref(gate, up, act=act, cast_dtype=cast_dtype)
+def swiglu_quant_launch(gate: torch.Tensor, up: torch.Tensor, *, act: str = "silu",
+                        cast_dtype=torch.bfloat16, plan: RowPlan | None = None):
+    """Launch the kernel on CUDA tensors with ``plan`` (None: the plan's);
+    returns (hq, s_h, plan). Counts nothing (:func:`swiglu_quant` counts)."""
     if act not in _ACT_CODES:
         raise ValueError(f"swiglu_quant: unknown activation {act!r}")
     if gate.dtype not in _build.DTYPE_CODES or up.dtype != gate.dtype:
@@ -131,21 +145,39 @@ def swiglu_quant(gate: torch.Tensor, up: torch.Tensor, *, act: str = "silu",
                          f"{tuple(up.shape)}")
     cast = _check_cast("swiglu_quant", cast_dtype)
     k = gate.shape[-1]
-    _check_width("swiglu_quant", k)
+    check_width("swiglu_quant", k)
     gate, up = gate.contiguous(), up.contiguous()
     dev = _build.same_device_contiguous("swiglu_quant", gate, up)
     m = gate.numel() // k
     hq = torch.empty(gate.shape, dtype=torch.int8, device=dev)
     sh = torch.empty(gate.shape[:-1], dtype=torch.float32, device=dev)
     if m == 0:
-        return hq, sh
+        return hq, sh, None
+    plan = plan or rowquant_plan(m, k, gate.element_size())
     err = _build.lib().pq_swiglu_quant(
         gate.data_ptr(), up.data_ptr(), _build.DTYPE_CODES[gate.dtype], hq.data_ptr(),
-        sh.data_ptr(), m, k, _ACT_CODES[act], cast, _build.stream_ptr(dev))
+        sh.data_ptr(), m, k, plan.blocks, plan.threads, plan.vectors, _ACT_CODES[act], cast,
+        _build.stream_ptr(dev))
     _build.check(err, "pq_swiglu_quant")
-    swiglu_quant.launches += 1
+    return hq, sh, plan
+
+
+def swiglu_quant(gate: torch.Tensor, up: torch.Tensor, *, act: str = "silu",
+                 cast_dtype=torch.bfloat16):
+    """``act(gate) * up`` fused with per-token int8 quantization.
+
+    gate, up [..., I] of one dtype (f32, bf16 or f16); act "silu" or "gelu"
+    (tanh approximation). Returns (hq int8 [..., I], s_h f32 [...])."""
+    if gate.device.type == "cpu":
+        return swiglu_quant_ref(gate, up, act=act, cast_dtype=cast_dtype)
+    hq, sh, plan = swiglu_quant_launch(gate, up, act=act, cast_dtype=cast_dtype)
+    if plan is not None:
+        swiglu_quant.launches += 1
+        swiglu_quant.routes[plan.route] += 1
     return hq, sh
 
 
 rms_norm_quant.launches = 0
 swiglu_quant.launches = 0
+# launches by route, as rowquant's: "cluster", "rows"
+swiglu_quant.routes = {"cluster": 0, "rows": 0}

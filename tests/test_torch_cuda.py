@@ -3,7 +3,12 @@ the card. Every test here skips without one.
 
 This file imports nothing of JAX, so it also runs where JAX is not
 installed: ``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
-Exact: rowquant, qmatmul, the dense and paged decode scatters. Attention,
+Exact: rowquant, qmatmul, the dense and paged decode scatters. The row
+kernels, rowquant and swiglu_quant (``csrc/row_quant.cuh``): both routes
+(a row over a cluster, a block a row) at M 1-1024 and K 1-57856, every
+dtype, rows on and off a 16-byte boundary (swiglu_quant within its JAX
+limits), bit for bit across two calls and in a CUDA graph, routes counted,
+plans the kernel cannot run refused. Attention,
 dense and paged: ATOL (f32 q and output; the two sum in different orders).
 The decode GEMM (split K over a cluster) exact at M 1 to 64 and at every
 split; the tile GEMM (TMA and wgmma, every M past DECODE_MAX_M) exact at
@@ -78,6 +83,122 @@ def test_rowquant_and_qmatmul_exact(cuda, dtype):
         y = ops.qmatmul(xq, wq, sx, sw, b, out_dtype=dtype)
         torch.cuda.synchronize()
         assert torch.equal(y, ops.qmatmul_ref(xq, wq, sx, sw, b, out_dtype=dtype))
+
+
+# The row kernels (rowquant, swiglu_quant): every route at these rows and
+# widths, every dtype, rows that start on and off a 16-byte boundary.
+ROW_MS = (1, 2, 3, 4, 7, 8, 16, 31, 32, 33, 64, 255, 256, 1024)
+ROW_KS = (1, 7, 8, 2880, 4095, 4096, 11008, 14336, 57856)
+ROW_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _row_plans(m, k, itemsize):
+    """The plan's own plan and one of each route: "rows" (the fewest
+    blocks a row, as at prefill) and "cluster" (at least 2 blocks a row,
+    even where a block holds no whole vector)."""
+    R = importlib.import_module("protoquant_tpu_torch.ops.rowquant")
+    nvec = k // (16 // itemsize)
+    own = R.rowquant_plan(m, k, itemsize)
+    rows = max(1, -(-nvec // R.BLOCK_VECTORS))
+    cluster = max(2, rows, min(R.MAX_BLOCKS, -(-nvec // R.CLUSTER_SHARE)))
+    share = -(-nvec // rows)  # the rows route with 4 vectors a thread
+    return [own, R.RowPlan("rows", rows, max(32, -(-share // 128) * 32), 4),
+            R.RowPlan("cluster", cluster, *R.block_shape(-(-nvec // cluster)))]
+
+
+def _row_inputs(g, cuda, m, k, dtype, offset):
+    """An [m, k] view starting ``offset`` elements into a fresh buffer."""
+    base = (torch.randn(m * k + 8, generator=g, device=cuda) * 2).to(dtype)
+    return base[offset:offset + m * k].view(m, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", ROW_KS)
+@pytest.mark.parametrize("m", ROW_MS)
+def test_rowquant_every_route_exact(cuda, m, k):
+    R = importlib.import_module("protoquant_tpu_torch.ops.rowquant")
+    g = torch.Generator(device=cuda).manual_seed(m * 7 + k)
+    for dtype in ROW_DTYPES:
+        for offset in (0, 1):
+            x = _row_inputs(g, cuda, m, k, dtype, offset)
+            rq, rs = ops.rowquant_ref(x)
+            for plan in _row_plans(m, k, x.element_size()):
+                xq, sx, _ = R.rowquant_launch(x, plan)
+                torch.cuda.synchronize()
+                assert torch.equal(xq, rq) and torch.equal(sx, rs), (dtype, offset, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", ROW_KS)
+@pytest.mark.parametrize("m", ROW_MS)
+def test_swiglu_quant_every_route_vs_plain(cuda, m, k):
+    """Every route within the JAX package's limits (codes +-1 in under 5 %,
+    scales within rtol 1e-2), gate and up each on or off a 16-byte
+    boundary, SiLU and GELU, cast to the input dtype."""
+    F = importlib.import_module("protoquant_tpu_torch.ops.fused_quant")
+    g = torch.Generator(device=cuda).manual_seed(m * 5 + k)
+    for dtype in ROW_DTYPES:
+        for (og, ou), act in zip(((0, 0), (1, 1), (1, 0)), ("silu", "gelu", "silu")):
+            gate = _row_inputs(g, cuda, m, k, dtype, og)
+            up = _row_inputs(g, cuda, m, k, dtype, ou)
+            rq, rs = ops.swiglu_quant_ref(gate, up, act=act, cast_dtype=dtype)
+            for plan in _row_plans(m, k, gate.element_size()):
+                q, s, _ = F.swiglu_quant_launch(gate, up, act=act, cast_dtype=dtype, plan=plan)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(s, rs, rtol=1e-2, atol=0)
+                _codes_close(q, rq, 0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(4, 11008), (1, 4096), (256, 4096), (3, 4095)])
+def test_row_kernels_bitwise_and_cuda_graph(cuda, m, k):
+    """Each route: two calls give the same bits, and the call captured in a
+    CUDA graph and replayed gives the eager call's bits."""
+    R = importlib.import_module("protoquant_tpu_torch.ops.rowquant")
+    F = importlib.import_module("protoquant_tpu_torch.ops.fused_quant")
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    x, up = (torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
+    for plan in _row_plans(m, k, 2)[1:]:
+        for call in (lambda: R.rowquant_launch(x, plan)[:2],
+                     lambda: F.swiglu_quant_launch(x, up, plan=plan)[:2]):
+            first, second = call(), call()
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(first, second))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = call()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(captured, first)), plan
+    assert torch.equal(ops.rowquant(x)[0], ops.rowquant_ref(x)[0])
+
+
+@pytest.mark.cuda
+def test_row_routes_add_up_to_launches(cuda):
+    """The wrappers count a launch once, on the route their plan names, and
+    never for the plain version or a CPU tensor; a plan the kernel cannot
+    run is refused."""
+    R = importlib.import_module("protoquant_tpu_torch.ops.rowquant")
+    g = torch.Generator(device=cuda).manual_seed(3)
+    ops.reset_launch_counts()
+    for m, k in ((1, 11008), (4, 4096), (4, 1024), (256, 4096), (1024, 11008)):
+        x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+        ops.rowquant(x)
+        ops.swiglu_quant(x, x)
+        ops.rowquant_ref(x)
+        ops.rowquant(x.cpu())
+        ops.swiglu_quant(x.cpu(), x.cpu())
+    routes = ops.route_counts()
+    for name in ("rowquant", "swiglu_quant"):
+        fn = getattr(ops, name)
+        assert routes[f"{name}_cluster"] + routes[f"{name}_rows"] == fn.launches == 5
+        assert routes[f"{name}_cluster"] > 0 and routes[f"{name}_rows"] > 0
+    x = torch.zeros(2, 4096, dtype=torch.bfloat16, device=cuda)
+    for plan in (R.RowPlan("rows", 1, 32, 1), R.RowPlan("rows", 1, 64, 3),
+                 R.RowPlan("rows", 1, 64, 8), R.RowPlan("cluster", 9, 32, 4),
+                 R.RowPlan("rows", 1, 1024, 4), R.RowPlan("rows", 1, 48, 2)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            R.rowquant_launch(x, plan)
 
 
 @pytest.mark.cuda
@@ -338,6 +459,8 @@ def test_counters_count_kernel_launches_only(cuda):
     ops.rowquant_ref(x)
     ops.rowquant(x.cpu())
     assert ops.launch_counts()["rowquant"] == 1
+    routes = ops.route_counts()
+    assert routes["rowquant_cluster"] + routes["rowquant_rows"] == 1
 
 
 @pytest.mark.cuda
@@ -768,6 +891,8 @@ def test_fused_wrappers_reject_and_count(cuda):
     ops.dequant_ref(q, torch.ones(64, device=cuda), 0)
     counts = ops.launch_counts()
     assert (counts["rms_norm_quant"], counts["swiglu_quant"], counts["dequant"]) == (1, 1, 1)
+    routes = ops.route_counts()
+    assert routes["swiglu_quant_cluster"] + routes["swiglu_quant_rows"] == 1
 
 
 # -- the KIVI caches: decode writers (exact) and attentions (ATOL) ---------------
